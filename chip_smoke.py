@@ -1,0 +1,670 @@
+"""Drive the PyTorch port's bulk Check on one NVIDIA card and hold every
+CUDA kernel against its plain PyTorch version.
+
+Run from the repository root:  python3 chip_smoke.py [--scale3 S]
+
+Phases (any failure exits non-zero and prints no result line):
+
+1. the card's name and power limit (nvidia-smi);
+2. build every kernel from csrc/ (one nvcc per source, in parallel);
+3. each fused-probe mode (gate/until2/any/block) on packed and int32
+   tables with expiry lanes, kernel == plain version bit for bit;
+4. BASELINE config 2 (RBAC: 10k repos x 1k users x 100 teams x 10 orgs,
+   seed 11) — a 100,000-check batch, kernels vs plain on all three
+   planes, 2,000 sampled rows vs the host oracle;
+5. BASELINE config 3 (nested-groups docs: 1M docs, 10M edges, seed 23)
+   — the same checks (``--scale3`` cuts its size; 1.0 is full size);
+6. a closure-overflow world (closure_source_cap=4), every row vs the
+   oracle;
+7. the client path on ``cuda``: write_schema, write, check_one/all/any
+   under full and at_least consistency, vs the oracle.
+
+Phases 4-7 are the main path: launch counts are zeroed before phase 4
+and read after phase 7, and every mode must have launched.  Then each
+mode is timed at the largest shape the main path gave it.  The second
+to last lines are the kernel table as JSON and the card line; the last
+line is {"ok": true, "device": {...}}.
+"""
+
+from __future__ import annotations
+
+import argparse
+import datetime as dt
+import json
+import os
+import random
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+EPOCH = 1_700_000_000_000_000
+H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
+H100_INT_OPS_PER_S = 67e12  # non-tensor 32-bit rate, H100 SXM data sheet
+REPLACES = "gochugaru_tpu/engine/pallas.py:246"
+SOURCE = "gochugaru_tpu_torch/csrc/fused_probe.cu"
+#: the device every phase runs on (a CPU rehearsal of phases 4-7 may set
+#: it to "cpu": the engine then takes the plain PyTorch path)
+DEV = "cuda"
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# kernel capture: the largest call of each mode on the main path
+# ---------------------------------------------------------------------------
+
+
+class Capture:
+    """Wraps kernels.fused_probe to keep, per mode, the arguments of the
+    largest kernel call (for timing at main-path shapes)."""
+
+    def __init__(self, K):
+        self.K = K
+        self.orig = K.fused_probe
+        self.best = {}
+
+    def __enter__(self):
+        def wrapped(q_cols, off, tbl, **kw):
+            if not kw.get("plain") and tbl.is_cuda:
+                shape = torch.broadcast_shapes(*[tuple(c.shape) for c in q_cols])
+                n = int(np.prod(shape)) if len(shape) else 1
+                mode = kw.get("mode", "block")
+                if n > self.best.get(mode, (0,))[0]:
+                    self.best[mode] = (n, q_cols, off, tbl, dict(kw))
+            return self.orig(q_cols, off, tbl, **kw)
+
+        self.K.fused_probe = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.K.fused_probe = self.orig
+        return False
+
+
+def _outs(x):
+    return list(x) if isinstance(x, tuple) else [x]
+
+
+def time_call(fn, reps: int) -> float:
+    """Mean device milliseconds per call over ``reps`` calls (CUDA
+    events).  A device-side sleep queued first keeps the card busy while
+    the host enqueues every call, so the events time the calls' device
+    work back to back, not the host's Python between launches."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def probe_bound(q_cols, off, tbl, kw):
+    """(bound_ms, bound_by) for one probe call: the bytes this call's
+    data needs (distinct table rows and offsets touched, queries read
+    once, outputs written once) over HBM bandwidth, against its integer
+    operations over the 32-bit rate."""
+    from gochugaru_tpu_torch.engine.hash import bucket_of
+
+    cap, mode = kw["cap"], kw.get("mode", "block")
+    shape = torch.broadcast_shapes(*[tuple(c.shape) for c in q_cols])
+    qs = [c.expand(shape).reshape(-1) for c in q_cols]
+    B = qs[0].shape[0]
+    h = bucket_of(qs, int(off.shape[0]) - 1)
+    if kw.get("off_a") is not None:
+        start = kw["off_a"][h >> kw["ashift"]].long() + (off[h].long() & 0xFFFF)
+        n_anchor = int(torch.unique(h >> kw["ashift"]).numel())
+    else:
+        start = off[h].long()
+        n_anchor = 0
+    s = start.clamp(0, int(tbl.shape[0]) - cap)
+    rows = torch.unique((s.unsqueeze(-1) + torch.arange(cap, device=s.device)).reshape(-1))
+    row_bytes = int(tbl.shape[1]) * tbl.element_size()
+    W = kw["spec"][0] if kw.get("spec") is not None else int(tbl.shape[1])
+    out_bytes = {"block": B * cap * W * 4, "any": B, "until2": 2 * B,
+                 "gate": 2 * B * cap}[mode]
+    nbytes = (int(rows.numel()) * row_bytes
+              + int(torch.unique(h).numel()) * off.element_size()
+              + n_anchor * 4 + B * len(qs) * 4 + out_bytes)
+    # per lane: ~12 hash ops, 4 offset ops, per row ~6 decode ops a column
+    # plus 4 compare/fold ops
+    ops = B * (16 + cap * (6 * W + 4))
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = ops / H100_INT_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ---------------------------------------------------------------------------
+# worlds (port imports only)
+# ---------------------------------------------------------------------------
+
+RBAC_SCHEMA = """
+definition user {}
+definition team { relation member: user }
+definition org {
+    relation admin: user
+    relation member: user | team#member
+}
+definition repo {
+    relation org: org
+    relation maintainer: user | team#member
+    relation reader: user
+    permission admin = org->admin + maintainer
+    permission read = reader + admin + org->member
+}
+"""
+
+
+def build_rbac(n_repos=10_000, n_users=1_000, n_teams=100, n_orgs=10, seed=11):
+    """BASELINE config 2, the generator of bench.py:57-126."""
+    from gochugaru_tpu_torch.schema import compile_schema, parse_schema
+    from gochugaru_tpu_torch.store.interner import Interner
+    from gochugaru_tpu_torch.store.snapshot import build_snapshot_from_columns
+
+    cs = compile_schema(parse_schema(RBAC_SCHEMA))
+    interner = Interner()
+    rng = np.random.default_rng(seed)
+    users = np.array([interner.node("user", f"u{i}") for i in range(n_users)], np.int64)
+    teams = np.array([interner.node("team", f"t{i}") for i in range(n_teams)], np.int64)
+    orgs = np.array([interner.node("org", f"o{i}") for i in range(n_orgs)], np.int64)
+    repos = np.array([interner.node("repo", f"r{i}") for i in range(n_repos)], np.int64)
+    slot = cs.slot_of_name
+    member, admin, org_rel = slot["member"], slot["admin"], slot["org"]
+    maintainer, reader = slot["maintainer"], slot["reader"]
+    res, rel_s, subj, srel = [], [], [], []
+
+    def add(r, rl, s, sr):
+        res.append(r); rel_s.append(rl); subj.append(s); srel.append(sr)
+
+    per_team = max(2, n_users // 10)
+    for t in teams:
+        for u in rng.choice(users, per_team, replace=False):
+            add(t, member, u, -1)
+    for o in orgs:
+        add(o, admin, rng.choice(users), -1)
+        for t in rng.choice(teams, 2, replace=False):
+            add(o, member, t, member)
+        for u in rng.choice(users, 5, replace=False):
+            add(o, member, u, -1)
+    repo_orgs = rng.choice(orgs, n_repos)
+    repo_teams = rng.choice(teams, n_repos)
+    res.extend(repos); rel_s.extend([org_rel] * n_repos)
+    subj.extend(repo_orgs); srel.extend([-1] * n_repos)
+    res.extend(repos); rel_s.extend([maintainer] * n_repos)
+    subj.extend(repo_teams); srel.extend([member] * n_repos)
+    for _ in range(2):
+        res.extend(repos); rel_s.extend([reader] * n_repos)
+        subj.extend(rng.choice(users, n_repos)); srel.extend([-1] * n_repos)
+    snap = build_snapshot_from_columns(
+        1, cs, interner,
+        res=np.asarray(res, np.int64), rel=np.asarray(rel_s, np.int64),
+        subj=np.asarray(subj, np.int64), srel=np.asarray(srel, np.int64),
+        epoch_us=EPOCH,
+    )
+    # the batch: bench.py's seed-5 draw
+    qrng = np.random.default_rng(5)
+    B = 100_000
+    ri = qrng.integers(0, n_repos, B)
+    perm = qrng.choice(np.array(["read", "admin"]), B)
+    ui = qrng.integers(0, n_users, B)
+    q = (repos[ri].astype(np.int32),
+         np.array([slot[p] for p in perm], np.int32),
+         users[ui].astype(np.int32))
+    names = [("repo", f"r{a}", p, "user", f"u{b}") for a, p, b in zip(ri, perm, ui)]
+    return cs, snap, q, names
+
+
+DOCS_SCHEMA = """
+definition user {}
+definition group { relation member: user | group#member }
+definition folder {
+    relation parent: folder
+    relation viewer: user | group#member
+    permission view = viewer + parent->view
+}
+definition document {
+    relation folder: folder
+    relation viewer: user | group#member
+    permission view = viewer + folder->view
+}
+"""
+
+
+def build_docs(scale=1.0, seed=23):
+    """BASELINE config 3, the generator of benchmarks/bench3_docs.py:51-137."""
+    from gochugaru_tpu_torch.schema import compile_schema, parse_schema
+    from gochugaru_tpu_torch.store.interner import Interner
+    from gochugaru_tpu_torch.store.snapshot import build_snapshot_from_columns
+
+    n_users = max(int(100_000 * scale), 100)
+    n_groups = max(int(10_000 * scale), 20)
+    n_folders = max(int(50_000 * scale), 50)
+    n_docs = max(int(1_000_000 * scale), 1_000)
+    cs = compile_schema(parse_schema(DOCS_SCHEMA))
+    interner = Interner()
+    rng = np.random.default_rng(seed)
+    users = np.array([interner.node("user", f"u{i}") for i in range(n_users)], np.int64)
+    groups = np.array([interner.node("group", f"g{i}") for i in range(n_groups)], np.int64)
+    folders = np.array([interner.node("folder", f"f{i}") for i in range(n_folders)], np.int64)
+    docs = np.array([interner.node("document", f"d{i}") for i in range(n_docs)], np.int64)
+    slot = cs.slot_of_name
+    member, parent, viewer, folder_rel = (
+        slot["member"], slot["parent"], slot["viewer"], slot["folder"])
+    res, rel, subj, srel = [], [], [], []
+
+    def bulk(r, rl, s, sr):
+        res.append(np.asarray(r, np.int64))
+        rel.append(np.full(len(r), rl, np.int64))
+        subj.append(np.asarray(s, np.int64))
+        srel.append(np.full(len(r), sr, np.int64))
+
+    chain = np.arange(n_groups - 1)
+    deep = chain[(chain % 5) != 4]
+    bulk(groups[deep], member, groups[deep + 1], member)
+    gm_res = np.repeat(groups, 6)
+    bulk(gm_res, member, rng.choice(users, gm_res.shape[0]), -1)
+    f_idx = np.arange(1, n_folders)
+    bulk(folders[f_idx], parent, folders[(f_idx - 1) // 16], -1)
+    fv = rng.random(n_folders) < 0.5
+    bulk(folders[fv], viewer, rng.choice(groups, int(fv.sum())), member)
+    bulk(folders[~fv], viewer, rng.choice(users, int((~fv).sum())), -1)
+    bulk(docs, folder_rel, rng.choice(folders, n_docs), -1)
+    extra = rng.random(n_docs) < 0.2
+    bulk(docs[extra], viewer, rng.choice(users, int(extra.sum())), -1)
+    cur = sum(a.shape[0] for a in res)
+    want = int(10_000_000 * scale)
+    if cur < want:
+        k = want - cur
+        per_doc = k // n_docs
+        dd = np.repeat(docs, per_doc)
+        bulk(dd, viewer, rng.choice(groups, dd.shape[0]), member)
+        rem = k - dd.shape[0]
+        if rem:
+            bulk(docs[:rem], viewer, rng.choice(users, rem), -1)
+    snap = build_snapshot_from_columns(
+        1, cs, interner,
+        res=np.concatenate(res), rel=np.concatenate(rel),
+        subj=np.concatenate(subj), srel=np.concatenate(srel), epoch_us=EPOCH,
+    )
+    # the batch: bench3_docs.py's seed-7 draw, by index
+    qrng = np.random.default_rng(7)
+    B = 100_000
+    di = qrng.integers(0, n_docs, B)
+    ui = qrng.integers(0, n_users, B)
+    q = (docs[di].astype(np.int32), np.full(B, slot["view"], np.int32),
+         users[ui].astype(np.int32))
+    names = [("document", f"d{a}", "view", "user", f"u{b}") for a, b in zip(di, ui)]
+    return cs, snap, q, names
+
+
+OVF_SCHEMA = """
+definition user {}
+definition team {
+    relation member: user | team#member | user:*
+    permission everyone = member
+}
+definition doc {
+    relation reader: user | user:* | team#member | team#everyone
+    relation writer: user | team#member
+    permission edit = writer
+    permission view = reader + edit
+}
+"""
+
+
+def ovf_rels(seed: int, n_edges: int):
+    """tests/test_pallas.py's random world without its caveats: direct,
+    wildcard and userset subjects, expirations, team chains deep enough
+    to overflow a small closure cap."""
+    from gochugaru_tpu_torch import rel
+
+    rng = random.Random(seed)
+    n_docs = max(n_edges // 8, 8)
+    n_users = max(n_edges // 16, 8)
+    n_teams = 32
+    rels = []
+    for t in range(1, n_teams):
+        parent = t - 1 if t % 7 else rng.randrange(t)
+        rels.append(rel.Relationship(
+            resource_type="team", resource_id=f"t{parent}",
+            resource_relation="member", subject_type="team",
+            subject_id=f"t{t}", subject_relation="member"))
+    for t in range(n_teams):
+        rels.append(rel.Relationship(
+            resource_type="team", resource_id=f"t{t}",
+            resource_relation="member", subject_type="user",
+            subject_id=f"u{rng.randrange(n_users)}"))
+    rels.append(rel.Relationship(
+        resource_type="team", resource_id="t3", resource_relation="member",
+        subject_type="user", subject_id="*"))
+    for _ in range(n_edges):
+        kind = rng.random()
+        kw = dict(resource_type="doc", resource_id=f"d{rng.randrange(n_docs)}",
+                  resource_relation="reader" if rng.random() < 0.8 else "writer",
+                  subject_type="user", subject_id=f"u{rng.randrange(n_users)}")
+        if kind < 0.08:
+            kw.update(subject_type="team", subject_id=f"t{rng.randrange(n_teams)}",
+                      subject_relation="member")
+        elif kind < 0.11:
+            kw.update(subject_type="team", subject_id=f"t{rng.randrange(n_teams)}",
+                      subject_relation="everyone")
+            kw["resource_relation"] = "reader"
+        elif kind < 0.13:
+            kw.update(subject_id="*")
+            kw["resource_relation"] = "reader"
+        if rng.random() < 0.07:
+            kw["expiration"] = dt.datetime.fromtimestamp(
+                (EPOCH + rng.randrange(-10**9, 10**12)) / 1e6, tz=dt.timezone.utc)
+        rels.append(rel.Relationship(**kw))
+    return rels, n_docs, n_users
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+
+def phase_kernel_vs_plain(K):
+    """Each mode on packed and int32 tables with expiry lanes, bitwise."""
+    from gochugaru_tpu_torch.engine import hash as H
+    from gochugaru_tpu_torch.engine import packed as PK
+    from gochugaru_tpu_torch.engine.device import to_device_tensor
+
+    dev = torch.device(DEV)
+    rng = np.random.default_rng(2024)
+    n, B = 200_000, 65_536
+    k1 = rng.integers(0, 50_000, n).astype(np.int32)
+    k2 = rng.integers(0, 3_000, n).astype(np.int32)
+    u_d = rng.integers(0, 10_000, n).astype(np.int32)
+    u_p = (u_d // 2).astype(np.int32)
+    exp = np.where(rng.random(n) < 0.5, 0, rng.integers(1, 10_000, n)).astype(np.int32)
+    hi = H.build_hash([k1, k2], target_cap=4)
+    raw = H.interleave_buckets(hi, [k1, k2, u_d, u_p, exp])
+    spec = PK.make_spec([PK.col_range(-1, 50_000), PK.col_range(-1, 3_000)]
+                        + [PK.col_range(-1, 10_000)] * 3)
+    res, anchor = PK.pack_off(hi.off)
+    qi = rng.integers(0, n, B)
+    q1 = np.where(rng.random(B) < 0.05, -1, k1[qi]).astype(np.int32)
+    q2 = np.where(rng.random(B) < 0.3, rng.integers(0, 3_000, B), k2[qi]).astype(np.int32)
+    qs = (torch.from_numpy(q1).to(dev), torch.from_numpy(q2).to(dev))
+    now = 5_000
+    cases = {
+        "int32": dict(off=to_device_tensor(hi.off, dev), tbl=to_device_tensor(raw, dev),
+                      spec=None, off_a=None, ashift=None),
+        "packed": dict(off=to_device_tensor(res, dev),
+                       tbl=to_device_tensor(PK.pack_rows(raw, spec), dev),
+                       spec=spec, off_a=to_device_tensor(anchor, dev),
+                       ashift=PK.OFF_ANCHOR_SHIFT),
+    }
+    for layout, c in cases.items():
+        for mode in K.MODES:
+            kw = dict(cap=hi.cap, spec=c["spec"], off_a=c["off_a"],
+                      ashift=c["ashift"], mode=mode, now=now,
+                      exp_lane=4 if mode == "gate" else None)
+            got = _outs(K.fused_probe(qs, c["off"], c["tbl"], **kw))
+            want = _outs(K.fused_probe(qs, c["off"], c["tbl"], plain=True, **kw))
+            for a, b in zip(got, want):
+                if a.shape != b.shape or not torch.equal(a, b):
+                    raise AssertionError(f"kernel != plain: {mode} on {layout}")
+            hits = int(got[0].sum()) if mode != "block" else -1
+            log(f"kernel-vs-plain {layout:6s} {mode:6s} bitwise OK (hits={hits})")
+
+
+def check_world(name, cs, snap, q, names, K):
+    """Prepare once; kernels=True vs kernels=False planes bitwise; 2,000
+    sampled rows vs the port's host oracle; checks/s of the kernel path."""
+    from gochugaru_tpu_torch.engine.device import DeviceEngine
+    from gochugaru_tpu_torch.engine.oracle import SnapshotOracle, T
+    from gochugaru_tpu_torch.engine.plan import EngineConfig
+
+    ek = DeviceEngine(cs, EngineConfig(kernels=DEV == "cuda" or None), device=DEV)
+    ep = DeviceEngine(cs, EngineConfig(kernels=False), device=DEV)
+    t0 = time.perf_counter()
+    ds = ek.prepare(snap)
+    if DEV == "cuda":
+        torch.cuda.synchronize()
+    prepare_s = time.perf_counter() - t0
+    meta = ds.flat_meta
+    log(f"{name}: edges={snap.num_edges} nodes={snap.num_nodes}"
+        f" prepare_s={prepare_s:.3f}"
+        f" device_MiB={sum(v.nbytes for v in ds.arrays.values()) / 2**20:.1f}"
+        f" fold={bool(meta.fold_pairs)} tindex={meta.has_tindex}"
+        f" rc={meta.rc_slots} ovf={meta.has_ovf}")
+    q_res, q_perm, q_subj = q
+    dk = ek.check_columns(ds, q_res, q_perm, q_subj, now_us=EPOCH)
+    dp = ep.check_columns(ds, q_res, q_perm, q_subj, now_us=EPOCH)
+    for nm, a, b in zip("dpo", dk, dp):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"{name}: plane {nm} differs, kernels vs plain")
+    d, p, ovf = dk
+    needs_host = (p & ~d) | ovf
+    log(f"{name}: B={len(q_res)} planes bitwise equal (kernels vs plain);"
+        f" definite={int(d.sum())} host-settled={int(needs_host.sum())}")
+    oracle = SnapshotOracle(snap, now_us=EPOCH)
+    rng = np.random.default_rng(99)
+    sample = rng.choice(len(q_res), min(2000, len(q_res)), replace=False)
+    bad = 0
+    for i in sample:
+        rt, rid, perm, st, sid = names[i]
+        want = oracle.check(rt, rid, perm, st, sid, "", now_us=EPOCH) == T
+        got = bool(d[i]) if not needs_host[i] else want
+        bad += got != want
+    if bad:
+        raise AssertionError(f"{name}: {bad} of {len(sample)} sampled rows disagree with the oracle")
+    log(f"{name}: {len(sample)} sampled rows agree with the host oracle")
+    # the bulk Check end to end (lowering, dispatch, device->host fetch;
+    # check_columns returns host arrays, so each call has synchronised),
+    # plain and kernel paths in turns: plain, kernel, kernel, plain, x2
+    times = {"kernels": [], "plain": []}
+    for order in (("plain", "kernels", "kernels", "plain"),) * 2:
+        for which in order:
+            eng = ek if which == "kernels" else ep
+            ts = time.perf_counter()
+            eng.check_columns(ds, q_res, q_perm, q_subj, now_us=EPOCH)
+            times[which].append(time.perf_counter() - ts)
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    log(f"{name}: checks_per_s"
+        f" kernels={len(q_res) / med['kernels']:.1f}"
+        f" plain={len(q_res) / med['plain']:.1f}"
+        f" batch_s kernels={[round(t, 5) for t in times['kernels']]}"
+        f" plain={[round(t, 5) for t in times['plain']]}")
+
+
+def phase_overflow(K):
+    from gochugaru_tpu_torch.engine.device import DeviceEngine
+    from gochugaru_tpu_torch.engine.oracle import Oracle, T
+    from gochugaru_tpu_torch.engine.plan import EngineConfig
+    from gochugaru_tpu_torch.schema import compile_schema, parse_schema
+    from gochugaru_tpu_torch.store.interner import Interner
+    from gochugaru_tpu_torch.store.snapshot import build_snapshot
+    from gochugaru_tpu_torch import rel
+
+    rels, n_docs, n_users = ovf_rels(5, 20_000)
+    cs = compile_schema(parse_schema(OVF_SCHEMA))
+    snap = build_snapshot(1, cs, Interner(), rels, epoch_us=EPOCH)
+    rng = random.Random(6)
+    checks = []
+    for _ in range(4096):
+        subj = (f"team:t{rng.randrange(32)}#member" if rng.random() < 0.15
+                else f"user:u{rng.randrange(n_users)}")
+        checks.append(rel.must_from_triple(
+            f"doc:d{rng.randrange(n_docs)}",
+            rng.choice(["view", "edit", "reader"]), subj))
+    ek = DeviceEngine(cs, EngineConfig(kernels=DEV == "cuda" or None, closure_source_cap=4), device=DEV)
+    ep = DeviceEngine(cs, EngineConfig(kernels=False, closure_source_cap=4), device=DEV)
+    ds = ek.prepare(snap)
+    if not ds.flat_meta.has_ovf:
+        raise AssertionError("closure-overflow world did not overflow")
+    dk = ek.check_batch(ds, checks, now_us=EPOCH)
+    dp = ep.check_batch(ds, checks, now_us=EPOCH)
+    for nm, a, b in zip("dpo", dk, dp):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"overflow world: plane {nm} differs")
+    d, p, ovf = dk
+    oracle = Oracle(cs, rels, now_us=EPOCH)
+    needs = (p & ~d) | ovf
+    bad = sum(
+        (oracle.check_relationship(r, now_us=EPOCH) == T) != bool(d[i])
+        for i, r in enumerate(checks) if not needs[i]
+    )
+    if bad:
+        raise AssertionError(f"overflow world: {bad} device-definite rows disagree with the oracle")
+    log(f"closure-overflow world: {len(checks)} checks, planes bitwise equal,"
+        f" overflow rows={int(ovf.sum())}, definite rows agree with the oracle")
+
+
+def phase_client():
+    from gochugaru_tpu_torch import consistency, rel
+    from gochugaru_tpu_torch.client import new_evaluator
+    from gochugaru_tpu_torch.engine.oracle import Oracle, T
+    from gochugaru_tpu_torch.schema import compile_schema, parse_schema
+    from gochugaru_tpu_torch.utils.context import background
+
+    ctx = background()
+    c = new_evaluator() if DEV == "cuda" else new_evaluator(device=DEV)
+    if c.device.type != DEV:
+        raise AssertionError(f"client is not on {DEV}")
+    c.write_schema(ctx, RBAC_SCHEMA)
+    rng = random.Random(17)
+    triples = []
+    for t in range(8):
+        for u in rng.sample(range(60), 8):
+            triples.append((f"team:t{t}", "member", f"user:u{u}"))
+    for o in range(4):
+        triples.append((f"org:o{o}", "admin", f"user:u{rng.randrange(60)}"))
+        triples.append((f"org:o{o}", "member", f"team:t{rng.randrange(8)}#member"))
+    for r in range(50):
+        triples.append((f"repo:r{r}", "org", f"org:o{rng.randrange(4)}"))
+        triples.append((f"repo:r{r}", "maintainer", f"team:t{rng.randrange(8)}#member"))
+        triples.append((f"repo:r{r}", "reader", f"user:u{rng.randrange(60)}"))
+    rels = [rel.must_from_triple(*t) for t in triples]
+    txn = rel.Txn()
+    for r in rels:
+        txn.create(r)
+    rev = c.write(ctx, txn)
+    oracle = Oracle(compile_schema(parse_schema(RBAC_SCHEMA)), rels)
+    checks = [rel.must_from_triple(f"repo:r{rng.randrange(50)}",
+                                   rng.choice(["read", "admin"]),
+                                   f"user:u{rng.randrange(60)}") for _ in range(64)]
+    want = [oracle.check_relationship(r) == T for r in checks]
+    for cs in (consistency.full(), consistency.at_least(rev)):
+        got = c.check(ctx, cs, *checks)
+        if got != want:
+            raise AssertionError("client verdicts disagree with the oracle")
+        if c.check_one(ctx, cs, checks[0]) != want[0]:
+            raise AssertionError("check_one disagrees")
+        if c.check_all(ctx, cs, *checks[:5]) != all(want[:5]):
+            raise AssertionError("check_all disagrees")
+        if c.check_any(ctx, cs, *checks[5:10]) != any(want[5:10]):
+            raise AssertionError("check_any disagrees")
+    log(f"client path on {DEV}: {len(checks)} checks x 2 strategies agree with"
+        f" the oracle ({sum(want)} allowed)")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--scale3", type=float, default=1.0,
+                    help="size of BASELINE config 3 (1.0 = 1M docs, 10M edges)")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from gochugaru_tpu_torch.engine import kernels as K
+    from gochugaru_tpu_torch.engine.kernels.build import build_all
+
+    card = card_line()
+    log(f"card: {card}")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+
+    t0 = time.perf_counter()
+    reports = build_all(["fused_probe"])
+    K._launcher()
+    log(f"kernel build: {time.perf_counter() - t0:.2f}s")
+    for name, rep in reports.items():
+        for line in rep.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {name}: {line.strip()}")
+
+    phase_kernel_vs_plain(K)
+
+    # ---- the main path: counts from zero, phases 4-7 ------------------
+    K.reset_launches()
+    with Capture(K) as cap:
+        t0 = time.perf_counter()
+        cs, snap, q, names = build_rbac()
+        log(f"config2: world built in {time.perf_counter() - t0:.2f}s")
+        check_world("config2", cs, snap, q, names, K)
+        log(f"launches after config2: {json.dumps(K.LAUNCHES)}")
+        del snap
+        t0 = time.perf_counter()
+        cs, snap, q, names = build_docs(args.scale3)
+        log(f"config3 (scale {args.scale3}): world built in {time.perf_counter() - t0:.2f}s")
+        check_world("config3", cs, snap, q, names, K)
+        log(f"launches after config3: {json.dumps(K.LAUNCHES)}")
+        del snap
+        phase_overflow(K)
+        log(f"launches after the overflow world: {json.dumps(K.LAUNCHES)}")
+        phase_client()
+    launches = dict(K.LAUNCHES)
+    log(f"kernels launches on the main path: {json.dumps(launches)}")
+    missing = [m for m in K.MODES if launches[m] < 1]
+    if missing:
+        raise AssertionError(f"modes never launched on the main path: {missing}")
+
+    # ---- per-mode timing at the largest main-path shape ----------------
+    table = []
+    for mode in K.MODES:
+        n, q_cols, off, tbl, kw = cap.best[mode]
+        kw = dict(kw)
+        kw.pop("plain", None)
+        got = _outs(K.fused_probe(q_cols, off, tbl, **kw))
+        want = _outs(K.fused_probe(q_cols, off, tbl, plain=True, **kw))
+        err = max(int((a.long() - b.long()).abs().max()) if a.numel() else 0
+                  for a, b in zip(got, want))
+        saved = dict(K.LAUNCHES)
+        ms = time_call(lambda: K.fused_probe(q_cols, off, tbl, **kw), 20)
+        plain_ms = time_call(
+            lambda: K.fused_probe(q_cols, off, tbl, plain=True, **kw), 3)
+        K.LAUNCHES.update(saved)
+        bound_ms, bound_by = probe_bound(q_cols, off, tbl, kw)
+        log(f"time fused_probe.{mode}: lanes={n} cap={kw['cap']}"
+            f" packed={kw.get('spec') is not None} ms={ms:.5f}"
+            f" plain_ms={plain_ms:.5f} bound_ms={bound_ms:.6f} ({bound_by})"
+            f" max_abs_err={err}")
+        if err:
+            raise AssertionError(f"{mode}: kernel differs from plain at main-path shape")
+        table.append({
+            "name": f"fused_probe.{mode}", "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES, "launches": launches[mode],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "lanes": n, "cap": kw["cap"],
+        })
+    print(json.dumps({"kernels": table}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,215 @@
+"""The Client: the gochugaru Check surface backed by the PyTorch engine.
+
+A reduced counterpart of the reference package's ``client.py``: schema
+read/write, transactional writes, bulk import, and the Check family
+(``check``/``check_one``/``check_any``/``check_all``) under the four
+consistency strategies.  Check resolution is a two-tier cascade:
+
+1. **Device**: one flat-kernel dispatch for the batch (engine/device.py);
+   definite answers return immediately.
+2. **Host oracle** for the rows the device flagged: possible-but-not-
+   definite results and static-cap overflows.
+
+The engine runs on ``cuda`` unless ``new_evaluator(device="cpu")`` asks
+for the CPU; with no CUDA device and no explicit device the constructor
+raises.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
+
+from .consistency import Strategy
+from .engine.device import DeviceEngine, DeviceSnapshot, resolve_device
+from .engine.oracle import Oracle, SnapshotOracle, T
+from .engine.plan import EngineConfig
+from .rel.relationship import Relationship, RelationshipLike, as_relationship
+from .rel.txn import Txn
+from .store.snapshot import Snapshot
+from .store.store import Store
+from .utils import metrics as _metrics
+from .utils.context import Context
+from .utils.errors import AlreadyExistsError, BulkCheckItemError
+from .utils.retry import retry_retriable_errors
+
+#: relationships accumulated per store flush by import_relationships
+IMPORT_BUFFER = 2_097_152
+
+
+class _Options:
+    def __init__(self) -> None:
+        self.engine_config: Optional[EngineConfig] = None
+
+
+Option = Callable[[_Options], None]
+
+
+def with_engine_config(cfg: EngineConfig) -> Option:
+    """Override the engine's static caps (engine/plan.py)."""
+
+    def opt(o: _Options) -> None:
+        o.engine_config = cfg
+
+    return opt
+
+
+class Client:
+    """An in-process authorization client with the gochugaru Check
+    surface, evaluating on a torch device."""
+
+    #: prepared-snapshot / oracle cache capacity per client
+    SNAPSHOT_CACHE_MAX = 4
+
+    def __init__(self, *opts: Option, device=None) -> None:
+        o = _Options()
+        for opt in opts:
+            opt(o)
+        self.device = resolve_device(device)
+        self._store = Store()
+        self._engine_config = o.engine_config
+        self._lock = threading.Lock()
+        self._engine: Optional[DeviceEngine] = None
+        self._engine_schema = None
+        self._dsnap_cache: Dict[int, DeviceSnapshot] = {}
+        self._oracle_cache: Dict[int, Oracle] = {}
+        self._metrics = _metrics.default
+
+    @property
+    def store(self) -> Store:
+        return self._store
+
+    # -- engine / oracle plumbing ----------------------------------------
+    def _engine_for(self, snap: Snapshot) -> DeviceEngine:
+        with self._lock:
+            if self._engine is None or self._engine_schema is not snap.compiled:
+                self._engine = DeviceEngine(
+                    snap.compiled, self._engine_config, device=self.device
+                )
+                self._engine_schema = snap.compiled
+                self._dsnap_cache.clear()
+            return self._engine
+
+    @classmethod
+    def _lru_put(cls, cache: Dict[int, Any], key: int, v: Any) -> None:
+        cache[key] = v
+        while len(cache) > cls.SNAPSHOT_CACHE_MAX:
+            cache.pop(next(iter(cache)))
+
+    def _dsnap_for(self, engine: DeviceEngine, snap: Snapshot) -> DeviceSnapshot:
+        with self._lock:
+            ds = self._dsnap_cache.pop(snap.revision, None)
+            if ds is None or ds.snapshot is not snap:
+                ds = engine.prepare(snap)
+            self._lru_put(self._dsnap_cache, snap.revision, ds)
+            return ds
+
+    def _oracle_for(self, snap: Snapshot) -> Oracle:
+        with self._lock:
+            o = self._oracle_cache.pop(snap.revision, None)
+            if o is None or o.snapshot is not snap:
+                o = SnapshotOracle(
+                    snap,
+                    {
+                        name: self._store.caveat_program(name)
+                        for name in snap.compiled.schema.caveats
+                    },
+                )
+            self._lru_put(self._oracle_cache, snap.revision, o)
+            return o
+
+    # -- schema ----------------------------------------------------------
+    def read_schema(self, ctx: Context) -> Tuple[str, str]:
+        """The current schema and its revision."""
+        return self._store.read_schema()
+
+    def write_schema(self, ctx: Context, schema: str) -> str:
+        """Apply the schema; returns the revision it was written at."""
+        return self._store.write_schema(schema)
+
+    # -- writes ----------------------------------------------------------
+    def write(self, ctx: Context, txn: Txn) -> str:
+        """Atomically perform a transaction; returns its revision."""
+        return self._store.write(txn)
+
+    def import_relationships(
+        self, ctx: Context, rs: Iterable[RelationshipLike]
+    ) -> None:
+        """Bulk restore; a batch that already exists is re-imported as
+        TOUCH under the retry envelope."""
+        chunk: List[Relationship] = []
+
+        def flush() -> None:
+            if not chunk:
+                return
+            try:
+                self._store.import_relationships(chunk)
+            except AlreadyExistsError:
+                retry_retriable_errors(
+                    ctx,
+                    lambda: self._store.import_relationships(chunk, touch=True),
+                )
+            chunk.clear()
+
+        for r in rs:
+            chunk.append(as_relationship(r))
+            if len(chunk) >= IMPORT_BUFFER:
+                flush()
+        flush()
+
+    # -- the Check family ------------------------------------------------
+    def check_one(self, ctx: Context, cs: Strategy, r: RelationshipLike) -> bool:
+        return self.check(ctx, cs, r)[0]
+
+    def check_any(self, ctx: Context, cs: Strategy, *rs: RelationshipLike) -> bool:
+        return any(self.check(ctx, cs, *rs))
+
+    def check_all(self, ctx: Context, cs: Strategy, *rs: RelationshipLike) -> bool:
+        return all(self.check(ctx, cs, *rs))
+
+    def check(
+        self, ctx: Context, cs: Strategy, *rs: RelationshipLike
+    ) -> List[bool]:
+        """Batched permission check: one device dispatch at the snapshot
+        the strategy selects, host-oracle resolution for flagged rows,
+        under the retry envelope."""
+        rels = [as_relationship(r) for r in rs]
+        if not rels:
+            return []
+        self._metrics.inc("checks.requested", len(rels))
+        return retry_retriable_errors(
+            ctx, lambda: self._evaluate(self._store.snapshot_for(cs), rels)
+        )
+
+    def _evaluate(self, snap: Snapshot, rels: List[Relationship]) -> List[bool]:
+        engine = self._engine_for(snap)
+        dsnap = self._dsnap_for(engine, snap)
+        d, p, ovf = engine.check_batch(dsnap, rels)
+        needs_host = (p & ~d) | ovf
+        if not needs_host.any():
+            self._metrics.inc("checks.device_definite", len(rels))
+            return [bool(x) for x in d]
+        oracle = self._oracle_for(snap)
+        out: List[bool] = []
+        for i, r in enumerate(rels):
+            if not needs_host[i]:
+                out.append(bool(d[i]))
+                continue
+            self._metrics.inc(
+                "checks.fallback_overflow" if ovf[i]
+                else "checks.fallback_conditional"
+            )
+            try:
+                out.append(oracle.check_relationship(r) == T)
+            except Exception as e:
+                # per-item error: abort with the partial results, as the
+                # reference's bulk mapping loop does
+                raise BulkCheckItemError(i, out, e) from e
+        return out
+
+
+def new_evaluator(*opts: Option, device=None) -> Client:
+    """A client backed by the PyTorch engine — the counterpart of the
+    reference package's ``new_tpu_evaluator``.  ``device`` defaults to
+    ``cuda``; pass ``"cpu"`` for the plain PyTorch path on the CPU."""
+    return Client(*opts, device=device)

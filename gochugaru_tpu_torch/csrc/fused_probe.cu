@@ -1,0 +1,175 @@
+// Fused bucket probe for Hopper (sm_90a).
+//
+// Replaces gochugaru_tpu/engine/pallas.py::fused_probe (modes block, any,
+// until2, gate).  One probe per query lane:
+//
+//   mix32(q) -> bucket -> bucket start (int32 offsets, or int32 anchor +
+//   uint16 residual) -> clamp to [0, rows - cap] -> cap rows -> decode
+//   (runtime pack spec) -> key compare with q >= 0 guard -> mode tail
+//
+// What bounds it: bytes.  A probe reads cap rows of 4-16 bytes at a
+// data-dependent address and does a few dozen integer operations on them,
+// far below the card's operations-per-byte balance, so the kernel is a
+// random-gather kernel limited by memory transactions.  The TPU design
+// double-buffered bucket DMAs into VMEM; on Hopper many resident warps
+// hide the gather latency instead, so this first version is one thread
+// per query lane reading its rows straight from global memory, with the
+// decode spec (fields and <= 256-entry dictionaries) read from a small
+// device array uploaded once per table at prepare.  No per-spec
+// recompilation: the spec is data.
+//
+// Bool outputs are uint8.  Row addressing is int64 (rows * lanes passes
+// 2^31 on large tables).
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define GOCHUGARU_MAXW 16
+#define GOCHUGARU_DICT 256
+
+enum { MODE_BLOCK = 0, MODE_ANY = 1, MODE_UNTIL2 = 2, MODE_GATE = 3 };
+
+extern "C" {
+struct ProbeArgs {
+  const int32_t* q0;     // [B] first key column
+  const int32_t* q1;     // [B] second key column (nq == 2) or null
+  long long B;           // query lanes
+  const void* off;       // int32[size + 1], or uint16 residuals when off_a
+  const int32_t* off_a;  // int32 anchors (packed offsets) or null
+  long long size;        // bucket count (pow2)
+  const void* tbl;       // int32[rows, w_raw], or uint16 lanes when packed
+  long long rows;
+  const int32_t* fields; // [W, 5] (bits, base, delta_of, dict_id, off_bit)
+  const int32_t* dicts;  // [ndict, 256] dictionary values, last one repeated
+  void* out0;
+  void* out1;
+  int nq;
+  int ashift;
+  int packed;            // tbl holds uint16 lanes decoded through fields
+  int w_raw;             // row stride in elements
+  int cap;
+  int W;                 // logical columns
+  int now;
+  int lay_exp;           // gate: expiry column, -1 = no expiry gate
+};
+}
+
+__device__ __forceinline__ void decode_row(const uint16_t* r, const ProbeArgs& a,
+                                           int32_t* cols) {
+  for (int c = 0; c < a.W; ++c) {
+    const int32_t* f = a.fields + 5 * c;
+    const int bits = f[0], base = f[1], delta_of = f[2], dict_id = f[3];
+    const int off_bit = f[4];
+    uint32_t col;
+    if (bits == 0) {
+      col = (uint32_t)base;
+    } else {
+      const int lane = off_bit >> 4, sh = off_bit & 15;
+      uint32_t v = (uint32_t)r[lane] >> sh;
+      if (sh + bits > 16) v |= (uint32_t)r[lane + 1] << (16 - sh);
+      if (bits < 32) v &= (1u << bits) - 1u;
+      if (dict_id >= 0) {
+        col = (uint32_t)a.dicts[dict_id * GOCHUGARU_DICT +
+                                min(v, (uint32_t)(GOCHUGARU_DICT - 1))];
+      } else {
+        col = v + (uint32_t)base;
+      }
+    }
+    if (delta_of >= 0) col += (uint32_t)cols[delta_of];
+    cols[c] = (int32_t)col;
+  }
+}
+
+template <int MODE>
+__global__ void fused_probe_kernel(const ProbeArgs a) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= a.B) return;
+  const int32_t q0 = a.q0[i];
+  const int32_t q1 = a.nq > 1 ? a.q1[i] : 0;
+
+  // mix32 (engine/hash.py): FNV-1a over the key words + murmur3 finalizer
+  uint32_t h = 2166136261u;
+  h = (h ^ (uint32_t)q0) * 16777619u;
+  if (a.nq > 1) h = (h ^ (uint32_t)q1) * 16777619u;
+  h ^= h >> 16;
+  h *= 0x85EBCA6Bu;
+  h ^= h >> 13;
+  h *= 0xC2B2AE35u;
+  h ^= h >> 16;
+  const long long b = (long long)(h & (uint32_t)(a.size - 1));
+
+  long long start;
+  if (a.off_a != nullptr) {
+    start = (long long)a.off_a[b >> a.ashift] +
+            (long long)((const uint16_t*)a.off)[b];
+  } else {
+    start = (long long)((const int32_t*)a.off)[b];
+  }
+  // slice_blocks' clamp: 0 <= s <= rows - cap
+  const long long hi = a.rows - a.cap;
+  const long long s = start < 0 ? 0 : (start > hi ? hi : start);
+  const bool guard = (q0 >= 0) && (a.nq < 2 || q1 >= 0);
+
+  bool acc0 = false, acc1 = false;
+  int32_t cols[GOCHUGARU_MAXW];
+  for (int j = 0; j < a.cap; ++j) {
+    const long long row = s + j;
+    if (a.packed) {
+      decode_row((const uint16_t*)a.tbl + row * a.w_raw, a, cols);
+    } else {
+      const int32_t* r = (const int32_t*)a.tbl + row * a.w_raw;
+      for (int c = 0; c < a.W; ++c) cols[c] = r[c];
+    }
+    const bool hit = guard && cols[0] == q0 && (a.nq < 2 || cols[1] == q1);
+    if (MODE == MODE_BLOCK) {
+      int32_t* o = (int32_t*)a.out0 + (i * a.cap + j) * a.W;
+      for (int c = 0; c < a.W; ++c) o[c] = cols[c];
+    } else if (MODE == MODE_ANY) {
+      acc0 |= hit;
+    } else if (MODE == MODE_UNTIL2) {
+      acc0 |= hit && cols[2] > a.now;
+      acc1 |= hit && cols[3] > a.now;
+    } else {  // MODE_GATE
+      bool live = hit;
+      if (a.lay_exp >= 0) {
+        const int32_t e = hit ? cols[a.lay_exp] : 0;
+        live = hit && (e == 0 || e > a.now);
+      }
+      ((uint8_t*)a.out0)[i * a.cap + j] = hit;
+      ((uint8_t*)a.out1)[i * a.cap + j] = live;
+    }
+  }
+  if (MODE == MODE_ANY) {
+    ((uint8_t*)a.out0)[i] = acc0;
+  } else if (MODE == MODE_UNTIL2) {
+    ((uint8_t*)a.out0)[i] = acc0;
+    ((uint8_t*)a.out1)[i] = acc1;
+  }
+}
+
+extern "C" int gochugaru_fused_probe(int mode, const ProbeArgs* args,
+                                     void* stream) {
+  const ProbeArgs a = *args;
+  if (a.B <= 0) return 0;
+  if (a.W > GOCHUGARU_MAXW || a.W < a.nq) return (int)cudaErrorInvalidValue;
+  const int threads = 256;
+  const unsigned grid = (unsigned)((a.B + threads - 1) / threads);
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (mode) {
+    case MODE_BLOCK:
+      fused_probe_kernel<MODE_BLOCK><<<grid, threads, 0, st>>>(a);
+      break;
+    case MODE_ANY:
+      fused_probe_kernel<MODE_ANY><<<grid, threads, 0, st>>>(a);
+      break;
+    case MODE_UNTIL2:
+      fused_probe_kernel<MODE_UNTIL2><<<grid, threads, 0, st>>>(a);
+      break;
+    case MODE_GATE:
+      fused_probe_kernel<MODE_GATE><<<grid, threads, 0, st>>>(a);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}

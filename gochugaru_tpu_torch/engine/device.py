@@ -1,0 +1,446 @@
+"""The device engine: prepared snapshots on a torch device and the bulk
+Check through the flat kernel (engine/flat.py).
+
+``DeviceEngine`` compiles a schema's plan once, ``prepare`` turns a store
+Snapshot into device tensors (the host build is engine/flat.py
+``build_flat_arrays``; one copy to the device), and ``check_columns`` /
+``check_batch`` run a batch through the flat program, returning the
+(definite, possible, overflow) planes.  Possible-but-not-definite and
+overflow rows are settled by the caller on the host oracle.
+
+The engine runs on ``cuda`` unless the caller passes ``device="cpu"``;
+without CUDA the default raises rather than falling back.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time as _time
+from dataclasses import dataclass
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..rel.relationship import Relationship, WILDCARD_ID
+from ..schema.compiler import CompiledSchema
+from ..store.snapshot import Snapshot
+from ..utils import faults, metrics
+from .flat import FlatMeta, build_flat_arrays, build_qm, make_flat_fn
+from .kernels import spec_tensors
+from .packed import narrow_nodes
+from .plan import DevicePlan, EngineConfig, build_plan
+
+
+def _ceil_pow2(n: int, minimum: int = 8) -> int:
+    m = minimum
+    while m < n:
+        m <<= 1
+    return m
+
+
+def _pad_sorted(a: np.ndarray, size: int) -> np.ndarray:
+    """Pad a sorted column with INT32_MAX sentinels."""
+    out = np.full(size, np.iinfo(np.int32).max, dtype=np.int32)
+    out[: a.shape[0]] = a
+    return out
+
+
+def _pad_payload(a: np.ndarray, size: int, fill: int = 0) -> np.ndarray:
+    out = np.full(size, fill, dtype=np.int32)
+    out[: a.shape[0]] = a
+    return out
+
+
+def resolve_device(device=None) -> torch.device:
+    """The engine's device: ``cuda`` unless the caller names another.
+    No CUDA and no explicit device raises — never a silent CPU run."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: pass device='cpu' to run the plain"
+                " PyTorch path on the CPU"
+            )
+        return torch.device("cuda")
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device='cuda' requested but CUDA is unavailable")
+    return dev
+
+
+def to_device_tensor(a: np.ndarray, device) -> torch.Tensor:
+    """One host array as the engine stores it: uint16 lanes and
+    residuals reinterpret as int16 (torch has no uint16 arithmetic on the
+    CPU; readers widen ``& 0xFFFF``), bools as bool, the rest as is."""
+    a = np.ascontiguousarray(a)
+    if not a.flags.writeable:
+        a = a.copy()
+    if a.dtype == np.uint16:
+        a = a.view(np.int16)
+    return torch.from_numpy(a).to(device)
+
+
+@dataclass
+class DeviceSnapshot:
+    """Device-resident form of a Snapshot."""
+
+    revision: int
+    arrays: Dict[str, torch.Tensor]
+    tid_map: torch.Tensor  # int32[num_schema_types] → interner type id
+    snapshot: Snapshot
+    #: static geometry of the flat engine's tables
+    flat_meta: FlatMeta
+    #: per packed table, its decode spec as the kernel reads it
+    #: (fields, dictionaries), uploaded once here
+    specs: Dict[str, Tuple[torch.Tensor, torch.Tensor]]
+
+
+def _resolve_kernels(config: EngineConfig, device: torch.device) -> bool:
+    """The kernel switch: None = kernels exactly on a CUDA device."""
+    if config.kernels is None:
+        return device.type == "cuda"
+    if config.kernels and device.type != "cuda":
+        raise RuntimeError("EngineConfig(kernels=True) needs a CUDA device")
+    return bool(config.kernels)
+
+
+def _meta_from(meta_like) -> FlatMeta:
+    """The port's FlatMeta from any dataclass with the same fields (the
+    reference package's FlatMeta)."""
+    if isinstance(meta_like, FlatMeta):
+        return meta_like
+    names = {f.name for f in dataclasses.fields(FlatMeta)}
+    kw = {
+        f.name: getattr(meta_like, f.name)
+        for f in dataclasses.fields(meta_like)
+        if f.name in names
+    }
+    if kw.get("delta") is not None:
+        raise NotImplementedError("delta levels are not ported yet")
+    return FlatMeta(**kw)
+
+
+def arrays_from_reference(
+    np_arrays: Mapping[str, np.ndarray], flat_meta, device="cpu"
+) -> Tuple[Dict[str, torch.Tensor], FlatMeta]:
+    """The reference package's prepared arrays (``DeviceSnapshot.arrays``
+    fetched to numpy) and FlatMeta as the port's device tensors and
+    FlatMeta — both engines then probe identical tables."""
+    dev = torch.device(device)
+    arrays = {k: to_device_tensor(np.asarray(v), dev) for k, v in np_arrays.items()}
+    return arrays, _meta_from(flat_meta)
+
+
+class DeviceEngine:
+    """Compiles a schema's plan and runs the flat bulk Check on a torch
+    device."""
+
+    #: every per-edge column the host tables carry (not shipped when the
+    #: tables are packed: the flat kernel never reads them)
+    ARRAY_COLUMN_KEYS = (
+        "e_rel", "e_res", "e_subj", "e_srel1", "e_caveat", "e_ctx", "e_exp",
+        "us_rel", "us_res", "us_subj", "us_srel", "us_caveat", "us_ctx",
+        "us_exp", "us_perm", "pus_n", "pus_r",
+        "ms_subj", "ms_res", "ms_rel", "ms_caveat", "ms_ctx", "ms_exp",
+        "mp_subj", "mp_srel", "mp_res", "mp_rel", "mp_caveat", "mp_ctx",
+        "mp_exp",
+        "ar_rel", "ar_res", "ar_child", "ar_caveat", "ar_ctx", "ar_exp",
+        "node_type",
+    )
+
+    #: bound on cached per-permission-subset programs (FIFO eviction)
+    FLAT_FN_CACHE_MAX = 16
+
+    def __init__(
+        self,
+        compiled: CompiledSchema,
+        config: Optional[EngineConfig] = None,
+        *,
+        device=None,
+    ) -> None:
+        self.compiled = compiled
+        self.plan: DevicePlan = build_plan(compiled)
+        self.config = config or EngineConfig()
+        if self.plan.two_plane:
+            raise NotImplementedError(
+                "schemas with caveats need the CEL tri-state VM"
+                " (caveats/device.py), a later slice of the port"
+            )
+        if not self.config.flat_blockslice:
+            raise NotImplementedError(
+                "flat_blockslice=False (the scattered probe_rows path) is a"
+                " later slice of the port"
+            )
+        self.device = resolve_device(device)
+        self.kernels = _resolve_kernels(self.config, self.device)
+        self._flat_fns: Dict[Any, Any] = {}
+
+    # -- snapshot preparation -------------------------------------------
+    def _host_arrays(self, snap: Snapshot) -> Dict[str, np.ndarray]:
+        """Padded host-side columns (the reference's layout, key for
+        key)."""
+        E = _ceil_pow2(snap.e_rel.shape[0])
+        US = _ceil_pow2(snap.us_rel.shape[0])
+        MS = _ceil_pow2(snap.ms_subj.shape[0])
+        MP = _ceil_pow2(snap.mp_subj.shape[0])
+        AR = _ceil_pow2(snap.ar_rel.shape[0])
+        NN = _ceil_pow2(2 * snap.num_nodes)
+        PN = _ceil_pow2(snap.pus_n.shape[0])
+        return {
+            "e_rel": _pad_sorted(snap.e_rel, E),
+            "e_res": _pad_sorted(snap.e_res, E),
+            "e_subj": _pad_sorted(snap.e_subj, E),
+            "e_srel1": _pad_sorted(snap.e_srel1, E),
+            "e_caveat": _pad_payload(snap.e_caveat, E),
+            "e_ctx": _pad_payload(snap.e_ctx, E, -1),
+            "e_exp": _pad_payload(snap.e_exp, E),
+            "us_rel": _pad_sorted(snap.us_rel, US),
+            "us_res": _pad_sorted(snap.us_res, US),
+            "us_subj": _pad_payload(snap.us_subj, US, -1),
+            "us_srel": _pad_payload(snap.us_srel, US, -1),
+            "us_caveat": _pad_payload(snap.us_caveat, US),
+            "us_ctx": _pad_payload(snap.us_ctx, US, -1),
+            "us_exp": _pad_payload(snap.us_exp, US),
+            "us_perm": _pad_payload(snap.us_perm, US),
+            "pus_n": _pad_sorted(snap.pus_n, PN),
+            "pus_r": _pad_sorted(snap.pus_r, PN),
+            "ms_subj": _pad_sorted(snap.ms_subj, MS),
+            "ms_res": _pad_payload(snap.ms_res, MS, -1),
+            "ms_rel": _pad_payload(snap.ms_rel, MS, -1),
+            "ms_caveat": _pad_payload(snap.ms_caveat, MS),
+            "ms_ctx": _pad_payload(snap.ms_ctx, MS, -1),
+            "ms_exp": _pad_payload(snap.ms_exp, MS),
+            "mp_subj": _pad_sorted(snap.mp_subj, MP),
+            "mp_srel": _pad_sorted(snap.mp_srel, MP),
+            "mp_res": _pad_payload(snap.mp_res, MP, -1),
+            "mp_rel": _pad_payload(snap.mp_rel, MP, -1),
+            "mp_caveat": _pad_payload(snap.mp_caveat, MP),
+            "mp_ctx": _pad_payload(snap.mp_ctx, MP, -1),
+            "mp_exp": _pad_payload(snap.mp_exp, MP),
+            "ar_rel": _pad_sorted(snap.ar_rel, AR),
+            "ar_res": _pad_sorted(snap.ar_res, AR),
+            "ar_child": _pad_payload(snap.ar_child, AR, -1),
+            "ar_caveat": _pad_payload(snap.ar_caveat, AR),
+            "ar_ctx": _pad_payload(snap.ar_ctx, AR, -1),
+            "ar_exp": _pad_payload(snap.ar_exp, AR),
+            "node_type": _pad_payload(snap.node_type, NN, -1),
+        }
+
+    def prepare_host(
+        self, snap: Snapshot
+    ) -> Tuple[Dict[str, np.ndarray], FlatMeta]:
+        """The host half of ``prepare``: the device-bound arrays (numpy)
+        and the FlatMeta."""
+        arrays = self._host_arrays(snap)
+        built = build_flat_arrays(snap, self.config, plan=self.plan)
+        if built is None:
+            raise NotImplementedError(
+                "graphs whose dense keys do not pack into int32 need the"
+                " legacy two-phase kernel, a later slice of the port"
+            )
+        flat_arrays, flat_meta, _fold_state = built
+        arrays.update(flat_arrays)
+        if self.config.packed_on():
+            for k in self.ARRAY_COLUMN_KEYS:
+                if k != "node_type":
+                    arrays.pop(k, None)
+            arrays["node_type"] = narrow_nodes(
+                arrays["node_type"], snap.interner.num_types
+            )
+        return arrays, flat_meta
+
+    def prepare(
+        self, snap: Snapshot, prev: Optional[DeviceSnapshot] = None
+    ) -> DeviceSnapshot:
+        """Build the snapshot's tables on the host and copy them to the
+        device (full prepare; ``prev`` is accepted for the reference's
+        signature — incremental delta levels are a later slice)."""
+        faults.fire("device.prepare")
+        t0 = _time.perf_counter()
+        arrays, flat_meta = self.prepare_host(snap)
+        with metrics.default.timer("prepare.h2d_s"):
+            dev_arrays = {
+                k: to_device_tensor(v, self.device) for k, v in arrays.items()
+            }
+        ds = self._snapshot(snap, dev_arrays, flat_meta)
+        metrics.default.observe("prepare.total_s", _time.perf_counter() - t0)
+        return ds
+
+    def _snapshot(self, snap, dev_arrays, flat_meta) -> DeviceSnapshot:
+        tid_map = np.full(max(self.plan.num_schema_types, 1), -1, np.int32)
+        for tname, tid in self.compiled.type_ids.items():
+            tid_map[tid] = snap.interner.type_lookup(tname)
+        specs = {
+            k: spec_tensors(spec, self.device) for k, spec in flat_meta.packed
+        }
+        return DeviceSnapshot(
+            revision=snap.revision,
+            arrays=dev_arrays,
+            tid_map=torch.from_numpy(tid_map).to(self.device),
+            snapshot=snap,
+            flat_meta=flat_meta,
+            specs=specs,
+        )
+
+    def snapshot_from_reference(
+        self, snap: Snapshot, np_arrays: Mapping[str, np.ndarray], flat_meta
+    ) -> DeviceSnapshot:
+        """A DeviceSnapshot over the reference package's prepared arrays
+        (``arrays_from_reference``) — the parity harness's entry."""
+        arrays, meta = arrays_from_reference(np_arrays, flat_meta, self.device)
+        return self._snapshot(snap, arrays, meta)
+
+    # -- query lowering --------------------------------------------------
+    def _lower_queries(
+        self, snap: Snapshot, rels: Sequence[Relationship]
+    ) -> Dict[str, np.ndarray]:
+        """Relationship objects → interned int32 query columns."""
+        B = len(rels)
+        interner = snap.interner
+        slot_of = self.compiled.slot_of_name
+        wc_of = snap.wildcard_node_of_type
+        q_res = np.full(B, -1, np.int32)
+        q_perm = np.full(B, -1, np.int32)
+        q_subj = np.full(B, -1, np.int32)
+        q_srel = np.full(B, -1, np.int32)
+        q_wc = np.full(B, -1, np.int32)
+        q_self = np.zeros(B, bool)
+        for i, r in enumerate(rels):
+            q_res[i] = interner.lookup(r.resource_type, r.resource_id)
+            q_perm[i] = slot_of.get(r.resource_relation, -1)
+            q_subj[i] = interner.lookup(r.subject_type, r.subject_id)
+            if r.subject_relation:
+                srel = slot_of.get(r.subject_relation)
+                if srel is None:
+                    # unknown subject relation can never be granted; -1
+                    # would alias "direct subject", so force the query false
+                    q_res[i] = -1
+                else:
+                    q_srel[i] = srel
+            stid = interner.type_lookup(r.subject_type)
+            if 0 <= stid < wc_of.shape[0] and r.subject_id != WILDCARD_ID:
+                q_wc[i] = wc_of[stid]
+            q_self[i] = (
+                r.resource_type == r.subject_type
+                and r.resource_id == r.subject_id
+                and r.subject_relation == r.resource_relation
+                and r.subject_relation != ""
+            )
+        return {
+            "q_res": q_res, "q_perm": q_perm, "q_subj": q_subj,
+            "q_srel": q_srel, "q_wc": q_wc,
+            "q_ctx": np.full(B, -1, np.int32), "q_self": q_self,
+        }
+
+    def _columns_preamble(
+        self,
+        q_res: np.ndarray,
+        q_perm: np.ndarray,
+        q_subj: np.ndarray,
+        q_srel: Optional[np.ndarray] = None,
+        q_wc: Optional[np.ndarray] = None,
+    ) -> Dict[str, np.ndarray]:
+        """Optional-column defaulting and the reflexive-self derivation
+        for pre-interned query columns."""
+        B = q_res.shape[0]
+        if q_srel is None:
+            q_srel = np.full(B, -1, np.int32)
+        if q_wc is None:
+            q_wc = np.full(B, -1, np.int32)
+        return {
+            "q_res": np.ascontiguousarray(q_res, np.int32),
+            "q_perm": np.ascontiguousarray(q_perm, np.int32),
+            "q_subj": np.ascontiguousarray(q_subj, np.int32),
+            "q_srel": np.ascontiguousarray(q_srel, np.int32),
+            "q_wc": np.ascontiguousarray(q_wc, np.int32),
+            "q_ctx": np.full(B, -1, np.int32),
+            # reflexive userset identity (a userset is a member of itself)
+            "q_self": (q_res == q_subj) & (q_srel >= 0) & (q_perm == q_srel),
+        }
+
+    # -- the flat program ------------------------------------------------
+    def _flat_fn_for(self, slots: Tuple[int, ...], meta: FlatMeta):
+        key = (slots, meta)
+        fn = self._flat_fns.get(key)
+        if fn is None:
+            fn = make_flat_fn(
+                self.compiled, self.plan, self.config, meta, slots,
+                kernels=self.kernels,
+            )
+            while len(self._flat_fns) >= self.FLAT_FN_CACHE_MAX:
+                self._flat_fns.pop(next(iter(self._flat_fns)))
+            self._flat_fns[key] = fn
+        return fn
+
+    def flat_fn_and_args(
+        self,
+        dsnap: DeviceSnapshot,
+        queries: Dict[str, np.ndarray],
+        now: int,
+        B: int,
+        bucket_min: int = 0,
+    ):
+        """The flat program + its padded argument tuple — the ONE place
+        that knows its signature."""
+        slots = tuple(
+            sorted({int(s) for s in np.unique(queries["q_perm"]) if s >= 0})
+        )
+        if len(slots) > self.config.flat_max_slots:
+            raise NotImplementedError(
+                f"{len(slots)} distinct permissions in one batch (more than"
+                f" flat_max_slots={self.config.flat_max_slots}) need the"
+                " legacy kernel, a later slice of the port"
+            )
+        fn = self._flat_fn_for(slots, dsnap.flat_meta)
+        BP = _ceil_pow2(B, max(bucket_min, self.config.batch_bucket_min))
+        qm = torch.from_numpy(build_qm(queries, BP, dsnap.flat_meta)).to(
+            self.device
+        )
+        return fn, (dsnap.arrays, dsnap.tid_map, int(now), qm, dsnap.specs)
+
+    def _run(self, dsnap, queries, now_us, B):
+        faults.fire("device.dispatch")
+        now = dsnap.snapshot.now_rel32(now_us)
+        fn, args = self.flat_fn_and_args(dsnap, queries, now, B)
+        with torch.no_grad():
+            d, p, ovf = fn(*args)
+        # one device→host copy for the three planes
+        planes = torch.stack([d[:B], p[:B], ovf[:B]]).cpu().numpy()
+        return planes[0], planes[1], planes[2]
+
+    # -- the batched check ----------------------------------------------
+    def check_columns(
+        self,
+        dsnap: DeviceSnapshot,
+        q_res: np.ndarray,
+        q_perm: np.ndarray,
+        q_subj: np.ndarray,
+        *,
+        q_srel: Optional[np.ndarray] = None,
+        q_wc: Optional[np.ndarray] = None,
+        now_us: Optional[int] = None,
+    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Bulk check straight from pre-interned int32 columns; returns
+        (definite, possible, overflow) bool arrays of the batch length."""
+        B = q_res.shape[0]
+        if B == 0:
+            z = np.zeros(0, bool)
+            return z, z, z
+        queries = self._columns_preamble(q_res, q_perm, q_subj, q_srel, q_wc)
+        return self._run(dsnap, queries, now_us, B)
+
+    def check_batch(
+        self,
+        dsnap: DeviceSnapshot,
+        rels: Sequence[Relationship],
+        *,
+        now_us: Optional[int] = None,
+    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(definite, possible, overflow) for Relationship queries.
+        ``possible & ~definite`` and ``overflow`` rows are for the caller
+        to settle on the host oracle."""
+        if not rels:
+            z = np.zeros(0, bool)
+            return z, z, z
+        queries = self._lower_queries(dsnap.snapshot, rels)
+        return self._run(dsnap, queries, now_us, len(rels))

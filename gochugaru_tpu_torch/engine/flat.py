@@ -1,0 +1,2146 @@
+"""The flat check kernel: statically-unrolled probe programs over hash
+indexes and the precomputed membership closure.
+
+This is the TPU-shaped replacement for the two-phase walk in
+engine/device.py.  The round-2 engine was correct everywhere and fast
+nowhere (~16k checks/sec true device rate): per query it ran a capped
+frontier walk with device-side sort/dedup (Phase A) plus a sequential
+scan-based subgraph BFS (Phase B) — hundreds of *dependent* scalar steps
+per check.  The flat kernel removes every per-query loop:
+
+- **membership** is precomputed: store/closure.py flattens the transitive
+  member→group closure once per revision; a userset grant test is one
+  4-key hash probe into the flattened table (engine/hash.py);
+- **rewrite structure** is unrolled at trace time: each permission's
+  expression tree becomes straight-line code; arrows gather a capped,
+  hash-indexed child block and recurse on the child axis (acyclic schemas
+  unroll exactly; recursive ones unroll to a budget and mark deeper
+  queries possible → host oracle);
+- every probe site is a batch-wide vectorized gather: the whole dispatch
+  is ~a few hundred *data-independent* gather/compare steps regardless of
+  batch size, so throughput scales with batch until HBM bandwidth.
+
+Semantics are identical to the legacy engine (differentially tested
+against engine/oracle.py): two Kleene planes (definite, possible),
+caveats gated per edge through the on-device CEL VM with merged
+stored/query context, expiration via the closure's max-min semiring at
+membership level and per-edge gates at leaf level, wildcard and userset
+subjects, permission-valued userset conservatism (us_perm/pus), and
+overflow flags that route capped queries to the host oracle.  The one
+intentional degradation: caveats on *membership* edges decide closure
+containment per query on the host (possible-plane), because the closure
+is precomputed without query context.
+
+Replaces the evaluation behind the reference's CheckBulkPermissions
+(client/client.go:238-266).
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from functools import lru_cache
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from ..schema.compiler import CompiledSchema
+import torch
+
+from . import kernels as _K
+from .hash import (
+    _ceil_pow2,
+    build_hash,
+    build_range_hash,
+    interleave_buckets,
+    interleave_rows,
+    slice_blocks,
+)
+from .packed import decode_block as _pk_decode
+from .plan import DevicePlan, EngineConfig, ExprIR, _eval_cyclic_pairs
+
+
+# ---------------------------------------------------------------------------
+# static metadata (part of the traced-function cache key)
+# ---------------------------------------------------------------------------
+
+#: packed query-matrix row layout (int32[QM_ROWS, B]): the kernel takes
+#: ONE batched query argument — q_self rides as 0/1, row 7 is padding so
+#: the leading dim stays pow2.  Builders: DeviceEngine.flat_fn_and_args,
+#: ShardedEngine._dispatch_flat (data axis = axis 1 there).
+QM_LAYOUT = ("q_res", "q_perm", "q_subj", "q_srel1_dense", "q_wc",
+             "q_ctx", "q_self", "q_perm_k1")
+QM_ROWS = len(QM_LAYOUT)
+
+
+@lru_cache(maxsize=128)
+def _dense_np(t: Tuple[int, ...]) -> np.ndarray:
+    return np.asarray(t, np.int32) if t else np.full(1, -1, np.int32)
+
+
+def build_qm(queries: Dict[str, "np.ndarray"], BP: int, meta: "FlatMeta"):
+    """The packed QM_LAYOUT matrix from length-B query columns, padded to
+    ``BP`` — the ONE builder both the single-chip and sharded dispatchers
+    use, so the pad conventions (-1 keys; 0 for srel1/self) cannot drift.
+
+    Slot-bearing rows map through the meta's DENSE slot maps here on the
+    host: row 3 carries the dense srel1 (-1 = the subject relation can
+    never match a stored key), row 7 the dense k1 id of q_perm (-1 =
+    inactive — the root probes miss, programs still evaluate)."""
+    return fill_qm(queries, np.empty((QM_ROWS, BP), np.int32), meta)
+
+
+def fill_qm(queries: Dict[str, "np.ndarray"], qm: np.ndarray, meta: "FlatMeta"):
+    """``build_qm`` into a PREALLOCATED [QM_ROWS, BP] int32 buffer.  The
+    latency-mode path (engine/latency.py) keeps one staging buffer per
+    batch tier and refills it in place, so steady-state small-batch
+    dispatch performs zero host-side array allocation."""
+    B = queries["q_res"].shape[0]
+    k1d = _dense_np(meta.k1_dense)
+    k2d = _dense_np(meta.k2_dense)
+    qm.fill(-1)
+    qm[3] = qm[6] = 0
+    qm[0, :B] = queries["q_res"]
+    qm[1, :B] = queries["q_perm"]
+    qm[2, :B] = queries["q_subj"]
+    srel = queries["q_srel"]
+    sd = k2d[np.clip(srel, 0, k2d.shape[0] - 1)]
+    qm[3, :B] = np.where(srel < 0, 0, np.where(sd >= 0, sd + 1, -1))
+    qm[4, :B] = queries["q_wc"]
+    qm[5, :B] = queries["q_ctx"]
+    qm[6, :B] = queries["q_self"]
+    qp = queries["q_perm"]
+    qm[7, :B] = np.where(
+        qp >= 0, k1d[np.clip(qp, 0, k1d.shape[0] - 1)], -1
+    )
+    return qm
+
+
+@dataclass(frozen=True)
+class DeltaMeta:
+    """Static geometry of the LSM-style delta level (Watch-driven
+    incremental re-index, BASELINE config 5).
+
+    A delta-prepared DeviceSnapshot reuses the base revision's resident
+    tables untouched and adds small per-view overlays: an adds level
+    (probed exactly like the base, OR-ed in) and tombstone sets (exact
+    identity keys that void base hits).  All caps/flags here are pow2/
+    stable-bucketed so consecutive deltas reuse the compiled kernel."""
+
+    has_adds: bool = False  # any delta primary rows
+    e_cap: int = 4  # delta primary hash bucket cap
+    e_slots: Tuple[int, ...] = ()  # slots with delta primary rows
+    has_tombs: bool = False  # any removed-row identities
+    tb_cap: int = 4
+    has_us: bool = False  # delta userset-view rows
+    us_cap: int = 4  # delta us group-hash bucket cap
+    us_fan: int = 1  # delta us max rows per (slot, res)
+    us_slots: Tuple[int, ...] = ()
+    has_ustomb: bool = False  # tombstoned userset rows
+    utb_cap: int = 4
+    t_dirty: bool = False  # tombstoned us rows under T-covered slots
+    td_cap: int = 4
+    has_ar: bool = False  # delta arrow-view rows
+    ar_cap: int = 4
+    ar_fan: int = 1
+    ar_slots: Tuple[int, ...] = ()
+    has_artomb: bool = False
+    atb_cap: int = 4
+    # delta gate-column presence (the delta tables reuse the BASE layouts,
+    # so these can only be true when the base flags are)
+    e_hascav: bool = False
+    e_hasexp: bool = False
+    # permission-fold maintenance overlay (engine/fold.py
+    # fold_delta_update): folded slots stay on the pf probe pair under a
+    # delta — base hits at DIRTY resources are voided and replacement
+    # rows probed from small replicated overlay tables
+    #: fold maintenance downgraded for the rest of this chain: folded
+    #: pairs compile their WALKED programs (which see the dl_* overlays)
+    #: instead of the pf probe pair — set when fold_delta_update
+    #: declines (eligibility flip / hot-ancestor dirty set / overlay
+    #: past its row cap); sticky until compaction re-folds the base
+    pf_off: bool = False
+    pf_dirty: bool = False  # any dirty (slot, res) keys
+    pfd_cap: int = 4
+    pf_ovl_e: bool = False  # overlay pf_e rows
+    pfo_e_cap: int = 4
+    pf_ovl_hascav: bool = False  # overlay layout flags (independent of base)
+    pf_ovl_hasuntil: bool = False
+    pf_ovl_haswc: bool = False
+    pf_ovl_u: bool = False  # overlay pf_u (folded userset) rows
+    pfo_u_cap: int = 4
+    pfo_u_fan: int = 1
+    #: T-index disabled for the rest of this chain (sticky, like pf_off):
+    #: membership-closure deltas staled more baked T rows than the dirty
+    #: budget covers — the KU path probes the live closure instead
+    t_off: bool = False
+
+
+@dataclass(frozen=True)
+class FlatMeta:
+    """Static per-snapshot table geometry the kernel closes over.
+
+    Keys are PACKED into ≤2 int32 columns (``N``/``S1`` radices) — every
+    probe step then costs 3 gathers (rows + 2 keys) instead of 5, and
+    range probes cost 2.  Graphs too large to pack (num_nodes·num_slots ≥
+    2³¹) skip the flat engine and use the legacy two-phase kernel.
+
+    Every count is a pow2 BUCKET (padded array length), not an exact row
+    count, and the node radix rounds to pow2 — so Watch-driven deltas keep
+    the same FlatMeta (and the same compiled kernel) until a table crosses
+    a pow2 boundary, instead of recompiling on every revision."""
+
+    N: int  # node-id packing radix: pow2 ≥ num_nodes
+    S1: int  # num_slots + 1 (srel1 radix)
+    e_cap: int
+    e_n: int  # padded primary-row bucket
+    usr_cap: int  # userset (rel, res) range-group table
+    usr_gn: int
+    us_rows: int
+    arr_cap: int  # arrow (rel, res) range-group table
+    arr_gn: int
+    ar_rows: int
+    cl_cap: int  # flattened closure pair table
+    cl_n: int
+    has_closure: bool
+    pus_cap: int
+    pus_n: int
+    ovf_cap: int  # closure-overflow source table
+    ovf_n: int
+    has_ovf: bool
+    #: ((rel_slot, max_fanout_pow2), ...) actual max children per (slot,
+    #: resource) in the arrow view — folder trees have 1 parent, so the
+    #: unrolled lattice stays narrow regardless of the config cap
+    ar_fanout_by_slot: Tuple[Tuple[int, int], ...] = ()
+    #: per-view "any caveated rows" / "any expiring rows" flags: views
+    #: without them compile trivial gates (no CEL VM, no expiry gathers)
+    e_hascav: bool = False
+    e_hasexp: bool = False
+    us_hascav: bool = False
+    us_hasexp: bool = False
+    ar_hascav: bool = False
+    ar_hasexp: bool = False
+    #: slots with ≥1 row in the primary / userset views — leaf code for a
+    #: slot with no data compiles to nothing
+    e_slots: Tuple[int, ...] = ()
+    us_slots: Tuple[int, ...] = ()
+    #: any wildcard-subject edges at all / any wildcard closure sources —
+    #: both False in most worlds, erasing the wildcard probe sites
+    has_wc_edges: bool = False
+    has_wc_closure: bool = False
+    #: ((rel_slot, max_userset_edges_pow2), ...) actual max userset grants
+    #: per (slot, resource) — org⟶2 teams means 2 closure probes, not the
+    #: config cap of 8
+    us_fanout_by_slot: Tuple[Tuple[int, int], ...] = ()
+    #: T-index: the materialized (slot·N+res, member-key) → until-values
+    #: join of userset edges with the closure — a userset grant test is
+    #: ONE probe.  ``t_slots`` are the slots it covers (no caveated /
+    #: permission-valued userset rows); the dynamic root leaf skips the
+    #: KU path when it covers every us-bearing slot of the dispatch
+    has_tindex: bool = False
+    t_cap: int = 4
+    t_n: int = 8
+    t_slots: Tuple[int, ...] = ()
+    #: any permission-valued userset rows in THIS snapshot (drives whether
+    #: the interleaved userset view carries a ``perm`` column)
+    us_hasperm: bool = False
+    #: block-slice layout active (bucket-ordered interleaved tables probed
+    #: with one contiguous [cap, w] slice per query — see engine/hash.py)
+    blockslice: bool = False
+    #: bucket-ALIGNED tables (engine/hash.py build_aligned): per aligned
+    #: table, (tbl_key, w, caps) — ``caps`` is the width-stratum ladder:
+    #: arrays ``{tbl_key}_al`` / ``{tbl_key}_als`` / ``{tbl_key}_als2``…
+    #: replace the off+interleave pair, and a probe is one row gather
+    #: per level (each salted by its level index)
+    aligned: Tuple[Tuple[str, int, Tuple[int, ...]], ...] = ()
+    #: HBM-lean bit-packed tables (engine/packed.py): (tbl_key, spec)
+    #: per packed table — the named array holds uint16 lanes and every
+    #: probe site decodes with fused shift/mask ops right after its
+    #: gather.  Specs derive from geometry + replicated domains, so the
+    #: partitioned multihost build agrees on them before building
+    packed: Tuple[Tuple[str, Tuple], ...] = ()
+    #: packed bucket-offset arrays: (off_key, anchor_shift) — the named
+    #: array holds uint16 residuals and ``{off_key}_a`` the int32 block
+    #: anchors; off[i] == anchor[i >> shift] + residual[i]
+    packed_off: Tuple[Tuple[str, int], ...] = ()
+    #: reverse-CSR lookup index (engine/rev.py; the frontier-SpMV tables
+    #: engine/spmv.py hops over): ``rvx``/``rv_off`` (all edges keyed by
+    #: k2 — reverse reachability), ``rax``/``ra_off`` (arrow rows keyed
+    #: by child — reverse tupleset traversal), and ``fwx``/``fw_off``
+    #: (all edges keyed by k1 — forward enumeration for LookupSubjects).
+    #: Caps are pow2 max bucket occupancies — the frontier kernel's
+    #: in-bucket bisect depth, not probe unroll counts
+    has_rev: bool = False
+    has_fw: bool = False
+    rv_cap: int = 4
+    ra_cap: int = 4
+    fw_cap: int = 4
+    #: LSM delta level riding on this snapshot's base tables (None = the
+    #: snapshot was fully prepared)
+    delta: Optional[DeltaMeta] = None
+    #: tables are bucket-sharded / stacked for shard_map (the kernel must
+    #: be built with the matching ``axis``; make_flat_fn enforces this)
+    sharded: bool = False
+    #: partitioned-SERVE placement (engine/partition.py partition_feed
+    #: with serve="routed"): only the primary/fold point tables (ehx,
+    #: pfx) are split along the model axis — everything else (userset /
+    #: arrow / T / closure / pus / ovf / pfu / csr / rc stacked tables)
+    #: is membership- or group-structure-sized and placed WHOLE on every
+    #: device, mirroring the host partition (membership subgraph
+    #: replicated, edges partitioned).  The kernel then resolves those
+    #: tables' bucket owners arithmetically (no collective at the site),
+    #: so the only remaining collectives are the e/pf probes at derived
+    #: keys — and an owner-ROUTED batch, whose root probes are local by
+    #: construction, dispatches with no collectives at all
+    part_serve: bool = False
+    #: flattened recursive hierarchies (the resource-side Leopard index):
+    #: ((ts_slot, group_cap, fan), ...) — per eligible tupleset, the
+    #: ancestor-closure tables rc{ts}_off / rc{ts}gx / rc{ts}x exist and
+    #: the kernel evaluates ``perm = ∃ ancestor: rest`` in ONE level
+    rc_slots: Tuple[Tuple[int, int, int], ...] = ()
+    #: longest arrow chain in the DATA (longest path over the ar view),
+    #: or -1 when the arrow graph has a cycle / exceeded the probe cap.
+    #: Bounds recursion unrolling: beyond this many arrow hops there are
+    #: no real children, so deeper unrolls are provably dead — a schema-
+    #: recursive folder tree of depth 4 compiles 4 levels, not the full
+    #: flat_recursion budget.  Pow2-bucketed for delta stability
+    ar_data_depth: int = -1
+    #: dense slot remap (SlotMaps): raw slot → packed k1 / k2 id, -1 =
+    #: inactive (a key using it can never match).  Static kernel sites
+    #: map at trace time; the query matrix maps on the host (build_qm).
+    #: This is what moves the int32 cliff from schema-slot count to
+    #: ACTIVE-slot count
+    k1_dense: Tuple[int, ...] = ()
+    k2_dense: Tuple[int, ...] = ()
+    #: permission fold (engine/fold.py P-index): (type_name, perm_slot)
+    #: pairs whose BASE evaluation is the pf_e probe + the pf_u range
+    #: slice intersected with the closure — their programs compile to
+    #: nothing when no delta level rides the base (a delta reverts to
+    #: the walked program, which keeps add/tombstone semantics exact
+    #: without incremental fold maintenance)
+    fold_pairs: Tuple[Tuple[str, int], ...] = ()
+    pf_e_cap: int = 4
+    pf_u_cap: int = 4  # pf_u group-table probe cap
+    pf_u_fan: int = 1  # max folded groups per (slot, resource), pow2
+    #: csr closure-by-source view (the fold's subject side): probe cap of
+    #: the source-keyed group table and max closure rows per source.
+    #: The kernel slices the subject's group closure ONCE per query and
+    #: intersects it with each pf_u group list in registers — the
+    #: sorted-key-column intersection that replaces both the dense
+    #: (resource × member) T-join and per-group hash probes
+    pf_s_cap: int = 4
+    pf_s_fan: int = 1
+    #: DIRECT range lookup for the fold's pf_u/csr views (single-chip):
+    #: ``pfu_start``/``csr_start`` offset arrays indexed by the packed
+    #: key itself — two element gathers per range instead of a hash
+    #: probe (~14× cheaper on gather-poor CPUs; measured in-repo).
+    #: False = the key space outgrew the budget, hash group tables used.
+    #: The csr side has its own flag: membership-delta chains flip it to
+    #: the hash layout (rebuilding the dense offset array per revision
+    #: costs more than the write budget; a full prepare restores direct)
+    pf_direct: bool = False
+    pf_s_direct: bool = False
+    #: every pf_u row / closure row is unexpiring on both planes: the
+    #: kernel skips the until-column slices and plane masks entirely
+    pf_u_alllive: bool = False
+    pf_s_alllive: bool = False
+    pf_hascav: bool = False
+    pf_hasuntil: bool = False
+    pf_haswc: bool = False
+    pf_has_e: bool = False
+    pf_has_u: bool = False
+
+
+def _gate_cols(hascav: bool, hasexp: bool) -> list:
+    return (["cav", "ctx"] if hascav else []) + (["exp"] if hasexp else [])
+
+
+def _lay(names: list) -> Dict[str, int]:
+    return {n: i for i, n in enumerate(names)}
+
+
+def e_layout(meta: "FlatMeta") -> Dict[str, int]:
+    """Column layout of the interleaved primary-edge bucket table."""
+    return _lay(["k1", "k2"] + _gate_cols(meta.e_hascav, meta.e_hasexp))
+
+
+def us_layout(meta: "FlatMeta") -> Dict[str, int]:
+    """Column layout of the interleaved userset-view row table."""
+    return _lay(
+        ["subj", "srel"]
+        + _gate_cols(meta.us_hascav, meta.us_hasexp)
+        + (["perm"] if meta.us_hasperm else [])
+    )
+
+
+def ar_layout(meta: "FlatMeta") -> Dict[str, int]:
+    """Column layout of the interleaved arrow-view row table."""
+    return _lay(["child"] + _gate_cols(meta.ar_hascav, meta.ar_hasexp))
+
+
+def _round_cap(c: int) -> int:
+    """Hash-probe caps bucket to pow2 with a floor of 4: a few extra
+    unrolled probe steps are cheaper than recompiling the kernel every
+    time a delta nudges a table's max bucket occupancy between 1, 2, 4."""
+    for p in (4, 8, 16, 32):
+        if c <= p:
+            return p
+    return c
+
+
+def _round_fan(c: int) -> int:
+    """Arrow/userset fan-outs bucket to pow2 with NO floor: a folder tree
+    with 1 parent must keep its width-1 lattice (4^depth would blow the
+    flat_max_width budget and degrade deep grants to host fallbacks)."""
+    for p in (1, 2, 4, 8, 16, 32):
+        if c <= p:
+            return p
+    return c
+
+
+def _pack(a: np.ndarray, radix: int, b) -> np.ndarray:
+    from ..native.sort import pack32
+
+    return pack32(a, b, radix)
+
+
+def _uniq_small(parts, domain: int) -> np.ndarray:
+    """Sorted unique over int columns whose values live in [0, domain)
+    (slot ids): an occupancy scatter + flatnonzero instead of the
+    concatenate+sort np.unique pays — O(E) with no 30M-row sort.
+    Output is int64, matching np.unique of int64-cast inputs."""
+    occ = np.zeros(max(domain, 1), bool)
+    for p in parts:
+        if p.shape[0]:
+            occ[p] = True
+    return np.flatnonzero(occ)
+
+
+@dataclass(frozen=True)
+class SlotMaps:
+    """Dense remap of the ACTIVE slots — the packing radices cover only
+    slots that actually appear in keys, not the schema's full slot count.
+    A 100M-node world with 15 active slots packs fine even when the
+    schema declares hundreds (the int32 cliff moves from
+    pow2(nodes)·(schema slots+1) to pow2(nodes)·(active slots+1)).
+
+    ``k1[slot]`` → dense row-key id (slots with stored/folded rows;
+    queried permissions map through the same table, -1 = can never
+    match).  ``k2[slot]`` → dense subject-relation id (slots appearing
+    in any subject-relation position); ``S1`` = len(active k2) + 1, the
+    k2 radix (0 stays "direct subject")."""
+
+    k1: np.ndarray  # int32[num_slots] → dense id or -1
+    k2: np.ndarray  # int32[num_slots] → dense id or -1
+    k1_raw: np.ndarray  # int32[n_k1] dense → raw slot (inverse)
+    k2_raw: np.ndarray  # int32[S1-1] dense → raw slot (inverse)
+    n_k1: int
+    S1: int
+
+
+def _active_maps(snap, cl, extra_k1) -> SlotMaps:
+    """The dense slot maps of one snapshot (+closure, + fold slots).
+    Slot values live in [0, num_slots): uniques come from an occupancy
+    scatter (_uniq_small) — no concatenated 30M-row sort."""
+    ns = max(snap.num_slots, 1)
+    k1_raw = _uniq_small([
+        snap.e_rel, snap.us_rel, snap.ar_rel,
+        np.asarray(sorted(extra_k1), np.int64),
+    ], ns)
+    # us_srel covers every stored subject-relation by construction (the
+    # userset view IS the primary rows with srel1 > 0), so the k2 actives
+    # need no O(E) pass over e_srel1
+    k2_raw = _uniq_small([
+        snap.us_srel,
+        cl.c_srel1[cl.c_srel1 > 0] - 1,
+        cl.c_grel,
+        snap.pus_r,
+        cl.ovf_srel1[cl.ovf_srel1 > 0] - 1,
+    ], ns)
+    k1 = np.full(ns, -1, np.int32)
+    k1[k1_raw] = np.arange(k1_raw.shape[0], dtype=np.int32)
+    k2 = np.full(ns, -1, np.int32)
+    k2[k2_raw] = np.arange(k2_raw.shape[0], dtype=np.int32)
+    return SlotMaps(
+        k1=k1, k2=k2,
+        k1_raw=k1_raw.astype(np.int32), k2_raw=k2_raw.astype(np.int32),
+        n_k1=int(k1_raw.shape[0]),
+        S1=int(k2_raw.shape[0]) + 1,
+    )
+
+
+def _m_srel1(maps: SlotMaps, srel1: np.ndarray) -> np.ndarray:
+    """Raw srel1 column (0 = direct, else slot+1) → dense srel1.  One
+    fused native pass when available (numpy chain fallback, identical
+    values)."""
+    from ..native import lib as _native_lib
+
+    L = _native_lib()
+    n = int(srel1.shape[0])
+    if L is not None and n >= (1 << 16):
+        import ctypes
+
+        s = np.ascontiguousarray(srel1, np.int32)
+        k2 = np.ascontiguousarray(maps.k2, np.int32)
+        out = np.empty(n, np.int32)
+        p32 = lambda a: a.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
+        L.gi_msrel1(
+            p32(s), p32(k2), ctypes.c_int64(k2.shape[0]),
+            ctypes.c_int64(n), p32(out),
+        )
+        return out
+    return np.where(
+        srel1 == 0, 0, maps.k2[np.clip(srel1 - 1, 0, None)] + 1
+    ).astype(np.int32)
+
+
+def _node_radix(snap, maps: SlotMaps) -> Optional[int]:
+    """The node packing radix N with delta headroom, or None when the
+    DENSE keys still don't fit int32 (such graphs use the legacy
+    engine)."""
+    N = _ceil_pow2(max(snap.num_nodes, 1), 8)
+    width = max(maps.n_k1, maps.S1, 1)
+    if N * width >= 2**31:
+        return None
+    # headroom for Watch-driven deltas: new nodes (fresh users/resources)
+    # must stay under the packing radix or every delta-prepare bails to a
+    # full rebuild — double N whenever the key space still fits int32
+    if N < 2 * snap.num_nodes and 2 * N * width < 2**31:
+        N *= 2
+    return N
+
+
+def _view_flags_of(snap) -> Dict[str, bool]:
+    return dict(
+        e_hascav=bool(snap.e_caveat.any()),
+        e_hasexp=bool(snap.e_exp.any()),
+        us_hascav=bool(snap.us_caveat.any()),
+        us_hasexp=bool(snap.us_exp.any()),
+        us_hasperm=bool(snap.us_perm.any()),
+        ar_hascav=bool(snap.ar_caveat.any()),
+        ar_hasexp=bool(snap.ar_exp.any()),
+    )
+
+
+def rc_candidates(compiled: CompiledSchema, plan: DevicePlan):
+    """Self-recursive arrow hierarchies eligible for ancestor flattening
+    (the resource-side Leopard index): programs of shape
+    ``perm = union(rest..., ts->perm)`` on a type whose ``ts`` edges stay
+    WITHIN the type (pure hierarchy, e.g. folder.parent).  Returns
+    {(type_name, perm_slot): (ts_slot, rest_ir)} where ``rest_ir`` is the
+    union of the non-recursive children — the flattened evaluation is
+    ``perm(n) = ∃ a ∈ ancestors_ts*(n): rest(a)`` with the path's
+    admissibility folded through the closure semiring."""
+    out = {}
+    for (tname, tid, slot, expr) in plan.topo_programs:
+        if expr[0] != "union":
+            continue
+        ct = compiled.types[compiled.type_ids[tname]]
+        rest = []
+        ts_slots = set()
+        ok = True
+        for child in expr[1]:
+            if child[0] == "arrow" and plan.ts_slots[child[1]] >= 0:
+                ts_slot = plan.ts_slots[child[1]]
+                if child[2] == slot:
+                    # the recursive child: its tupleset must only reach
+                    # this same type (direct subjects; arrows traverse
+                    # ellipsis subjects only)
+                    relation = ct.relations.get(ts_slot)
+                    if relation is None or any(
+                        a.type_id != tid or a.relation_slot >= 0
+                        or a.wildcard
+                        for a in relation.allowed
+                    ):
+                        ok = False
+                        break
+                    ts_slots.add(ts_slot)
+                    continue
+            # non-recursive children must not re-reach this slot at all
+            if _ir_refs_slot(child, slot):
+                ok = False
+                break
+            rest.append(child)
+        if ok and len(ts_slots) == 1 and rest:
+            out[(tname, slot)] = (next(iter(ts_slots)), ("union", tuple(rest)))
+    return out
+
+
+def cfg_budget(config: EngineConfig) -> int:
+    """Arrow hops the unrolled recursion can cover exactly."""
+    return config.flat_recursion
+
+
+def _ir_refs_slot(ir: ExprIR, slot: int) -> bool:
+    tag = ir[0]
+    if tag == "ref":
+        return ir[1] == slot
+    if tag == "arrow":
+        return ir[2] == slot
+    if tag in ("union", "inter"):
+        return any(_ir_refs_slot(c, slot) for c in ir[1])
+    if tag == "excl":
+        return _ir_refs_slot(ir[1], slot) or _ir_refs_slot(ir[2], slot)
+    return False
+
+
+def _arrow_closure(snap, ts_slot: int, *, per_node_cap: int = 64,
+                   max_hops: int = 64):
+    """Reflexive-transitive ancestor closure over ONE tupleset's arrow
+    edges, with the membership closure's two-plane max-min expiry
+    semiring folded along paths.  Returns (src, anc, d_until, p_until)
+    sorted by src — or None when the slot's hierarchy has a data cycle,
+    doesn't converge, or some node's ancestor set exceeds the cap
+    (the recursive kernel path still answers those worlds)."""
+    from ..store.closure import NEVER, NO_EXP
+
+    m = snap.ar_rel == ts_slot
+    src = snap.ar_res[m].astype(np.int64)
+    dst = snap.ar_child[m].astype(np.int64)
+    keep = dst >= 0
+    src, dst = src[keep], dst[keep]
+    cav = snap.ar_caveat[m][keep]
+    exp = snap.ar_exp[m][keep]
+    w = np.where(exp == 0, np.int64(NO_EXP), exp.astype(np.int64)).astype(np.int32)
+    e_d = np.where(cav == 0, w, NEVER)
+    e_p = w
+    order = np.argsort(src, kind="stable")
+    e_src, e_dst = src[order], dst[order]
+    e_d, e_p = e_d[order], e_p[order]
+
+    from ..store.closure import _expand_join
+
+    from ..native.sort import lexsort2
+
+    def dedup(s, a, d, p):
+        # native parallel lexsort, same reason as store/closure.py
+        # group_max: numpy lexsort is tens of seconds at big pair counts
+        o = lexsort2(s.astype(np.int32), a.astype(np.int32))
+        s, a, d, p = s[o], a[o], d[o], p[o]
+        first = np.ones(s.shape[0], bool)
+        first[1:] = (s[1:] != s[:-1]) | (a[1:] != a[:-1])
+        st = np.nonzero(first)[0]
+        return (
+            s[first], a[first],
+            np.maximum.reduceat(d, st), np.maximum.reduceat(p, st),
+        )
+
+    c_s, c_a, c_d, c_p = dedup(e_src, e_dst, e_d, e_p)
+    n_s, n_a, n_d, n_p = c_s, c_a, c_d, c_p
+    for _ in range(max_hops):
+        if n_s.size == 0:
+            break
+        reps, ii = _expand_join(e_src, n_a)
+        if reps.size == 0:
+            break
+        j_s = n_s[reps]
+        j_a = e_dst[ii]
+        j_d = np.minimum(n_d[reps], e_d[ii])
+        j_p = np.minimum(n_p[reps], e_p[ii])
+        if (j_s == j_a).any():
+            return None  # data cycle: keep the recursive path
+        m_s = np.concatenate([c_s, j_s])
+        m_a = np.concatenate([c_a, j_a])
+        m_d = np.concatenate([c_d, j_d])
+        m_p = np.concatenate([c_p, j_p])
+        new_s, new_a, new_d, new_p = dedup(m_s, m_a, m_d, m_p)
+        if new_s.shape[0] == c_s.shape[0] and (new_d == c_d).all() and (
+            new_p == c_p
+        ).all():
+            break
+        # the next frontier: improved/new pairs only (semi-naive)
+        pk_old = c_s * np.int64(2**31) + c_a
+        pk_new = new_s.astype(np.int64) * np.int64(2**31) + new_a
+        pos = np.searchsorted(pk_old, pk_new)
+        posc = np.clip(pos, 0, max(pk_old.shape[0] - 1, 0))
+        found = (pk_old.shape[0] > 0) & (pk_old[posc] == pk_new)
+        old_d = np.where(found, c_d[posc], NEVER)
+        old_p = np.where(found, c_p[posc], NEVER)
+        imp = (new_d > old_d) | (new_p > old_p)
+        n_s, n_a = new_s[imp], new_a[imp]
+        n_d, n_p = new_d[imp], new_p[imp]
+        c_s, c_a, c_d, c_p = new_s, new_a, new_d, new_p
+    else:
+        return None  # hop budget exhausted
+
+    # STRICT ancestors only: the kernel always evaluates `rest` at the
+    # node itself through a dedicated reflexive lane, so a range miss
+    # simply means "self only"
+    if c_s.size:
+        counts = np.bincount(c_s.astype(np.int64))
+        if counts.max() > per_node_cap:
+            return None
+    return c_s.astype(np.int32), c_a.astype(np.int32), c_d, c_p
+
+
+def _arrow_data_depth(snap, cap: int = 64, ts_slot: Optional[int] = None) -> int:
+    """Longest path, in arrow hops, over the DATA's res→child arrow edges
+    (all tupleset relations together, or just ``ts_slot``'s); -1 on a
+    data cycle or past ``cap``.  Bellman-style relaxation over the
+    res-grouped view: converges in (true depth) rounds on a DAG — folder
+    trees are ~log-depth, so this is a handful of O(AR) numpy passes at
+    prepare time.  The result is bucketed to the next EVEN depth
+    (rounding UP keeps every use sound): FlatMeta is the kernel-cache
+    key, so a tree deepening 4→5 must not recompile on every prepare —
+    and pow2 granularity would round the common depth 5 up to 8, keeping
+    60% of the dead unroll the recursion cut exists to remove."""
+    if ts_slot is not None:
+        m = snap.ar_rel == ts_slot
+        res = snap.ar_res[m].astype(np.int64)
+        child = np.ascontiguousarray(snap.ar_child[m], np.int64)
+    else:
+        res = snap.ar_res.astype(np.int64)
+        child = np.ascontiguousarray(snap.ar_child, np.int64)
+    AR = int(res.shape[0])
+    if AR == 0:
+        return 0
+    order = np.argsort(res, kind="stable")
+    res_s, child_s = res[order], child[order]
+    first = np.ones(AR, bool)
+    first[1:] = res_s[1:] != res_s[:-1]
+    starts = np.nonzero(first)[0]
+    uniq_res = res_s[starts]
+    childc = np.clip(child_s, 0, max(snap.num_nodes - 1, 0))
+    cvalid = child_s >= 0
+    depth = np.zeros(snap.num_nodes, np.int32)
+    for _ in range(cap):
+        vals = np.where(cvalid, depth[childc] + 1, 0)
+        upd = np.maximum.reduceat(vals, starts)
+        if (upd <= depth[uniq_res]).all():
+            d = int(depth.max())
+            return d + (d & 1)
+        depth[uniq_res] = np.maximum(depth[uniq_res], upd)
+    return -1
+
+
+def _run_maxes(gk: np.ndarray, glo: np.ndarray, ghi: np.ndarray, N: int,
+               inv: np.ndarray):
+    """Per-RAW-slot max run length of a packed (dense_slot·N + res) range
+    index (pow2-bucketed so retraces are rare).  ``inv`` maps the packed
+    DENSE slot ids back to raw slots (SlotMaps.k1_raw) — the kernel's
+    static gating is raw-slot keyed."""
+    fans: Dict[int, int] = {}
+    if gk.shape[0]:
+        slots_of = gk.astype(np.int64) // N
+        lens = (ghi - glo).astype(np.int64)
+        first = np.ones(gk.shape[0], bool)
+        first[1:] = slots_of[1:] != slots_of[:-1]
+        starts = np.nonzero(first)[0]
+        for s, m in zip(slots_of[starts], np.maximum.reduceat(lens, starts)):
+            fans[int(inv[int(s)])] = _round_fan(int(m))
+    return tuple(sorted(fans.items()))
+
+
+def _tindex_join(
+    snap, config: EngineConfig, cl, us_gk, cl_k1, cl_k2, pus_k,
+    maps: SlotMaps,
+):
+    """The T-index join (userset edges ⋈ closure-by-target) shared by both
+    layout builders: returns (T_k1, T_k2, T_d, T_p, t_slots) or
+    None when disabled/ineligible/oversized.  For slots whose userset rows
+    carry no caveats and no permission-valued subjects, {edge expiry ×
+    closure semiring} folds into ONE (slot·N+res, member-key) →
+    until-values table."""
+    from ..store.closure import NO_EXP
+
+    if not (config.flat_tindex and snap.us_rel.shape[0]):
+        return None
+    ok = (snap.us_caveat == 0) & (snap.us_perm == 0)
+    pe_all = _pack(snap.us_subj, maps.S1, maps.k2[snap.us_srel] + 1)
+    if snap.pus_n.shape[0]:
+        pus_sorted = np.sort(pus_k)
+        pos = np.clip(
+            np.searchsorted(pus_sorted, pe_all), 0, pus_sorted.shape[0] - 1
+        )
+        ok &= ~(pus_sorted[pos] == pe_all)
+    bad_slots = np.unique(snap.us_rel[~ok])
+    elig = ~np.isin(snap.us_rel, bad_slots)
+    if not elig.any():
+        return None
+    pe = pe_all[elig]
+    ek1 = us_gk[elig]
+    w = np.where(
+        snap.us_exp[elig] == 0, np.int64(NO_EXP),
+        snap.us_exp[elig].astype(np.int64),
+    ).astype(np.int32)
+    cap_rows = config.flat_tindex_factor * max(int(snap.us_rel.shape[0]), 1024)
+    # the reference's host SpMM instance of this join is bitwise equal
+    # to t_join_core (its own parity test); the port keeps the one join
+    from .fold import t_join_core
+
+    got = t_join_core(
+        ek1, pe, w, cl_k1, cl_k2, cl.c_d_until, cl.c_p_until, cap_rows
+    )
+    if got is None:
+        return None
+    return (
+        *got,
+        tuple(int(s) for s in _uniq_small([snap.us_rel[elig]], snap.num_slots)),
+    )
+
+
+def _rc_build(
+    snap, config: EngineConfig, plan: Optional[DevicePlan], ar_depth: int
+):
+    """Ancestor closures for every flattenable recursive hierarchy:
+    {ts_slot: (src, anc, d_until, p_until, fan)} (engine-level R-index).
+
+    Built only when the DATA is deeper than the recursion budget: within
+    the budget, the unrolled recursion is exact and CHEAPER (narrow
+    lattices, no closure fetch); beyond it, the flattened form is the
+    only device-exact path — either way no host fallback."""
+    if plan is None or not config.flat_rc_index:
+        return {}
+    if 0 <= ar_depth <= cfg_budget(config):
+        return {}  # every hierarchy fits the unroll: nothing to flatten
+    cands = rc_candidates(snap.compiled, plan)
+    out = {}
+    for (_tname, _slot), (ts_slot, _rest) in cands.items():
+        if ts_slot in out:
+            continue
+        # per-tupleset depth: one deep hierarchy must not force closure
+        # builds for shallow ones the recursion already answers exactly
+        slot_depth = _arrow_data_depth(snap, ts_slot=ts_slot)
+        if 0 <= slot_depth <= cfg_budget(config):
+            continue
+        built = _arrow_closure(snap, ts_slot)
+        if built is None:
+            continue
+        src, anc, d_until, p_until = built
+        counts = np.bincount(src.astype(np.int64)) if src.size else np.zeros(1)
+        out[ts_slot] = (src, anc, d_until, p_until, _round_fan(int(counts.max())))
+    return out
+
+
+def _fold_packed(fr, snap, maps: SlotMaps, N: int, config: EngineConfig):
+    """Dense-packed fold arrays shared by both layout builders:
+    (pf_k1, pf_k2, pf_subj, (u_k1, u_gk, u_until, u_fan), flags) or None
+    when some resource's folded group fan exceeds the cap (the fold then
+    declines; the walked path answers).  Fold rows carry RAW int64
+    (subj·(num_slots+1)+srel1) identity keys — decomposed here and
+    repacked with the dense radices.  The u side is the reachability-
+    pruned (resource, group) table of fold_userset_rows: the member
+    closure is intersected at probe time, never joined in."""
+    from ..store.closure import NO_EXP
+    from .fold import fold_userset_rows
+
+    u_k1, u_gk, u_until = fold_userset_rows(fr, N, maps)
+    u_fan = 0
+    if u_k1.shape[0]:
+        _, counts = np.unique(u_k1, return_counts=True)
+        u_fan = int(counts.max())
+        if u_fan > config.flat_fold_u_fan_cap:
+            return None
+    S1_raw = snap.num_slots + 1
+    pf_subj = (fr.e_k2 // S1_raw).astype(np.int32)
+    pf_srel1 = (fr.e_k2 % S1_raw).astype(np.int32)
+    pf_k1 = _pack(maps.k1[fr.e_slot], N, fr.e_res)
+    pf_k2 = _pack(pf_subj, maps.S1, _m_srel1(maps, pf_srel1))
+    flags = dict(
+        pf_hascav=bool((fr.e_cav != 0).any()),
+        pf_hasuntil=bool((fr.e_until != NO_EXP).any()),
+    )
+    return pf_k1, pf_k2, pf_subj, (u_k1, u_gk, u_until, _round_fan(u_fan)), flags
+
+
+def _pf_starts(keys: np.ndarray, size: int) -> np.ndarray:
+    """Offset array of a key-sorted row set over a dense key domain:
+    ``start[k] .. start[k+1]`` is key ``k``'s row range."""
+    counts = np.bincount(keys, minlength=size)
+    st = np.zeros(size + 1, np.int64)
+    np.cumsum(counts, out=st[1:])
+    return st.astype(np.int32)
+
+
+def _pf_col(a: np.ndarray, pad: int, fill) -> np.ndarray:
+    """One split pf-view row column: [pow2(rows+pad), 1] int32."""
+    n = _ceil_pow2(max(a.shape[0] + pad, 1))
+    padded = np.full((n, 1), fill, np.int32)
+    padded[: a.shape[0], 0] = a
+    return padded
+
+
+def _max_run_sorted(keys: np.ndarray) -> int:
+    """Longest equal-key run of a SORTED key column, O(n) with no sort
+    (np.unique would re-sort; this sits on the membership-write path)."""
+    if keys.shape[0] == 0:
+        return 0
+    bounds = np.flatnonzero(np.diff(keys)) + 1
+    return int(np.diff(
+        np.concatenate([[0], bounds, [keys.shape[0]]])
+    ).max())
+
+
+def _pf_view_tables(
+    u_k1, u_gk, u_until, u_fan,
+    cl_k1, cl_k2, cl_d, cl_p, s_fan,
+    *, maps: SlotMaps, N: int, S1: int, fold_slots, config: EngineConfig,
+    hk: Optional[Dict] = None,
+):
+    """Single-chip pf_u / csr view tables: SPLIT 1-wide row columns
+    (narrow contiguous slices vectorize ~15× better than wide ones on
+    gather-poor CPUs; measured in-repo) with the row range resolved
+    DIRECTLY — ``pfu_start``/``csr_start`` offset arrays indexed by the
+    packed key itself, two element gathers per range — or through legacy
+    hash group tables when the key space is over budget.  Until columns
+    are omitted entirely when every row is unexpiring (the common case;
+    the kernel then skips the plane masks).  Returns (arrays, meta kw)."""
+    from ..store.closure import NO_EXP
+
+    out: Dict[str, np.ndarray] = {}
+    pad_u, pad_s = max(64, u_fan), max(64, s_fan)
+    out["pfu_gk"] = _pf_col(u_gk, pad_u, -1)
+    u_alllive = bool((u_until == NO_EXP).all()) if u_until.shape[0] else True
+    if not u_alllive:
+        out["pfu_u"] = _pf_col(u_until, pad_u, 0)
+    out["csr_gk"] = _pf_col(cl_k2, pad_s, -1)
+    s_alllive = (
+        bool((cl_d == NO_EXP).all() and (cl_p == NO_EXP).all())
+        if cl_k1.shape[0] else True
+    )
+    if not s_alllive:
+        out["csr_d"] = _pf_col(cl_d, pad_s, 0)
+        out["csr_p"] = _pf_col(cl_p, pad_s, 0)
+    n_f = max(len(fold_slots), 1)
+    budget = config.flat_pf_direct_max_entries
+    u_direct = n_f * N + 1 <= budget
+    s_direct = N * S1 + 1 <= budget
+    kw = dict(
+        pf_direct=u_direct, pf_s_direct=s_direct,
+        pf_u_alllive=u_alllive, pf_s_alllive=s_alllive,
+    )
+    hk = hk or {}
+    if u_direct:
+        # remap fold slots to a compact id so pfu_start spans only
+        # fold-slots·N entries (the full active-k1 domain would be ~3×)
+        fidx = np.full(max(maps.n_k1, 1), -1, np.int64)
+        for i, s in enumerate(fold_slots):
+            fidx[maps.k1[s]] = i
+        u64 = u_k1.astype(np.int64)
+        out["pfu_start"] = _pf_starts(fidx[u64 // N] * N + u64 % N, n_f * N)
+    else:
+        pfu = build_range_hash(u_k1, **hk)
+        out["pfu_off"] = pfu.index.off
+        out["pfugx"] = interleave_buckets(
+            pfu.index, [pfu.gk, pfu.glo, pfu.ghi]
+        )
+        kw.update(pf_u_cap=_round_cap(pfu.index.cap))
+    if s_direct:
+        out["csr_start"] = _pf_starts(cl_k1.astype(np.int64), N * S1)
+    else:
+        csr = build_range_hash(cl_k1, **hk)
+        out["csr_off"] = csr.index.off
+        out["csrgx"] = interleave_buckets(
+            csr.index, [csr.gk, csr.glo, csr.ghi]
+        )
+        kw.update(pf_s_cap=_round_cap(csr.index.cap))
+    return out, kw
+
+
+# ---------------------------------------------------------------------------
+# HBM-lean packing (engine/packed.py): spec derivation + post-pass
+# ---------------------------------------------------------------------------
+
+
+def _until_dom(*arrays) -> Optional[Tuple[int, ...]]:
+    """Dictionary domain of until-value columns: the closure semiring
+    only ever emits {NEVER, NO_EXP, real timestamps}; almost every world
+    has no expiring membership edges, so the whole column fits a 2-bit
+    dictionary over {NEVER, -1 (pad), 0, NO_EXP}.  Returns None when
+    real timestamps appear (the column stays a 32-bit field)."""
+    from ..store.closure import NEVER, NO_EXP
+
+    cand = np.asarray(
+        sorted({int(NEVER), -1, 0, int(NO_EXP)}), np.int64
+    )
+    for a in arrays:
+        if a is None or a.shape[0] == 0:
+            continue
+        v = a.astype(np.int64, copy=False)
+        if not bool(np.isin(v, cand).all()):
+            return None
+    return tuple(int(c) for c in cand)
+
+
+def _pack_domains(snap, config: EngineConfig) -> Dict:
+    """Replicated per-world pack domains every build path derives
+    identically (raw snapshot columns are process-replicated even under
+    the multihost partitioned feed — only built TABLES are sharded):
+    gate-column value bounds.  Until dictionaries and fan bounds join
+    per builder at the sites that compute those arrays globally."""
+    mx = lambda *cols: max(
+        [int(c.max()) for c in cols if c is not None and c.shape[0]] or [0]
+    )
+    return {
+        "max_cav": mx(snap.e_caveat, snap.us_caveat, snap.ar_caveat),
+        "max_ctx": mx(snap.e_ctx, snap.us_ctx, snap.ar_ctx),
+        "until": {},
+        "fan": {},
+    }
+
+
+#: group tables and the row views their (glo, ghi) ranges index into —
+#: candidates per table because the single-chip fold keeps split 1-wide
+#: row columns instead of an interleaved view
+_PACK_GROUPS = {
+    "usgx": ("usx",),
+    "argx": ("arx",),
+    "pfugx": ("pfux", "pfu_gk"),
+    "csrgx": ("csrx", "csr_gk"),
+}
+
+
+def _pack_descs(name: str, meta: FlatMeta, dom: Dict, out: Dict):
+    """Column descriptors of one packable table, derived from geometry
+    (radices, layout flags, shapes) + the replicated domains — never
+    from scanning the built table, so partitioned shard builds agree."""
+    from . import packed as pk
+
+    N, S1 = meta.N, meta.S1
+    n_k1 = max(int(x) for x in meta.k1_dense) + 1 if meta.k1_dense else 1
+    K1 = pk.col_range(-1, max(n_k1, 1) * N - 1)  # (slot, res) point keys
+    K2 = pk.col_range(-1, N * S1 - 1)  # (subj, srel1) / closure keys
+    NODE = pk.col_range(-1, N - 1)
+    I32 = pk.col_range(-(2 ** 31), 2 ** 31 - 1)
+
+    def until(key: str):
+        d = dom["until"].get(key)
+        return pk.col_dict(d) if d is not None else I32
+
+    def gates(prefix_cav: bool, prefix_exp: bool):
+        g = []
+        if prefix_cav:
+            g += [pk.col_range(-1, dom["max_cav"]),
+                  pk.col_range(-1, dom["max_ctx"])]
+        if prefix_exp:
+            # rel32 expiry stamps are signed (already-expired edges sit
+            # below the epoch): full int32 — no byte win on this field,
+            # but every OTHER field in the row still packs, and the
+            # domain stays provably sound for owned-subset shard builds
+            # (a spec must never commit on one process and fail on
+            # another — the agreement-before-build contract)
+            g += [I32]
+        return g
+
+    if name == "ehx":
+        return [K1, K2] + gates(meta.e_hascav, meta.e_hasexp)
+    if name == "tx":
+        return [K1, K2, until("tx"), until("tx")]
+    if name == "clx":
+        return [K2, K2, until("clx"), until("clx")]
+    if name == "pfx":
+        return (
+            [K1, K2]
+            + gates(meta.pf_hascav, False)
+            + ([until("pfx")] if meta.pf_hasuntil else [])
+        )
+    if name in _PACK_GROUPS:
+        rows_len = max(
+            [int(out[r].shape[0]) for r in _PACK_GROUPS[name] if r in out]
+            or [1]
+        )
+        gk = {"usgx": K1, "argx": K1, "pfugx": K1, "csrgx": K2}[name]
+        fan = int(dom["fan"].get(name, 0))
+        return [gk, pk.col_range(-1, rows_len - 1), pk.col_delta(0, fan, 1)]
+    if name.startswith("rc") and name.endswith("gx"):
+        rows_len = int(out[name[:-2] + "x"].shape[0])
+        fan = int(dom["fan"].get(name, 0))
+        return [NODE, pk.col_range(-1, rows_len - 1), pk.col_delta(0, fan, 1)]
+    if name == "usx":
+        return (
+            [NODE, pk.col_range(-1, S1 - 2)]
+            + gates(meta.us_hascav, meta.us_hasexp)
+            + ([pk.col_range(-1, 1)] if meta.us_hasperm else [])
+        )
+    if name == "arx":
+        return [NODE] + gates(meta.ar_hascav, meta.ar_hasexp)
+    if name == "pfux":
+        return [K2, until("pfux")]
+    if name == "csrx":
+        return [K2, until("clx"), until("clx")]
+    if name.startswith("rc") and name.endswith("x"):
+        return [NODE, until(name), until(name)]
+    return None
+
+
+#: point-table offset arrays eligible for the anchor+residual encoding
+#: (single-chip layouts; stacked offs stay int32 — a shard cannot
+#: verify other shards' residual bounds before building).  The fold's
+#: DIRECT offset arrays (pfu_start/csr_start — dense-key-indexed, not
+#: bucket-indexed) pack under the same scheme: they are monotone row
+#: offsets like every other entry here, and the kernel's off_read
+#: decodes them identically (ROADMAP "pack the fold's direct offset
+#: arrays" follow-on)
+_PACK_OFF_KEYS = (
+    "eh_off", "th_off", "pfh_off", "clh_off", "usr_off", "arr_off",
+    "pfu_off", "csr_off", "push_off", "ovfh_off",
+    "pfu_start", "csr_start",
+)
+
+
+def _pack_flat(
+    out: Dict[str, np.ndarray], meta: FlatMeta, config: EngineConfig,
+    dom: Dict, *, pack_off: bool,
+) -> Dict:
+    """The HBM-lean post-pass: bit-pack every eligible table in ``out``
+    in place (chunked — no full-width intermediate copy) and return the
+    FlatMeta field overrides ({} when packing is off or nothing won)."""
+    if not config.packed_on():
+        return {}
+    from . import packed as pk
+
+    names = (
+        ["ehx", "clx", "pfx", "tx", "usx", "arx", "pfux", "csrx",
+         "usgx", "argx", "pfugx", "csrgx"]
+        + [k for k in out if k.startswith("rc") and k.endswith(("x", "gx"))
+           and not k.endswith("_off")]
+    )
+    specs: List[Tuple[str, Tuple]] = []
+    for name in names:
+        a = out.get(name)
+        if a is None:
+            continue
+        descs = _pack_descs(name, meta, dom, out)
+        if descs is None:
+            continue
+        spec = pk.make_spec(descs)
+        if spec is None:
+            continue
+        if len(a.shape) != 2 or a.shape[1] != spec[0]:
+            continue
+        try:
+            out[name] = pk.pack_rows(a, spec)
+        except pk.PackError:
+            continue
+        specs.append((name, spec))
+    off_specs: List[Tuple[str, int]] = []
+    if pack_off:
+        off_keys = list(_PACK_OFF_KEYS) + [
+            k for k in out if k.startswith("rc") and k.endswith("_off")
+        ]
+        for ok_ in off_keys:
+            a = out.get(ok_)
+            if a is None or a.dtype != np.int32:
+                continue
+            got = pk.pack_off(a)
+            if got is None:
+                continue
+            res, anchor = got
+            if res.nbytes + anchor.nbytes >= a.nbytes:
+                continue
+            out[ok_] = res
+            out[ok_ + "_a"] = anchor
+            off_specs.append((ok_, pk.OFF_ANCHOR_SHIFT))
+    up: Dict = {}
+    if specs:
+        up["packed"] = tuple(sorted(specs))
+    if off_specs:
+        up["packed_off"] = tuple(sorted(off_specs))
+    return up
+
+
+def build_flat_arrays(
+    snap, config: EngineConfig, plan: Optional[DevicePlan] = None
+) -> Optional[Tuple[Dict[str, np.ndarray], FlatMeta, Optional[object]]]:
+    """Hash-index the snapshot + flatten its membership closure.  Returns
+    padded host arrays (merged into DeviceSnapshot.arrays), the static
+    FlatMeta and the fold maintenance state — or None when even the DENSE keys don't pack into int32
+    (pow2(num_nodes) · max(active k1 slots, active srels+1) ≥ 2³¹; such
+    graphs use the legacy engine).
+
+    Every stage publishes a ``prepare.*`` sample-ring timer
+    (utils/metrics.py) so the cold-start wall clock decomposes in the
+    bench output: closure flatten, permission fold, dense key packing,
+    hash/interleave table builds, T-index join.  ``prepare.build`` is the
+    staged pipeline's fault-injection site (utils/faults.py): a transient
+    failure here surfaces as a classified retriable error to the client
+    envelope, like the round-7 dispatch sites."""
+    from ..store.closure import NEVER, build_closure
+    from ..utils import faults, metrics
+
+    faults.fire("prepare.build")
+    _mt = metrics.default
+
+    # cheap pre-bail for clearly-over-bound worlds, BEFORE the closure
+    # and fold are paid for: distinct stored slots lower-bound the dense
+    # width (the closure/fold can only add to it).  The O(E) uniques run
+    # only when the RAW worst case is over-bound — worlds that fit even
+    # without the dense remap skip straight through
+    Npre = _ceil_pow2(max(snap.num_nodes, 1), 8)
+    if Npre * (snap.num_slots + 1) >= 2**31:
+        width_lb = max(
+            np.unique(np.concatenate(
+                [snap.e_rel, snap.us_rel, snap.ar_rel]
+            )).shape[0] if snap.e_rel.shape[0] else 1,
+            (np.unique(snap.us_srel).shape[0] + 1)
+            if snap.us_srel.shape[0] else 1,
+            1,
+        )
+        if Npre * width_lb >= 2**31:
+            return None
+
+    with _mt.timer("prepare.closure_s"):
+        cl = build_closure(snap, per_source_cap=config.closure_source_cap)
+
+    # the permission fold runs BEFORE key packing: folded permission
+    # slots join the k1 radix (engine/fold.py packs its internal keys in
+    # int64 with raw radices, so it is cliff-immune itself)
+    BS = config.flat_blockslice
+    fr = fstate = None
+    if BS and plan is not None:
+        from .fold import fold_permissions
+
+        with _mt.timer("prepare.fold_s"):
+            got_fold = fold_permissions(snap, config, plan, cl)
+        if got_fold is not None:
+            fr, fstate = got_fold
+
+    with _mt.timer("prepare.pack_s"):
+        maps = _active_maps(
+            snap, cl, {slot for _, slot in fr.pairs} if fr is not None else ()
+        )
+        N = _node_radix(snap, maps)
+        if N is None:
+            return None
+        S1 = maps.S1
+
+        e_k1 = _pack(maps.k1[snap.e_rel], N, snap.e_res)
+        e_k2 = _pack(snap.e_subj, S1, _m_srel1(maps, snap.e_srel1))
+        us_gk = _pack(maps.k1[snap.us_rel], N, snap.us_res)
+        ar_gk = _pack(maps.k1[snap.ar_rel], N, snap.ar_res)
+        cl_k1 = _pack(cl.c_src, S1, _m_srel1(maps, cl.c_srel1))
+        cl_k2 = _pack(cl.c_g, S1, maps.k2[cl.c_grel] + 1)
+        pus_k = _pack(snap.pus_n, S1, maps.k2[snap.pus_r] + 1)
+        ovf_k = _pack(cl.ovf_src, S1, _m_srel1(maps, cl.ovf_srel1))
+
+    _t_hash = time.perf_counter()
+    # HBM-lean mode: bucket growth bounded (a deeper probe cap costs a
+    # few fused compares; 8x offsets cost hundreds of MB), and the pack
+    # domains collected alongside the global joins below
+    PKD = config.packed_on()
+    hk = (
+        {"max_factor": config.flat_packed_max_factor, "lean": True}
+        if PKD else {}
+    )
+    dom = _pack_domains(snap, config)
+    dom["until"]["clx"] = _until_dom(cl.c_d_until, cl.c_p_until)
+    usr = build_range_hash(us_gk, **hk)
+    arr = build_range_hash(ar_gk, **hk)
+    push = build_hash([pus_k], **hk)
+    ovfh = build_hash([ovf_k], **hk)
+    dom["fan"]["usgx"] = usr.max_run
+    dom["fan"]["argx"] = arr.max_run
+    eh = clh = None  # big indexes: built lazily (skipped when aligned)
+
+    out: Dict[str, np.ndarray] = {}
+    # view flags, computed up front: they pick the interleaved layouts
+    flags = _view_flags_of(snap)
+    e_hascav, e_hasexp = flags["e_hascav"], flags["e_hasexp"]
+    us_hascav, us_hasexp = flags["us_hascav"], flags["us_hasexp"]
+    us_hasperm = flags["us_hasperm"]
+    ar_hascav, ar_hasexp = flags["ar_hascav"], flags["ar_hasexp"]
+
+    # the reference's bucket-ALIGNED layout is decided for a TPU's row
+    # gathers; the port always emits bucket offsets + interleaved rows
+    def put_block(tbl_key: str, off_key: str, h, key_cols, cols,
+                  row_quantum: Optional[int] = None):
+        """One point-probe table: bucket offsets + interleaved rows.
+        ``h`` is a HashIndex or a zero-arg thunk building one; returns
+        the HashIndex.  ``row_quantum`` trims the rows table's pow2
+        padding to a multiple (the T join's up-to-2x waste; see
+        interleave_buckets)."""
+        if callable(h):
+            h = h()
+        out[off_key] = h.off
+        out[tbl_key] = interleave_buckets(h, cols, quantum=row_quantum)
+        return h
+
+    e_gates = (
+        ([snap.e_caveat, snap.e_ctx] if e_hascav else [])
+        + ([snap.e_exp] if e_hasexp else [])
+    )
+    ar_gates = (
+        ([snap.ar_caveat, snap.ar_ctx] if ar_hascav else [])
+        + ([snap.ar_exp] if ar_hasexp else [])
+    )
+    if BS:
+        # block-slice layout: per point-probe table, the bucket offsets +
+        # ONE bucket-ordered interleaved matrix (keys ++ payloads) — or
+        # its aligned form; per range view, the group table interleaved
+        # by bucket and the row view interleaved in its existing
+        # key-sorted order
+        eh = put_block(
+            "ehx", "eh_off", lambda: build_hash([e_k1, e_k2], **hk),
+            [e_k1, e_k2],
+            [e_k1, e_k2] + e_gates,
+        )
+        put_block(
+            "usgx", "usr_off", usr.index, [usr.gk],
+            [usr.gk, usr.glo, usr.ghi],
+        )
+        out["usx"] = interleave_rows(
+            # srel rides DENSE (maps.k2): gk packing in the kernel must
+            # match the dense closure/T keys
+            [snap.us_subj, maps.k2[snap.us_srel]]
+            + ([snap.us_caveat, snap.us_ctx] if us_hascav else [])
+            + ([snap.us_exp] if us_hasexp else [])
+            + ([snap.us_perm] if us_hasperm else []),
+            pad=max(64, config.us_leaf_cap),
+        )
+        put_block(
+            "argx", "arr_off", arr.index, [arr.gk],
+            [arr.gk, arr.glo, arr.ghi],
+        )
+        out["arx"] = interleave_rows(
+            [snap.ar_child]
+            + ([snap.ar_caveat, snap.ar_ctx] if ar_hascav else [])
+            + ([snap.ar_exp] if ar_hasexp else []),
+            pad=max(64, config.arrow_fanout),
+        )
+        clh = put_block(
+            "clx", "clh_off", lambda: build_hash([cl_k1, cl_k2], **hk),
+            [cl_k1, cl_k2],
+            [cl_k1, cl_k2, cl.c_d_until, cl.c_p_until],
+        )
+        put_block("pusx", "push_off", push, [pus_k], [pus_k])
+        put_block("ovfx", "ovfh_off", ovfh, [ovf_k], [ovf_k])
+    else:
+        raise NotImplementedError(
+            "flat_blockslice=False (the scattered probe_rows layout) is not"
+            " ported yet"
+        )
+    _mt.observe("prepare.hash_s", time.perf_counter() - _t_hash)
+
+    # ---- T-index: userset edges ⋈ closure-by-target (shared join) -------
+    _t_tindex = time.perf_counter()
+    t_kw = dict(has_tindex=False, t_cap=4, t_n=8, t_slots=())
+    tj = _tindex_join(snap, config, cl, us_gk, cl_k1, cl_k2, pus_k, maps)
+    if tj is not None:
+        T_k1, T_k2, T_d, T_p, t_slots = tj
+        dom["until"]["tx"] = _until_dom(T_d, T_p)
+        if BS:
+            # row_quantum: the T join is the largest rebuilt-per-prepare
+            # rows table (~80% of packed bytes at config 3) — round its
+            # rows to a 4096 quantum instead of pow2 (ROADMAP "trim the
+            # pow2 row padding on the T join"); snapshot.device_bytes.tx
+            # shows the reduction live
+            th = put_block(
+                "tx", "th_off", lambda: build_hash([T_k1, T_k2], **hk),
+                [T_k1, T_k2], [T_k1, T_k2, T_d, T_p],
+                row_quantum=4096,
+            )
+        t_kw = dict(
+            has_tindex=True,
+            t_cap=_round_cap(th.cap) if th is not None else 4,
+            t_n=_ceil_pow2(max(th.n, 1)) if th is not None else 8,
+            t_slots=t_slots,
+        )
+    _mt.observe("prepare.tindex_s", time.perf_counter() - _t_tindex)
+
+    # resource-side Leopard index: flattened ancestor closures for
+    # self-recursive arrow hierarchies (block-slice layout only)
+    ar_dd = _arrow_data_depth(snap)
+    rc_kw: Dict = {}
+    if BS:
+        rc_list = []
+        for ts_slot, (src, anc, d_u, p_u, fan) in _rc_build(
+            snap, config, plan, ar_dd
+        ).items():
+            ri = build_range_hash(src, **hk)
+            put_block(
+                f"rc{ts_slot}gx", f"rc{ts_slot}_off", ri.index,
+                [ri.gk], [ri.gk, ri.glo, ri.ghi],
+            )
+            out[f"rc{ts_slot}x"] = interleave_rows(
+                [anc, d_u, p_u], pad=max(64, fan)
+            )
+            dom["until"][f"rc{ts_slot}x"] = _until_dom(d_u, p_u)
+            dom["fan"][f"rc{ts_slot}gx"] = fan
+            rc_list.append((int(ts_slot), _round_cap(ri.index.cap), fan))
+        rc_kw = dict(rc_slots=tuple(sorted(rc_list)))
+
+    wc_nodes = snap.wildcard_node_of_type[snap.wildcard_node_of_type >= 0]
+
+    # ---- permission fold (P-index): rewrites → root-level tables -------
+    _t_fold = time.perf_counter()
+    fold_kw: Dict = {}
+    got = _fold_packed(fr, snap, maps, N, config) if fr is not None else None
+    if got is not None:
+        # subject side: a subject whose closure is wider than the
+        # compare-tile cap declines the fold (the walked path answers)
+        s_run = _max_run_sorted(cl_k1)
+        if s_run > config.flat_fold_subj_fan_cap:
+            got = None
+    if got is not None:
+        pf_k1, pf_k2, pf_subj, (u_k1, u_gk, u_until, u_fan), pff = got
+        pfh = put_block(
+            "pfx", "pfh_off", lambda: build_hash([pf_k1, pf_k2], **hk),
+            [pf_k1, pf_k2],
+            [pf_k1, pf_k2]
+            + ([fr.e_cav, fr.e_ctx] if pff["pf_hascav"] else [])
+            + ([fr.e_until] if pff["pf_hasuntil"] else []),
+        )
+        dom["until"]["pfx"] = _until_dom(fr.e_until)
+        dom["until"]["pfux"] = _until_dom(u_until)
+        s_fan = _round_fan(max(s_run, 1))
+        fold_slots = tuple(sorted({s for _, s in fr.pairs}))
+        dom["fan"]["pfugx"] = u_fan
+        dom["fan"]["csrgx"] = s_fan
+        pf_arrays, pf_kw = _pf_view_tables(
+            u_k1, u_gk, u_until, u_fan,
+            cl_k1, cl_k2, cl.c_d_until, cl.c_p_until, s_fan,
+            maps=maps, N=N, S1=S1, fold_slots=fold_slots, config=config,
+            hk=hk,
+        )
+        out.update(pf_arrays)
+        fold_kw = dict(
+            fold_pairs=fr.pairs,
+            pf_e_cap=_round_cap(pfh.cap) if pfh is not None else 4,
+            pf_u_fan=u_fan,
+            pf_s_fan=s_fan,
+            pf_haswc=bool(np.isin(pf_subj, wc_nodes).any()),
+            pf_has_e=pf_k1.shape[0] > 0,
+            pf_has_u=u_k1.shape[0] > 0,
+            **pf_kw,
+            **pff,
+        )
+        # arm the maintenance state with the packing context it
+        # needs at delta time (fold_delta_update)
+        fstate.maps, fstate.N = maps, N
+    else:
+        fstate = None
+    _mt.observe("prepare.fold_s", time.perf_counter() - _t_fold)
+
+    meta = FlatMeta(
+        N=N, S1=S1,
+        k1_dense=tuple(int(x) for x in maps.k1),
+        k2_dense=tuple(int(x) for x in maps.k2),
+        **rc_kw,
+        **fold_kw,
+        e_cap=_round_cap(eh.cap) if eh is not None else 4,
+        e_n=_ceil_pow2(max(eh.n, 1)) if eh is not None else 8,
+        usr_cap=_round_cap(usr.index.cap),
+        usr_gn=_ceil_pow2(max(usr.index.n, 1)),
+        us_rows=_ceil_pow2(max(int(snap.us_rel.shape[0]), 1)),
+        arr_cap=_round_cap(arr.index.cap),
+        arr_gn=_ceil_pow2(max(arr.index.n, 1)),
+        ar_rows=_ceil_pow2(max(int(snap.ar_rel.shape[0]), 1)),
+        cl_cap=_round_cap(clh.cap) if clh is not None else 4,
+        cl_n=_ceil_pow2(max(clh.n, 1)) if clh is not None else 8,
+        has_closure=int(cl_k1.shape[0]) > 0,
+        pus_cap=_round_cap(push.cap), pus_n=_ceil_pow2(max(push.n, 1)),
+        ovf_cap=_round_cap(ovfh.cap), ovf_n=_ceil_pow2(max(ovfh.n, 1)),
+        has_ovf=ovfh.n > 0,
+        ar_fanout_by_slot=_run_maxes(arr.gk, arr.glo, arr.ghi, N, maps.k1_raw),
+        us_fanout_by_slot=_run_maxes(usr.gk, usr.glo, usr.ghi, N, maps.k1_raw),
+        **t_kw,
+        e_hascav=e_hascav,
+        e_hasexp=e_hasexp,
+        us_hascav=us_hascav,
+        us_hasexp=us_hasexp,
+        us_hasperm=us_hasperm,
+        ar_hascav=ar_hascav,
+        ar_hasexp=ar_hasexp,
+        blockslice=BS,
+        ar_data_depth=ar_dd,
+        e_slots=tuple(int(s) for s in _uniq_small([snap.e_rel], snap.num_slots)),
+        us_slots=tuple(int(s) for s in _uniq_small([snap.us_rel], snap.num_slots)),
+        has_wc_edges=bool(np.isin(snap.e_subj, wc_nodes).any()),
+        has_wc_closure=bool(
+            np.isin(cl.c_src[cl.c_srel1 == 0], wc_nodes).any()
+            or np.isin(cl.ovf_src[cl.ovf_srel1 == 0], wc_nodes).any()
+        ),
+    )
+    if PKD:
+        with _mt.timer("prepare.pack_lanes_s"):
+            pk_up = _pack_flat(out, meta, config, dom, pack_off=True)
+        if pk_up:
+            from dataclasses import replace as _dc_replace
+
+            meta = _dc_replace(meta, **pk_up)
+    return out, meta, fstate
+
+
+def make_flat_fn(
+    compiled: CompiledSchema,
+    plan: DevicePlan,
+    cfg: EngineConfig,
+    meta: FlatMeta,
+    slots: Tuple[int, ...],
+    kernels: bool = False,
+):
+    """Build the batched flat check function for a static set of permission
+    slots.  Queries select their slot's result with a vectorized compare —
+    evaluating ≤ flat_max_slots programs over the whole batch is far
+    cheaper than any per-query dispatch.
+
+    The returned ``fn(arrs, tid_map, now, qm, specs)`` runs eagerly on the
+    device of its tensors and returns bool (definite, possible, overflow)
+    planes of the padded batch.  Every bucket probe goes through ONE seam,
+    ``psite``, into ``kernels.fused_probe``: the hand-written CUDA kernel
+    when ``kernels`` is True, else its plain PyTorch twin.  Both compute
+    the reference's gather chain bit for bit, so the planes do not depend
+    on the switch.
+
+    Covered: the single-chip blockslice layout without a delta level or
+    witness plane, on schemas without caveats; anything else raises
+    NotImplementedError naming what is missing."""
+    if meta.sharded or meta.part_serve:
+        raise NotImplementedError("sharded check kernels are not ported yet")
+    if meta.delta is not None:
+        raise NotImplementedError("delta levels are not ported yet")
+    if not meta.blockslice:
+        raise NotImplementedError(
+            "the scattered (non-blockslice) layout is not ported yet"
+        )
+    if plan.two_plane:
+        raise NotImplementedError(
+            "caveated schemas need the CEL tri-state VM, not ported yet"
+        )
+    if meta.aligned:
+        raise NotImplementedError("the bucket-aligned layout is not ported")
+
+    perm_programs: Dict[int, List[Tuple[str, int, ExprIR]]] = {}
+    for (tname, tid, slot, expr) in plan.topo_programs:
+        perm_programs.setdefault(slot, []).append((tname, tid, expr))
+    # flattened recursive hierarchies whose closure tables were built:
+    # (type, slot) → (ts_slot, rest_ir); geometry per ts_slot from meta
+    rc_geom = {ts: (cap, fan) for ts, cap, fan in meta.rc_slots}
+    rc_map = {
+        key: (ts_slot, rest)
+        for key, (ts_slot, rest) in rc_candidates(compiled, plan).items()
+        if ts_slot in rc_geom
+    }
+    rel_slots = frozenset(plan.rel_leaf_slots)
+    # permission fold: BASE answers come from the pf_e/pf_u probe pair;
+    # folded programs compile to nothing
+    fold_on = bool(meta.fold_pairs)
+    folded_pairs = frozenset(meta.fold_pairs) if fold_on else frozenset()
+    pf_slots = frozenset(s for _, s in folded_pairs)
+    fold_slot_list = sorted({s for _, s in meta.fold_pairs})
+    cyclic = _eval_cyclic_pairs(compiled)
+    KU = cfg.us_leaf_cap
+    K = cfg.arrow_fanout
+    all_types = frozenset(compiled.type_ids)
+    tname_of_tid = {tid: t for t, tid in compiled.type_ids.items()}
+
+    def arrow_child_types(ts_slot: int, types: frozenset) -> frozenset:
+        """Types an arrow through ``ts_slot`` can reach from ``types`` —
+        the static pruning that makes the unroll follow the TYPE-level
+        dependency graph, not name collisions."""
+        out = set()
+        for tname in types:
+            ct = compiled.types[compiled.type_ids[tname]]
+            rel = ct.relations.get(ts_slot)
+            if rel is None:
+                continue
+            for a in rel.allowed:
+                if a.relation_slot < 0:  # arrows traverse direct subjects
+                    out.add(tname_of_tid[a.type_id])
+        return frozenset(out)
+
+    K1D = meta.k1_dense  # static sites pack with DENSE slot ids
+
+    def k1c(slot: int) -> int:
+        return K1D[slot] if slot < len(K1D) else -1
+
+    PK = dict(meta.packed)
+    PKO = dict(meta.packed_off)
+    eL, usL, arL = e_layout(meta), us_layout(meta), ar_layout(meta)
+    _view_flags = {
+        "e": (meta.e_hascav, meta.e_hasexp),
+        "us": (meta.us_hascav, meta.us_hasexp),
+        "ar": (meta.ar_hascav, meta.ar_hasexp),
+    }
+    us_fans = dict(meta.us_fanout_by_slot)
+    # the dynamic root leaf serves exactly the dispatch's static slot
+    # set: base sites whose slots can't occur compile to nothing
+    dyn_e = any(s in meta.e_slots for s in slots)
+    dyn_us_fan = max((us_fans.get(s, 0) for s in slots), default=0)
+    t_on = meta.has_tindex
+    t_cover = t_on and all(
+        s in meta.t_slots for s in slots if s in meta.us_slots
+    )
+    dyn_t = t_on and t_cover and any(s in meta.t_slots for s in slots)
+    pfL = _lay(
+        ["k1", "k2"]
+        + (["cav", "ctx"] if meta.pf_hascav else [])
+        + (["until"] if meta.pf_hasuntil else [])
+    )
+    Nc = meta.N
+    S1c = meta.S1
+    ar_bound = meta.ar_data_depth
+
+    def fn(arrs, tid_map, now: int, qm, specs):
+        dev = qm.device
+        # packed query matrix int32[8, B] (QM_LAYOUT); rows 3 and 7
+        # arrive DENSE-mapped (build_qm)
+        q_res, q_perm, q_subj = qm[0], qm[1], qm[2]
+        q_srel1, q_wc = qm[3], qm[4]
+        q_self = qm[6] != 0
+        q_perm_k1 = qm[7]
+        node_type = arrs["node_type"]
+        # ids interned AFTER this snapshot exceed the packing radix: treat
+        # them as invalid (-1) — they have no edges at this revision
+        q_res = torch.where(q_res < Nc, q_res, -1)
+        q_subj = torch.where(q_subj < Nc, q_subj, -1)
+        q_wc = torch.where(q_wc < Nc, q_wc, -1)
+        # wildcard closure-source only applies to direct-object subjects
+        q_wcc = torch.where(q_srel1 == 0, q_wc, -1)
+
+        def zeros(shape):
+            return torch.zeros(shape, dtype=torch.bool, device=dev)
+
+        def arange(n: int):
+            return torch.arange(n, dtype=torch.int32, device=dev)
+
+        def bq(a, nd: int):
+            """Broadcast a [B] query column against [B, ...] node dims."""
+            return a.reshape(tuple(a.shape) + (1,) * (nd - 1))
+
+        def reduceB(x):
+            return x if x.dim() == 1 else x.reshape(x.shape[0], -1).any(-1)
+
+        def any2(x):
+            return x.any(dim=-1).any(dim=-1)
+
+        def tk(a, idx):
+            return a[idx.long()]
+
+        def _dec(tbl_key: str, blk):
+            spec = PK.get(tbl_key)
+            return blk.to(torch.int32) if spec is None else _pk_decode(blk, spec)
+
+        def off_read(off_key: str, idx):
+            A = PKO.get(off_key)
+            if A is None:
+                return tk(arrs[off_key], idx)
+            return tk(arrs[off_key + "_a"], idx >> A) + (
+                tk(arrs[off_key], idx).to(torch.int32) & 0xFFFF
+            )
+
+        def sblock(tbl_key: str, lo, cap: int):
+            """slice_blocks through the packed decode."""
+            return _dec(tbl_key, slice_blocks(arrs[tbl_key], lo, cap))
+
+        def gate2_blk(prefix: str, blk, lay: Dict[str, int], hit):
+            """(definite, possible) admissibility of an interleaved
+            block's hit rows from its payload expiry column (schemas
+            here carry no caveats, so both planes agree)."""
+            hascav, hasexp = _view_flags[prefix]
+            if hascav:
+                raise NotImplementedError("caveated rows are not ported yet")
+            if not hasexp:
+                return hit, hit
+            exp = torch.where(hit, blk[..., lay["exp"]], 0)
+            live = hit & ((exp == 0) | (exp > now))
+            return live, live
+
+        def psite(off_key: str, tbl_key: str, cap: int, q_cols,
+                  mode: str = "block", exp_lane: Optional[int] = None):
+            """THE seam between every bucket probe and the fused probe
+            kernel (or its plain twin, by the engine's kernel switch)."""
+            A = PKO.get(off_key)
+            return _K.fused_probe(
+                q_cols, arrs[off_key], arrs[tbl_key], cap=cap,
+                spec=PK.get(tbl_key), spec_dev=specs.get(tbl_key),
+                off_a=arrs[off_key + "_a"] if A is not None else None,
+                ashift=A, mode=mode, now=now, exp_lane=exp_lane,
+                plain=not kernels,
+            )
+
+        def pblock(off_key: str, tbl_key: str, cap: int, q_cols):
+            """Bucket probe → the decoded candidate block [..., cap, W]."""
+            return psite(off_key, tbl_key, cap, q_cols, mode="block")
+
+        def range_probe(off_key: str, tbl_key: str, cap: int, q):
+            """(lo, hi) row range of group key ``q``; (0, 0) on a miss."""
+            blk = pblock(off_key, tbl_key, cap, (q,))
+            hit = _K.blk_hit(blk, (q,))
+            lo = torch.where(hit, blk[..., 1], 0).amax(dim=-1)
+            hi = torch.where(hit, blk[..., 2], 0).amax(dim=-1)
+            return lo, hi
+
+        def range_of(prefix: str, cap: int, q):
+            return range_probe(
+                prefix + "_off", {"usr": "usgx", "arr": "argx"}[prefix], cap, q,
+            )
+
+        def cl_probe(srck, gk):
+            """Closure containment per plane via until-value comparison.
+            Keys are packed (src·S1+srel1, g·S1+grel+1); -1 never matches."""
+            if not meta.has_closure:
+                z = zeros(torch.broadcast_shapes(srck.shape, gk.shape))
+                return z, z
+            return psite("clh_off", "clx", meta.cl_cap, (srck, gk),
+                         mode="until2")
+
+        zB = zeros(q_res.shape)
+        # packed per-query subject keys: -1 = "matches nothing"
+        q_k2 = torch.where(
+            (q_subj >= 0) & (q_srel1 >= 0), q_subj * S1c + q_srel1, -1
+        )
+        w_k2 = torch.where((q_wc >= 0) & (q_srel1 == 0), q_wc * S1c, -1)
+        wcl_k = torch.where(q_wcc >= 0, q_wcc * S1c, -1)
+
+        # fold subject side: the query subject's (and wildcard node's)
+        # group-closure slices from the csr closure-by-source view,
+        # computed ONCE per dispatch — [B, S] key/plane-liveness tiles
+        _pf_subj_cell: List = []
+
+        def pf_subj_slices():
+            if _pf_subj_cell:
+                return _pf_subj_cell[0]
+            fanS = max(meta.pf_s_fan, 1)
+
+            def csr_slice(k):
+                ok = k >= 0
+                if meta.pf_s_direct:
+                    kc = torch.where(ok, k, 0)
+                    lo = off_read("csr_start", kc)
+                    hi = torch.where(ok, off_read("csr_start", kc + 1), lo)
+                else:
+                    lo, hi = range_probe("csr_off", "csrgx", meta.pf_s_cap, k)
+                valid = (arange(fanS) < (hi - lo).unsqueeze(-1)) & ok.unsqueeze(-1)
+                if not meta.pf_s_direct:
+                    # hash-group layout: rows live in the interleaved csrx
+                    blk = sblock("csrx", lo, fanS)
+                    gk = torch.where(valid, blk[..., 0], -1)
+                    dok = valid & (torch.where(valid, blk[..., 1], 0) > now)
+                    pok = valid & (torch.where(valid, blk[..., 2], 0) > now)
+                    return gk, dok, pok
+                gk = slice_blocks(arrs["csr_gk"], lo, fanS)[..., 0]
+                gk = torch.where(valid, gk, -1)
+                if meta.pf_s_alllive:
+                    # None planes: containment alone grants both
+                    return gk, None, None
+                dv = slice_blocks(arrs["csr_d"], lo, fanS)[..., 0]
+                pv = slice_blocks(arrs["csr_p"], lo, fanS)[..., 0]
+                dok = valid & (torch.where(valid, dv, 0) > now)
+                pok = valid & (torch.where(valid, pv, 0) > now)
+                return gk, dok, pok
+
+            slices = [csr_slice(q_k2)]
+            if meta.has_wc_closure:
+                slices.append(csr_slice(wcl_k))
+            _pf_subj_cell.append(slices)
+            return slices
+
+        # fold-slot compact ids for the direct pfu_start lookup
+        if fold_on and meta.pf_has_u and meta.pf_direct:
+            _fm = np.full(max(plan.num_slots, 1), -1, np.int32)
+            for _i, _s in enumerate(fold_slot_list):
+                _fm[_s] = _i
+            pf_fidx_t = torch.from_numpy(_fm).to(dev)
+        else:
+            pf_fidx_t = None
+
+        def pf_isect(gk, live):
+            """(d, p) of the folded userset rows ``gk``/``live``
+            ([..., fan], lattice-shaped) against the subject slices:
+            a broadcast [fan × S] compare, reduced over both axes."""
+            d = zeros(live.shape[:-1])
+            p = zeros(live.shape[:-1])
+            for (sgk, sdok, spok) in pf_subj_slices():
+                shp = (sgk.shape[0],) + (1,) * (gk.dim() - 2) + (1, sgk.shape[1])
+                m = live.unsqueeze(-1) & (gk.unsqueeze(-1) == sgk.reshape(shp))
+                if sdok is None:  # all-live closure: one containment reduce
+                    hit = any2(m)
+                    d, p = d | hit, p | hit
+                else:
+                    d = d | any2(m & sdok.reshape(shp))
+                    p = p | any2(m & spok.reshape(shp))
+            return d, p
+
+        def pf_probe(slot, nodes):
+            """Folded-permission test at a [B, ...] node lattice: ONE
+            direct-identity probe (pf_e) + one bounded-fan userset slice
+            (pf_u) intersected with the member closure.  ``slot=None`` =
+            dynamic (q_perm is the slot)."""
+            nd = nodes.dim()
+            d = p = zeros(nodes.shape)
+            exists = nodes >= 0
+            sc = bq(q_perm_k1, nd) if slot is None else k1c(slot)
+            k1 = sc * Nc + torch.where(exists, nodes, 0)
+            if meta.pf_has_e:
+                def pe_site(k2q):
+                    blk = pblock("pfh_off", "pfx", meta.pf_e_cap, (k1, k2q))
+                    hit = _K.blk_hit(
+                        blk, torch.broadcast_tensors(k1, k2q)
+                    ) & exists.unsqueeze(-1)
+                    live = hit
+                    if meta.pf_hasuntil:
+                        u = torch.where(hit, blk[..., pfL["until"]], 0)
+                        live = hit & (u > now)
+                    if meta.pf_hascav:
+                        raise NotImplementedError(
+                            "caveated rows are not ported yet"
+                        )
+                    h = live.any(dim=-1)
+                    return h, h
+
+                ed, ep = pe_site(bq(q_k2, nd))
+                d, p = d | ed, p | ep
+                if meta.pf_haswc:
+                    wd, wp = pe_site(bq(w_k2, nd))
+                    d, p = d | wd, p | wp
+            if meta.pf_has_u:
+                fanU = max(meta.pf_u_fan, 1)
+                if meta.pf_direct:
+                    fc = (
+                        tk(pf_fidx_t, bq(q_perm, nd).clamp(min=0))
+                        if slot is None
+                        else fold_slot_list.index(slot)
+                    )
+                    ok = exists & (fc >= 0) if slot is None else exists
+                    base = torch.where(ok, fc * Nc + nodes, 0)
+                    lo = off_read("pfu_start", base)
+                    hi = torch.where(ok, off_read("pfu_start", base + 1), lo)
+                else:
+                    lo, hi = range_probe("pfu_off", "pfugx", meta.pf_u_cap, k1)
+                valid = (
+                    (arange(fanU) < (hi - lo).unsqueeze(-1))
+                    & exists.unsqueeze(-1)
+                )
+                if not meta.pf_direct:
+                    ublk = sblock("pfux", lo, fanU)
+                    gk = torch.where(valid, ublk[..., 0], -1)
+                    live = valid & (torch.where(valid, ublk[..., 1], 0) > now)
+                else:
+                    gk = slice_blocks(arrs["pfu_gk"], lo, fanU)[..., 0]
+                    gk = torch.where(valid, gk, -1)
+                    if meta.pf_u_alllive:
+                        live = valid
+                    else:
+                        uv = slice_blocks(arrs["pfu_u"], lo, fanU)[..., 0]
+                        live = valid & (torch.where(valid, uv, 0) > now)
+                nd2 = nd + 1
+                ud, up = pf_isect(gk, live)
+                refl = (gk == bq(q_k2, nd2)) & (bq(q_k2, nd2) >= 0)
+                r_hit = (live & refl).any(dim=-1)
+                d = d | ud | r_hit
+                p = p | up | r_hit
+            return d, p
+
+        # Every eval function returns (definite, possible, ovf, used):
+        # d/p shaped like the node lattice, ovf/used reduced to [B].
+
+        def leaf(slot, nodes):
+            """Direct + wildcard + userset leaf tests at a [B, ...] node
+            lattice.  ``slot`` None means dynamic — the query's own
+            q_perm column is the relation, so ONE probe site at the root
+            covers every slot's direct relation check."""
+            nd = nodes.dim()
+            zn = zeros(nodes.shape)
+            d, p, ovf, used = zn, zn, zB, zB
+            exists = nodes >= 0
+            dyn = slot is None
+            sc = bq(q_perm_k1, nd) if dyn else k1c(slot)
+            # packed (slot, node) key; invalid nodes use 0 and are masked
+            # by `exists` wherever the (possibly aliased) probe lands
+            k1 = sc * Nc + torch.where(exists, nodes, 0)
+
+            run_e = dyn_e if dyn else (slot in meta.e_slots)
+            if run_e:
+                if meta.e_hascav:
+                    raise NotImplementedError("caveated rows are not ported yet")
+
+                def e_site(k2q):
+                    """Direct-edge test: expiry gate fused in the probe."""
+                    _hit, live = psite(
+                        "eh_off", "ehx", meta.e_cap, (k1, k2q), mode="gate",
+                        exp_lane=eL["exp"] if meta.e_hasexp else None,
+                    )
+                    # exists is lane-constant: ANDing it after the probe's
+                    # hit/live masks commutes with the per-row gate
+                    h = (live & exists.unsqueeze(-1)).any(dim=-1)
+                    return h, h
+
+                d, p = e_site(bq(q_k2, nd))
+                if meta.has_wc_edges:
+                    # wildcard edges only grant direct-object subjects
+                    wd, wp = e_site(bq(w_k2, nd))
+                    d, p = d | wd, p | wp
+
+            # T-index fast path: one probe folds {userset edge × closure}
+            use_t = dyn_t if dyn else (t_on and slot in meta.t_slots)
+            if use_t:
+                def t_site(k2q):
+                    td_, tp_ = psite("th_off", "tx", meta.t_cap, (k1, k2q),
+                                     mode="until2")
+                    # exists is lane-constant, so ANDing it after the
+                    # in-probe OR-reduce is exact
+                    return td_ & exists, tp_ & exists
+
+                td, tp = t_site(bq(q_k2, nd))
+                if meta.has_wc_closure:
+                    wtd, wtp = t_site(bq(wcl_k, nd))
+                    td, tp = td | wtd, tp | wtp
+                d, p = d | td, p | tp
+                if meta.has_ovf:
+                    # T is incomplete for overflowed closure sources: flag
+                    # queries whose (slot, node) has userset rows at all
+                    lo2, hi2 = range_of("usr", meta.usr_cap, k1)
+                    used = used | reduceB(exists & (hi2 > lo2))
+
+            def ku_eval(ublk, valid):
+                """Userset-grant evaluation over one candidate block:
+                per-candidate closure/reflexivity/permission tests gated
+                by the row's expiry column."""
+                s = torch.where(valid, ublk[..., usL["subj"]], -1)
+                r = torch.where(valid, ublk[..., usL["srel"]], -1)
+                gk = s * S1c + (r + 1)  # invalid rows (-1, -1) → negative
+                nd2 = nd + 1
+                in_d, in_p = cl_probe(bq(q_k2, nd2), gk)
+                if meta.has_wc_closure:
+                    win_d, win_p = cl_probe(bq(wcl_k, nd2), gk)
+                    in_d, in_p = in_d | win_d, in_p | win_p
+                refl = (gk == bq(q_k2, nd2)) & (bq(q_k2, nd2) >= 0)
+                if plan.has_permission_usersets:
+                    permf = (
+                        (torch.where(valid, ublk[..., usL["perm"]], 0) != 0)
+                        if meta.us_hasperm
+                        else zeros(valid.shape)
+                    )
+                    in_pus = psite("push_off", "pusx", meta.pus_cap, (gk,),
+                                   mode="any")
+                    in_d = (in_d | refl) & ~permf
+                    in_p = in_p | refl | in_pus | permf
+                else:
+                    in_d = in_d | refl
+                    in_p = in_p | refl
+                ugd, ugp = gate2_blk("us", ublk, usL, valid)
+                return (
+                    (ugd & in_d).any(dim=-1),
+                    (ugp & in_p).any(dim=-1),
+                    reduceB(valid),
+                )
+
+            # KU probe path: ineligible slots, or the dynamic root leaf on
+            # a mixed schema (eligible slots repeat the T answer, sound
+            # under OR)
+            run_ku = (not use_t) or (dyn and not t_cover)
+            KU_site = min(KU, dyn_us_fan if dyn else us_fans.get(slot, 0))
+            if run_ku and KU_site > 0:
+                lo, hi = range_of("usr", meta.usr_cap, k1)
+                ovf = ovf | reduceB(exists & ((hi - lo) > KU_site))
+                valid = (
+                    (arange(KU_site) < (hi - lo).unsqueeze(-1))
+                    & exists.unsqueeze(-1)
+                )
+                ublk = sblock("usx", lo, KU_site)
+                kd, kp, ku_used = ku_eval(ublk, valid)
+                d, p, used = d | kd, p | kp, used | ku_used
+            return d, p, ovf, used
+
+        memo: Dict = {}
+        pins: List = []  # keep node arrays alive so id() keys stay unique
+
+        def eval_progs(slot: int, nodes, stack: Tuple, types, ar_hops: int):
+            """The permission programs of ``slot`` at ``nodes`` (no leaf)."""
+            zn = zeros(nodes.shape)
+            d, p, ovf, used = zn, zn, zB, zB
+            progs = [
+                (tname, tid, expr)
+                for (tname, tid, expr) in perm_programs.get(slot, ())
+                if tname in types and (tname, slot) not in folded_pairs
+            ]
+            if progs:
+                ntype = torch.where(
+                    nodes >= 0,
+                    tk(node_type, nodes.clamp(0, node_type.shape[0] - 1)).to(
+                        torch.int32
+                    ),
+                    -1,
+                )
+            width = 1
+            for dim in nodes.shape[1:]:
+                width *= int(dim)
+            for (tname, tid, expr) in progs:
+                mask = ntype == tid_map[tid]
+                rc = rc_map.get((tname, slot))
+                if rc is not None and width * (
+                    rc_geom[rc[0]][1] + 1
+                ) <= cfg.flat_max_width:
+                    # flattened hierarchy: ONE level over the ancestor
+                    # closure instead of recursive unrolling
+                    ed, ep, eo, eu = rc_eval(
+                        rc[0], rc[1], nodes, stack + ((tname, slot),),
+                        frozenset((tname,)), ar_hops,
+                    )
+                    d = d | (mask & ed)
+                    p = p | (mask & ep)
+                    ovf, used = ovf | eo, used | eu
+                    continue
+                if (tname, slot) in cyclic and stack.count(
+                    (tname, slot)
+                ) >= cfg.flat_recursion:
+                    # recursion budget exhausted: deeper evaluation is
+                    # unknown → possible-only, the host oracle finishes it
+                    p = p | (mask & (nodes >= 0))
+                    continue
+                ed, ep, eo, eu = eval_expr(
+                    expr, nodes, stack + ((tname, slot),),
+                    frozenset((tname,)), ar_hops,
+                )
+                d = d | (mask & ed)
+                p = p | (mask & ep)
+                ovf, used = ovf | eo, used | eu
+            return d, p, ovf, used
+
+        def rc_eval(ts_slot: int, rest: ExprIR, nodes, stack, types,
+                    ar_hops: int):
+            """perm(n) = ∃ a ∈ {n} ∪ ancestors(n): rest(a), with the
+            ancestor paths' two-plane admissibility from the flattened
+            arrow closure (rc{ts} tables)."""
+            cap, fan = rc_geom[ts_slot]
+            exists = nodes >= 0
+            nq = torch.where(exists, nodes, -1)
+            lo, hi = range_probe(f"rc{ts_slot}_off", f"rc{ts_slot}gx", cap, nq)
+            valid = (arange(fan) < (hi - lo).unsqueeze(-1)) & exists.unsqueeze(-1)
+            blk = sblock(f"rc{ts_slot}x", lo, fan)
+            anc = torch.where(valid, blk[..., 0], -1)
+            path_d = valid & (blk[..., 1] > now)
+            path_p = valid & (blk[..., 2] > now)
+            # reflexive lane 0: the node itself, path trivially live
+            lattice = torch.cat([nodes.unsqueeze(-1), anc], dim=-1)
+            path_d = torch.cat([exists.unsqueeze(-1), path_d], dim=-1)
+            path_p = torch.cat([exists.unsqueeze(-1), path_p], dim=-1)
+            rd, rp, ro, ru = eval_expr(rest, lattice, stack, types, ar_hops)
+            return (
+                (rd & path_d).any(dim=-1),
+                (rp & path_p).any(dim=-1),
+                ro, ru,
+            )
+
+        def eval_slot(slot: int, nodes, stack: Tuple, types, ar_hops: int):
+            cyc_sig = tuple(
+                sorted((pr, stack.count(pr)) for pr in set(stack) if pr in cyclic)
+            )
+            key = (
+                slot, id(nodes), types, cyc_sig,
+                ar_hops if ar_bound >= 0 else 0,
+            )
+            got = memo.get(key)
+            if got is not None:
+                return got
+            zn = zeros(nodes.shape)
+            d, p, ovf, used = zn, zn, zB, zB
+            if slot in rel_slots:
+                d, p, ovf, used = leaf(slot, nodes)
+            if slot in pf_slots:
+                # folded permission reached as an arrow target / ref from
+                # an unfolded program: its base answer is the probe pair
+                fd, fp = pf_probe(slot, nodes)
+                d, p = d | fd, p | fp
+            pd, pp, po, pu = eval_progs(slot, nodes, stack, types, ar_hops)
+            d, p = d | pd, p | pp
+            ovf, used = ovf | po, used | pu
+            pins.append(nodes)
+            memo[key] = (d, p, ovf, used)
+            return memo[key]
+
+        def eval_expr(ir: ExprIR, nodes, stack: Tuple, types, ar_hops: int):
+            tag = ir[0]
+            if tag == "ref":
+                return eval_slot(ir[1], nodes, stack, types, ar_hops)
+            if tag == "nil":
+                z = zeros(nodes.shape)
+                return z, z, zB, zB
+            if tag == "arrow":
+                if 0 <= ar_bound <= ar_hops:
+                    # deeper than any real chain in the data: no children
+                    z = zeros(nodes.shape)
+                    return z, z, zB, zB
+                ts_slot = plan.ts_slots[ir[1]]
+                child_types = arrow_child_types(ts_slot, types)
+                data_fan = dict(meta.ar_fanout_by_slot).get(ts_slot, 0)
+                if not child_types or data_fan == 0:
+                    # no reachable types / no edges of this tupleset at all
+                    z = zeros(nodes.shape)
+                    return z, z, zB, zB
+                Ks = min(K, data_fan)
+                exists = nodes >= 0
+                ak = k1c(ts_slot) * Nc + torch.where(exists, nodes, 0)
+                lo, hi = range_of("arr", meta.arr_cap, ak)
+                width = 1
+                for dim in nodes.shape[1:]:
+                    width *= int(dim)
+                if width * Ks > cfg.flat_max_width:
+                    # lattice budget spent: probe child existence only;
+                    # real deeper grants surface as possible
+                    return zeros(nodes.shape), (hi > lo) & exists, zB, zB
+                ovf = reduceB(exists & ((hi - lo) > Ks))
+                valid = (arange(Ks) < (hi - lo).unsqueeze(-1)) & exists.unsqueeze(-1)
+                ablk = sblock("arx", lo, Ks)
+                children = torch.where(valid, ablk[..., arL["child"]], -1)
+                gd, gp = gate2_blk("ar", ablk, arL, valid)
+                cd, cp, co, cu = eval_slot(
+                    ir[2], children, stack, child_types, ar_hops + 1
+                )
+                return (
+                    (cd & gd).any(dim=-1),
+                    (cp & gp).any(dim=-1),
+                    ovf | co,
+                    cu,
+                )
+            if tag == "union":
+                z = zeros(nodes.shape)
+                d, p, ovf, used = z, z, zB, zB
+                for c in ir[1]:
+                    cd, cp, co, cu = eval_expr(c, nodes, stack, types, ar_hops)
+                    d, p = d | cd, p | cp
+                    ovf, used = ovf | co, used | cu
+                return d, p, ovf, used
+            if tag == "inter":
+                o = torch.ones(nodes.shape, dtype=torch.bool, device=dev)
+                d, p, ovf, used = o, o, zB, zB
+                for c in ir[1]:
+                    cd, cp, co, cu = eval_expr(c, nodes, stack, types, ar_hops)
+                    d, p = d & cd, p & cp
+                    ovf, used = ovf | co, used | cu
+                return d, p, ovf, used
+            if tag == "excl":
+                bd, bp, bo, bu = eval_expr(ir[1], nodes, stack, types, ar_hops)
+                sd, sp, so, su = eval_expr(ir[2], nodes, stack, types, ar_hops)
+                return bd & ~sp, bp & ~sd, bo | so, bu | su
+            raise TypeError(f"bad expression IR {ir!r}")
+
+        # subject-closure overflow: the flattened table is incomplete for
+        # these sources, so any query that touched a userset probe falls
+        # back to the host oracle
+        if not meta.has_ovf:
+            q_cl_ovf = zB
+        else:
+            def ovf_probe(k):
+                return psite("ovfh_off", "ovfx", meta.ovf_cap, (k,), mode="any")
+
+            q_cl_ovf = ovf_probe(q_k2) | ovf_probe(wcl_k)
+
+        valid_q = (q_res >= 0) & (q_perm >= 0)
+        # one dynamic-slot leaf site answers every query whose permission
+        # is (also) a stored relation; per-slot work below is programs only
+        if meta.e_slots or meta.us_fanout_by_slot:
+            d_out, p_out, lovf, lused = leaf(None, q_res)
+            ovf_out = lovf | (q_cl_ovf & lused)
+        else:
+            d_out, p_out, ovf_out = zB, zB, zB
+        if fold_on and any(s in pf_slots for s in slots):
+            # one dynamic pf site answers every folded permission in the
+            # dispatch — for a fully folded slot set this IS the kernel
+            fd, fp = pf_probe(None, q_res)
+            d_out, p_out = d_out | fd, p_out | fp
+        for slot in slots:
+            if not perm_programs.get(slot):
+                continue
+            sel = q_perm == slot
+            sd, sp, so, su = eval_progs(int(slot), q_res, (), all_types, 0)
+            d_out = d_out | (sel & sd)
+            p_out = p_out | (sel & sp)
+            ovf_out = ovf_out | (sel & (so | (q_cl_ovf & su)))
+
+        d_out = (d_out & valid_q) | q_self
+        p_out = (p_out & valid_q) | q_self
+        return d_out, p_out, ovf_out & ~q_self
+
+    return fn

@@ -1,0 +1,317 @@
+"""Bucketed hash indexes: host-built, device-probed in O(bucket cap).
+
+The round-2 engine answered every exact-match question with a ~17-step
+lexicographic binary search (engine/device.py _lex_search) — 17 dependent
+scalar gathers per probe is exactly the memory-latency-bound pattern TPUs
+hate.  A bucketed hash index answers the same question in ``cap`` (usually
+≤ 4) data-independent steps: hash the key, gather the bucket's row-index
+range, compare ``cap`` candidate rows.  Every step is a full-batch-wide
+vectorized gather, so a probe site costs a handful of gather/compare ops
+regardless of table size.
+
+Layout (host build, all vectorized numpy):
+- keys live in the caller's existing sorted int32 columns (NOT copied —
+  the index stores only a permutation, halving HBM at 100M edges);
+- ``rows`` is the permutation grouping row indices by bucket;
+- ``off[b]:off[b+1]`` delimits bucket ``b``'s slice of ``rows``;
+- ``cap`` is the true max bucket size; the build doubles the table until
+  ``cap`` ≤ ``target_cap`` (duplicate full keys bound this from below, so
+  growth stops at ``max_factor`` × entries and accepts the larger cap).
+
+The device probe recomputes the same 32-bit mix (``mix32_t`` in torch,
+the CUDA kernel in native uint32 — both bit-identical to the numpy
+``mix32`` the host build uses) and compares ``cap`` candidate rows.
+
+No reference counterpart: gochugaru delegates lookups to SpiceDB's
+datastore indexes (client/client.go:238-266); this is their on-device
+replacement.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+_FNV_OFFSET = 2166136261
+_FNV_PRIME = 16777619
+
+
+def mix32(cols: Sequence, xp=np):
+    """FNV-1a over int32 words + murmur3 finalizer, in uint32 wrap-around
+    arithmetic (numpy arrays; the host-side build's hash)."""
+    h = xp.uint32(_FNV_OFFSET)
+    for c in cols:
+        h = (h ^ c.astype(xp.uint32)) * xp.uint32(_FNV_PRIME)
+    h = h ^ (h >> xp.uint32(16))
+    h = h * xp.uint32(0x85EBCA6B)
+    h = h ^ (h >> xp.uint32(13))
+    h = h * xp.uint32(0xC2B2AE35)
+    h = h ^ (h >> xp.uint32(16))
+    return h
+
+
+@dataclass
+class HashIndex:
+    """Bucket offsets + row permutation over the caller's key columns."""
+
+    off: np.ndarray  # int32[size + 1]
+    rows: np.ndarray  # int32[max(n, 1)]
+    size: int  # pow2 bucket count
+    cap: int  # max bucket occupancy (device probe unroll count)
+    n: int  # number of entries
+
+
+def _ceil_pow2(n: int, minimum: int = 8) -> int:
+    m = minimum
+    while m < n:
+        m <<= 1
+    return m
+
+
+def build_hash(
+    key_cols: Sequence[np.ndarray],
+    *,
+    target_cap: int = 4,
+    min_size: int = 8,
+    max_factor: int = 8,
+    lean: bool = False,
+) -> HashIndex:
+    """Index the rows of lock-step int32 key columns by hash bucket.
+
+    The hot path is native (native/sort.py hash_index32): one fused
+    mask/histogram/prefix/stable-scatter pass replaces the
+    mask→astype→bincount→argsort→cumsum chain, producing bit-identical
+    ``rows``/``off`` (a stable counting sort by bucket IS
+    np.argsort(bucket, kind="stable")).  The numpy fallback below is the
+    reference implementation the parity test pins the native path to."""
+    from ..native.sort import hash_index32, mix32_native
+
+    n = int(key_cols[0].shape[0]) if key_cols else 0
+    if n == 0:
+        size = min_size
+        return HashIndex(
+            off=np.zeros(size + 1, np.int32),
+            rows=np.zeros(1, np.int32),
+            size=size,
+            cap=1,
+            n=0,
+        )
+    cols = [np.ascontiguousarray(c, np.int32) for c in key_cols]
+    h_full = mix32_native(cols)
+    if h_full is None:
+        h_full = mix32(cols, np)
+    # lean (HBM-packed) sizing starts at ~1 entry/bucket instead of 0.5:
+    # the probe cap absorbs the deeper buckets, the offsets array halves
+    size = _ceil_pow2(n if lean else 2 * n, min_size)
+    # growth chases a small max bucket, but the max of n Poisson draws
+    # grows with log n: beyond ~16M rows target_cap=4 is statistically
+    # unreachable and doubling would only balloon the offsets array (the
+    # 100M-edge table would hit 2^31 buckets) — freeze size and accept
+    # the larger probe cap instead
+    limit = size if n > (1 << 24) else size * max_factor
+    got = hash_index32(h_full, size)
+    if got is not None:
+        rows, off, cap = got
+        while cap > target_cap and size < limit:
+            size <<= 1
+            rows, off, cap = hash_index32(h_full, size)
+        return HashIndex(off=off, rows=rows, size=size, cap=cap, n=n)
+    while True:
+        h = (h_full & np.uint32(size - 1)).astype(np.int64)
+        counts = np.bincount(h, minlength=size)
+        cap = int(counts.max())
+        if cap <= target_cap or size >= limit:
+            break
+        size <<= 1
+    rows = np.argsort(h, kind="stable").astype(np.int32)
+    off = np.zeros(size + 1, np.int64)
+    np.cumsum(counts, out=off[1:])
+    return HashIndex(
+        off=off.astype(np.int32), rows=rows, size=size, cap=cap, n=n
+    )
+
+
+@dataclass
+class RangeIndex:
+    """key → contiguous row range [lo, hi) in a key-sorted table.
+
+    The group keys/bounds are materialized per distinct key and themselves
+    hash-indexed, so a range lookup is one 1-column probe + two payload
+    gathers instead of two binary searches."""
+
+    gk: np.ndarray  # int32[G] distinct keys
+    glo: np.ndarray  # int32[G] range start in the underlying table
+    ghi: np.ndarray  # int32[G] range end
+    index: HashIndex  # over gk
+
+    @property
+    def max_run(self) -> int:
+        return int((self.ghi - self.glo).max()) if self.gk.shape[0] else 0
+
+
+def build_range_hash(k: np.ndarray, **kw) -> RangeIndex:
+    """Build a RangeIndex over a column already sorted ascending (group
+    boundaries via the native sorted-runs pass; numpy mask fallback)."""
+    from ..native.sort import sorted_runs
+
+    n = int(k.shape[0])
+    if n == 0:
+        z = np.zeros(0, np.int32)
+        return RangeIndex(gk=z, glo=z, ghi=z, index=build_hash([], **kw))
+    starts = sorted_runs(k)
+    ends = np.concatenate([starts[1:], np.asarray([n])])
+    gk = np.ascontiguousarray(k[starts], np.int32)
+    return RangeIndex(
+        gk=gk,
+        glo=starts.astype(np.int32),
+        ghi=ends.astype(np.int32),
+        index=build_hash([gk], **kw),
+    )
+
+
+# ---------------------------------------------------------------------------
+# device-side probes (torch tensors on the engine's device)
+# ---------------------------------------------------------------------------
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(h, m: int):
+    """(h * m) mod 2^32 for int64 ``h`` in [0, 2^32): split so no
+    intermediate leaves int64 (signed overflow is undefined in torch's
+    kernels; each partial product stays below 2^48)."""
+    lo = (h * (m & 0xFFFF)) & _M32
+    hi = ((h * (m >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def mix32_t(cols: Sequence):
+    """``mix32`` on int32 tensors: the same FNV-1a + murmur3 finalizer,
+    carried in int64 under 32-bit masks (torch has no uint32 shifts on
+    the CPU).  Returns int64 values in [0, 2^32)."""
+    h = torch.full((), _FNV_OFFSET, dtype=torch.int64)
+    for c in cols:
+        h = _mul32(h ^ (c.to(torch.int64) & _M32), _FNV_PRIME)
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    h = h ^ (h >> 16)
+    return h
+
+
+def bucket_of(q_cols: Sequence, size: int):
+    """int64 bucket index ``mix32(q) & (size - 1)`` (``size`` pow2)."""
+    return mix32_t(q_cols) & (size - 1)
+
+
+
+# ---------------------------------------------------------------------------
+# block-slice layout: bucket-ordered interleaved tables
+# ---------------------------------------------------------------------------
+#
+# The scatter probes above cost 2 + cap·(1 + nkey) independent 1-D gathers
+# per site — dozens of scattered 32-bit reads per query.  TPUs gather at
+# ~one row per cycle regardless of width, so the TPU-shaped layout stores
+# each bucket's entries CONTIGUOUSLY with keys and payloads interleaved:
+# one [cap, w] dynamic-slice per query fetches the whole bucket (a single
+# HBM line or two), and every compare afterwards is elementwise VPU work.
+# Probe cost per site drops to 2 gathers (bucket offset + block) total.
+
+
+def interleave_buckets(
+    h: HashIndex, cols: Sequence[np.ndarray], pad: int = 64,
+    quantum: Optional[int] = None,
+) -> np.ndarray:
+    """Bucket-ordered interleaved matrix int32[n_pad, w]: row j holds
+    ``cols[:][h.rows[j]]``.  Padded to pow2(n + max(pad, h.cap)) rows of -1
+    so a slice of up to ``max(pad, h.cap)`` rows starting at any real
+    bucket offset stays in bounds without clipping (padded keys are -1 and
+    match nothing).  Callers slicing more than ``h.cap`` rows must pass
+    their slice cap as ``pad`` — slice_blocks' clamp would otherwise SHIFT
+    the block and break the lane↔row mapping.
+
+    ``quantum`` replaces the pow2 round with round-up-to-a-multiple (the
+    slice-safety pad is kept either way): big rebuilt-per-prepare tables
+    (the T join — up to 2x pow2 waste at tens of millions of rows) trade
+    the coarse shape bucketing for near-exact residency; delta chains
+    never reshape base tables, so the retrace bound this table pays is
+    one compile per FULL prepare — which a fresh pow2 shape would
+    usually pay anyway."""
+    from ..native.sort import fill_interleaved
+
+    w = max(len(cols), 1)
+    n = int(h.rows.shape[0]) if h.n else 0
+    need = max(n, 1) + max(pad, h.cap)
+    n_pad = (
+        _ceil_pow2(need) if quantum is None else -(-need // quantum) * quantum
+    )
+    # pad rows get -1; data rows are fully overwritten below, so only the
+    # tail needs the fill (a 2-col 30M-row table skips a 256MB memset)
+    out = np.empty((n_pad, w), np.int32)
+    out[n:] = -1
+    if h.n:
+        if not fill_interleaved(out, cols, h.rows):
+            for j, c in enumerate(cols):
+                out[:n, j] = np.ascontiguousarray(c, np.int32)[h.rows]
+    return out
+
+
+def interleave_rows(
+    cols: Sequence[np.ndarray], pad: int = 64, pad_fill: int = -1
+) -> np.ndarray:
+    """Row-order interleaved matrix int32[n_pad, w] over lock-step columns
+    (for range views whose rows are already grouped contiguously by key).
+    Padded to pow2(n + pad) rows of ``pad_fill``; ``pad`` must be ≥ the
+    largest row-slice cap any probe site uses (slice_blocks clamps starts,
+    which would silently shift an undersized table's lane↔row mapping)."""
+    from ..native.sort import fill_interleaved
+
+    w = max(len(cols), 1)
+    n = int(cols[0].shape[0]) if cols else 0
+    n_pad = _ceil_pow2(max(n, 1) + max(pad, 1))
+    out = np.empty((n_pad, w), np.int32)
+    out[n:] = pad_fill
+    if n and not fill_interleaved(out, cols, None):
+        for j, c in enumerate(cols):
+            out[:n, j] = np.ascontiguousarray(c, np.int32)
+    return out
+
+
+def slice_blocks(tbl, start, cap: int):
+    """Contiguous [cap, w] block per element of ``start`` (any shape):
+    returns tbl-typed [..., cap, w].  Starts clamp to [0, rows - cap]
+    exactly as the reference's ``slice_blocks`` (interleave_* pad enough
+    rows that a real bucket offset never clamps).  Row indices are int64,
+    so ``rows·w`` beyond 2^31 addresses correctly."""
+    rows = int(tbl.shape[0])
+    s = start.to(torch.int64).clamp(0, rows - cap)
+    idx = s.unsqueeze(-1) + torch.arange(cap, dtype=torch.int64,
+                                         device=tbl.device)
+    return tbl[idx]
+
+
+
+def probe_block(off, tbl, cap: int, q_cols: Sequence, off_a=None,
+                ashift: Optional[int] = None):
+    """Bucket block for the hash of ``q_cols``: [..., cap, w] raw rows.
+
+    The block starts at the bucket's first entry and spans ``cap`` rows
+    (the build's max bucket occupancy), so every entry of the bucket is in
+    the block; overshoot rows belong to LATER buckets and cannot equal the
+    query key (equal keys hash to the same bucket), so callers just compare
+    key columns exactly — no per-slot validity mask is needed.  ``off_a``
+    / ``ashift`` read packed offsets (int32 anchors + uint16 residuals
+    stored as int16)."""
+    size = int(off.shape[0]) - 1
+    h = bucket_of(q_cols, size)
+    if off_a is None:
+        start = off[h].to(torch.int64)
+    else:
+        start = off_a[h >> ashift].to(torch.int64) + (
+            off[h].to(torch.int64) & 0xFFFF
+        )
+    return slice_blocks(tbl, start, cap)
