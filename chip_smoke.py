@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's bulk Check on one NVIDIA card and hold every
-CUDA kernel against its plain PyTorch version.
+"""Drive the PyTorch port's bulk Check and lookups on one NVIDIA card and
+hold every CUDA kernel against its plain PyTorch version.
 
 Run from the repository root:  python3 chip_smoke.py [--scale3 S]
 
@@ -8,20 +8,31 @@ Phases (any failure exits non-zero and prints no result line):
 1. the card's name and power limit (nvidia-smi);
 2. build every kernel from csrc/ (one nvcc per source, in parallel);
 3. each fused-probe mode (gate/until2/any/block) on packed and int32
-   tables with expiry lanes, kernel == plain version bit for bit;
+   tables with expiry lanes, and ``runs`` on packed and int32 rev-style
+   tables with one heavy bucket (cap >= 1024), absent and negative keys,
+   kernel == plain version bit for bit;
 4. BASELINE config 2 (RBAC: 10k repos x 1k users x 100 teams x 10 orgs,
    seed 11) — a 100,000-check batch, kernels vs plain on all three
    planes, 2,000 sampled rows vs the host oracle;
 5. BASELINE config 3 (nested-groups docs: 1M docs, 10M edges, seed 23)
-   — the same checks (``--scale3`` cuts its size; 1.0 is full size);
+   — the same checks (``--scale3`` cuts its size; 1.0 is full size),
+   then lookups on the same prepared snapshot (benchmarks/
+   bench8_lookup.py's subjects): LookupResources document#view for 48
+   random users (seed 11) and for up to 6 bulk group#member subjects,
+   LookupSubjects document:dX#view -> user for 16 random docs (seed 13).
+   Candidate blocks of a kernels=False engine equal the kernel path's
+   block for block; full answers equal the host walker's (same exact
+   filter) for every user, every doc and the heaviest bulk subject;
 6. a closure-overflow world (closure_source_cap=4), every row vs the
    oracle;
 7. the client path on ``cuda``: write_schema, write, check_one/all/any
-   under full and at_least consistency, vs the oracle.
+   under full and at_least consistency, lookup_resources /
+   lookup_subjects and a cursor-paged walk, vs the oracle.
 
 Phases 4-7 are the main path: launch counts are zeroed before phase 4
 and read after phase 7, and every mode must have launched.  Then each
-mode is timed at the largest shape the main path gave it.  The second
+mode is timed at the largest shape the main path gave it, and ``runs``
+also at its largest-cap call (the row's ``deep_bucket``).  The second
 to last lines are the kernel table as JSON and the card line; the last
 line is {"ok": true, "device": {...}}.
 """
@@ -44,6 +55,8 @@ EPOCH = 1_700_000_000_000_000
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_INT_OPS_PER_S = 67e12  # non-tensor 32-bit rate, H100 SXM data sheet
 REPLACES = "gochugaru_tpu/engine/pallas.py:246"
+#: the runs mode's own tail in the TPU kernel (pallas.py:364-400)
+REPLACES_RUNS = "gochugaru_tpu/engine/pallas.py:364"
 SOURCE = "gochugaru_tpu_torch/csrc/fused_probe.cu"
 #: the device every phase runs on (a CPU rehearsal of phases 4-7 may set
 #: it to "cpu": the engine then takes the plain PyTorch path)
@@ -69,7 +82,9 @@ def card_line() -> str:
 
 class Capture:
     """Wraps kernels.fused_probe to keep, per mode, the arguments of the
-    largest kernel call (for timing at main-path shapes)."""
+    largest kernel call by lanes (for timing at main-path shapes), and
+    for ``runs`` also those of its largest-cap call (``runs.deep``: the
+    deepest bisect)."""
 
     def __init__(self, K):
         self.K = K
@@ -82,8 +97,12 @@ class Capture:
                 shape = torch.broadcast_shapes(*[tuple(c.shape) for c in q_cols])
                 n = int(np.prod(shape)) if len(shape) else 1
                 mode = kw.get("mode", "block")
-                if n > self.best.get(mode, (0,))[0]:
-                    self.best[mode] = (n, q_cols, off, tbl, dict(kw))
+                ranks = {mode: (n,)}
+                if mode == "runs":
+                    ranks["runs.deep"] = (kw["cap"], n)
+                for key, rank in ranks.items():
+                    if rank > self.best.get(key, ((0,),))[0]:
+                        self.best[key] = (rank, q_cols, off, tbl, dict(kw))
             return self.orig(q_cols, off, tbl, **kw)
 
         self.K.fused_probe = wrapped
@@ -146,6 +165,41 @@ def probe_bound(q_cols, off, tbl, kw):
     # per lane: ~12 hash ops, 4 offset ops, per row ~6 decode ops a column
     # plus 4 compare/fold ops
     ops = B * (16 + cap * (6 * W + 4))
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = ops / H100_INT_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def runs_bound(q_cols, off, tbl, kw):
+    """(bound_ms, bound_by) for one runs call: the distinct 32-byte
+    sectors this call's data needs, each counted once — the offset (and,
+    when packed, anchor) sectors of every live key's bucket ends, and the
+    column-0 bytes of every row its two bisects read (traced by the plain
+    twin on the same inputs) — plus keys read and (lo, ln) written once,
+    over HBM bandwidth; against ~20 integer operations per live key and
+    ~8 per bisect step over the 32-bit rate."""
+    from gochugaru_tpu_torch.engine.hash import bucket_of
+    from gochugaru_tpu_torch.engine.kernels.plain import field0_spec, runs_plain
+
+    keys = q_cols[0].reshape(-1).to(torch.int32)
+    B = int(keys.numel())
+    spec, off_a = kw.get("spec"), kw.get("off_a")
+    rows_read = []
+    runs_plain(keys, off, tbl, cap=kw["cap"], spec=spec, off_a=off_a,
+               ashift=kw.get("ashift"), rows_read=rows_read)
+    rows = torch.cat(rows_read).long()
+    wide = spec is not None and field0_spec(spec)[0] > 16
+    col0_bytes = tbl.element_size() * (2 if wide else 1)
+    at = rows * (int(tbl.shape[1]) * tbl.element_size())
+    sectors = int(torch.unique(torch.cat([at >> 5, (at + col0_bytes - 1) >> 5])).numel())
+    live = keys >= 0
+    h = bucket_of([keys[live]], int(off.shape[0]) - 1).long()
+    ends = torch.cat([h, h + 1])
+    sectors += int(torch.unique((ends * off.element_size()) >> 5).numel())
+    if off_a is not None:
+        sectors += int(torch.unique(((ends >> kw["ashift"]) * off_a.element_size()) >> 5).numel())
+    nbytes = sectors * 32 + B * 4 + B * 8
+    ops = int(live.sum()) * 20 + int(rows.numel()) * 8
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_ops = ops / H100_INT_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -414,7 +468,7 @@ def phase_kernel_vs_plain(K):
                        ashift=PK.OFF_ANCHOR_SHIFT),
     }
     for layout, c in cases.items():
-        for mode in K.MODES:
+        for mode in (m for m in K.MODES if m != "runs"):
             kw = dict(cap=hi.cap, spec=c["spec"], off_a=c["off_a"],
                       ashift=c["ashift"], mode=mode, now=now,
                       exp_lane=4 if mode == "gate" else None)
@@ -425,6 +479,66 @@ def phase_kernel_vs_plain(K):
                     raise AssertionError(f"kernel != plain: {mode} on {layout}")
             hits = int(got[0].sum()) if mode != "block" else -1
             log(f"kernel-vs-plain {layout:6s} {mode:6s} bitwise OK (hits={hits})")
+
+
+def runs_tables(dev):
+    """Rev-style tables (engine/rev.py: rows bucketed by mix32 of column
+    0, sorted within each bucket) with one 5,000-row key, so the bisect
+    cap is 8,192; int32 and packed forms, and 65,536 keys mixing present,
+    absent and negative keys."""
+    from gochugaru_tpu_torch.engine import packed as PK
+    from gochugaru_tpu_torch.engine import rev as R
+    from gochugaru_tpu_torch.engine.device import to_device_tensor
+    from gochugaru_tpu_torch.engine.partition import _hash_cols
+
+    rng = np.random.default_rng(2025)
+    k0 = np.concatenate([np.full(5_000, 4_242, np.int32),
+                         rng.integers(0, 300_000, 1_000_000).astype(np.int32)])
+    k1 = rng.integers(0, 1 << 24, k0.shape[0]).astype(np.int32)
+    exp = np.where(rng.random(k0.shape[0]) < 0.9, 0,
+                   rng.integers(1, 10_000, k0.shape[0])).astype(np.int32)
+    h = _hash_cols([k0])
+    geom = R.rev_geom(h, 1)
+    off, tbl = R.build_rev_full(h, [k0, k1, exp], geom, 3)
+    cap = R.rev_meta_kw(geom, geom, None)["rv_cap"]
+    if cap < 1024:
+        raise AssertionError(f"runs table has no heavy bucket (cap {cap})")
+    spec = PK.make_spec([PK.col_range(-1, 300_000), PK.col_range(-1, 1 << 24),
+                         PK.col_range(-1, 10_000)])
+    res, anchor = PK.pack_off(off)
+    B = 65_536
+    keys = np.where(rng.random(B) < 0.6, rng.choice(k0, B),
+                    rng.integers(-5, 400_000, B)).astype(np.int32)
+    keys[:4] = (4_242, -1, 300_001, 4_242)
+    q = torch.from_numpy(keys).to(dev)
+    return q, cap, {
+        "int32": dict(off=to_device_tensor(off, dev),
+                      tbl=to_device_tensor(tbl, dev), spec=None, off_a=None,
+                      ashift=None),
+        "packed": dict(off=to_device_tensor(res, dev),
+                       tbl=to_device_tensor(PK.pack_rows(tbl, spec), dev),
+                       spec=spec, off_a=to_device_tensor(anchor, dev),
+                       ashift=PK.OFF_ANCHOR_SHIFT),
+    }
+
+
+def phase_runs_vs_plain(K):
+    """The runs mode on rev-style tables, kernel == plain bit for bit."""
+    q, cap, cases = runs_tables(torch.device(DEV))
+    for layout, c in cases.items():
+        kw = dict(cap=cap, spec=c["spec"], off_a=c["off_a"], ashift=c["ashift"],
+                  mode="runs")
+        got = K.fused_probe((q,), c["off"], c["tbl"], **kw)
+        want = K.fused_probe((q,), c["off"], c["tbl"], plain=True, **kw)
+        for a, b in zip(got, want):
+            if a.dtype != torch.int32 or not torch.equal(a, b):
+                raise AssertionError(f"kernel != plain: runs on {layout}")
+        ln = got[1]
+        if int(ln[0]) < 5_000 or int(ln[1]) != 0 or int(ln[2]) != 0:
+            raise AssertionError(f"runs on {layout}: wrong heavy/negative/absent runs")
+        log(f"kernel-vs-plain {layout:6s} runs   bitwise OK (cap={cap},"
+            f" keys={q.numel()}, rows found={int(ln.long().sum())},"
+            f" heavy run={int(ln[0])})")
 
 
 def check_world(name, cs, snap, q, names, K):
@@ -485,6 +599,147 @@ def check_world(name, cs, snap, q, names, K):
         f" plain={len(q_res) / med['plain']:.1f}"
         f" batch_s kernels={[round(t, 5) for t in times['kernels']]}"
         f" plain={[round(t, 5) for t in times['plain']]}")
+    return ek, ep, ds
+
+
+def _blocks(it):
+    return [np.asarray(b) for b in it]
+
+
+def _same_blocks(a, b):
+    return len(a) == len(b) and all(np.array_equal(x, y) for x, y in zip(a, b))
+
+
+def phase_lookups(cs, snap, ek, ep, ds, scale, card):
+    """Config 3's lookups on the snapshot phase 5 prepared (subjects of
+    benchmarks/bench8_lookup.py:91-117): kernels vs plain candidate
+    blocks, full answers vs the host walker, and the lookup metrics."""
+    from gochugaru_tpu_torch.engine import lookup as lm
+    from gochugaru_tpu_torch.engine import spmv
+    from gochugaru_tpu_torch.engine.oracle import SnapshotOracle
+
+    if not spmv.frontier_ok(ek, ds):
+        raise AssertionError("config3: the device frontier must serve lookups")
+    meta = ds.flat_meta
+    log(f"config3 lookups: rv_cap={meta.rv_cap} ra_cap={meta.ra_cap}"
+        f" fw_cap={meta.fw_cap} rev MiB="
+        f"{sum(ds.arrays[k].nbytes for k in ds.arrays if k[:2] in ('rv', 'ra', 'fw')) / 2**20:.1f}")
+    interner = snap.interner
+    oracle = SnapshotOracle(snap, now_us=EPOCH)
+    fac = lambda: oracle  # noqa: E731
+    n_users = max(int(100_000 * scale), 100)
+    n_docs = max(int(1_000_000 * scale), 1_000)
+    users = np.array([interner.lookup("user", f"u{i}") for i in range(n_users)], np.int64)
+    rng = np.random.default_rng(11)
+    sample = [int(u) for u in rng.choice(users, 48, replace=False)]
+    doc_ids = [f"d{i}" for i in np.random.default_rng(13).choice(n_docs, 16, replace=False)]
+    rtid = interner.type_lookup("document")
+    gtid = interner.type_lookup("group")
+    member, viewer = cs.slot_of_name["member"], cs.slot_of_name["viewer"]
+    bulk = []
+    for i in range(64):
+        f = interner.lookup("folder", f"f{i}")
+        m = (snap.e_res == f) & (snap.e_rel == viewer) & (snap.e_srel1 > 0)
+        for g in snap.e_subj[m]:
+            if snap.node_type[int(g)] == gtid and int(g) not in bulk:
+                bulk.append(int(g))
+    bulk = bulk[:6]
+    if not bulk:
+        raise AssertionError("config3: no group views a near-root folder")
+    sid = lambda n: interner.key_of(n)[1]  # noqa: E731
+
+    # kernels vs plain: candidate blocks, block for block
+    stk, stp = spmv.FrontierState(ek, ds), spmv.FrontierState(ep, ds)
+    n_blocks = n_cand = 0
+    queries = [("res", u, -1) for u in sample] + [("res", g, member) for g in bulk]
+    queries += [("subj", d, -1) for d in doc_ids]
+    bulk_of = {}
+    for kind, s, srel in queries:
+        if kind == "res":
+            gen = lambda st: st.resource_candidates(rtid, s, srel, -1, EPOCH)  # noqa: E731
+        else:
+            res_node, _p, srel_s, stid, wc = lm._resolve_subjects(
+                ds, "document", s, "view", "user", "")
+            gen = lambda st: st.subject_candidates(res_node, stid, srel_s, wc, EPOCH)  # noqa: E731
+        bk, bp = _blocks(gen(stk)), _blocks(gen(stp))
+        if not _same_blocks(bk, bp):
+            raise AssertionError(f"config3 lookup {kind} {s}: kernel and plain candidate blocks differ")
+        n_blocks += len(bk)
+        n_cand += sum(b.shape[0] for b in bk)
+        if srel == member:
+            bulk_of[s] = sum(b.shape[0] for b in bk)
+    heavy = max(bulk, key=lambda g: bulk_of[g])
+    log(f"config3 lookups: {len(queries)} queries, {n_blocks} candidate blocks,"
+        f" {n_cand} candidates, kernels == plain block for block;"
+        f" bulk subjects {len(bulk)} (heaviest {bulk_of[heavy]} candidates)")
+
+    # metrics (kernel path, host clock; each call ends on host arrays)
+    mixed_s, mixed_ans = [], {}
+    for u in sample:
+        t0 = time.perf_counter()
+        mixed_ans[u] = lm.lookup_resources_device(
+            ek, ds, "document", "view", "user", sid(u), "", now_us=EPOCH,
+            oracle_factory=fac)
+        mixed_s.append(time.perf_counter() - t0)
+    subj_s, subj_ans = [], {}
+    for d in doc_ids:
+        t0 = time.perf_counter()
+        subj_ans[d] = lm.lookup_subjects_device(
+            ek, ds, "document", d, "view", "user", "", now_us=EPOCH,
+            oracle_factory=fac)
+        subj_s.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    total = 0
+    for g in bulk:
+        for b in stk.resource_candidates(rtid, g, member, -1, EPOCH):
+            total += b.shape[0]
+    bulk_dt = time.perf_counter() - t0
+    ds.__dict__.pop("_lookup_streams", None)
+    t0 = time.perf_counter()
+    page, _cur = lm.lookup_resources_page(
+        ek, ds, "document", "view", "group", sid(heavy), "member",
+        page_size=1_000, now_us=EPOCH, oracle_factory=fac)
+    first_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    heavy_ans = lm.lookup_resources_device(
+        ek, ds, "document", "view", "group", sid(heavy), "member",
+        now_us=EPOCH, oracle_factory=fac)
+    full_s = time.perf_counter() - t0
+    if len(page) != min(1_000, len(heavy_ans)):
+        raise AssertionError("config3: first page is short")
+    log(f"config3 lookups [{card}]: p50 s per mixed-user LookupResources"
+        f" {float(np.median(mixed_s))} (48 users, {sum(map(len, mixed_ans.values()))}"
+        f" results); p50 s per LookupSubjects {float(np.median(subj_s))}"
+        f" (16 docs, {sum(map(len, subj_ans.values()))} results)")
+    log(f"config3 lookups [{card}]: bulk candidates/s {total / bulk_dt}"
+        f" ({total} candidates, {len(bulk)} group#member subjects, {bulk_dt} s);"
+        f" first page (1,000 results) ms {first_ms};"
+        f" heaviest full answer s {full_s} ({len(heavy_ans)} resources)")
+
+    # full answers vs the host walker + the same exact filter
+    t0 = time.perf_counter()
+    walked = [("user", sid(u), "", mixed_ans[u]) for u in sample]
+    walked.append(("group", sid(heavy), "member", heavy_ans))
+    for stype, s_id, srel, got in walked:
+        names = ("document", "view", stype, s_id, srel)
+        resolved = lm._resolve_resources(ds, *names)
+        _rt, _p, srel_slot, subj_node, wc_node = resolved
+        seen = lm._walk_resource_candidates(snap, subj_node, srel_slot, wc_node)
+        filt, id_of = lm._res_filter(ek, ds, resolved, names, EPOCH, fac)
+        want = sorted(id_of(int(g)) for g in filt(seen[snap.node_type[seen] == rtid]))
+        if got != want:
+            raise AssertionError(f"config3: lookup for {stype}:{s_id} differs from the walker")
+    for d in doc_ids:
+        names = ("document", d, "view", "user", "")
+        resolved = lm._resolve_subjects(ds, *names)
+        res_node, _p, srel_slot, stid, wc_node = resolved
+        cand = lm._walk_subject_candidates(snap, res_node, stid, srel_slot, wc_node)
+        filt, id_of = lm._subj_filter(ek, ds, resolved, names, EPOCH, fac)
+        if subj_ans[d] != sorted(id_of(int(g)) for g in filt(cand)):
+            raise AssertionError(f"config3: lookup_subjects for {d} differs from the walker")
+    log(f"config3 lookups: {len(walked)} LookupResources and {len(doc_ids)}"
+        f" LookupSubjects answers equal the host walker's"
+        f" ({time.perf_counter() - t0:.1f} s incl. the transposed-index build)")
 
 
 def phase_overflow(K):
@@ -576,6 +831,64 @@ def phase_client():
             raise AssertionError("check_any disagrees")
     log(f"client path on {DEV}: {len(checks)} checks x 2 strategies agree with"
         f" the oracle ({sum(want)} allowed)")
+    n_res = 0
+    for u in range(0, 60, 7):
+        got = list(c.lookup_resources(ctx, consistency.full(), "repo#read", f"user:u{u}"))
+        if got != sorted(oracle.lookup_resources("repo", "read", "user", f"u{u}", "")):
+            raise AssertionError(f"client lookup_resources for u{u} disagrees with the oracle")
+        n_res += len(got)
+    for r in range(0, 50, 9):
+        got = list(c.lookup_subjects(ctx, consistency.full(), f"repo:r{r}", "admin", "user"))
+        if got != sorted(oracle.lookup_subjects("repo", f"r{r}", "admin", "user", "")):
+            raise AssertionError(f"client lookup_subjects for r{r} disagrees with the oracle")
+    ids, cursor, pages = [], None, 0
+    while True:
+        page = c.lookup_resources_page(ctx, consistency.at_least(rev), "repo#read",
+                                       "team:t1#member", page_size=3, cursor=cursor)
+        ids += page.ids
+        pages += 1
+        cursor = page.cursor
+        if cursor is None:
+            break
+    want_ids = sorted(oracle.lookup_resources("repo", "read", "team", "t1", "member"))
+    if len(ids) != len(set(ids)) or sorted(ids) != want_ids or pages < 2:
+        raise AssertionError("client paged lookup disagrees with the oracle")
+    log(f"client path on {DEV}: lookup_resources ({n_res} results), lookup_subjects"
+        f" and a {pages}-page cursor walk ({len(ids)} results) agree with the oracle")
+
+
+def time_mode(K, mode, q_cols, off, tbl, kw, card):
+    """One mode at one captured main-path call: kernel vs plain on its
+    inputs, both timed, and its bound; a kernel-table row without
+    ``launches``."""
+    kw = dict(kw)
+    kw.pop("plain", None)
+    shape = torch.broadcast_shapes(*[tuple(c.shape) for c in q_cols])
+    n = int(np.prod(shape)) if len(shape) else 1
+    got = _outs(K.fused_probe(q_cols, off, tbl, **kw))
+    want = _outs(K.fused_probe(q_cols, off, tbl, plain=True, **kw))
+    err = max(int((a.long() - b.long()).abs().max()) if a.numel() else 0
+              for a, b in zip(got, want))
+    saved = dict(K.LAUNCHES)
+    ms = time_call(lambda: K.fused_probe(q_cols, off, tbl, **kw), 20)
+    plain_ms = time_call(
+        lambda: K.fused_probe(q_cols, off, tbl, plain=True, **kw), 3)
+    K.LAUNCHES.update(saved)
+    bound_ms, bound_by = (runs_bound if mode == "runs" else probe_bound)(
+        q_cols, off, tbl, kw)
+    log(f"time fused_probe.{mode} [{card}]: lanes={n} cap={kw['cap']}"
+        f" packed={kw.get('spec') is not None} ms={ms:.5f}"
+        f" plain_ms={plain_ms:.5f} bound_ms={bound_ms:.6f} ({bound_by})"
+        f" max_abs_err={err}")
+    if err:
+        raise AssertionError(f"{mode}: kernel differs from plain at main-path shape")
+    return {
+        "name": f"fused_probe.{mode}", "route": "cuda", "source": SOURCE,
+        "replaces": REPLACES_RUNS if mode == "runs" else REPLACES,
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "lanes": n, "cap": kw["cap"],
+    }
 
 
 def main() -> int:
@@ -604,6 +917,7 @@ def main() -> int:
                 log(f"  ptxas {name}: {line.strip()}")
 
     phase_kernel_vs_plain(K)
+    phase_runs_vs_plain(K)
 
     # ---- the main path: counts from zero, phases 4-7 ------------------
     K.reset_launches()
@@ -617,9 +931,11 @@ def main() -> int:
         t0 = time.perf_counter()
         cs, snap, q, names = build_docs(args.scale3)
         log(f"config3 (scale {args.scale3}): world built in {time.perf_counter() - t0:.2f}s")
-        check_world("config3", cs, snap, q, names, K)
-        log(f"launches after config3: {json.dumps(K.LAUNCHES)}")
-        del snap
+        ek, ep, ds = check_world("config3", cs, snap, q, names, K)
+        log(f"launches after config3 checks: {json.dumps(K.LAUNCHES)}")
+        phase_lookups(cs, snap, ek, ep, ds, args.scale3, card)
+        log(f"launches after config3 lookups: {json.dumps(K.LAUNCHES)}")
+        del snap, ek, ep, ds
         phase_overflow(K)
         log(f"launches after the overflow world: {json.dumps(K.LAUNCHES)}")
         phase_client()
@@ -632,32 +948,14 @@ def main() -> int:
     # ---- per-mode timing at the largest main-path shape ----------------
     table = []
     for mode in K.MODES:
-        n, q_cols, off, tbl, kw = cap.best[mode]
-        kw = dict(kw)
-        kw.pop("plain", None)
-        got = _outs(K.fused_probe(q_cols, off, tbl, **kw))
-        want = _outs(K.fused_probe(q_cols, off, tbl, plain=True, **kw))
-        err = max(int((a.long() - b.long()).abs().max()) if a.numel() else 0
-                  for a, b in zip(got, want))
-        saved = dict(K.LAUNCHES)
-        ms = time_call(lambda: K.fused_probe(q_cols, off, tbl, **kw), 20)
-        plain_ms = time_call(
-            lambda: K.fused_probe(q_cols, off, tbl, plain=True, **kw), 3)
-        K.LAUNCHES.update(saved)
-        bound_ms, bound_by = probe_bound(q_cols, off, tbl, kw)
-        log(f"time fused_probe.{mode}: lanes={n} cap={kw['cap']}"
-            f" packed={kw.get('spec') is not None} ms={ms:.5f}"
-            f" plain_ms={plain_ms:.5f} bound_ms={bound_ms:.6f} ({bound_by})"
-            f" max_abs_err={err}")
-        if err:
-            raise AssertionError(f"{mode}: kernel differs from plain at main-path shape")
-        table.append({
-            "name": f"fused_probe.{mode}", "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES, "launches": launches[mode],
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "lanes": n, "cap": kw["cap"],
-        })
+        row = time_mode(K, mode, *cap.best[mode][1:], card)
+        if mode == "runs":
+            deep = time_mode(K, mode, *cap.best["runs.deep"][1:], card)
+            row["deep_bucket"] = {k: deep[k] for k in (
+                "lanes", "cap", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                "bound_by")}
+        row["launches"] = launches[mode]
+        table.append(row)
     print(json.dumps({"kernels": table}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 """gochugaru_tpu_torch — the PyTorch/CUDA port of gochugaru_tpu.
 
-The same authorization framework (the Check surface of
+The same authorization framework (the Check and Lookup surface of
 ``authzed/gochugaru`` evaluated in-process) with its device engine
 rewritten in PyTorch and its TPU kernel hand-written in CUDA C++ for
 Hopper.  It imports nothing of JAX and nothing of ``gochugaru_tpu``: the

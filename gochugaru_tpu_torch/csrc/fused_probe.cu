@@ -1,7 +1,7 @@
 // Fused bucket probe for Hopper (sm_90a).
 //
 // Replaces gochugaru_tpu/engine/pallas.py::fused_probe (modes block, any,
-// until2, gate).  One probe per query lane:
+// until2, gate, and runs below).  One probe per query lane:
 //
 //   mix32(q) -> bucket -> bucket start (int32 offsets, or int32 anchor +
 //   uint16 residual) -> clamp to [0, rows - cap] -> cap rows -> decode
@@ -20,6 +20,25 @@
 //
 // Bool outputs are uint8.  Row addressing is int64 (rows * lanes passes
 // 2^31 on large tables).
+//
+// Mode runs replaces pallas.py::fused_probe mode "runs" (pallas.py:364-400,
+// the point-run probe of engine/spmv.py::_make_runs behind the lookups).
+// One thread per key: mix32 -> bucket h -> [start, end) from off(h) and
+// off(h + 1) (anchor + residual when packed) -> two bisects over column 0
+// inside the bucket -> (lo, ln) as int32; keys < 0 give (0, 0).  The
+// TPU kernel DMA'd a cap-row block into VMEM first; reverse-index caps are
+// max bucket occupancies (thousands of rows for a popular subject), so
+// here each bisect step reads its one column-0 row straight from global
+// memory: 2 * log2(bucket) scattered 32-byte sectors per key, a latency
+// bound gather like the other modes.
+//
+// The loop runs `steps = max(bit_length(cap), 1)` iterations and stops
+// once the range is empty.  That equals the reference's fixed count with
+// its `alive` freeze exactly: a step with n == 0 changes nothing (lo
+// stays, n stays 0), so every iteration after the first empty one is a
+// no-op, and the break only skips no-ops.  (With a true bucket of at most
+// cap rows the range is empty after bit_length(cap) steps anyway: each
+// live step leaves n <= floor(n / 2).)
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -27,7 +46,7 @@
 #define GOCHUGARU_MAXW 16
 #define GOCHUGARU_DICT 256
 
-enum { MODE_BLOCK = 0, MODE_ANY = 1, MODE_UNTIL2 = 2, MODE_GATE = 3 };
+enum { MODE_BLOCK = 0, MODE_ANY = 1, MODE_UNTIL2 = 2, MODE_GATE = 3, MODE_RUNS = 4 };
 
 extern "C" {
 struct ProbeArgs {
@@ -47,7 +66,7 @@ struct ProbeArgs {
   int ashift;
   int packed;            // tbl holds uint16 lanes decoded through fields
   int w_raw;             // row stride in elements
-  int cap;
+  int cap;              // probe rows; runs: bisect bound (max bucket rows)
   int W;                 // logical columns
   int now;
   int lay_exp;           // gate: expiry column, -1 = no expiry gate
@@ -147,6 +166,70 @@ __global__ void fused_probe_kernel(const ProbeArgs a) {
   }
 }
 
+__device__ __forceinline__ long long off_read(const ProbeArgs& a, long long b) {
+  if (a.off_a != nullptr) {
+    return (long long)a.off_a[b >> a.ashift] +
+           (long long)((const uint16_t*)a.off)[b];
+  }
+  return (long long)((const int32_t*)a.off)[b];
+}
+
+// column 0 of one row: int32 tables read it whole; packed tables decode
+// field 0 (a plain range at bit 0: lane 0, and lane 1 when bits > 16)
+__device__ __forceinline__ int32_t col0_read(const ProbeArgs& a, long long row) {
+  if (!a.packed) return ((const int32_t*)a.tbl)[row * a.w_raw];
+  const uint16_t* r = (const uint16_t*)a.tbl + row * a.w_raw;
+  const int bits = a.fields[0], base = a.fields[1];
+  uint32_t v = (uint32_t)r[0];
+  if (bits > 16) v |= (uint32_t)r[1] << 16;
+  if (bits < 32) v &= (1u << bits) - 1u;
+  return (int32_t)(v + (uint32_t)base);
+}
+
+__device__ __forceinline__ long long bisect(const ProbeArgs& a, long long start,
+                                            long long end, int32_t key,
+                                            int steps, bool left) {
+  const long long last = a.rows - 1;
+  long long lo = start, n = end - start;
+  for (int s = 0; s < steps && n > 0; ++s) {
+    const long long half = n >> 1;
+    const long long mid = lo + half;
+    const int32_t v = col0_read(a, mid < 0 ? 0 : (mid > last ? last : mid));
+    if (left ? (v < key) : (v <= key)) {
+      lo = mid + 1;
+      n = n - half - 1;
+    } else {
+      n = half;
+    }
+  }
+  return lo;
+}
+
+__global__ void fused_runs_kernel(const ProbeArgs a) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= a.B) return;
+  const int32_t key = a.q0[i];
+  int32_t lo_out = 0, ln_out = 0;
+  if (key >= 0) {
+    uint32_t h = 2166136261u;
+    h = (h ^ (uint32_t)key) * 16777619u;
+    h ^= h >> 16;
+    h *= 0x85EBCA6Bu;
+    h ^= h >> 13;
+    h *= 0xC2B2AE35u;
+    h ^= h >> 16;
+    const long long b = (long long)(h & (uint32_t)(a.size - 1));
+    const long long start = off_read(a, b), end = off_read(a, b + 1);
+    const int steps = a.cap > 0 ? 32 - __clz(a.cap) : 1;
+    const long long lo = bisect(a, start, end, key, steps, true);
+    const long long hi = bisect(a, start, end, key, steps, false);
+    lo_out = (int32_t)lo;
+    ln_out = (int32_t)(hi - lo);
+  }
+  ((int32_t*)a.out0)[i] = lo_out;
+  ((int32_t*)a.out1)[i] = ln_out;
+}
+
 extern "C" int gochugaru_fused_probe(int mode, const ProbeArgs* args,
                                      void* stream) {
   const ProbeArgs a = *args;
@@ -167,6 +250,10 @@ extern "C" int gochugaru_fused_probe(int mode, const ProbeArgs* args,
       break;
     case MODE_GATE:
       fused_probe_kernel<MODE_GATE><<<grid, threads, 0, st>>>(a);
+      break;
+    case MODE_RUNS:
+      if (a.nq != 1) return (int)cudaErrorInvalidValue;
+      fused_runs_kernel<<<grid, threads, 0, st>>>(a);
       break;
     default:
       return (int)cudaErrorInvalidValue;

@@ -11,7 +11,9 @@ Two implementations of the same semantics:
 
 - ``device`` — the PyTorch engine: the flat check program (``flat``)
   over hash-indexed, bit-packed tables on a torch device, its bucket
-  probes in the hand-written CUDA kernel of ``kernels``.
+  probes in the hand-written CUDA kernel of ``kernels``; the lookups
+  (``lookup``) expand candidates over the reverse-CSR tables (``rev``)
+  with the device frontier (``spmv``) and filter them with the check.
 """
 
 from .oracle import Oracle, PermTri

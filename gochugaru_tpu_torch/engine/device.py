@@ -93,6 +93,11 @@ class DeviceSnapshot:
     #: per packed table, its decode spec as the kernel reads it
     #: (fields, dictionaries), uploaded once here
     specs: Dict[str, Tuple[torch.Tensor, torch.Tensor]]
+    #: the store snapshot this one was prepared from, when ``snapshot``
+    #: is a derived view of it (None: ``snapshot`` itself).  Lookup
+    #: cursors resume against it; the lookup layer caches its frontier
+    #: state and live result streams in this object's ``__dict__``
+    source_snapshot: Optional[Any] = None
 
 
 def _resolve_kernels(config: EngineConfig, device: torch.device) -> bool:
@@ -398,10 +403,10 @@ class DeviceEngine:
         )
         return fn, (dsnap.arrays, dsnap.tid_map, int(now), qm, dsnap.specs)
 
-    def _run(self, dsnap, queries, now_us, B):
+    def _run(self, dsnap, queries, now_us, B, bucket_min: int = 0):
         faults.fire("device.dispatch")
         now = dsnap.snapshot.now_rel32(now_us)
-        fn, args = self.flat_fn_and_args(dsnap, queries, now, B)
+        fn, args = self.flat_fn_and_args(dsnap, queries, now, B, bucket_min)
         with torch.no_grad():
             d, p, ovf = fn(*args)
         # one device→host copy for the three planes
@@ -419,15 +424,18 @@ class DeviceEngine:
         q_srel: Optional[np.ndarray] = None,
         q_wc: Optional[np.ndarray] = None,
         now_us: Optional[int] = None,
+        bucket_min: int = 0,
     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Bulk check straight from pre-interned int32 columns; returns
-        (definite, possible, overflow) bool arrays of the batch length."""
+        (definite, possible, overflow) bool arrays of the batch length.
+        ``bucket_min`` raises the batch's pow2 padding floor (the lookup
+        exact filter pads to one coarse bucket)."""
         B = q_res.shape[0]
         if B == 0:
             z = np.zeros(0, bool)
             return z, z, z
         queries = self._columns_preamble(q_res, q_perm, q_subj, q_srel, q_wc)
-        return self._run(dsnap, queries, now_us, B)
+        return self._run(dsnap, queries, now_us, B, bucket_min)
 
     def check_batch(
         self,

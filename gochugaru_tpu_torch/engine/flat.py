@@ -1046,6 +1046,12 @@ def _pack_descs(name: str, meta: FlatMeta, dom: Dict, out: Dict):
         rows_len = int(out[name[:-2] + "x"].shape[0])
         fan = int(dom["fan"].get(name, 0))
         return [NODE, pk.col_range(-1, rows_len - 1), pk.col_delta(0, fan, 1)]
+    if name == "rvx":
+        return [K2, K1] + gates(meta.e_hascav, meta.e_hasexp)
+    if name == "fwx":
+        return [K1, K2] + gates(meta.e_hascav, meta.e_hasexp)
+    if name == "rax":
+        return [NODE, K1] + gates(meta.ar_hascav, meta.ar_hasexp)
     if name == "usx":
         return (
             [NODE, pk.col_range(-1, S1 - 2)]
@@ -1075,6 +1081,7 @@ _PACK_OFF_KEYS = (
     "eh_off", "th_off", "pfh_off", "clh_off", "usr_off", "arr_off",
     "pfu_off", "csr_off", "push_off", "ovfh_off",
     "pfu_start", "csr_start",
+    "rv_off", "ra_off", "fw_off",
 )
 
 
@@ -1091,7 +1098,7 @@ def _pack_flat(
 
     names = (
         ["ehx", "clx", "pfx", "tx", "usx", "arx", "pfux", "csrx",
-         "usgx", "argx", "pfugx", "csrgx"]
+         "usgx", "argx", "pfugx", "csrgx", "rvx", "fwx", "rax"]
         + [k for k in out if k.startswith("rc") and k.endswith(("x", "gx"))
            and not k.endswith("_off")]
     )
@@ -1337,6 +1344,38 @@ def build_flat_arrays(
         )
     _mt.observe("prepare.tindex_s", time.perf_counter() - _t_tindex)
 
+    # ---- reverse-CSR lookup index (engine/rev.py) ----------------------
+    # the frontier tables LookupResources/LookupSubjects hop over
+    # (engine/spmv.py): edges re-keyed by k2 (reverse), by k1 (forward),
+    # and arrow rows by child — built from the SAME packed key columns
+    # as the forward tables, M=1 layout
+    rev_kw: Dict = {}
+    if BS and config.flat_rev_index:
+        _t_rev = time.perf_counter()
+        from .partition import _hash_cols
+        from .rev import build_rev_full, rev_geom, rev_meta_kw
+
+        h_rv = _hash_cols([e_k2])
+        ge_rv = rev_geom(h_rv, 1)
+        rv_cols = [e_k2, e_k1] + e_gates
+        out["rv_off"], out["rvx"] = build_rev_full(
+            h_rv, rv_cols, ge_rv, len(rv_cols)
+        )
+        h_ra = _hash_cols([snap.ar_child])
+        ge_ra = rev_geom(h_ra, 1)
+        ra_cols = [snap.ar_child, ar_gk] + ar_gates
+        out["ra_off"], out["rax"] = build_rev_full(
+            h_ra, ra_cols, ge_ra, len(ra_cols)
+        )
+        h_fw = _hash_cols([e_k1])
+        ge_fw = rev_geom(h_fw, 1)
+        fw_cols = [e_k1, e_k2] + e_gates
+        out["fw_off"], out["fwx"] = build_rev_full(
+            h_fw, fw_cols, ge_fw, len(fw_cols)
+        )
+        rev_kw = rev_meta_kw(ge_rv, ge_ra, ge_fw)
+        _mt.observe("prepare.rev_s", time.perf_counter() - _t_rev)
+
     # resource-side Leopard index: flattened ancestor closures for
     # self-recursive arrow hierarchies (block-slice layout only)
     ar_dd = _arrow_data_depth(snap)
@@ -1417,6 +1456,7 @@ def build_flat_arrays(
         k2_dense=tuple(int(x) for x in maps.k2),
         **rc_kw,
         **fold_kw,
+        **rev_kw,
         e_cap=_round_cap(eh.cap) if eh is not None else 4,
         e_n=_ceil_pow2(max(eh.n, 1)) if eh is not None else 8,
         usr_cap=_round_cap(usr.index.cap),

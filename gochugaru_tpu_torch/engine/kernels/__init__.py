@@ -1,7 +1,8 @@
 """The engine's hand-written Hopper kernels and the seam that picks them.
 
 ``fused_probe`` is the port of gochugaru_tpu/engine/pallas.py's
-``fused_probe`` (the only TPU kernel family on the check path).  A call on
+``fused_probe``: modes block/any/until2/gate on the check path, and
+``runs`` (the point-run bisect) on the lookup path.  A call on
 CPU tensors, or with ``plain=True``, runs the plain PyTorch twin
 (``plain.py``); a call on CUDA tensors launches ``csrc/fused_probe.cu``
 or raises — there is no silent fallback.  ``LAUNCHES`` counts kernel
@@ -16,14 +17,14 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
-from .plain import blk_hit, fused_probe_plain
+from .plain import blk_hit, field0_spec, fused_probe_plain
 
 __all__ = [
     "LAUNCHES", "MODES", "blk_hit", "fused_probe", "fused_probe_plain",
     "reset_launches", "spec_tensors",
 ]
 
-MODES = ("block", "any", "until2", "gate")
+MODES = ("block", "any", "until2", "gate", "runs")
 _MODE_ID = {m: i for i, m in enumerate(MODES)}
 MAXW = 16
 DICT = 256
@@ -112,6 +113,10 @@ def fused_probe(
     - ``until2`` (bool[...], bool[...]): hit with column 2 / 3 > ``now``
     - ``gate``   (hit, live) bool[..., cap]: live = hit whose expiry
       column ``exp_lane`` is 0 or > ``now`` (no gate when None)
+    - ``runs``   (lo, ln) int32[...]: one key column; the key's run of
+      rows in its bucket, found by two bisects over column 0 (rows sorted
+      by column 0 within each bucket, ``cap`` the max bucket occupancy);
+      keys < 0 give (0, 0)
     """
     if plain or tbl.device.type == "cpu":
         return fused_probe_plain(
@@ -124,6 +129,8 @@ def fused_probe(
     nq = len(q_cols)
     if nq not in (1, 2):
         raise ValueError("fused_probe takes one or two key columns")
+    if mode == "runs" and nq != 1:
+        raise ValueError("the runs probe takes one key column")
     qf = [c.expand(shape).reshape(-1).to(torch.int32).contiguous()
           for c in q_cols]
     B = int(qf[0].shape[0])
@@ -136,8 +143,10 @@ def fused_probe(
         raise ValueError("until2 needs columns 2 and 3")
     if exp_lane is not None and not 0 <= exp_lane < W:
         raise ValueError("expiry lane outside the row")
-    if rows < cap:
+    if mode != "runs" and rows < cap:
         raise ValueError("table has fewer rows than the probe cap")
+    if mode == "runs" and packed:
+        field0_spec(spec)  # raises unless column 0 is a plain range
     want_tbl = torch.int16 if packed else torch.int32
     want_off = torch.int16 if off_a is not None else torch.int32
     if tbl.dtype != want_tbl or off.dtype != want_off:
@@ -164,6 +173,9 @@ def fused_probe(
         outs = [torch.empty(B, dtype=torch.uint8, device=dev) for _ in range(2)]
     elif mode == "gate":
         outs = [torch.empty((B, cap), dtype=torch.uint8, device=dev)
+                for _ in range(2)]
+    elif mode == "runs":
+        outs = [torch.empty(B, dtype=torch.int32, device=dev)
                 for _ in range(2)]
     else:
         raise ValueError(f"unknown probe mode {mode!r}")
@@ -197,5 +209,7 @@ def _shaped(mode, outs, shape, cap, W):
     if mode == "gate":
         return tuple(o.view(torch.bool).reshape(tuple(shape) + (cap,))
                      for o in outs)
+    if mode == "runs":
+        return tuple(o.reshape(tuple(shape)) for o in outs)
     done = [o.view(torch.bool).reshape(tuple(shape)) for o in outs]
     return done[0] if mode == "any" else tuple(done)

@@ -3,8 +3,10 @@
 The same function as ``csrc/fused_probe.cu``, written as the reference's
 gather chain (gochugaru_tpu/engine/flat.py with ``pallas=False``):
 ``probe_block`` + ``decode_block`` + the probe site's own compare and gate
-folds.  On the CPU it is what the engine runs; on the card only the
-parity harness and ``EngineConfig(kernels=False)`` use it.
+folds, and for the ``runs`` mode the point-run bisect of
+gochugaru_tpu/engine/spmv.py ``_make_runs``.  On the CPU it is what the
+engine runs; on the card only the parity harness and
+``EngineConfig(kernels=False)`` use it.
 """
 
 from __future__ import annotations
@@ -13,8 +15,8 @@ from typing import Optional, Sequence
 
 import torch
 
-from ..hash import probe_block
-from ..packed import decode_block
+from ..hash import bucket_of, probe_block
+from ..packed import _i32, decode_block
 
 
 def blk_hit(blk, q_cols: Sequence):
@@ -44,6 +46,11 @@ def fused_probe_plain(
 ):
     """One bucket probe over the off+interleave layout; see
     ``kernels.fused_probe`` for the modes and outputs."""
+    if mode == "runs":
+        if len(q_cols) != 1:
+            raise ValueError("the runs probe takes one key column")
+        return runs_plain(q_cols[0], off, tbl, cap=cap, spec=spec,
+                          off_a=off_a, ashift=ashift)
     shape = torch.broadcast_shapes(*[tuple(c.shape) for c in q_cols])
     qs = [c.expand(shape) for c in q_cols]
     raw = probe_block(off, tbl, cap, qs, off_a=off_a, ashift=ashift)
@@ -65,3 +72,77 @@ def fused_probe_plain(
             live = hit & ((exp == 0) | (exp > now))
         return hit, live
     raise ValueError(f"unknown probe mode {mode!r}")
+
+
+def field0_spec(spec):
+    """(bits, base) of a packed table's column 0, which the run bisect
+    reads alone: reverse-index key columns are plain ranges at bit 0."""
+    bits, base, delta_of, dict_id, off_bit = spec[2][0]
+    if off_bit != 0 or delta_of >= 0 or dict_id >= 0:
+        raise ValueError("runs: column 0 must be a plain range at bit 0")
+    return int(bits), int(base)
+
+
+def runs_plain(keys, off, tbl, *, cap: int, spec=None, off_a=None,
+               ashift: Optional[int] = None, rows_read: Optional[list] = None):
+    """The point-run probe: per key, its bucket ``[start, end)`` from
+    ``off[h]``/``off[h + 1]`` (anchor + residual when packed), then two
+    bisects over column 0 inside the bucket — ``steps =
+    max(cap.bit_length(), 1)`` iterations, each frozen once its range is
+    empty, reading ``clip(mid, 0, rows - 1)`` — giving the key's run
+    ``(lo, ln)`` as int32.  Keys < 0 give ``(0, 0)``.  Restates
+    gochugaru_tpu/engine/spmv.py ``_make_runs`` and its field-0 reader.
+
+    When ``rows_read`` is a list, each bisect step appends the table rows
+    it reads for keys >= 0 whose range is not yet empty (the rows a bytes
+    bound must count)."""
+    size = int(off.shape[0]) - 1
+    h = bucket_of([keys], size)
+
+    def off_at(i):
+        if off_a is None:
+            return off[i].to(torch.int64)
+        return off_a[i >> ashift].to(torch.int64) + (off[i].to(torch.int64) & 0xFFFF)
+
+    if spec is None:
+        def col0(idx):
+            return tbl[idx, 0]
+    else:
+        bits, base = field0_spec(spec)
+
+        def col0(idx):
+            v = tbl[idx, 0].to(torch.int32) & 0xFFFF
+            if bits > 16:
+                v = v | ((tbl[idx, 1].to(torch.int32) & 0xFFFF) << 16)
+            if bits < 32:
+                v = v & ((1 << bits) - 1)
+            return v + _i32(base) if base else v
+
+    start, end = off_at(h), off_at(h + 1)
+    last = int(tbl.shape[0]) - 1
+    steps = max(int(cap).bit_length(), 1)
+    k = keys.to(torch.int32)
+
+    def bisect(left: bool):
+        lo = start
+        n = end - start
+        for _ in range(steps):
+            # n == 0 must freeze: an unguarded step would read past the
+            # bucket end and walk lo out of the run
+            alive = n > 0
+            half = n >> 1
+            mid = lo + half
+            if rows_read is not None:
+                rows_read.append(mid[alive & (k >= 0)])
+            v = col0(mid.clamp(0, last))
+            go = alive & ((v < k) if left else (v <= k))
+            lo = torch.where(go, mid + 1, lo)
+            n = torch.where(go, n - half - 1, torch.where(alive, half, 0))
+        return lo
+
+    lo = bisect(True)
+    ln = bisect(False) - lo
+    dead = k < 0
+    zero = torch.zeros((), dtype=torch.int64, device=k.device)
+    return (torch.where(dead, zero, lo).to(torch.int32),
+            torch.where(dead, zero, ln).to(torch.int32))

@@ -83,6 +83,13 @@ class EngineConfig:
     #: raising if it cannot build or launch; False = the plain version on
     #: any device (the parity harness).  Never a silent fallback
     kernels: Optional[bool] = None
+    #: build the reverse-CSR lookup index alongside the forward tables
+    #: (engine/rev.py: rvx/rax/fwx + offsets): LookupResources/
+    #: LookupSubjects then run as device frontier hops (engine/spmv.py)
+    #: instead of the host walker.  The port serves the looped per-hop
+    #: path only (the reference's ``spmm=False``); the fused K-hop
+    #: program is a later slice
+    flat_rev_index: bool = True
 
     def packed_on(self) -> bool:
         """The resolved flat_packed flag (None = auto: packed whenever

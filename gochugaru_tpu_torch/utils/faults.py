@@ -42,6 +42,9 @@ Injection sites threaded through the tree (grep ``faults.fire``):
                              AND the group-commit pre-commit point
                              (store/store.py write_group)
     device.dispatch          batched check dispatch (engine/device.py)
+    lookup.dispatch          frontier lookup hop dispatch
+                             (engine/spmv.py; the client's lookup
+                             surface retries these under the envelope)
 """
 
 from __future__ import annotations

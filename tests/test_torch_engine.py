@@ -74,7 +74,7 @@ class World:
 
     def j_engine(self):
         return JEngine(self.j_cs, JConfig(
-            pallas=False, flat_rev_index=False, **self.cfg))
+            pallas=False, spmm=False, **self.cfg))
 
     def p_engine(self, **kw):
         return PEngine(self.p_cs, PConfig(**self.cfg, **kw), device="cpu")
@@ -344,19 +344,31 @@ def test_planes_on_reference_arrays(world):
     assert ref[0].any() and (~ref[0]).any()
 
 
+REV_KEYS = ("rv_off", "rvx", "ra_off", "rax", "fw_off", "fwx")
+REV_META = ("has_rev", "has_fw", "rv_cap", "ra_cap", "fw_cap", "packed",
+            "packed_off")
+
+
 def test_own_prepare_matches_reference(world):
     """The port's prepare builds the reference's arrays key for key and
-    bit for bit, and the same FlatMeta."""
+    bit for bit, and the same FlatMeta — the reverse-CSR lookup tables
+    (rv/ra/fw offsets and rows, packed like the rest) included."""
     w, je, jd, np_arrays = world
     pe = w.p_engine()
     arrays, meta = pe.prepare_host(w.p_snap)
     assert set(arrays) == set(np_arrays)
+    assert set(REV_KEYS) <= set(arrays)
     for k, v in np_arrays.items():
         assert arrays[k].dtype == v.dtype, k
         assert np.array_equal(arrays[k], v), k
     jm = dataclasses.asdict(jd.flat_meta)
     pm = dataclasses.asdict(meta)
     assert pm == {k: jm[k] for k in pm}
+    assert meta.has_rev and meta.has_fw
+    for k in REV_META:
+        assert pm[k] == jm[k], k
+    packed = {k for k, _spec in meta.packed}
+    assert {"rvx", "rax", "fwx"} <= packed
 
 
 def test_planes_on_own_prepare(world):

@@ -131,8 +131,67 @@ def test_cpu_calls_run_the_plain_version_and_launch_nothing():
     t = _table(4, True)
     K.reset_launches()
     for mode in K.MODES:
-        _probe(t, mode)
+        if mode == "runs":
+            r = _runs_table(4, True)
+            _runs(r)
+        else:
+            _probe(t, mode)
     assert K.LAUNCHES == {m: 0 for m in K.MODES}
+
+
+def _runs_table(seed, packed):
+    """A rev-style table (engine/rev.py layout: buckets by mix32 of column
+    0, rows sorted within each bucket) with one 1,500-row key, so the
+    bisect cap is 2,048; keys mix present, absent and negative."""
+    from gochugaru_tpu_torch.engine import rev as R
+    from gochugaru_tpu_torch.engine.partition import _hash_cols
+
+    rng = np.random.default_rng(seed)
+    k0 = np.concatenate([np.full(1500, 9, np.int32),
+                         rng.integers(10, 900, 3000).astype(np.int32)])
+    k1 = rng.integers(0, 70_000, k0.shape[0]).astype(np.int32)
+    h = _hash_cols([k0])
+    geom = R.rev_geom(h, 1)
+    off, tbl = R.build_rev_full(h, [k0, k1], geom, 2)
+    cap = R.rev_meta_kw(geom, geom, None)["rv_cap"]
+    out = dict(off=off, tbl=tbl, spec=None, off_a=None, ashift=None, cap=cap)
+    if packed:
+        spec = JPK.make_spec([JPK.col_range(-1, 900), JPK.col_range(-1, 70_000)])
+        res, anchor = JPK.pack_off(off)
+        out.update(tbl=JPK.pack_rows(tbl, spec), spec=spec, off=res,
+                   off_a=anchor, ashift=JPK.OFF_ANCHOR_SHIFT)
+    keys = rng.integers(-3, 950, 5000).astype(np.int32)
+    keys[:3] = (9, -1, 9)
+    out["keys"] = keys
+    out["k0"] = k0
+    return out
+
+
+def _runs(r, device="cpu", plain=False):
+    dev = torch.device(device)
+    return K.fused_probe(
+        (torch.from_numpy(r["keys"]).to(dev),),
+        to_device_tensor(r["off"], dev), to_device_tensor(r["tbl"], dev),
+        cap=r["cap"], spec=r["spec"],
+        off_a=None if r["off_a"] is None else to_device_tensor(r["off_a"], dev),
+        ashift=r["ashift"], mode="runs", plain=plain,
+    )
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["int32", "packed"])
+def test_runs_mode_finds_each_keys_rows(packed):
+    """runs: (lo, ln) is each present key's contiguous run of rows, (0, 0)
+    for absent or negative keys (the reference body is held to the same
+    outputs in test_torch_lookup.py)."""
+    r = _runs_table(6, packed)
+    assert r["cap"] == 2048
+    lo, ln = (x.numpy() for x in _runs(r))
+    keys, k0 = r["keys"], r["k0"]
+    counts = np.bincount(k0, minlength=1000)
+    ok = keys >= 0
+    assert np.array_equal(ln[ok], counts[keys[ok]])
+    assert (lo[~ok] == 0).all() and (ln[~ok] == 0).all()
+    assert ln[0] == 1500
 
 
 def test_spec_tensors_pad_dictionaries_with_their_last_value():
@@ -150,6 +209,17 @@ def cuda_device():
         pytest.skip("needs an NVIDIA card and nvcc (the CUDA kernel has no"
                     " CPU mode); chip_smoke.py runs this comparison on the card")
     return "cuda"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [False, True], ids=["int32", "packed"])
+def test_runs_kernel_equals_plain_on_card(cuda_device, packed):
+    r = _runs_table(7, packed)
+    k = _runs(r, cuda_device)
+    p = _runs(r, cuda_device, plain=True)
+    for a, b in zip(k, p):
+        assert a.dtype == b.dtype == torch.int32
+        assert torch.equal(a.cpu(), b.cpu())
 
 
 @pytest.mark.cuda
