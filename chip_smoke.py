@@ -11,9 +11,15 @@ Phases (any failure exits non-zero and prints no result line):
    tables with expiry lanes, and ``runs`` on packed and int32 rev-style
    tables with one heavy bucket (cap >= 1024), absent and negative keys,
    kernel == plain version bit for bit;
+3b. each fused_probe_aligned mode on bucket-aligned ladders of >= 3
+   levels (cover (0.5, 0.9)): int32 and packed, one-key and two-key, an
+   expiry lane with 0, expired and live rows, absent and negative keys,
+   hits past level 0; kernel == plain version bit for bit;
 4. BASELINE config 2 (RBAC: 10k repos x 1k users x 100 teams x 10 orgs,
    seed 11) — a 100,000-check batch, kernels vs plain on all three
-   planes, 2,000 sampled rows vs the host oracle;
+   planes, 2,000 sampled rows vs the host oracle; then the same with
+   ``EngineConfig(flat_aligned=True)`` (4b), whose planes must also equal
+   the off+interleave snapshot's;
 5. BASELINE config 3 (nested-groups docs: 1M docs, 10M edges, seed 23)
    — the same checks (``--scale3`` cuts its size; 1.0 is full size),
    then lookups on the same prepared snapshot (benchmarks/
@@ -23,18 +29,28 @@ Phases (any failure exits non-zero and prints no result line):
    Candidate blocks of a kernels=False engine equal the kernel path's
    block for block; full answers equal the host walker's (same exact
    filter) for every user, every doc and the heaviest bulk subject;
+5b. config 3 again with ``flat_aligned=True`` on the same snapshot, at
+   full size: prepare s, device MiB, the aligned tables and their caps
+   and the point tables that stayed off+interleave; planes kernels vs
+   plain and vs phase 5's planes; sampled rows vs the oracle; checks/s;
+   the same lookups, candidate blocks kernels vs plain, answers equal to
+   phase 5's (which equal the walker's);
 6. a closure-overflow world (closure_source_cap=4), every row vs the
-   oracle;
+   oracle, once off+interleave and once aligned (the aligned ``any`` and
+   ``until2`` sites' traffic);
 7. the client path on ``cuda``: write_schema, write, check_one/all/any
    under full and at_least consistency, lookup_resources /
-   lookup_subjects and a cursor-paged walk, vs the oracle.
+   lookup_subjects and a cursor-paged walk, vs the oracle; once with the
+   default configuration and once with ``with_engine_config(
+   EngineConfig(flat_aligned=True))``.
 
 Phases 4-7 are the main path: launch counts are zeroed before phase 4
-and read after phase 7, and every mode must have launched.  Then each
-mode is timed at the largest shape the main path gave it, and ``runs``
-also at its largest-cap call (the row's ``deep_bucket``).  The second
-to last lines are the kernel table as JSON and the card line; the last
-line is {"ok": true, "device": {...}}.
+and read after phase 7, and every mode of both kernels must have
+launched.  Then each mode is timed at the largest shape the main path
+gave it, ``runs`` also at its largest-cap call (the row's
+``deep_bucket``) and each aligned mode also at its call with the most
+levels (the row's ``deep_levels``).  The second to last lines are the kernel table as JSON
+and the card line; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -57,7 +73,10 @@ H100_INT_OPS_PER_S = 67e12  # non-tensor 32-bit rate, H100 SXM data sheet
 REPLACES = "gochugaru_tpu/engine/pallas.py:246"
 #: the runs mode's own tail in the TPU kernel (pallas.py:364-400)
 REPLACES_RUNS = "gochugaru_tpu/engine/pallas.py:364"
+REPLACES_ALIGNED = "gochugaru_tpu/engine/pallas.py:444"
 SOURCE = "gochugaru_tpu_torch/csrc/fused_probe.cu"
+SOURCE_ALIGNED = "gochugaru_tpu_torch/csrc/fused_probe_aligned.cu"
+ALIGNED = {"flat_aligned": True}
 #: the device every phase runs on (a CPU rehearsal of phases 4-7 may set
 #: it to "cpu": the engine then takes the plain PyTorch path)
 DEV = "cuda"
@@ -80,36 +99,57 @@ def card_line() -> str:
 # ---------------------------------------------------------------------------
 
 
+def _lanes(q_cols) -> int:
+    shape = torch.broadcast_shapes(*[tuple(c.shape) for c in q_cols])
+    return int(np.prod(shape)) if len(shape) else 1
+
+
 class Capture:
-    """Wraps kernels.fused_probe to keep, per mode, the arguments of the
-    largest kernel call by lanes (for timing at main-path shapes), and
+    """Wraps kernels.fused_probe and kernels.fused_probe_aligned to keep,
+    per mode, the arguments of the largest kernel call by lanes (for
+    timing at main-path shapes; aligned modes under ``aligned.<mode>``),
     for ``runs`` also those of its largest-cap call (``runs.deep``: the
-    deepest bisect)."""
+    deepest bisect), and for each aligned mode those of its call with the
+    most levels (``aligned.<mode>.deep``: the longest per-level loop)."""
 
     def __init__(self, K):
         self.K = K
         self.orig = K.fused_probe
+        self.orig_aligned = K.fused_probe_aligned
         self.best = {}
+
+    def _keep(self, ranks, args):
+        for key, rank in ranks.items():
+            if rank > self.best.get(key, ((0,),))[0]:
+                self.best[key] = (rank,) + args
 
     def __enter__(self):
         def wrapped(q_cols, off, tbl, **kw):
             if not kw.get("plain") and tbl.is_cuda:
-                shape = torch.broadcast_shapes(*[tuple(c.shape) for c in q_cols])
-                n = int(np.prod(shape)) if len(shape) else 1
+                n = _lanes(q_cols)
                 mode = kw.get("mode", "block")
                 ranks = {mode: (n,)}
                 if mode == "runs":
                     ranks["runs.deep"] = (kw["cap"], n)
-                for key, rank in ranks.items():
-                    if rank > self.best.get(key, ((0,),))[0]:
-                        self.best[key] = (rank, q_cols, off, tbl, dict(kw))
+                self._keep(ranks, (q_cols, off, tbl, dict(kw)))
             return self.orig(q_cols, off, tbl, **kw)
 
+        def wrapped_aligned(q_cols, tbls, caps, sw, **kw):
+            if not kw.get("plain") and tbls[0].is_cuda:
+                mode = kw.get("mode", "block")
+                n = _lanes(q_cols)
+                self._keep({f"aligned.{mode}": (n,),
+                            f"aligned.{mode}.deep": (len(tbls), n)},
+                           (q_cols, tbls, caps, sw, dict(kw)))
+            return self.orig_aligned(q_cols, tbls, caps, sw, **kw)
+
         self.K.fused_probe = wrapped
+        self.K.fused_probe_aligned = wrapped_aligned
         return self
 
     def __exit__(self, *exc):
         self.K.fused_probe = self.orig
+        self.K.fused_probe_aligned = self.orig_aligned
         return False
 
 
@@ -200,6 +240,33 @@ def runs_bound(q_cols, off, tbl, kw):
         sectors += int(torch.unique(((ends >> kw["ashift"]) * off_a.element_size()) >> 5).numel())
     nbytes = sectors * 32 + B * 4 + B * 8
     ops = int(live.sum()) * 20 + int(rows.numel()) * 8
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = ops / H100_INT_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def aligned_bound(q_cols, tbls, caps, sw, kw):
+    """(bound_ms, bound_by) for one aligned probe call: the distinct
+    (level, bucket) rows this call's data reads, each row's bytes once,
+    queries read once, outputs written once, over HBM bandwidth; against
+    its integer operations over the 32-bit rate."""
+    from gochugaru_tpu_torch.engine.hash import _level_salt, bucket_of
+
+    mode = kw.get("mode", "block")
+    shape = torch.broadcast_shapes(*[tuple(c.shape) for c in q_cols])
+    qs = [c.expand(shape).reshape(-1) for c in q_cols]
+    B = qs[0].shape[0]
+    capT = int(sum(caps))
+    W = kw["spec"][0] if kw.get("spec") is not None else int(sw)
+    nbytes = B * len(qs) * 4 + {"block": B * capT * W * 4, "any": B,
+                                "until2": 2 * B, "gate": 2 * B * capT}[mode]
+    for lvl, t in enumerate(tbls):
+        salted = [qs[0] ^ int(_level_salt(lvl))] + qs[1:]
+        h = bucket_of(salted, int(t.shape[0]))
+        nbytes += int(torch.unique(h).numel()) * int(t.shape[1]) * t.element_size()
+    # per lane and level ~12 hash ops, per slot ~6 decode ops a column
+    # plus 4 compare/fold ops
+    ops = B * (12 * len(tbls) + capT * (6 * W + 4))
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_ops = ops / H100_INT_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -541,15 +608,94 @@ def phase_runs_vs_plain(K):
             f" heavy run={int(ln[0])})")
 
 
-def check_world(name, cs, snap, q, names, K):
-    """Prepare once; kernels=True vs kernels=False planes bitwise; 2,000
-    sampled rows vs the port's host oracle; checks/s of the kernel path."""
+def aligned_ladders(dev):
+    """Bucket-aligned ladders of >= 3 levels (cover (0.5, 0.9); a full key
+    repeated past level 0's cap) over 200,000 entries: a two-key table
+    (k1, k2, two until columns, expiry) and a one-key table (k0, one
+    until column, an expiry-like column, expiry), each int32 and packed;
+    65,536 queries mixing present, absent and negative keys."""
+    from gochugaru_tpu_torch.engine import hash as H
+    from gochugaru_tpu_torch.engine import packed as PK
+    from gochugaru_tpu_torch.engine.device import to_device_tensor
+
+    rng = np.random.default_rng(2026)
+    n, B = 200_000, 65_536
+    k1 = rng.integers(0, 50_000, n).astype(np.int32)
+    k2 = rng.integers(0, 3_000, n).astype(np.int32)
+    k0 = rng.integers(0, 2_000_000, n).astype(np.int32)
+    # one full key past level 0's cap, short of what the fit-all last
+    # level refuses (16 a bucket)
+    k1[:14], k2[:14], k0[:12] = 4_242, 17, 4_242
+    u_d = rng.integers(0, 10_000, n).astype(np.int32)
+    u_p = (u_d // 2).astype(np.int32)
+    # expiry: 0 (never), expired (< now = 5,000) or live (> now)
+    exp = np.where(rng.random(n) < 0.4, 0, rng.integers(1, 10_000, n)).astype(np.int32)
+    R = PK.col_range
+    tables = {
+        "2key": ([k1, k2], [k1, k2, u_d, u_p, exp],
+                 [R(-1, 50_000), R(-1, 3_000)] + [R(-1, 10_000)] * 3, 4),
+        "1key": ([k0], [k0, u_d, u_p, exp],
+                 [R(-1, 2_000_000)] + [R(-1, 10_000)] * 3, 3),
+    }
+    qi = rng.integers(0, n, B)
+    out = {}
+    for name, (keys, cols, descs, exp_lane) in tables.items():
+        ai = H.build_aligned(keys, cols, cover=(0.5, 0.9))
+        if ai is None or len(ai.levels) < 3:
+            raise AssertionError(f"aligned ladder {name}: fewer than 3 levels"
+                                 f" ({None if ai is None else ai.caps})")
+        q = [np.where(rng.random(B) < 0.05, -1, c[qi]).astype(np.int32) for c in keys]
+        q[-1] = np.where(rng.random(B) < 0.3, rng.integers(0, 3_000_000, B), q[-1]).astype(np.int32)
+        q[0][:3] = (keys[0][0], -1, 2_100_000)
+        if len(keys) > 1:
+            q[1][:3] = (keys[1][0], keys[1][0], 1)
+        qs = tuple(torch.from_numpy(c).to(dev) for c in q)
+        spec = PK.make_spec(descs)
+        levels = [t for t, _ in ai.levels]
+        packed = [PK.pack_rows(t.reshape(-1, ai.w), spec).reshape(t.shape[0], -1)
+                  for t in levels]
+        out[f"{name} int32"] = (qs, [to_device_tensor(t, dev) for t in levels],
+                                ai.caps, ai.w, None, exp_lane)
+        out[f"{name} packed"] = (qs, [to_device_tensor(t, dev) for t in packed],
+                                 ai.caps, spec[1], spec, exp_lane)
+    return out
+
+
+def phase_aligned_vs_plain(K):
+    """Each fused_probe_aligned mode on >= 3-level ladders, bitwise."""
+    now = 5_000
+    for layout, (qs, tbls, caps, sw, spec, exp_lane) in aligned_ladders(
+            torch.device(DEV)).items():
+        for mode in K.ALIGNED_MODES:
+            kw = dict(spec=spec, mode=mode, now=now,
+                      exp_lane=exp_lane if mode == "gate" else None)
+            got = _outs(K.fused_probe_aligned(qs, tbls, caps, sw, **kw))
+            want = _outs(K.fused_probe_aligned(qs, tbls, caps, sw, plain=True, **kw))
+            for a, b in zip(got, want):
+                if a.shape != b.shape or not torch.equal(a, b):
+                    raise AssertionError(f"aligned kernel != plain: {mode} on {layout}")
+            if mode == "gate":
+                hit, live = got
+                deep = int(hit[:, caps[0]:].sum())
+                if not deep or not bool((hit & ~live).any()):
+                    raise AssertionError(f"aligned {layout}: no hit past level 0"
+                                         " or no expired hit")
+        log(f"aligned kernel-vs-plain {layout:12s} all modes bitwise OK"
+            f" (levels={len(tbls)} caps={tuple(caps)} hits={int(hit.sum())}"
+            f" past level 0={deep})")
+
+
+def check_world(name, cs, snap, q, names, K, **cfg):
+    """Prepare once (``cfg`` overrides EngineConfig fields); kernels=True
+    vs kernels=False planes bitwise; 2,000 sampled rows vs the port's host
+    oracle; checks/s of both paths.  Returns the engines, the snapshot and
+    the kernel path's planes."""
     from gochugaru_tpu_torch.engine.device import DeviceEngine
     from gochugaru_tpu_torch.engine.oracle import SnapshotOracle, T
     from gochugaru_tpu_torch.engine.plan import EngineConfig
 
-    ek = DeviceEngine(cs, EngineConfig(kernels=DEV == "cuda" or None), device=DEV)
-    ep = DeviceEngine(cs, EngineConfig(kernels=False), device=DEV)
+    ek = DeviceEngine(cs, EngineConfig(kernels=DEV == "cuda" or None, **cfg), device=DEV)
+    ep = DeviceEngine(cs, EngineConfig(kernels=False, **cfg), device=DEV)
     t0 = time.perf_counter()
     ds = ek.prepare(snap)
     if DEV == "cuda":
@@ -561,6 +707,16 @@ def check_world(name, cs, snap, q, names, K):
         f" device_MiB={sum(v.nbytes for v in ds.arrays.values()) / 2**20:.1f}"
         f" fold={bool(meta.fold_pairs)} tindex={meta.has_tindex}"
         f" rc={meta.rc_slots} ovf={meta.has_ovf}")
+    if cfg.get("flat_aligned"):
+        point = ["ehx", "usgx", "argx", "clx", "pusx", "ovfx", "tx", "pfx"]
+        point += [f"rc{ts}gx" for ts, _c, _f in meta.rc_slots]
+        kept = [k for k in point if k in ds.arrays]
+        al_mib = sum(v.nbytes for k, v in ds.arrays.items()
+                     if "_al" in k) / 2**20
+        log(f"{name}: aligned tables (table, w, caps)={list(meta.aligned)}"
+            f" aligned MiB={al_mib:.1f}; point tables kept off+interleave={kept}")
+        if not meta.aligned:
+            raise AssertionError(f"{name}: no table went aligned")
     q_res, q_perm, q_subj = q
     dk = ek.check_columns(ds, q_res, q_perm, q_subj, now_us=EPOCH)
     dp = ep.check_columns(ds, q_res, q_perm, q_subj, now_us=EPOCH)
@@ -599,7 +755,16 @@ def check_world(name, cs, snap, q, names, K):
         f" plain={len(q_res) / med['plain']:.1f}"
         f" batch_s kernels={[round(t, 5) for t in times['kernels']]}"
         f" plain={[round(t, 5) for t in times['plain']]}")
-    return ek, ep, ds
+    return ek, ep, ds, dk
+
+
+def same_planes(name, a, b):
+    """The aligned snapshot's planes equal the off+interleave one's."""
+    for nm, x, y in zip("dpo", a, b):
+        if not np.array_equal(x, y):
+            raise AssertionError(f"{name}: plane {nm} differs from the"
+                                 " off+interleave snapshot's")
+    log(f"{name}: planes equal the off+interleave snapshot's")
 
 
 def _blocks(it):
@@ -610,18 +775,20 @@ def _same_blocks(a, b):
     return len(a) == len(b) and all(np.array_equal(x, y) for x, y in zip(a, b))
 
 
-def phase_lookups(cs, snap, ek, ep, ds, scale, card):
+def phase_lookups(cs, snap, ek, ep, ds, scale, card, name="config3", want=None):
     """Config 3's lookups on the snapshot phase 5 prepared (subjects of
     benchmarks/bench8_lookup.py:91-117): kernels vs plain candidate
-    blocks, full answers vs the host walker, and the lookup metrics."""
+    blocks, the lookup metrics, and full answers vs the host walker — or,
+    when ``want`` holds an earlier snapshot's answers (which equalled
+    the walker's), vs those.  Returns this snapshot's answers."""
     from gochugaru_tpu_torch.engine import lookup as lm
     from gochugaru_tpu_torch.engine import spmv
     from gochugaru_tpu_torch.engine.oracle import SnapshotOracle
 
     if not spmv.frontier_ok(ek, ds):
-        raise AssertionError("config3: the device frontier must serve lookups")
+        raise AssertionError(f"{name}: the device frontier must serve lookups")
     meta = ds.flat_meta
-    log(f"config3 lookups: rv_cap={meta.rv_cap} ra_cap={meta.ra_cap}"
+    log(f"{name} lookups: rv_cap={meta.rv_cap} ra_cap={meta.ra_cap}"
         f" fw_cap={meta.fw_cap} rev MiB="
         f"{sum(ds.arrays[k].nbytes for k in ds.arrays if k[:2] in ('rv', 'ra', 'fw')) / 2**20:.1f}")
     interner = snap.interner
@@ -645,7 +812,7 @@ def phase_lookups(cs, snap, ek, ep, ds, scale, card):
                 bulk.append(int(g))
     bulk = bulk[:6]
     if not bulk:
-        raise AssertionError("config3: no group views a near-root folder")
+        raise AssertionError(f"{name}: no group views a near-root folder")
     sid = lambda n: interner.key_of(n)[1]  # noqa: E731
 
     # kernels vs plain: candidate blocks, block for block
@@ -663,13 +830,13 @@ def phase_lookups(cs, snap, ek, ep, ds, scale, card):
             gen = lambda st: st.subject_candidates(res_node, stid, srel_s, wc, EPOCH)  # noqa: E731
         bk, bp = _blocks(gen(stk)), _blocks(gen(stp))
         if not _same_blocks(bk, bp):
-            raise AssertionError(f"config3 lookup {kind} {s}: kernel and plain candidate blocks differ")
+            raise AssertionError(f"{name} lookup {kind} {s}: kernel and plain candidate blocks differ")
         n_blocks += len(bk)
         n_cand += sum(b.shape[0] for b in bk)
         if srel == member:
             bulk_of[s] = sum(b.shape[0] for b in bk)
     heavy = max(bulk, key=lambda g: bulk_of[g])
-    log(f"config3 lookups: {len(queries)} queries, {n_blocks} candidate blocks,"
+    log(f"{name} lookups: {len(queries)} queries, {n_blocks} candidate blocks,"
         f" {n_cand} candidates, kernels == plain block for block;"
         f" bulk subjects {len(bulk)} (heaviest {bulk_of[heavy]} candidates)")
 
@@ -706,15 +873,25 @@ def phase_lookups(cs, snap, ek, ep, ds, scale, card):
         now_us=EPOCH, oracle_factory=fac)
     full_s = time.perf_counter() - t0
     if len(page) != min(1_000, len(heavy_ans)):
-        raise AssertionError("config3: first page is short")
-    log(f"config3 lookups [{card}]: p50 s per mixed-user LookupResources"
+        raise AssertionError(f"{name}: first page is short")
+    log(f"{name} lookups [{card}]: p50 s per mixed-user LookupResources"
         f" {float(np.median(mixed_s))} (48 users, {sum(map(len, mixed_ans.values()))}"
         f" results); p50 s per LookupSubjects {float(np.median(subj_s))}"
         f" (16 docs, {sum(map(len, subj_ans.values()))} results)")
-    log(f"config3 lookups [{card}]: bulk candidates/s {total / bulk_dt}"
+    log(f"{name} lookups [{card}]: bulk candidates/s {total / bulk_dt}"
         f" ({total} candidates, {len(bulk)} group#member subjects, {bulk_dt} s);"
         f" first page (1,000 results) ms {first_ms};"
         f" heaviest full answer s {full_s} ({len(heavy_ans)} resources)")
+
+    answers = (mixed_ans, subj_ans, heavy_ans)
+    if want is not None:
+        if answers != want:
+            raise AssertionError(f"{name}: lookup answers differ from the"
+                                 " off+interleave snapshot's")
+        log(f"{name} lookups: {len(sample) + 1} LookupResources and"
+            f" {len(doc_ids)} LookupSubjects answers equal the off+interleave"
+            " snapshot's")
+        return answers
 
     # full answers vs the host walker + the same exact filter
     t0 = time.perf_counter()
@@ -728,7 +905,7 @@ def phase_lookups(cs, snap, ek, ep, ds, scale, card):
         filt, id_of = lm._res_filter(ek, ds, resolved, names, EPOCH, fac)
         want = sorted(id_of(int(g)) for g in filt(seen[snap.node_type[seen] == rtid]))
         if got != want:
-            raise AssertionError(f"config3: lookup for {stype}:{s_id} differs from the walker")
+            raise AssertionError(f"{name}: lookup for {stype}:{s_id} differs from the walker")
     for d in doc_ids:
         names = ("document", d, "view", "user", "")
         resolved = lm._resolve_subjects(ds, *names)
@@ -736,13 +913,17 @@ def phase_lookups(cs, snap, ek, ep, ds, scale, card):
         cand = lm._walk_subject_candidates(snap, res_node, stid, srel_slot, wc_node)
         filt, id_of = lm._subj_filter(ek, ds, resolved, names, EPOCH, fac)
         if subj_ans[d] != sorted(id_of(int(g)) for g in filt(cand)):
-            raise AssertionError(f"config3: lookup_subjects for {d} differs from the walker")
-    log(f"config3 lookups: {len(walked)} LookupResources and {len(doc_ids)}"
+            raise AssertionError(f"{name}: lookup_subjects for {d} differs from the walker")
+    log(f"{name} lookups: {len(walked)} LookupResources and {len(doc_ids)}"
         f" LookupSubjects answers equal the host walker's"
         f" ({time.perf_counter() - t0:.1f} s incl. the transposed-index build)")
+    return answers
 
 
-def phase_overflow(K):
+def phase_overflow(K, **cfg):
+    """The closure-overflow world (``cfg`` overrides EngineConfig
+    fields): kernels vs plain planes, device-definite rows vs the
+    oracle."""
     from gochugaru_tpu_torch.engine.device import DeviceEngine
     from gochugaru_tpu_torch.engine.oracle import Oracle, T
     from gochugaru_tpu_torch.engine.plan import EngineConfig
@@ -762,11 +943,16 @@ def phase_overflow(K):
         checks.append(rel.must_from_triple(
             f"doc:d{rng.randrange(n_docs)}",
             rng.choice(["view", "edit", "reader"]), subj))
-    ek = DeviceEngine(cs, EngineConfig(kernels=DEV == "cuda" or None, closure_source_cap=4), device=DEV)
-    ep = DeviceEngine(cs, EngineConfig(kernels=False, closure_source_cap=4), device=DEV)
+    ek = DeviceEngine(cs, EngineConfig(kernels=DEV == "cuda" or None,
+                                       closure_source_cap=4, **cfg), device=DEV)
+    ep = DeviceEngine(cs, EngineConfig(kernels=False, closure_source_cap=4, **cfg),
+                      device=DEV)
     ds = ek.prepare(snap)
     if not ds.flat_meta.has_ovf:
         raise AssertionError("closure-overflow world did not overflow")
+    al = [k for k, _w, _c in ds.flat_meta.aligned]
+    if cfg.get("flat_aligned") and not {"ovfx", "clx"} <= set(al):
+        raise AssertionError(f"closure-overflow world: ovfx/clx not aligned ({al})")
     dk = ek.check_batch(ds, checks, now_us=EPOCH)
     dp = ep.check_batch(ds, checks, now_us=EPOCH)
     for nm, a, b in zip("dpo", dk, dp):
@@ -781,19 +967,24 @@ def phase_overflow(K):
     )
     if bad:
         raise AssertionError(f"overflow world: {bad} device-definite rows disagree with the oracle")
-    log(f"closure-overflow world: {len(checks)} checks, planes bitwise equal,"
+    log(f"closure-overflow world{' (aligned: ' + ','.join(al) + ')' if al else ''}:"
+        f" {len(checks)} checks, planes bitwise equal,"
         f" overflow rows={int(ovf.sum())}, definite rows agree with the oracle")
 
 
-def phase_client():
+def phase_client(**cfg):
+    """The client path (``cfg`` overrides EngineConfig fields through
+    ``with_engine_config``) vs the oracle."""
     from gochugaru_tpu_torch import consistency, rel
-    from gochugaru_tpu_torch.client import new_evaluator
+    from gochugaru_tpu_torch.client import new_evaluator, with_engine_config
     from gochugaru_tpu_torch.engine.oracle import Oracle, T
+    from gochugaru_tpu_torch.engine.plan import EngineConfig
     from gochugaru_tpu_torch.schema import compile_schema, parse_schema
     from gochugaru_tpu_torch.utils.context import background
 
     ctx = background()
-    c = new_evaluator() if DEV == "cuda" else new_evaluator(device=DEV)
+    opts = (with_engine_config(EngineConfig(**cfg)),) if cfg else ()
+    c = new_evaluator(*opts) if DEV == "cuda" else new_evaluator(*opts, device=DEV)
     if c.device.type != DEV:
         raise AssertionError(f"client is not on {DEV}")
     c.write_schema(ctx, RBAC_SCHEMA)
@@ -829,8 +1020,12 @@ def phase_client():
             raise AssertionError("check_all disagrees")
         if c.check_any(ctx, cs, *checks[5:10]) != any(want[5:10]):
             raise AssertionError("check_any disagrees")
-    log(f"client path on {DEV}: {len(checks)} checks x 2 strategies agree with"
-        f" the oracle ({sum(want)} allowed)")
+    if cfg.get("flat_aligned"):
+        ds = c._dsnap_cache[max(c._dsnap_cache)]
+        if not ds.flat_meta.aligned:
+            raise AssertionError("client snapshot has no aligned table")
+    log(f"client path on {DEV} {cfg or ''}: {len(checks)} checks x 2 strategies"
+        f" agree with the oracle ({sum(want)} allowed)")
     n_res = 0
     for u in range(0, 60, 7):
         got = list(c.lookup_resources(ctx, consistency.full(), "repo#read", f"user:u{u}"))
@@ -853,27 +1048,33 @@ def phase_client():
     want_ids = sorted(oracle.lookup_resources("repo", "read", "team", "t1", "member"))
     if len(ids) != len(set(ids)) or sorted(ids) != want_ids or pages < 2:
         raise AssertionError("client paged lookup disagrees with the oracle")
-    log(f"client path on {DEV}: lookup_resources ({n_res} results), lookup_subjects"
+    log(f"client path on {DEV} {cfg or ''}: lookup_resources ({n_res} results), lookup_subjects"
         f" and a {pages}-page cursor walk ({len(ids)} results) agree with the oracle")
 
 
-def time_mode(K, mode, q_cols, off, tbl, kw, card):
-    """One mode at one captured main-path call: kernel vs plain on its
-    inputs, both timed, and its bound; a kernel-table row without
-    ``launches``."""
-    kw = dict(kw)
-    kw.pop("plain", None)
-    shape = torch.broadcast_shapes(*[tuple(c.shape) for c in q_cols])
-    n = int(np.prod(shape)) if len(shape) else 1
-    got = _outs(K.fused_probe(q_cols, off, tbl, **kw))
-    want = _outs(K.fused_probe(q_cols, off, tbl, plain=True, **kw))
+def _kernel_vs_plain(K, call):
+    """(max_abs_err, ms, plain_ms) of ``call(plain)`` on one captured
+    main-path input: outputs compared, both sides timed; the timing
+    launches are not counted."""
+    got, want = _outs(call(False)), _outs(call(True))
     err = max(int((a.long() - b.long()).abs().max()) if a.numel() else 0
               for a, b in zip(got, want))
     saved = dict(K.LAUNCHES)
-    ms = time_call(lambda: K.fused_probe(q_cols, off, tbl, **kw), 20)
-    plain_ms = time_call(
-        lambda: K.fused_probe(q_cols, off, tbl, plain=True, **kw), 3)
+    ms = time_call(lambda: call(False), 20)
+    plain_ms = time_call(lambda: call(True), 3)
     K.LAUNCHES.update(saved)
+    return err, ms, plain_ms
+
+
+def time_mode(K, mode, q_cols, off, tbl, kw, card):
+    """One fused_probe mode at one captured main-path call: kernel vs
+    plain on its inputs, both timed, and its bound; a kernel-table row
+    without ``launches``."""
+    kw = dict(kw)
+    kw.pop("plain", None)
+    n = _lanes(q_cols)
+    err, ms, plain_ms = _kernel_vs_plain(
+        K, lambda plain: K.fused_probe(q_cols, off, tbl, plain=plain, **kw))
     bound_ms, bound_by = (runs_bound if mode == "runs" else probe_bound)(
         q_cols, off, tbl, kw)
     log(f"time fused_probe.{mode} [{card}]: lanes={n} cap={kw['cap']}"
@@ -888,6 +1089,34 @@ def time_mode(K, mode, q_cols, off, tbl, kw, card):
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         "lanes": n, "cap": kw["cap"],
+    }
+
+
+def time_aligned(K, mode, q_cols, tbls, caps, sw, kw, card):
+    """One fused_probe_aligned mode at one captured main-path call, as
+    ``time_mode``."""
+    kw = dict(kw)
+    kw.pop("plain", None)
+    n = _lanes(q_cols)
+    err, ms, plain_ms = _kernel_vs_plain(
+        K, lambda plain: K.fused_probe_aligned(q_cols, tbls, caps, sw,
+                                               plain=plain, **kw))
+    bound_ms, bound_by = aligned_bound(q_cols, tbls, caps, sw, kw)
+    capT = int(sum(caps))
+    log(f"time fused_probe_aligned.{mode} [{card}]: lanes={n} capT={capT}"
+        f" levels={len(tbls)} caps={tuple(caps)}"
+        f" packed={kw.get('spec') is not None} ms={ms:.5f}"
+        f" plain_ms={plain_ms:.5f} bound_ms={bound_ms:.6f} ({bound_by})"
+        f" max_abs_err={err}")
+    if err:
+        raise AssertionError(f"aligned {mode}: kernel differs from plain at"
+                             " main-path shape")
+    return {
+        "name": f"fused_probe_aligned.{mode}", "route": "cuda",
+        "source": SOURCE_ALIGNED, "replaces": REPLACES_ALIGNED,
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "lanes": n, "capT": capT, "levels": len(tbls),
     }
 
 
@@ -908,8 +1137,9 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
     t0 = time.perf_counter()
-    reports = build_all(["fused_probe"])
+    reports = build_all(["fused_probe", "fused_probe_aligned"])
     K._launcher()
+    K._aligned_launcher()
     log(f"kernel build: {time.perf_counter() - t0:.2f}s")
     for name, rep in reports.items():
         for line in rep.splitlines():
@@ -918,6 +1148,7 @@ def main() -> int:
 
     phase_kernel_vs_plain(K)
     phase_runs_vs_plain(K)
+    phase_aligned_vs_plain(K)
 
     # ---- the main path: counts from zero, phases 4-7 ------------------
     K.reset_launches()
@@ -925,23 +1156,36 @@ def main() -> int:
         t0 = time.perf_counter()
         cs, snap, q, names = build_rbac()
         log(f"config2: world built in {time.perf_counter() - t0:.2f}s")
-        check_world("config2", cs, snap, q, names, K)
+        planes = check_world("config2", cs, snap, q, names, K)[3]
+        same_planes("config2 aligned",
+                    check_world("config2 aligned", cs, snap, q, names, K, **ALIGNED)[3],
+                    planes)
         log(f"launches after config2: {json.dumps(K.LAUNCHES)}")
         del snap
         t0 = time.perf_counter()
         cs, snap, q, names = build_docs(args.scale3)
         log(f"config3 (scale {args.scale3}): world built in {time.perf_counter() - t0:.2f}s")
-        ek, ep, ds = check_world("config3", cs, snap, q, names, K)
+        ek, ep, ds, planes = check_world("config3", cs, snap, q, names, K)
         log(f"launches after config3 checks: {json.dumps(K.LAUNCHES)}")
-        phase_lookups(cs, snap, ek, ep, ds, args.scale3, card)
+        answers = phase_lookups(cs, snap, ek, ep, ds, args.scale3, card)
         log(f"launches after config3 lookups: {json.dumps(K.LAUNCHES)}")
+        del ek, ep, ds
+        ek, ep, ds, al_planes = check_world("config3 aligned", cs, snap, q, names,
+                                            K, **ALIGNED)
+        same_planes("config3 aligned", al_planes, planes)
+        phase_lookups(cs, snap, ek, ep, ds, args.scale3, card,
+                      name="config3 aligned", want=answers)
+        log(f"launches after config3 aligned: {json.dumps(K.LAUNCHES)}")
         del snap, ek, ep, ds
         phase_overflow(K)
-        log(f"launches after the overflow world: {json.dumps(K.LAUNCHES)}")
+        phase_overflow(K, **ALIGNED)
+        log(f"launches after the overflow worlds: {json.dumps(K.LAUNCHES)}")
         phase_client()
+        phase_client(**ALIGNED)
     launches = dict(K.LAUNCHES)
     log(f"kernels launches on the main path: {json.dumps(launches)}")
-    missing = [m for m in K.MODES if launches[m] < 1]
+    want_modes = list(K.MODES) + [f"aligned.{m}" for m in K.ALIGNED_MODES]
+    missing = [m for m in want_modes if launches[m] < 1]
     if missing:
         raise AssertionError(f"modes never launched on the main path: {missing}")
 
@@ -955,6 +1199,14 @@ def main() -> int:
                 "lanes", "cap", "max_abs_err", "ms", "plain_ms", "bound_ms",
                 "bound_by")}
         row["launches"] = launches[mode]
+        table.append(row)
+    for mode in K.ALIGNED_MODES:
+        row = time_aligned(K, mode, *cap.best[f"aligned.{mode}"][1:], card)
+        deep = time_aligned(K, mode, *cap.best[f"aligned.{mode}.deep"][1:], card)
+        row["deep_levels"] = {k: deep[k] for k in (
+            "lanes", "capT", "levels", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by")}
+        row["launches"] = launches[f"aligned.{mode}"]
         table.append(row)
     print(json.dumps({"kernels": table}))
     print(card)

@@ -43,10 +43,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define GOCHUGARU_MAXW 16
-#define GOCHUGARU_DICT 256
-
-enum { MODE_BLOCK = 0, MODE_ANY = 1, MODE_UNTIL2 = 2, MODE_GATE = 3, MODE_RUNS = 4 };
+#include "probe_common.cuh"
 
 extern "C" {
 struct ProbeArgs {
@@ -73,32 +70,6 @@ struct ProbeArgs {
 };
 }
 
-__device__ __forceinline__ void decode_row(const uint16_t* r, const ProbeArgs& a,
-                                           int32_t* cols) {
-  for (int c = 0; c < a.W; ++c) {
-    const int32_t* f = a.fields + 5 * c;
-    const int bits = f[0], base = f[1], delta_of = f[2], dict_id = f[3];
-    const int off_bit = f[4];
-    uint32_t col;
-    if (bits == 0) {
-      col = (uint32_t)base;
-    } else {
-      const int lane = off_bit >> 4, sh = off_bit & 15;
-      uint32_t v = (uint32_t)r[lane] >> sh;
-      if (sh + bits > 16) v |= (uint32_t)r[lane + 1] << (16 - sh);
-      if (bits < 32) v &= (1u << bits) - 1u;
-      if (dict_id >= 0) {
-        col = (uint32_t)a.dicts[dict_id * GOCHUGARU_DICT +
-                                min(v, (uint32_t)(GOCHUGARU_DICT - 1))];
-      } else {
-        col = v + (uint32_t)base;
-      }
-    }
-    if (delta_of >= 0) col += (uint32_t)cols[delta_of];
-    cols[c] = (int32_t)col;
-  }
-}
-
 template <int MODE>
 __global__ void fused_probe_kernel(const ProbeArgs a) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -106,15 +77,7 @@ __global__ void fused_probe_kernel(const ProbeArgs a) {
   const int32_t q0 = a.q0[i];
   const int32_t q1 = a.nq > 1 ? a.q1[i] : 0;
 
-  // mix32 (engine/hash.py): FNV-1a over the key words + murmur3 finalizer
-  uint32_t h = 2166136261u;
-  h = (h ^ (uint32_t)q0) * 16777619u;
-  if (a.nq > 1) h = (h ^ (uint32_t)q1) * 16777619u;
-  h ^= h >> 16;
-  h *= 0x85EBCA6Bu;
-  h ^= h >> 13;
-  h *= 0xC2B2AE35u;
-  h ^= h >> 16;
+  const uint32_t h = gochugaru_mix32(q0, q1, a.nq);
   const long long b = (long long)(h & (uint32_t)(a.size - 1));
 
   long long start;
@@ -134,36 +97,17 @@ __global__ void fused_probe_kernel(const ProbeArgs a) {
   for (int j = 0; j < a.cap; ++j) {
     const long long row = s + j;
     if (a.packed) {
-      decode_row((const uint16_t*)a.tbl + row * a.w_raw, a, cols);
+      gochugaru_decode_row((const uint16_t*)a.tbl + row * a.w_raw, a.W,
+                           a.fields, a.dicts, cols);
     } else {
       const int32_t* r = (const int32_t*)a.tbl + row * a.w_raw;
       for (int c = 0; c < a.W; ++c) cols[c] = r[c];
     }
     const bool hit = guard && cols[0] == q0 && (a.nq < 2 || cols[1] == q1);
-    if (MODE == MODE_BLOCK) {
-      int32_t* o = (int32_t*)a.out0 + (i * a.cap + j) * a.W;
-      for (int c = 0; c < a.W; ++c) o[c] = cols[c];
-    } else if (MODE == MODE_ANY) {
-      acc0 |= hit;
-    } else if (MODE == MODE_UNTIL2) {
-      acc0 |= hit && cols[2] > a.now;
-      acc1 |= hit && cols[3] > a.now;
-    } else {  // MODE_GATE
-      bool live = hit;
-      if (a.lay_exp >= 0) {
-        const int32_t e = hit ? cols[a.lay_exp] : 0;
-        live = hit && (e == 0 || e > a.now);
-      }
-      ((uint8_t*)a.out0)[i * a.cap + j] = hit;
-      ((uint8_t*)a.out1)[i * a.cap + j] = live;
-    }
+    gochugaru_slot_tail<MODE>(cols, hit, a.W, a.now, a.lay_exp, i * a.cap + j,
+                              a.out0, a.out1, acc0, acc1);
   }
-  if (MODE == MODE_ANY) {
-    ((uint8_t*)a.out0)[i] = acc0;
-  } else if (MODE == MODE_UNTIL2) {
-    ((uint8_t*)a.out0)[i] = acc0;
-    ((uint8_t*)a.out1)[i] = acc1;
-  }
+  gochugaru_lane_tail<MODE>(i, a.out0, a.out1, acc0, acc1);
 }
 
 __device__ __forceinline__ long long off_read(const ProbeArgs& a, long long b) {
@@ -211,13 +155,7 @@ __global__ void fused_runs_kernel(const ProbeArgs a) {
   const int32_t key = a.q0[i];
   int32_t lo_out = 0, ln_out = 0;
   if (key >= 0) {
-    uint32_t h = 2166136261u;
-    h = (h ^ (uint32_t)key) * 16777619u;
-    h ^= h >> 16;
-    h *= 0x85EBCA6Bu;
-    h ^= h >> 13;
-    h *= 0xC2B2AE35u;
-    h ^= h >> 16;
+    const uint32_t h = gochugaru_mix32(key, 0, 1);
     const long long b = (long long)(h & (uint32_t)(a.size - 1));
     const long long start = off_read(a, b), end = off_read(a, b + 1);
     const int steps = a.cap > 0 ? 32 - __clz(a.cap) : 1;

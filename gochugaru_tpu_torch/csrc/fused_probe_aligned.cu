@@ -1,0 +1,128 @@
+// Fused probe over the bucket-ALIGNED layout for Hopper (sm_90a).
+//
+// Replaces gochugaru_tpu/engine/pallas.py::fused_probe_aligned (modes
+// block, any, until2, gate).  The layout (engine/hash.py build_aligned)
+// stores bucket b's entries IN row b of a level table, cap_l slots of
+// sw elements each, padded with -1; entries past a bucket's cap spill to
+// the next, smaller level under a salted hash.  One probe per query lane:
+//
+//   for each level l: h_l = mix32(q0 ^ salt_l, q1) & (size_l - 1)
+//                     -> ONE row of cap_l slots
+//   slots in level order (output slot = sum_{m<l} cap_m + j) -> decode
+//   (runtime pack spec) -> key compare with the UNSALTED q, q >= 0 guard
+//   -> mode tail (shared with fused_probe.cu)
+//
+// What bounds it: bytes.  A probe reads one contiguous row per level
+// (tens of bytes) at a hashed address, with no dependent offset read —
+// that is the layout's point against off+interleave's offset -> block
+// chain — and does a few dozen integer operations per slot, far below
+// the card's operations-per-byte balance.  This first version is one
+// thread per query lane reading its rows straight from global memory;
+// resident warps hide the gather latency the TPU kernel hid with
+// double-buffered row DMAs.  Levels arrive as data (pointer, rows, row
+// stride, cap, host-computed salt; at most MAXL), and the decode spec is
+// the same device array fused_probe.cu reads: no recompile per ladder or
+// per spec.
+//
+// The salt XORs q0 inside the hash only; stored keys are unsalted.  The
+// masked hash is always inside the level (size_l is a pow2 row count),
+// so nothing clamps.  Row addressing is int64 (a level near the 3 GiB
+// budget holds ~800M int32).  Padded slots hold -1 keys and never match a
+// q >= 0; block mode still writes them decoded.  Bool outputs are uint8.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "probe_common.cuh"
+
+#define GOCHUGARU_MAXL 8
+
+extern "C" {
+struct AlignedLevel {
+  const void* tbl;    // int32[size, cap * sw], or uint16 lanes when packed
+  long long size;     // rows (pow2)
+  long long stride;   // row stride in elements (cap * sw)
+  int cap;            // slots per row
+  int salt;           // XORed into q0 for this level's hash only
+};
+
+struct AlignedArgs {
+  const int32_t* q0;      // [B] first key column
+  const int32_t* q1;      // [B] second key column (nq == 2) or null
+  long long B;            // query lanes
+  const int32_t* fields;  // [W, 5] pack spec fields, or null
+  const int32_t* dicts;   // [ndict, 256] dictionary values, or null
+  void* out0;
+  void* out1;
+  int nq;
+  int L;                  // levels
+  int packed;             // levels hold uint16 lanes decoded through fields
+  int sw;                 // slot width in elements (w, or lanes when packed)
+  int capT;               // sum of the levels' caps
+  int W;                  // logical columns
+  int now;
+  int lay_exp;            // gate: expiry column, -1 = no expiry gate
+  AlignedLevel lv[GOCHUGARU_MAXL];
+};
+}
+
+template <int MODE>
+__global__ void fused_probe_aligned_kernel(const AlignedArgs a) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= a.B) return;
+  const int32_t q0 = a.q0[i];
+  const int32_t q1 = a.nq > 1 ? a.q1[i] : 0;
+  const bool guard = (q0 >= 0) && (a.nq < 2 || q1 >= 0);
+
+  bool acc0 = false, acc1 = false;
+  int32_t cols[GOCHUGARU_MAXW];
+  long long slot = i * a.capT;
+  for (int l = 0; l < a.L; ++l) {
+    const AlignedLevel lv = a.lv[l];
+    const uint32_t h =
+        gochugaru_mix32(q0 ^ lv.salt, q1, a.nq) & (uint32_t)(lv.size - 1);
+    const long long row = (long long)h * lv.stride;
+    for (int j = 0; j < lv.cap; ++j, ++slot) {
+      const long long at = row + (long long)j * a.sw;
+      if (a.packed) {
+        gochugaru_decode_row((const uint16_t*)lv.tbl + at, a.W, a.fields,
+                             a.dicts, cols);
+      } else {
+        const int32_t* r = (const int32_t*)lv.tbl + at;
+        for (int c = 0; c < a.W; ++c) cols[c] = r[c];
+      }
+      const bool hit = guard && cols[0] == q0 && (a.nq < 2 || cols[1] == q1);
+      gochugaru_slot_tail<MODE>(cols, hit, a.W, a.now, a.lay_exp, slot,
+                                a.out0, a.out1, acc0, acc1);
+    }
+  }
+  gochugaru_lane_tail<MODE>(i, a.out0, a.out1, acc0, acc1);
+}
+
+extern "C" int gochugaru_fused_probe_aligned(int mode, const AlignedArgs* args,
+                                             void* stream) {
+  const AlignedArgs a = *args;
+  if (a.B <= 0) return 0;
+  if (a.W > GOCHUGARU_MAXW || a.W < a.nq || a.L < 1 || a.L > GOCHUGARU_MAXL)
+    return (int)cudaErrorInvalidValue;
+  const int threads = 256;
+  const unsigned grid = (unsigned)((a.B + threads - 1) / threads);
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (mode) {
+    case MODE_BLOCK:
+      fused_probe_aligned_kernel<MODE_BLOCK><<<grid, threads, 0, st>>>(a);
+      break;
+    case MODE_ANY:
+      fused_probe_aligned_kernel<MODE_ANY><<<grid, threads, 0, st>>>(a);
+      break;
+    case MODE_UNTIL2:
+      fused_probe_aligned_kernel<MODE_UNTIL2><<<grid, threads, 0, st>>>(a);
+      break;
+    case MODE_GATE:
+      fused_probe_aligned_kernel<MODE_GATE><<<grid, threads, 0, st>>>(a);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}

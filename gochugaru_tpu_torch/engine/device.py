@@ -126,12 +126,13 @@ def _meta_from(meta_like) -> FlatMeta:
 
 
 def arrays_from_reference(
-    np_arrays: Mapping[str, np.ndarray], flat_meta, device="cpu"
+    np_arrays: Mapping[str, np.ndarray], flat_meta, device=None
 ) -> Tuple[Dict[str, torch.Tensor], FlatMeta]:
     """The reference package's prepared arrays (``DeviceSnapshot.arrays``
     fetched to numpy) and FlatMeta as the port's device tensors and
-    FlatMeta — both engines then probe identical tables."""
-    dev = torch.device(device)
+    FlatMeta — both engines then probe identical tables.  ``device`` is
+    ``cuda`` unless the caller names one (``resolve_device``)."""
+    dev = resolve_device(device)
     arrays = {k: to_device_tensor(np.asarray(v), dev) for k, v in np_arrays.items()}
     return arrays, _meta_from(flat_meta)
 

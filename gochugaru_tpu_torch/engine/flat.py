@@ -49,7 +49,9 @@ import torch
 
 from . import kernels as _K
 from .hash import (
+    ALIGNED_MAX_BYTES,
     _ceil_pow2,
+    build_aligned,
     build_hash,
     build_range_hash,
     interleave_buckets,
@@ -1069,6 +1071,19 @@ def _pack_descs(name: str, meta: FlatMeta, dom: Dict, out: Dict):
     return None
 
 
+def _al_key(tbl_key: str, lvl: int) -> str:
+    """Device-array name of one aligned width-stratum level."""
+    if lvl == 0:
+        return tbl_key + "_al"
+    return tbl_key + "_als" + ("" if lvl == 1 else str(lvl))
+
+
+def aligned_levels(arrs: Dict, tbl_key: str, caps: Sequence[int]) -> List:
+    """Every width-stratum level table of an aligned table, in level
+    order (a KeyError when one is missing: put_block emits them all)."""
+    return [arrs[_al_key(tbl_key, lvl)] for lvl in range(len(caps))]
+
+
 #: point-table offset arrays eligible for the anchor+residual encoding
 #: (single-chip layouts; stacked offs stay int32 — a shard cannot
 #: verify other shards' residual bounds before building).  The fold's
@@ -1091,7 +1106,10 @@ def _pack_flat(
 ) -> Dict:
     """The HBM-lean post-pass: bit-pack every eligible table in ``out``
     in place (chunked — no full-width intermediate copy) and return the
-    FlatMeta field overrides ({} when packing is off or nothing won)."""
+    FlatMeta field overrides ({} when packing is off or nothing won).
+    Aligned width-stratum levels share their table's one spec: a level
+    ``[size, cap·w]`` packs as ``[size·cap, w]`` rows into
+    ``[size, cap·lanes]``."""
     if not config.packed_on():
         return {}
     from . import packed as pk
@@ -1102,10 +1120,14 @@ def _pack_flat(
         + [k for k in out if k.startswith("rc") and k.endswith(("x", "gx"))
            and not k.endswith("_off")]
     )
+    al_caps = {k: caps for k, _w, caps in meta.aligned}
     specs: List[Tuple[str, Tuple]] = []
     for name in names:
-        a = out.get(name)
-        if a is None:
+        if name in al_caps:
+            tgt = [_al_key(name, l) for l in range(len(al_caps[name]))]
+        elif name in out:
+            tgt = [name]
+        else:
             continue
         descs = _pack_descs(name, meta, dom, out)
         if descs is None:
@@ -1113,13 +1135,26 @@ def _pack_flat(
         spec = pk.make_spec(descs)
         if spec is None:
             continue
-        if len(a.shape) != 2 or a.shape[1] != spec[0]:
-            continue
+        w, lanes = spec[0], spec[1]
+        packed_arrays = {}
         try:
-            out[name] = pk.pack_rows(a, spec)
+            for k in tgt:
+                a = out[k]
+                if k == name:
+                    if len(a.shape) != 2 or a.shape[1] != w:
+                        break
+                    packed_arrays[k] = pk.pack_rows(a, spec)
+                else:
+                    size, roww = a.shape
+                    cap = roww // w
+                    packed_arrays[k] = pk.pack_rows(
+                        a.reshape(size * cap, w), spec
+                    ).reshape(size, cap * lanes)
+            else:
+                out.update(packed_arrays)
+                specs.append((name, spec))
         except pk.PackError:
             continue
-        specs.append((name, spec))
     off_specs: List[Tuple[str, int]] = []
     if pack_off:
         off_keys = list(_PACK_OFF_KEYS) + [
@@ -1247,15 +1282,29 @@ def build_flat_arrays(
     us_hasperm = flags["us_hasperm"]
     ar_hascav, ar_hasexp = flags["ar_hascav"], flags["ar_hasexp"]
 
-    # the reference's bucket-ALIGNED layout is decided for a TPU's row
-    # gathers; the port always emits bucket offsets + interleaved rows
+    # bucket-ALIGNED layout (engine/hash.py build_aligned), when
+    # EngineConfig.flat_aligned asks for it: each point probe is one row
+    # read per width-stratum level instead of an offset read + a block
+    # slice
+    AL = config.flat_aligned
+    al_meta: List[Tuple[str, int, Tuple[int, ...]]] = []
+
     def put_block(tbl_key: str, off_key: str, h, key_cols, cols,
                   row_quantum: Optional[int] = None):
-        """One point-probe table: bucket offsets + interleaved rows.
-        ``h`` is a HashIndex or a zero-arg thunk building one; returns
-        the HashIndex.  ``row_quantum`` trims the rows table's pow2
-        padding to a multiple (the T join's up-to-2x waste; see
-        interleave_buckets)."""
+        """One point-probe table: bucket-aligned when enabled and it
+        fits the byte budget, else bucket offsets + interleaved rows.
+        ``h`` is a HashIndex or a zero-arg thunk building one (skipped
+        entirely when the aligned layout lands); returns the HashIndex
+        when the off+interleave layout was emitted, else None.
+        ``row_quantum`` trims the rows table's pow2 padding to a multiple
+        (the T join's up-to-2x waste; see interleave_buckets)."""
+        if AL:
+            ai = build_aligned(key_cols, cols, max_bytes=ALIGNED_MAX_BYTES)
+            if ai is not None:
+                for lvl, (tbl, _cap) in enumerate(ai.levels):
+                    out[_al_key(tbl_key, lvl)] = tbl
+                al_meta.append((tbl_key, ai.w, ai.caps))
+                return None
         if callable(h):
             h = h()
         out[off_key] = h.off
@@ -1325,6 +1374,7 @@ def build_flat_arrays(
     if tj is not None:
         T_k1, T_k2, T_d, T_p, t_slots = tj
         dom["until"]["tx"] = _until_dom(T_d, T_p)
+        th = None
         if BS:
             # row_quantum: the T join is the largest rebuilt-per-prepare
             # rows table (~80% of packed bytes at config 3) — round its
@@ -1482,6 +1532,7 @@ def build_flat_arrays(
         ar_hascav=ar_hascav,
         ar_hasexp=ar_hasexp,
         blockslice=BS,
+        aligned=tuple(al_meta),
         ar_data_depth=ar_dd,
         e_slots=tuple(int(s) for s in _uniq_small([snap.e_rel], snap.num_slots)),
         us_slots=tuple(int(s) for s in _uniq_small([snap.us_rel], snap.num_slots)),
@@ -1517,10 +1568,11 @@ def make_flat_fn(
     The returned ``fn(arrs, tid_map, now, qm, specs)`` runs eagerly on the
     device of its tensors and returns bool (definite, possible, overflow)
     planes of the padded batch.  Every bucket probe goes through ONE seam,
-    ``psite``, into ``kernels.fused_probe``: the hand-written CUDA kernel
-    when ``kernels`` is True, else its plain PyTorch twin.  Both compute
-    the reference's gather chain bit for bit, so the planes do not depend
-    on the switch.
+    ``psite``, into ``kernels.fused_probe`` (or ``fused_probe_aligned``
+    for a bucket-aligned table): the hand-written CUDA kernel when
+    ``kernels`` is True, else its plain PyTorch twin.  Both compute the
+    reference's gather chain bit for bit, so the planes do not depend on
+    the switch.
 
     Covered: the single-chip blockslice layout without a delta level or
     witness plane, on schemas without caveats; anything else raises
@@ -1537,8 +1589,6 @@ def make_flat_fn(
         raise NotImplementedError(
             "caveated schemas need the CEL tri-state VM, not ported yet"
         )
-    if meta.aligned:
-        raise NotImplementedError("the bucket-aligned layout is not ported")
 
     perm_programs: Dict[int, List[Tuple[str, int, ExprIR]]] = {}
     for (tname, tid, slot, expr) in plan.topo_programs:
@@ -1586,6 +1636,7 @@ def make_flat_fn(
 
     PK = dict(meta.packed)
     PKO = dict(meta.packed_off)
+    ALD = {k: (w, caps) for (k, w, caps) in meta.aligned}
     eL, usL, arL = e_layout(meta), us_layout(meta), ar_layout(meta)
     _view_flags = {
         "e": (meta.e_hascav, meta.e_hasexp),
@@ -1679,7 +1730,21 @@ def make_flat_fn(
         def psite(off_key: str, tbl_key: str, cap: int, q_cols,
                   mode: str = "block", exp_lane: Optional[int] = None):
             """THE seam between every bucket probe and the fused probe
-            kernel (or its plain twin, by the engine's kernel switch)."""
+            kernels (or their plain twins, by the engine's kernel
+            switch): bucket-ALIGNED tables (listed in ``meta.aligned``)
+            probe their width-stratum levels through
+            ``fused_probe_aligned``, the rest their offsets + interleaved
+            rows through ``fused_probe``."""
+            al = ALD.get(tbl_key)
+            if al is not None:
+                w_, caps = al
+                spec = PK.get(tbl_key)
+                return _K.fused_probe_aligned(
+                    q_cols, aligned_levels(arrs, tbl_key, caps), caps,
+                    w_ if spec is None else spec[1], spec=spec,
+                    spec_dev=specs.get(tbl_key), mode=mode, now=now,
+                    exp_lane=exp_lane, plain=not kernels,
+                )
             A = PKO.get(off_key)
             return _K.fused_probe(
                 q_cols, arrs[off_key], arrs[tbl_key], cap=cap,

@@ -30,7 +30,7 @@ replacement.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -173,6 +173,210 @@ def build_range_hash(k: np.ndarray, **kw) -> RangeIndex:
 
 
 # ---------------------------------------------------------------------------
+# bucket-ALIGNED layout: the whole bucket is one table row
+# ---------------------------------------------------------------------------
+#
+# The off+interleave layout below pays 2 dependent reads per probe (the
+# bucket offset, then the block it points at).  The aligned layout stores
+# bucket b's entries IN row b of an int32[size, cap*w] matrix, padded
+# with -1: a probe is hash -> tbl[h] -> compare, one contiguous row read.
+#
+# The Poisson tail would force cap (and the whole matrix width) up to the
+# fullest bucket, so entries beyond ``cap`` per bucket SPILL to a smaller
+# aligned level under a salted hash; the probe reads one row per level
+# and sees one concatenated candidate block.  Worlds whose duplicate-key
+# multiplicity exceeds the spill cap keep the off+interleave layout
+# (build returns None).
+
+
+def _level_salt(lvl: int) -> np.int32:
+    """Per-stratum probe salt (level 0 unsalted; level 1 == the classic
+    spill salt).  uint32 wrap-around so deep ladders don't overflow."""
+    return np.int32(
+        np.uint32((0x9E3779B9 * lvl) & 0xFFFFFFFF).astype(np.int32)
+    )
+
+
+@dataclass
+class AlignedIndex:
+    """Bucket-aligned probe table: a ladder of WIDTH-STRATIFIED levels.
+
+    Level 0 holds a cap covering most entries; whatever overflows
+    re-hashes (salted) into the next, much smaller level with its own
+    cap — per-bucket width classes instead of one table-wide row width
+    set by the fullest bucket (``build_aligned``'s ``cover`` ladder
+    picks the caps at prepare time).  The classic layout is the 2-level
+    instance (primary + spill)."""
+
+    levels: List[Tuple[np.ndarray, int]]  # [(int32[size_i, cap_i*w], cap_i)]
+    w: int
+    n: int
+
+    @property
+    def caps(self) -> Tuple[int, ...]:
+        """The width-class ladder (probe geometry; rides FlatMeta)."""
+        return tuple(c for _, c in self.levels)
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.nbytes for t, _ in self.levels)
+
+
+def _aligned_fill(
+    h: np.ndarray, cols: Sequence[np.ndarray], size: int, cap: int,
+    counts: Optional[np.ndarray] = None,
+):
+    """Place entries into an int32[size, cap*w] matrix; returns
+    (tbl, leftover_row_indices) where leftover rows did not fit their
+    bucket's ``cap`` slots.  ``counts`` (bincount of ``h``) is reused
+    when the caller already computed it."""
+    from ..native.sort import hash_index32
+
+    w = len(cols)
+    n = int(h.shape[0])
+    got = hash_index32(h.astype(np.uint32), size) if size <= 2**31 else None
+    if got is not None:
+        # native stable counting sort == np.argsort(h, kind="stable"),
+        # with the exclusive bucket starts already materialized
+        order, off32, _cap = got
+        order = order.astype(np.int64)
+        hs = h[order]
+        off = off32[:-1].astype(np.int64)
+    else:
+        order = np.argsort(h, kind="stable")
+        hs = h[order]
+        if counts is None:
+            counts = np.bincount(hs, minlength=size)
+        off = np.zeros(size, np.int64)
+        np.cumsum(counts[:-1], out=off[1:])
+    rank = np.arange(n, dtype=np.int64) - off[hs]
+    fits = rank < cap
+    tbl = np.full((size, cap * w), -1, np.int32)
+    rows_in = order[fits]
+    slot = (rank[fits] * w).astype(np.int64)
+    for j, c in enumerate(cols):
+        tbl[hs[fits], slot + j] = np.ascontiguousarray(c, np.int32)[rows_in]
+    return tbl, order[~fits]
+
+
+def _cover_cap(counts: np.ndarray, n: int, start_cap: int, bound: int,
+               q: float) -> int:
+    """Smallest cap ≥ ``start_cap`` whose buckets hold ≥ q of the n
+    entries, bounded — the per-level width-class choice."""
+    cap_need = int(counts.max()) if counts.size else 1
+    if cap_need <= start_cap:
+        return min(start_cap, max(cap_need, 1)) if start_cap else 1
+    hist = np.bincount(np.minimum(counts, cap_need))
+    ge = np.cumsum(hist[::-1])[::-1]  # ge[j] = #buckets with count>=j
+    coverage = np.cumsum(ge[1:])  # coverage[c-1] = entries held at cap c
+    bound = min(bound, cap_need)
+    c = max(start_cap, 1)
+    while c < bound and coverage[c - 1] < q * n:
+        c += 1
+    return c
+
+
+#: per-table byte budget of the aligned layout in engine/flat.py: a
+#: table whose aligned form exceeds it keeps the off+interleave layout
+#: (the reference's ``flat_aligned_max_bytes`` default)
+ALIGNED_MAX_BYTES = 3 << 30
+#: the width-stratification ladder engine/flat.py builds with (the
+#: reference's ``flat_aligned_cover`` default): the classic
+#: primary+spill pair
+ALIGNED_COVER: Tuple[float, ...] = (0.999,)
+
+
+def build_aligned(
+    key_cols: Sequence[np.ndarray],
+    cols: Sequence[np.ndarray],
+    *,
+    target_cap: int = 4,
+    spill_max_cap: int = 16,
+    min_size: int = 8,
+    max_bytes: Optional[int] = None,
+    cover: Optional[Sequence[float]] = None,
+) -> Optional[AlignedIndex]:
+    """Bucket-aligned index over lock-step int32 columns (``key_cols``
+    must be a prefix of ``cols`` — the probe compares them in order).
+
+    ``cover`` is the width-stratification ladder (None: ``ALIGNED_COVER``,
+    read at call time): level i's cap is the
+    smallest covering ``cover[i]`` of its entries; whatever overflows
+    re-hashes (level-salted) into the next level, and a FINAL fit-all
+    level closes the ladder.  The salt XORs the first key column inside
+    the hash only: stored key columns stay unsalted.  Returns None when
+    the layout doesn't fit (final-level tail too deep for
+    ``spill_max_cap`` — e.g. one full key duplicated beyond every cap —
+    or ``max_bytes`` exceeded): callers keep the off+interleave layout."""
+    if cover is None:
+        cover = ALIGNED_COVER
+    w = max(len(cols), 1)
+    n = int(cols[0].shape[0]) if cols else 0
+    if n == 0:
+        return AlignedIndex(
+            levels=[(np.full((min_size, target_cap * w), -1, np.int32),
+                     target_cap)],
+            w=w, n=0,
+        )
+    ckey = [np.ascontiguousarray(c, np.int32) for c in key_cols]
+    ccols = [np.ascontiguousarray(c, np.int32) for c in cols]
+    size = _ceil_pow2(max(min_size, (2 * n) // max(target_cap, 1)))
+    if max_bytes is not None and size * target_cap * w * 4 > max_bytes:
+        return None
+    levels: List[Tuple[np.ndarray, int]] = []
+    left = np.arange(0, 0, dtype=np.int64)  # current leftover row ids
+    cur_key, cur_cols, cur_n = ckey, ccols, n
+    for lvl, q in enumerate(tuple(cover) + (None,)):
+        if lvl > 0:
+            cur_key = [ckey[0][left] ^ _level_salt(lvl)] + [
+                c[left] for c in ckey[1:]
+            ]
+            cur_cols = [c[left] for c in ccols]
+            cur_n = int(left.shape[0])
+            if cur_n == 0:
+                break
+            size = _ceil_pow2(max(min_size, cur_n))
+        h_full = mix32(cur_key, np)
+        if q is None:
+            # final level: must hold every remaining entry (grow until
+            # the fullest bucket fits spill_max_cap, else unfit)
+            while True:
+                h = (h_full & np.uint32(size - 1)).astype(np.int64)
+                cap = int(np.bincount(h, minlength=size).max())
+                if cap <= spill_max_cap:
+                    break
+                if size >= _ceil_pow2(8 * cur_n):
+                    return None  # duplicate-heavy tail: aligned unfit
+                size <<= 1
+            tbl, over = _aligned_fill(h, cur_cols, size, cap)
+            if over.shape[0]:
+                return None
+            levels.append((tbl, cap))
+            break
+        h = (h_full & np.uint32(size - 1)).astype(np.int64)
+        counts = np.bincount(h, minlength=size)
+        # level 0 keeps the classic hot-key bound (3x target); deeper
+        # levels start at 1 — their whole point is a narrow width class
+        cap = _cover_cap(
+            counts, cur_n,
+            target_cap if lvl == 0 else 1,
+            spill_max_cap if lvl else min(spill_max_cap, 3 * target_cap),
+            q,
+        )
+        if lvl == 0 and max_bytes is not None and size * cap * w * 4 > max_bytes:
+            cap = target_cap
+        tbl, over = _aligned_fill(h, cur_cols, size, cap, counts=counts)
+        levels.append((tbl, cap))
+        left = left[over] if lvl > 0 else over
+        if left.shape[0] == 0:
+            break
+    out = AlignedIndex(levels=levels, w=w, n=n)
+    if max_bytes is not None and out.nbytes > max_bytes:
+        return None
+    return out
+
+
+# ---------------------------------------------------------------------------
 # device-side probes (torch tensors on the engine's device)
 # ---------------------------------------------------------------------------
 
@@ -206,6 +410,24 @@ def mix32_t(cols: Sequence):
 def bucket_of(q_cols: Sequence, size: int):
     """int64 bucket index ``mix32(q) & (size - 1)`` (``size`` pow2)."""
     return mix32_t(q_cols) & (size - 1)
+
+
+def probe_aligned(tbls: Sequence, caps: Sequence[int], w: int, q_cols):
+    """Candidate block [..., sum(caps), w] of raw row slots for the bucket
+    of ``q_cols`` — ONE row read per width-stratum level, level l >= 1
+    hashing ``q0 ^ _level_salt(l)`` (the stored keys stay unsalted).
+    ``w`` is the slot width (int32 columns, or uint16 lanes when packed).
+    Padded slots hold -1 and match nothing; same-key entries land in the
+    same bucket of SOME level, so callers compare key columns exactly.
+    Levels concatenate in level order on axis -2."""
+    blks = []
+    for lvl, (tbl, cap) in enumerate(zip(tbls, caps)):
+        qs = list(q_cols)
+        if lvl:
+            qs[0] = qs[0] ^ int(_level_salt(lvl))
+        h = bucket_of(qs, int(tbl.shape[0]))
+        blks.append(tbl[h].reshape(tuple(h.shape) + (cap, w)))
+    return blks[0] if len(blks) == 1 else torch.cat(blks, dim=-2)
 
 
 

@@ -2,12 +2,16 @@
 
 ``fused_probe`` is the port of gochugaru_tpu/engine/pallas.py's
 ``fused_probe``: modes block/any/until2/gate on the check path, and
-``runs`` (the point-run bisect) on the lookup path.  A call on
-CPU tensors, or with ``plain=True``, runs the plain PyTorch twin
+``runs`` (the point-run bisect) on the lookup path.
+``fused_probe_aligned`` is the port of its ``fused_probe_aligned``: the
+same four check modes over the bucket-aligned layout.  A call on CPU
+tensors, or with ``plain=True``, runs the plain PyTorch twin
 (``plain.py``); a call on CUDA tensors launches ``csrc/fused_probe.cu``
-or raises — there is no silent fallback.  ``LAUNCHES`` counts kernel
-launches per mode (never plain calls), so a run can show that its main
-path went through the kernel.
+/ ``csrc/fused_probe_aligned.cu`` or raises — there is no silent
+fallback.  ``LAUNCHES`` counts kernel launches per mode (never plain
+calls) — ``MODES`` for fused_probe, ``aligned.<mode>`` for each of
+``ALIGNED_MODES`` — so a run can show that its main path went through
+the kernels.
 """
 
 from __future__ import annotations
@@ -17,25 +21,33 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
-from .plain import blk_hit, field0_spec, fused_probe_plain
+from .plain import (
+    blk_hit, field0_spec, fused_probe_aligned_plain, fused_probe_plain,
+)
 
 __all__ = [
-    "LAUNCHES", "MODES", "blk_hit", "fused_probe", "fused_probe_plain",
+    "ALIGNED_MODES", "LAUNCHES", "MODES", "blk_hit", "fused_probe",
+    "fused_probe_aligned", "fused_probe_aligned_plain", "fused_probe_plain",
     "reset_launches", "spec_tensors",
 ]
 
 MODES = ("block", "any", "until2", "gate", "runs")
+ALIGNED_MODES = ("block", "any", "until2", "gate")
 _MODE_ID = {m: i for i, m in enumerate(MODES)}
 MAXW = 16
+MAXL = 8
 DICT = 256
 
-#: kernel launches per mode since the last reset_launches()
-LAUNCHES: Dict[str, int] = {m: 0 for m in MODES}
+#: kernel launches per mode since the last reset_launches(): fused_probe
+#: under its mode, fused_probe_aligned under ``aligned.<mode>``
+LAUNCHES: Dict[str, int] = {
+    **{m: 0 for m in MODES}, **{f"aligned.{m}": 0 for m in ALIGNED_MODES},
+}
 
 
 def reset_launches() -> None:
-    for m in MODES:
-        LAUNCHES[m] = 0
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
 
 
 class _Args(ctypes.Structure):
@@ -55,19 +67,53 @@ class _Args(ctypes.Structure):
     ]
 
 
-_FN = None
+class _Level(ctypes.Structure):
+    # mirrors struct AlignedLevel in csrc/fused_probe_aligned.cu
+    _fields_ = [
+        ("tbl", ctypes.c_void_p), ("size", ctypes.c_longlong),
+        ("stride", ctypes.c_longlong), ("cap", ctypes.c_int),
+        ("salt", ctypes.c_int),
+    ]
+
+
+class _AlignedArgs(ctypes.Structure):
+    # mirrors struct AlignedArgs in csrc/fused_probe_aligned.cu
+    _fields_ = [
+        ("q0", ctypes.c_void_p), ("q1", ctypes.c_void_p),
+        ("B", ctypes.c_longlong),
+        ("fields", ctypes.c_void_p), ("dicts", ctypes.c_void_p),
+        ("out0", ctypes.c_void_p), ("out1", ctypes.c_void_p),
+        ("nq", ctypes.c_int), ("L", ctypes.c_int),
+        ("packed", ctypes.c_int), ("sw", ctypes.c_int),
+        ("capT", ctypes.c_int), ("W", ctypes.c_int),
+        ("now", ctypes.c_int), ("lay_exp", ctypes.c_int),
+        ("lv", _Level * MAXL),
+    ]
+
+
+_FNS: Dict[str, object] = {}
+
+
+def _bind(name: str, args_type):
+    """The C entry ``gochugaru_<name>`` of ``csrc/<name>.cu``, built and
+    bound on first use."""
+    fn = _FNS.get(name)
+    if fn is None:
+        from .build import library
+
+        fn = getattr(library(name), "gochugaru_" + name)
+        fn.argtypes = [ctypes.c_int, ctypes.POINTER(args_type), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _FNS[name] = fn
+    return fn
 
 
 def _launcher():
-    global _FN
-    if _FN is None:
-        from .build import library
+    return _bind("fused_probe", _Args)
 
-        fn = library("fused_probe").gochugaru_fused_probe
-        fn.argtypes = [ctypes.c_int, ctypes.POINTER(_Args), ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _FN = fn
-    return _FN
+
+def _aligned_launcher():
+    return _bind("fused_probe_aligned", _AlignedArgs)
 
 
 def spec_tensors(spec, device) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -125,24 +171,15 @@ def fused_probe(
         )
     if tbl.device.type != "cuda":
         raise ValueError(f"fused_probe: unsupported device {tbl.device}")
-    shape = torch.broadcast_shapes(*[tuple(c.shape) for c in q_cols])
     nq = len(q_cols)
-    if nq not in (1, 2):
-        raise ValueError("fused_probe takes one or two key columns")
     if mode == "runs" and nq != 1:
         raise ValueError("the runs probe takes one key column")
-    qf = [c.expand(shape).reshape(-1).to(torch.int32).contiguous()
-          for c in q_cols]
+    shape, qf = _flat_queries(q_cols)
     B = int(qf[0].shape[0])
     rows, w_raw = int(tbl.shape[0]), int(tbl.shape[1])
     packed = spec is not None
     W = int(spec[0]) if packed else w_raw
-    if W > MAXW or W < nq:
-        raise ValueError(f"fused_probe: {W} columns (kernel takes {nq}..{MAXW})")
-    if mode == "until2" and W < 4:
-        raise ValueError("until2 needs columns 2 and 3")
-    if exp_lane is not None and not 0 <= exp_lane < W:
-        raise ValueError("expiry lane outside the row")
+    _check_row("fused_probe", W, nq, mode, exp_lane)
     if mode != "runs" and rows < cap:
         raise ValueError("table has fewer rows than the probe cap")
     if mode == "runs" and packed:
@@ -165,20 +202,7 @@ def fused_probe(
         fields, dicts = spec_dev if spec_dev is not None else spec_tensors(spec, dev)
     else:
         fields = dicts = None
-    if mode == "block":
-        outs = [torch.empty((B, cap, W), dtype=torch.int32, device=dev)]
-    elif mode == "any":
-        outs = [torch.empty(B, dtype=torch.uint8, device=dev)]
-    elif mode == "until2":
-        outs = [torch.empty(B, dtype=torch.uint8, device=dev) for _ in range(2)]
-    elif mode == "gate":
-        outs = [torch.empty((B, cap), dtype=torch.uint8, device=dev)
-                for _ in range(2)]
-    elif mode == "runs":
-        outs = [torch.empty(B, dtype=torch.int32, device=dev)
-                for _ in range(2)]
-    else:
-        raise ValueError(f"unknown probe mode {mode!r}")
+    outs = _outputs(mode, B, cap, W, dev)
     if B == 0:
         return _shaped(mode, outs, shape, cap, W)
     a = _Args(
@@ -200,6 +224,133 @@ def fused_probe(
         raise RuntimeError(f"fused_probe kernel launch failed (cudaError {err})")
     LAUNCHES[mode] += 1
     return _shaped(mode, outs, shape, cap, W)
+
+
+def _flat_queries(q_cols):
+    """(lattice shape, the key columns broadcast to it and flattened to
+    contiguous int32 lanes)."""
+    if len(q_cols) not in (1, 2):
+        raise ValueError("the probe kernels take one or two key columns")
+    shape = torch.broadcast_shapes(*[tuple(c.shape) for c in q_cols])
+    return shape, [c.expand(shape).reshape(-1).to(torch.int32).contiguous()
+                   for c in q_cols]
+
+
+def _check_row(name: str, W: int, nq: int, mode: str, exp_lane) -> None:
+    """Raise on a logical row the kernels cannot read for ``mode``."""
+    if W > MAXW or W < nq:
+        raise ValueError(f"{name}: {W} columns (kernel takes {nq}..{MAXW})")
+    if mode == "until2" and W < 4:
+        raise ValueError("until2 needs columns 2 and 3")
+    if exp_lane is not None and not 0 <= exp_lane < W:
+        raise ValueError("expiry lane outside the row")
+
+
+def _outputs(mode, B, cap, W, dev):
+    """The kernel's flat output tensors of one mode (bools as uint8)."""
+    if mode == "block":
+        return [torch.empty((B, cap, W), dtype=torch.int32, device=dev)]
+    if mode == "any":
+        return [torch.empty(B, dtype=torch.uint8, device=dev)]
+    if mode == "until2":
+        return [torch.empty(B, dtype=torch.uint8, device=dev) for _ in range(2)]
+    if mode == "gate":
+        return [torch.empty((B, cap), dtype=torch.uint8, device=dev)
+                for _ in range(2)]
+    if mode == "runs":
+        return [torch.empty(B, dtype=torch.int32, device=dev) for _ in range(2)]
+    raise ValueError(f"unknown probe mode {mode!r}")
+
+
+def fused_probe_aligned(
+    q_cols: Sequence,
+    tbls: Sequence,
+    caps: Sequence[int],
+    sw: int,
+    *,
+    spec=None,
+    spec_dev: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    mode: str = "block",
+    now: Optional[int] = None,
+    exp_lane: Optional[int] = None,
+    plain: bool = False,
+):
+    """One fused probe over the bucket-aligned ladder.
+
+    ``tbls`` are the width-stratum level tables (level l: ``caps[l]``
+    slots of ``sw`` elements per row — int32 columns, or packed uint16
+    lanes stored as int16 and decoded through ``spec``); level l >= 1
+    hashes ``q0 ^ _level_salt(l)``.  The candidate block is the levels'
+    rows concatenated in level order, ``capT = sum(caps)`` slots.  Modes
+    and outputs are ``fused_probe``'s with ``cap = capT`` (no ``runs``).
+    """
+    from ..hash import _level_salt
+
+    if plain or tbls[0].device.type == "cpu":
+        return fused_probe_aligned_plain(
+            q_cols, tbls, caps, sw, spec=spec, mode=mode, now=now,
+            exp_lane=exp_lane,
+        )
+    dev = tbls[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"fused_probe_aligned: unsupported device {dev}")
+    if mode not in ALIGNED_MODES:
+        raise ValueError(f"fused_probe_aligned: unknown mode {mode!r}")
+    L = len(tbls)
+    if not 1 <= L <= MAXL or len(caps) != L:
+        raise ValueError(f"fused_probe_aligned: {L} levels for {len(caps)}"
+                         f" caps (kernel takes 1..{MAXL})")
+    shape, qf = _flat_queries(q_cols)
+    nq = len(qf)
+    packed = spec is not None
+    W = int(spec[0]) if packed else int(sw)
+    if packed and int(spec[1]) != int(sw):
+        raise ValueError("fused_probe_aligned: slot width is not the spec's lanes")
+    _check_row("fused_probe_aligned", W, nq, mode, exp_lane)
+    want = torch.int16 if packed else torch.int32
+    for t, c in zip(tbls, caps):
+        rows = int(t.shape[0])
+        if t.dtype != want:
+            raise TypeError(f"fused_probe_aligned: level {t.dtype}, want {want}")
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError("fused_probe_aligned: levels must be contiguous"
+                             " on one device")
+        if t.dim() != 2 or int(t.shape[1]) != int(c) * int(sw):
+            raise ValueError("fused_probe_aligned: level row is not cap * sw")
+        if rows < 1 or rows & (rows - 1):
+            raise ValueError("fused_probe_aligned: level rows must be a pow2")
+    for q in qf:
+        if q.device != dev:
+            raise ValueError("fused_probe_aligned: queries on another device")
+    B = int(qf[0].shape[0])
+    capT = int(sum(int(c) for c in caps))
+    outs = _outputs(mode, B, capT, W, dev)
+    if B == 0:
+        return _shaped(mode, outs, shape, capT, W)
+    if packed:
+        fields, dicts = spec_dev if spec_dev is not None else spec_tensors(spec, dev)
+    lv = (_Level * MAXL)()
+    for l, (t, c) in enumerate(zip(tbls, caps)):
+        lv[l] = _Level(tbl=t.data_ptr(), size=int(t.shape[0]),
+                       stride=int(t.shape[1]), cap=int(c),
+                       salt=int(_level_salt(l)))
+    a = _AlignedArgs(
+        q0=qf[0].data_ptr(), q1=qf[1].data_ptr() if nq > 1 else None, B=B,
+        fields=fields.data_ptr() if packed else None,
+        dicts=dicts.data_ptr() if packed else None,
+        out0=outs[0].data_ptr(),
+        out1=outs[1].data_ptr() if len(outs) > 1 else None,
+        nq=nq, L=L, packed=int(packed), sw=int(sw), capT=capT, W=W,
+        now=int(now or 0), lay_exp=-1 if exp_lane is None else int(exp_lane),
+        lv=lv,
+    )
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _aligned_launcher()(_MODE_ID[mode], ctypes.byref(a), stream)
+    if err != 0:
+        raise RuntimeError(
+            f"fused_probe_aligned kernel launch failed (cudaError {err})")
+    LAUNCHES[f"aligned.{mode}"] += 1
+    return _shaped(mode, outs, shape, capT, W)
 
 
 def _shaped(mode, outs, shape, cap, W):

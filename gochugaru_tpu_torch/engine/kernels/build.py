@@ -4,7 +4,7 @@ Each ``csrc/*.cu`` source compiles with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, loaded through ``ctypes`` (no
 PyTorch headers: a build takes seconds, not minutes).  Libraries land in
 ``gochugaru_tpu_torch/_build/`` (git-ignored), named by the hash of their
-source, so a stale binary is never loaded.  Nothing builds at import
+source and the shared headers, so a stale binary is never loaded.  Nothing builds at import
 time: the first launch of a kernel builds it, and ``build_all`` builds
 every source in parallel (one ``nvcc`` per source, all started together).
 """
@@ -46,10 +46,14 @@ def nvcc() -> str:
 
 
 def _target(name: str) -> str:
-    src = os.path.join(CSRC, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    """The library path of one source, named by the hash of the source and
+    of every shared ``csrc/*.cuh`` header it may include."""
+    h = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in [name + ".cu"] + headers:
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            h.update(fname.encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
 def _compile_cmd(name: str, out: str) -> List[str]:

@@ -1,12 +1,14 @@
-"""Plain PyTorch twin of the fused probe kernel.
+"""Plain PyTorch twins of the fused probe kernels.
 
-The same function as ``csrc/fused_probe.cu``, written as the reference's
-gather chain (gochugaru_tpu/engine/flat.py with ``pallas=False``):
-``probe_block`` + ``decode_block`` + the probe site's own compare and gate
-folds, and for the ``runs`` mode the point-run bisect of
-gochugaru_tpu/engine/spmv.py ``_make_runs``.  On the CPU it is what the
-engine runs; on the card only the parity harness and
-``EngineConfig(kernels=False)`` use it.
+The same functions as ``csrc/fused_probe.cu`` and
+``csrc/fused_probe_aligned.cu``, written as the reference's gather chain
+(gochugaru_tpu/engine/flat.py with ``pallas=False``): ``probe_block``
+(off+interleave) or ``probe_aligned`` (the bucket-aligned ladder) +
+``decode_block`` + the probe site's own compare and gate folds, shared by
+both twins (``_tail``); and for the ``runs`` mode the point-run bisect of
+gochugaru_tpu/engine/spmv.py ``_make_runs``.  On the CPU they are what
+the engine runs; on the card only the parity harness and
+``EngineConfig(kernels=False)`` use them.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from typing import Optional, Sequence
 
 import torch
 
-from ..hash import bucket_of, probe_block
+from ..hash import bucket_of, probe_aligned, probe_block
 from ..packed import _i32, decode_block
 
 
@@ -51,9 +53,41 @@ def fused_probe_plain(
             raise ValueError("the runs probe takes one key column")
         return runs_plain(q_cols[0], off, tbl, cap=cap, spec=spec,
                           off_a=off_a, ashift=ashift)
-    shape = torch.broadcast_shapes(*[tuple(c.shape) for c in q_cols])
-    qs = [c.expand(shape) for c in q_cols]
+    qs = _lattice(q_cols)
     raw = probe_block(off, tbl, cap, qs, off_a=off_a, ashift=ashift)
+    return _tail(raw, qs, spec, mode, now, exp_lane)
+
+
+def fused_probe_aligned_plain(
+    q_cols: Sequence,
+    tbls: Sequence,
+    caps: Sequence[int],
+    sw: int,
+    *,
+    spec=None,
+    mode: str = "block",
+    now: Optional[int] = None,
+    exp_lane: Optional[int] = None,
+):
+    """One probe over the bucket-aligned ladder (one row per level,
+    levels concatenated to ``sum(caps)`` slots); see
+    ``kernels.fused_probe_aligned`` for the modes and outputs."""
+    if mode == "runs":
+        raise ValueError("the aligned probe has no runs mode")
+    qs = _lattice(q_cols)
+    return _tail(probe_aligned(tbls, caps, sw, qs), qs, spec, mode, now,
+                 exp_lane)
+
+
+def _lattice(q_cols: Sequence):
+    """The query columns broadcast to one lattice shape."""
+    shape = torch.broadcast_shapes(*[tuple(c.shape) for c in q_cols])
+    return [c.expand(shape) for c in q_cols]
+
+
+def _tail(raw, qs, spec, mode: str, now, exp_lane):
+    """Decode a raw candidate block, then the mode's compare and folds —
+    the part both probe layouts share."""
     blk = raw.to(torch.int32) if spec is None else decode_block(raw, spec)
     if mode == "block":
         return blk

@@ -78,6 +78,15 @@ class EngineConfig:
     flat_packed: Optional[bool] = None
     #: bucket-count growth bound for the packed layout's hash builds
     flat_packed_max_factor: int = 2
+    #: bucket-ALIGNED probe tables (engine/hash.py build_aligned): each
+    #: bucket is ONE table row, a probe one row read per width-stratum
+    #: level with no dependent offset read.  Off by default in the port.
+    #: (The reference turns it on by default on a TPU backend; its "~48M
+    #: vs 0.75M probes/s" figure is a TPU's, measured by
+    #: tpu_attempts/micro_blocks.py, not this card's.)  The byte budget
+    #: and the ladder are engine/hash.py's ALIGNED_MAX_BYTES and
+    #: ALIGNED_COVER, the reference's defaults
+    flat_aligned: bool = False
     #: the fused probe kernel switch: None = the CUDA kernel on a ``cuda``
     #: device and the plain PyTorch version on ``cpu``; True = the kernel,
     #: raising if it cannot build or launch; False = the plain version on

@@ -32,10 +32,12 @@ live stream or deterministically recomputes and skips.
 This is the reference's looped per-hop path (``EngineConfig(spmm=
 False)`` in gochugaru_tpu/engine/spmv.py), with the device steps in
 PyTorch: the hop probes go through ``kernels.fused_probe`` (mode
-``runs``; the arrow group probe through mode ``block``), the CUDA kernel
-on a CUDA device and its plain twin on the CPU or with
-``EngineConfig(kernels=False)``.  The fused K-hop SpMM program, the
-bucket-aligned layout and the sharded layouts are later slices.
+``runs``; the arrow group probe through mode ``block``, or
+``kernels.fused_probe_aligned`` mode ``block`` when ``argx`` is
+bucket-aligned), the CUDA kernels on a CUDA device and their plain twins
+on the CPU or with ``EngineConfig(kernels=False)``.  The reverse tables
+(rvx/rax/fwx) are never aligned.  The fused K-hop SpMM program and the
+sharded layouts are later slices.
 
 Eligibility: full prepares with the reverse index (FlatMeta.has_rev)
 and no LSM delta level; everything else keeps the host walker.
@@ -53,6 +55,7 @@ import torch
 
 from ..utils import faults, metrics
 from . import kernels as _K
+from .flat import aligned_levels
 from .hash import _ceil_pow2
 from .packed import decode_block
 
@@ -187,10 +190,6 @@ class FrontierKernels:
     twin."""
 
     def __init__(self, meta, kernels: bool = False) -> None:
-        if meta.aligned:
-            raise NotImplementedError(
-                "lookups over the bucket-aligned layout are a later slice"
-            )
         if meta.sharded:
             raise NotImplementedError(
                 "lookups over sharded tables are a later slice"
@@ -201,6 +200,8 @@ class FrontierKernels:
         self.F_min = LOOKUP_FRONTIER_MIN
         self._pk = dict(meta.packed)
         self._pko = dict(meta.packed_off)
+        #: (w, caps) of the aligned argx ladder, None when off+interleave
+        self._arg_al = dict((k, (w, c)) for k, w, c in meta.aligned).get("argx")
         #: kind → (rows table, offsets array, bisect cap) of the run probes
         self._run_geom = {
             "rv": ("rvx", "rv_off", meta.rv_cap),
@@ -234,15 +235,24 @@ class FrontierKernels:
             ashift=shift, mode="runs", plain=not self.kernels,
         )
 
-    # -- group-table probe (argx range view) ------------------------------
+    # -- group-table probe (argx range view: hash probe or aligned ladder)
     def _runs_group(self, off, off_a, gx, spec_dev, keys):
-        shift = self._pko.get("arr_off")
-        blk = _K.fused_probe(
-            (keys,), off, gx, cap=self.meta.arr_cap,
-            spec=self._pk.get("argx"), spec_dev=spec_dev,
-            off_a=off_a if shift is not None else None, ashift=shift,
-            mode="block", plain=not self.kernels,
-        )
+        """``gx`` is the argx rows table, or the tuple of its aligned
+        levels (``off``/``off_a`` unused then)."""
+        spec = self._pk.get("argx")
+        if self._arg_al is not None:
+            w, caps = self._arg_al
+            blk = _K.fused_probe_aligned(
+                (keys,), gx, caps, w if spec is None else spec[1], spec=spec,
+                spec_dev=spec_dev, mode="block", plain=not self.kernels,
+            )
+        else:
+            shift = self._pko.get("arr_off")
+            blk = _K.fused_probe(
+                (keys,), off, gx, cap=self.meta.arr_cap, spec=spec,
+                spec_dev=spec_dev, off_a=off_a if shift is not None else None,
+                ashift=shift, mode="block", plain=not self.kernels,
+            )
         hit = (blk[..., 0] == keys[..., None]) & (keys >= 0)[..., None]
         lo = torch.where(hit, blk[..., 1], 0).sum(-1, dtype=torch.int32)
         hi = torch.where(hit, blk[..., 2], 0).sum(-1, dtype=torch.int32)
@@ -314,8 +324,9 @@ class FrontierKernels:
         faults.fire("lookup.dispatch")
         _mt.inc("lookup.dispatches")
         off, off_a, tbl, spec_dev = args
+        dev = (tbl[0] if isinstance(tbl, tuple) else tbl).device
         lo, ln = self._runs_fn(kind, off, off_a, tbl, spec_dev,
-                               self._keys_on(keys, off.device))
+                               self._keys_on(keys, dev))
         total = int(ln.to(torch.int64).sum())
         return lo, ln, total
 
@@ -499,7 +510,16 @@ class FrontierState:
         self.rv_args = args_of("rv_off", "rvx")
         self.ra_args = args_of("ra_off", "rax")
         self.fw_args = args_of("fw_off", "fwx") if meta.has_fw else None
-        self.arg_args = args_of("arr_off", "argx")
+        if self.kern._arg_al is not None:
+            # the aligned argx ladder: its level tables stand in the rows
+            # table's place, and no offsets are read
+            self.arg_args = (
+                None, None,
+                tuple(aligned_levels(arrs, "argx", self.kern._arg_al[1])),
+                dsnap.specs.get("argx"),
+            )
+        else:
+            self.arg_args = args_of("arr_off", "argx")
         self.arx = (arrs["arx"], dsnap.specs.get("arx"))
         #: wildcard-widening cache: sorted unique direct subjects
         self._all_subj: Optional[np.ndarray] = None

@@ -335,7 +335,8 @@ def test_planes_on_reference_arrays(world):
     w, je, jd, np_arrays = world
     ref = _ref_planes(w, je, jd)
     pe = w.p_engine()
-    arrays, meta = pdevice.arrays_from_reference(np_arrays, jd.flat_meta)
+    arrays, meta = pdevice.arrays_from_reference(np_arrays, jd.flat_meta,
+                                                 device="cpu")
     assert set(arrays) == set(np_arrays)
     pd = pe.snapshot_from_reference(w.p_snap, np_arrays, jd.flat_meta)
     got = _port_planes(w, pe, pd)
@@ -401,3 +402,18 @@ def test_closure_overflow_world_flags_overflow():
     assert pd.flat_meta.has_ovf
     _d, _p, ovf = _port_planes(w, pe, pd)
     assert ovf.any()
+
+
+def test_arrays_from_reference_default_device_raises_without_cuda(world):
+    """arrays_from_reference resolves its device like every entry point:
+    ``cuda`` unless the caller names one, and no silent CPU run."""
+    import torch
+
+    _w, _je, jd, np_arrays = world
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is valid here")
+    with pytest.raises(RuntimeError):
+        pdevice.arrays_from_reference(np_arrays, jd.flat_meta)
+    arrays, _meta = pdevice.arrays_from_reference(np_arrays, jd.flat_meta,
+                                                  device="cpu")
+    assert all(t.device.type == "cpu" for t in arrays.values())

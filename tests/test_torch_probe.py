@@ -136,7 +136,8 @@ def test_cpu_calls_run_the_plain_version_and_launch_nothing():
             _runs(r)
         else:
             _probe(t, mode)
-    assert K.LAUNCHES == {m: 0 for m in K.MODES}
+    assert set(K.LAUNCHES) >= set(K.MODES)
+    assert all(n == 0 for n in K.LAUNCHES.values())
 
 
 def _runs_table(seed, packed):
