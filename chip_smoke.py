@@ -15,6 +15,16 @@ Phases (any failure exits non-zero and prints no result line):
    levels (cover (0.5, 0.9)): int32 and packed, one-key and two-key, an
    expiry lane with 0, expired and live rows, absent and negative keys,
    hits past level 0; kernel == plain version bit for bit;
+3c. mode block of both kernels at the edges of its tile (the cooperative
+   tile of csrc/probe_common.cuh): int32 and packed tables, one and two
+   keys, W in {1, 3, 5, 16}, caps 1, 3, 8, 64 and one whose single lane
+   passes the tile's shared-memory budget, B in {1, 255, 65,537}, bucket
+   starts clamped at rows - cap, negative and absent keys; for the
+   aligned kernel ladders (cap, 3, 1), (past the budget, 1), an 8-level
+   ladder and phase 3b's build_aligned ladders; then one int32 table of
+   2^29 rows x 5 columns (2.7e9 elements, filled on the card) per kernel,
+   with lanes whose rows lie past element 2^31; kernel == plain version
+   bit for bit;
 4. BASELINE config 2 (RBAC: 10k repos x 1k users x 100 teams x 10 orgs,
    seed 11) — a 100,000-check batch, kernels vs plain on all three
    planes, 2,000 sampled rows vs the host oracle; then the same with
@@ -49,7 +59,11 @@ and read after phase 7, and every mode of both kernels must have
 launched.  Then each mode is timed at the largest shape the main path
 gave it, ``runs`` also at its largest-cap call (the row's
 ``deep_bucket``) and each aligned mode also at its call with the most
-levels (the row's ``deep_levels``).  The second to last lines are the kernel table as JSON
+levels (the row's ``deep_levels``); the two ``block`` rows also under
+each tile budget of TILE_SWEEP (the row's ``tile_budgets``: budget
+bytes -> ms, each output equal to the plain version's), beside one
+``fill_`` of their output's size (``fill_ms``: the card's write rate).  The second to
+last lines are the kernel table as JSON
 and the card line; the last line is {"ok": true, "device": {...}}.
 """
 
@@ -153,6 +167,11 @@ class Capture:
         return False
 
 
+def W_of(spec, width) -> int:
+    """Logical columns of a probe's rows: the spec's, else the table's."""
+    return int(spec[0]) if spec is not None else int(width)
+
+
 def _outs(x):
     return list(x) if isinstance(x, tuple) else [x]
 
@@ -196,7 +215,7 @@ def probe_bound(q_cols, off, tbl, kw):
     s = start.clamp(0, int(tbl.shape[0]) - cap)
     rows = torch.unique((s.unsqueeze(-1) + torch.arange(cap, device=s.device)).reshape(-1))
     row_bytes = int(tbl.shape[1]) * tbl.element_size()
-    W = kw["spec"][0] if kw.get("spec") is not None else int(tbl.shape[1])
+    W = W_of(kw.get("spec"), tbl.shape[1])
     out_bytes = {"block": B * cap * W * 4, "any": B, "until2": 2 * B,
                  "gate": 2 * B * cap}[mode]
     nbytes = (int(rows.numel()) * row_bytes
@@ -257,7 +276,7 @@ def aligned_bound(q_cols, tbls, caps, sw, kw):
     qs = [c.expand(shape).reshape(-1) for c in q_cols]
     B = qs[0].shape[0]
     capT = int(sum(caps))
-    W = kw["spec"][0] if kw.get("spec") is not None else int(sw)
+    W = W_of(kw.get("spec"), sw)
     nbytes = B * len(qs) * 4 + {"block": B * capT * W * 4, "any": B,
                                 "until2": 2 * B, "gate": 2 * B * capT}[mode]
     for lvl, t in enumerate(tbls):
@@ -685,6 +704,196 @@ def phase_aligned_vs_plain(K):
             f" past level 0={deep})")
 
 
+EDGE_W = (1, 3, 5, 16)
+EDGE_B = (1, 255, 65_537)
+#: 2^29 rows x 5 int32 columns: 2.7e9 elements, past int32 addressing
+HUGE_ROWS = 1 << 29
+
+
+def edge_spec(W, rng, n):
+    """A pack spec of ``W`` columns mixing every field kind the decode
+    reads (a 16-bit range, a delta of column 0, a dictionary, a 21-bit
+    range that crosses a lane, a constant), and ``n`` int32 rows in it."""
+    from gochugaru_tpu_torch.engine import packed as PK
+
+    dict_vals = (-1, 3, 8, 2**31 - 1)
+    raw = np.empty((n, W), np.int32)
+    raw[:, 0] = rng.integers(-1, 50_001, n)
+    descs = [PK.col_range(-1, 50_000)]
+    for c in range(1, W):
+        kind = c % 4
+        if kind == 1:
+            descs.append(PK.col_delta(-100, 100, 0))
+            raw[:, c] = raw[:, 0] + rng.integers(-100, 101, n)
+        elif kind == 2:
+            descs.append(PK.col_dict(dict_vals))
+            raw[:, c] = rng.choice(dict_vals, n)
+        elif kind == 3:
+            descs.append(PK.col_range(-1, (1 << 20) - 1))
+            raw[:, c] = rng.integers(-1, 1 << 20, n)
+        else:
+            descs.append(PK.col_const(7))
+            raw[:, c] = 7
+    return PK.make_spec(descs), raw
+
+
+def edge_caps(K, W):
+    """Phase 3c's caps: 1, 3, 8, 64 and one whose single lane's block
+    passes the tile budget (so the tile walks it in chunks)."""
+    big = K.TILE_BYTES // (4 * W) * 2 + 3
+    if K.block_tile(big, W, 1)[0] >= big:
+        raise AssertionError(f"cap {big} x W {W} fits one tile")
+    return (1, 3, 8, 64, big)
+
+
+def _edge_queries(rng, B, nq, dev):
+    """``nq`` key columns of ``B`` lanes: random keys (absent from the
+    tables' key columns more often than not), 5% negative."""
+    cols = [np.where(rng.random(B) < 0.05, -rng.integers(1, 9, B),
+                     rng.integers(0, 60_000, B)).astype(np.int32) for _ in range(nq)]
+    return tuple(torch.from_numpy(c).to(dev) for c in cols)
+
+
+def _same(K, name, got, want):
+    if got.dtype != torch.int32 or got.shape != want.shape or not torch.equal(got, want):
+        raise AssertionError(f"block tile != plain: {name}")
+
+
+def phase_block_edges(K, huge_rows=HUGE_ROWS):
+    """Phase 3c: mode block of both kernels at the tile's edges, kernel ==
+    plain bit for bit (see the module docstring)."""
+    from gochugaru_tpu_torch.engine import packed as PK
+    from gochugaru_tpu_torch.engine.device import to_device_tensor
+    from gochugaru_tpu_torch.engine.hash import bucket_of
+
+    dev = torch.device(DEV)
+    rng = np.random.default_rng(2027)
+    n_cases = n_clamped = 0
+    # fused_probe: off+interleave tables whose last quarter of bucket
+    # starts lies within cap of the end (clamped to rows - cap)
+    for W in EDGE_W:
+        for cap in edge_caps(K, W):
+            rows, size = max(4 * cap, 4_096), 1_024
+            spec, raw = edge_spec(W, rng, rows)
+            starts = np.concatenate([rng.integers(0, rows + 1, size + 1 - size // 4),
+                                     rng.integers(rows - cap + 1, rows + 1, size // 4)])
+            off = np.sort(starts).astype(np.int32)
+            res, anchor = PK.pack_off(off)
+            layouts = {
+                "int32": dict(off=to_device_tensor(off, dev),
+                              tbl=to_device_tensor(raw, dev), spec=None,
+                              off_a=None, ashift=None),
+                "packed": dict(off=to_device_tensor(res, dev),
+                               tbl=to_device_tensor(PK.pack_rows(raw, spec), dev),
+                               spec=spec, off_a=to_device_tensor(anchor, dev),
+                               ashift=PK.OFF_ANCHOR_SHIFT),
+            }
+            off_t = torch.from_numpy(off).to(dev)
+            for layout, c in layouts.items():
+                for nq in (1, 2)[:W]:
+                    for B in EDGE_B:
+                        qs = _edge_queries(rng, B, nq, dev)
+                        kw = dict(cap=cap, spec=c["spec"], off_a=c["off_a"],
+                                  ashift=c["ashift"], mode="block")
+                        _same(K, f"fused_probe {layout} nq={nq} W={W} cap={cap} B={B}",
+                              K.fused_probe(qs, c["off"], c["tbl"], **kw),
+                              K.fused_probe(qs, c["off"], c["tbl"], plain=True, **kw))
+                        n_cases += 1
+                        n_clamped += int((off_t[bucket_of(qs, size)] > rows - cap).sum())
+    if not n_clamped:
+        raise AssertionError("phase 3c: no lane's bucket start was clamped")
+    log(f"block edges fused_probe: {n_cases} cases (W {EDGE_W}, caps 1/3/8/64/"
+        f"past the tile budget, B {EDGE_B}, int32 and packed, one and two keys"
+        " where W >= 2)"
+        f" bitwise OK; {n_clamped} clamped lanes")
+
+    # fused_probe_aligned: synthetic ladders (pow2 level rows, random slots)
+    n_al = 0
+    for W in EDGE_W:
+        ladders = [(c, 3, 1) for c in edge_caps(K, W)[:4]]
+        ladders += [(edge_caps(K, W)[4], 1), (5, 4, 3, 2, 2, 1, 1, 1)]
+        for caps in ladders:
+            sizes = [max(1_024 >> (2 * l), 8) for l in range(len(caps))]
+            spec, _ = edge_spec(W, rng, 1)
+            raws = [edge_spec(W, rng, s * c)[1] for s, c in zip(sizes, caps)]
+            layouts = {
+                "int32": ([to_device_tensor(r.reshape(s, c * W), dev)
+                           for r, s, c in zip(raws, sizes, caps)], W, None),
+                "packed": ([to_device_tensor(PK.pack_rows(r, spec).reshape(s, -1), dev)
+                            for r, s in zip(raws, sizes)], spec[1], spec),
+            }
+            for layout, (tbls, sw, sp) in layouts.items():
+                for nq in (1, 2)[:W]:
+                    for B in EDGE_B:
+                        qs = _edge_queries(rng, B, nq, dev)
+                        _same(K, f"aligned {layout} nq={nq} W={W} caps={caps} B={B}",
+                              K.fused_probe_aligned(qs, tbls, caps, sw, spec=sp),
+                              K.fused_probe_aligned(qs, tbls, caps, sw, spec=sp,
+                                                    plain=True))
+                        n_al += 1
+    # phase 3b's >= 3-level ladders from build_aligned
+    for layout, (qs, tbls, caps, sw, spec, _e) in aligned_ladders(dev).items():
+        for B in EDGE_B:
+            qb = tuple(torch.cat([q, q])[:B] for q in qs)
+            _same(K, f"aligned ladder {layout} B={B}",
+                  K.fused_probe_aligned(qb, tbls, caps, sw, spec=spec),
+                  K.fused_probe_aligned(qb, tbls, caps, sw, spec=spec, plain=True))
+            n_al += 1
+    log(f"block edges fused_probe_aligned: {n_al} cases (W {EDGE_W}, ladders"
+        " (c,3,1) for c in 1/3/8/64, (past the budget,1), 8 levels, and the"
+        " build_aligned 3-level ladders; B"
+        f" {EDGE_B}, int32 and packed, one and two keys where W >= 2) bitwise OK")
+    phase_block_huge(K, huge_rows)
+
+
+def _fill_huge(rows, w, dev):
+    """int32[rows, w] filled on the device with a hash of each element's
+    index (chunked: no int64 temporary of the whole table)."""
+    t = torch.empty((rows, w), dtype=torch.int32, device=dev)
+    flat = t.view(-1)
+    step = 1 << 27
+    for a in range(0, flat.numel(), step):
+        idx = torch.arange(a, min(a + step, flat.numel()), dtype=torch.int64, device=dev)
+        flat[a:a + idx.numel()] = ((idx * 2654435761) >> 3).to(torch.int32)
+    return t
+
+
+def phase_block_huge(K, rows):
+    """Block mode on one int32 table of ``rows`` x 5 elements for each
+    kernel (2^29 rows: 2.7e9 elements, past int32 addressing), lanes
+    whose rows lie past element 2^31, kernel == plain."""
+    from gochugaru_tpu_torch.engine.hash import bucket_of
+
+    dev = torch.device(DEV)
+    rng = np.random.default_rng(2028)
+    B, cap, W = 65_537, 8, 5
+    qs = _edge_queries(rng, B, 2, dev)
+    t0 = time.perf_counter()
+    tbl = _fill_huge(rows, W, dev)
+    size = 4_096
+    off = np.sort(rng.integers(0, rows + 1, size + 1)).astype(np.int32)
+    off_t = torch.from_numpy(off).to(dev)
+    kw = dict(cap=cap, mode="block")
+    _same(K, f"fused_probe on {rows} x {W}",
+          K.fused_probe(qs, off_t, tbl, **kw), K.fused_probe(qs, off_t, tbl, plain=True, **kw))
+    past = int((off_t[bucket_of(qs, size)].long().clamp(max=rows - cap) * W
+                >= 2**31).sum())
+    del tbl
+    # aligned: level 0 of rows / 8 rows x 8 slots x 5 columns, level 1 small
+    lv0 = _fill_huge(rows // 8, 8 * W, dev)
+    lv1 = _fill_huge(1_024, 3 * W, dev)
+    got = K.fused_probe_aligned(qs, [lv0, lv1], (8, 3), W)
+    _same(K, f"aligned on {rows // 8} x {8 * W}", got,
+          K.fused_probe_aligned(qs, [lv0, lv1], (8, 3), W, plain=True))
+    past_al = int((bucket_of(qs, rows // 8) * (8 * W) >= 2**31).sum())
+    del lv0, lv1
+    if rows * W > 2**31 and not (past and past_al):
+        raise AssertionError("phase 3c: no lane read past element 2^31")
+    log(f"block edges past 2^31 elements: {rows} x {W} int32 ({rows * W} elements),"
+        f" {B} lanes, {past} (fused_probe) and {past_al} (aligned) of them past"
+        f" element 2^31, bitwise OK ({time.perf_counter() - t0:.1f} s)")
+
+
 def check_world(name, cs, snap, q, names, K, **cfg):
     """Prepare once (``cfg`` overrides EngineConfig fields); kernels=True
     vs kernels=False planes bitwise; 2,000 sampled rows vs the port's host
@@ -1066,6 +1275,37 @@ def _kernel_vs_plain(K, call):
     return err, ms, plain_ms
 
 
+#: mode block's tile budgets (kernels.TILE_BYTES) each block row is also
+#: timed under
+TILE_SWEEP = (8 * 1024, 16 * 1024, 32 * 1024, 64 * 1024)
+
+
+def fill_ms(shape) -> float:
+    """ms of one ``fill_`` of an int32 tensor of ``shape``: the card's
+    write rate over block's output, a floor under any kernel writing it."""
+    t = torch.empty(tuple(shape), dtype=torch.int32, device=DEV)
+    return time_call(lambda: t.fill_(7), 20)
+
+
+def tile_sweep(K, call):
+    """{budget: ms} of ``call(False)`` under each tile budget of
+    TILE_SWEEP, each output held to the plain version's; the launches
+    are not counted."""
+    want = call(True)
+    saved, budget = dict(K.LAUNCHES), K.TILE_BYTES
+    out = {}
+    try:
+        for b in TILE_SWEEP:
+            K.TILE_BYTES = b
+            if not torch.equal(call(False), want):
+                raise AssertionError(f"block differs from plain at tile budget {b}")
+            out[str(b)] = time_call(lambda: call(False), 20)
+    finally:
+        K.TILE_BYTES = budget
+        K.LAUNCHES.update(saved)
+    return out
+
+
 def time_mode(K, mode, q_cols, off, tbl, kw, card):
     """One fused_probe mode at one captured main-path call: kernel vs
     plain on its inputs, both timed, and its bound; a kernel-table row
@@ -1083,13 +1323,20 @@ def time_mode(K, mode, q_cols, off, tbl, kw, card):
         f" max_abs_err={err}")
     if err:
         raise AssertionError(f"{mode}: kernel differs from plain at main-path shape")
-    return {
+    row = {
         "name": f"fused_probe.{mode}", "route": "cuda", "source": SOURCE,
         "replaces": REPLACES_RUNS if mode == "runs" else REPLACES,
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         "lanes": n, "cap": kw["cap"],
     }
+    if mode == "block":
+        row["tile_budgets"] = tile_sweep(
+            K, lambda plain: K.fused_probe(q_cols, off, tbl, plain=plain, **kw))
+        row["fill_ms"] = fill_ms((n, kw["cap"], W_of(kw.get("spec"), tbl.shape[1])))
+        log(f"time fused_probe.block [{card}] by tile budget: {row['tile_budgets']};"
+            f" fill_ms of its output {row['fill_ms']:.5f}")
+    return row
 
 
 def time_aligned(K, mode, q_cols, tbls, caps, sw, kw, card):
@@ -1111,13 +1358,21 @@ def time_aligned(K, mode, q_cols, tbls, caps, sw, kw, card):
     if err:
         raise AssertionError(f"aligned {mode}: kernel differs from plain at"
                              " main-path shape")
-    return {
+    row = {
         "name": f"fused_probe_aligned.{mode}", "route": "cuda",
         "source": SOURCE_ALIGNED, "replaces": REPLACES_ALIGNED,
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         "lanes": n, "capT": capT, "levels": len(tbls),
     }
+    if mode == "block":
+        row["tile_budgets"] = tile_sweep(
+            K, lambda plain: K.fused_probe_aligned(q_cols, tbls, caps, sw,
+                                                   plain=plain, **kw))
+        row["fill_ms"] = fill_ms((n, capT, W_of(kw.get("spec"), sw)))
+        log(f"time fused_probe_aligned.block [{card}] by tile budget:"
+            f" {row['tile_budgets']}; fill_ms of its output {row['fill_ms']:.5f}")
+    return row
 
 
 def main() -> int:
@@ -1149,6 +1404,7 @@ def main() -> int:
     phase_kernel_vs_plain(K)
     phase_runs_vs_plain(K)
     phase_aligned_vs_plain(K)
+    phase_block_edges(K)
 
     # ---- the main path: counts from zero, phases 4-7 ------------------
     K.reset_launches()

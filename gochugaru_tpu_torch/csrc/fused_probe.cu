@@ -21,6 +21,17 @@
 // Bool outputs are uint8.  Row addressing is int64 (rows * lanes passes
 // 2^31 on large tables).
 //
+// Mode block (pallas.py:246, the same kernel's block tail) is bound by
+// bytes and dominated by its OUTPUT: a lane's decoded [cap, W] int32 block
+// is several times the rows and offset it reads (cap 8, W 3: 96 bytes out
+// per lane).  One thread per lane writing its own block made each warp
+// store touch 32 sectors at a cap*W*4-byte stride, and read rows the same
+// way.  It runs the cooperative tile of probe_common.cuh instead: per
+// lane one segment of cap rows at the clamped start (OffInterleaveLanes
+// below does the hash, offset read and clamp once per lane), the rows
+// read slot by slot into a shared-memory tile by neighbouring threads,
+// and the tile stored to out0 as one contiguous span with 16-byte stores.
+//
 // Mode runs replaces pallas.py::fused_probe mode "runs" (pallas.py:364-400,
 // the point-run probe of engine/spmv.py::_make_runs behind the lookups).
 // One thread per key: mix32 -> bucket h -> [start, end) from off(h) and
@@ -67,6 +78,7 @@ struct ProbeArgs {
   int W;                 // logical columns
   int now;
   int lay_exp;           // gate: expiry column, -1 = no expiry gate
+  int tile_slots;        // block: slots a CTA (kernels.block_tile)
 };
 }
 
@@ -116,6 +128,39 @@ __device__ __forceinline__ long long off_read(const ProbeArgs& a, long long b) {
            (long long)((const uint16_t*)a.off)[b];
   }
   return (long long)((const int32_t*)a.off)[b];
+}
+
+// Block mode's one segment a lane: cap rows from the bucket start,
+// clamped as slice_blocks clamps (0 <= s <= rows - cap), as an element
+// offset into tbl.
+struct OffInterleaveLanes {
+  ProbeArgs a;
+  __device__ __forceinline__ void segments(long long i, long long* off) const {
+    const int32_t q0 = a.q0[i];
+    const int32_t q1 = a.nq > 1 ? a.q1[i] : 0;
+    const uint32_t h = gochugaru_mix32(q0, q1, a.nq);
+    const long long start = off_read(a, (long long)(h & (uint32_t)(a.size - 1)));
+    const long long hi = a.rows - a.cap;
+    off[0] = (start < 0 ? 0 : (start > hi ? hi : start)) * a.w_raw;
+  }
+};
+
+static int launch_block(const ProbeArgs& a, cudaStream_t st) {
+  if (a.cap < 1 || a.rows < a.cap) return (int)cudaErrorInvalidValue;
+  GochugaruTile t = {};
+  t.seg_tbl[0] = a.tbl;
+  t.seg_first[1] = a.cap;
+  t.nseg = 1;
+  t.capT = a.cap;
+  t.W = a.W;
+  t.stride = a.w_raw;
+  t.packed = a.packed;
+  t.tile_slots = a.tile_slots;
+  t.fields = a.fields;
+  t.dicts = a.dicts;
+  t.out = (int32_t*)a.out0;
+  t.B = a.B;
+  return gochugaru_launch_block_tile(t, OffInterleaveLanes{a}, st);
 }
 
 // column 0 of one row: int32 tables read it whole; packed tables decode
@@ -178,8 +223,7 @@ extern "C" int gochugaru_fused_probe(int mode, const ProbeArgs* args,
   cudaStream_t st = (cudaStream_t)stream;
   switch (mode) {
     case MODE_BLOCK:
-      fused_probe_kernel<MODE_BLOCK><<<grid, threads, 0, st>>>(a);
-      break;
+      return launch_block(a, st);
     case MODE_ANY:
       fused_probe_kernel<MODE_ANY><<<grid, threads, 0, st>>>(a);
       break;

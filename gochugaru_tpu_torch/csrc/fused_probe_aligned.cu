@@ -29,13 +29,22 @@
 // so nothing clamps.  Row addressing is int64 (a level near the 3 GiB
 // budget holds ~800M int32).  Padded slots hold -1 keys and never match a
 // q >= 0; block mode still writes them decoded.  Bool outputs are uint8.
+//
+// Mode block (pallas.py:444, the same kernel's block tail) is bound by
+// bytes and dominated by its OUTPUT: capT slots of W int32 a lane (capT
+// 13, W 3: 156 bytes out per lane, against one row read per level).  One
+// thread per lane writing its own block made each warp store touch 32
+// sectors at a capT*W*4-byte stride.  It runs the cooperative tile of
+// probe_common.cuh, the same device code as fused_probe.cu's block: per
+// lane one segment per level (AlignedLanes below does the salted hashes
+// once per lane), each level's row read slot by slot into a shared-memory
+// tile by neighbouring threads, levels in order, and the tile stored to
+// out0 as one contiguous span with 16-byte stores.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "probe_common.cuh"
-
-#define GOCHUGARU_MAXL 8
 
 extern "C" {
 struct AlignedLevel {
@@ -62,6 +71,7 @@ struct AlignedArgs {
   int W;                  // logical columns
   int now;
   int lay_exp;            // gate: expiry column, -1 = no expiry gate
+  int tile_slots;         // block: slots a CTA (kernels.block_tile)
   AlignedLevel lv[GOCHUGARU_MAXL];
 };
 }
@@ -99,6 +109,47 @@ __global__ void fused_probe_aligned_kernel(const AlignedArgs a) {
   gochugaru_lane_tail<MODE>(i, a.out0, a.out1, acc0, acc1);
 }
 
+// Block mode's segments: level l's bucket row h_l (salted hash), as an
+// element offset into that level's table.
+struct AlignedLanes {
+  AlignedArgs a;
+  __device__ __forceinline__ void segments(long long i, long long* off) const {
+    const int32_t q0 = a.q0[i];
+    const int32_t q1 = a.nq > 1 ? a.q1[i] : 0;
+#pragma unroll
+    for (int l = 0; l < GOCHUGARU_MAXL; ++l) {
+      if (l < a.L) {
+        const uint32_t h = gochugaru_mix32(q0 ^ a.lv[l].salt, q1, a.nq) &
+                           (uint32_t)(a.lv[l].size - 1);
+        off[l] = (long long)h * a.lv[l].stride;
+      }
+    }
+  }
+};
+
+static int launch_block(const AlignedArgs& a, cudaStream_t st) {
+  GochugaruTile t = {};
+  int first = 0;
+  for (int l = 0; l < a.L; ++l) {
+    t.seg_tbl[l] = a.lv[l].tbl;
+    t.seg_first[l] = first;
+    first += a.lv[l].cap;
+  }
+  t.seg_first[a.L] = first;
+  if (first != a.capT) return (int)cudaErrorInvalidValue;
+  t.nseg = a.L;
+  t.capT = a.capT;
+  t.W = a.W;
+  t.stride = a.sw;
+  t.packed = a.packed;
+  t.tile_slots = a.tile_slots;
+  t.fields = a.fields;
+  t.dicts = a.dicts;
+  t.out = (int32_t*)a.out0;
+  t.B = a.B;
+  return gochugaru_launch_block_tile(t, AlignedLanes{a}, st);
+}
+
 extern "C" int gochugaru_fused_probe_aligned(int mode, const AlignedArgs* args,
                                              void* stream) {
   const AlignedArgs a = *args;
@@ -110,8 +161,7 @@ extern "C" int gochugaru_fused_probe_aligned(int mode, const AlignedArgs* args,
   cudaStream_t st = (cudaStream_t)stream;
   switch (mode) {
     case MODE_BLOCK:
-      fused_probe_aligned_kernel<MODE_BLOCK><<<grid, threads, 0, st>>>(a);
-      break;
+      return launch_block(a, st);
     case MODE_ANY:
       fused_probe_aligned_kernel<MODE_ANY><<<grid, threads, 0, st>>>(a);
       break;

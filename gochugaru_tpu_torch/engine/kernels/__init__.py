@@ -11,12 +11,15 @@ tensors, or with ``plain=True``, runs the plain PyTorch twin
 fallback.  ``LAUNCHES`` counts kernel launches per mode (never plain
 calls) — ``MODES`` for fused_probe, ``aligned.<mode>`` for each of
 ``ALIGNED_MODES`` — so a run can show that its main path went through
-the kernels.
+the kernels.  Mode ``block`` of both kernels runs one cooperative tile
+kernel (``csrc/probe_common.cuh``) whose launch geometry ``block_tile``
+picks here.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
@@ -26,7 +29,7 @@ from .plain import (
 )
 
 __all__ = [
-    "ALIGNED_MODES", "LAUNCHES", "MODES", "blk_hit", "fused_probe",
+    "ALIGNED_MODES", "LAUNCHES", "MODES", "blk_hit", "block_tile", "fused_probe",
     "fused_probe_aligned", "fused_probe_aligned_plain", "fused_probe_plain",
     "reset_launches", "spec_tensors",
 ]
@@ -37,6 +40,11 @@ _MODE_ID = {m: i for i, m in enumerate(MODES)}
 MAXW = 16
 MAXL = 8
 DICT = 256
+#: shared-memory budget of one block-mode tile, bytes a CTA (chip_smoke.py
+#: times 8-64 KB: 16 KB was the best or level with it, PERF.md)
+TILE_BYTES = 16 * 1024
+#: shared memory one CTA may use on sm_90 (227 KB)
+SMEM_MAX = 232_448
 
 #: kernel launches per mode since the last reset_launches(): fused_probe
 #: under its mode, fused_probe_aligned under ``aligned.<mode>``
@@ -64,6 +72,7 @@ class _Args(ctypes.Structure):
         ("packed", ctypes.c_int), ("w_raw", ctypes.c_int),
         ("cap", ctypes.c_int), ("W", ctypes.c_int),
         ("now", ctypes.c_int), ("lay_exp", ctypes.c_int),
+        ("tile_slots", ctypes.c_int),
     ]
 
 
@@ -87,8 +96,37 @@ class _AlignedArgs(ctypes.Structure):
         ("packed", ctypes.c_int), ("sw", ctypes.c_int),
         ("capT", ctypes.c_int), ("W", ctypes.c_int),
         ("now", ctypes.c_int), ("lay_exp", ctypes.c_int),
+        ("tile_slots", ctypes.c_int),
         ("lv", _Level * MAXL),
     ]
+
+
+def block_tile(capT: int, W: int, nseg: int) -> Tuple[int, int, int]:
+    """Launch geometry of mode ``block``'s tile kernel for lanes of
+    ``capT`` slots of ``W`` int32 columns in ``nseg`` segments (1 for
+    fused_probe, the level count for fused_probe_aligned): ``(tile_slots,
+    tile_lanes, smem_bytes)``.
+
+    A CTA owns ``tile_slots`` consecutive output slots: whole lanes, as
+    many as ``TILE_BYTES`` (read at call time) holds with each lane's
+    segment starts (8 bytes each); or, when the fewest whole lanes that
+    keep alignment pass the budget, a chunk of slots, so one lane's block
+    is walked by several CTAs.  ``tile_slots * W`` is always a multiple of
+    4, so every tile's span of the output starts 16-byte aligned.  The
+    shared bytes are the tile plus the segment starts of ``tile_lanes``
+    lanes, the most one tile touches (as gochugaru_tile_lanes counts
+    them); they pass the budget by at most 192 bytes, when a chunk
+    crosses lanes."""
+    lane = capT * W * 4 + nseg * 8
+    step = 4 // math.gcd(capT * W, 4)
+    lanes = TILE_BYTES // lane // step * step
+    if lanes:
+        slots = lanes * capT
+    else:
+        g = 4 // math.gcd(W, 4)
+        slots = max(g, (TILE_BYTES - 16 * nseg) // (4 * W) // g * g)
+    tl = slots // capT if slots % capT == 0 else (slots + capT - 2) // capT + 1
+    return slots, tl, slots * W * 4 + tl * nseg * 8
 
 
 _FNS: Dict[str, object] = {}
@@ -203,7 +241,7 @@ def fused_probe(
     else:
         fields = dicts = None
     outs = _outputs(mode, B, cap, W, dev)
-    if B == 0:
+    if B == 0 or (mode == "block" and cap == 0):
         return _shaped(mode, outs, shape, cap, W)
     a = _Args(
         q0=qf[0].data_ptr(), q1=qf[1].data_ptr() if nq > 1 else None,
@@ -217,6 +255,7 @@ def fused_probe(
         nq=nq, ashift=int(ashift or 0), packed=int(packed), w_raw=w_raw,
         cap=int(cap), W=W, now=int(now or 0),
         lay_exp=-1 if exp_lane is None else int(exp_lane),
+        tile_slots=block_tile(int(cap), W, 1)[0] if mode == "block" else 0,
     )
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _launcher()(_MODE_ID[mode], ctypes.byref(a), stream)
@@ -325,7 +364,7 @@ def fused_probe_aligned(
     B = int(qf[0].shape[0])
     capT = int(sum(int(c) for c in caps))
     outs = _outputs(mode, B, capT, W, dev)
-    if B == 0:
+    if B == 0 or (mode == "block" and capT == 0):
         return _shaped(mode, outs, shape, capT, W)
     if packed:
         fields, dicts = spec_dev if spec_dev is not None else spec_tensors(spec, dev)
@@ -342,6 +381,7 @@ def fused_probe_aligned(
         out1=outs[1].data_ptr() if len(outs) > 1 else None,
         nq=nq, L=L, packed=int(packed), sw=int(sw), capT=capT, W=W,
         now=int(now or 0), lay_exp=-1 if exp_lane is None else int(exp_lane),
+        tile_slots=block_tile(capT, W, L)[0] if mode == "block" else 0,
         lv=lv,
     )
     stream = torch.cuda.current_stream(dev).cuda_stream
