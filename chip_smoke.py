@@ -9,7 +9,14 @@ Phases (any failure exits non-zero and prints no result line):
 2. build every kernel from csrc/ (one nvcc per source, in parallel);
 3. each fused-probe mode (gate/until2/any/block) on packed and int32
    tables with expiry lanes, and ``runs`` on packed and int32 rev-style
-   tables with one heavy bucket (cap >= 1024), absent and negative keys,
+   tables with one heavy bucket (cap >= 1024), absent and negative keys;
+   then ``runs`` at its edges (runs_edge_tables): buckets of exactly 0,
+   1, 7, 8 and 9 rows, a 5,000-row key, keys equal to a bucket's first
+   and last row, between its rows, absent and negative, column 0 of 16
+   and of 22 bits when packed, bucket pairs under two offset anchors,
+   rows shuffled within buckets, each under its own cap, under cap = 4
+   (three steps: the 7-row buckets resolve, the 8- and 9-row ones
+   truncate) and cap = 2, logging the keys whose bisect truncated;
    kernel == plain version bit for bit;
 3b. each fused_probe_aligned mode on bucket-aligned ladders of >= 3
    levels (cover (0.5, 0.9)): int32 and packed, one-key and two-key, an
@@ -21,10 +28,16 @@ Phases (any failure exits non-zero and prints no result line):
    passes the tile's shared-memory budget, B in {1, 255, 65,537}, bucket
    starts clamped at rows - cap, negative and absent keys; for the
    aligned kernel ladders (cap, 3, 1), (past the budget, 1), an 8-level
-   ladder and phase 3b's build_aligned ladders; then one int32 table of
+   ladder and phase 3b's build_aligned ladders; the aligned kernel's mode
+   gate (the same slot tile) over W in {1, 3, 5, 16}, ladders (c, 3, 1)
+   for c in 1, 3, 8, 64, one lane longer than a tile, an 8-level ladder
+   and phase 3b's ladders, B in {1, 255, 65,537}, one and two keys, keys
+   planted past level 0, an expiry column (the key, a delta, a
+   dictionary, a range with zeros) and none, levels of one row and
+   levels 2 bytes off alignment; then one int32 table of
    2^29 rows x 5 columns (2.7e9 elements, filled on the card) per kernel,
-   with lanes whose rows lie past element 2^31; kernel == plain version
-   bit for bit;
+   with lanes whose rows lie past element 2^31 (the aligned one under
+   block and gate); kernel == plain version bit for bit;
 4. BASELINE config 2 (RBAC: 10k repos x 1k users x 100 teams x 10 orgs,
    seed 11) — a 100,000-check batch, kernels vs plain on all three
    planes, 2,000 sampled rows vs the host oracle; then the same with
@@ -62,9 +75,12 @@ gave it, ``runs`` also at its largest-cap call (the row's
 levels (the row's ``deep_levels``); the two ``block`` rows also under
 each tile budget of TILE_SWEEP (the row's ``tile_budgets``: budget
 bytes -> ms, each output equal to the plain version's), beside one
-``fill_`` of their output's size (``fill_ms``: the card's write rate).  The second to
-last lines are the kernel table as JSON
-and the card line; the last line is {"ok": true, "device": {...}}.
+``fill_`` of their output's size (``fill_ms``: the card's write rate),
+and the aligned ``gate`` row under each of GATE_SWEEP's slots a CTA (the
+row's ``tile_slots``).  Each row also carries ``lanes_total`` (the lanes
+its main-path launches processed).
+The second to last lines are the kernel table as JSON and the card line;
+the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -627,6 +643,145 @@ def phase_runs_vs_plain(K):
             f" heavy run={int(ln[0])})")
 
 
+#: rows of the planted buckets of phase 3's runs edge tables
+RUNS_EDGE_SIZES = (0, 1, 7, 8, 9)
+
+
+def runs_truncated(keys, off, cap) -> int:
+    """How many of ``keys`` (numpy) fall in a bucket of at least
+    2^steps rows, ``steps = max(bit_length(cap), 1)``: their bisects stop
+    before the range is empty (``off`` the full int32 offsets)."""
+    from gochugaru_tpu_torch.engine.partition import _hash_cols
+
+    keys = np.asarray(keys)
+    h = (_hash_cols([keys]) & np.uint32(off.shape[0] - 2)).astype(np.int64)
+    n = off[h + 1].astype(np.int64) - off[h]
+    return int(((keys >= 0) & (n >= 1 << max(int(cap).bit_length(), 1))).sum())
+
+
+def runs_edge_tables(dev, sizes=RUNS_EDGE_SIZES):
+    """Rev-style tables built by engine/rev.py whose buckets hold exactly
+    ``sizes`` rows each (of up to three
+    distinct keys each; one of each, while there are free ones, at a
+    bucket h whose h + 1 lies under the next offset anchor), beside a 5,000-row key and random rows; and
+    keys equal to a bucket's first and last row, between its rows, below
+    and above them in the same bucket, absent and negative.  Two key
+    ranges: ``narrow`` (column 0 of 16 bits when packed: lane 0 alone)
+    and ``wide`` (22 bits: lanes 0 and 1).  Returns {name: (keys, cap,
+    counts, layouts)} with each name's int32, packed and ``unsorted``
+    (int32, rows shuffled within every bucket) layouts, and the bucket
+    sizes its planted keys probe."""
+    from gochugaru_tpu_torch.engine import packed as PK
+    from gochugaru_tpu_torch.engine import rev as RV
+    from gochugaru_tpu_torch.engine.device import to_device_tensor
+    from gochugaru_tpu_torch.engine.partition import _hash_cols
+
+    rng = np.random.default_rng(2029)
+    counts = tuple(sizes)
+    out = {}
+    for name, kmax, n_base in (("narrow", 65_534, 1_500), ("wide", 3_000_000, 40_000)):
+        heavy = 5_000
+        n_rows = n_base + heavy + 2 * sum(counts)
+        size = 1 << max(n_rows - 1, 7).bit_length()
+        cand = np.arange(kmax, dtype=np.int32)
+        ch = (_hash_cols([cand]) & np.uint32(size - 1)).astype(np.int64)
+        base = rng.integers(0, kmax, n_base).astype(np.int32)
+        k0 = [np.full(heavy, 4_242, np.int32), base]
+        used = set((_hash_cols([k0[1]]) & np.uint32(size - 1)).tolist())
+        used.add(int(_hash_cols([np.array([4_242], np.int32)])[0] & np.uint32(size - 1)))
+        order = np.argsort(ch, kind="stable")
+        starts = np.searchsorted(ch[order], np.arange(size + 1))
+        free = [b for b in range(size) if b not in used and starts[b + 1] - starts[b] >= 7]
+        anchor_free = [b for b in free if (b + 1) % (1 << PK.OFF_ANCHOR_SHIFT) == 0]
+        queries, planted = [], []
+        for c in counts:
+            b_anchor = anchor_free.pop(0) if anchor_free else free[0]
+            free.remove(b_anchor)
+            b_mid = free.pop(len(free) // 2)
+            if b_mid in anchor_free:
+                anchor_free.remove(b_mid)
+            for b in (b_anchor, b_mid):
+                ks = np.sort(cand[order[starts[b]:starts[b + 1]]])[:7]
+                # rows of keys ks[1], ks[3], ks[5]; ks[0, 2, 4, 6] absent
+                per = [c - 2 * (c // 3), c // 3, c // 3] if c > 1 else [c, 0, 0]
+                for k, m in zip(ks[1::2], per):
+                    k0.append(np.full(m, k, np.int32))
+                queries.append(ks)
+                planted.append(c)
+        k0 = np.concatenate(k0)
+        k1 = rng.integers(0, 1 << 24, k0.shape[0]).astype(np.int32)
+        exp = np.where(rng.random(k0.shape[0]) < 0.9, 0,
+                       rng.integers(1, 10_000, k0.shape[0])).astype(np.int32)
+        h = _hash_cols([k0])
+        geom = RV.rev_geom(h, 1)
+        if geom.size != size:
+            raise AssertionError(f"runs edges {name}: {geom.size} buckets, planned {size}")
+        off, tbl = RV.build_rev_full(h, [k0, k1, exp], geom, 3)
+        cap = RV.rev_meta_kw(geom, geom, None)["rv_cap"]
+        spec = PK.make_spec([PK.col_range(-1, kmax), PK.col_range(-1, 1 << 24),
+                             PK.col_range(-1, 10_000)])
+        if (spec[2][0][0] > 16) != (name == "wide"):
+            raise AssertionError(f"runs edges {name}: field 0 has {spec[2][0][0]} bits")
+        res, anchor = PK.pack_off(off)
+        # the same rows shuffled within every bucket (no longer sorted)
+        shuf = tbl.copy()
+        for b in np.flatnonzero(np.diff(off) > 1):
+            lo, hi = int(off[b]), int(off[b + 1])
+            shuf[lo:hi] = shuf[lo:hi][rng.permutation(hi - lo)]
+        B = 4_096
+        keys = np.concatenate([
+            np.concatenate(queries),
+            np.array([4_242, -1, -7, kmax + 1], np.int32),
+            rng.choice(k0, B // 2),
+            rng.integers(-5, kmax + 100, B // 2),
+        ]).astype(np.int32)
+        layouts = {
+            "int32": dict(off=off, tbl=tbl, spec=None, off_a=None, ashift=None),
+            "packed": dict(off=res, tbl=PK.pack_rows(tbl, spec), spec=spec,
+                           off_a=anchor, ashift=PK.OFF_ANCHOR_SHIFT),
+            "unsorted": dict(off=off, tbl=shuf, spec=None, off_a=None, ashift=None),
+        }
+        for lay in layouts.values():
+            lay["off_full"] = off
+            for k in ("off", "tbl", "off_a"):
+                if lay[k] is not None:
+                    lay[k] = to_device_tensor(lay[k], dev)
+        out[name] = (keys, cap, sorted(set(planted)), layouts)
+    return out
+
+
+def phase_runs_edges(K):
+    """Phase 3's runs edges: every table of runs_edge_tables under its own
+    cap and under caps 4 and 2 (below the heavy bucket and some planted
+    ones: the bisect must truncate as the reference's does), kernel ==
+    plain bit for bit; logs the keys whose bisect truncated."""
+    dev = torch.device(DEV)
+    n_cases = truncated = 0
+    for name, (keys, cap, sizes, layouts) in runs_edge_tables(dev).items():
+        if sizes != sorted(RUNS_EDGE_SIZES):
+            raise AssertionError(f"runs edges {name}: planted buckets of {sizes} rows")
+        q = torch.from_numpy(keys).to(dev)
+        for layout, c in layouts.items():
+            for cp in (cap, 4, 2):
+                kw = dict(cap=cp, spec=c["spec"], off_a=c["off_a"], ashift=c["ashift"],
+                          mode="runs")
+                got = K.fused_probe((q,), c["off"], c["tbl"], **kw)
+                want = K.fused_probe((q,), c["off"], c["tbl"], plain=True, **kw)
+                for a, b in zip(got, want):
+                    if a.dtype != torch.int32 or not torch.equal(a, b):
+                        raise AssertionError(f"kernel != plain: runs edges {name}"
+                                             f" {layout} cap={cp}")
+                cut = runs_truncated(keys, c["off_full"], cp)
+                truncated += cut
+                n_cases += 1
+                log(f"runs edges {name:6s} {layout:8s} cap={cp:5d} bitwise OK"
+                    f" (keys={keys.size}, truncated bisects={cut},"
+                    f" rows found={int(got[1].long().sum())})")
+    if not truncated:
+        raise AssertionError("runs edges: no bisect truncated")
+    log(f"runs edges: {n_cases} cases bitwise OK, {truncated} truncated bisects")
+
+
 def aligned_ladders(dev):
     """Bucket-aligned ladders of >= 3 levels (cover (0.5, 0.9); a full key
     repeated past level 0's cap) over 200,000 entries: a two-key table
@@ -843,7 +998,155 @@ def phase_block_edges(K, huge_rows=HUGE_ROWS):
         " (c,3,1) for c in 1/3/8/64, (past the budget,1), 8 levels, and the"
         " build_aligned 3-level ladders; B"
         f" {EDGE_B}, int32 and packed, one and two keys where W >= 2) bitwise OK")
+    phase_gate_edges(K)
     phase_block_huge(K, huge_rows)
+
+
+#: phase 3c's gate: per W, (expiry column, now) — the key column, a delta
+#: of column 0 (decoded along its chain), a dictionary, a 21-bit range
+#: with planted zeros
+GATE_EXP = {1: (0, 25_000), 3: (1, 25_000), 5: (2, 5), 16: (7, 1 << 19)}
+
+
+def _gate_queries(rng, B, nq):
+    """``nq`` key columns of ``B`` lanes inside edge_spec's ranges (column
+    1 a delta of column 0 within 100), 5% negative."""
+    q0 = rng.integers(0, 50_001, B)
+    cols = [q0, np.clip(q0 + rng.integers(-100, 101, B), -1, None)][:nq]
+    return [np.where(rng.random(B) < 0.05, -rng.integers(1, 9, B), c).astype(np.int32)
+            for c in cols]
+
+
+def plant_hits(raws, caps, qs, rng, spec, exp_col=None):
+    """Write the keys of every other lane into a random slot of the row
+    its (salted) hash picks at a random level, so the gate sees hits past
+    level 0; when ``exp_col`` is given, a third of them get expiry 0.
+    ``raws[l]`` is level l's int32 [rows * cap_l, W] slot array; the
+    slot's other columns that ``spec`` stores as deltas of column 0 are
+    moved with it, so the rows still pack."""
+    from gochugaru_tpu_torch.engine.hash import _level_salt
+    from gochugaru_tpu_torch.engine.partition import _hash_cols
+
+    for i in range(0, qs[0].shape[0], 2):
+        if qs[0][i] < 0 or (len(qs) > 1 and qs[1][i] < 0):
+            continue
+        lvl = int(rng.integers(0, len(caps)))
+        rows = raws[lvl].shape[0] // caps[lvl]
+        salted = [np.array([qs[0][i] ^ np.int32(_level_salt(lvl))], np.int32)]
+        salted += [q[i:i + 1] for q in qs[1:]]
+        r = int(_hash_cols(salted)[0] & np.uint32(rows - 1))
+        slot = r * caps[lvl] + int(rng.integers(0, caps[lvl]))
+        for c, f in enumerate(spec[2]):
+            if c >= len(qs) and f[2] == 0:
+                raws[lvl][slot, c] += qs[0][i] - raws[lvl][slot, 0]
+        for c, q in enumerate(qs):
+            raws[lvl][slot, c] = q[i]
+        if exp_col is not None and rng.random() < 1 / 3:
+            raws[lvl][slot, exp_col] = 0
+
+
+def _gate_same(K, name, got, want):
+    for a, b in zip(got, want):
+        if a.dtype != torch.bool or a.shape != b.shape or not torch.equal(a, b):
+            raise AssertionError(f"aligned gate != plain: {name}")
+
+
+def phase_gate_edges(K):
+    """Phase 3c's aligned gate: the slot tile's mode gate at its edges,
+    kernel == plain bit for bit (see the module docstring)."""
+    from gochugaru_tpu_torch.engine import packed as PK
+    from gochugaru_tpu_torch.engine.device import to_device_tensor
+
+    dev = torch.device(DEV)
+    rng = np.random.default_rng(2030)
+    long_lane = 2 * K.GATE_SLOTS + 3
+    n_cases = hits = expired = zero_live = 0
+    for W in EDGE_W:
+        exp_col, now = GATE_EXP[W]
+        ladders = [(c, 3, 1) for c in (1, 3, 8, 64)]
+        ladders += [(long_lane, 1), (5, 4, 3, 2, 2, 1, 1, 1)]
+        for caps in ladders:
+            sizes = [max(1_024 >> (2 * l), 8) for l in range(len(caps))]
+            spec, _ = edge_spec(W, rng, 1)
+            for nq in (1, 2)[:W]:
+                qs_np = _gate_queries(rng, max(EDGE_B), nq)
+                raws = [edge_spec(W, rng, s * c)[1] for s, c in zip(sizes, caps)]
+                plant_hits(raws, caps, qs_np, rng, spec, exp_col if W == 16 else None)
+                layouts = {
+                    "int32": ([to_device_tensor(r.reshape(s, c * W), dev)
+                               for r, s, c in zip(raws, sizes, caps)], W, None),
+                    "packed": ([to_device_tensor(PK.pack_rows(r, spec).reshape(s, -1), dev)
+                                for r, s in zip(raws, sizes)], spec[1], spec),
+                }
+                for layout, (tbls, sw, sp) in layouts.items():
+                    # the lane past one tile: at most 4,097 lanes (the
+                    # plain twin's block of 65,537 such lanes is ~4 GB)
+                    for B in EDGE_B if caps[0] < long_lane else (1, 255, 4_097):
+                        qs = tuple(torch.from_numpy(q[:B]).to(dev) for q in qs_np)
+                        for e in (exp_col, None):
+                            kw = dict(spec=sp, mode="gate", now=now, exp_lane=e)
+                            got = K.fused_probe_aligned(qs, tbls, caps, sw, **kw)
+                            _gate_same(K, f"{layout} nq={nq} W={W} caps={caps} B={B}"
+                                       f" exp_lane={e}", got,
+                                       K.fused_probe_aligned(qs, tbls, caps, sw,
+                                                             plain=True, **kw))
+                            n_cases += 1
+                            if e is not None:
+                                hit, live = got
+                                hits += int(hit.sum())
+                                expired += int((hit & ~live).sum())
+                                if W == 16:
+                                    blk = K.fused_probe_aligned(
+                                        qs, tbls, caps, sw, spec=sp, plain=True)
+                                    zero_live += int((live & (blk[..., e] == 0)).sum())
+    # levels of one row (an odd element count when cap * lanes is odd),
+    # and levels that start 2 bytes past an aligned address (a view one
+    # element into a larger tensor)
+    for W in EDGE_W:
+        exp_col, now = GATE_EXP[W]
+        caps = (3, 1)
+        spec, _ = edge_spec(W, rng, 1)
+        qs_np = _gate_queries(rng, max(EDGE_B), min(2, W))
+        raws = [edge_spec(W, rng, c)[1] for c in caps]
+        plant_hits(raws, caps, qs_np, rng, spec, exp_col if W == 16 else None)
+        packed = [PK.pack_rows(r, spec).reshape(1, -1) for r in raws]
+        shifted = []
+        for p in packed:
+            flat = torch.zeros(p.size + 1, dtype=torch.int16, device=dev)
+            flat[1:] = to_device_tensor(p, dev).reshape(-1)
+            shifted.append(flat[1:].view(p.shape))
+        for name, tbls in (("one odd row", [to_device_tensor(p, dev) for p in packed]),
+                           ("2-byte offset", shifted)):
+            for B in EDGE_B:
+                qs = tuple(torch.from_numpy(q[:B]).to(dev) for q in qs_np)
+                for e in (exp_col, None):
+                    kw = dict(spec=spec, mode="gate", now=now, exp_lane=e)
+                    _gate_same(K, f"{name} W={W} B={B} exp_lane={e}",
+                               K.fused_probe_aligned(qs, tbls, caps, spec[1], **kw),
+                               K.fused_probe_aligned(qs, tbls, caps, spec[1],
+                                                     plain=True, **kw))
+                    n_cases += 1
+    # phase 3b's >= 3-level ladders from build_aligned
+    for layout, (qs, tbls, caps, sw, spec, e) in aligned_ladders(dev).items():
+        for B in EDGE_B:
+            qb = tuple(torch.cat([q, q])[:B] for q in qs)
+            for lane in (e, None):
+                kw = dict(spec=spec, mode="gate", now=5_000, exp_lane=lane)
+                _gate_same(K, f"ladder {layout} B={B} exp_lane={lane}",
+                           K.fused_probe_aligned(qb, tbls, caps, sw, **kw),
+                           K.fused_probe_aligned(qb, tbls, caps, sw, plain=True, **kw))
+                n_cases += 1
+    if not (hits and expired and zero_live):
+        raise AssertionError(f"phase 3c gate: hits={hits} expired={expired}"
+                             f" live with expiry 0={zero_live}: an edge never"
+                             " occurred")
+    log(f"gate edges fused_probe_aligned: {n_cases} cases (W {EDGE_W}, ladders"
+        f" (c,3,1) for c in 1/3/8/64, ({long_lane},1) past one tile of"
+        f" {K.GATE_SLOTS} slots (B up to 4,097), 8 levels, (3,1) of one row a level"
+        f" and of levels 2 bytes off alignment, and the build_aligned 3-level"
+        f" ladders; B {EDGE_B}, int32 and packed, one and two keys where"
+        f" W >= 2, expiry lane and none) bitwise OK; {hits} hits, {expired}"
+        f" of them expired, {zero_live} live with expiry 0 (W 16)")
 
 
 def _fill_huge(rows, w, dev):
@@ -886,12 +1189,27 @@ def phase_block_huge(K, rows):
     _same(K, f"aligned on {rows // 8} x {8 * W}", got,
           K.fused_probe_aligned(qs, [lv0, lv1], (8, 3), W, plain=True))
     past_al = int((bucket_of(qs, rows // 8) * (8 * W) >= 2**31).sum())
+    # aligned gate on the same levels, every other lane's keys planted in
+    # slot (lane mod 8) of its level-0 row, expiry column 4
+    live_q = torch.nonzero((qs[0] >= 0) & (qs[1] >= 0)).flatten()[::2]
+    at = (bucket_of([q[live_q] for q in qs], rows // 8) * 8 + live_q % 8) * W
+    flat = lv0.view(-1)
+    flat[at], flat[at + 1] = qs[0][live_q], qs[1][live_q]
+    kw = dict(mode="gate", now=0, exp_lane=4)
+    got = K.fused_probe_aligned(qs, [lv0, lv1], (8, 3), W, **kw)
+    _gate_same(K, f"aligned gate on {rows // 8} x {8 * W}", got,
+               K.fused_probe_aligned(qs, [lv0, lv1], (8, 3), W, plain=True, **kw))
+    gate_hits = int(got[0].sum())
+    if not gate_hits or not bool((got[0] & ~got[1]).any()):
+        raise AssertionError("phase 3c: the huge gate call saw no hit or no"
+                             " expired hit")
     del lv0, lv1
     if rows * W > 2**31 and not (past and past_al):
         raise AssertionError("phase 3c: no lane read past element 2^31")
     log(f"block edges past 2^31 elements: {rows} x {W} int32 ({rows * W} elements),"
-        f" {B} lanes, {past} (fused_probe) and {past_al} (aligned) of them past"
-        f" element 2^31, bitwise OK ({time.perf_counter() - t0:.1f} s)")
+        f" {B} lanes, {past} (fused_probe) and {past_al} (aligned block and"
+        f" gate) of them past element 2^31, bitwise OK; aligned gate {gate_hits}"
+        f" hits ({time.perf_counter() - t0:.1f} s)")
 
 
 def check_world(name, cs, snap, q, names, K, **cfg):
@@ -1261,25 +1579,41 @@ def phase_client(**cfg):
         f" and a {pages}-page cursor walk ({len(ids)} results) agree with the oracle")
 
 
+class uncounted:
+    """Launches inside the block leave K.LAUNCHES and K.LANES as they
+    were (comparison and timing launches are not main-path launches)."""
+
+    def __init__(self, K):
+        self.K = K
+
+    def __enter__(self):
+        self.saved = dict(self.K.LAUNCHES), dict(self.K.LANES)
+
+    def __exit__(self, *exc):
+        self.K.LAUNCHES.update(self.saved[0])
+        self.K.LANES.update(self.saved[1])
+        return False
+
+
 def _kernel_vs_plain(K, call):
     """(max_abs_err, ms, plain_ms) of ``call(plain)`` on one captured
-    main-path input: outputs compared, both sides timed; the timing
-    launches are not counted."""
-    got, want = _outs(call(False)), _outs(call(True))
-    err = max(int((a.long() - b.long()).abs().max()) if a.numel() else 0
-              for a, b in zip(got, want))
-    saved = dict(K.LAUNCHES)
-    ms = time_call(lambda: call(False), 20)
-    plain_ms = time_call(lambda: call(True), 3)
-    K.LAUNCHES.update(saved)
+    main-path input: outputs compared, both sides timed; the launches are
+    not counted."""
+    with uncounted(K):
+        got, want = _outs(call(False)), _outs(call(True))
+        err = max(int((a.long() - b.long()).abs().max()) if a.numel() else 0
+                  for a, b in zip(got, want))
+        ms = time_call(lambda: call(False), 20)
+        plain_ms = time_call(lambda: call(True), 3)
     return err, ms, plain_ms
 
 
 #: mode block's tile budgets (kernels.TILE_BYTES) each block row is also
 #: timed under
 TILE_SWEEP = (8 * 1024, 16 * 1024, 32 * 1024, 64 * 1024)
-
-
+#: the aligned gate's slots a CTA (kernels.GATE_SLOTS) its row is also
+#: timed under
+GATE_SWEEP = (1024, 2048, 4096)
 def fill_ms(shape) -> float:
     """ms of one ``fill_`` of an int32 tensor of ``shape``: the card's
     write rate over block's output, a floor under any kernel writing it."""
@@ -1287,22 +1621,22 @@ def fill_ms(shape) -> float:
     return time_call(lambda: t.fill_(7), 20)
 
 
-def tile_sweep(K, call):
-    """{budget: ms} of ``call(False)`` under each tile budget of
-    TILE_SWEEP, each output held to the plain version's; the launches
-    are not counted."""
-    want = call(True)
-    saved, budget = dict(K.LAUNCHES), K.TILE_BYTES
+def sweep(K, knob, values, call):
+    """{value: ms} of ``call(False)`` with module constant ``K.<knob>``
+    set to each of ``values``, each output held to the plain version's;
+    the launches are not counted."""
+    want = _outs(call(True))
+    saved = getattr(K, knob)
     out = {}
     try:
-        for b in TILE_SWEEP:
-            K.TILE_BYTES = b
-            if not torch.equal(call(False), want):
-                raise AssertionError(f"block differs from plain at tile budget {b}")
-            out[str(b)] = time_call(lambda: call(False), 20)
+        with uncounted(K):
+            for v in values:
+                setattr(K, knob, v)
+                if not all(torch.equal(a, b) for a, b in zip(_outs(call(False)), want)):
+                    raise AssertionError(f"kernel differs from plain at {knob} = {v}")
+                out[str(v)] = time_call(lambda: call(False), 20)
     finally:
-        K.TILE_BYTES = budget
-        K.LAUNCHES.update(saved)
+        setattr(K, knob, saved)
     return out
 
 
@@ -1331,8 +1665,9 @@ def time_mode(K, mode, q_cols, off, tbl, kw, card):
         "lanes": n, "cap": kw["cap"],
     }
     if mode == "block":
-        row["tile_budgets"] = tile_sweep(
-            K, lambda plain: K.fused_probe(q_cols, off, tbl, plain=plain, **kw))
+        row["tile_budgets"] = sweep(
+            K, "TILE_BYTES", TILE_SWEEP,
+            lambda plain: K.fused_probe(q_cols, off, tbl, plain=plain, **kw))
         row["fill_ms"] = fill_ms((n, kw["cap"], W_of(kw.get("spec"), tbl.shape[1])))
         log(f"time fused_probe.block [{card}] by tile budget: {row['tile_budgets']};"
             f" fill_ms of its output {row['fill_ms']:.5f}")
@@ -1365,10 +1700,18 @@ def time_aligned(K, mode, q_cols, tbls, caps, sw, kw, card):
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         "lanes": n, "capT": capT, "levels": len(tbls),
     }
+    if mode == "gate":
+        row["tile_slots"] = sweep(
+            K, "GATE_SLOTS", GATE_SWEEP,
+            lambda plain: K.fused_probe_aligned(q_cols, tbls, caps, sw,
+                                                plain=plain, **kw))
+        log(f"time fused_probe_aligned.gate [{card}] by slots a CTA:"
+            f" {row['tile_slots']}")
     if mode == "block":
-        row["tile_budgets"] = tile_sweep(
-            K, lambda plain: K.fused_probe_aligned(q_cols, tbls, caps, sw,
-                                                   plain=plain, **kw))
+        row["tile_budgets"] = sweep(
+            K, "TILE_BYTES", TILE_SWEEP,
+            lambda plain: K.fused_probe_aligned(q_cols, tbls, caps, sw,
+                                                plain=plain, **kw))
         row["fill_ms"] = fill_ms((n, capT, W_of(kw.get("spec"), sw)))
         log(f"time fused_probe_aligned.block [{card}] by tile budget:"
             f" {row['tile_budgets']}; fill_ms of its output {row['fill_ms']:.5f}")
@@ -1398,11 +1741,12 @@ def main() -> int:
     log(f"kernel build: {time.perf_counter() - t0:.2f}s")
     for name, rep in reports.items():
         for line in rep.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("entry function", "registers", "spill")):
                 log(f"  ptxas {name}: {line.strip()}")
 
     phase_kernel_vs_plain(K)
     phase_runs_vs_plain(K)
+    phase_runs_edges(K)
     phase_aligned_vs_plain(K)
     phase_block_edges(K)
 
@@ -1438,8 +1782,9 @@ def main() -> int:
         log(f"launches after the overflow worlds: {json.dumps(K.LAUNCHES)}")
         phase_client()
         phase_client(**ALIGNED)
-    launches = dict(K.LAUNCHES)
+    launches, lanes = dict(K.LAUNCHES), dict(K.LANES)
     log(f"kernels launches on the main path: {json.dumps(launches)}")
+    log(f"kernels lanes on the main path: {json.dumps(lanes)}")
     want_modes = list(K.MODES) + [f"aligned.{m}" for m in K.ALIGNED_MODES]
     missing = [m for m in want_modes if launches[m] < 1]
     if missing:
@@ -1455,6 +1800,7 @@ def main() -> int:
                 "lanes", "cap", "max_abs_err", "ms", "plain_ms", "bound_ms",
                 "bound_by")}
         row["launches"] = launches[mode]
+        row["lanes_total"] = lanes[mode]
         table.append(row)
     for mode in K.ALIGNED_MODES:
         row = time_aligned(K, mode, *cap.best[f"aligned.{mode}"][1:], card)
@@ -1463,6 +1809,7 @@ def main() -> int:
             "lanes", "capT", "levels", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by")}
         row["launches"] = launches[f"aligned.{mode}"]
+        row["lanes_total"] = lanes[f"aligned.{mode}"]
         table.append(row)
     print(json.dumps({"kernels": table}))
     print(card)

@@ -26,7 +26,7 @@
 // is several times the rows and offset it reads (cap 8, W 3: 96 bytes out
 // per lane).  One thread per lane writing its own block made each warp
 // store touch 32 sectors at a cap*W*4-byte stride, and read rows the same
-// way.  It runs the cooperative tile of probe_common.cuh instead: per
+// way.  It runs the slot tile of probe_common.cuh instead: per
 // lane one segment of cap rows at the clamped start (OffInterleaveLanes
 // below does the hash, offset read and clamp once per lane), the rows
 // read slot by slot into a shared-memory tile by neighbouring threads,
@@ -36,12 +36,26 @@
 // the point-run probe of engine/spmv.py::_make_runs behind the lookups).
 // One thread per key: mix32 -> bucket h -> [start, end) from off(h) and
 // off(h + 1) (anchor + residual when packed) -> two bisects over column 0
-// inside the bucket -> (lo, ln) as int32; keys < 0 give (0, 0).  The
-// TPU kernel DMA'd a cap-row block into VMEM first; reverse-index caps are
-// max bucket occupancies (thousands of rows for a popular subject), so
-// here each bisect step reads its one column-0 row straight from global
-// memory: 2 * log2(bucket) scattered 32-byte sectors per key, a latency
-// bound gather like the other modes.
+// inside the bucket, the lower bound and then the upper -> (lo, ln) as
+// int32; keys < 0 give (0, 0).  The TPU kernel DMA'd a cap-row block into
+// VMEM first; reverse-index caps are max bucket occupancies (thousands of
+// rows for a popular subject), so here each bisect step reads its one
+// column-0 row straight from global memory.
+//
+// What bounds it: round trips to L2, one per 128-byte line a key's reads
+// first touch, in the dependent chain key -> offsets -> rows, and the L2
+// requests of reads that miss together.  On the main path (the arrow
+// index: buckets of ~20 rows of 6-12 bytes, a folder's documents) a
+// bucket is one or two lines, so the lower bisect's first reads bring
+// them into L1 and the upper bisect's reads hit.  Reads issued together
+// miss together: counting a small bucket's rows in one round of
+// independent reads, interleaving the two bisects, issuing both bisects'
+// reads at once on the guess that the bucket is the key's whole run, or
+// prefetching the bucket's lines first all measured slower than the two
+// bisects one after the other on packed tables, on main-path-shaped
+// tables and on tables of 2-row buckets alike (PERF.md;
+// gochugaru_tpu_torch/tools/probe_variants.py).  So the kernel stays the
+// reference's own bisect, exact on every input by construction.
 //
 // The loop runs `steps = max(bit_length(cap), 1)` iterations and stops
 // once the range is empty.  That equals the reference's fixed count with
@@ -160,7 +174,7 @@ static int launch_block(const ProbeArgs& a, cudaStream_t st) {
   t.dicts = a.dicts;
   t.out = (int32_t*)a.out0;
   t.B = a.B;
-  return gochugaru_launch_block_tile(t, OffInterleaveLanes{a}, st);
+  return gochugaru_launch_slot_tile<MODE_BLOCK>(t, OffInterleaveLanes{a}, st);
 }
 
 // column 0 of one row: int32 tables read it whole; packed tables decode

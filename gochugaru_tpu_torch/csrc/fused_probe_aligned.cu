@@ -1,7 +1,7 @@
 // Fused probe over the bucket-ALIGNED layout for Hopper (sm_90a).
 //
 // Replaces gochugaru_tpu/engine/pallas.py::fused_probe_aligned (modes
-// block, any, until2, gate).  The layout (engine/hash.py build_aligned)
+// block, any, until2, gate; pallas.py:444).  The layout (engine/hash.py build_aligned)
 // stores bucket b's entries IN row b of a level table, cap_l slots of
 // sw elements each, padded with -1; entries past a bucket's cap spill to
 // the next, smaller level under a salted hash.  One probe per query lane:
@@ -16,7 +16,7 @@
 // (tens of bytes) at a hashed address, with no dependent offset read —
 // that is the layout's point against off+interleave's offset -> block
 // chain — and does a few dozen integer operations per slot, far below
-// the card's operations-per-byte balance.  This first version is one
+// the card's operations-per-byte balance.  Modes any and until2 are one
 // thread per query lane reading its rows straight from global memory;
 // resident warps hide the gather latency the TPU kernel hid with
 // double-buffered row DMAs.  Levels arrive as data (pointer, rows, row
@@ -34,12 +34,24 @@
 // bytes and dominated by its OUTPUT: capT slots of W int32 a lane (capT
 // 13, W 3: 156 bytes out per lane, against one row read per level).  One
 // thread per lane writing its own block made each warp store touch 32
-// sectors at a capT*W*4-byte stride.  It runs the cooperative tile of
+// sectors at a capT*W*4-byte stride.  It runs the slot tile of
 // probe_common.cuh, the same device code as fused_probe.cu's block: per
 // lane one segment per level (AlignedLanes below does the salted hashes
 // once per lane), each level's row read slot by slot into a shared-memory
 // tile by neighbouring threads, levels in order, and the tile stored to
 // out0 as one contiguous span with 16-byte stores.
+//
+// Mode gate (pallas.py:444, the same kernel's gate tail) writes two uint8
+// flags a slot (capT 10: 20 bytes out per lane against one packed row
+// read a level), which the per-lane kernel wrote at a capT-byte stride, so
+// each warp byte store spanned 32 * capT bytes to write 32.  It runs the
+// same slot tile with the same AlignedLanes: the salted hashes and the
+// lane's keys once per lane into shared memory, then one thread a slot --
+// the key and expiry lanes read, the compare against the unsalted keys,
+// the expiry applied only on a hit -- storing its two flags at the slot's
+// flat index, neighbouring threads on neighbouring bytes.  Its time goes
+// to the tile's launch, phase A and the slot walk more than to bytes
+// (probe_common.cuh, PERF.md).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -71,11 +83,13 @@ struct AlignedArgs {
   int W;                  // logical columns
   int now;
   int lay_exp;            // gate: expiry column, -1 = no expiry gate
-  int tile_slots;         // block: slots a CTA (kernels.block_tile)
+  int tile_slots;         // block/gate: slots a CTA (kernels.block_tile,
+                          // kernels.gate_tile)
   AlignedLevel lv[GOCHUGARU_MAXL];
 };
 }
 
+// Modes any and until2: one thread a lane, its slots one after another.
 template <int MODE>
 __global__ void fused_probe_aligned_kernel(const AlignedArgs a) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -109,8 +123,8 @@ __global__ void fused_probe_aligned_kernel(const AlignedArgs a) {
   gochugaru_lane_tail<MODE>(i, a.out0, a.out1, acc0, acc1);
 }
 
-// Block mode's segments: level l's bucket row h_l (salted hash), as an
-// element offset into that level's table.
+// The slot tile's segments (modes block and gate): level l's bucket row
+// h_l (salted hash), as an element offset into that level's table.
 struct AlignedLanes {
   AlignedArgs a;
   __device__ __forceinline__ void segments(long long i, long long* off) const {
@@ -127,7 +141,9 @@ struct AlignedLanes {
   }
 };
 
-static int launch_block(const AlignedArgs& a, cudaStream_t st) {
+// Modes block and gate: the slot tile over one segment a level.
+template <int MODE>
+static int launch_tile(const AlignedArgs& a, cudaStream_t st) {
   GochugaruTile t = {};
   int first = 0;
   for (int l = 0; l < a.L; ++l) {
@@ -146,8 +162,15 @@ static int launch_block(const AlignedArgs& a, cudaStream_t st) {
   t.fields = a.fields;
   t.dicts = a.dicts;
   t.out = (int32_t*)a.out0;
+  t.hit = (uint8_t*)a.out0;
+  t.live = (uint8_t*)a.out1;
+  t.q0 = a.q0;
+  t.q1 = a.q1;
+  t.nq = a.nq;
+  t.now = a.now;
+  t.lay_exp = a.lay_exp;
   t.B = a.B;
-  return gochugaru_launch_block_tile(t, AlignedLanes{a}, st);
+  return gochugaru_launch_slot_tile<MODE>(t, AlignedLanes{a}, st);
 }
 
 extern "C" int gochugaru_fused_probe_aligned(int mode, const AlignedArgs* args,
@@ -161,15 +184,14 @@ extern "C" int gochugaru_fused_probe_aligned(int mode, const AlignedArgs* args,
   cudaStream_t st = (cudaStream_t)stream;
   switch (mode) {
     case MODE_BLOCK:
-      return launch_block(a, st);
+      return launch_tile<MODE_BLOCK>(a, st);
+    case MODE_GATE:
+      return launch_tile<MODE_GATE>(a, st);
     case MODE_ANY:
       fused_probe_aligned_kernel<MODE_ANY><<<grid, threads, 0, st>>>(a);
       break;
     case MODE_UNTIL2:
       fused_probe_aligned_kernel<MODE_UNTIL2><<<grid, threads, 0, st>>>(a);
-      break;
-    case MODE_GATE:
-      fused_probe_aligned_kernel<MODE_GATE><<<grid, threads, 0, st>>>(a);
       break;
     default:
       return (int)cudaErrorInvalidValue;

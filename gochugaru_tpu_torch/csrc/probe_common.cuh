@@ -1,7 +1,7 @@
 // Device helpers shared by the fused probe kernels (fused_probe.cu and
 // fused_probe_aligned.cu): the key hash, the packed-row decode, the
-// per-mode tails of the reduced modes, and the block mode's cooperative
-// tile, which both kernels launch.
+// per-mode tails of the reduced modes, and the slot tile: mode block of
+// both kernels and mode gate of fused_probe_aligned.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -27,6 +27,35 @@ __device__ __forceinline__ uint32_t gochugaru_mix32(int32_t q0, int32_t q1,
   return h;
 }
 
+// A packed field's lanes as one 32-bit window: lane off_bit >> 4, and the
+// next lane when the field crosses into it (a constant field reads none).
+// f is the field's spec row (bits, base, delta_of, dict_id, off_bit).
+__device__ __forceinline__ uint32_t gochugaru_field_window(const uint16_t* r,
+                                                           const int32_t* f) {
+  const int bits = f[0], off_bit = f[4];
+  if (bits == 0) return 0u;
+  const int lane = off_bit >> 4;
+  uint32_t w = (uint32_t)r[lane];
+  if ((off_bit & 15) + bits > 16) w |= (uint32_t)r[lane + 1] << 16;
+  return w;
+}
+
+// A field's own value from its window, before any delta is added: the
+// constant, the dictionary entry (the index clamped into the padded
+// dictionary), or the bit range plus its base.
+__device__ __forceinline__ uint32_t gochugaru_field_own(uint32_t w,
+                                                        const int32_t* f,
+                                                        const int32_t* dicts) {
+  const int bits = f[0], base = f[1], dict_id = f[3];
+  if (bits == 0) return (uint32_t)base;
+  uint32_t v = w >> (f[4] & 15);
+  if (bits < 32) v &= (1u << bits) - 1u;
+  if (dict_id >= 0)
+    return (uint32_t)dicts[dict_id * GOCHUGARU_DICT +
+                           min(v, (uint32_t)(GOCHUGARU_DICT - 1))];
+  return v + (uint32_t)base;
+}
+
 // One packed row (uint16 lanes) -> W logical int32 columns through the
 // runtime spec: fields int32[W, 5] = (bits, base, delta_of, dict_id,
 // off_bit), dictionaries int32[ndict, 256] padded with their last value.
@@ -35,33 +64,35 @@ __device__ __forceinline__ void gochugaru_decode_row(
     int32_t* cols) {
   for (int c = 0; c < W; ++c) {
     const int32_t* f = fields + 5 * c;
-    const int bits = f[0], base = f[1], delta_of = f[2], dict_id = f[3];
-    const int off_bit = f[4];
-    uint32_t col;
-    if (bits == 0) {
-      col = (uint32_t)base;
-    } else {
-      const int lane = off_bit >> 4, sh = off_bit & 15;
-      uint32_t v = (uint32_t)r[lane] >> sh;
-      if (sh + bits > 16) v |= (uint32_t)r[lane + 1] << (16 - sh);
-      if (bits < 32) v &= (1u << bits) - 1u;
-      if (dict_id >= 0) {
-        col = (uint32_t)dicts[dict_id * GOCHUGARU_DICT +
-                              min(v, (uint32_t)(GOCHUGARU_DICT - 1))];
-      } else {
-        col = v + (uint32_t)base;
-      }
-    }
-    if (delta_of >= 0) col += (uint32_t)cols[delta_of];
+    uint32_t col = gochugaru_field_own(gochugaru_field_window(r, f), f, dicts);
+    if (f[2] >= 0) col += (uint32_t)cols[f[2]];
     cols[c] = (int32_t)col;
   }
+}
+
+// Column c of one packed row alone: the own values along its delta chain
+// (c, delta_of(c), ...; each delta_of names an earlier column, as
+// kernels.spec_tensors checks), summed mod 2^32 -- what
+// gochugaru_decode_row stores in cols[c], without a cols array.
+__device__ __forceinline__ int32_t gochugaru_decode_col(const uint16_t* r,
+                                                       int c,
+                                                       const int32_t* fields,
+                                                       const int32_t* dicts) {
+  uint32_t col = 0u;
+  for (int k = c, m = 0; k >= 0 && m <= c; ++m) {
+    const int32_t* f = fields + 5 * k;
+    col += gochugaru_field_own(gochugaru_field_window(r, f), f, dicts);
+    k = f[2];
+  }
+  return (int32_t)col;
 }
 
 // One decoded candidate slot through a reduced mode's tail.  ``slot`` is
 // the lane's flat output slot (lane * cap + j); gate writes its hit and
 // live flags (live: no expiry column, or expiry 0 or past ``now``), any /
-// until2 fold into the lane's accumulators.  (Block mode is the tile
-// below.)
+// until2 fold into the lane's accumulators.  (Block mode, and the
+// aligned kernel's gate, are the slot tile below; fused_probe.cu's gate
+// runs this tail.)
 template <int MODE>
 __device__ __forceinline__ void gochugaru_slot_tail(
     const int32_t* cols, bool hit, int W, int now, int lay_exp,
@@ -96,37 +127,62 @@ __device__ __forceinline__ void gochugaru_lane_tail(long long i, void* out0,
 }
 
 // ---------------------------------------------------------------------------
-// Block mode: the cooperative tile
+// The slot tile: mode block, and mode gate of the aligned kernel
 // ---------------------------------------------------------------------------
 //
-// Block mode writes every lane's decoded [capT, W] int32 candidate block
-// to out0 = int32[B, capT, W]; its bytes are mostly that output.  A lane's
-// block is a short list of SEGMENTS, each a run of contiguous slots in
-// one table: fused_probe has one (cap rows at the clamped bucket start),
-// fused_probe_aligned one per level (cap_l slots of bucket h_l's row).
-// Segment s of every lane shares its table, slot count and slot stride;
-// only its start differs per lane, and the kernel's ``Lanes`` functor
-// computes those starts (Lanes::segments(lane, off) writes nseg element
-// offsets).
+// A lane's candidate block is a short list of SEGMENTS, each a run of
+// contiguous slots in one table: fused_probe has one (cap rows at the
+// clamped bucket start), fused_probe_aligned one per level (cap_l slots of
+// bucket h_l's row).  Segment s of every lane shares its table, slot count
+// and slot stride; only its start differs per lane, and the kernel's
+// ``Lanes`` functor computes those starts (Lanes::segments(lane, off)
+// writes nseg element offsets).
 //
 // A CTA owns one TILE: ``tile_slots`` consecutive slots of the flattened
-// [B * capT] output, so its output is one contiguous span of out0.
+// [B * capT] slot space, so its output is one contiguous span.
 //   A. one thread per lane the tile touches: hash, offset read, clamp (or
-//      the per-level hashes) -> segment starts in shared memory; the
-//      dependent offset read happens once per lane, not once per slot;
-//   B. one thread per slot: its row copied into the shared tile
-//      [tile_slots, W] with asynchronous 4-byte copies (cp.async: no
-//      registers, and every slot of the thread in flight at once, one
-//      wait for all), or decoded through the runtime pack spec straight
-//      into the tile.  Neighbouring threads take neighbouring slots of
-//      one lane's contiguous segment, so the row reads coalesce;
-//   C. the tile copied to out0 with 16-byte streaming stores, neighbouring
-//      threads on neighbouring addresses; the ragged end of the last tile
-//      element by element.
-// The host picks tile_slots (engine/kernels/__init__.py::block_tile) so
-// that tile_slots * W is a multiple of 4 (every tile's span starts 16-byte
-// aligned), and the shared bytes fit; a lane whose block passes the
-// budget is walked in chunks of slots, since a tile is any run of slots.
+//      the per-level hashes) -> segment starts in shared memory (gate: the
+//      lane's two keys beside them); the dependent offset read happens
+//      once per lane, not once per slot;
+//   B. one thread per slot, neighbouring threads on neighbouring slots of
+//      one lane's contiguous segment, so the row reads coalesce (the slot
+//      cursor and gochugaru_slot_at below: the one copy of the segment
+//      walk);
+//   C. block only: the shared tile to the output.
+//
+// Mode block (pallas.py:246 and :444, block tail) is bound by bytes and
+// dominated by its OUTPUT, a lane's decoded [capT, W] int32 block.  Phase
+// B copies each slot's row into the shared tile [tile_slots, W] with
+// asynchronous 4-byte copies (cp.async: no registers, every slot of the
+// thread in flight at once, one wait for all), or decodes it through the
+// runtime pack spec straight into the tile; phase C stores the tile's span
+// with 16-byte streaming stores, the ragged end element by element.  The
+// host picks tile_slots (engine/kernels/__init__.py::block_tile) so that
+// tile_slots * W is a multiple of 4 (every span starts 16-byte aligned)
+// and the shared bytes fit; a lane whose block passes the budget is
+// walked in chunks of slots, since a tile is any run of slots.
+//
+// Mode gate of fused_probe_aligned (pallas.py:444, gate tail) writes two
+// uint8 flags a slot, hit and live: 2 * capT bytes a lane, the most of its
+// bytes, and the rest is one row read a level.  One thread a lane (the
+// first kernel) wrote them at a capT-byte stride, so a warp's byte store
+// spanned 32 * capT bytes to write 32, and walked its slots one after
+// another.  Here one thread takes a slot: it reads the lanes its slot
+// needs (the two key fields and the expiry field, their spec rows read
+// once a thread), compares with the lane's UNSALTED keys from shared
+// memory, applies the expiry only on a hit, and stores the two flags at
+// the slot's flat index: neighbouring threads, neighbouring bytes.  There
+// is no output tile and no phase C.  What bounds it is not bytes (the
+// flags and rows are ~5 MB at the main-path call, ~1.5 us at the HBM
+// rate): a launch of the tiles with phase A and the stores alone takes
+// ~3.4 us there, the slot walk ~1 us more, the row reads and compares the
+// rest.  Fewer memory instructions a slot did not pay: reading a packed
+// row as the aligned 32-bit words that hold its lanes measured slower than
+// one 16-bit load a field lane (PERF.md; gochugaru_tpu_torch/tools/
+// probe_variants.py).  Slots a CTA come from kernels.gate_tile; the
+// shared bytes are only the touched lanes' segment starts and keys, so a
+// lane longer than a tile is walked in chunks.
+//
 // Table and output addresses are int64; shared indices are 32-bit.
 
 #define GOCHUGARU_TILE_THREADS 256
@@ -143,15 +199,32 @@ struct GochugaruTile {
   int tile_slots;                         // slots a CTA
   const int32_t* fields;                  // pack spec [W, 5], or null
   const int32_t* dicts;                   // dictionaries [ndict, 256], or null
-  int32_t* out;                           // [B, capT, W]
+  int32_t* out;                           // block: [B, capT, W]
+  uint8_t* hit;                           // gate: [B, capT] hit flags
+  uint8_t* live;                          // gate: [B, capT] live flags
+  const int32_t* q0;                      // gate: [B] first key column
+  const int32_t* q1;                      // gate: [B] second key column or null
+  int nq;                                 // gate: key columns (1 or 2)
+  int now;                                // gate: expiry threshold
+  int lay_exp;                            // gate: expiry column, -1 = none
   long long B;
 };
 
 // The most lanes one tile touches: tiles start at multiples of S, so a
 // tile of whole lanes touches S / capT of them, any other at most
-// ceil((S - 1) / capT) + 1.  Mirrored by kernels.block_tile.
+// ceil((S - 1) / capT) + 1.  Mirrored by kernels.block_tile / gate_tile.
 __host__ __device__ __forceinline__ int gochugaru_tile_lanes(int S, int capT) {
   return S % capT == 0 ? S / capT : (S + capT - 2) / capT + 1;
+}
+
+// Shared bytes of one CTA: block's tile [S, W] int32, then per touched
+// lane its nseg segment starts (int64) and, for gate, its two keys.
+template <int MODE>
+__host__ __device__ __forceinline__ size_t gochugaru_tile_smem(int S, int capT,
+                                                              int W, int nseg) {
+  const size_t lanes = (size_t)gochugaru_tile_lanes(S, capT);
+  if (MODE == MODE_BLOCK) return (size_t)S * W * 4 + lanes * nseg * 8;
+  return lanes * (nseg * 8 + 8);
 }
 
 // One int32 row of W columns into the shared tile, as W asynchronous
@@ -170,43 +243,52 @@ __device__ __forceinline__ void gochugaru_copy_wait() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-template <class Lanes>
-__global__ void __launch_bounds__(GOCHUGARU_TILE_THREADS)
-gochugaru_block_tile_kernel(const GochugaruTile t, const Lanes lanes) {
-  extern __shared__ int4 gochugaru_smem[];
-  int32_t* tile = (int32_t*)gochugaru_smem;
-  long long* seg_off = (long long*)(tile + t.tile_slots * t.W);
-
-  const long long g0 = (long long)blockIdx.x * t.tile_slots;
-  const long long left = t.B * t.capT - g0;
-  const int n = left < t.tile_slots ? (int)left : t.tile_slots;
-  const long long lane0 = g0 / t.capT;
-  const int j0 = (int)(g0 - lane0 * t.capT);
-  const int nl = (j0 + n - 1) / t.capT + 1;
-
-  // A: segment starts, one thread per lane
-  for (int k = threadIdx.x; k < nl; k += blockDim.x)
-    lanes.segments(lane0 + k, seg_off + k * t.nseg);
-  __syncthreads();
-
-  // B: one slot a thread, into the shared tile; (k, j) = the slot's lane
-  // in the tile and slot in the lane, advanced by blockDim slots a step
-  const int dk = blockDim.x / t.capT, dj = blockDim.x - dk * t.capT;
-  int k = (j0 + (int)threadIdx.x) / t.capT;
-  int j = j0 + (int)threadIdx.x - k * t.capT;
-  for (int p = threadIdx.x; p < n; p += blockDim.x) {
-    const void* tbl = t.seg_tbl[0];
-    int s = 0, first = 0;
-#pragma unroll
-    for (int m = 1; m < GOCHUGARU_MAXL; ++m) {
-      if (m < t.nseg && j >= t.seg_first[m]) {
-        s = m;
-        first = t.seg_first[m];
-        tbl = t.seg_tbl[m];
-      }
+// Phase B's cursor: slot p of the tile is slot j of the tile's k-th lane;
+// a thread's slots lie ``step`` apart, so (k, j) advance without division.
+struct GochugaruSlotCursor {
+  int k, j, dk, dj, capT;
+  __device__ __forceinline__ GochugaruSlotCursor(int first, int step, int capT_)
+      : k(first / capT_), j(first - (first / capT_) * capT_),
+        dk(step / capT_), dj(step - (step / capT_) * capT_), capT(capT_) {}
+  __device__ __forceinline__ void next() {
+    k += dk;
+    j += dj;
+    if (j >= capT) {
+      j -= capT;
+      ++k;
     }
-    const long long at =
-        seg_off[k * t.nseg + s] + (long long)(j - first) * t.stride;
+  }
+};
+
+// The element offset of slot j of the tile's k-th lane in its segment's
+// table (returned in tbl).
+__device__ __forceinline__ long long gochugaru_slot_at(
+    const GochugaruTile& t, const long long* seg_off, int k, int j,
+    const void*& tbl) {
+  // segment s holds slots [seg_first[s], seg_first[s + 1]): constant
+  // indices (no indexed parameter reads), stopping at the slot's segment
+  int s = 0, first = 0;
+  tbl = t.seg_tbl[0];
+#pragma unroll
+  for (int m = 1; m < GOCHUGARU_MAXL; ++m) {
+    if (m >= t.nseg || j < t.seg_first[m]) break;
+    s = m;
+    first = t.seg_first[m];
+    tbl = t.seg_tbl[m];
+  }
+  return seg_off[k * t.nseg + s] + (long long)(j - first) * t.stride;
+}
+
+// Phase B+C of mode block: rows into the shared tile, the tile to out.
+__device__ __forceinline__ void gochugaru_block_slots(const GochugaruTile& t,
+                                                      const long long* seg_off,
+                                                      int32_t* tile,
+                                                      long long g0, int n,
+                                                      int j0) {
+  GochugaruSlotCursor c(j0 + (int)threadIdx.x, blockDim.x, t.capT);
+  for (int p = threadIdx.x; p < n; p += blockDim.x) {
+    const void* tbl;
+    const long long at = gochugaru_slot_at(t, seg_off, c.k, c.j, tbl);
     int32_t* dst = tile + p * t.W;
     if (t.packed) {
       gochugaru_decode_row((const uint16_t*)tbl + at, t.W, t.fields, t.dicts,
@@ -214,17 +296,12 @@ gochugaru_block_tile_kernel(const GochugaruTile t, const Lanes lanes) {
     } else {
       gochugaru_copy_row((const int32_t*)tbl + at, t.W, dst);
     }
-    k += dk;
-    j += dj;
-    if (j >= t.capT) {
-      j -= t.capT;
-      ++k;
-    }
+    c.next();
   }
   gochugaru_copy_wait();
   __syncthreads();
 
-  // C: the tile's contiguous span of out0, 16 bytes a thread
+  // C: the tile's contiguous span of out, 16 bytes a thread
   int32_t* out = t.out + g0 * t.W;
   const int ne = n * t.W;
   const int nv = ne >> 2;
@@ -234,27 +311,129 @@ gochugaru_block_tile_kernel(const GochugaruTile t, const Lanes lanes) {
     __stcs(out + e, tile[e]);
 }
 
-// Launch the tile kernel over every lane; returns a cudaError_t as int.
-template <class Lanes>
-int gochugaru_launch_block_tile(const GochugaruTile& t, const Lanes& lanes,
-                                cudaStream_t st) {
+// Phase B of aligned mode gate: one thread a slot, its hit and live flags.
+__device__ __forceinline__ void gochugaru_gate_slots(const GochugaruTile& t,
+                                                     const long long* seg_off,
+                                                     const int32_t* keys,
+                                                     long long g0, int n,
+                                                     int j0) {
+  // the spec rows of the key fields and the expiry field, read once into
+  // registers (a constant 0 where there is no such field or no spec)
+  int32_t f0[5], f1[5], fe[5];
+#pragma unroll
+  for (int e = 0; e < 5; ++e) {
+    f0[e] = f1[e] = fe[e] = (e == 2 || e == 3) ? -1 : 0;
+    if (t.packed) {
+      f0[e] = t.fields[e];
+      if (t.nq > 1) f1[e] = t.fields[5 + e];
+      if (t.lay_exp >= 0) fe[e] = t.fields[5 * t.lay_exp + e];
+    }
+  }
+  const bool gate = t.lay_exp >= 0;
+  GochugaruSlotCursor c(j0 + (int)threadIdx.x, blockDim.x, t.capT);
+  for (int p = threadIdx.x; p < n; p += blockDim.x, c.next()) {
+    const int2 q = ((const int2*)keys)[c.k];
+    bool hit = false, live = false;
+    if (q.x >= 0 && (t.nq < 2 || q.y >= 0)) {
+      const void* tbl;
+      const long long at = gochugaru_slot_at(t, seg_off, c.k, c.j, tbl);
+      uint32_t c0, c1 = 0u, e = 0u;
+      if (t.packed) {
+        const uint16_t* r = (const uint16_t*)tbl + at;
+        const uint32_t w0 = gochugaru_field_window(r, f0);
+        const uint32_t w1 = gochugaru_field_window(r, f1);
+        const uint32_t we = gochugaru_field_window(r, fe);
+        c0 = gochugaru_field_own(w0, f0, t.dicts);
+        if (t.nq > 1)
+          c1 = gochugaru_field_own(w1, f1, t.dicts) + (f1[2] == 0 ? c0 : 0u);
+        if (gate) {
+          // the expiry column: its own value plus its delta chain's
+          // (column 0 or 1 already decoded; any other from the row)
+          const int d = fe[2];
+          e = gochugaru_field_own(we, fe, t.dicts);
+          if (d == 0) {
+            e += c0;
+          } else if (d == 1 && t.nq > 1) {
+            e += c1;
+          } else if (d >= 0) {
+            e += (uint32_t)gochugaru_decode_col(r, d, t.fields, t.dicts);
+          }
+        }
+      } else {
+        const int32_t* r = (const int32_t*)tbl + at;
+        c0 = (uint32_t)r[0];
+        if (t.nq > 1) c1 = (uint32_t)r[1];
+        if (gate) e = (uint32_t)r[t.lay_exp];
+      }
+      // compare with the unsalted keys; the expiry gate on a hit
+      hit = (int32_t)c0 == q.x && (t.nq < 2 || (int32_t)c1 == q.y);
+      live = hit && (!gate || (int32_t)e == 0 || (int32_t)e > t.now);
+    }
+    t.hit[g0 + p] = hit;
+    t.live[g0 + p] = live;
+  }
+}
+
+template <int MODE, class Lanes>
+__global__ void __launch_bounds__(GOCHUGARU_TILE_THREADS)
+gochugaru_slot_tile_kernel(const GochugaruTile t, const Lanes lanes) {
+  extern __shared__ int4 gochugaru_smem[];
+  int32_t* tile = (int32_t*)gochugaru_smem;
+  long long* seg_off =
+      (long long*)(tile + (MODE == MODE_BLOCK ? t.tile_slots * t.W : 0));
+
+  const long long g0 = (long long)blockIdx.x * t.tile_slots;
+  const long long left = t.B * t.capT - g0;
+  const int n = left < t.tile_slots ? (int)left : t.tile_slots;
+  const long long lane0 = g0 / t.capT;
+  const int j0 = (int)(g0 - lane0 * t.capT);
+  const int nl = (j0 + n - 1) / t.capT + 1;
+  int32_t* keys =
+      (int32_t*)(seg_off + gochugaru_tile_lanes(t.tile_slots, t.capT) * t.nseg);
+
+  // A: segment starts (and gate's keys), one thread per lane
+  for (int k = threadIdx.x; k < nl; k += blockDim.x) {
+    lanes.segments(lane0 + k, seg_off + k * t.nseg);
+    if (MODE == MODE_GATE) {
+      keys[2 * k] = t.q0[lane0 + k];
+      keys[2 * k + 1] = t.nq > 1 ? t.q1[lane0 + k] : 0;
+    }
+  }
+  __syncthreads();
+
+  if (MODE == MODE_BLOCK) {
+    gochugaru_block_slots(t, seg_off, tile, g0, n, j0);
+  } else {
+    gochugaru_gate_slots(t, seg_off, keys, g0, n, j0);
+  }
+}
+
+// Launch the slot tile of MODE (block or gate) over every lane; returns a
+// cudaError_t as int.  Refuses a geometry that does not fit or align.
+template <int MODE, class Lanes>
+int gochugaru_launch_slot_tile(const GochugaruTile& t, const Lanes& lanes,
+                               cudaStream_t st) {
   const int S = t.tile_slots;
   if (t.nseg < 1 || t.nseg > GOCHUGARU_MAXL || t.capT < 1 || S < 1 ||
-      S > GOCHUGARU_SMEM_MAX || (S * t.W) % 4 != 0 ||
-      ((uintptr_t)t.out & 15) != 0)
+      S > GOCHUGARU_SMEM_MAX || t.seg_first[t.nseg] != t.capT)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)S * t.W * 4 +
-                      (size_t)gochugaru_tile_lanes(S, t.capT) * t.nseg * 8;
+  if (MODE == MODE_BLOCK &&
+      ((S * t.W) % 4 != 0 || ((uintptr_t)t.out & 15) != 0))
+    return (int)cudaErrorInvalidValue;
+  if (MODE == MODE_GATE && (t.nq < 1 || t.nq > 2 || t.W < t.nq ||
+                            t.lay_exp >= t.W))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = gochugaru_tile_smem<MODE>(S, t.capT, t.W, t.nseg);
   if (smem > GOCHUGARU_SMEM_MAX) return (int)cudaErrorInvalidValue;
   const long long tiles = (t.B * t.capT + S - 1) / S;
   if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        gochugaru_block_tile_kernel<Lanes>,
+        gochugaru_slot_tile_kernel<MODE, Lanes>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  gochugaru_block_tile_kernel<Lanes>
+  gochugaru_slot_tile_kernel<MODE, Lanes>
       <<<(unsigned)tiles, GOCHUGARU_TILE_THREADS, smem, st>>>(t, lanes);
   return (int)cudaGetLastError();
 }

@@ -11,9 +11,11 @@ tensors, or with ``plain=True``, runs the plain PyTorch twin
 fallback.  ``LAUNCHES`` counts kernel launches per mode (never plain
 calls) — ``MODES`` for fused_probe, ``aligned.<mode>`` for each of
 ``ALIGNED_MODES`` — so a run can show that its main path went through
-the kernels.  Mode ``block`` of both kernels runs one cooperative tile
-kernel (``csrc/probe_common.cuh``) whose launch geometry ``block_tile``
-picks here.
+the kernels, and ``LANES`` the query lanes (keys for ``runs``) those
+launches processed.  Mode ``block`` of both kernels and mode ``gate`` of
+``fused_probe_aligned`` run one slot-tile routine
+(``csrc/probe_common.cuh``) whose launch geometry ``block_tile`` and
+``gate_tile`` pick here.
 """
 
 from __future__ import annotations
@@ -29,9 +31,9 @@ from .plain import (
 )
 
 __all__ = [
-    "ALIGNED_MODES", "LAUNCHES", "MODES", "blk_hit", "block_tile", "fused_probe",
-    "fused_probe_aligned", "fused_probe_aligned_plain", "fused_probe_plain",
-    "reset_launches", "spec_tensors",
+    "ALIGNED_MODES", "LANES", "LAUNCHES", "MODES", "blk_hit", "block_tile",
+    "fused_probe", "fused_probe_aligned", "fused_probe_aligned_plain",
+    "fused_probe_plain", "gate_tile", "reset_launches", "spec_tensors",
 ]
 
 MODES = ("block", "any", "until2", "gate", "runs")
@@ -45,17 +47,27 @@ DICT = 256
 TILE_BYTES = 16 * 1024
 #: shared memory one CTA may use on sm_90 (227 KB)
 SMEM_MAX = 232_448
-
+#: slots a CTA of the aligned gate's slot tile (256 threads, one slot a
+#: thread a round; chip_smoke.py times 1024-4096, PERF.md)
+GATE_SLOTS = 2048
 #: kernel launches per mode since the last reset_launches(): fused_probe
 #: under its mode, fused_probe_aligned under ``aligned.<mode>``
 LAUNCHES: Dict[str, int] = {
     **{m: 0 for m in MODES}, **{f"aligned.{m}": 0 for m in ALIGNED_MODES},
 }
+#: query lanes (keys for ``runs``) those launches processed, by the same keys
+LANES: Dict[str, int] = dict.fromkeys(LAUNCHES, 0)
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+        LANES[k] = 0
+
+
+def _count(key: str, lanes: int) -> None:
+    LAUNCHES[key] += 1
+    LANES[key] += lanes
 
 
 class _Args(ctypes.Structure):
@@ -125,8 +137,30 @@ def block_tile(capT: int, W: int, nseg: int) -> Tuple[int, int, int]:
     else:
         g = 4 // math.gcd(W, 4)
         slots = max(g, (TILE_BYTES - 16 * nseg) // (4 * W) // g * g)
-    tl = slots // capT if slots % capT == 0 else (slots + capT - 2) // capT + 1
+    tl = _tile_lanes(slots, capT)
     return slots, tl, slots * W * 4 + tl * nseg * 8
+
+
+def gate_tile(capT: int, nseg: int) -> Tuple[int, int, int]:
+    """Launch geometry of ``fused_probe_aligned`` mode ``gate``'s slot
+    tile for lanes of ``capT`` slots in ``nseg`` levels: ``(tile_slots,
+    tile_lanes, smem_bytes)``.
+
+    A CTA owns ``GATE_SLOTS`` (read at call time) consecutive slots,
+    whatever ``capT``: its flags need no output tile and no alignment, so
+    a lane longer than a tile is walked by several CTAs and short lanes
+    pack many to one.  The shared bytes are the segment starts (8 bytes a
+    level) and the two keys (8 bytes) of every lane the tile touches, as
+    gochugaru_tile_smem counts them."""
+    slots = int(GATE_SLOTS)
+    tl = _tile_lanes(slots, capT)
+    return slots, tl, tl * (nseg * 8 + 8)
+
+
+def _tile_lanes(slots: int, capT: int) -> int:
+    """The most lanes one tile of ``slots`` touches (tiles start at
+    multiples of ``slots``), as gochugaru_tile_lanes counts them."""
+    return slots // capT if slots % capT == 0 else (slots + capT - 2) // capT + 1
 
 
 _FNS: Dict[str, object] = {}
@@ -157,8 +191,13 @@ def _aligned_launcher():
 def spec_tensors(spec, device) -> Tuple[torch.Tensor, torch.Tensor]:
     """A packed table's decode spec as the kernel reads it: int32[W, 5]
     fields and int32[ndict, 256] dictionaries (each padded with its last
-    value, so an index clamps the way the plain gather does)."""
+    value, so an index clamps the way the plain gather does).  Each delta
+    column must name an earlier column, as the decode reads them in
+    order."""
     w, _lanes, fields, dicts = spec
+    for c, field in enumerate(fields):
+        if field[2] >= c:
+            raise ValueError(f"column {c} is a delta of a later column")
     f = torch.tensor(fields, dtype=torch.int32).reshape(w, 5)
     d = torch.zeros((max(len(dicts), 1), DICT), dtype=torch.int32)
     for k, dv in enumerate(dicts):
@@ -261,7 +300,7 @@ def fused_probe(
     err = _launcher()(_MODE_ID[mode], ctypes.byref(a), stream)
     if err != 0:
         raise RuntimeError(f"fused_probe kernel launch failed (cudaError {err})")
-    LAUNCHES[mode] += 1
+    _count(mode, B)
     return _shaped(mode, outs, shape, cap, W)
 
 
@@ -364,7 +403,7 @@ def fused_probe_aligned(
     B = int(qf[0].shape[0])
     capT = int(sum(int(c) for c in caps))
     outs = _outputs(mode, B, capT, W, dev)
-    if B == 0 or (mode == "block" and capT == 0):
+    if B == 0 or (mode in ("block", "gate") and capT == 0):
         return _shaped(mode, outs, shape, capT, W)
     if packed:
         fields, dicts = spec_dev if spec_dev is not None else spec_tensors(spec, dev)
@@ -381,7 +420,8 @@ def fused_probe_aligned(
         out1=outs[1].data_ptr() if len(outs) > 1 else None,
         nq=nq, L=L, packed=int(packed), sw=int(sw), capT=capT, W=W,
         now=int(now or 0), lay_exp=-1 if exp_lane is None else int(exp_lane),
-        tile_slots=block_tile(capT, W, L)[0] if mode == "block" else 0,
+        tile_slots=(block_tile(capT, W, L)[0] if mode == "block"
+                    else gate_tile(capT, L)[0] if mode == "gate" else 0),
         lv=lv,
     )
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -389,7 +429,7 @@ def fused_probe_aligned(
     if err != 0:
         raise RuntimeError(
             f"fused_probe_aligned kernel launch failed (cudaError {err})")
-    LAUNCHES[f"aligned.{mode}"] += 1
+    _count(f"aligned.{mode}", B)
     return _shaped(mode, outs, shape, capT, W)
 
 

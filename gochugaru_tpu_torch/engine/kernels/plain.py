@@ -117,6 +117,25 @@ def field0_spec(spec):
     return int(bits), int(base)
 
 
+def col0_reader(tbl, spec=None):
+    """``idx -> column 0 of rows idx`` (int32) of an int32 table, or of a
+    packed one whose column 0 is a plain range at bit 0 (lane 0, and lane
+    1 when it has more than 16 bits)."""
+    if spec is None:
+        return lambda idx: tbl[idx, 0]
+    bits, base = field0_spec(spec)
+
+    def col0(idx):
+        v = tbl[idx, 0].to(torch.int32) & 0xFFFF
+        if bits > 16:
+            v = v | ((tbl[idx, 1].to(torch.int32) & 0xFFFF) << 16)
+        if bits < 32:
+            v = v & ((1 << bits) - 1)
+        return v + _i32(base) if base else v
+
+    return col0
+
+
 def runs_plain(keys, off, tbl, *, cap: int, spec=None, off_a=None,
                ashift: Optional[int] = None, rows_read: Optional[list] = None):
     """The point-run probe: per key, its bucket ``[start, end)`` from
@@ -138,20 +157,7 @@ def runs_plain(keys, off, tbl, *, cap: int, spec=None, off_a=None,
             return off[i].to(torch.int64)
         return off_a[i >> ashift].to(torch.int64) + (off[i].to(torch.int64) & 0xFFFF)
 
-    if spec is None:
-        def col0(idx):
-            return tbl[idx, 0]
-    else:
-        bits, base = field0_spec(spec)
-
-        def col0(idx):
-            v = tbl[idx, 0].to(torch.int32) & 0xFFFF
-            if bits > 16:
-                v = v | ((tbl[idx, 1].to(torch.int32) & 0xFFFF) << 16)
-            if bits < 32:
-                v = v & ((1 << bits) - 1)
-            return v + _i32(base) if base else v
-
+    col0 = col0_reader(tbl, spec)
     start, end = off_at(h), off_at(h + 1)
     last = int(tbl.shape[0]) - 1
     steps = max(int(cap).bit_length(), 1)
