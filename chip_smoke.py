@@ -1,7 +1,7 @@
 """Drive the PyTorch port's bulk Check and lookups on one NVIDIA card and
 hold every CUDA kernel against its plain PyTorch version.
 
-Run from the repository root:  python3 chip_smoke.py [--scale3 S]
+Run from the repository root:  python3 chip_smoke.py [--scale3 S] [--edges4 N]
 
 Phases (any failure exits non-zero and prints no result line):
 
@@ -37,7 +37,15 @@ Phases (any failure exits non-zero and prints no result line):
    levels 2 bytes off alignment; then one int32 table of
    2^29 rows x 5 columns (2.7e9 elements, filled on the card) per kernel,
    with lanes whose rows lie past element 2^31 (the aligned one under
-   block and gate); kernel == plain version bit for bit;
+   block and gate); kernel == plain version bit for bit; then mode gate
+   of both kernels with the caveat-id and context planes
+   (phase_gate_cav_edges): caveat and context columns under the codecs a
+   build emits (ranges with a -1 sentinel), a dictionary and a delta,
+   int32 and packed, caveat 0 and not, context -1 and not, misses (0 and
+   -1), with and without an expiry lane and the context plane, B in {1,
+   255, 65,537}, off+interleave tables and aligned ladders of 3, 8 and
+   (one lane past a tile, 1) levels and build_aligned's; kernel == plain
+   version bit for bit on every plane;
 4. BASELINE config 2 (RBAC: 10k repos x 1k users x 100 teams x 10 orgs,
    seed 11) — a 100,000-check batch, kernels vs plain on all three
    planes, 2,000 sampled rows vs the host oracle; then the same with
@@ -63,22 +71,39 @@ Phases (any failure exits non-zero and prints no result line):
    ``until2`` sites' traffic);
 7. the client path on ``cuda``: write_schema, write, check_one/all/any
    under full and at_least consistency, lookup_resources /
-   lookup_subjects and a cursor-paged walk, vs the oracle; once with the
-   default configuration and once with ``with_engine_config(
-   EngineConfig(flat_aligned=True))``.
+   lookup_subjects and a cursor-paged walk, vs the oracle; then a
+   caveated client world: a schema whose caveat no relationship uses,
+   then string, int, timestamp and host-only caveats written through
+   ``write``, ``check`` with and without ``caveat_context`` (a stored
+   context that wins over the query's), the lookups, every answer vs the
+   oracle; each once with the default configuration and once with
+   ``with_engine_config(EngineConfig(flat_aligned=True))``.
+8. (run between 5b and 6) BASELINE config 4 (multi-tenant SaaS with
+   caveats, benchmarks/bench4_caveats.py's generator: the
+   ``same_tenant`` caveat on every holder edge, 4,096 shared stored
+   contexts, seed 31) at ``--edges4`` edges (10M by default; published
+   100M, logged as ``reduced``): prepare s, device MiB and the caveat
+   plan; 100,000 ``access`` checks (seed 3) with per-query request
+   contexts through ``check_columns(q_ctx=, qctx_rows=)``, kernels vs
+   plain on all three planes, no conditional row, 2,000 sampled rows vs
+   the oracle with their contexts, checks/s; the same 100,000 queries on
+   the ``holder`` relation (the direct-edge gate with its caveat
+   planes); then all of it with ``flat_aligned=True`` on the same
+   snapshot, planes equal to the off+interleave ones;
 
-Phases 4-7 are the main path: launch counts are zeroed before phase 4
-and read after phase 7, and every mode of both kernels must have
-launched.  Then each mode is timed at the largest shape the main path
-gave it, ``runs`` also at its largest-cap call (the row's
-``deep_bucket``) and each aligned mode also at its call with the most
-levels (the row's ``deep_levels``); the two ``block`` rows also under
-each tile budget of TILE_SWEEP (the row's ``tile_budgets``: budget
-bytes -> ms, each output equal to the plain version's), beside one
-``fill_`` of their output's size (``fill_ms``: the card's write rate),
-and the aligned ``gate`` row under each of GATE_SWEEP's slots a CTA (the
-row's ``tile_slots``).  Each row also carries ``lanes_total`` (the lanes
-its main-path launches processed).
+Phases 4-8 are the main path: launch counts are zeroed before phase 4
+and read after phase 7, and every mode of both kernels, and the gate
+with its caveat planes (``gate.cav``) of both, must have launched.  Then
+each mode is timed at the largest shape the main path gave it, ``runs``
+also at its largest-cap call (the row's ``deep_bucket``) and each
+aligned mode also at its call with the most levels (the row's
+``deep_levels``); the two ``block`` rows also under each tile budget of
+TILE_SWEEP (the row's ``tile_budgets``: budget bytes -> ms, each output
+equal to the plain version's), beside one ``fill_`` of their output's
+size (``fill_ms``: the card's write rate), and the aligned ``gate`` row
+under each of GATE_SWEEP's slots a CTA (the row's ``tile_slots``).  Each
+row also carries ``lanes_total`` (the lanes its main-path launches
+processed).
 The second to last lines are the kernel table as JSON and the card line;
 the last line is {"ok": true, "device": {...}}.
 """
@@ -104,6 +129,9 @@ REPLACES = "gochugaru_tpu/engine/pallas.py:246"
 #: the runs mode's own tail in the TPU kernel (pallas.py:364-400)
 REPLACES_RUNS = "gochugaru_tpu/engine/pallas.py:364"
 REPLACES_ALIGNED = "gochugaru_tpu/engine/pallas.py:444"
+#: the gate's caveat and context lanes in each TPU kernel
+REPLACES_CAV = "gochugaru_tpu/engine/pallas.py:355"
+REPLACES_ALIGNED_CAV = "gochugaru_tpu/engine/pallas.py:551"
 SOURCE = "gochugaru_tpu_torch/csrc/fused_probe.cu"
 SOURCE_ALIGNED = "gochugaru_tpu_torch/csrc/fused_probe_aligned.cu"
 ALIGNED = {"flat_aligned": True}
@@ -157,7 +185,7 @@ class Capture:
         def wrapped(q_cols, off, tbl, **kw):
             if not kw.get("plain") and tbl.is_cuda:
                 n = _lanes(q_cols)
-                mode = kw.get("mode", "block")
+                mode = _count_key(kw)
                 ranks = {mode: (n,)}
                 if mode == "runs":
                     ranks["runs.deep"] = (kw["cap"], n)
@@ -166,7 +194,7 @@ class Capture:
 
         def wrapped_aligned(q_cols, tbls, caps, sw, **kw):
             if not kw.get("plain") and tbls[0].is_cuda:
-                mode = kw.get("mode", "block")
+                mode = _count_key(kw)
                 n = _lanes(q_cols)
                 self._keep({f"aligned.{mode}": (n,),
                             f"aligned.{mode}.deep": (len(tbls), n)},
@@ -181,6 +209,20 @@ class Capture:
         self.K.fused_probe = self.orig
         self.K.fused_probe_aligned = self.orig_aligned
         return False
+
+
+def _count_key(kw) -> str:
+    """The launch-count key of a probe call: its mode, or ``gate.cav``
+    for a gate that returns the caveat planes."""
+    if kw.get("cav_lane") is not None:
+        return "gate.cav"
+    return kw.get("mode", "block")
+
+
+def _gate_out_bytes(kw) -> int:
+    """Output bytes a gate slot writes: the hit and live bytes, and 4
+    for each int32 caveat plane."""
+    return 2 + 4 * ((kw.get("cav_lane") is not None) + (kw.get("ctx_lane") is not None))
 
 
 def W_of(spec, width) -> int:
@@ -233,7 +275,7 @@ def probe_bound(q_cols, off, tbl, kw):
     row_bytes = int(tbl.shape[1]) * tbl.element_size()
     W = W_of(kw.get("spec"), tbl.shape[1])
     out_bytes = {"block": B * cap * W * 4, "any": B, "until2": 2 * B,
-                 "gate": 2 * B * cap}[mode]
+                 "gate": _gate_out_bytes(kw) * B * cap}[mode]
     nbytes = (int(rows.numel()) * row_bytes
               + int(torch.unique(h).numel()) * off.element_size()
               + n_anchor * 4 + B * len(qs) * 4 + out_bytes)
@@ -294,7 +336,8 @@ def aligned_bound(q_cols, tbls, caps, sw, kw):
     capT = int(sum(caps))
     W = W_of(kw.get("spec"), sw)
     nbytes = B * len(qs) * 4 + {"block": B * capT * W * 4, "any": B,
-                                "until2": 2 * B, "gate": 2 * B * capT}[mode]
+                                "until2": 2 * B,
+                                "gate": _gate_out_bytes(kw) * B * capT}[mode]
     for lvl, t in enumerate(tbls):
         salted = [qs[0] ^ int(_level_salt(lvl))] + qs[1:]
         h = bucket_of(salted, int(t.shape[0]))
@@ -468,6 +511,79 @@ def build_docs(scale=1.0, seed=23):
          users[ui].astype(np.int32))
     names = [("document", f"d{a}", "view", "user", f"u{b}") for a, b in zip(di, ui)]
     return cs, snap, q, names
+
+
+CONFIG4_SCHEMA = """
+caveat same_tenant(tenant string, edge_tenant string, tier int) {
+    tenant == edge_tenant && tier >= 1
+}
+definition user {}
+definition org { relation admin: user }
+definition item {
+    relation org: org
+    relation holder: user with same_tenant
+    permission access = holder + org->admin
+}
+"""
+#: BASELINE config 4's published edge count (benchmarks/bench4_caveats.py)
+CONFIG4_EDGES = 100_000_000
+
+
+def build_config4(n_edges=10_000_000, n_tenants=4096, seed=31):
+    """BASELINE config 4, the generator of benchmarks/bench4_caveats.py:
+    49-111 (200,000 users, 2,000 orgs, items = edges / 10, every holder
+    edge caveated with ``same_tenant`` and one of ``n_tenants`` shared
+    stored contexts), and its batch of 100,000 ``access`` checks (seed
+    3): half on real holder edges with the edge's tenant half the time,
+    half random; each query's request context ``{"tenant", "tier": 2}``
+    as ``(q_ctx, qctx_rows)``."""
+    from gochugaru_tpu_torch.schema import compile_schema, parse_schema
+    from gochugaru_tpu_torch.store.interner import Interner
+    from gochugaru_tpu_torch.store.snapshot import build_snapshot_from_columns
+
+    cs = compile_schema(parse_schema(CONFIG4_SCHEMA))
+    interner = Interner()
+    rng = np.random.default_rng(seed)
+    n_users, n_orgs = 200_000, 2_000
+    n_items = max(n_edges // 10, 1000)
+    users = np.array([interner.node("user", f"u{i}") for i in range(n_users)], np.int64)
+    orgs = np.array([interner.node("org", f"o{i}") for i in range(n_orgs)], np.int64)
+    items = np.array([interner.node("item", f"i{i}") for i in range(n_items)], np.int64)
+    slot = cs.slot_of_name
+    contexts = [{"edge_tenant": f"t{t}", "tier": 2} for t in range(n_tenants)]
+    n_holder = n_edges - n_items - n_orgs
+    res = np.concatenate([rng.choice(items, n_holder), items, orgs])
+    rel = np.concatenate([np.full(n_holder, slot["holder"], np.int64),
+                          np.full(n_items, slot["org"], np.int64),
+                          np.full(n_orgs, slot["admin"], np.int64)])
+    subj = np.concatenate([rng.choice(users, n_holder), rng.choice(orgs, n_items),
+                           rng.choice(users, n_orgs)])
+    caveat = np.concatenate([np.full(n_holder, cs.caveat_ids["same_tenant"], np.int32),
+                             np.zeros(n_items + n_orgs, np.int32)])
+    ctx = np.concatenate([rng.integers(0, n_tenants, n_holder).astype(np.int32),
+                          np.full(n_items + n_orgs, -1, np.int32)])
+    snap = build_snapshot_from_columns(
+        1, cs, interner, res=res, rel=rel, subj=subj,
+        srel=np.full(res.shape[0], -1, np.int64), caveat=caveat, ctx=ctx,
+        contexts=contexts, epoch_us=EPOCH)
+    qrng = np.random.default_rng(3)
+    B = 100_000
+    holder_rows = np.nonzero(snap.e_rel == slot["holder"])[0]
+    hit_rows = qrng.choice(holder_rows, B // 2)
+    q_res = np.concatenate([snap.e_res[hit_rows],
+                            qrng.choice(items, B - B // 2)]).astype(np.int32)
+    q_subj = np.concatenate([snap.e_subj[hit_rows],
+                             qrng.choice(users, B - B // 2)]).astype(np.int32)
+    q_perm = np.full(B, slot["access"], np.int32)
+    qctx_rows = [{"tenant": f"t{t}", "tier": 2} for t in range(n_tenants)]
+    edge_tenant = snap.e_ctx[hit_rows].astype(np.int64)
+    match = qrng.random(B // 2) < 0.5
+    q_ctx = np.concatenate([np.where(match, edge_tenant, (edge_tenant + 1) % n_tenants),
+                            qrng.integers(0, n_tenants, B - B // 2)]).astype(np.int32)
+    keys = interner.keys_batch(np.concatenate([q_res, q_subj]))
+    names = [(rt, rid, "access", st, sid)
+             for (rt, rid), (st, sid) in zip(keys[:B], keys[B:])]
+    return cs, snap, (q_res, q_perm, q_subj), names, (q_ctx, qctx_rows)
 
 
 OVF_SCHEMA = """
@@ -1149,6 +1265,174 @@ def phase_gate_edges(K):
         f" of them expired, {zero_live} live with expiry 0 (W 16)")
 
 
+#: the caveat planes' codecs: the table build's (ranges with a -1 sentinel), a
+#: dictionary of caveat ids, and a context stored as a delta of the caveat
+CAV_CODECS = ("range", "dict", "delta")
+#: the caveat rows' (caveat, context, expiry) columns and the expiry's now
+CAV_LANES = {"cav_lane": 2, "ctx_lane": 3}
+CAV_EXP, CAV_NOW = 4, 1 << 19
+
+
+def cav_rows(rng, n, codec):
+    """``n`` int32 rows (k1, k2, caveat, context, expiry) and their pack
+    spec under ``codec``: caveat 0 on 40% of rows, context -1 on 30%,
+    expiry 0 on a third."""
+    from gochugaru_tpu_torch.engine import packed as PK
+
+    raw = np.empty((n, 5), np.int32)
+    raw[:, 0] = rng.integers(0, 50_001, n)
+    raw[:, 1] = rng.integers(0, 50_101, n)
+    raw[:, 2] = np.where(rng.random(n) < 0.4, 0, rng.choice([1, 2, 3, 7], n))
+    raw[:, 3] = np.where(rng.random(n) < 0.3, -1, rng.integers(0, 4_096, n))
+    raw[:, 4] = np.where(rng.random(n) < 1 / 3, 0, rng.integers(1, 1 << 20, n))
+    cav = (PK.col_dict((-1, 0, 1, 2, 3, 7)) if codec == "dict"
+           else PK.col_range(-1, 7))
+    ctx = (PK.col_delta(-8, 4_096, 2) if codec == "delta"
+           else PK.col_range(-1, 4_095))
+    spec = PK.make_spec([PK.col_range(-1, 50_000), PK.col_range(-1, 50_100), cav,
+                         ctx, PK.col_range(-1, (1 << 20) - 1)])
+    return spec, raw
+
+
+def _cav_same(name, got, want, counts):
+    """Every plane of a caveat gate bitwise equal to the plain version's;
+    misses give caveat 0 and context -1; tallies hits, caveated hits,
+    hits without a stored context and misses."""
+    if len(got) != len(want):
+        raise AssertionError(f"caveat gate: {name}: {len(got)} planes, want {len(want)}")
+    for k, (a, b) in enumerate(zip(got, want)):
+        dtype = torch.bool if k < 2 else torch.int32
+        if a.dtype != dtype or a.shape != b.shape or not torch.equal(a, b):
+            raise AssertionError(f"caveat gate != plain: {name} plane {k}")
+    hit = got[0]
+    if bool((got[2][~hit] != 0).any()) or (
+            len(got) > 3 and bool((got[3][~hit] != -1).any())):
+        raise AssertionError(f"caveat gate: {name}: a miss kept its lanes")
+    counts["hits"] += int(hit.sum())
+    counts["caveated"] += int((hit & (got[2] != 0)).sum())
+    counts["misses"] += int((~hit).sum())
+    if len(got) > 3:
+        counts["no_ctx"] += int((hit & (got[3] == -1)).sum())
+        counts["ctx"] += int((hit & (got[3] >= 0)).sum())
+
+
+def _cav_calls(K, name, call, counts):
+    """``call(plain, **lanes)`` with and without the expiry lane and the
+    context lane, each kernel == plain."""
+    n = 0
+    for exp_lane in (CAV_EXP, None):
+        for needctx in (True, False):
+            kw = dict(mode="gate", now=CAV_NOW, exp_lane=exp_lane,
+                      cav_lane=CAV_LANES["cav_lane"],
+                      ctx_lane=CAV_LANES["ctx_lane"] if needctx else None)
+            _cav_same(f"{name} exp_lane={exp_lane} ctx={needctx}",
+                      call(False, **kw), call(True, **kw), counts)
+            n += 1
+    return n
+
+
+def phase_gate_cav_edges(K):
+    """Phase 3c's caveat planes: mode gate of both kernels with the
+    caveat-id and context planes, kernel == plain bit for bit on every
+    plane (see the module docstring)."""
+    from gochugaru_tpu_torch.engine import hash as H
+    from gochugaru_tpu_torch.engine import packed as PK
+    from gochugaru_tpu_torch.engine.device import to_device_tensor
+
+    dev = torch.device(DEV)
+    rng = np.random.default_rng(2031)
+    counts = dict.fromkeys(("hits", "caveated", "misses", "no_ctx", "ctx"), 0)
+    n_fp = n_al = deep = 0
+
+    def queries(keys, B, nq=2):
+        """Half the lanes on stored keys, the rest random; 5% negative."""
+        pick = rng.integers(0, keys.shape[0], B)
+        q = [np.where(rng.random(B) < 0.5, keys[pick, c], rng.integers(0, 50_001, B))
+             for c in range(nq)]
+        q[0] = np.where(rng.random(B) < 0.05, -rng.integers(1, 9, B), q[0])
+        return tuple(torch.from_numpy(c.astype(np.int32)).to(dev) for c in q)
+
+    # fused_probe: off+interleave tables
+    for codec in CAV_CODECS:
+        spec, raw = cav_rows(rng, 40_000, codec)
+        hi = H.build_hash([raw[:, 0], raw[:, 1]], target_cap=4)
+        rows = H.interleave_buckets(hi, [raw[:, c] for c in range(5)])
+        res, anchor = PK.pack_off(hi.off)
+        layouts = {
+            "int32": (to_device_tensor(hi.off, dev), to_device_tensor(rows, dev),
+                      None, None, None),
+            "packed": (to_device_tensor(res, dev),
+                       to_device_tensor(PK.pack_rows(rows, spec), dev), spec,
+                       to_device_tensor(anchor, dev), PK.OFF_ANCHOR_SHIFT),
+        }
+        for layout, (off, tbl, sp, off_a, ashift) in layouts.items():
+            for B in EDGE_B:
+                qs = queries(raw, B)
+
+                def call(plain, **kw):
+                    return K.fused_probe(qs, off, tbl, cap=hi.cap, spec=sp,
+                                         off_a=off_a, ashift=ashift, plain=plain,
+                                         **kw)
+                n_fp += _cav_calls(K, f"fused_probe {codec} {layout} B={B}",
+                                   call, counts)
+    # fused_probe_aligned: synthetic ladders with planted keys, and a
+    # build_aligned ladder of >= 3 levels
+    long_lane = 2 * K.GATE_SLOTS + 3
+    for codec in CAV_CODECS:
+        for caps in ((8, 3, 1), (5, 4, 3, 2, 2, 1, 1, 1), (long_lane, 1)):
+            sizes = [max(1_024 >> (2 * l), 8) for l in range(len(caps))]
+            spec, _ = cav_rows(rng, 1, codec)
+            raws = [cav_rows(rng, s * c, codec)[1] for s, c in zip(sizes, caps)]
+            qs_np = _gate_queries(rng, max(EDGE_B), 2)
+            plant_hits(raws, caps, qs_np, rng, spec)
+            layouts = {
+                "int32": ([to_device_tensor(r.reshape(s, c * 5), dev)
+                           for r, s, c in zip(raws, sizes, caps)], 5, None),
+                "packed": ([to_device_tensor(PK.pack_rows(r, spec).reshape(s, -1), dev)
+                            for r, s in zip(raws, sizes)], spec[1], spec),
+            }
+            for layout, (tbls, sw, sp) in layouts.items():
+                for B in EDGE_B if caps[0] < long_lane else (1, 255, 4_097):
+                    qs = tuple(torch.from_numpy(q[:B]).to(dev) for q in qs_np)
+
+                    def call(plain, **kw):
+                        return K.fused_probe_aligned(qs, tbls, caps, sw, spec=sp,
+                                                     plain=plain, **kw)
+                    n_al += _cav_calls(K, f"aligned {codec} {layout} caps={caps}"
+                                       f" B={B}", call, counts)
+                    deep += int(call(False, mode="gate", **CAV_LANES)[0][:, caps[0]:].sum())
+        spec, raw = cav_rows(rng, 60_000, codec)
+        raw[:14, :2] = (4_242, 17)  # one key past level 0's cap
+        ai = H.build_aligned([raw[:, 0], raw[:, 1]], [raw[:, c] for c in range(5)],
+                             cover=(0.5, 0.9))
+        if ai is None or len(ai.levels) < 3:
+            raise AssertionError(f"caveat gate: {codec} ladder has fewer than 3 levels")
+        levels = [t for t, _ in ai.levels]
+        layouts = {
+            "int32": ([to_device_tensor(t, dev) for t in levels], ai.w, None),
+            "packed": ([to_device_tensor(PK.pack_rows(t.reshape(-1, ai.w), spec)
+                                         .reshape(t.shape[0], -1), dev)
+                        for t in levels], spec[1], spec),
+        }
+        for layout, (tbls, sw, sp) in layouts.items():
+            for B in EDGE_B:
+                qs = queries(raw, B)
+
+                def call(plain, **kw):
+                    return K.fused_probe_aligned(qs, tbls, ai.caps, sw, spec=sp,
+                                                 plain=plain, **kw)
+                n_al += _cav_calls(K, f"aligned {codec} {layout} build_aligned"
+                                   f" caps={tuple(ai.caps)} B={B}", call, counts)
+    if not all(counts.values()) or not deep:
+        raise AssertionError(f"caveat gate edges: an edge never occurred ({counts},"
+                             f" hits past level 0={deep})")
+    log(f"gate caveat planes: fused_probe {n_fp} cases, fused_probe_aligned {n_al}"
+        f" cases (codecs {CAV_CODECS}, int32 and packed, expiry lane and none,"
+        f" context plane on and off, B {EDGE_B}, ladders (8,3,1), 8 levels,"
+        f" ({long_lane},1) and build_aligned >= 3 levels) bitwise OK on every"
+        f" plane; {counts} ({deep} aligned hits past level 0)")
+
+
 def _fill_huge(rows, w, dev):
     """int32[rows, w] filled on the device with a hash of each element's
     index (chunked: no int64 temporary of the whole table)."""
@@ -1212,13 +1496,38 @@ def phase_block_huge(K, rows):
         f" hits ({time.perf_counter() - t0:.1f} s)")
 
 
-def check_world(name, cs, snap, q, names, K, **cfg):
-    """Prepare once (``cfg`` overrides EngineConfig fields); kernels=True
-    vs kernels=False planes bitwise; 2,000 sampled rows vs the port's host
-    oracle; checks/s of both paths.  Returns the engines, the snapshot and
-    the kernel path's planes."""
+def phase_config4(K, edges):
+    """Phase 8: BASELINE config 4 at ``edges`` edges, both layouts on one
+    snapshot (see the module docstring)."""
+    t0 = time.perf_counter()
+    cs, snap, q, names, ctx = build_config4(edges)
+    log(f"config4: world built in {time.perf_counter() - t0:.2f}s;"
+        f" stored contexts={len(snap.contexts)}"
+        + (f"; reduced: edges {CONFIG4_EDGES} -> {edges} (--edges4)"
+           if edges < CONFIG4_EDGES else ""))
+    # the batch as published checks `access`, which the permission fold
+    # serves (its pfx block probe, the tri VM on the block's caveat
+    # columns); the same checks of the `holder` relation take the
+    # direct-edge gate with its caveat planes
+    hq = (q[0], np.full_like(q[1], cs.slot_of_name["holder"]), q[2])
+    h_names = [(rt, rid, "holder", st, sid) for rt, rid, _p, st, sid in names]
+    planes = {}
+    for label, cfg in (("config4", {}), ("config4 aligned", ALIGNED)):
+        ek, ep, ds, dk = check_world(label, cs, snap, q, names, K, ctx=ctx, **cfg)
+        dh = check_batch_phase(label + " holder", cs, snap, ek, ep, ds, hq,
+                               h_names, ctx)
+        if cfg:
+            same_planes(label, dk, planes["access"])
+            same_planes(label + " holder", dh, planes["holder"])
+        planes = {"access": dk, "holder": dh}
+        del ek, ep, ds
+
+
+def check_world(name, cs, snap, q, names, K, ctx=None, **cfg):
+    """Prepare once (``cfg`` overrides EngineConfig fields), then
+    ``check_batch_phase`` on the batch.  Returns the engines, the
+    snapshot and the kernel path's planes."""
     from gochugaru_tpu_torch.engine.device import DeviceEngine
-    from gochugaru_tpu_torch.engine.oracle import SnapshotOracle, T
     from gochugaru_tpu_torch.engine.plan import EngineConfig
 
     ek = DeviceEngine(cs, EngineConfig(kernels=DEV == "cuda" or None, **cfg), device=DEV)
@@ -1244,23 +1553,53 @@ def check_world(name, cs, snap, q, names, K, **cfg):
             f" aligned MiB={al_mib:.1f}; point tables kept off+interleave={kept}")
         if not meta.aligned:
             raise AssertionError(f"{name}: no table went aligned")
+    if ek.caveat_plan is not None:
+        plan = ek.caveat_plan
+        log(f"{name}: caveat plan host_only="
+            f"{ {n: bool(plan.host_only[c]) for n, c in cs.caveat_ids.items()} }"
+            f" params={plan.num_params} stored contexts={len(snap.contexts)}"
+            f" ectx rows={int(ds.arrays['ectx_vi'].shape[0])}"
+            f" e_hascav={meta.e_hascav} pf_hascav={meta.pf_hascav}"
+            f" packed ehx={dict(meta.packed).get('ehx')}")
+    return ek, ep, ds, check_batch_phase(name, cs, snap, ek, ep, ds, q, names, ctx)
+
+
+def check_batch_phase(name, cs, snap, ek, ep, ds, q, names, ctx=None):
+    """One batch on a prepared snapshot: kernels=True vs kernels=False
+    planes bitwise; 2,000 sampled rows vs the port's host oracle;
+    checks/s of both paths.  ``ctx`` = (q_ctx, qctx_rows): each query's
+    request context, through ``check_columns(q_ctx=, qctx_rows=)`` and to
+    the oracle; then no row may be conditional (every caveat of such a
+    world is device-eligible).  Returns the kernel path's planes."""
+    from gochugaru_tpu_torch.caveats import compile_cel
+    from gochugaru_tpu_torch.engine.oracle import SnapshotOracle, T
+
     q_res, q_perm, q_subj = q
-    dk = ek.check_columns(ds, q_res, q_perm, q_subj, now_us=EPOCH)
-    dp = ep.check_columns(ds, q_res, q_perm, q_subj, now_us=EPOCH)
+    q_ctx, qctx_rows = ctx if ctx is not None else (None, None)
+    kw = dict(q_ctx=q_ctx, qctx_rows=qctx_rows, now_us=EPOCH)
+    dk = ek.check_columns(ds, q_res, q_perm, q_subj, **kw)
+    dp = ep.check_columns(ds, q_res, q_perm, q_subj, **kw)
     for nm, a, b in zip("dpo", dk, dp):
         if not np.array_equal(a, b):
             raise AssertionError(f"{name}: plane {nm} differs, kernels vs plain")
     d, p, ovf = dk
     needs_host = (p & ~d) | ovf
     log(f"{name}: B={len(q_res)} planes bitwise equal (kernels vs plain);"
-        f" definite={int(d.sum())} host-settled={int(needs_host.sum())}")
-    oracle = SnapshotOracle(snap, now_us=EPOCH)
+        f" definite={int(d.sum())} host-settled={int(needs_host.sum())}"
+        f" conditional={int((p & ~d).sum())} overflow={int(ovf.sum())}")
+    if ctx is not None and (p & ~d).any():
+        raise AssertionError(f"{name}: {int((p & ~d).sum())} conditional rows")
+    programs = {n: compile_cel(n, c.params, c.expression)
+                for n, c in cs.schema.caveats.items()}
+    oracle = SnapshotOracle(snap, programs, now_us=EPOCH)
     rng = np.random.default_rng(99)
     sample = rng.choice(len(q_res), min(2000, len(q_res)), replace=False)
     bad = 0
     for i in sample:
         rt, rid, perm, st, sid = names[i]
-        want = oracle.check(rt, rid, perm, st, sid, "", now_us=EPOCH) == T
+        qc = qctx_rows[q_ctx[i]] if ctx is not None and q_ctx[i] >= 0 else None
+        want = oracle.check(rt, rid, perm, st, sid, "", context=qc,
+                            now_us=EPOCH) == T
         got = bool(d[i]) if not needs_host[i] else want
         bad += got != want
     if bad:
@@ -1274,7 +1613,7 @@ def check_world(name, cs, snap, q, names, K, **cfg):
         for which in order:
             eng = ek if which == "kernels" else ep
             ts = time.perf_counter()
-            eng.check_columns(ds, q_res, q_perm, q_subj, now_us=EPOCH)
+            eng.check_columns(ds, q_res, q_perm, q_subj, **kw)
             times[which].append(time.perf_counter() - ts)
     med = {k: float(np.median(v)) for k, v in times.items()}
     log(f"{name}: checks_per_s"
@@ -1282,7 +1621,7 @@ def check_world(name, cs, snap, q, names, K, **cfg):
         f" plain={len(q_res) / med['plain']:.1f}"
         f" batch_s kernels={[round(t, 5) for t in times['kernels']]}"
         f" plain={[round(t, 5) for t in times['plain']]}")
-    return ek, ep, ds, dk
+    return dk
 
 
 def same_planes(name, a, b):
@@ -1579,6 +1918,144 @@ def phase_client(**cfg):
         f" and a {pages}-page cursor walk ({len(ids)} results) agree with the oracle")
 
 
+#: a schema that declares a caveat no relationship uses
+FAULT1_SCHEMA = """
+caveat ip_ok(x int) { x > 3 }
+definition user {}
+definition doc {
+    relation reader: user | user with ip_ok
+    permission view = reader
+}
+"""
+
+CLIENT_CAVEAT_SCHEMA = """
+caveat same_tenant(tenant string, edge_tenant string, tier int) {
+    tenant == edge_tenant && tier >= 1
+}
+caveat quota(used int, limit int) { used * 2 < limit }
+caveat before(at timestamp, until timestamp) { at < until }
+caveat owner_is(m map<string>) { m.owner == 'alice' }
+definition user {}
+definition team { relation member: user | user with quota }
+definition doc {
+    relation team: team
+    relation reader: user | user with same_tenant | user with quota | user with before | user with owner_is | team#member
+    permission view = reader + team->member
+}
+"""
+
+
+def _caveat_client_rels(rel, rng):
+    """Relationships of the caveated client world: every caveat kind with
+    a full, a partial or an empty stored context, caveated membership,
+    plain grants."""
+    stored = {
+        "same_tenant": lambda: {"edge_tenant": rng.choice(["acme", "beta"]),
+                                **({"tier": rng.choice([0, 2])} if rng.random() < 0.3 else {})},
+        "quota": lambda: {"limit": rng.choice([5, 10, 40])} if rng.random() < 0.7 else {},
+        "before": lambda: {"until": rng.choice(["2024-01-01T00:00:00Z",
+                                                "2030-01-01T00:00:00Z"])},
+        "owner_is": lambda: {"m": {"owner": rng.choice(["alice", "bob"])}},
+    }
+    rels = []
+    for t in range(5):
+        for u in rng.sample(range(20), 4):
+            r = rel.must_from_triple(f"team:t{t}", "member", f"user:u{u}")
+            rels.append(r.with_caveat("quota", stored["quota"]()) if rng.random() < 0.4 else r)
+    for d in range(40):
+        rels.append(rel.must_from_triple(f"doc:d{d}", "team", f"team:t{rng.randrange(5)}"))
+        for u in rng.sample(range(20), 3):
+            r = rel.must_from_triple(f"doc:d{d}", "reader", f"user:u{u}")
+            if rng.random() < 0.75:
+                name = rng.choice(sorted(stored))
+                r = r.with_caveat(name, stored[name]())
+            rels.append(r)
+    return rels
+
+
+def phase_client_caveats(**cfg):
+    """Phase 7's caveated client world (``cfg`` overrides EngineConfig
+    fields): the declared-but-unused caveat, then string, int, timestamp
+    and host-only caveats written through ``write``, ``check`` with and
+    without ``caveat_context`` and the lookups, every answer vs the
+    oracle."""
+    from gochugaru_tpu_torch import consistency, rel
+    from gochugaru_tpu_torch.caveats import compile_cel
+    from gochugaru_tpu_torch.client import new_evaluator, with_engine_config
+    from gochugaru_tpu_torch.engine.oracle import Oracle, T
+    from gochugaru_tpu_torch.engine.plan import EngineConfig
+    from gochugaru_tpu_torch.schema import compile_schema, parse_schema
+    from gochugaru_tpu_torch.utils import metrics
+    from gochugaru_tpu_torch.utils.context import background
+
+    ctx = background()
+    full = consistency.full()
+
+    def client(schema, rels):
+        opts = (with_engine_config(EngineConfig(**cfg)),) if cfg else ()
+        c = new_evaluator(*opts) if DEV == "cuda" else new_evaluator(*opts, device=DEV)
+        c.write_schema(ctx, schema)
+        txn = rel.Txn()
+        for r in rels:
+            txn.create(r)
+        c.write(ctx, txn)
+        cs = compile_schema(parse_schema(schema))
+        progs = {n: compile_cel(n, d.params, d.expression)
+                 for n, d in cs.schema.caveats.items()}
+        return c, Oracle(cs, rels, progs)
+
+    # a declared caveat that no relationship uses
+    c, oracle = client(FAULT1_SCHEMA, [rel.must_from_triple("doc:d1", "reader", "user:u1")])
+    checks = [rel.must_from_triple(f"doc:d{d}", "view", f"user:u{u}")
+              for d in (1, 2) for u in (1, 2)]
+    if c.check(ctx, full, *checks) != [True, False, False, False]:
+        raise AssertionError("declared-caveat world: check disagrees with the oracle")
+    if (list(c.lookup_resources(ctx, full, "doc#view", "user:u1")) != ["d1"]
+            or list(c.lookup_subjects(ctx, full, "doc:d1", "view", "user")) != ["u1"]):
+        raise AssertionError("declared-caveat world: lookups disagree with the oracle")
+
+    rng = random.Random(19)
+    rels = _caveat_client_rels(rel, rng)
+    c, oracle = client(CLIENT_CAVEAT_SCHEMA, rels)
+    contexts = [None, {"tenant": "acme", "tier": 2}, {"tenant": "beta", "tier": 1},
+                {"used": 3}, {"used": 30, "limit": 100},
+                {"at": "2023-06-01T00:00:00Z"}, {"at": "2026-06-01T00:00:00Z"},
+                {"tenant": "acme", "tier": 2, "used": 1, "at": "2025-01-01T00:00:00Z"}]
+    checks = []
+    for _ in range(400):
+        q = rel.must_from_triple(f"doc:d{rng.randrange(42)}", "view",
+                                 f"user:u{rng.randrange(21)}")
+        qc = rng.choice(contexts)
+        checks.append(q.with_caveat("", qc) if qc else q)
+    want = [oracle.check_relationship(r) == T for r in checks]
+    before = metrics.default.counter("checks.fallback_conditional")
+    got = c.check(ctx, full, *checks)
+    fallbacks = metrics.default.counter("checks.fallback_conditional") - before
+    if got != want:
+        bad = sum(a != b for a, b in zip(got, want))
+        raise AssertionError(f"caveated client: {bad} verdicts disagree with the oracle")
+    engine = c._engine
+    host_only = {n: bool(engine.caveat_plan.host_only[i])
+                 for n, i in engine.compiled.caveat_ids.items()}
+    if host_only != {n: n == "owner_is" for n in host_only}:
+        raise AssertionError(f"caveated client: host-only caveats {host_only}")
+    n_res = 0
+    for u in range(21):
+        got_r = list(c.lookup_resources(ctx, full, "doc#view", f"user:u{u}"))
+        if got_r != sorted(oracle.lookup_resources("doc", "view", "user", f"u{u}", "")):
+            raise AssertionError(f"caveated client: lookup_resources for u{u} disagrees")
+        n_res += len(got_r)
+    for d in range(0, 42, 3):
+        got_s = list(c.lookup_subjects(ctx, full, f"doc:d{d}", "view", "user"))
+        if got_s != sorted(oracle.lookup_subjects("doc", f"d{d}", "view", "user", "")):
+            raise AssertionError(f"caveated client: lookup_subjects for d{d} disagrees")
+    log(f"caveated client on {DEV} {cfg or ''}: declared-but-unused caveat world"
+        f" agrees; {len(rels)} relationships, {len(checks)} checks agree with the"
+        f" oracle ({sum(want)} allowed, {fallbacks} settled on the host, host-only"
+        f" {[n for n, h in host_only.items() if h]}), lookup_resources"
+        f" ({n_res} results) and lookup_subjects agree")
+
+
 class uncounted:
     """Launches inside the block leave K.LAUNCHES and K.LANES as they
     were (comparison and timing launches are not main-path launches)."""
@@ -1659,7 +2136,8 @@ def time_mode(K, mode, q_cols, off, tbl, kw, card):
         raise AssertionError(f"{mode}: kernel differs from plain at main-path shape")
     row = {
         "name": f"fused_probe.{mode}", "route": "cuda", "source": SOURCE,
-        "replaces": REPLACES_RUNS if mode == "runs" else REPLACES,
+        "replaces": {"runs": REPLACES_RUNS, "gate.cav": REPLACES_CAV}.get(
+            mode, REPLACES),
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         "lanes": n, "cap": kw["cap"],
@@ -1695,7 +2173,8 @@ def time_aligned(K, mode, q_cols, tbls, caps, sw, kw, card):
                              " main-path shape")
     row = {
         "name": f"fused_probe_aligned.{mode}", "route": "cuda",
-        "source": SOURCE_ALIGNED, "replaces": REPLACES_ALIGNED,
+        "source": SOURCE_ALIGNED,
+        "replaces": REPLACES_ALIGNED_CAV if mode == "gate.cav" else REPLACES_ALIGNED,
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         "lanes": n, "capT": capT, "levels": len(tbls),
@@ -1722,6 +2201,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--scale3", type=float, default=1.0,
                     help="size of BASELINE config 3 (1.0 = 1M docs, 10M edges)")
+    ap.add_argument("--edges4", type=int, default=10_000_000,
+                    help="edges of BASELINE config 4 (published: 100,000,000)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1749,6 +2230,7 @@ def main() -> int:
     phase_runs_edges(K)
     phase_aligned_vs_plain(K)
     phase_block_edges(K)
+    phase_gate_cav_edges(K)
 
     # ---- the main path: counts from zero, phases 4-7 ------------------
     K.reset_launches()
@@ -1777,22 +2259,26 @@ def main() -> int:
                       name="config3 aligned", want=answers)
         log(f"launches after config3 aligned: {json.dumps(K.LAUNCHES)}")
         del snap, ek, ep, ds
+        phase_config4(K, args.edges4)
+        log(f"launches after config4: {json.dumps(K.LAUNCHES)}")
         phase_overflow(K)
         phase_overflow(K, **ALIGNED)
         log(f"launches after the overflow worlds: {json.dumps(K.LAUNCHES)}")
         phase_client()
         phase_client(**ALIGNED)
+        phase_client_caveats()
+        phase_client_caveats(**ALIGNED)
     launches, lanes = dict(K.LAUNCHES), dict(K.LANES)
     log(f"kernels launches on the main path: {json.dumps(launches)}")
     log(f"kernels lanes on the main path: {json.dumps(lanes)}")
-    want_modes = list(K.MODES) + [f"aligned.{m}" for m in K.ALIGNED_MODES]
+    want_modes = list(K.LAUNCHES)
     missing = [m for m in want_modes if launches[m] < 1]
     if missing:
         raise AssertionError(f"modes never launched on the main path: {missing}")
 
     # ---- per-mode timing at the largest main-path shape ----------------
     table = []
-    for mode in K.MODES:
+    for mode in K.MODES + (K.GATE_CAV,):
         row = time_mode(K, mode, *cap.best[mode][1:], card)
         if mode == "runs":
             deep = time_mode(K, mode, *cap.best["runs.deep"][1:], card)
@@ -1802,7 +2288,7 @@ def main() -> int:
         row["launches"] = launches[mode]
         row["lanes_total"] = lanes[mode]
         table.append(row)
-    for mode in K.ALIGNED_MODES:
+    for mode in K.ALIGNED_MODES + (K.GATE_CAV,):
         row = time_aligned(K, mode, *cap.best[f"aligned.{mode}"][1:], card)
         deep = time_aligned(K, mode, *cap.best[f"aligned.{mode}.deep"][1:], card)
         row["deep_levels"] = {k: deep[k] for k in (

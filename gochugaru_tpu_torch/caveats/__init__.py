@@ -6,7 +6,8 @@ values take precedence).  The reference treats caveats as first-class in its
 data model (rel/relationship.go:35-37,174-188); evaluation happens
 server-side.  Here ``compile_cel`` parses a supported CEL subset once at
 schema-write time; the host evaluator backs the oracle, and the same program
-lowers to the device caveat VM for on-device predicate evaluation.
+lowers to the device caveat VM (``device.py``) for on-device predicate
+evaluation.
 """
 
 from .cel import (
@@ -16,5 +17,16 @@ from .cel import (
     UNKNOWN,
     compile_cel,
 )
+from .device import (
+    CaveatDevicePlan,
+    ContextTable,
+    build_caveat_plan,
+    encode_contexts,
+    make_tri_fn,
+)
 
-__all__ = ["compile_cel", "CelProgram", "CelCompileError", "CelType", "UNKNOWN"]
+__all__ = [
+    "compile_cel", "CelProgram", "CelCompileError", "CelType", "UNKNOWN",
+    "CaveatDevicePlan", "ContextTable", "build_caveat_plan",
+    "encode_contexts", "make_tri_fn",
+]

@@ -21,6 +21,13 @@
 // Bool outputs are uint8.  Row addressing is int64 (rows * lanes passes
 // 2^31 on large tables).
 //
+// Mode gate's caveat lanes (pallas.py:286, :355-359): on a caveated table
+// the gate also returns, per slot, the row's caveat id (0 on a miss) in
+// out2 and its stored-context index (-1 on a miss) in out3, int32 planes
+// beside the hit/live bytes that the CEL tri-state VM evaluates.  The
+// planes are a template parameter (0, 1 or 2): a gate without them is the
+// same code as before they existed.
+//
 // Mode block (pallas.py:246, the same kernel's block tail) is bound by
 // bytes and dominated by its OUTPUT: a lane's decoded [cap, W] int32 block
 // is several times the rows and offset it reads (cap 8, W 3: 96 bytes out
@@ -84,6 +91,8 @@ struct ProbeArgs {
   const int32_t* dicts;  // [ndict, 256] dictionary values, last one repeated
   void* out0;
   void* out1;
+  int32_t* out2;         // gate: [B, cap] caveat ids, or null (no cav lane)
+  int32_t* out3;         // gate: [B, cap] context indices, or null
   int nq;
   int ashift;
   int packed;            // tbl holds uint16 lanes decoded through fields
@@ -92,11 +101,13 @@ struct ProbeArgs {
   int W;                 // logical columns
   int now;
   int lay_exp;           // gate: expiry column, -1 = no expiry gate
+  int lay_cav;           // gate: caveat-id column (out2), -1 = none
+  int lay_ctx;           // gate: context-index column (out3), -1 = none
   int tile_slots;        // block: slots a CTA (kernels.block_tile)
 };
 }
 
-template <int MODE>
+template <int MODE, int PLANES = 0>
 __global__ void fused_probe_kernel(const ProbeArgs a) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= a.B) return;
@@ -119,6 +130,7 @@ __global__ void fused_probe_kernel(const ProbeArgs a) {
   const bool guard = (q0 >= 0) && (a.nq < 2 || q1 >= 0);
 
   bool acc0 = false, acc1 = false;
+  const GochugaruGatePlanes gp = {a.out2, a.out3, a.lay_cav, a.lay_ctx};
   int32_t cols[GOCHUGARU_MAXW];
   for (int j = 0; j < a.cap; ++j) {
     const long long row = s + j;
@@ -130,8 +142,9 @@ __global__ void fused_probe_kernel(const ProbeArgs a) {
       for (int c = 0; c < a.W; ++c) cols[c] = r[c];
     }
     const bool hit = guard && cols[0] == q0 && (a.nq < 2 || cols[1] == q1);
-    gochugaru_slot_tail<MODE>(cols, hit, a.W, a.now, a.lay_exp, i * a.cap + j,
-                              a.out0, a.out1, acc0, acc1);
+    gochugaru_slot_tail<MODE, PLANES>(cols, hit, a.W, a.now, a.lay_exp,
+                                      i * a.cap + j, a.out0, a.out1, acc0,
+                                      acc1, gp);
   }
   gochugaru_lane_tail<MODE>(i, a.out0, a.out1, acc0, acc1);
 }
@@ -245,7 +258,18 @@ extern "C" int gochugaru_fused_probe(int mode, const ProbeArgs* args,
       fused_probe_kernel<MODE_UNTIL2><<<grid, threads, 0, st>>>(a);
       break;
     case MODE_GATE:
-      fused_probe_kernel<MODE_GATE><<<grid, threads, 0, st>>>(a);
+      if (a.out3 != nullptr && a.out2 == nullptr) return (int)cudaErrorInvalidValue;
+      if (a.out2 != nullptr && (a.lay_cav < 0 || a.lay_cav >= a.W))
+        return (int)cudaErrorInvalidValue;
+      if (a.out3 != nullptr && (a.lay_ctx < 0 || a.lay_ctx >= a.W))
+        return (int)cudaErrorInvalidValue;
+      if (a.out3 != nullptr) {
+        fused_probe_kernel<MODE_GATE, 2><<<grid, threads, 0, st>>>(a);
+      } else if (a.out2 != nullptr) {
+        fused_probe_kernel<MODE_GATE, 1><<<grid, threads, 0, st>>>(a);
+      } else {
+        fused_probe_kernel<MODE_GATE><<<grid, threads, 0, st>>>(a);
+      }
       break;
     case MODE_RUNS:
       if (a.nq != 1) return (int)cudaErrorInvalidValue;

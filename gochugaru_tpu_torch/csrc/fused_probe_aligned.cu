@@ -51,7 +51,10 @@
 // the expiry applied only on a hit -- storing its two flags at the slot's
 // flat index, neighbouring threads on neighbouring bytes.  Its time goes
 // to the tile's launch, phase A and the slot walk more than to bytes
-// (probe_common.cuh, PERF.md).
+// (probe_common.cuh, PERF.md).  On caveated tables (pallas.py:479,
+// :551-555) each slot also stores the row's caveat id and stored-context
+// index (0 and -1 on a miss) as int32 planes out2 / out3, beside its
+// flags.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -75,6 +78,8 @@ struct AlignedArgs {
   const int32_t* dicts;   // [ndict, 256] dictionary values, or null
   void* out0;
   void* out1;
+  int32_t* out2;          // gate: [B, capT] caveat ids, or null (no cav lane)
+  int32_t* out3;          // gate: [B, capT] context indices, or null
   int nq;
   int L;                  // levels
   int packed;             // levels hold uint16 lanes decoded through fields
@@ -83,6 +88,8 @@ struct AlignedArgs {
   int W;                  // logical columns
   int now;
   int lay_exp;            // gate: expiry column, -1 = no expiry gate
+  int lay_cav;            // gate: caveat-id column (out2), -1 = none
+  int lay_ctx;            // gate: context-index column (out3), -1 = none
   int tile_slots;         // block/gate: slots a CTA (kernels.block_tile,
                           // kernels.gate_tile)
   AlignedLevel lv[GOCHUGARU_MAXL];
@@ -141,8 +148,9 @@ struct AlignedLanes {
   }
 };
 
-// Modes block and gate: the slot tile over one segment a level.
-template <int MODE>
+// Modes block and gate (the gate with PLANES int32 planes): the slot tile
+// over one segment a level.
+template <int MODE, int PLANES = 0>
 static int launch_tile(const AlignedArgs& a, cudaStream_t st) {
   GochugaruTile t = {};
   int first = 0;
@@ -169,8 +177,10 @@ static int launch_tile(const AlignedArgs& a, cudaStream_t st) {
   t.nq = a.nq;
   t.now = a.now;
   t.lay_exp = a.lay_exp;
+  t.planes = GochugaruGatePlanes{a.out2, a.out3, a.lay_cav, a.lay_ctx};
   t.B = a.B;
-  return gochugaru_launch_slot_tile<MODE>(t, AlignedLanes{a}, st);
+  return gochugaru_launch_slot_tile<MODE, AlignedLanes, PLANES>(
+      t, AlignedLanes{a}, st);
 }
 
 extern "C" int gochugaru_fused_probe_aligned(int mode, const AlignedArgs* args,
@@ -186,6 +196,9 @@ extern "C" int gochugaru_fused_probe_aligned(int mode, const AlignedArgs* args,
     case MODE_BLOCK:
       return launch_tile<MODE_BLOCK>(a, st);
     case MODE_GATE:
+      if (a.out3 != nullptr && a.out2 == nullptr) return (int)cudaErrorInvalidValue;
+      if (a.out3 != nullptr) return launch_tile<MODE_GATE, 2>(a, st);
+      if (a.out2 != nullptr) return launch_tile<MODE_GATE, 1>(a, st);
       return launch_tile<MODE_GATE>(a, st);
     case MODE_ANY:
       fused_probe_aligned_kernel<MODE_ANY><<<grid, threads, 0, st>>>(a);

@@ -87,16 +87,29 @@ __device__ __forceinline__ int32_t gochugaru_decode_col(const uint16_t* r,
   return (int32_t)col;
 }
 
+// The gate's optional int32 planes (pallas.py:355-359): PLANES 0 writes
+// hit and live only; 1 adds the caveat-id plane (the row's cav column on
+// a hit, 0 on a miss); 2 adds the stored-context plane too (its ctx
+// column on a hit, -1 on a miss).  A template parameter, so a gate
+// without caveats compiles to the code it had before the planes existed.
+struct GochugaruGatePlanes {
+  int32_t* cav;  // [B, cap] or null (PLANES 0)
+  int32_t* ctx;  // [B, cap] or null (PLANES < 2)
+  int lay_cav;   // logical column of the caveat id
+  int lay_ctx;   // logical column of the context index
+};
+
 // One decoded candidate slot through a reduced mode's tail.  ``slot`` is
 // the lane's flat output slot (lane * cap + j); gate writes its hit and
-// live flags (live: no expiry column, or expiry 0 or past ``now``), any /
-// until2 fold into the lane's accumulators.  (Block mode, and the
-// aligned kernel's gate, are the slot tile below; fused_probe.cu's gate
-// runs this tail.)
-template <int MODE>
+// live flags (live: no expiry column, or expiry 0 or past ``now``) and
+// its PLANES int32 planes, any / until2 fold into the lane's
+// accumulators.  (Block mode, and the aligned kernel's gate, are the slot
+// tile below; fused_probe.cu's gate runs this tail.)
+template <int MODE, int PLANES = 0>
 __device__ __forceinline__ void gochugaru_slot_tail(
     const int32_t* cols, bool hit, int W, int now, int lay_exp,
-    long long slot, void* out0, void* out1, bool& acc0, bool& acc1) {
+    long long slot, void* out0, void* out1, bool& acc0, bool& acc1,
+    const GochugaruGatePlanes& gp = GochugaruGatePlanes{}) {
   if (MODE == MODE_ANY) {
     acc0 |= hit;
   } else if (MODE == MODE_UNTIL2) {
@@ -110,6 +123,8 @@ __device__ __forceinline__ void gochugaru_slot_tail(
     }
     ((uint8_t*)out0)[slot] = hit;
     ((uint8_t*)out1)[slot] = live;
+    if (PLANES > 0) gp.cav[slot] = hit ? cols[gp.lay_cav] : 0;
+    if (PLANES > 1) gp.ctx[slot] = hit ? cols[gp.lay_ctx] : -1;
   }
 }
 
@@ -164,7 +179,10 @@ __device__ __forceinline__ void gochugaru_lane_tail(long long i, void* out0,
 //
 // Mode gate of fused_probe_aligned (pallas.py:444, gate tail) writes two
 // uint8 flags a slot, hit and live: 2 * capT bytes a lane, the most of its
-// bytes, and the rest is one row read a level.  One thread a lane (the
+// bytes, and the rest is one row read a level.  On caveated tables it also
+// writes one or two int32 planes a slot (pallas.py:551-555): the caveat id
+// and the stored-context index on a hit, 0 and -1 on a miss, each at the
+// slot's flat index beside the flags, decoded only on a hit.  One thread a lane (the
 // first kernel) wrote them at a capT-byte stride, so a warp's byte store
 // spanned 32 * capT bytes to write 32, and walked its slots one after
 // another.  Here one thread takes a slot: it reads the lanes its slot
@@ -202,6 +220,7 @@ struct GochugaruTile {
   int32_t* out;                           // block: [B, capT, W]
   uint8_t* hit;                           // gate: [B, capT] hit flags
   uint8_t* live;                          // gate: [B, capT] live flags
+  GochugaruGatePlanes planes;             // gate: the optional int32 planes
   const int32_t* q0;                      // gate: [B] first key column
   const int32_t* q1;                      // gate: [B] second key column or null
   int nq;                                 // gate: key columns (1 or 2)
@@ -311,7 +330,10 @@ __device__ __forceinline__ void gochugaru_block_slots(const GochugaruTile& t,
     __stcs(out + e, tile[e]);
 }
 
-// Phase B of aligned mode gate: one thread a slot, its hit and live flags.
+// Phase B of aligned mode gate: one thread a slot, its hit and live flags,
+// and on a hit its PLANES caveat / context columns (each decoded alone
+// along its delta chain: no cols[] array).
+template <int PLANES>
 __device__ __forceinline__ void gochugaru_gate_slots(const GochugaruTile& t,
                                                      const long long* seg_off,
                                                      const int32_t* keys,
@@ -334,6 +356,7 @@ __device__ __forceinline__ void gochugaru_gate_slots(const GochugaruTile& t,
   for (int p = threadIdx.x; p < n; p += blockDim.x, c.next()) {
     const int2 q = ((const int2*)keys)[c.k];
     bool hit = false, live = false;
+    int32_t cav = 0, ctx = -1;
     if (q.x >= 0 && (t.nq < 2 || q.y >= 0)) {
       const void* tbl;
       const long long at = gochugaru_slot_at(t, seg_off, c.k, c.j, tbl);
@@ -368,13 +391,28 @@ __device__ __forceinline__ void gochugaru_gate_slots(const GochugaruTile& t,
       // compare with the unsalted keys; the expiry gate on a hit
       hit = (int32_t)c0 == q.x && (t.nq < 2 || (int32_t)c1 == q.y);
       live = hit && (!gate || (int32_t)e == 0 || (int32_t)e > t.now);
+      if (PLANES > 0 && hit) {
+        const GochugaruGatePlanes& gp = t.planes;
+        if (t.packed) {
+          const uint16_t* r = (const uint16_t*)tbl + at;
+          cav = gochugaru_decode_col(r, gp.lay_cav, t.fields, t.dicts);
+          if (PLANES > 1)
+            ctx = gochugaru_decode_col(r, gp.lay_ctx, t.fields, t.dicts);
+        } else {
+          const int32_t* r = (const int32_t*)tbl + at;
+          cav = r[gp.lay_cav];
+          if (PLANES > 1) ctx = r[gp.lay_ctx];
+        }
+      }
     }
+    if (PLANES > 0) t.planes.cav[g0 + p] = cav;
+    if (PLANES > 1) t.planes.ctx[g0 + p] = ctx;
     t.hit[g0 + p] = hit;
     t.live[g0 + p] = live;
   }
 }
 
-template <int MODE, class Lanes>
+template <int MODE, class Lanes, int PLANES>
 __global__ void __launch_bounds__(GOCHUGARU_TILE_THREADS)
 gochugaru_slot_tile_kernel(const GochugaruTile t, const Lanes lanes) {
   extern __shared__ int4 gochugaru_smem[];
@@ -404,13 +442,14 @@ gochugaru_slot_tile_kernel(const GochugaruTile t, const Lanes lanes) {
   if (MODE == MODE_BLOCK) {
     gochugaru_block_slots(t, seg_off, tile, g0, n, j0);
   } else {
-    gochugaru_gate_slots(t, seg_off, keys, g0, n, j0);
+    gochugaru_gate_slots<PLANES>(t, seg_off, keys, g0, n, j0);
   }
 }
 
-// Launch the slot tile of MODE (block or gate) over every lane; returns a
-// cudaError_t as int.  Refuses a geometry that does not fit or align.
-template <int MODE, class Lanes>
+// Launch the slot tile of MODE (block or gate, the gate with PLANES int32
+// planes) over every lane; returns a cudaError_t as int.  Refuses a
+// geometry that does not fit or align, and gate planes it cannot write.
+template <int MODE, class Lanes, int PLANES = 0>
 int gochugaru_launch_slot_tile(const GochugaruTile& t, const Lanes& lanes,
                                cudaStream_t st) {
   const int S = t.tile_slots;
@@ -423,17 +462,23 @@ int gochugaru_launch_slot_tile(const GochugaruTile& t, const Lanes& lanes,
   if (MODE == MODE_GATE && (t.nq < 1 || t.nq > 2 || t.W < t.nq ||
                             t.lay_exp >= t.W))
     return (int)cudaErrorInvalidValue;
+  if (PLANES > 0 && (MODE != MODE_GATE || t.planes.cav == nullptr ||
+                     t.planes.lay_cav < 0 || t.planes.lay_cav >= t.W))
+    return (int)cudaErrorInvalidValue;
+  if (PLANES > 1 && (t.planes.ctx == nullptr || t.planes.lay_ctx < 0 ||
+                     t.planes.lay_ctx >= t.W))
+    return (int)cudaErrorInvalidValue;
   const size_t smem = gochugaru_tile_smem<MODE>(S, t.capT, t.W, t.nseg);
   if (smem > GOCHUGARU_SMEM_MAX) return (int)cudaErrorInvalidValue;
   const long long tiles = (t.B * t.capT + S - 1) / S;
   if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        gochugaru_slot_tile_kernel<MODE, Lanes>,
+        gochugaru_slot_tile_kernel<MODE, Lanes, PLANES>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  gochugaru_slot_tile_kernel<MODE, Lanes>
+  gochugaru_slot_tile_kernel<MODE, Lanes, PLANES>
       <<<(unsigned)tiles, GOCHUGARU_TILE_THREADS, smem, st>>>(t, lanes);
   return (int)cudaGetLastError();
 }

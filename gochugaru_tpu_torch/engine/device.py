@@ -6,7 +6,11 @@ Snapshot into device tensors (the host build is engine/flat.py
 ``build_flat_arrays``; one copy to the device), and ``check_columns`` /
 ``check_batch`` run a batch through the flat program, returning the
 (definite, possible, overflow) planes.  Possible-but-not-definite and
-overflow rows are settled by the caller on the host oracle.
+overflow rows are settled by the caller on the host oracle.  A schema
+with caveats gets a ``caveat_plan`` (caveats/device.py): stored contexts
+ship as ``ectx_*`` tables, each batch's request contexts as ``qctx``
+tables, and the flat program resolves device-eligible caveats with the
+CEL tri-state VM.
 
 The engine runs on ``cuda`` unless the caller passes ``device="cpu"``;
 without CUDA the default raises rather than falling back.
@@ -17,11 +21,12 @@ from __future__ import annotations
 import dataclasses
 import time as _time
 from dataclasses import dataclass
-from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..caveats.device import build_caveat_plan, encode_contexts
 from ..rel.relationship import Relationship, WILDCARD_ID
 from ..schema.compiler import CompiledSchema
 from ..store.snapshot import Snapshot
@@ -93,6 +98,9 @@ class DeviceSnapshot:
     #: per packed table, its decode spec as the kernel reads it
     #: (fields, dictionaries), uploaded once here
     specs: Dict[str, Tuple[torch.Tensor, torch.Tensor]]
+    #: string-intern pool for caveat context values (literals + stored
+    #: context strings); query-time strings outside it get negative ids
+    strings: Optional[Dict[str, int]] = None
     #: the store snapshot this one was prepared from, when ``snapshot``
     #: is a derived view of it (None: ``snapshot`` itself).  Lookup
     #: cursors resume against it; the lookup layer caches its frontier
@@ -137,6 +145,13 @@ def arrays_from_reference(
     return arrays, _meta_from(flat_meta)
 
 
+def _pad_rows(a: np.ndarray, n: int) -> np.ndarray:
+    """``a`` with its leading dim padded with zero rows to ``n``."""
+    out = np.zeros((n,) + a.shape[1:], a.dtype)
+    out[: a.shape[0]] = a
+    return out
+
+
 class DeviceEngine:
     """Compiles a schema's plan and runs the flat bulk Check on a torch
     device."""
@@ -167,11 +182,12 @@ class DeviceEngine:
         self.compiled = compiled
         self.plan: DevicePlan = build_plan(compiled)
         self.config = config or EngineConfig()
-        if self.plan.two_plane:
-            raise NotImplementedError(
-                "schemas with caveats need the CEL tri-state VM"
-                " (caveats/device.py), a later slice of the port"
-            )
+        #: the schema's caveat lowering (None without caveats):
+        #: ``caveat_plan.host_only[cid]`` marks a caveat the device
+        #: cannot evaluate, whose rows the host oracle settles
+        self.caveat_plan = (
+            build_caveat_plan(compiled) if self.plan.two_plane else None
+        )
         if not self.config.flat_blockslice:
             raise NotImplementedError(
                 "flat_blockslice=False (the scattered probe_rows path) is a"
@@ -180,6 +196,10 @@ class DeviceEngine:
         self.device = resolve_device(device)
         self.kernels = _resolve_kernels(self.config, self.device)
         self._flat_fns: Dict[Any, Any] = {}
+        #: the context-free query tables (host form and device form),
+        #: built once: most checks carry no request context
+        self._empty_qctx_np: Optional[Dict[str, np.ndarray]] = None
+        self._empty_qctx_dev: Optional[Dict[str, torch.Tensor]] = None
 
     # -- snapshot preparation -------------------------------------------
     def _host_arrays(self, snap: Snapshot) -> Dict[str, np.ndarray]:
@@ -232,12 +252,38 @@ class DeviceEngine:
             "node_type": _pad_payload(snap.node_type, NN, -1),
         }
 
+    def _ectx_tables(
+        self, snap: Snapshot
+    ) -> Tuple[Dict[str, np.ndarray], Optional[Dict[str, int]]]:
+        """Encode stored caveat contexts into padded device tables, and
+        the string pool they were encoded against."""
+        if self.caveat_plan is None:
+            return {}, None
+        strings = dict(self.caveat_plan.base_strings)
+        table = encode_contexts(self.caveat_plan, snap.contexts, strings)
+        # 2x headroom, the reference's: its Watch-driven deltas append
+        # stored contexts in place while the bucket holds
+        NC = _ceil_pow2(2 * max(table.vi.shape[0], 1), 4)
+        return {
+            "ectx_vi": _pad_rows(table.vi, NC),
+            "ectx_vf": _pad_rows(table.vf, NC),
+            "ectx_pr": _pad_rows(table.present, NC),
+            "ectx_host": _pad_rows(table.host, NC),
+        }, strings
+
     def prepare_host(
         self, snap: Snapshot
     ) -> Tuple[Dict[str, np.ndarray], FlatMeta]:
         """The host half of ``prepare``: the device-bound arrays (numpy)
         and the FlatMeta."""
+        arrays, flat_meta, _strings = self._host_build(snap)
+        return arrays, flat_meta
+
+    def _host_build(self, snap: Snapshot):
+        """(device-bound numpy arrays, FlatMeta, caveat string pool)."""
         arrays = self._host_arrays(snap)
+        ectx, strings = self._ectx_tables(snap)
+        arrays.update(ectx)
         built = build_flat_arrays(snap, self.config, plan=self.plan)
         if built is None:
             raise NotImplementedError(
@@ -253,7 +299,7 @@ class DeviceEngine:
             arrays["node_type"] = narrow_nodes(
                 arrays["node_type"], snap.interner.num_types
             )
-        return arrays, flat_meta
+        return arrays, flat_meta, strings
 
     def prepare(
         self, snap: Snapshot, prev: Optional[DeviceSnapshot] = None
@@ -263,16 +309,16 @@ class DeviceEngine:
         signature — incremental delta levels are a later slice)."""
         faults.fire("device.prepare")
         t0 = _time.perf_counter()
-        arrays, flat_meta = self.prepare_host(snap)
+        arrays, flat_meta, strings = self._host_build(snap)
         with metrics.default.timer("prepare.h2d_s"):
             dev_arrays = {
                 k: to_device_tensor(v, self.device) for k, v in arrays.items()
             }
-        ds = self._snapshot(snap, dev_arrays, flat_meta)
+        ds = self._snapshot(snap, dev_arrays, flat_meta, strings)
         metrics.default.observe("prepare.total_s", _time.perf_counter() - t0)
         return ds
 
-    def _snapshot(self, snap, dev_arrays, flat_meta) -> DeviceSnapshot:
+    def _snapshot(self, snap, dev_arrays, flat_meta, strings) -> DeviceSnapshot:
         tid_map = np.full(max(self.plan.num_schema_types, 1), -1, np.int32)
         for tname, tid in self.compiled.type_ids.items():
             tid_map[tid] = snap.interner.type_lookup(tname)
@@ -286,21 +332,28 @@ class DeviceEngine:
             snapshot=snap,
             flat_meta=flat_meta,
             specs=specs,
+            strings=strings,
         )
 
     def snapshot_from_reference(
-        self, snap: Snapshot, np_arrays: Mapping[str, np.ndarray], flat_meta
+        self, snap: Snapshot, np_arrays: Mapping[str, np.ndarray], flat_meta,
+        strings: Optional[Mapping[str, int]] = None,
     ) -> DeviceSnapshot:
         """A DeviceSnapshot over the reference package's prepared arrays
-        (``arrays_from_reference``) — the parity harness's entry."""
+        (``arrays_from_reference``; its ``ectx_*`` context tables
+        included) and its caveat string pool — the parity harness's
+        entry."""
         arrays, meta = arrays_from_reference(np_arrays, flat_meta, self.device)
-        return self._snapshot(snap, arrays, meta)
+        return self._snapshot(snap, arrays, meta,
+                              None if strings is None else dict(strings))
 
     # -- query lowering --------------------------------------------------
     def _lower_queries(
-        self, snap: Snapshot, rels: Sequence[Relationship]
-    ) -> Dict[str, np.ndarray]:
-        """Relationship objects → interned int32 query columns."""
+        self, snap: Snapshot, rels: Sequence[Relationship],
+        strings: Optional[Dict[str, int]] = None,
+    ) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray]]:
+        """Relationship objects → interned int32 query columns, and the
+        encoded request contexts their ``q_ctx`` column indexes."""
         B = len(rels)
         interner = snap.interner
         slot_of = self.compiled.slot_of_name
@@ -310,7 +363,22 @@ class DeviceEngine:
         q_subj = np.full(B, -1, np.int32)
         q_srel = np.full(B, -1, np.int32)
         q_wc = np.full(B, -1, np.int32)
+        q_ctx = np.full(B, -1, np.int32)
         q_self = np.zeros(B, bool)
+        # dedup request contexts (the caveat_context of the query
+        # relationship IS the request context, client/client.go:241-259)
+        ctx_rows: List[Mapping] = []
+        ctx_index: Dict[str, int] = {}
+        if self.caveat_plan is not None:
+            for i, r in enumerate(rels):
+                if r.caveat_context:
+                    key = repr(sorted(r.caveat_context.items(), key=lambda kv: kv[0]))
+                    at = ctx_index.get(key)
+                    if at is None:
+                        at = len(ctx_rows)
+                        ctx_index[key] = at
+                        ctx_rows.append(r.caveat_context)
+                    q_ctx[i] = at
         for i, r in enumerate(rels):
             q_res[i] = interner.lookup(r.resource_type, r.resource_id)
             q_perm[i] = slot_of.get(r.resource_relation, -1)
@@ -332,37 +400,83 @@ class DeviceEngine:
                 and r.subject_relation == r.resource_relation
                 and r.subject_relation != ""
             )
-        return {
+        queries = {
             "q_res": q_res, "q_perm": q_perm, "q_subj": q_subj,
-            "q_srel": q_srel, "q_wc": q_wc,
-            "q_ctx": np.full(B, -1, np.int32), "q_self": q_self,
+            "q_srel": q_srel, "q_wc": q_wc, "q_ctx": q_ctx, "q_self": q_self,
         }
+        return queries, self._encode_query_contexts(ctx_rows, strings)
+
+    def _encode_query_contexts(
+        self, ctx_rows: List[Mapping], strings: Optional[Dict[str, int]]
+    ) -> Dict[str, np.ndarray]:
+        """Encode deduped request contexts into padded qctx tables against
+        the snapshot's string pool (unknown strings get negative ids, equal
+        only to themselves); none without caveats, where the flat program
+        reads no context.  The context-free case returns a per-engine
+        singleton whose device form ``_qctx_device`` caches."""
+        if self.caveat_plan is None:
+            return {}
+        if not ctx_rows and self._empty_qctx_np is not None:
+            return self._empty_qctx_np
+        table = encode_contexts(
+            self.caveat_plan, ctx_rows,
+            strings if strings is not None
+            else dict(self.caveat_plan.base_strings),
+            extra_strings={},
+        )
+        NQ = _ceil_pow2(table.vi.shape[0], 1)
+        out = {
+            "vi": _pad_rows(table.vi, NQ),
+            "vf": _pad_rows(table.vf, NQ),
+            "pr": _pad_rows(table.present, NQ),
+            "host": _pad_rows(table.host, NQ),
+        }
+        if not ctx_rows:
+            self._empty_qctx_np = out
+        return out
+
+    def _qctx_device(self, qctx: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        """The qctx tables on the engine's device (the context-free
+        singleton copied once)."""
+        if qctx is self._empty_qctx_np:
+            if self._empty_qctx_dev is None:
+                self._empty_qctx_dev = {
+                    k: to_device_tensor(v, self.device) for k, v in qctx.items()
+                }
+            return self._empty_qctx_dev
+        return {k: to_device_tensor(v, self.device) for k, v in qctx.items()}
 
     def _columns_preamble(
         self,
+        dsnap: DeviceSnapshot,
         q_res: np.ndarray,
         q_perm: np.ndarray,
         q_subj: np.ndarray,
         q_srel: Optional[np.ndarray] = None,
         q_wc: Optional[np.ndarray] = None,
-    ) -> Dict[str, np.ndarray]:
-        """Optional-column defaulting and the reflexive-self derivation
-        for pre-interned query columns."""
+        q_ctx: Optional[np.ndarray] = None,
+        qctx_rows: Optional[Sequence[Mapping[str, Any]]] = None,
+    ) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray]]:
+        """Optional-column defaulting, query-context encoding and the
+        reflexive-self derivation for pre-interned query columns."""
         B = q_res.shape[0]
         if q_srel is None:
             q_srel = np.full(B, -1, np.int32)
         if q_wc is None:
             q_wc = np.full(B, -1, np.int32)
+        if q_ctx is None:
+            q_ctx = np.full(B, -1, np.int32)
+        qctx = self._encode_query_contexts(list(qctx_rows or []), dsnap.strings)
         return {
             "q_res": np.ascontiguousarray(q_res, np.int32),
             "q_perm": np.ascontiguousarray(q_perm, np.int32),
             "q_subj": np.ascontiguousarray(q_subj, np.int32),
             "q_srel": np.ascontiguousarray(q_srel, np.int32),
             "q_wc": np.ascontiguousarray(q_wc, np.int32),
-            "q_ctx": np.full(B, -1, np.int32),
+            "q_ctx": np.ascontiguousarray(q_ctx, np.int32),
             # reflexive userset identity (a userset is a member of itself)
             "q_self": (q_res == q_subj) & (q_srel >= 0) & (q_perm == q_srel),
-        }
+        }, qctx
 
     # -- the flat program ------------------------------------------------
     def _flat_fn_for(self, slots: Tuple[int, ...], meta: FlatMeta):
@@ -371,7 +485,7 @@ class DeviceEngine:
         if fn is None:
             fn = make_flat_fn(
                 self.compiled, self.plan, self.config, meta, slots,
-                kernels=self.kernels,
+                kernels=self.kernels, caveat_plan=self.caveat_plan,
             )
             while len(self._flat_fns) >= self.FLAT_FN_CACHE_MAX:
                 self._flat_fns.pop(next(iter(self._flat_fns)))
@@ -382,6 +496,7 @@ class DeviceEngine:
         self,
         dsnap: DeviceSnapshot,
         queries: Dict[str, np.ndarray],
+        qctx: Dict[str, np.ndarray],
         now: int,
         B: int,
         bucket_min: int = 0,
@@ -402,12 +517,14 @@ class DeviceEngine:
         qm = torch.from_numpy(build_qm(queries, BP, dsnap.flat_meta)).to(
             self.device
         )
-        return fn, (dsnap.arrays, dsnap.tid_map, int(now), qm, dsnap.specs)
+        return fn, (dsnap.arrays, dsnap.tid_map, int(now), qm,
+                    self._qctx_device(qctx), dsnap.specs)
 
-    def _run(self, dsnap, queries, now_us, B, bucket_min: int = 0):
+    def _run(self, dsnap, queries, qctx, now_us, B, bucket_min: int = 0):
         faults.fire("device.dispatch")
         now = dsnap.snapshot.now_rel32(now_us)
-        fn, args = self.flat_fn_and_args(dsnap, queries, now, B, bucket_min)
+        fn, args = self.flat_fn_and_args(dsnap, queries, qctx, now, B,
+                                         bucket_min)
         with torch.no_grad():
             d, p, ovf = fn(*args)
         # one device→host copy for the three planes
@@ -424,19 +541,23 @@ class DeviceEngine:
         *,
         q_srel: Optional[np.ndarray] = None,
         q_wc: Optional[np.ndarray] = None,
+        q_ctx: Optional[np.ndarray] = None,
+        qctx_rows: Optional[Sequence[Mapping[str, Any]]] = None,
         now_us: Optional[int] = None,
         bucket_min: int = 0,
     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Bulk check straight from pre-interned int32 columns; returns
         (definite, possible, overflow) bool arrays of the batch length.
-        ``bucket_min`` raises the batch's pow2 padding floor (the lookup
-        exact filter pads to one coarse bucket)."""
+        ``q_ctx`` indexes each query's request context in ``qctx_rows``
+        (-1: none).  ``bucket_min`` raises the batch's pow2 padding floor
+        (the lookup exact filter pads to one coarse bucket)."""
         B = q_res.shape[0]
         if B == 0:
             z = np.zeros(0, bool)
             return z, z, z
-        queries = self._columns_preamble(q_res, q_perm, q_subj, q_srel, q_wc)
-        return self._run(dsnap, queries, now_us, B, bucket_min)
+        queries, qctx = self._columns_preamble(
+            dsnap, q_res, q_perm, q_subj, q_srel, q_wc, q_ctx, qctx_rows)
+        return self._run(dsnap, queries, qctx, now_us, B, bucket_min)
 
     def check_batch(
         self,
@@ -451,5 +572,5 @@ class DeviceEngine:
         if not rels:
             z = np.zeros(0, bool)
             return z, z, z
-        queries = self._lower_queries(dsnap.snapshot, rels)
-        return self._run(dsnap, queries, now_us, len(rels))
+        queries, qctx = self._lower_queries(dsnap.snapshot, rels, dsnap.strings)
+        return self._run(dsnap, queries, qctx, now_us, len(rels))

@@ -44,6 +44,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..caveats.device import make_tri_fn
 from ..schema.compiler import CompiledSchema
 import torch
 
@@ -1559,24 +1560,30 @@ def make_flat_fn(
     meta: FlatMeta,
     slots: Tuple[int, ...],
     kernels: bool = False,
+    caveat_plan=None,
 ):
     """Build the batched flat check function for a static set of permission
     slots.  Queries select their slot's result with a vectorized compare —
     evaluating ≤ flat_max_slots programs over the whole batch is far
     cheaper than any per-query dispatch.
 
-    The returned ``fn(arrs, tid_map, now, qm, specs)`` runs eagerly on the
-    device of its tensors and returns bool (definite, possible, overflow)
-    planes of the padded batch.  Every bucket probe goes through ONE seam,
-    ``psite``, into ``kernels.fused_probe`` (or ``fused_probe_aligned``
-    for a bucket-aligned table): the hand-written CUDA kernel when
-    ``kernels`` is True, else its plain PyTorch twin.  Both compute the
-    reference's gather chain bit for bit, so the planes do not depend on
-    the switch.
+    The returned ``fn(arrs, tid_map, now, qm, qctx, specs)`` runs eagerly on
+    the device of its tensors and returns bool (definite, possible,
+    overflow) planes of the padded batch.  ``qctx`` holds the batch's
+    encoded request contexts (``vi``/``vf``/``pr``/``host``), which row 5
+    of ``qm`` indexes; with ``caveat_plan`` a caveated row's gate runs the
+    CEL tri-state VM (caveats/device.py ``make_tri_fn``) on its caveat id,
+    its stored context (``ectx_*`` arrays) and the query's context:
+    TRUE grants both planes, UNKNOWN only the possible one.  Every bucket
+    probe goes through ONE seam, ``psite``, into ``kernels.fused_probe``
+    (or ``fused_probe_aligned`` for a bucket-aligned table): the
+    hand-written CUDA kernel when ``kernels`` is True, else its plain
+    PyTorch twin.  Both compute the reference's gather chain bit for bit,
+    so the planes do not depend on the switch.
 
     Covered: the single-chip blockslice layout without a delta level or
-    witness plane, on schemas without caveats; anything else raises
-    NotImplementedError naming what is missing."""
+    witness plane; anything else raises NotImplementedError naming what
+    is missing."""
     if meta.sharded or meta.part_serve:
         raise NotImplementedError("sharded check kernels are not ported yet")
     if meta.delta is not None:
@@ -1585,11 +1592,7 @@ def make_flat_fn(
         raise NotImplementedError(
             "the scattered (non-blockslice) layout is not ported yet"
         )
-    if plan.two_plane:
-        raise NotImplementedError(
-            "caveated schemas need the CEL tri-state VM, not ported yet"
-        )
-
+    tri = make_tri_fn(caveat_plan) if caveat_plan is not None else None
     perm_programs: Dict[int, List[Tuple[str, int, ExprIR]]] = {}
     for (tname, tid, slot, expr) in plan.topo_programs:
         perm_programs.setdefault(slot, []).append((tname, tid, expr))
@@ -1662,14 +1665,23 @@ def make_flat_fn(
     S1c = meta.S1
     ar_bound = meta.ar_data_depth
 
-    def fn(arrs, tid_map, now: int, qm, specs):
+    def fn(arrs, tid_map, now: int, qm, qctx, specs):
         dev = qm.device
         # packed query matrix int32[8, B] (QM_LAYOUT); rows 3 and 7
         # arrive DENSE-mapped (build_qm)
         q_res, q_perm, q_subj = qm[0], qm[1], qm[2]
-        q_srel1, q_wc = qm[3], qm[4]
+        q_srel1, q_wc, q_ctx = qm[3], qm[4], qm[5]
         q_self = qm[6] != 0
         q_perm_k1 = qm[7]
+        if tri is not None:
+            tables = {
+                "ectx_vi": arrs["ectx_vi"], "ectx_vf": arrs["ectx_vf"],
+                "ectx_pr": arrs["ectx_pr"], "ectx_host": arrs["ectx_host"],
+                "qctx_vi": qctx["vi"], "qctx_vf": qctx["vf"],
+                "qctx_pr": qctx["pr"], "qctx_host": qctx["host"],
+            }
+        else:
+            tables = None
         node_type = arrs["node_type"]
         # ids interned AFTER this snapshot exceed the packing radix: treat
         # them as invalid (-1) — they have no edges at this revision
@@ -1714,21 +1726,39 @@ def make_flat_fn(
             """slice_blocks through the packed decode."""
             return _dec(tbl_key, slice_blocks(arrs[tbl_key], lo, cap))
 
+        def tri_planes(live, cav, ctxc):
+            """(definite, possible) of live caveated rows: caveat 0
+            grants both; else the tri VM on the caveat id, the stored
+            context and the query's context (stored wins) — TRUE both,
+            UNKNOWN possible only.  (Caveated rows exist only in schemas
+            that declare caveats, whose engine passes ``caveat_plan``.)"""
+            qb = bq(q_ctx, cav.dim()).expand(cav.shape)
+            t = tri(cav, ctxc, qb, tables)
+            return live & (t == 2), live & (t >= 1)
+
         def gate2_blk(prefix: str, blk, lay: Dict[str, int], hit):
-            """(definite, possible) admissibility of an interleaved
-            block's hit rows from its payload expiry column (schemas
-            here carry no caveats, so both planes agree)."""
+            """gate2 over an interleaved block's payload columns: the gate
+            values ride in the SAME contiguous slice as the keys, so no
+            second gather happens.  Padded/overshoot rows are neutralized
+            through ``hit`` (their gate inputs are clamped first — they
+            may hold -1 or a neighbouring bucket's payloads)."""
             hascav, hasexp = _view_flags[prefix]
-            if hascav:
-                raise NotImplementedError("caveated rows are not ported yet")
-            if not hasexp:
+            if not hascav and not hasexp:
                 return hit, hit
-            exp = torch.where(hit, blk[..., lay["exp"]], 0)
-            live = hit & ((exp == 0) | (exp > now))
-            return live, live
+            live = hit
+            if hasexp:
+                exp = torch.where(hit, blk[..., lay["exp"]], 0)
+                live = hit & ((exp == 0) | (exp > now))
+            if not hascav:
+                return live, live
+            cav = torch.where(hit, blk[..., lay["cav"]], 0)
+            ctxc = torch.where(hit, blk[..., lay["ctx"]], -1)
+            return tri_planes(live, cav, ctxc)
 
         def psite(off_key: str, tbl_key: str, cap: int, q_cols,
-                  mode: str = "block", exp_lane: Optional[int] = None):
+                  mode: str = "block", exp_lane: Optional[int] = None,
+                  cav_lane: Optional[int] = None,
+                  ctx_lane: Optional[int] = None):
             """THE seam between every bucket probe and the fused probe
             kernels (or their plain twins, by the engine's kernel
             switch): bucket-ALIGNED tables (listed in ``meta.aligned``)
@@ -1743,7 +1773,8 @@ def make_flat_fn(
                     q_cols, aligned_levels(arrs, tbl_key, caps), caps,
                     w_ if spec is None else spec[1], spec=spec,
                     spec_dev=specs.get(tbl_key), mode=mode, now=now,
-                    exp_lane=exp_lane, plain=not kernels,
+                    exp_lane=exp_lane, cav_lane=cav_lane, ctx_lane=ctx_lane,
+                    plain=not kernels,
                 )
             A = PKO.get(off_key)
             return _K.fused_probe(
@@ -1751,7 +1782,7 @@ def make_flat_fn(
                 spec=PK.get(tbl_key), spec_dev=specs.get(tbl_key),
                 off_a=arrs[off_key + "_a"] if A is not None else None,
                 ashift=A, mode=mode, now=now, exp_lane=exp_lane,
-                plain=not kernels,
+                cav_lane=cav_lane, ctx_lane=ctx_lane, plain=not kernels,
             )
 
         def pblock(off_key: str, tbl_key: str, cap: int, q_cols):
@@ -1877,12 +1908,13 @@ def make_flat_fn(
                     if meta.pf_hasuntil:
                         u = torch.where(hit, blk[..., pfL["until"]], 0)
                         live = hit & (u > now)
-                    if meta.pf_hascav:
-                        raise NotImplementedError(
-                            "caveated rows are not ported yet"
-                        )
-                    h = live.any(dim=-1)
-                    return h, h
+                    if not meta.pf_hascav:
+                        hd = hp = live
+                    else:
+                        cav = torch.where(live, blk[..., pfL["cav"]], 0)
+                        ctxc = torch.where(live, blk[..., pfL["ctx"]], -1)
+                        hd, hp = tri_planes(live, cav, ctxc)
+                    return hd.any(dim=-1), hp.any(dim=-1)
 
                 ed, ep = pe_site(bq(q_k2, nd))
                 d, p = d | ed, p | ep
@@ -1947,19 +1979,26 @@ def make_flat_fn(
 
             run_e = dyn_e if dyn else (slot in meta.e_slots)
             if run_e:
-                if meta.e_hascav:
-                    raise NotImplementedError("caveated rows are not ported yet")
-
                 def e_site(k2q):
-                    """Direct-edge test: expiry gate fused in the probe."""
-                    _hit, live = psite(
+                    """Direct-edge test: the expiry gate fused in the
+                    probe, which also returns the caveat-id and context
+                    planes of a caveated table for the tri VM."""
+                    pg = psite(
                         "eh_off", "ehx", meta.e_cap, (k1, k2q), mode="gate",
                         exp_lane=eL["exp"] if meta.e_hasexp else None,
+                        cav_lane=eL["cav"] if meta.e_hascav else None,
+                        ctx_lane=eL["ctx"] if meta.e_hascav else None,
                     )
-                    # exists is lane-constant: ANDing it after the probe's
-                    # hit/live masks commutes with the per-row gate
-                    h = (live & exists.unsqueeze(-1)).any(dim=-1)
-                    return h, h
+                    # exists is lane-constant: ANDing it after the kernel's
+                    # hit/live masks commutes (dead lanes' cav/ctx feed
+                    # tri but live kills them), so parity with gate2_blk
+                    # is exact
+                    live = pg[1] & exists.unsqueeze(-1)
+                    if not meta.e_hascav:
+                        bd = bp = live
+                    else:
+                        bd, bp = tri_planes(live, pg[2], pg[3])
+                    return bd.any(dim=-1), bp.any(dim=-1)
 
                 d, p = e_site(bq(q_k2, nd))
                 if meta.has_wc_edges:

@@ -12,8 +12,10 @@ fallback.  ``LAUNCHES`` counts kernel launches per mode (never plain
 calls) — ``MODES`` for fused_probe, ``aligned.<mode>`` for each of
 ``ALIGNED_MODES`` — so a run can show that its main path went through
 the kernels, and ``LANES`` the query lanes (keys for ``runs``) those
-launches processed.  Mode ``block`` of both kernels and mode ``gate`` of
-``fused_probe_aligned`` run one slot-tile routine
+launches processed.  A gate with the caveat lanes (``cav_lane``, and
+``ctx_lane`` beside it) counts under its own key, ``gate.cav`` /
+``aligned.gate.cav``.  Mode ``block`` of both kernels and mode ``gate``
+of ``fused_probe_aligned`` run one slot-tile routine
 (``csrc/probe_common.cuh``) whose launch geometry ``block_tile`` and
 ``gate_tile`` pick here.
 """
@@ -27,17 +29,21 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 from .plain import (
-    blk_hit, field0_spec, fused_probe_aligned_plain, fused_probe_plain,
+    blk_hit, check_planes, field0_spec, fused_probe_aligned_plain,
+    fused_probe_plain,
 )
 
 __all__ = [
-    "ALIGNED_MODES", "LANES", "LAUNCHES", "MODES", "blk_hit", "block_tile",
-    "fused_probe", "fused_probe_aligned", "fused_probe_aligned_plain",
-    "fused_probe_plain", "gate_tile", "reset_launches", "spec_tensors",
+    "ALIGNED_MODES", "GATE_CAV", "LANES", "LAUNCHES", "MODES", "blk_hit",
+    "block_tile", "fused_probe", "fused_probe_aligned",
+    "fused_probe_aligned_plain", "fused_probe_plain", "gate_tile",
+    "reset_launches", "spec_tensors",
 ]
 
 MODES = ("block", "any", "until2", "gate", "runs")
 ALIGNED_MODES = ("block", "any", "until2", "gate")
+#: the launch-count key of a gate that returns the caveat planes
+GATE_CAV = "gate.cav"
 _MODE_ID = {m: i for i, m in enumerate(MODES)}
 MAXW = 16
 MAXL = 8
@@ -51,9 +57,11 @@ SMEM_MAX = 232_448
 #: thread a round; chip_smoke.py times 1024-4096, PERF.md)
 GATE_SLOTS = 2048
 #: kernel launches per mode since the last reset_launches(): fused_probe
-#: under its mode, fused_probe_aligned under ``aligned.<mode>``
+#: under its mode, fused_probe_aligned under ``aligned.<mode>``, a gate
+#: with the caveat planes under ``GATE_CAV`` (``aligned.`` + GATE_CAV)
 LAUNCHES: Dict[str, int] = {
-    **{m: 0 for m in MODES}, **{f"aligned.{m}": 0 for m in ALIGNED_MODES},
+    **{m: 0 for m in MODES + (GATE_CAV,)},
+    **{f"aligned.{m}": 0 for m in ALIGNED_MODES + (GATE_CAV,)},
 }
 #: query lanes (keys for ``runs``) those launches processed, by the same keys
 LANES: Dict[str, int] = dict.fromkeys(LAUNCHES, 0)
@@ -80,10 +88,12 @@ class _Args(ctypes.Structure):
         ("tbl", ctypes.c_void_p), ("rows", ctypes.c_longlong),
         ("fields", ctypes.c_void_p), ("dicts", ctypes.c_void_p),
         ("out0", ctypes.c_void_p), ("out1", ctypes.c_void_p),
+        ("out2", ctypes.c_void_p), ("out3", ctypes.c_void_p),
         ("nq", ctypes.c_int), ("ashift", ctypes.c_int),
         ("packed", ctypes.c_int), ("w_raw", ctypes.c_int),
         ("cap", ctypes.c_int), ("W", ctypes.c_int),
         ("now", ctypes.c_int), ("lay_exp", ctypes.c_int),
+        ("lay_cav", ctypes.c_int), ("lay_ctx", ctypes.c_int),
         ("tile_slots", ctypes.c_int),
     ]
 
@@ -104,10 +114,12 @@ class _AlignedArgs(ctypes.Structure):
         ("B", ctypes.c_longlong),
         ("fields", ctypes.c_void_p), ("dicts", ctypes.c_void_p),
         ("out0", ctypes.c_void_p), ("out1", ctypes.c_void_p),
+        ("out2", ctypes.c_void_p), ("out3", ctypes.c_void_p),
         ("nq", ctypes.c_int), ("L", ctypes.c_int),
         ("packed", ctypes.c_int), ("sw", ctypes.c_int),
         ("capT", ctypes.c_int), ("W", ctypes.c_int),
         ("now", ctypes.c_int), ("lay_exp", ctypes.c_int),
+        ("lay_cav", ctypes.c_int), ("lay_ctx", ctypes.c_int),
         ("tile_slots", ctypes.c_int),
         ("lv", _Level * MAXL),
     ]
@@ -221,6 +233,8 @@ def fused_probe(
     mode: str = "block",
     now: Optional[int] = None,
     exp_lane: Optional[int] = None,
+    cav_lane: Optional[int] = None,
+    ctx_lane: Optional[int] = None,
     plain: bool = False,
 ):
     """One fused bucket probe over the off+interleave layout.
@@ -235,7 +249,10 @@ def fused_probe(
     - ``any``    bool[...] any exact-key hit
     - ``until2`` (bool[...], bool[...]): hit with column 2 / 3 > ``now``
     - ``gate``   (hit, live) bool[..., cap]: live = hit whose expiry
-      column ``exp_lane`` is 0 or > ``now`` (no gate when None)
+      column ``exp_lane`` is 0 or > ``now`` (no gate when None); with
+      ``cav_lane`` also int32[..., cap] the caveat-id column on a hit (0
+      on a miss), and with ``ctx_lane`` beside it the stored-context
+      column on a hit (-1 on a miss)
     - ``runs``   (lo, ln) int32[...]: one key column; the key's run of
       rows in its bucket, found by two bisects over column 0 (rows sorted
       by column 0 within each bucket, ``cap`` the max bucket occupancy);
@@ -244,7 +261,8 @@ def fused_probe(
     if plain or tbl.device.type == "cpu":
         return fused_probe_plain(
             q_cols, off, tbl, cap=cap, spec=spec, off_a=off_a, ashift=ashift,
-            mode=mode, now=now, exp_lane=exp_lane,
+            mode=mode, now=now, exp_lane=exp_lane, cav_lane=cav_lane,
+            ctx_lane=ctx_lane,
         )
     if tbl.device.type != "cuda":
         raise ValueError(f"fused_probe: unsupported device {tbl.device}")
@@ -256,7 +274,7 @@ def fused_probe(
     rows, w_raw = int(tbl.shape[0]), int(tbl.shape[1])
     packed = spec is not None
     W = int(spec[0]) if packed else w_raw
-    _check_row("fused_probe", W, nq, mode, exp_lane)
+    _check_row("fused_probe", W, nq, mode, exp_lane, cav_lane, ctx_lane)
     if mode != "runs" and rows < cap:
         raise ValueError("table has fewer rows than the probe cap")
     if mode == "runs" and packed:
@@ -279,7 +297,7 @@ def fused_probe(
         fields, dicts = spec_dev if spec_dev is not None else spec_tensors(spec, dev)
     else:
         fields = dicts = None
-    outs = _outputs(mode, B, cap, W, dev)
+    outs = _outputs(mode, B, cap, W, dev, cav_lane, ctx_lane)
     if B == 0 or (mode == "block" and cap == 0):
         return _shaped(mode, outs, shape, cap, W)
     a = _Args(
@@ -289,18 +307,16 @@ def fused_probe(
         size=int(off.shape[0]) - 1, tbl=tbl.data_ptr(), rows=rows,
         fields=fields.data_ptr() if packed else None,
         dicts=dicts.data_ptr() if packed else None,
-        out0=outs[0].data_ptr(),
-        out1=outs[1].data_ptr() if len(outs) > 1 else None,
         nq=nq, ashift=int(ashift or 0), packed=int(packed), w_raw=w_raw,
         cap=int(cap), W=W, now=int(now or 0),
-        lay_exp=-1 if exp_lane is None else int(exp_lane),
         tile_slots=block_tile(int(cap), W, 1)[0] if mode == "block" else 0,
+        **_out_fields(outs, exp_lane, cav_lane, ctx_lane),
     )
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _launcher()(_MODE_ID[mode], ctypes.byref(a), stream)
     if err != 0:
         raise RuntimeError(f"fused_probe kernel launch failed (cudaError {err})")
-    _count(mode, B)
+    _count(GATE_CAV if cav_lane is not None else mode, B)
     return _shaped(mode, outs, shape, cap, W)
 
 
@@ -314,18 +330,34 @@ def _flat_queries(q_cols):
                    for c in q_cols]
 
 
-def _check_row(name: str, W: int, nq: int, mode: str, exp_lane) -> None:
+def _check_row(name: str, W: int, nq: int, mode: str, exp_lane,
+               cav_lane=None, ctx_lane=None) -> None:
     """Raise on a logical row the kernels cannot read for ``mode``."""
     if W > MAXW or W < nq:
         raise ValueError(f"{name}: {W} columns (kernel takes {nq}..{MAXW})")
     if mode == "until2" and W < 4:
         raise ValueError("until2 needs columns 2 and 3")
-    if exp_lane is not None and not 0 <= exp_lane < W:
-        raise ValueError("expiry lane outside the row")
+    for what, lane in (("expiry", exp_lane), ("caveat", cav_lane),
+                       ("context", ctx_lane)):
+        if lane is not None and not 0 <= lane < W:
+            raise ValueError(f"{what} lane outside the row")
+    check_planes(mode, cav_lane, ctx_lane)
 
 
-def _outputs(mode, B, cap, W, dev):
-    """The kernel's flat output tensors of one mode (bools as uint8)."""
+def _out_fields(outs, exp_lane, cav_lane, ctx_lane) -> Dict[str, object]:
+    """The output pointers and gate lanes of a launch's args struct."""
+    ptrs = [o.data_ptr() for o in outs] + [None] * (4 - len(outs))
+    return dict(
+        out0=ptrs[0], out1=ptrs[1], out2=ptrs[2], out3=ptrs[3],
+        lay_exp=-1 if exp_lane is None else int(exp_lane),
+        lay_cav=-1 if cav_lane is None else int(cav_lane),
+        lay_ctx=-1 if ctx_lane is None else int(ctx_lane),
+    )
+
+
+def _outputs(mode, B, cap, W, dev, cav_lane=None, ctx_lane=None):
+    """The kernel's flat output tensors of one mode (bools as uint8; the
+    gate's caveat planes int32)."""
     if mode == "block":
         return [torch.empty((B, cap, W), dtype=torch.int32, device=dev)]
     if mode == "any":
@@ -333,8 +365,11 @@ def _outputs(mode, B, cap, W, dev):
     if mode == "until2":
         return [torch.empty(B, dtype=torch.uint8, device=dev) for _ in range(2)]
     if mode == "gate":
-        return [torch.empty((B, cap), dtype=torch.uint8, device=dev)
-                for _ in range(2)]
+        planes = (cav_lane is not None) + (ctx_lane is not None)
+        return ([torch.empty((B, cap), dtype=torch.uint8, device=dev)
+                 for _ in range(2)]
+                + [torch.empty((B, cap), dtype=torch.int32, device=dev)
+                   for _ in range(planes)])
     if mode == "runs":
         return [torch.empty(B, dtype=torch.int32, device=dev) for _ in range(2)]
     raise ValueError(f"unknown probe mode {mode!r}")
@@ -351,6 +386,8 @@ def fused_probe_aligned(
     mode: str = "block",
     now: Optional[int] = None,
     exp_lane: Optional[int] = None,
+    cav_lane: Optional[int] = None,
+    ctx_lane: Optional[int] = None,
     plain: bool = False,
 ):
     """One fused probe over the bucket-aligned ladder.
@@ -367,7 +404,7 @@ def fused_probe_aligned(
     if plain or tbls[0].device.type == "cpu":
         return fused_probe_aligned_plain(
             q_cols, tbls, caps, sw, spec=spec, mode=mode, now=now,
-            exp_lane=exp_lane,
+            exp_lane=exp_lane, cav_lane=cav_lane, ctx_lane=ctx_lane,
         )
     dev = tbls[0].device
     if dev.type != "cuda":
@@ -384,7 +421,8 @@ def fused_probe_aligned(
     W = int(spec[0]) if packed else int(sw)
     if packed and int(spec[1]) != int(sw):
         raise ValueError("fused_probe_aligned: slot width is not the spec's lanes")
-    _check_row("fused_probe_aligned", W, nq, mode, exp_lane)
+    _check_row("fused_probe_aligned", W, nq, mode, exp_lane, cav_lane,
+               ctx_lane)
     want = torch.int16 if packed else torch.int32
     for t, c in zip(tbls, caps):
         rows = int(t.shape[0])
@@ -402,7 +440,7 @@ def fused_probe_aligned(
             raise ValueError("fused_probe_aligned: queries on another device")
     B = int(qf[0].shape[0])
     capT = int(sum(int(c) for c in caps))
-    outs = _outputs(mode, B, capT, W, dev)
+    outs = _outputs(mode, B, capT, W, dev, cav_lane, ctx_lane)
     if B == 0 or (mode in ("block", "gate") and capT == 0):
         return _shaped(mode, outs, shape, capT, W)
     if packed:
@@ -416,20 +454,18 @@ def fused_probe_aligned(
         q0=qf[0].data_ptr(), q1=qf[1].data_ptr() if nq > 1 else None, B=B,
         fields=fields.data_ptr() if packed else None,
         dicts=dicts.data_ptr() if packed else None,
-        out0=outs[0].data_ptr(),
-        out1=outs[1].data_ptr() if len(outs) > 1 else None,
         nq=nq, L=L, packed=int(packed), sw=int(sw), capT=capT, W=W,
-        now=int(now or 0), lay_exp=-1 if exp_lane is None else int(exp_lane),
+        now=int(now or 0),
         tile_slots=(block_tile(capT, W, L)[0] if mode == "block"
                     else gate_tile(capT, L)[0] if mode == "gate" else 0),
-        lv=lv,
+        lv=lv, **_out_fields(outs, exp_lane, cav_lane, ctx_lane),
     )
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _aligned_launcher()(_MODE_ID[mode], ctypes.byref(a), stream)
     if err != 0:
         raise RuntimeError(
             f"fused_probe_aligned kernel launch failed (cudaError {err})")
-    _count(f"aligned.{mode}", B)
+    _count("aligned." + (GATE_CAV if cav_lane is not None else mode), B)
     return _shaped(mode, outs, shape, capT, W)
 
 
@@ -438,8 +474,8 @@ def _shaped(mode, outs, shape, cap, W):
     if mode == "block":
         return outs[0].reshape(tuple(shape) + (cap, W))
     if mode == "gate":
-        return tuple(o.view(torch.bool).reshape(tuple(shape) + (cap,))
-                     for o in outs)
+        return tuple((o.view(torch.bool) if o.dtype == torch.uint8 else o)
+                     .reshape(tuple(shape) + (cap,)) for o in outs)
     if mode == "runs":
         return tuple(o.reshape(tuple(shape)) for o in outs)
     done = [o.view(torch.bool).reshape(tuple(shape)) for o in outs]

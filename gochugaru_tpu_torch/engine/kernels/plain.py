@@ -45,6 +45,8 @@ def fused_probe_plain(
     mode: str = "block",
     now: Optional[int] = None,
     exp_lane: Optional[int] = None,
+    cav_lane: Optional[int] = None,
+    ctx_lane: Optional[int] = None,
 ):
     """One bucket probe over the off+interleave layout; see
     ``kernels.fused_probe`` for the modes and outputs."""
@@ -55,7 +57,7 @@ def fused_probe_plain(
                           off_a=off_a, ashift=ashift)
     qs = _lattice(q_cols)
     raw = probe_block(off, tbl, cap, qs, off_a=off_a, ashift=ashift)
-    return _tail(raw, qs, spec, mode, now, exp_lane)
+    return _tail(raw, qs, spec, mode, now, exp_lane, cav_lane, ctx_lane)
 
 
 def fused_probe_aligned_plain(
@@ -68,6 +70,8 @@ def fused_probe_aligned_plain(
     mode: str = "block",
     now: Optional[int] = None,
     exp_lane: Optional[int] = None,
+    cav_lane: Optional[int] = None,
+    ctx_lane: Optional[int] = None,
 ):
     """One probe over the bucket-aligned ladder (one row per level,
     levels concatenated to ``sum(caps)`` slots); see
@@ -76,7 +80,7 @@ def fused_probe_aligned_plain(
         raise ValueError("the aligned probe has no runs mode")
     qs = _lattice(q_cols)
     return _tail(probe_aligned(tbls, caps, sw, qs), qs, spec, mode, now,
-                 exp_lane)
+                 exp_lane, cav_lane, ctx_lane)
 
 
 def _lattice(q_cols: Sequence):
@@ -85,9 +89,23 @@ def _lattice(q_cols: Sequence):
     return [c.expand(shape) for c in q_cols]
 
 
-def _tail(raw, qs, spec, mode: str, now, exp_lane):
+def check_planes(mode: str, cav_lane, ctx_lane) -> None:
+    """The caveat planes are the gate's, and the context plane comes only
+    beside the caveat plane (the reference's gate triple)."""
+    if (cav_lane is not None or ctx_lane is not None) and mode != "gate":
+        raise ValueError("only mode gate returns the caveat planes")
+    if ctx_lane is not None and cav_lane is None:
+        raise ValueError("a context lane needs the caveat lane")
+
+
+def _tail(raw, qs, spec, mode: str, now, exp_lane, cav_lane=None,
+          ctx_lane=None):
     """Decode a raw candidate block, then the mode's compare and folds —
-    the part both probe layouts share."""
+    the part both probe layouts share.  The gate's caveat planes are the
+    reference's gate triple (pallas.py:355-359): the caveat-id column
+    where the slot hit (else 0), and the stored-context column where it
+    hit (else -1)."""
+    check_planes(mode, cav_lane, ctx_lane)
     blk = raw.to(torch.int32) if spec is None else decode_block(raw, spec)
     if mode == "block":
         return blk
@@ -104,7 +122,12 @@ def _tail(raw, qs, spec, mode: str, now, exp_lane):
         if exp_lane is not None:
             exp = torch.where(hit, blk[..., exp_lane], 0)
             live = hit & ((exp == 0) | (exp > now))
-        return hit, live
+        if cav_lane is None:
+            return hit, live
+        cav = torch.where(hit, blk[..., cav_lane], 0)
+        if ctx_lane is None:
+            return hit, live, cav
+        return hit, live, cav, torch.where(hit, blk[..., ctx_lane], -1)
     raise ValueError(f"unknown probe mode {mode!r}")
 
 

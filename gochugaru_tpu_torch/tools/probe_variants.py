@@ -182,7 +182,7 @@ _WORD_READS = """        uint32_t w0, w1, we;
         }
 """
 
-_GATE_FN = "// Phase B of aligned mode gate: one thread a slot, its hit and live flags.\n"
+_GATE_FN = "// Phase B of aligned mode gate: one thread a slot, its hit and live flags,\n"
 
 _WORD_HELPERS = """__device__ __forceinline__ void gv_lanes(const int32_t* f, int& lo, int& hi) {
   if (f[0] == 0) return;

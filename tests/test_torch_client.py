@@ -1,7 +1,7 @@
 """The port's Client against the reference's ``new_tpu_evaluator`` and the
 host oracle, plus the port's boundaries: no JAX and no reference imports,
 a CUDA default that raises without a card, and NotImplementedError for
-what later slices port."""
+what later slices port (a caveated schema is no longer one of them)."""
 
 import ast
 import datetime as dt
@@ -204,13 +204,29 @@ def test_default_device_raises_without_cuda():
 
 
 def test_later_slices_raise_not_implemented():
+    # a caveated schema is served since the CEL VM slice: it builds,
+    # prepares and answers (tests/test_torch_caveats.py holds its planes
+    # to the reference's)
     caveated = compile_schema(parse_schema("""
         caveat on_tuesday(day string) { day == "tuesday" }
         definition user {}
         definition doc { relation reader: user with on_tuesday }
     """))
-    with pytest.raises(NotImplementedError):
-        DeviceEngine(caveated, device="cpu")
+    from gochugaru_tpu_torch.store.interner import Interner
+    from gochugaru_tpu_torch.store.snapshot import build_snapshot
+
+    eng = DeviceEngine(caveated, device="cpu")
+    assert not eng.caveat_plan.host_only[caveated.caveat_ids["on_tuesday"]]
+    snap = build_snapshot(1, caveated, Interner(), [
+        prel.must_from_triple("doc:d1", "reader", "user:u1").with_caveat(
+            "on_tuesday", {})], epoch_us=NOW_S * 10**6)
+    ds = eng.prepare(snap)
+    checks = [prel.must_from_triple("doc:d1", "reader", "user:u1").with_caveat(
+        "", {"day": day}) for day in ("tuesday", "friday")]
+    checks.append(prel.must_from_triple("doc:d1", "reader", "user:u1"))
+    d, p, ovf = eng.check_batch(ds, checks, now_us=NOW_S * 10**6)
+    assert d.tolist() == [True, False, False]
+    assert p.tolist() == [True, False, True] and not ovf.any()
     cs = compile_schema(parse_schema(SCHEMA))
     with pytest.raises(NotImplementedError):
         DeviceEngine(cs, EngineConfig(flat_blockslice=False), device="cpu")

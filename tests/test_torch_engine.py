@@ -223,10 +223,16 @@ definition doc {
 """
 
 
-def _random_rels(seed: int, n_edges: int):
+CAVEAT_SCHEMA = (
+    'caveat on_tuesday(day string) { day == "tuesday" }\n' + RANDOM_SCHEMA
+)
+
+
+def _random_rels(seed: int, n_edges: int, caveats: bool = False):
     """Direct / wildcard / userset subjects, expirations, team chains deep
     enough to overflow a small closure cap (tests/test_pallas.py's
-    generator without its caveats)."""
+    generator; its ``on_tuesday`` caveats, with and without a stored
+    context, only with ``caveats``)."""
     rng = random.Random(seed)
     n_docs = max(n_edges // 8, 8)
     n_users = max(n_edges // 16, 8)
@@ -268,6 +274,9 @@ def _random_rels(seed: int, n_edges: int):
         elif kind < 0.13:
             kw.update(subject_id="*")
             kw["resource_relation"] = "reader"
+        if caveats and rng.random() < 0.12:
+            kw.update(caveat_name="on_tuesday",
+                      caveat_context={"day": "tuesday"} if rng.random() < 0.5 else {})
         if rng.random() < 0.07:
             kw["expiration"] = dt.datetime.fromtimestamp(
                 (NOW + rng.randrange(-10**9, 10**12)) / 1e6, tz=dt.timezone.utc,
@@ -282,22 +291,28 @@ def _random_rels(seed: int, n_edges: int):
     return rels
 
 
-def _random_checks(seed: int, n: int):
+def _random_checks(seed: int, n: int, caveats: bool = False):
+    """Checks of the random world; with ``caveats`` 40% of them carry a
+    request context (a day that passes or fails ``on_tuesday``)."""
     rng = random.Random(seed + 1)
     out = []
     for _ in range(n):
         subj = (f"team:t{rng.randrange(32)}#member" if rng.random() < 0.15
                 else f"user:u{rng.randrange(12)}")
-        out.append(jrel.must_from_triple(
+        q = jrel.must_from_triple(
             f"doc:d{rng.randrange(16)}", rng.choice(["view", "edit", "reader"]),
             subj,
-        ))
+        )
+        if caveats and rng.random() < 0.4:
+            q = q.with_caveat("", {"day": rng.choice(["tuesday", "friday"])})
+        out.append(q)
     return out
 
 
-def _random_world(cap=4096):
-    return World(RANDOM_SCHEMA, rels=_random_rels(5, 400),
-                 checks=_random_checks(5, 160), cap=cap)
+def _random_world(cap=4096, caveats=False):
+    return World(CAVEAT_SCHEMA if caveats else RANDOM_SCHEMA,
+                 rels=_random_rels(5, 400, caveats),
+                 checks=_random_checks(5, 160, caveats), cap=cap)
 
 
 WORLDS = {
@@ -313,6 +328,10 @@ WORLDS = {
         flat_fold=False, flat_recursion=1),
     "random_expiry_wildcards": _random_world,
     "closure_overflow": lambda: _random_world(cap=4),
+    # the same world with tests/test_pallas.py's caveats back in: stored
+    # contexts, request contexts, caveated userset and wildcard edges
+    "random_caveats": lambda: _random_world(caveats=True),
+    "closure_overflow_caveats": lambda: _random_world(cap=4, caveats=True),
 }
 
 
@@ -338,7 +357,8 @@ def test_planes_on_reference_arrays(world):
     arrays, meta = pdevice.arrays_from_reference(np_arrays, jd.flat_meta,
                                                  device="cpu")
     assert set(arrays) == set(np_arrays)
-    pd = pe.snapshot_from_reference(w.p_snap, np_arrays, jd.flat_meta)
+    pd = pe.snapshot_from_reference(w.p_snap, np_arrays, jd.flat_meta,
+                                    jd.strings)
     got = _port_planes(w, pe, pd)
     for name, a, b in zip("dpo", ref, got):
         assert np.array_equal(a, b), name

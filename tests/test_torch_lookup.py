@@ -29,7 +29,7 @@ import torch
 import jax.numpy as jnp
 
 import test_torch_engine as TE
-from gochugaru_tpu import consistency as jcons, rel as jrel
+from gochugaru_tpu import caveats as jcel, consistency as jcons, rel as jrel
 from gochugaru_tpu.client import new_tpu_evaluator
 from gochugaru_tpu.engine import lookup as jlookup
 from gochugaru_tpu.engine import spmv as jspmv
@@ -37,7 +37,7 @@ from gochugaru_tpu.engine.oracle import Oracle as JOracle
 from gochugaru_tpu.engine.plan import EngineConfig as JConfig
 from gochugaru_tpu.utils.context import background as j_background
 
-from gochugaru_tpu_torch import consistency as pcons, rel as prel
+from gochugaru_tpu_torch import caveats as pcel, consistency as pcons, rel as prel
 from gochugaru_tpu_torch.client import new_evaluator
 from gochugaru_tpu_torch.engine import kernels as K
 from gochugaru_tpu_torch.engine import lookup as plookup
@@ -51,9 +51,9 @@ from gochugaru_tpu_torch.utils.context import background
 
 NOW = TE.NOW
 
-# the reference test_lookup.py fuzz world without its caveat (caveated
-# schemas wait for the port's CEL slice): recursion through parent,
-# exclusion, intersection, wildcards, nested groups
+# the reference test_lookup.py fuzz world: recursion through parent,
+# exclusion, intersection, wildcards, nested groups; its ``lim`` caveat
+# on writer edges in CAVEAT_FUZZ_SCHEMA
 FUZZ_SCHEMA = """
 definition user {}
 definition group {
@@ -70,7 +70,15 @@ definition proj {
 """
 
 
-def _fuzz_rels(seed):
+CAVEAT_FUZZ_SCHEMA = 'caveat lim(v int, cap int) { v <= cap }\n' + (
+    FUZZ_SCHEMA.replace("relation writer: user | group#member",
+                        "relation writer: user | group#member | user with lim"))
+
+
+def _fuzz_rels(seed, caveats=False):
+    """The reference fuzz generator; with ``caveats`` 40% of the writer
+    edges carry ``lim``, most with a stored context (tests/test_lookup.py
+    draws it the same way)."""
     rng = random.Random(seed)
     users = [f"user:u{i}" for i in range(12)]
     groups = [f"group:g{i}" for i in range(5)]
@@ -92,7 +100,13 @@ def _fuzz_rels(seed):
             rels.append(jrel.must_from_tuple(
                 f"{p}#owner", f"{rng.choice(groups)}#member"))
         for u in rng.sample(users, 2):
-            rels.append(jrel.must_from_tuple(f"{p}#writer", u))
+            r = jrel.must_from_tuple(f"{p}#writer", u)
+            if caveats and rng.random() < 0.4:
+                r = r.with_caveat(
+                    "lim",
+                    {"v": rng.randint(0, 9), "cap": 5} if rng.random() < 0.7 else {},
+                )
+            rels.append(r)
         if rng.random() < 0.4:
             rels.append(jrel.must_from_tuple(f"{p}#banned", rng.choice(users)))
     return rels
@@ -113,9 +127,13 @@ class LWorld:
         self.res_q = res_q
         self.subj_q = subj_q
         if rels is not None:
-            self.j_oracle = JOracle(w.j_cs, rels, now_us=NOW)
+            # the schema's caveats compiled for each package's host CEL
+            progs = [{n: mod.compile_cel(n, d.params, d.expression)
+                      for n, d in cs.schema.caveats.items()}
+                     for mod, cs in ((jcel, w.j_cs), (pcel, w.p_cs))]
+            self.j_oracle = JOracle(w.j_cs, rels, progs[0], now_us=NOW)
             self.p_oracle = POracle(
-                w.p_cs, [TE._port_rel(r) for r in rels], now_us=NOW)
+                w.p_cs, [TE._port_rel(r) for r in rels], progs[1], now_us=NOW)
         else:
             from gochugaru_tpu.engine.oracle import SnapshotOracle as JS
             from gochugaru_tpu_torch.engine.oracle import SnapshotOracle as PS
@@ -163,9 +181,9 @@ def _overflow():
     return LWorld(w, res_q, subj_q, rels)
 
 
-def _fuzz(seed):
-    rels = _fuzz_rels(seed)
-    w = TE.World(FUZZ_SCHEMA, rels=rels)
+def _fuzz(seed, caveats=False):
+    rels = _fuzz_rels(seed, caveats)
+    w = TE.World(CAVEAT_FUZZ_SCHEMA if caveats else FUZZ_SCHEMA, rels=rels)
     res_q = [("proj", p, "user", f"u{i}", "") for i in range(0, 12, 2)
              for p in ("write", "manage")]
     res_q += [("proj", "write", "user", "stranger", "")]
@@ -205,6 +223,8 @@ WORLDS = {
     "fuzz1": lambda: _fuzz(1),
     "fuzz2": lambda: _fuzz(2),
     "fuzz5": lambda: _fuzz(5),
+    "fuzz1_caveats": lambda: _fuzz(1, caveats=True),
+    "fuzz5_caveats": lambda: _fuzz(5, caveats=True),
 }
 
 

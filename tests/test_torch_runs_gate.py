@@ -339,6 +339,21 @@ def test_ctypes_mirrors_match_the_c_structs(source, name, cls):
     assert _py_fields(cls) == want
 
 
+def test_ctypes_mirrors_carry_the_gate_planes():
+    """Both args structs carry the gate's caveat and context planes and
+    their lanes (out2/out3, lay_cav/lay_ctx), on the C side and in the
+    mirror, in the same places."""
+    for source, name, cls in (("fused_probe.cu", "ProbeArgs", K._Args),
+                              ("fused_probe_aligned.cu", "AlignedArgs",
+                               K._AlignedArgs)):
+        c = [f for f, _t in _c_struct(source, name)]
+        py = [f for f, _t in cls._fields_]
+        for f in ("out2", "out3", "lay_cav", "lay_ctx"):
+            assert f in c and c.index(f) == py.index(f), (name, f)
+        assert c.index("out3") == c.index("out2") + 1 == c.index("out1") + 2
+        assert c.index("lay_ctx") == c.index("lay_cav") + 1 == c.index("lay_exp") + 2
+
+
 def test_kernel_constants_match_the_c_sources():
     with open(os.path.join(CSRC, "probe_common.cuh")) as f:
         common = f.read()
