@@ -28,24 +28,35 @@ Phases (any failure exits non-zero and prints no result line):
    passes the tile's shared-memory budget, B in {1, 255, 65,537}, bucket
    starts clamped at rows - cap, negative and absent keys; for the
    aligned kernel ladders (cap, 3, 1), (past the budget, 1), an 8-level
-   ladder and phase 3b's build_aligned ladders; the aligned kernel's mode
-   gate (the same slot tile) over W in {1, 3, 5, 16}, ladders (c, 3, 1)
-   for c in 1, 3, 8, 64, one lane longer than a tile, an 8-level ladder
-   and phase 3b's ladders, B in {1, 255, 65,537}, one and two keys, keys
-   planted past level 0, an expiry column (the key, a delta, a
-   dictionary, a range with zeros) and none, levels of one row and
-   levels 2 bytes off alignment; then one int32 table of
-   2^29 rows x 5 columns (2.7e9 elements, filled on the card) per kernel,
-   with lanes whose rows lie past element 2^31 (the aligned one under
-   block and gate); kernel == plain version bit for bit; then mode gate
-   of both kernels with the caveat-id and context planes
-   (phase_gate_cav_edges): caveat and context columns under the codecs a
-   build emits (ranges with a -1 sentinel), a dictionary and a delta,
-   int32 and packed, caveat 0 and not, context -1 and not, misses (0 and
-   -1), with and without an expiry lane and the context plane, B in {1,
-   255, 65,537}, off+interleave tables and aligned ladders of 3, 8 and
+   ladder and phase 3b's build_aligned ladders; mode gate of both kernels
+   (the same slot tile, one thread a slot): fused_probe's over
+   off+interleave tables with W in {1, 3, 5, 16}, caps 1, 3, 8, 64 and
+   2 * GATE_SLOTS + 3, bucket starts clamped at rows - cap and keys
+   planted in the lanes' windows, the aligned kernel's over ladders (c,
+   3, 1) for c in 1, 3, 8, 64, one lane longer than a tile, an 8-level
+   ladder and phase 3b's ladders, keys planted past level 0, levels of
+   one row and levels 2 bytes off alignment; B in {1, 255, 65,537}, one
+   and two keys, negative and absent keys, an expiry column (the key, a
+   delta, a dictionary, a range with zeros) and none; then one int32
+   table of 2^29 rows x 5 columns (2.7e9 elements, filled on the card)
+   per kernel, with lanes whose rows lie past element 2^31 (fused_probe
+   under block, gate and until2, the aligned one under block and gate);
+   kernel == plain version bit for bit; then mode gate of both kernels
+   with the caveat-id and context planes (phase_gate_cav_edges): caveat
+   and context columns under the codecs a build emits (ranges with a -1
+   sentinel), a dictionary and a delta, int32 and packed, caveat 0 and
+   not, context -1 and not, misses (0 and -1), with and without an
+   expiry lane and the context plane, B in {1, 255, 65,537},
+   off+interleave tables (build_hash's, and caps 1, 3, 8, 64 and 2 *
+   GATE_SLOTS + 3 with clamped starts) and aligned ladders of 3, 8 and
    (one lane past a tile, 1) levels and build_aligned's; kernel == plain
-   version bit for bit on every plane;
+   version bit for bit on every plane; then fused_probe's mode until2
+   (the slot tile's reduced mode, phase_until2_edges): columns 2 and 3
+   as ranges, dictionaries, deltas of column 0 and of column 1, and a
+   delta of a delta, W 4 and 16, the same caps, B and clamps, int32 and
+   packed, one and two keys, negative and absent keys, ``now`` equal to a
+   row value and one below it, lanes whose only hits fail both compares;
+   kernel == plain version bit for bit;
 4. BASELINE config 2 (RBAC: 10k repos x 1k users x 100 teams x 10 orgs,
    seed 11) — a 100,000-check batch, kernels vs plain on all three
    planes, 2,000 sampled rows vs the host oracle; then the same with
@@ -100,8 +111,9 @@ aligned mode also at its call with the most levels (the row's
 ``deep_levels``); the two ``block`` rows also under each tile budget of
 TILE_SWEEP (the row's ``tile_budgets``: budget bytes -> ms, each output
 equal to the plain version's), beside one ``fill_`` of their output's
-size (``fill_ms``: the card's write rate), and the aligned ``gate`` row
-under each of GATE_SWEEP's slots a CTA (the row's ``tile_slots``).  Each
+size (``fill_ms``: the card's write rate), the ``gate`` rows of both
+kernels under each of GATE_SWEEP's slots a CTA, and fused_probe's
+``until2`` row under each of REDUCE_SWEEP's (the rows' ``tile_slots``).  Each
 row also carries ``lanes_total`` (the lanes its main-path launches
 processed).
 The second to last lines are the kernel table as JSON and the card line;
@@ -1017,6 +1029,70 @@ def edge_caps(K, W):
     return (1, 3, 8, 64, big)
 
 
+def edge_offsets(rng, rows, cap, size=1_024):
+    """Sorted int32 bucket offsets [size + 1] over ``rows`` rows whose last
+    quarter of starts lies within ``cap`` of the end (those lanes clamp to
+    rows - cap)."""
+    starts = np.concatenate([rng.integers(0, rows + 1, size + 1 - size // 4),
+                             rng.integers(rows - cap + 1, rows + 1, size // 4)])
+    return np.sort(starts).astype(np.int32)
+
+
+def off_layouts(off, raw, spec, dev):
+    """An off+interleave table as fused_probe takes it: int32 rows with
+    int32 offsets, and packed rows with anchored offsets."""
+    from gochugaru_tpu_torch.engine import packed as PK
+    from gochugaru_tpu_torch.engine.device import to_device_tensor
+
+    res, anchor = PK.pack_off(off)
+    return {
+        "int32": dict(off=to_device_tensor(off, dev), tbl=to_device_tensor(raw, dev),
+                      spec=None, off_a=None, ashift=None),
+        "packed": dict(off=to_device_tensor(res, dev),
+                       tbl=to_device_tensor(PK.pack_rows(raw, spec), dev),
+                       spec=spec, off_a=to_device_tensor(anchor, dev),
+                       ashift=PK.OFF_ANCHOR_SHIFT),
+    }
+
+
+def clamped_window(qs, off, rows, cap):
+    """(first row of each lane's window, lane's bucket start passes rows -
+    cap) for numpy key columns ``qs`` over int32 offsets ``off``."""
+    from gochugaru_tpu_torch.engine.partition import _hash_cols
+
+    size = off.shape[0] - 1
+    h = (_hash_cols(list(qs)) & np.uint32(size - 1)).astype(np.int64)
+    start = off[h].astype(np.int64)
+    return np.clip(start, 0, rows - cap), start > rows - cap
+
+
+def plant_rows(raw, off, cap, qs, rng, spec, exp_col=None, absent=None):
+    """Write the keys of every other live lane (not in the mask ``absent``)
+    into a random row of its (clamped) window of the off+interleave int32
+    rows ``raw`` (offsets ``off``), so the probe sees hits, clamped lanes
+    included; the row's columns that ``spec`` stores as deltas of a key
+    column (or of such a delta) move with the key, so the rows still pack.
+    When ``exp_col`` is given, a third of them get expiry 0."""
+    live = np.ones(qs[0].shape[0], bool) if absent is None else ~absent
+    for q in qs:
+        live &= q >= 0
+    lanes = np.flatnonzero(live)[::2]
+    s, _ = clamped_window([q[lanes] for q in qs], off, raw.shape[0], cap)
+    r = s + rng.integers(0, cap, lanes.shape[0])
+    shift = []
+    for c, f in enumerate(spec[2]):
+        if c < len(qs):
+            shift.append(qs[c][lanes].astype(np.int64) - raw[r, c])
+        else:
+            shift.append(shift[f[2]] if f[2] >= 0 else 0)
+    new = [(raw[r, c].astype(np.int64) + d).astype(np.int32) for c, d in enumerate(shift)]
+    for c, v in enumerate(new):
+        raw[r, c] = v
+    if exp_col is not None:
+        zero = rng.random(lanes.shape[0]) < 1 / 3
+        raw[r[zero], exp_col] = 0
+
+
 def _edge_queries(rng, B, nq, dev):
     """``nq`` key columns of ``B`` lanes: random keys (absent from the
     tables' key columns more often than not), 5% negative."""
@@ -1046,19 +1122,8 @@ def phase_block_edges(K, huge_rows=HUGE_ROWS):
         for cap in edge_caps(K, W):
             rows, size = max(4 * cap, 4_096), 1_024
             spec, raw = edge_spec(W, rng, rows)
-            starts = np.concatenate([rng.integers(0, rows + 1, size + 1 - size // 4),
-                                     rng.integers(rows - cap + 1, rows + 1, size // 4)])
-            off = np.sort(starts).astype(np.int32)
-            res, anchor = PK.pack_off(off)
-            layouts = {
-                "int32": dict(off=to_device_tensor(off, dev),
-                              tbl=to_device_tensor(raw, dev), spec=None,
-                              off_a=None, ashift=None),
-                "packed": dict(off=to_device_tensor(res, dev),
-                               tbl=to_device_tensor(PK.pack_rows(raw, spec), dev),
-                               spec=spec, off_a=to_device_tensor(anchor, dev),
-                               ashift=PK.OFF_ANCHOR_SHIFT),
-            }
+            off = edge_offsets(rng, rows, cap, size)
+            layouts = off_layouts(off, raw, spec, dev)
             off_t = torch.from_numpy(off).to(dev)
             for layout, c in layouts.items():
                 for nq in (1, 2)[:W]:
@@ -1164,15 +1229,72 @@ def plant_hits(raws, caps, qs, rng, spec, exp_col=None):
 def _gate_same(K, name, got, want):
     for a, b in zip(got, want):
         if a.dtype != torch.bool or a.shape != b.shape or not torch.equal(a, b):
-            raise AssertionError(f"aligned gate != plain: {name}")
+            raise AssertionError(f"gate != plain: {name}")
+
+
+def _gate_tally(got, clamped, tally):
+    """Tally a gate's hits, expired hits and hits on clamped lanes."""
+    hit, live = got[0], got[1]
+    tally["hits"] += int(hit.sum())
+    tally["expired"] += int((hit & ~live).sum())
+    tally["clamped hits"] += int(hit[torch.from_numpy(clamped).to(hit.device)].sum())
+
+
+def phase_gate_edges_off(K):
+    """Phase 3c's off+interleave gate: fused_probe mode gate on the slot
+    tile at its edges, kernel == plain bit for bit (see the module
+    docstring)."""
+    dev = torch.device(DEV)
+    rng = np.random.default_rng(2032)
+    long_lane = 2 * K.GATE_SLOTS + 3
+    n_cases = 0
+    tally = dict.fromkeys(("hits", "expired", "clamped hits"), 0)
+    for W in EDGE_W:
+        exp_col, now = GATE_EXP[W]
+        for cap in (1, 3, 8, 64, long_lane):
+            rows = max(4 * cap, 4_096)
+            spec, raw0 = edge_spec(W, rng, rows)
+            off = edge_offsets(rng, rows, cap)
+            for nq in (1, 2)[:W]:
+                qs_np = _gate_queries(rng, max(EDGE_B), nq)
+                raw = raw0.copy()
+                plant_rows(raw, off, cap, qs_np, rng, spec, exp_col if W == 16 else None)
+                _, clamped = clamped_window(qs_np, off, rows, cap)
+                for layout, c in off_layouts(off, raw, spec, dev).items():
+                    # the lane past one tile: at most 4,097 lanes, as the
+                    # aligned gate's
+                    for B in EDGE_B if cap < long_lane else (1, 255, 4_097):
+                        qs = tuple(torch.from_numpy(q[:B]).to(dev) for q in qs_np)
+                        for e in (exp_col, None):
+                            kw = dict(cap=cap, spec=c["spec"], off_a=c["off_a"],
+                                      ashift=c["ashift"], mode="gate", now=now,
+                                      exp_lane=e)
+                            got = K.fused_probe(qs, c["off"], c["tbl"], **kw)
+                            _gate_same(K, f"fused_probe {layout} nq={nq} W={W} cap={cap}"
+                                       f" B={B} exp_lane={e}", got,
+                                       K.fused_probe(qs, c["off"], c["tbl"], plain=True,
+                                                     **kw))
+                            n_cases += 1
+                            if e is not None:
+                                _gate_tally(got, clamped[:B], tally)
+    if not all(tally.values()):
+        raise AssertionError(f"phase 3c off+interleave gate: an edge never occurred"
+                             f" ({tally})")
+    log(f"gate edges fused_probe: {n_cases} cases (W {EDGE_W}, caps 1/3/8/64/"
+        f"{long_lane} (past one tile of {K.GATE_SLOTS} slots, B up to 4,097), B"
+        f" {EDGE_B}, bucket starts clamped at rows - cap, int32 and packed, one"
+        f" and two keys where W >= 2, negative and absent keys, expiry lane and"
+        f" none) bitwise OK; {tally}")
 
 
 def phase_gate_edges(K):
-    """Phase 3c's aligned gate: the slot tile's mode gate at its edges,
-    kernel == plain bit for bit (see the module docstring)."""
+    """Phase 3c's gate: the slot tile's mode gate at its edges, kernel ==
+    plain bit for bit, off+interleave (phase_gate_edges_off) and aligned
+    (see the module docstring)."""
     from gochugaru_tpu_torch.engine import packed as PK
     from gochugaru_tpu_torch.engine.device import to_device_tensor
 
+    phase_gate_edges_off(K)
     dev = torch.device(DEV)
     rng = np.random.default_rng(2030)
     long_lane = 2 * K.GATE_SLOTS + 3
@@ -1202,7 +1324,7 @@ def phase_gate_edges(K):
                         for e in (exp_col, None):
                             kw = dict(spec=sp, mode="gate", now=now, exp_lane=e)
                             got = K.fused_probe_aligned(qs, tbls, caps, sw, **kw)
-                            _gate_same(K, f"{layout} nq={nq} W={W} caps={caps} B={B}"
+                            _gate_same(K, f"aligned {layout} nq={nq} W={W} caps={caps} B={B}"
                                        f" exp_lane={e}", got,
                                        K.fused_probe_aligned(qs, tbls, caps, sw,
                                                              plain=True, **kw))
@@ -1237,7 +1359,7 @@ def phase_gate_edges(K):
                 qs = tuple(torch.from_numpy(q[:B]).to(dev) for q in qs_np)
                 for e in (exp_col, None):
                     kw = dict(spec=spec, mode="gate", now=now, exp_lane=e)
-                    _gate_same(K, f"{name} W={W} B={B} exp_lane={e}",
+                    _gate_same(K, f"aligned {name} W={W} B={B} exp_lane={e}",
                                K.fused_probe_aligned(qs, tbls, caps, spec[1], **kw),
                                K.fused_probe_aligned(qs, tbls, caps, spec[1],
                                                      plain=True, **kw))
@@ -1248,7 +1370,7 @@ def phase_gate_edges(K):
             qb = tuple(torch.cat([q, q])[:B] for q in qs)
             for lane in (e, None):
                 kw = dict(spec=spec, mode="gate", now=5_000, exp_lane=lane)
-                _gate_same(K, f"ladder {layout} B={B} exp_lane={lane}",
+                _gate_same(K, f"aligned ladder {layout} B={B} exp_lane={lane}",
                            K.fused_probe_aligned(qb, tbls, caps, sw, **kw),
                            K.fused_probe_aligned(qb, tbls, caps, sw, plain=True, **kw))
                 n_cases += 1
@@ -1375,9 +1497,32 @@ def phase_gate_cav_edges(K):
                                          **kw)
                 n_fp += _cav_calls(K, f"fused_probe {codec} {layout} B={B}",
                                    call, counts)
+    # fused_probe at the slot tile's edges: caps 1 to past one tile, bucket
+    # starts clamped at rows - cap, keys planted in the lanes' windows
+    long_lane = 2 * K.GATE_SLOTS + 3
+    clamped_hits = 0
+    for codec in CAV_CODECS:
+        for cap in (1, 3, 8, 64, long_lane):
+            rows = max(4 * cap, 4_096)
+            spec, raw = cav_rows(rng, rows, codec)
+            off = edge_offsets(rng, rows, cap)
+            qs_np = _gate_queries(rng, max(EDGE_B), 2)
+            plant_rows(raw, off, cap, qs_np, rng, spec)
+            _, clamped = clamped_window(qs_np, off, rows, cap)
+            for layout, c in off_layouts(off, raw, spec, dev).items():
+                for B in EDGE_B if cap < long_lane else (1, 255, 4_097):
+                    qs = tuple(torch.from_numpy(q[:B]).to(dev) for q in qs_np)
+
+                    def call(plain, **kw):
+                        return K.fused_probe(qs, c["off"], c["tbl"], cap=cap,
+                                             spec=c["spec"], off_a=c["off_a"],
+                                             ashift=c["ashift"], plain=plain, **kw)
+                    n_fp += _cav_calls(K, f"fused_probe {codec} {layout} cap={cap}"
+                                       f" B={B}", call, counts)
+                    hit = call(False, mode="gate", **CAV_LANES)[0]
+                    clamped_hits += int(hit[torch.from_numpy(clamped[:B]).to(dev)].sum())
     # fused_probe_aligned: synthetic ladders with planted keys, and a
     # build_aligned ladder of >= 3 levels
-    long_lane = 2 * K.GATE_SLOTS + 3
     for codec in CAV_CODECS:
         for caps in ((8, 3, 1), (5, 4, 3, 2, 2, 1, 1, 1), (long_lane, 1)):
             sizes = [max(1_024 >> (2 * l), 8) for l in range(len(caps))]
@@ -1423,14 +1568,122 @@ def phase_gate_cav_edges(K):
                                                  plain=plain, **kw)
                 n_al += _cav_calls(K, f"aligned {codec} {layout} build_aligned"
                                    f" caps={tuple(ai.caps)} B={B}", call, counts)
-    if not all(counts.values()) or not deep:
+    if not all(counts.values()) or not deep or not clamped_hits:
         raise AssertionError(f"caveat gate edges: an edge never occurred ({counts},"
-                             f" hits past level 0={deep})")
+                             f" hits past level 0={deep}, clamped hits={clamped_hits})")
     log(f"gate caveat planes: fused_probe {n_fp} cases, fused_probe_aligned {n_al}"
         f" cases (codecs {CAV_CODECS}, int32 and packed, expiry lane and none,"
-        f" context plane on and off, B {EDGE_B}, ladders (8,3,1), 8 levels,"
-        f" ({long_lane},1) and build_aligned >= 3 levels) bitwise OK on every"
-        f" plane; {counts} ({deep} aligned hits past level 0)")
+        f" context plane on and off, B {EDGE_B}; off+interleave build_hash"
+        f" tables and caps 1/3/8/64/{long_lane} with clamped starts; ladders"
+        f" (8,3,1), 8 levels, ({long_lane},1) and build_aligned >= 3 levels)"
+        f" bitwise OK on every plane; {counts} ({deep} aligned hits past level 0,"
+        f" {clamped_hits} hits on clamped lanes)")
+
+
+#: until2's threshold: the edges run ``now`` = UNTIL_NOW, a value the rows
+#: hold (so ``> now`` fails on equality), and one below it
+UNTIL_NOW = 1_000
+#: the until columns' codecs: ranges, dictionaries, deltas of column 0
+#: (column 2) and of column 1 (column 3), and column 2 a delta of column 1
+#: with column 3 a delta of column 2
+UNTIL_CODECS = ("range", "dict", "delta", "chain")
+
+
+def until_rows(rng, n, codec, W=4):
+    """``n`` int32 rows (k1, k2, until_a, until_b, then constant columns up
+    to ``W``) and their pack spec under ``codec``; keys and until values
+    lie around UNTIL_NOW, so compares with it and one below it go both
+    ways."""
+    from gochugaru_tpu_torch.engine import packed as PK
+
+    v = UNTIL_NOW
+    raw = np.full((n, W), 7, np.int32)
+    raw[:, 0] = rng.integers(v - 60, v + 61, n)
+    raw[:, 1] = rng.integers(v - 8, v + 9, n)
+    descs = [PK.col_range(v - 64, v + 64), PK.col_range(v - 8, v + 8)]
+    if codec == "range":
+        raw[:, 2] = rng.integers(v - 2, v + 3, n)
+        raw[:, 3] = rng.integers(v - 3, v + 4, n)
+        descs += [PK.col_range(v - 2, v + 2), PK.col_range(v - 3, v + 3)]
+    elif codec == "dict":
+        vals = (0, v - 1, v, v + 1, 2**31 - 1)
+        raw[:, 2] = rng.choice(vals, n)
+        raw[:, 3] = rng.choice(vals[:4], n)
+        descs += [PK.col_dict(vals), PK.col_dict(vals[:4])]
+    elif codec == "delta":
+        raw[:, 2] = raw[:, 0] + rng.integers(-2, 3, n)
+        raw[:, 3] = raw[:, 1] + rng.integers(-2, 3, n)
+        descs += [PK.col_delta(-2, 2, 0), PK.col_delta(-2, 2, 1)]
+    else:
+        raw[:, 2] = raw[:, 1] + rng.integers(-2, 3, n)
+        raw[:, 3] = raw[:, 2] + rng.integers(-1, 2, n)
+        descs += [PK.col_delta(-2, 2, 1), PK.col_delta(-1, 1, 2)]
+    descs += [PK.col_const(7)] * (W - 4)
+    return PK.make_spec(descs), raw
+
+
+def _until_queries(rng, B, nq):
+    """(``nq`` key columns of ``B`` lanes inside until_rows' key ranges,
+    5% negative and 5% absent (first key outside its range); the absent
+    mask)."""
+    v = UNTIL_NOW
+    cols = [rng.integers(v - 60, v + 61, B), rng.integers(v - 8, v + 9, B)][:nq]
+    absent = rng.random(B) < 0.05
+    cols[0] = np.where(absent, v + 500, cols[0])
+    return [np.where(rng.random(B) < 0.05, -rng.integers(1, 9, B), c).astype(np.int32)
+            for c in cols], absent
+
+
+def phase_until2_edges(K):
+    """Phase 3c's until2: fused_probe mode until2 (the slot tile's reduced
+    mode) at its edges, kernel == plain bit for bit (see the module
+    docstring)."""
+    dev = torch.device(DEV)
+    rng = np.random.default_rng(2033)
+    long_lane = 2 * K.GATE_SLOTS + 3  # past REDUCE_SLOTS: one CTA a lane
+    n_cases = 0
+    tally = dict.fromkeys(("lanes with a hit", "flag a", "flag b", "hits failing both",
+                           "clamped lanes with a hit"), 0)
+    cases = [(codec, 4) for codec in UNTIL_CODECS] + [("range", 16)]
+    for codec, W in cases:
+        for cap in (1, 3, 8, 64, long_lane):
+            rows = max(4 * cap, 4_096)
+            spec, raw = until_rows(rng, rows, codec, W)
+            off = edge_offsets(rng, rows, cap)
+            for nq in (1, 2):
+                qs_np, absent = _until_queries(rng, max(EDGE_B), nq)
+                tbl = raw.copy()
+                plant_rows(tbl, off, cap, qs_np, rng, spec, absent=absent)
+                _, clamped = clamped_window(qs_np, off, rows, cap)
+                for layout, c in off_layouts(off, tbl, spec, dev).items():
+                    for B in EDGE_B if cap < long_lane else (1, 255, 4_097):
+                        qs = tuple(torch.from_numpy(q[:B]).to(dev) for q in qs_np)
+                        kw = dict(cap=cap, spec=c["spec"], off_a=c["off_a"],
+                                  ashift=c["ashift"])
+                        any_hit = K.fused_probe(qs, c["off"], c["tbl"], plain=True,
+                                                mode="any", **kw)
+                        for now in (UNTIL_NOW, UNTIL_NOW - 1):
+                            got = K.fused_probe(qs, c["off"], c["tbl"], mode="until2",
+                                                now=now, **kw)
+                            want = K.fused_probe(qs, c["off"], c["tbl"], plain=True,
+                                                 mode="until2", now=now, **kw)
+                            _gate_same(K, f"until2 {codec} W={W} {layout} nq={nq}"
+                                       f" cap={cap} B={B} now={now}", got, want)
+                            n_cases += 1
+                            a, b = got
+                            tally["lanes with a hit"] += int(any_hit.sum())
+                            tally["flag a"] += int(a.sum())
+                            tally["flag b"] += int(b.sum())
+                            tally["hits failing both"] += int((any_hit & ~a & ~b).sum())
+                            cl = torch.from_numpy(clamped[:B]).to(dev)
+                            tally["clamped lanes with a hit"] += int(any_hit[cl].sum())
+    if not all(tally.values()):
+        raise AssertionError(f"phase 3c until2: an edge never occurred ({tally})")
+    log(f"until2 edges fused_probe: {n_cases} cases (columns 2 and 3 as"
+        f" {UNTIL_CODECS} (W 4; range also W 16), caps 1/3/8/64/{long_lane} (one"
+        f" CTA a lane, B up to 4,097), B {EDGE_B}, bucket starts clamped at rows -"
+        f" cap, int32 and packed, one and two keys, negative and absent keys, now"
+        f" {UNTIL_NOW} (a row value) and {UNTIL_NOW - 1}) bitwise OK; {tally}")
 
 
 def _fill_huge(rows, w, dev):
@@ -1463,9 +1716,26 @@ def phase_block_huge(K, rows):
     kw = dict(cap=cap, mode="block")
     _same(K, f"fused_probe on {rows} x {W}",
           K.fused_probe(qs, off_t, tbl, **kw), K.fused_probe(qs, off_t, tbl, plain=True, **kw))
-    past = int((off_t[bucket_of(qs, size)].long().clamp(max=rows - cap) * W
-                >= 2**31).sum())
-    del tbl
+    start = off_t[bucket_of(qs, size)].long().clamp(0, rows - cap)
+    past = int((start * W >= 2**31).sum())
+    # gate and until2 on the same table, every other live lane's keys
+    # planted in row (lane mod cap) of its window; expiry column 4
+    live_q = torch.nonzero((qs[0] >= 0) & (qs[1] >= 0)).flatten()[::2]
+    at = (start[live_q] + live_q % cap) * W
+    flat = tbl.view(-1)
+    flat[at], flat[at + 1] = qs[0][live_q], qs[1][live_q]
+    reduced = {}
+    for mode, mkw in (("gate", dict(exp_lane=4)), ("until2", {})):
+        kw = dict(cap=cap, mode=mode, now=0, **mkw)
+        got = K.fused_probe(qs, off_t, tbl, **kw)
+        _gate_same(K, f"fused_probe {mode} on {rows} x {W}", got,
+                   K.fused_probe(qs, off_t, tbl, plain=True, **kw))
+        reduced[mode] = [int(g.sum()) for g in got]
+    if not (reduced["gate"][0] > reduced["gate"][1] > 0 and all(reduced["until2"])):
+        raise AssertionError(f"phase 3c: the huge gate / until2 calls saw no hit, no"
+                             f" expired hit or no set flag ({reduced})")
+    hit_past = int((got[0] | got[1])[(start * W >= 2**31)].sum())
+    del tbl, flat
     # aligned: level 0 of rows / 8 rows x 8 slots x 5 columns, level 1 small
     lv0 = _fill_huge(rows // 8, 8 * W, dev)
     lv1 = _fill_huge(1_024, 3 * W, dev)
@@ -1488,12 +1758,14 @@ def phase_block_huge(K, rows):
         raise AssertionError("phase 3c: the huge gate call saw no hit or no"
                              " expired hit")
     del lv0, lv1
-    if rows * W > 2**31 and not (past and past_al):
+    if rows * W > 2**31 and not (past and past_al and hit_past):
         raise AssertionError("phase 3c: no lane read past element 2^31")
     log(f"block edges past 2^31 elements: {rows} x {W} int32 ({rows * W} elements),"
-        f" {B} lanes, {past} (fused_probe) and {past_al} (aligned block and"
-        f" gate) of them past element 2^31, bitwise OK; aligned gate {gate_hits}"
-        f" hits ({time.perf_counter() - t0:.1f} s)")
+        f" {B} lanes, {past} (fused_probe block, gate and until2) and {past_al}"
+        f" (aligned block and gate) of them past element 2^31, bitwise OK;"
+        f" fused_probe gate (hit, live) {reduced['gate']}, until2 {reduced['until2']}"
+        f" ({hit_past} until2 lanes past 2^31 with a flag), aligned gate"
+        f" {gate_hits} hits ({time.perf_counter() - t0:.1f} s)")
 
 
 def phase_config4(K, edges):
@@ -2088,9 +2360,12 @@ def _kernel_vs_plain(K, call):
 #: mode block's tile budgets (kernels.TILE_BYTES) each block row is also
 #: timed under
 TILE_SWEEP = (8 * 1024, 16 * 1024, 32 * 1024, 64 * 1024)
-#: the aligned gate's slots a CTA (kernels.GATE_SLOTS) its row is also
+#: the gate's slots a CTA (kernels.GATE_SLOTS) the gate rows are also
 #: timed under
 GATE_SWEEP = (1024, 2048, 4096)
+#: the reduced tile's most slots a CTA (kernels.REDUCE_SLOTS) fused_probe's
+#: until2 row is also timed under
+REDUCE_SWEEP = (256, 512, 1024, 2048)
 def fill_ms(shape) -> float:
     """ms of one ``fill_`` of an int32 tensor of ``shape``: the card's
     write rate over block's output, a floor under any kernel writing it."""
@@ -2149,6 +2424,13 @@ def time_mode(K, mode, q_cols, off, tbl, kw, card):
         row["fill_ms"] = fill_ms((n, kw["cap"], W_of(kw.get("spec"), tbl.shape[1])))
         log(f"time fused_probe.block [{card}] by tile budget: {row['tile_budgets']};"
             f" fill_ms of its output {row['fill_ms']:.5f}")
+    if mode in ("gate", "gate.cav", "until2"):
+        knob, values = (("REDUCE_SLOTS", REDUCE_SWEEP) if mode == "until2"
+                        else ("GATE_SLOTS", GATE_SWEEP))
+        row["tile_slots"] = sweep(
+            K, knob, values,
+            lambda plain: K.fused_probe(q_cols, off, tbl, plain=plain, **kw))
+        log(f"time fused_probe.{mode} [{card}] by {knob}: {row['tile_slots']}")
     return row
 
 
@@ -2231,6 +2513,7 @@ def main() -> int:
     phase_aligned_vs_plain(K)
     phase_block_edges(K)
     phase_gate_cav_edges(K)
+    phase_until2_edges(K)
 
     # ---- the main path: counts from zero, phases 4-7 ------------------
     K.reset_launches()

@@ -12,33 +12,36 @@
 // far below the card's operations-per-byte balance, so the kernel is a
 // random-gather kernel limited by memory transactions.  The TPU design
 // double-buffered bucket DMAs into VMEM; on Hopper many resident warps
-// hide the gather latency instead, so this first version is one thread
-// per query lane reading its rows straight from global memory, with the
-// decode spec (fields and <= 256-entry dictionaries) read from a small
-// device array uploaded once per table at prepare.  No per-spec
-// recompilation: the spec is data.
+// hide the gather latency instead.  The decode spec (fields and <= 256-entry
+// dictionaries) is a small device array uploaded once per table at
+// prepare: no per-spec recompilation, the spec is data.
 //
 // Bool outputs are uint8.  Row addressing is int64 (rows * lanes passes
 // 2^31 on large tables).
 //
-// Mode gate's caveat lanes (pallas.py:286, :355-359): on a caveated table
-// the gate also returns, per slot, the row's caveat id (0 on a miss) in
-// out2 and its stored-context index (-1 on a miss) in out3, int32 planes
-// beside the hit/live bytes that the CEL tri-state VM evaluates.  The
-// planes are a template parameter (0, 1 or 2): a gate without them is the
-// same code as before they existed.
-//
-// Mode block (pallas.py:246, the same kernel's block tail) is bound by
-// bytes and dominated by its OUTPUT: a lane's decoded [cap, W] int32 block
-// is several times the rows and offset it reads (cap 8, W 3: 96 bytes out
-// per lane).  One thread per lane writing its own block made each warp
-// store touch 32 sectors at a cap*W*4-byte stride, and read rows the same
-// way.  It runs the slot tile of probe_common.cuh instead: per
+// Modes block, gate and until2 run the slot tile of probe_common.cuh: per
 // lane one segment of cap rows at the clamped start (OffInterleaveLanes
-// below does the hash, offset read and clamp once per lane), the rows
-// read slot by slot into a shared-memory tile by neighbouring threads,
-// and the tile stored to out0 as one contiguous span with 16-byte stores.
-//
+// below does the hash, the offset read and the clamp once per lane), the
+// rows read slot by slot by neighbouring threads.
+//   - block (pallas.py:246, the block tail) is bound by its OUTPUT, a
+//     lane's decoded [cap, W] int32 block (cap 8, W 3: 96 bytes out per
+//     lane); the rows go into a shared-memory tile, stored to out0 as one
+//     contiguous span with 16-byte stores.
+//   - gate (the gate tail, :348-359) writes hit and live a slot, and on a
+//     caveated table (pallas.py:286, :355-359) the row's caveat id (0 on a
+//     miss) in out2 and its stored-context index (-1 on a miss) in out3:
+//     one thread a slot decodes only the key and expiry fields, the
+//     caveat and context columns only on a hit, and stores at the slot's
+//     flat index.
+//   - until2 (:345-347) folds a lane's slots into two flags a lane: a CTA
+//     owns whole lanes, a slot that hits ORs (column 2 > now) and (column
+//     3 > now) into its lane's shared flag word, and one thread a lane
+//     stores the flags.
+// One thread per lane walking its cap rows (fused_probe_kernel below, which
+// mode any still runs) read scattered rows a warp, decoded every column
+// of every row, and stored a gate's flags and planes at a cap-byte and a
+// 4 * cap-byte stride.
+
 // Mode runs replaces pallas.py::fused_probe mode "runs" (pallas.py:364-400,
 // the point-run probe of engine/spmv.py::_make_runs behind the lookups).
 // One thread per key: mix32 -> bucket h -> [start, end) from off(h) and
@@ -103,11 +106,13 @@ struct ProbeArgs {
   int lay_exp;           // gate: expiry column, -1 = no expiry gate
   int lay_cav;           // gate: caveat-id column (out2), -1 = none
   int lay_ctx;           // gate: context-index column (out3), -1 = none
-  int tile_slots;        // block: slots a CTA (kernels.block_tile)
+  int tile_slots;        // slot-tile modes: slots a CTA (kernels.block_tile,
+                         // gate_tile, reduce_tile)
 };
 }
 
-template <int MODE, int PLANES = 0>
+// Mode any: one thread a lane, its cap rows one after another.
+template <int MODE>
 __global__ void fused_probe_kernel(const ProbeArgs a) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= a.B) return;
@@ -130,7 +135,6 @@ __global__ void fused_probe_kernel(const ProbeArgs a) {
   const bool guard = (q0 >= 0) && (a.nq < 2 || q1 >= 0);
 
   bool acc0 = false, acc1 = false;
-  const GochugaruGatePlanes gp = {a.out2, a.out3, a.lay_cav, a.lay_ctx};
   int32_t cols[GOCHUGARU_MAXW];
   for (int j = 0; j < a.cap; ++j) {
     const long long row = s + j;
@@ -142,9 +146,7 @@ __global__ void fused_probe_kernel(const ProbeArgs a) {
       for (int c = 0; c < a.W; ++c) cols[c] = r[c];
     }
     const bool hit = guard && cols[0] == q0 && (a.nq < 2 || cols[1] == q1);
-    gochugaru_slot_tail<MODE, PLANES>(cols, hit, a.W, a.now, a.lay_exp,
-                                      i * a.cap + j, a.out0, a.out1, acc0,
-                                      acc1, gp);
+    gochugaru_slot_tail<MODE>(cols, hit, a.now, acc0, acc1);
   }
   gochugaru_lane_tail<MODE>(i, a.out0, a.out1, acc0, acc1);
 }
@@ -157,7 +159,7 @@ __device__ __forceinline__ long long off_read(const ProbeArgs& a, long long b) {
   return (long long)((const int32_t*)a.off)[b];
 }
 
-// Block mode's one segment a lane: cap rows from the bucket start,
+// The slot tile's one segment a lane: cap rows from the bucket start,
 // clamped as slice_blocks clamps (0 <= s <= rows - cap), as an element
 // offset into tbl.
 struct OffInterleaveLanes {
@@ -172,7 +174,10 @@ struct OffInterleaveLanes {
   }
 };
 
-static int launch_block(const ProbeArgs& a, cudaStream_t st) {
+// Modes block, gate (with PLANES int32 planes) and until2: the slot tile
+// over one segment a lane.
+template <int MODE, int PLANES = 0>
+static int launch_tile(const ProbeArgs& a, cudaStream_t st) {
   if (a.cap < 1 || a.rows < a.cap) return (int)cudaErrorInvalidValue;
   GochugaruTile t = {};
   t.seg_tbl[0] = a.tbl;
@@ -186,8 +191,19 @@ static int launch_block(const ProbeArgs& a, cudaStream_t st) {
   t.fields = a.fields;
   t.dicts = a.dicts;
   t.out = (int32_t*)a.out0;
+  t.hit = (uint8_t*)a.out0;
+  t.live = (uint8_t*)a.out1;
+  t.planes = GochugaruGatePlanes{a.out2, a.out3, a.lay_cav, a.lay_ctx};
+  t.red0 = (uint8_t*)a.out0;
+  t.red1 = (uint8_t*)a.out1;
+  t.q0 = a.q0;
+  t.q1 = a.q1;
+  t.nq = a.nq;
+  t.now = a.now;
+  t.lay_exp = a.lay_exp;
   t.B = a.B;
-  return gochugaru_launch_slot_tile<MODE_BLOCK>(t, OffInterleaveLanes{a}, st);
+  return gochugaru_launch_slot_tile<MODE, OffInterleaveLanes, PLANES>(
+      t, OffInterleaveLanes{a}, st);
 }
 
 // column 0 of one row: int32 tables read it whole; packed tables decode
@@ -250,27 +266,21 @@ extern "C" int gochugaru_fused_probe(int mode, const ProbeArgs* args,
   cudaStream_t st = (cudaStream_t)stream;
   switch (mode) {
     case MODE_BLOCK:
-      return launch_block(a, st);
+      return launch_tile<MODE_BLOCK>(a, st);
     case MODE_ANY:
       fused_probe_kernel<MODE_ANY><<<grid, threads, 0, st>>>(a);
       break;
     case MODE_UNTIL2:
-      fused_probe_kernel<MODE_UNTIL2><<<grid, threads, 0, st>>>(a);
-      break;
+      return launch_tile<MODE_UNTIL2>(a, st);
     case MODE_GATE:
       if (a.out3 != nullptr && a.out2 == nullptr) return (int)cudaErrorInvalidValue;
       if (a.out2 != nullptr && (a.lay_cav < 0 || a.lay_cav >= a.W))
         return (int)cudaErrorInvalidValue;
       if (a.out3 != nullptr && (a.lay_ctx < 0 || a.lay_ctx >= a.W))
         return (int)cudaErrorInvalidValue;
-      if (a.out3 != nullptr) {
-        fused_probe_kernel<MODE_GATE, 2><<<grid, threads, 0, st>>>(a);
-      } else if (a.out2 != nullptr) {
-        fused_probe_kernel<MODE_GATE, 1><<<grid, threads, 0, st>>>(a);
-      } else {
-        fused_probe_kernel<MODE_GATE><<<grid, threads, 0, st>>>(a);
-      }
-      break;
+      if (a.out3 != nullptr) return launch_tile<MODE_GATE, 2>(a, st);
+      if (a.out2 != nullptr) return launch_tile<MODE_GATE, 1>(a, st);
+      return launch_tile<MODE_GATE>(a, st);
     case MODE_RUNS:
       if (a.nq != 1) return (int)cudaErrorInvalidValue;
       fused_runs_kernel<<<grid, threads, 0, st>>>(a);

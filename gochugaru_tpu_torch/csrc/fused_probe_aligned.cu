@@ -10,14 +10,15 @@
 //                     -> ONE row of cap_l slots
 //   slots in level order (output slot = sum_{m<l} cap_m + j) -> decode
 //   (runtime pack spec) -> key compare with the UNSALTED q, q >= 0 guard
-//   -> mode tail (shared with fused_probe.cu)
+//   -> mode tail
 //
 // What bounds it: bytes.  A probe reads one contiguous row per level
 // (tens of bytes) at a hashed address, with no dependent offset read —
 // that is the layout's point against off+interleave's offset -> block
 // chain — and does a few dozen integer operations per slot, far below
 // the card's operations-per-byte balance.  Modes any and until2 are one
-// thread per query lane reading its rows straight from global memory;
+// thread per query lane reading its rows straight from global memory (as
+// fused_probe.cu's any; its until2 runs the slot tile's reduced mode);
 // resident warps hide the gather latency the TPU kernel hid with
 // double-buffered row DMAs.  Levels arrive as data (pointer, rows, row
 // stride, cap, host-computed salt; at most MAXL), and the decode spec is
@@ -107,13 +108,12 @@ __global__ void fused_probe_aligned_kernel(const AlignedArgs a) {
 
   bool acc0 = false, acc1 = false;
   int32_t cols[GOCHUGARU_MAXW];
-  long long slot = i * a.capT;
   for (int l = 0; l < a.L; ++l) {
     const AlignedLevel lv = a.lv[l];
     const uint32_t h =
         gochugaru_mix32(q0 ^ lv.salt, q1, a.nq) & (uint32_t)(lv.size - 1);
     const long long row = (long long)h * lv.stride;
-    for (int j = 0; j < lv.cap; ++j, ++slot) {
+    for (int j = 0; j < lv.cap; ++j) {
       const long long at = row + (long long)j * a.sw;
       if (a.packed) {
         gochugaru_decode_row((const uint16_t*)lv.tbl + at, a.W, a.fields,
@@ -123,8 +123,7 @@ __global__ void fused_probe_aligned_kernel(const AlignedArgs a) {
         for (int c = 0; c < a.W; ++c) cols[c] = r[c];
       }
       const bool hit = guard && cols[0] == q0 && (a.nq < 2 || cols[1] == q1);
-      gochugaru_slot_tail<MODE>(cols, hit, a.W, a.now, a.lay_exp, slot,
-                                a.out0, a.out1, acc0, acc1);
+      gochugaru_slot_tail<MODE>(cols, hit, a.now, acc0, acc1);
     }
   }
   gochugaru_lane_tail<MODE>(i, a.out0, a.out1, acc0, acc1);

@@ -1,7 +1,8 @@
 // Device helpers shared by the fused probe kernels (fused_probe.cu and
 // fused_probe_aligned.cu): the key hash, the packed-row decode, the
-// per-mode tails of the reduced modes, and the slot tile: mode block of
-// both kernels and mode gate of fused_probe_aligned.
+// per-lane tails of the reduced modes still run one thread a lane (any of
+// both kernels, until2 of the aligned one), and the slot tile: mode block
+// and mode gate of both kernels, and fused_probe's mode until2.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -90,8 +91,9 @@ __device__ __forceinline__ int32_t gochugaru_decode_col(const uint16_t* r,
 // The gate's optional int32 planes (pallas.py:355-359): PLANES 0 writes
 // hit and live only; 1 adds the caveat-id plane (the row's cav column on
 // a hit, 0 on a miss); 2 adds the stored-context plane too (its ctx
-// column on a hit, -1 on a miss).  A template parameter, so a gate
-// without caveats compiles to the code it had before the planes existed.
+// column on a hit, -1 on a miss).  A template parameter of the slot tile,
+// so a gate without caveats compiles to the code it had before the planes
+// existed.
 struct GochugaruGatePlanes {
   int32_t* cav;  // [B, cap] or null (PLANES 0)
   int32_t* ctx;  // [B, cap] or null (PLANES < 2)
@@ -99,32 +101,18 @@ struct GochugaruGatePlanes {
   int lay_ctx;   // logical column of the context index
 };
 
-// One decoded candidate slot through a reduced mode's tail.  ``slot`` is
-// the lane's flat output slot (lane * cap + j); gate writes its hit and
-// live flags (live: no expiry column, or expiry 0 or past ``now``) and
-// its PLANES int32 planes, any / until2 fold into the lane's
-// accumulators.  (Block mode, and the aligned kernel's gate, are the slot
-// tile below; fused_probe.cu's gate runs this tail.)
-template <int MODE, int PLANES = 0>
-__device__ __forceinline__ void gochugaru_slot_tail(
-    const int32_t* cols, bool hit, int W, int now, int lay_exp,
-    long long slot, void* out0, void* out1, bool& acc0, bool& acc1,
-    const GochugaruGatePlanes& gp = GochugaruGatePlanes{}) {
+// One decoded candidate slot of a per-lane reduced mode, folded into the
+// lane's accumulators: any ORs the hit, until2 the hit with column 2 /
+// column 3 past ``now``.
+template <int MODE>
+__device__ __forceinline__ void gochugaru_slot_tail(const int32_t* cols,
+                                                    bool hit, int now,
+                                                    bool& acc0, bool& acc1) {
   if (MODE == MODE_ANY) {
     acc0 |= hit;
   } else if (MODE == MODE_UNTIL2) {
     acc0 |= hit && cols[2] > now;
     acc1 |= hit && cols[3] > now;
-  } else {  // MODE_GATE
-    bool live = hit;
-    if (lay_exp >= 0) {
-      const int32_t e = hit ? cols[lay_exp] : 0;
-      live = hit && (e == 0 || e > now);
-    }
-    ((uint8_t*)out0)[slot] = hit;
-    ((uint8_t*)out1)[slot] = live;
-    if (PLANES > 0) gp.cav[slot] = hit ? cols[gp.lay_cav] : 0;
-    if (PLANES > 1) gp.ctx[slot] = hit ? cols[gp.lay_ctx] : -1;
   }
 }
 
@@ -142,7 +130,8 @@ __device__ __forceinline__ void gochugaru_lane_tail(long long i, void* out0,
 }
 
 // ---------------------------------------------------------------------------
-// The slot tile: mode block, and mode gate of the aligned kernel
+// The slot tile: mode block and mode gate of both kernels, and
+// fused_probe's mode until2 (a reduced mode)
 // ---------------------------------------------------------------------------
 //
 // A lane's candidate block is a short list of SEGMENTS, each a run of
@@ -156,14 +145,16 @@ __device__ __forceinline__ void gochugaru_lane_tail(long long i, void* out0,
 // A CTA owns one TILE: ``tile_slots`` consecutive slots of the flattened
 // [B * capT] slot space, so its output is one contiguous span.
 //   A. one thread per lane the tile touches: hash, offset read, clamp (or
-//      the per-level hashes) -> segment starts in shared memory (gate: the
-//      lane's two keys beside them); the dependent offset read happens
-//      once per lane, not once per slot;
+//      the per-level hashes) -> segment starts in shared memory (gate and
+//      the reduced modes: the lane's two keys beside them, and the reduced
+//      modes' flag word, zeroed); the dependent offset read happens once
+//      per lane, not once per slot;
 //   B. one thread per slot, neighbouring threads on neighbouring slots of
 //      one lane's contiguous segment, so the row reads coalesce (the slot
 //      cursor and gochugaru_slot_at below: the one copy of the segment
 //      walk);
-//   C. block only: the shared tile to the output.
+//   C. block: the shared tile to the output; the reduced modes: the flag
+//      words to the per-lane outputs.
 //
 // Mode block (pallas.py:246 and :444, block tail) is bound by bytes and
 // dominated by its OUTPUT, a lane's decoded [capT, W] int32 block.  Phase
@@ -177,29 +168,49 @@ __device__ __forceinline__ void gochugaru_lane_tail(long long i, void* out0,
 // and the shared bytes fit; a lane whose block passes the budget is
 // walked in chunks of slots, since a tile is any run of slots.
 //
-// Mode gate of fused_probe_aligned (pallas.py:444, gate tail) writes two
-// uint8 flags a slot, hit and live: 2 * capT bytes a lane, the most of its
-// bytes, and the rest is one row read a level.  On caveated tables it also
-// writes one or two int32 planes a slot (pallas.py:551-555): the caveat id
-// and the stored-context index on a hit, 0 and -1 on a miss, each at the
-// slot's flat index beside the flags, decoded only on a hit.  One thread a lane (the
-// first kernel) wrote them at a capT-byte stride, so a warp's byte store
-// spanned 32 * capT bytes to write 32, and walked its slots one after
-// another.  Here one thread takes a slot: it reads the lanes its slot
-// needs (the two key fields and the expiry field, their spec rows read
-// once a thread), compares with the lane's UNSALTED keys from shared
-// memory, applies the expiry only on a hit, and stores the two flags at
-// the slot's flat index: neighbouring threads, neighbouring bytes.  There
-// is no output tile and no phase C.  What bounds it is not bytes (the
-// flags and rows are ~5 MB at the main-path call, ~1.5 us at the HBM
-// rate): a launch of the tiles with phase A and the stores alone takes
-// ~3.4 us there, the slot walk ~1 us more, the row reads and compares the
-// rest.  Fewer memory instructions a slot did not pay: reading a packed
-// row as the aligned 32-bit words that hold its lanes measured slower than
-// one 16-bit load a field lane (PERF.md; gochugaru_tpu_torch/tools/
-// probe_variants.py).  Slots a CTA come from kernels.gate_tile; the
-// shared bytes are only the touched lanes' segment starts and keys, so a
-// lane longer than a tile is walked in chunks.
+// Mode gate (pallas.py:246 and :444, gate tail) writes two uint8 flags a
+// slot, hit and live: 2 * capT bytes a lane, the most of its bytes, and
+// the rest is the rows read.  On caveated tables it also writes one or two
+// int32 planes a slot (pallas.py:355-359, :551-555): the caveat id and the
+// stored-context index on a hit, 0 and -1 on a miss, each at the slot's
+// flat index beside the flags, decoded only on a hit.  One thread a lane
+// (the first kernels) walked its slots one after another, decoded every
+// column of every row into a cols[] array, and stored the flags at a
+// capT-byte stride and the planes at a 4 * capT-byte one, so a warp's
+// store spanned 32 sectors to write one or four.  Here one thread takes a
+// slot: it reads the lanes its slot needs (the two key fields and the
+// expiry field, their spec rows read once a thread), compares with the
+// lane's UNSALTED keys from shared memory, applies the expiry only on a
+// hit, and stores the two flags (and planes) at the slot's flat index:
+// neighbouring threads, neighbouring bytes and words.  There is no output
+// tile and no phase C.  What bounds it is not bytes (the flags and rows
+// are ~5 MB at the main-path call, ~1.5 us at the HBM rate): a launch of
+// the tiles with phase A and the stores alone takes ~3.4 us there, the
+// slot walk ~1 us more, the row reads and compares the rest.  Fewer memory
+// instructions a slot did not pay: reading a packed row as the aligned
+// 32-bit words that hold its lanes measured slower than one 16-bit load a
+// field lane (PERF.md; gochugaru_tpu_torch/tools/probe_variants.py).
+// Slots a CTA come from kernels.gate_tile; the shared bytes are only the
+// touched lanes' segment starts and keys, so a lane longer than a tile is
+// walked in chunks.
+//
+// The reduced modes (until2, pallas.py:345-347; written so that any could
+// run here too) fold a lane's slots into one or two flags a LANE.  A CTA
+// owns whole lanes (kernels.reduce_tile: tile_slots a multiple of capT,
+// max(1, REDUCE_SLOTS / capT) lanes, so a lane longer than REDUCE_SLOTS
+// has a CTA of its own whose threads loop over its slots): no lane is
+// split between CTAs, so there is no combine across CTAs and no global
+// atomic.  Its tiles are smaller than the gate's: a reduced call has few
+// lanes (32,768 at cap 4 on the main path), and a thread's slots are
+// dependent round trips one after another, so 2,048 slots a CTA left half
+// the SMs idle and took longer than the per-lane kernel (PERF.md).
+// Phase B is the gate's slot walk reading the key fields and, for until2,
+// columns 2 and 3 (each decoded alone along its delta chain, reusing the
+// key columns already decoded), and a slot that hits ORs its bits into
+// its lane's shared flag word (a shared atomicOr, only when it has a bit
+// to set).  Phase C stores the flag words as the lanes' uint8 outputs,
+// neighbouring threads on neighbouring bytes.  The per-lane kernel it
+// replaces decoded every column of its cap rows, one row after another.
 //
 // Table and output addresses are int64; shared indices are 32-bit.
 
@@ -221,29 +232,34 @@ struct GochugaruTile {
   uint8_t* hit;                           // gate: [B, capT] hit flags
   uint8_t* live;                          // gate: [B, capT] live flags
   GochugaruGatePlanes planes;             // gate: the optional int32 planes
-  const int32_t* q0;                      // gate: [B] first key column
-  const int32_t* q1;                      // gate: [B] second key column or null
-  int nq;                                 // gate: key columns (1 or 2)
-  int now;                                // gate: expiry threshold
+  uint8_t* red0;                          // reduced: [B] first lane flag
+  uint8_t* red1;                          // until2: [B] second lane flag
+  const int32_t* q0;                      // gate, reduced: [B] first key column
+  const int32_t* q1;                      // gate, reduced: [B] second key or null
+  int nq;                                 // gate, reduced: key columns (1 or 2)
+  int now;                                // gate: expiry; until2: threshold
   int lay_exp;                            // gate: expiry column, -1 = none
   long long B;
 };
 
 // The most lanes one tile touches: tiles start at multiples of S, so a
 // tile of whole lanes touches S / capT of them, any other at most
-// ceil((S - 1) / capT) + 1.  Mirrored by kernels.block_tile / gate_tile.
+// ceil((S - 1) / capT) + 1.  Mirrored by kernels._tile_lanes.
 __host__ __device__ __forceinline__ int gochugaru_tile_lanes(int S, int capT) {
   return S % capT == 0 ? S / capT : (S + capT - 2) / capT + 1;
 }
 
 // Shared bytes of one CTA: block's tile [S, W] int32, then per touched
-// lane its nseg segment starts (int64) and, for gate, its two keys.
+// lane its nseg segment starts (int64) and, for gate and the reduced
+// modes, its two keys, and for the reduced modes its flag word.  Mirrored
+// by kernels.block_tile / gate_tile / reduce_tile.
 template <int MODE>
 __host__ __device__ __forceinline__ size_t gochugaru_tile_smem(int S, int capT,
                                                               int W, int nseg) {
   const size_t lanes = (size_t)gochugaru_tile_lanes(S, capT);
   if (MODE == MODE_BLOCK) return (size_t)S * W * 4 + lanes * nseg * 8;
-  return lanes * (nseg * 8 + 8);
+  if (MODE == MODE_GATE) return lanes * (nseg * 8 + 8);
+  return lanes * (nseg * 8 + 12);
 }
 
 // One int32 row of W columns into the shared tile, as W asynchronous
@@ -330,27 +346,45 @@ __device__ __forceinline__ void gochugaru_block_slots(const GochugaruTile& t,
     __stcs(out + e, tile[e]);
 }
 
-// Phase B of aligned mode gate: one thread a slot, its hit and live flags,
-// and on a hit its PLANES caveat / context columns (each decoded alone
-// along its delta chain: no cols[] array).
+// A packed column's value from its own value ``own`` (its field alone) and
+// its delta chain ``d`` (the column it is a delta of, -1 = none): column 0
+// and, with two keys, column 1 are already decoded (c0, c1); any other
+// chain is decoded from the row.
+__device__ __forceinline__ uint32_t gochugaru_chain(const GochugaruTile& t,
+                                                    const uint16_t* r,
+                                                    uint32_t own, int d,
+                                                    uint32_t c0, uint32_t c1) {
+  if (d == 0) return own + c0;
+  if (d == 1 && t.nq > 1) return own + c1;
+  if (d >= 0) return own + (uint32_t)gochugaru_decode_col(r, d, t.fields, t.dicts);
+  return own;
+}
+
+// The spec row of column c (f[5]) read once into registers, or a constant
+// 0 field (no lanes, base 0, no delta, no dictionary) when there is no
+// spec or no such column (c < 0).
+__device__ __forceinline__ void gochugaru_spec_row(const GochugaruTile& t,
+                                                   int c, int32_t* f) {
+#pragma unroll
+  for (int e = 0; e < 5; ++e)
+    f[e] = (t.packed && c >= 0) ? t.fields[5 * c + e]
+                                : ((e == 2 || e == 3) ? -1 : 0);
+}
+
+// Phase B of mode gate: one thread a slot, its hit and live flags, and on
+// a hit its PLANES caveat / context columns (each decoded alone along its
+// delta chain: no cols[] array).
 template <int PLANES>
 __device__ __forceinline__ void gochugaru_gate_slots(const GochugaruTile& t,
                                                      const long long* seg_off,
                                                      const int32_t* keys,
                                                      long long g0, int n,
                                                      int j0) {
-  // the spec rows of the key fields and the expiry field, read once into
-  // registers (a constant 0 where there is no such field or no spec)
+  // the spec rows of the key fields and the expiry field
   int32_t f0[5], f1[5], fe[5];
-#pragma unroll
-  for (int e = 0; e < 5; ++e) {
-    f0[e] = f1[e] = fe[e] = (e == 2 || e == 3) ? -1 : 0;
-    if (t.packed) {
-      f0[e] = t.fields[e];
-      if (t.nq > 1) f1[e] = t.fields[5 + e];
-      if (t.lay_exp >= 0) fe[e] = t.fields[5 * t.lay_exp + e];
-    }
-  }
+  gochugaru_spec_row(t, 0, f0);
+  gochugaru_spec_row(t, t.nq > 1 ? 1 : -1, f1);
+  gochugaru_spec_row(t, t.lay_exp, fe);
   const bool gate = t.lay_exp >= 0;
   GochugaruSlotCursor c(j0 + (int)threadIdx.x, blockDim.x, t.capT);
   for (int p = threadIdx.x; p < n; p += blockDim.x, c.next()) {
@@ -369,19 +403,9 @@ __device__ __forceinline__ void gochugaru_gate_slots(const GochugaruTile& t,
         c0 = gochugaru_field_own(w0, f0, t.dicts);
         if (t.nq > 1)
           c1 = gochugaru_field_own(w1, f1, t.dicts) + (f1[2] == 0 ? c0 : 0u);
-        if (gate) {
-          // the expiry column: its own value plus its delta chain's
-          // (column 0 or 1 already decoded; any other from the row)
-          const int d = fe[2];
-          e = gochugaru_field_own(we, fe, t.dicts);
-          if (d == 0) {
-            e += c0;
-          } else if (d == 1 && t.nq > 1) {
-            e += c1;
-          } else if (d >= 0) {
-            e += (uint32_t)gochugaru_decode_col(r, d, t.fields, t.dicts);
-          }
-        }
+        if (gate)
+          e = gochugaru_chain(t, r, gochugaru_field_own(we, fe, t.dicts), fe[2],
+                              c0, c1);
       } else {
         const int32_t* r = (const int32_t*)tbl + at;
         c0 = (uint32_t)r[0];
@@ -412,6 +436,59 @@ __device__ __forceinline__ void gochugaru_gate_slots(const GochugaruTile& t,
   }
 }
 
+// Phase B of a reduced mode: one thread a slot; a slot that hits ORs its
+// bits into its lane's shared flag word (any: bit 0; until2: bit 0 when
+// column 2 > now, bit 1 when column 3 > now).
+template <int MODE>
+__device__ __forceinline__ void gochugaru_reduce_slots(const GochugaruTile& t,
+                                                       const long long* seg_off,
+                                                       const int32_t* keys,
+                                                       int* flags, int n) {
+  // the spec rows of the key fields and of columns 2 and 3
+  int32_t f0[5], f1[5], f2[5], f3[5];
+  gochugaru_spec_row(t, 0, f0);
+  gochugaru_spec_row(t, t.nq > 1 ? 1 : -1, f1);
+  gochugaru_spec_row(t, MODE == MODE_UNTIL2 ? 2 : -1, f2);
+  gochugaru_spec_row(t, MODE == MODE_UNTIL2 ? 3 : -1, f3);
+  GochugaruSlotCursor c((int)threadIdx.x, blockDim.x, t.capT);
+  for (int p = threadIdx.x; p < n; p += blockDim.x, c.next()) {
+    const int2 q = ((const int2*)keys)[c.k];
+    if (q.x < 0 || (t.nq > 1 && q.y < 0)) continue;
+    const void* tbl;
+    const long long at = gochugaru_slot_at(t, seg_off, c.k, c.j, tbl);
+    uint32_t c0, c1 = 0u, v2 = 0u, v3 = 0u;
+    if (t.packed) {
+      const uint16_t* r = (const uint16_t*)tbl + at;
+      const uint32_t w0 = gochugaru_field_window(r, f0);
+      const uint32_t w1 = gochugaru_field_window(r, f1);
+      const uint32_t w2 = gochugaru_field_window(r, f2);
+      const uint32_t w3 = gochugaru_field_window(r, f3);
+      c0 = gochugaru_field_own(w0, f0, t.dicts);
+      if (t.nq > 1)
+        c1 = gochugaru_field_own(w1, f1, t.dicts) + (f1[2] == 0 ? c0 : 0u);
+      if (MODE == MODE_UNTIL2) {
+        v2 = gochugaru_chain(t, r, gochugaru_field_own(w2, f2, t.dicts), f2[2],
+                             c0, c1);
+        const uint32_t own3 = gochugaru_field_own(w3, f3, t.dicts);
+        v3 = f3[2] == 2 ? own3 + v2 : gochugaru_chain(t, r, own3, f3[2], c0, c1);
+      }
+    } else {
+      const int32_t* r = (const int32_t*)tbl + at;
+      c0 = (uint32_t)r[0];
+      if (t.nq > 1) c1 = (uint32_t)r[1];
+      if (MODE == MODE_UNTIL2) {
+        v2 = (uint32_t)r[2];
+        v3 = (uint32_t)r[3];
+      }
+    }
+    if ((int32_t)c0 != q.x || (t.nq > 1 && (int32_t)c1 != q.y)) continue;
+    const int bits = MODE == MODE_ANY
+                         ? 1
+                         : ((int32_t)v2 > t.now) | (((int32_t)v3 > t.now) << 1);
+    if (bits) atomicOr(flags + c.k, bits);
+  }
+}
+
 template <int MODE, class Lanes, int PLANES>
 __global__ void __launch_bounds__(GOCHUGARU_TILE_THREADS)
 gochugaru_slot_tile_kernel(const GochugaruTile t, const Lanes lanes) {
@@ -426,41 +503,59 @@ gochugaru_slot_tile_kernel(const GochugaruTile t, const Lanes lanes) {
   const long long lane0 = g0 / t.capT;
   const int j0 = (int)(g0 - lane0 * t.capT);
   const int nl = (j0 + n - 1) / t.capT + 1;
-  int32_t* keys =
-      (int32_t*)(seg_off + gochugaru_tile_lanes(t.tile_slots, t.capT) * t.nseg);
+  const int tl = gochugaru_tile_lanes(t.tile_slots, t.capT);
+  int32_t* keys = (int32_t*)(seg_off + tl * t.nseg);
+  int* flags = keys + 2 * tl;  // reduced modes
 
-  // A: segment starts (and gate's keys), one thread per lane
+  // A: segment starts (and the keys, and the zeroed flag words), one
+  // thread per lane
   for (int k = threadIdx.x; k < nl; k += blockDim.x) {
     lanes.segments(lane0 + k, seg_off + k * t.nseg);
-    if (MODE == MODE_GATE) {
+    if (MODE != MODE_BLOCK) {
       keys[2 * k] = t.q0[lane0 + k];
       keys[2 * k + 1] = t.nq > 1 ? t.q1[lane0 + k] : 0;
     }
+    if (MODE == MODE_ANY || MODE == MODE_UNTIL2) flags[k] = 0;
   }
   __syncthreads();
 
   if (MODE == MODE_BLOCK) {
     gochugaru_block_slots(t, seg_off, tile, g0, n, j0);
-  } else {
+  } else if (MODE == MODE_GATE) {
     gochugaru_gate_slots<PLANES>(t, seg_off, keys, g0, n, j0);
+  } else {
+    // the tile is whole lanes (j0 == 0): B, then C one thread a lane
+    gochugaru_reduce_slots<MODE>(t, seg_off, keys, flags, n);
+    __syncthreads();
+    for (int k = threadIdx.x; k < nl; k += blockDim.x) {
+      const int f = flags[k];
+      t.red0[lane0 + k] = f & 1;
+      if (MODE == MODE_UNTIL2) t.red1[lane0 + k] = (f >> 1) & 1;
+    }
   }
 }
 
-// Launch the slot tile of MODE (block or gate, the gate with PLANES int32
-// planes) over every lane; returns a cudaError_t as int.  Refuses a
-// geometry that does not fit or align, and gate planes it cannot write.
+// Launch the slot tile of MODE (block, gate with PLANES int32 planes, or a
+// reduced mode) over every lane; returns a cudaError_t as int.  Refuses a
+// geometry that does not fit or align, a reduced tile that splits a lane,
+// and outputs or columns the mode cannot write or read.
 template <int MODE, class Lanes, int PLANES = 0>
 int gochugaru_launch_slot_tile(const GochugaruTile& t, const Lanes& lanes,
                                cudaStream_t st) {
   const int S = t.tile_slots;
+  const bool reduced = MODE == MODE_ANY || MODE == MODE_UNTIL2;
   if (t.nseg < 1 || t.nseg > GOCHUGARU_MAXL || t.capT < 1 || S < 1 ||
       S > GOCHUGARU_SMEM_MAX || t.seg_first[t.nseg] != t.capT)
     return (int)cudaErrorInvalidValue;
   if (MODE == MODE_BLOCK &&
       ((S * t.W) % 4 != 0 || ((uintptr_t)t.out & 15) != 0))
     return (int)cudaErrorInvalidValue;
-  if (MODE == MODE_GATE && (t.nq < 1 || t.nq > 2 || t.W < t.nq ||
-                            t.lay_exp >= t.W))
+  if (MODE != MODE_BLOCK && (t.nq < 1 || t.nq > 2 || t.W < t.nq))
+    return (int)cudaErrorInvalidValue;
+  if (MODE == MODE_GATE && t.lay_exp >= t.W) return (int)cudaErrorInvalidValue;
+  if (reduced && (S % t.capT != 0 || t.red0 == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (MODE == MODE_UNTIL2 && (t.W < 4 || t.red1 == nullptr))
     return (int)cudaErrorInvalidValue;
   if (PLANES > 0 && (MODE != MODE_GATE || t.planes.cav == nullptr ||
                      t.planes.lay_cav < 0 || t.planes.lay_cav >= t.W))

@@ -14,10 +14,10 @@ calls) — ``MODES`` for fused_probe, ``aligned.<mode>`` for each of
 the kernels, and ``LANES`` the query lanes (keys for ``runs``) those
 launches processed.  A gate with the caveat lanes (``cav_lane``, and
 ``ctx_lane`` beside it) counts under its own key, ``gate.cav`` /
-``aligned.gate.cav``.  Mode ``block`` of both kernels and mode ``gate``
-of ``fused_probe_aligned`` run one slot-tile routine
-(``csrc/probe_common.cuh``) whose launch geometry ``block_tile`` and
-``gate_tile`` pick here.
+``aligned.gate.cav``.  Modes ``block`` and ``gate`` of both kernels and
+``fused_probe``'s mode ``until2`` run one slot-tile routine
+(``csrc/probe_common.cuh``) whose launch geometry ``block_tile``,
+``gate_tile`` and ``reduce_tile`` pick here.
 """
 
 from __future__ import annotations
@@ -37,7 +37,7 @@ __all__ = [
     "ALIGNED_MODES", "GATE_CAV", "LANES", "LAUNCHES", "MODES", "blk_hit",
     "block_tile", "fused_probe", "fused_probe_aligned",
     "fused_probe_aligned_plain", "fused_probe_plain", "gate_tile",
-    "reset_launches", "spec_tensors",
+    "reduce_tile", "reset_launches", "spec_tensors",
 ]
 
 MODES = ("block", "any", "until2", "gate", "runs")
@@ -53,9 +53,14 @@ DICT = 256
 TILE_BYTES = 16 * 1024
 #: shared memory one CTA may use on sm_90 (227 KB)
 SMEM_MAX = 232_448
-#: slots a CTA of the aligned gate's slot tile (256 threads, one slot a
-#: thread a round; chip_smoke.py times 1024-4096, PERF.md)
+#: slots a CTA of the gate's slot tile (256 threads, one slot a thread a
+#: round; chip_smoke.py times 1024-4096, PERF.md)
 GATE_SLOTS = 2048
+#: the most slots a CTA of the reduced modes' tile holds in whole lanes:
+#: fewer than the gate's, since a reduced call has few lanes and each
+#: thread's slots are round trips one after another (chip_smoke.py times
+#: 256-2048, PERF.md)
+REDUCE_SLOTS = 512
 #: kernel launches per mode since the last reset_launches(): fused_probe
 #: under its mode, fused_probe_aligned under ``aligned.<mode>``, a gate
 #: with the caveat planes under ``GATE_CAV`` (``aligned.`` + GATE_CAV)
@@ -154,19 +159,46 @@ def block_tile(capT: int, W: int, nseg: int) -> Tuple[int, int, int]:
 
 
 def gate_tile(capT: int, nseg: int) -> Tuple[int, int, int]:
-    """Launch geometry of ``fused_probe_aligned`` mode ``gate``'s slot
-    tile for lanes of ``capT`` slots in ``nseg`` levels: ``(tile_slots,
-    tile_lanes, smem_bytes)``.
+    """Launch geometry of mode ``gate``'s slot tile (both kernels) for
+    lanes of ``capT`` slots in ``nseg`` segments (1 for fused_probe, the
+    level count for fused_probe_aligned): ``(tile_slots, tile_lanes,
+    smem_bytes)``.
 
     A CTA owns ``GATE_SLOTS`` (read at call time) consecutive slots,
     whatever ``capT``: its flags need no output tile and no alignment, so
     a lane longer than a tile is walked by several CTAs and short lanes
     pack many to one.  The shared bytes are the segment starts (8 bytes a
-    level) and the two keys (8 bytes) of every lane the tile touches, as
+    segment) and the two keys (8 bytes) of every lane the tile touches, as
     gochugaru_tile_smem counts them."""
     slots = int(GATE_SLOTS)
     tl = _tile_lanes(slots, capT)
     return slots, tl, tl * (nseg * 8 + 8)
+
+
+def reduce_tile(capT: int, nseg: int) -> Tuple[int, int, int]:
+    """Launch geometry of the reduced modes' slot tile (``fused_probe``
+    mode ``until2``) for lanes of ``capT`` slots in ``nseg`` segments:
+    ``(tile_slots, tile_lanes, smem_bytes)``.
+
+    A CTA owns whole lanes, ``max(1, REDUCE_SLOTS // capT)`` of them
+    (read at call time), so every tile starts at a lane boundary and no
+    lane's flags are folded by two CTAs; a lane longer than
+    ``REDUCE_SLOTS`` gets a CTA of its own.  The shared bytes are, per lane, the segment starts (8
+    bytes a segment), the two keys (8 bytes) and the flag word (4 bytes),
+    as gochugaru_tile_smem counts them."""
+    lanes = max(1, int(REDUCE_SLOTS) // capT)
+    return lanes * capT, lanes, lanes * (nseg * 8 + 12)
+
+
+def _tile_slots(mode: str, capT: int, W: int, nseg: int) -> int:
+    """Slots a CTA of a slot-tile mode's launch (0 for a per-lane one)."""
+    if mode == "block":
+        return block_tile(capT, W, nseg)[0]
+    if mode == "gate":
+        return gate_tile(capT, nseg)[0]
+    if mode == "until2":
+        return reduce_tile(capT, nseg)[0]
+    return 0
 
 
 def _tile_lanes(slots: int, capT: int) -> int:
@@ -298,7 +330,9 @@ def fused_probe(
     else:
         fields = dicts = None
     outs = _outputs(mode, B, cap, W, dev, cav_lane, ctx_lane)
-    if B == 0 or (mode == "block" and cap == 0):
+    if B == 0 or (cap == 0 and mode != "runs"):
+        for o in outs:
+            o.zero_()  # no slots: no hit
         return _shaped(mode, outs, shape, cap, W)
     a = _Args(
         q0=qf[0].data_ptr(), q1=qf[1].data_ptr() if nq > 1 else None,
@@ -309,7 +343,7 @@ def fused_probe(
         dicts=dicts.data_ptr() if packed else None,
         nq=nq, ashift=int(ashift or 0), packed=int(packed), w_raw=w_raw,
         cap=int(cap), W=W, now=int(now or 0),
-        tile_slots=block_tile(int(cap), W, 1)[0] if mode == "block" else 0,
+        tile_slots=_tile_slots(mode, int(cap), W, 1),
         **_out_fields(outs, exp_lane, cav_lane, ctx_lane),
     )
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -456,8 +490,8 @@ def fused_probe_aligned(
         dicts=dicts.data_ptr() if packed else None,
         nq=nq, L=L, packed=int(packed), sw=int(sw), capT=capT, W=W,
         now=int(now or 0),
-        tile_slots=(block_tile(capT, W, L)[0] if mode == "block"
-                    else gate_tile(capT, L)[0] if mode == "gate" else 0),
+        tile_slots=(_tile_slots(mode, capT, W, L)
+                    if mode in ("block", "gate") else 0),
         lv=lv, **_out_fields(outs, exp_lane, cav_lane, ctx_lane),
     )
     stream = torch.cuda.current_stream(dev).cuda_stream

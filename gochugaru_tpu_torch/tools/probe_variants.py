@@ -23,7 +23,16 @@ Inputs are synthetic, made from seed 1:
   65,536 keys, 30% negative, as a frontier hop sends them;
 - gate: a two-level aligned ladder (131,072 and 32,768 rows, caps 6 and
   4, three columns, packed and int32) and 131,072 two-key lanes, the
-  shape of the permission fold's probe pair.
+  shape of the permission fold's probe pair;
+- probe (``fused_probe`` modes gate and until2 over off+interleave
+  tables built by engine/hash.py, packed): an ``ehx``-like edge table
+  (1,000,000 rows of (k1, k2, expiry), and of (k1, k2, caveat, context,
+  expiry) as config 4's, caveat 2 bits and context 13) probed by 131,072
+  two-key lanes at cap 8, half on stored edges, with and without the
+  caveat planes; a ``clx``-like closure table (200,000 rows of (source,
+  group, until_a, until_b)) probed by 32,768 two-key lanes at cap 4.
+  The gate breakdown variants (stores only, walk only) and the word reads
+  patch the gate body both kernels share.
 
 The engine does not import this module.
 """
@@ -182,7 +191,7 @@ _WORD_READS = """        uint32_t w0, w1, we;
         }
 """
 
-_GATE_FN = "// Phase B of aligned mode gate: one thread a slot, its hit and live flags,\n"
+_GATE_FN = "template <int PLANES>\n__device__ __forceinline__ void gochugaru_gate_slots("
 
 _WORD_HELPERS = """__device__ __forceinline__ void gv_lanes(const int32_t* f, int& lo, int& hi) {
   if (f[0] == 0) return;
@@ -354,8 +363,71 @@ def gate_inputs(dev, rng):
     }
 
 
+def probe_inputs(dev, rng):
+    """{name: (q_cols, off, tbl, kw)}: fused_probe gate and until2 calls
+    shaped as the main path's (see the module docstring)."""
+    from ..engine import hash as H
+    from ..engine import packed as PK
+    from ..engine.device import to_device_tensor
+    from ..engine.kernels import spec_tensors
+    from ..store.closure import NEVER, NO_EXP
+
+    def table(cols, descs, cap, lanes, mode, **kw):
+        # the probe reads cap rows from each bucket start, whatever the
+        # build's own cap
+        hi = H.build_hash(cols[:2], target_cap=cap)
+        raw = H.interleave_buckets(hi, cols)
+        spec = PK.make_spec(descs)
+        res, anchor = PK.pack_off(hi.off)
+        pick = rng.integers(0, cols[0].shape[0], lanes)
+        qs = tuple(torch.from_numpy(np.where(rng.random(lanes) < 0.5, c[pick],
+                                             rng.integers(0, int(c.max()) + 1, lanes))
+                                    .astype(np.int32)).to(dev) for c in cols[:2])
+        return (qs, to_device_tensor(res, dev),
+                to_device_tensor(PK.pack_rows(raw, spec), dev),
+                dict(cap=cap, spec=spec, spec_dev=spec_tensors(spec, dev),
+                     off_a=to_device_tensor(anchor, dev),
+                     ashift=PK.OFF_ANCHOR_SHIFT, mode=mode, **kw))
+
+    n = 1_000_000
+    k1 = rng.integers(0, 400_000, n).astype(np.int32)
+    k2 = rng.integers(0, 12_000, n).astype(np.int32)
+    exp = np.where(rng.random(n) < 0.9, 0, rng.integers(1, 10_000, n)).astype(np.int32)
+    cav = rng.integers(-1, 3, n).astype(np.int32)
+    ctx = np.where(cav > 0, rng.integers(0, 4_096, n), -1).astype(np.int32)
+    keys = [PK.col_range(-1, 400_000), PK.col_range(-1, 12_000)]
+    gate = dict(now=5_000)
+    # closure rows: (source, group) keys and two until values from the
+    # closure semiring's 2-bit dictionary {NEVER, -1, 0, NO_EXP}
+    m = 200_000
+    src = rng.integers(0, 100_000, m).astype(np.int32)
+    grp = rng.integers(0, 50_000, m).astype(np.int32)
+    udict = (int(NEVER), -1, 0, int(NO_EXP))
+    until = [rng.choice(np.array(udict, np.int32), m, p=(0.2, 0.0, 0.1, 0.7))
+             for _ in range(2)]
+    return {
+        "gate ehx": table([k1, k2, exp], keys + [PK.col_range(-1, 10_000)], 8,
+                          131_072, "gate", exp_lane=2, **gate),
+        "gate.cav ehx": table([k1, k2, cav, ctx, exp],
+                              keys + [PK.col_range(-1, 2), PK.col_range(-1, 4_095),
+                                      PK.col_range(-1, 10_000)], 8, 131_072, "gate",
+                              exp_lane=4, cav_lane=2, ctx_lane=3, **gate),
+        "until2 clx": table([src, grp] + until,
+                            [PK.col_range(-1, 100_000), PK.col_range(-1, 50_000)]
+                            + [PK.col_dict(udict)] * 2, 4, 32_768, "until2",
+                            now=5_000),
+    }
+
+
 RUNS_KERNELS = ("fused_runs",)
 GATE_KERNELS = ("slot_tile_kernel<3", "fused_probe_aligned_kernel<3")
+#: fused_probe's gate / until2: the slot tile, or the per-lane kernel of an
+#: older checkout
+PROBE_KERNELS = {"gate": ("slot_tile_kernel<3", "fused_probe_kernel<3"),
+                 "until2": ("slot_tile_kernel<2", "fused_probe_kernel<2")}
+#: each mode's slots-a-CTA knob and the values it is timed under
+SLOTS = {"gate": ("GATE_SLOTS", (512, 1024, 2048, 4096)),
+         "until2": ("REDUCE_SLOTS", (128, 256, 512, 1024, 2048))}
 
 
 def main() -> int:
@@ -385,12 +457,15 @@ def main() -> int:
     fa = read(KB.CSRC, "fused_probe_aligned.cu")
     todo = [("runs", k, "fused_probe", common, src, True)
             for k, src in runs_variants(fp).items()]
-    todo += [("gate", k, "fused_probe_aligned", c, fa, exact)
-             for k, (c, exact) in gate_variants(common).items()]
+    for group, name, src in (("gate", "fused_probe_aligned", fa),
+                             ("probe", "fused_probe", fp)):
+        todo += [(group, k, name, c, src, exact)
+                 for k, (c, exact) in gate_variants(common).items()]
     for spec in args.other:
         tag, root = spec.split("=", 1)
         oc = os.path.join(root, "gochugaru_tpu_torch", "csrc")
-        for group, name in (("runs", "fused_probe"), ("gate", "fused_probe_aligned")):
+        for group, name in (("runs", "fused_probe"), ("gate", "fused_probe_aligned"),
+                            ("probe", "fused_probe")):
             todo.append((group, tag, name, read(oc, "probe_common.cuh"),
                          read(oc, name + ".cu"), True))
     built = {}
@@ -411,7 +486,7 @@ def main() -> int:
     K._launcher()
     K._aligned_launcher()
     rng = np.random.default_rng(1)
-    saved, slots_default = dict(K._FNS), K.GATE_SLOTS
+    saved, knobs = dict(K._FNS), {k: getattr(K, k) for k, _v in SLOTS.values()}
     try:
         for table, (q, off, tbl, kw) in runs_inputs(dev, rng).items():
             want = K.fused_probe(q, off, tbl, plain=True, **kw)
@@ -432,7 +507,7 @@ def main() -> int:
                 if group != "gate":
                     continue
                 K._FNS["fused_probe_aligned"] = fn
-                for slots in (1024, 2048, 4096):
+                for slots in SLOTS["gate"][1]:
                     K.GATE_SLOTS = slots
                     call = lambda: K.fused_probe_aligned(qs, tbls, caps, sw, **kw)  # noqa: E731
                     if exact and not all(torch.equal(a, b) for a, b in zip(call(), want)):
@@ -442,9 +517,38 @@ def main() -> int:
                                       "table": table, "lanes": int(qs[0].numel()),
                                       "caps": list(caps), "tile_slots": slots,
                                       "exact": exact, "ms": ms}), flush=True)
+        # fused_probe gate and until2: each variant in turns (kept, the
+        # others, then again in reverse order), so a drift of the card
+        # shows as a spread rather than as a difference
+        for table, (qs, off, tbl, kw) in probe_inputs(dev, rng).items():
+            mode = kw["mode"]
+            knob, values = SLOTS[mode]
+            want = K.fused_probe(qs, off, tbl, plain=True, **kw)
+            # the gate body's patches leave until2 as it is: time it kept
+            # and as the other checkouts have it
+            patched = set(gate_variants(common)) - {"kept"}
+            keys = [key for key in libs if key[0] == "probe"
+                    and (mode == "gate" or key[1] not in patched)]
+            for rnd, order in enumerate((keys, keys[::-1])):
+                for key in order:
+                    fn, exact = libs[key]
+                    K._FNS["fused_probe"] = fn
+                    for slots in values:
+                        setattr(K, knob, slots)
+                        call = lambda: K.fused_probe(qs, off, tbl, **kw)  # noqa: E731
+                        if exact and not all(torch.equal(a, b)
+                                             for a, b in zip(call(), want)):
+                            raise AssertionError(f"{mode} {key[1]} != plain on {table}")
+                        ms = device_ms(call, PROBE_KERNELS[mode])
+                        print(json.dumps({"kernel": f"fused_probe.{mode}",
+                                          "variant": key[1], "table": table,
+                                          "round": rnd, "lanes": int(qs[0].numel()),
+                                          "cap": kw["cap"], "tile_slots": slots,
+                                          "exact": exact, "ms": ms}), flush=True)
     finally:
         K._FNS.update(saved)
-        K.GATE_SLOTS = slots_default
+        for k, v in knobs.items():
+            setattr(K, k, v)
     return 0
 
 

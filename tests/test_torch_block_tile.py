@@ -1,10 +1,12 @@
-"""Mode ``block`` of both probe kernels: the tile geometry, and the plain
-twins at the tile's edge shapes against the reference's XLA chain.
+"""Mode ``block`` of both probe kernels and ``fused_probe``'s mode
+``gate``: the tile geometry, and the plain twins at the tile's edge
+shapes against the reference's XLA chain.
 
 On a card mode ``block`` of ``fused_probe`` and ``fused_probe_aligned``
 runs one cooperative tile kernel (``csrc/probe_common.cuh``): a CTA owns
 ``tile_slots`` consecutive output slots, as ``kernels.block_tile``
-chooses.  Here on the CPU:
+chooses; mode ``gate`` of both runs the same slot tile, one thread a slot
+(``kernels.gate_tile``).  Here on the CPU:
 
 - ``block_tile`` for every W in 1..16 and every capT phase 3c of
   chip_smoke.py uses: the shared bytes fit 227 KB, every tile's span of
@@ -14,10 +16,16 @@ chooses.  Here on the CPU:
   counts, bucket starts clamped at ``rows - cap``, W = 16, multi-level
   and 8-level ladders, negative and absent keys, int32 and packed rows)
   against the reference package's ``probe_block`` / ``probe_aligned`` +
-  ``decode_block``, exact equality.
+  ``decode_block``, exact equality;
+- the plain ``gate`` of ``fused_probe`` on the off+interleave edge tables
+  of chip_smoke.py's phase 3c (caps 1 to past one tile, clamped bucket
+  starts, keys planted in the lanes' windows, every expiry codec of
+  ``edge_spec`` and every caveat/context codec of ``cav_rows``) against
+  the same chain and the reference's gate tail (pallas.py:348-359), with
+  and without the caveat and context planes, exact equality.
 
-The kernel is held to that twin by the ``cuda``-marked test below and by
-chip_smoke.py's phase 3c on the card.
+The kernels are held to those twins by the ``cuda``-marked tests below
+and by chip_smoke.py's phase 3c on the card.
 """
 
 import numpy as np
@@ -26,6 +34,7 @@ import torch
 
 import jax.numpy as jnp
 
+import chip_smoke as CS
 from gochugaru_tpu.engine import hash as JH
 from gochugaru_tpu.engine import packed as JPK
 from gochugaru_tpu_torch.engine import kernels as K
@@ -138,22 +147,26 @@ def _queries(rng, B, nq):
                  for _ in range(nq))
 
 
+def _off_table(raw, off, spec, cap, packed, rng=None):
+    """An off+interleave table as the probes take it: int32 rows and
+    offsets, or packed rows and anchored offsets (``off_full`` keeps the
+    int32 offsets)."""
+    t = dict(cap=cap, rows=raw.shape[0], size=off.shape[0] - 1, raw=raw, off=off,
+             spec=None, tbl=raw, off_a=None, ashift=None, rng=rng, off_full=off)
+    if packed:
+        res, anchor = JPK.pack_off(off)
+        t.update(spec=spec, tbl=JPK.pack_rows(raw, spec), off=res, off_a=anchor,
+                 ashift=JPK.OFF_ANCHOR_SHIFT)
+    return t
+
+
 def _edge_table(W, cap, packed, seed):
     """An off+interleave table whose last quarter of bucket starts lies
     within cap of the end (those lanes clamp to rows - cap)."""
     rng = np.random.default_rng(seed)
-    rows, size = max(4 * cap, 512), 256
+    rows = max(4 * cap, 512)
     spec, raw = _spec_rows(W, rng, rows)
-    off = np.sort(np.concatenate([
-        rng.integers(0, rows + 1, size + 1 - size // 4),
-        rng.integers(rows - cap + 1, rows + 1, size // 4)])).astype(np.int32)
-    t = dict(cap=cap, rows=rows, size=size, raw=raw, off=off, spec=None,
-             tbl=raw, off_a=None, ashift=None, rng=rng)
-    if packed:
-        res, anchor = JPK.pack_off(off)
-        t.update(spec=spec, tbl=JPK.pack_rows(raw, spec), off=res, off_a=anchor,
-                 ashift=JPK.OFF_ANCHOR_SHIFT, off_full=off)
-    return t
+    return _off_table(raw, CS.edge_offsets(rng, rows, cap, 256), spec, cap, packed, rng)
 
 
 def _ref_probe(t, qs):
@@ -188,7 +201,7 @@ def test_plain_block_matches_reference_at_edges(W, packed):
             assert got.dtype == torch.int32 and got.shape == (B, cap, W)
             assert np.array_equal(got.numpy(), want), (cap, nq, B)
             h = np.asarray(JH.mix32(list(qs), np)) & (t["size"] - 1)
-            clamped += int((t.get("off_full", t["off"])[h] > t["rows"] - cap).sum())
+            clamped += int((t["off_full"][h] > t["rows"] - cap).sum())
     assert clamped  # some lanes start past rows - cap
 
 
@@ -224,6 +237,122 @@ def test_plain_aligned_block_matches_reference_at_edges(W, packed):
 
 
 # ---------------------------------------------------------------------------
+# fused_probe's plain gate vs the reference's chain at the tile's edges
+# ---------------------------------------------------------------------------
+
+
+def _long_lane():
+    """chip_smoke.py phase 3c's lane longer than one gate tile."""
+    return 2 * K.GATE_SLOTS + 3
+
+
+def _gate_table(cap, packed, seed, nq, B, W=None, codec=None):
+    """chip_smoke.py phase 3c's off+interleave gate recipe: ``edge_spec``
+    rows of ``W`` columns (or ``cav_rows`` under caveat ``codec``), the
+    last quarter of bucket starts clamped, every other live lane's keys
+    planted in its window (a third of them with expiry 0 when W is 16);
+    the table and ``nq`` key columns of ``B`` lanes."""
+    rng = np.random.default_rng(seed)
+    rows = max(4 * cap, 512)
+    if codec is None:
+        spec, raw = _spec_rows(W, rng, rows)
+    else:
+        spec, raw = CS.cav_rows(rng, rows, codec)
+    off = CS.edge_offsets(rng, rows, cap, 256)
+    qs = CS._gate_queries(rng, B, nq)
+    CS.plant_rows(raw, off, cap, qs, rng, spec,
+                  CS.GATE_EXP[W][0] if W == 16 else None)
+    return _off_table(raw, off, spec, cap, packed, rng), qs
+
+
+def _probe(t, qs, **kw):
+    """The port's fused_probe on table ``t`` (CPU tensors)."""
+    return K.fused_probe(
+        tuple(torch.from_numpy(q) for q in qs), to_device_tensor(t["off"], "cpu"),
+        to_device_tensor(t["tbl"], "cpu"), cap=t["cap"], spec=t["spec"],
+        off_a=None if t["off_a"] is None else to_device_tensor(t["off_a"], "cpu"),
+        ashift=t["ashift"], **kw)
+
+
+def _gate_tail(blk, qs, now, exp_lane=None, cav_lane=None, ctx_lane=None):
+    """The reference's gate tail (pallas.py:348-359) over a decoded block:
+    hit, live, and on request the caveat plane (0 on a miss) and the
+    context plane (-1 on a miss)."""
+    hit = np.ones(blk.shape[:-1], bool)
+    for j, q in enumerate(qs):
+        hit &= (blk[..., j] == q[:, None]) & (q >= 0)[:, None]
+    live = hit
+    if exp_lane is not None:
+        e = np.where(hit, blk[..., exp_lane], 0)
+        live = hit & ((e == 0) | (e > now))
+    out = [hit, live]
+    if cav_lane is not None:
+        out.append(np.where(hit, blk[..., cav_lane], 0))
+    if ctx_lane is not None:
+        out.append(np.where(hit, blk[..., ctx_lane], -1))
+    return out
+
+
+def _clamped(t, qs):
+    h = np.asarray(JH.mix32(list(qs), np)) & (t["size"] - 1)
+    return t["off_full"][h] > t["rows"] - t["cap"]
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["int32", "packed"])
+@pytest.mark.parametrize("W", EDGE_W)
+def test_plain_gate_matches_reference_at_tile_edges(W, packed):
+    exp_col, now = CS.GATE_EXP[W]
+    hits = expired = clamped_hits = 0
+    for i, cap in enumerate(EDGE_CAPS + (_long_lane(),)):
+        for nq in (1, 2)[:W]:
+            n = 255 if cap < _long_lane() else 9
+            t, qs = _gate_table(cap, packed, 50 * W + 2 * i + nq, nq, n, W=W)
+            blk = _ref_probe(t, qs)  # lanes are independent: B lanes are its first B
+            for B in (1, n):
+                qb = [q[:B] for q in qs]
+                for e in (exp_col, None):
+                    got = _probe(t, qb, mode="gate", now=now, exp_lane=e)
+                    want = _gate_tail(blk[:B], qb, now, e)
+                    for a, b in zip(got, want):
+                        assert a.dtype == torch.bool and a.shape == (B, cap)
+                        assert np.array_equal(a.numpy(), b), (cap, nq, B, e)
+                    if e is not None:
+                        hits += int(want[0].sum())
+                        expired += int((want[0] & ~want[1]).sum())
+                        clamped_hits += int(want[0][_clamped(t, qb)].sum())
+    assert hits and expired and clamped_hits
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["int32", "packed"])
+@pytest.mark.parametrize("codec", CS.CAV_CODECS)
+def test_plain_gate_planes_match_reference_at_tile_edges(codec, packed):
+    """The gate with its caveat-id and context planes: ranges with a -1
+    sentinel, a dictionary, a context stored as a delta of the caveat."""
+    caveated = no_ctx = 0
+    for i, cap in enumerate(EDGE_CAPS + (_long_lane(),)):
+        n = 255 if cap < _long_lane() else 9
+        t, qs = _gate_table(cap, packed, 70 + i, 2, n, codec=codec)
+        ref = _ref_probe(t, qs)  # lanes are independent: B lanes are its first B
+        for B in (1, n):
+            qb, blk = [q[:B] for q in qs], ref[:B]
+            for exp_lane in (CS.CAV_EXP, None):
+                for ctx_lane in (CS.CAV_LANES["ctx_lane"], None):
+                    kw = dict(now=CS.CAV_NOW, exp_lane=exp_lane,
+                              cav_lane=CS.CAV_LANES["cav_lane"], ctx_lane=ctx_lane)
+                    got = _probe(t, qb, mode="gate", **kw)
+                    want = _gate_tail(blk, qb, **kw)
+                    assert len(got) == len(want) == 3 + (ctx_lane is not None)
+                    for k, (a, b) in enumerate(zip(got, want)):
+                        assert a.dtype == (torch.bool if k < 2 else torch.int32)
+                        assert a.shape == (B, cap)
+                        assert np.array_equal(a.numpy(), b), (cap, B, exp_lane, k)
+            hit = want[0]
+            caveated += int((hit & (want[2] != 0)).sum())
+            no_ctx += int((hit & (blk[..., 3] == -1)).sum())
+    assert caveated and no_ctx
+
+
+# ---------------------------------------------------------------------------
 # on the card: the tile kernel against the plain twin
 # ---------------------------------------------------------------------------
 
@@ -256,3 +385,32 @@ def test_block_tile_kernel_equals_plain_on_card(cuda_device, packed):
             assert torch.equal(K.fused_probe_aligned(qs, tb, caps, sw, spec=spec),
                                K.fused_probe_aligned(qs, tb, caps, sw, spec=spec,
                                                      plain=True)), (W, caps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [False, True], ids=["int32", "packed"])
+def test_gate_tile_kernel_equals_plain_off_interleave_on_card(cuda_device, packed):
+    """fused_probe mode gate (the slot tile) against its plain twin, with
+    and without the caveat planes, at the tile's edges."""
+    dev = torch.device(cuda_device)
+
+    def on_card(t, qs, **kw):
+        args = (tuple(torch.from_numpy(q).to(dev) for q in qs),
+                to_device_tensor(t["off"], dev), to_device_tensor(t["tbl"], dev))
+        kw.update(cap=t["cap"], spec=t["spec"], ashift=t["ashift"], mode="gate",
+                  off_a=None if t["off_a"] is None else to_device_tensor(t["off_a"], dev))
+        return K.fused_probe(*args, **kw), K.fused_probe(*args, plain=True, **kw)
+
+    for cap in (1, 8, _long_lane()):
+        for W in (3, 16):
+            t, qs = _gate_table(cap, packed, W + cap, 2, 257, W=W)
+            for e in (CS.GATE_EXP[W][0], None):
+                got, want = on_card(t, qs, now=CS.GATE_EXP[W][1], exp_lane=e)
+                assert all(torch.equal(a, b) for a, b in zip(got, want)), (W, cap, e)
+        for codec in CS.CAV_CODECS:
+            t, qs = _gate_table(cap, packed, cap, 2, 257, codec=codec)
+            for ctx_lane in (CS.CAV_LANES["ctx_lane"], None):
+                got, want = on_card(t, qs, now=CS.CAV_NOW, exp_lane=CS.CAV_EXP,
+                                    cav_lane=CS.CAV_LANES["cav_lane"], ctx_lane=ctx_lane)
+                assert len(got) == len(want)
+                assert all(torch.equal(a, b) for a, b in zip(got, want)), (codec, cap)

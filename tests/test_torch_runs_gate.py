@@ -367,8 +367,15 @@ def test_kernel_constants_match_the_c_sources():
     assert define(common, "GOCHUGARU_MAXL") == K.MAXL
     assert define(common, "GOCHUGARU_DICT") == K.DICT
     assert define(common, "GOCHUGARU_SMEM_MAX") == K.SMEM_MAX
-    # the gate tile: one slot a thread, whole rounds of the CTA's threads
-    assert K.GATE_SLOTS % define(common, "GOCHUGARU_TILE_THREADS") == 0
+    # the gate tile, and the reduced tile at its most: one slot a thread,
+    # whole rounds of the CTA's threads
+    threads = define(common, "GOCHUGARU_TILE_THREADS")
+    assert K.GATE_SLOTS % threads == 0 and K.REDUCE_SLOTS % threads == 0
+    # the mode ids the wrapper passes are the C enum's
+    enum = re.search(r"enum \{([^}]*)\}", common).group(1)
+    ids = {m.lower(): int(v) for m, v in re.findall(r"MODE_(\w+) = (\d+)", enum)}
+    assert ids == K._MODE_ID
+    assert set(K.ALIGNED_MODES) <= set(ids)
 
 
 def test_probe_variants_skip_a_patch_whose_anchor_is_gone():
