@@ -40,8 +40,8 @@ Phases (any failure exits non-zero and prints no result line):
    delta, a dictionary, a range with zeros) and none; then one int32
    table of 2^29 rows x 5 columns (2.7e9 elements, filled on the card)
    per kernel, with lanes whose rows lie past element 2^31 (fused_probe
-   under block, gate and until2, the aligned one under block and gate);
-   kernel == plain version bit for bit; then mode gate of both kernels
+   under block, gate, until2 and any, the aligned one under block, gate,
+   any and until2); kernel == plain version bit for bit; then mode gate of both kernels
    with the caveat-id and context planes (phase_gate_cav_edges): caveat
    and context columns under the codecs a build emits (ranges with a -1
    sentinel), a dictionary and a delta, int32 and packed, caveat 0 and
@@ -50,13 +50,21 @@ Phases (any failure exits non-zero and prints no result line):
    off+interleave tables (build_hash's, and caps 1, 3, 8, 64 and 2 *
    GATE_SLOTS + 3 with clamped starts) and aligned ladders of 3, 8 and
    (one lane past a tile, 1) levels and build_aligned's; kernel == plain
-   version bit for bit on every plane; then fused_probe's mode until2
-   (the slot tile's reduced mode, phase_until2_edges): columns 2 and 3
-   as ranges, dictionaries, deltas of column 0 and of column 1, and a
-   delta of a delta, W 4 and 16, the same caps, B and clamps, int32 and
-   packed, one and two keys, negative and absent keys, ``now`` equal to a
-   row value and one below it, lanes whose only hits fail both compares;
-   kernel == plain version bit for bit;
+   version bit for bit on every plane; then the reduced modes any and
+   until2 of both kernels (the warp path up to 32 slots a lane, the
+   shared-flag tile beyond; phase_until2_edges and
+   phase_reduced_edges_aligned): columns 2 and 3 as ranges,
+   dictionaries, deltas of column 0 and of column 1, and a delta of a
+   delta, W 4 and 16, caps 1, 3, 4, 8, 31, 32, 33, 64 and 2 * GATE_SLOTS
+   + 3 over off+interleave tables with clamped bucket starts, and ladders
+   of one level of each of those caps, (c, 3, 1) for c in 1, 3, 8, 64,
+   (28, 3, 1), (30, 3), (4, 0, 2) (a level of cap 0), an 8-level ladder,
+   a lane past one tile and phase 3b's build_aligned ladders, keys
+   planted past level 0; B in {1, 255, 65,537} (ragged last warps),
+   int32 and packed, one and two keys, negative and absent keys, ``now``
+   equal to a row value and one below it, lanes whose only hits fail
+   both compares; kernel == plain version bit for bit, with tallies that
+   fail the phase when an edge never occurs;
 4. BASELINE config 2 (RBAC: 10k repos x 1k users x 100 teams x 10 orgs,
    seed 11) — a 100,000-check batch, kernels vs plain on all three
    planes, 2,000 sampled rows vs the host oracle; then the same with
@@ -112,9 +120,12 @@ aligned mode also at its call with the most levels (the row's
 TILE_SWEEP (the row's ``tile_budgets``: budget bytes -> ms, each output
 equal to the plain version's), beside one ``fill_`` of their output's
 size (``fill_ms``: the card's write rate), the ``gate`` rows of both
-kernels under each of GATE_SWEEP's slots a CTA, and fused_probe's
-``until2`` row under each of REDUCE_SWEEP's (the rows' ``tile_slots``).  Each
-row also carries ``lanes_total`` (the lanes its main-path launches
+kernels under each of GATE_SWEEP's slots a CTA, and each reduced row
+that runs the shared-flag tile under each of REDUCE_SWEEP's (the rows'
+``tile_slots``); each reduced row of at most 32 slots a lane is also
+timed on both paths (``paths``: the warp path and the shared-flag tile).
+Each row names the kernel it ran (``path``: ``warp``, ``tile`` or
+``lane``) and carries ``lanes_total`` (the lanes its main-path launches
 processed).
 The second to last lines are the kernel table as JSON and the card line;
 the last line is {"ok": true, "device": {...}}.
@@ -1634,19 +1645,65 @@ def _until_queries(rng, B, nq):
             for c in cols], absent
 
 
+#: the reduced modes' lane lengths at their edges: one slot, idle threads
+#: in a warp (3, 31), whole warps of lanes (4, 8), the full-warp ballot
+#: mask (32), the first shared-flag tile lane (33), and 64
+REDUCED_CAPS = (1, 3, 4, 8, 31, 32, 33, 64)
+
+
+def _reduced_tally(K, tally, capT, B, any_hit, got, clamped=None):
+    """Tally one reduced-mode case: hits, flags, hits failing both
+    compares, the path its lanes took, ragged last warps and (given the
+    mask) clamped lanes with a hit."""
+    a, b = got
+    n_hit = int(any_hit.sum())
+    tally["lanes with a hit"] += n_hit
+    tally["flag a"] += int(a.sum())
+    tally["flag b"] += int(b.sum())
+    tally["hits failing both"] += int((any_hit & ~a & ~b).sum())
+    warp = K.reduce_path(capT) == "warp"
+    tally["warp-path lanes with a hit" if warp else "tile lanes with a hit"] += n_hit
+    if capT == 32:
+        tally["full-warp lanes with a hit"] += n_hit
+    if warp and B % K.warp_tile(capT)[1]:
+        tally["ragged last warps"] += 1
+    if clamped is not None:
+        cl = torch.from_numpy(clamped[:B]).to(any_hit.device)
+        tally["clamped lanes with a hit"] += int(any_hit[cl].sum())
+
+
+def _reduced_same(K, name, call, now):
+    """Mode any and mode until2 at ``now`` and ``now - 1`` of one case,
+    kernel == plain bit for bit; returns (the plain any, [until2 at each
+    now])."""
+    got = call(False, mode="any")
+    want = call(True, mode="any")
+    if got.dtype != torch.bool or got.shape != want.shape or not torch.equal(got, want):
+        raise AssertionError(f"any != plain: {name}")
+    until = []
+    for t in (now, now - 1):
+        g = call(False, mode="until2", now=t)
+        _gate_same(K, f"until2 {name} now={t}", g, call(True, mode="until2", now=t))
+        until.append(g)
+    return want, until
+
+
 def phase_until2_edges(K):
-    """Phase 3c's until2: fused_probe mode until2 (the slot tile's reduced
-    mode) at its edges, kernel == plain bit for bit (see the module
-    docstring)."""
+    """Phase 3c's reduced modes over off+interleave tables: fused_probe
+    mode any and mode until2 (the warp path for caps up to 32, the
+    shared-flag tile beyond) at their edges, kernel == plain bit for bit
+    (see the module docstring)."""
     dev = torch.device(DEV)
     rng = np.random.default_rng(2033)
     long_lane = 2 * K.GATE_SLOTS + 3  # past REDUCE_SLOTS: one CTA a lane
     n_cases = 0
     tally = dict.fromkeys(("lanes with a hit", "flag a", "flag b", "hits failing both",
-                           "clamped lanes with a hit"), 0)
+                           "clamped lanes with a hit", "warp-path lanes with a hit",
+                           "tile lanes with a hit", "full-warp lanes with a hit",
+                           "ragged last warps"), 0)
     cases = [(codec, 4) for codec in UNTIL_CODECS] + [("range", 16)]
     for codec, W in cases:
-        for cap in (1, 3, 8, 64, long_lane):
+        for cap in REDUCED_CAPS + (long_lane,):
             rows = max(4 * cap, 4_096)
             spec, raw = until_rows(rng, rows, codec, W)
             off = edge_offsets(rng, rows, cap)
@@ -1658,32 +1715,137 @@ def phase_until2_edges(K):
                 for layout, c in off_layouts(off, tbl, spec, dev).items():
                     for B in EDGE_B if cap < long_lane else (1, 255, 4_097):
                         qs = tuple(torch.from_numpy(q[:B]).to(dev) for q in qs_np)
-                        kw = dict(cap=cap, spec=c["spec"], off_a=c["off_a"],
-                                  ashift=c["ashift"])
-                        any_hit = K.fused_probe(qs, c["off"], c["tbl"], plain=True,
-                                                mode="any", **kw)
-                        for now in (UNTIL_NOW, UNTIL_NOW - 1):
-                            got = K.fused_probe(qs, c["off"], c["tbl"], mode="until2",
-                                                now=now, **kw)
-                            want = K.fused_probe(qs, c["off"], c["tbl"], plain=True,
-                                                 mode="until2", now=now, **kw)
-                            _gate_same(K, f"until2 {codec} W={W} {layout} nq={nq}"
-                                       f" cap={cap} B={B} now={now}", got, want)
-                            n_cases += 1
-                            a, b = got
-                            tally["lanes with a hit"] += int(any_hit.sum())
-                            tally["flag a"] += int(a.sum())
-                            tally["flag b"] += int(b.sum())
-                            tally["hits failing both"] += int((any_hit & ~a & ~b).sum())
-                            cl = torch.from_numpy(clamped[:B]).to(dev)
-                            tally["clamped lanes with a hit"] += int(any_hit[cl].sum())
+
+                        def call(plain, c=c, qs=qs, cap=cap, **kw):
+                            return K.fused_probe(qs, c["off"], c["tbl"], cap=cap,
+                                                 spec=c["spec"], off_a=c["off_a"],
+                                                 ashift=c["ashift"], plain=plain, **kw)
+
+                        any_hit, until = _reduced_same(
+                            K, f"{codec} W={W} {layout} nq={nq} cap={cap} B={B}", call,
+                            UNTIL_NOW)
+                        n_cases += 1
+                        for got in until:
+                            _reduced_tally(K, tally, cap, B, any_hit, got, clamped)
     if not all(tally.values()):
-        raise AssertionError(f"phase 3c until2: an edge never occurred ({tally})")
-    log(f"until2 edges fused_probe: {n_cases} cases (columns 2 and 3 as"
-        f" {UNTIL_CODECS} (W 4; range also W 16), caps 1/3/8/64/{long_lane} (one"
-        f" CTA a lane, B up to 4,097), B {EDGE_B}, bucket starts clamped at rows -"
-        f" cap, int32 and packed, one and two keys, negative and absent keys, now"
-        f" {UNTIL_NOW} (a row value) and {UNTIL_NOW - 1}) bitwise OK; {tally}")
+        raise AssertionError(f"phase 3c any/until2: an edge never occurred ({tally})")
+    log(f"any/until2 edges fused_probe: {n_cases} cases, each mode any and mode"
+        f" until2 at two nows (columns 2 and 3 as {UNTIL_CODECS} (W 4; range also"
+        f" W 16), caps {REDUCED_CAPS} and {long_lane} (one CTA a lane, B up to"
+        f" 4,097), B {EDGE_B}, bucket starts clamped at rows - cap, int32 and"
+        f" packed, one and two keys, negative and absent keys, now {UNTIL_NOW} (a"
+        f" row value) and {UNTIL_NOW - 1}) bitwise OK; {tally}")
+
+
+def plant_levels(raws, caps, qs, rng, spec, absent):
+    """Write the keys of every other live lane (not in the mask ``absent``)
+    into a random slot of the row its salted hash picks at a random level
+    of nonzero cap, so the reduced modes see hits past level 0; the slot's
+    columns that ``spec`` stores as deltas of a key column (or of such a
+    delta) move with the key, so the rows still pack.  ``raws[l]`` is
+    level l's int32 [rows * cap_l, W] slot array."""
+    from gochugaru_tpu_torch.engine.hash import _level_salt
+    from gochugaru_tpu_torch.engine.partition import _hash_cols
+
+    live = ~absent
+    for q in qs:
+        live &= q >= 0
+    lanes = np.flatnonzero(live)[::2]
+    full = [l for l, c in enumerate(caps) if c]
+    lvl = np.array(full)[rng.integers(0, len(full), lanes.shape[0])]
+    for l in full:
+        pick = lanes[lvl == l]
+        rows = raws[l].shape[0] // caps[l]
+        salted = [qs[0][pick] ^ np.int32(_level_salt(l))] + [q[pick] for q in qs[1:]]
+        r = (_hash_cols(salted) & np.uint32(rows - 1)).astype(np.int64)
+        slot = r * caps[l] + rng.integers(0, caps[l], pick.shape[0])
+        shift = []
+        for c, f in enumerate(spec[2]):
+            if c < len(qs):
+                shift.append(qs[c][pick].astype(np.int64) - raws[l][slot, c])
+            else:
+                shift.append(shift[f[2]] if f[2] >= 0 else 0)
+        new = [(raws[l][slot, c].astype(np.int64) + d).astype(np.int32)
+               for c, d in enumerate(shift)]
+        for c, v in enumerate(new):
+            raws[l][slot, c] = v
+
+
+def phase_reduced_edges_aligned(K):
+    """Phase 3c's reduced modes over aligned ladders: fused_probe_aligned
+    mode any and mode until2 at their edges, kernel == plain bit for bit
+    (see the module docstring)."""
+    from gochugaru_tpu_torch.engine import packed as PK
+    from gochugaru_tpu_torch.engine.device import to_device_tensor
+
+    dev = torch.device(DEV)
+    rng = np.random.default_rng(2034)
+    long_lane = 2 * K.GATE_SLOTS + 3
+    ladders = [(c,) for c in REDUCED_CAPS] + [(c, 3, 1) for c in (1, 3, 8, 64)]
+    ladders += [(28, 3, 1), (30, 3), (4, 0, 2), (5, 4, 3, 2, 2, 1, 1, 1),
+                (long_lane, 1)]
+    n_cases = 0
+    tally = dict.fromkeys(("lanes with a hit", "flag a", "flag b", "hits failing both",
+                           "warp-path lanes with a hit", "tile lanes with a hit",
+                           "full-warp lanes with a hit", "ragged last warps",
+                           "lanes with a hit past level 0"), 0)
+    cases = [(codec, 4) for codec in UNTIL_CODECS] + [("range", 16)]
+    for codec, W in cases:
+        spec = until_rows(rng, 1, codec, W)[0]
+        for caps in ladders:
+            capT = sum(caps)
+            sizes = [max(1_024 >> (2 * l), 8) for l in range(len(caps))]
+            for nq in (1, 2):
+                qs_np, absent = _until_queries(rng, max(EDGE_B), nq)
+                raws = [until_rows(rng, s * c, codec, W)[1] for s, c in zip(sizes, caps)]
+                plant_levels(raws, caps, qs_np, rng, spec, absent)
+                layouts = {
+                    "int32": ([to_device_tensor(r.reshape(s, c * W), dev)
+                               for r, s, c in zip(raws, sizes, caps)], W, None),
+                    "packed": ([to_device_tensor(PK.pack_rows(r, spec).reshape(s, -1), dev)
+                                for r, s in zip(raws, sizes)], spec[1], spec),
+                }
+                for layout, (tbls, sw, sp) in layouts.items():
+                    for B in EDGE_B if capT < long_lane else (1, 255, 4_097):
+                        qs = tuple(torch.from_numpy(q[:B]).to(dev) for q in qs_np)
+
+                        def call(plain, tbls=tbls, sw=sw, sp=sp, qs=qs, caps=caps, **kw):
+                            return K.fused_probe_aligned(qs, tbls, caps, sw, spec=sp,
+                                                         plain=plain, **kw)
+
+                        any_hit, until = _reduced_same(
+                            K, f"aligned {codec} W={W} {layout} nq={nq} caps={caps}"
+                            f" B={B}", call, UNTIL_NOW)
+                        n_cases += 1
+                        for got in until:
+                            _reduced_tally(K, tally, capT, B, any_hit, got)
+                        if len(caps) > 1:
+                            hit = call(True, mode="gate", now=0)[0]
+                            tally["lanes with a hit past level 0"] += int(
+                                hit[:, caps[0]:].any(-1).sum())
+    # phase 3b's >= 3-level ladders from build_aligned
+    for layout, (qs, tbls, caps, sw, spec, _e) in aligned_ladders(dev).items():
+        for B in EDGE_B:
+            qb = tuple(torch.cat([q, q])[:B] for q in qs)
+
+            def call(plain, tbls=tbls, sw=sw, spec=spec, qb=qb, caps=caps, **kw):
+                return K.fused_probe_aligned(qb, tbls, caps, sw, spec=spec,
+                                             plain=plain, **kw)
+
+            any_hit, until = _reduced_same(K, f"aligned ladder {layout} B={B}", call,
+                                           5_000)
+            n_cases += 1
+            for got in until:
+                _reduced_tally(K, tally, sum(caps), B, any_hit, got)
+    if not all(tally.values()):
+        raise AssertionError(f"phase 3c aligned any/until2: an edge never occurred"
+                             f" ({tally})")
+    log(f"any/until2 edges fused_probe_aligned: {n_cases} cases, each mode any and"
+        f" mode until2 at two nows (columns 2 and 3 as {UNTIL_CODECS} (W 4; range"
+        f" also W 16), ladders {ladders} (B up to 4,097 past one tile) and the"
+        f" build_aligned 3-level ladders, B {EDGE_B}, int32 and packed, one and two"
+        f" keys, negative and absent keys, keys planted past level 0) bitwise OK;"
+        f" {tally}")
 
 
 def _fill_huge(rows, w, dev):
@@ -1724,17 +1886,21 @@ def phase_block_huge(K, rows):
     at = (start[live_q] + live_q % cap) * W
     flat = tbl.view(-1)
     flat[at], flat[at + 1] = qs[0][live_q], qs[1][live_q]
-    reduced = {}
-    for mode, mkw in (("gate", dict(exp_lane=4)), ("until2", {})):
+    reduced, outs = {}, {}
+    for mode, mkw in (("gate", dict(exp_lane=4)), ("until2", {}), ("any", {})):
         kw = dict(cap=cap, mode=mode, now=0, **mkw)
-        got = K.fused_probe(qs, off_t, tbl, **kw)
+        got = _outs(K.fused_probe(qs, off_t, tbl, **kw))
         _gate_same(K, f"fused_probe {mode} on {rows} x {W}", got,
-                   K.fused_probe(qs, off_t, tbl, plain=True, **kw))
+                   _outs(K.fused_probe(qs, off_t, tbl, plain=True, **kw)))
         reduced[mode] = [int(g.sum()) for g in got]
-    if not (reduced["gate"][0] > reduced["gate"][1] > 0 and all(reduced["until2"])):
-        raise AssertionError(f"phase 3c: the huge gate / until2 calls saw no hit, no"
-                             f" expired hit or no set flag ({reduced})")
-    hit_past = int((got[0] | got[1])[(start * W >= 2**31)].sum())
+        outs[mode] = got
+    if not (reduced["gate"][0] > reduced["gate"][1] > 0 and all(reduced["until2"])
+            and all(reduced["any"])):
+        raise AssertionError(f"phase 3c: the huge gate / until2 / any calls saw no"
+                             f" hit, no expired hit or no set flag ({reduced})")
+    far = start * W >= 2**31
+    hit_past = int((outs["until2"][0] | outs["until2"][1])[far].sum())
+    any_past = int(outs["any"][0][far].sum())
     del tbl, flat
     # aligned: level 0 of rows / 8 rows x 8 slots x 5 columns, level 1 small
     lv0 = _fill_huge(rows // 8, 8 * W, dev)
@@ -1757,15 +1923,31 @@ def phase_block_huge(K, rows):
     if not gate_hits or not bool((got[0] & ~got[1]).any()):
         raise AssertionError("phase 3c: the huge gate call saw no hit or no"
                              " expired hit")
+    # aligned any and until2 on the same levels (capT 11: the warp path)
+    far_al = bucket_of(qs, rows // 8) * (8 * W) >= 2**31
+    al = {}
+    for mode in ("any", "until2"):
+        kw = dict(mode=mode, now=0)
+        got = _outs(K.fused_probe_aligned(qs, [lv0, lv1], (8, 3), W, **kw))
+        _gate_same(K, f"aligned {mode} on {rows // 8} x {8 * W}", got,
+                   _outs(K.fused_probe_aligned(qs, [lv0, lv1], (8, 3), W, plain=True,
+                                               **kw)))
+        al[mode] = [int(g.sum()) for g in got] + [int(got[0][far_al].sum())]
+    if not (al["any"][0] and all(al["until2"][:2])):
+        raise AssertionError(f"phase 3c: the huge aligned any / until2 calls saw no"
+                             f" hit or no set flag ({al})")
     del lv0, lv1
-    if rows * W > 2**31 and not (past and past_al and hit_past):
+    if rows * W > 2**31 and not (past and past_al and hit_past and any_past
+                                 and al["any"][-1]):
         raise AssertionError("phase 3c: no lane read past element 2^31")
     log(f"block edges past 2^31 elements: {rows} x {W} int32 ({rows * W} elements),"
-        f" {B} lanes, {past} (fused_probe block, gate and until2) and {past_al}"
-        f" (aligned block and gate) of them past element 2^31, bitwise OK;"
-        f" fused_probe gate (hit, live) {reduced['gate']}, until2 {reduced['until2']}"
-        f" ({hit_past} until2 lanes past 2^31 with a flag), aligned gate"
-        f" {gate_hits} hits ({time.perf_counter() - t0:.1f} s)")
+        f" {B} lanes, {past} (fused_probe block, gate, until2 and any) and {past_al}"
+        f" (aligned block, gate, any and until2) of them past element 2^31, bitwise"
+        f" OK; fused_probe gate (hit, live) {reduced['gate']}, until2"
+        f" {reduced['until2']} ({hit_past} until2 lanes past 2^31 with a flag), any"
+        f" {reduced['any']} ({any_past} past 2^31); aligned gate {gate_hits} hits,"
+        f" any (hits, past 2^31) {al['any']}, until2 (a, b, a past 2^31)"
+        f" {al['until2']} ({time.perf_counter() - t0:.1f} s)")
 
 
 def phase_config4(K, edges):
@@ -2363,9 +2545,11 @@ TILE_SWEEP = (8 * 1024, 16 * 1024, 32 * 1024, 64 * 1024)
 #: the gate's slots a CTA (kernels.GATE_SLOTS) the gate rows are also
 #: timed under
 GATE_SWEEP = (1024, 2048, 4096)
-#: the reduced tile's most slots a CTA (kernels.REDUCE_SLOTS) fused_probe's
-#: until2 row is also timed under
+#: the shared-flag tile's most slots a CTA (kernels.REDUCE_SLOTS) each
+#: reduced row that runs that tile is also timed under
 REDUCE_SWEEP = (256, 512, 1024, 2048)
+
+
 def fill_ms(shape) -> float:
     """ms of one ``fill_`` of an int32 tensor of ``shape``: the card's
     write rate over block's output, a floor under any kernel writing it."""
@@ -2390,6 +2574,30 @@ def sweep(K, knob, values, call):
     finally:
         setattr(K, knob, saved)
     return out
+
+
+def _path(K, mode, capT) -> str:
+    """The kernel a mode's call runs: ``warp`` / ``tile`` for the reduced
+    modes (kernels.reduce_path), ``tile`` for block and gate (the slot
+    tile), ``lane`` for runs (one thread a key)."""
+    if mode in K.REDUCED:
+        return K.reduce_path(capT)
+    return "lane" if mode == "runs" else "tile"
+
+
+def time_reduced(K, mode, row, capT, call, card, name):
+    """A reduced row's path, its time on both paths (the warp path forced
+    off by ``WARP_REDUCE_CAP`` 0; none when its lanes pass 32 slots) and,
+    when it runs the shared-flag tile, its time under each of REDUCE_SWEEP's
+    slots a CTA (the row's ``tile_slots``)."""
+    row["path"] = _path(K, mode, capT)
+    if capT <= 32:
+        by = sweep(K, "WARP_REDUCE_CAP", (32, 0), call)
+        row["paths"] = {"warp": by["32"], "tile": by["0"]}
+    if row["path"] == "tile":
+        row["tile_slots"] = sweep(K, "REDUCE_SLOTS", REDUCE_SWEEP, call)
+    log(f"time {name}.{mode} [{card}] path={row['path']} by path:"
+        f" {row.get('paths')}, by REDUCE_SLOTS: {row.get('tile_slots')}")
 
 
 def time_mode(K, mode, q_cols, off, tbl, kw, card):
@@ -2424,13 +2632,13 @@ def time_mode(K, mode, q_cols, off, tbl, kw, card):
         row["fill_ms"] = fill_ms((n, kw["cap"], W_of(kw.get("spec"), tbl.shape[1])))
         log(f"time fused_probe.block [{card}] by tile budget: {row['tile_budgets']};"
             f" fill_ms of its output {row['fill_ms']:.5f}")
-    if mode in ("gate", "gate.cav", "until2"):
-        knob, values = (("REDUCE_SLOTS", REDUCE_SWEEP) if mode == "until2"
-                        else ("GATE_SLOTS", GATE_SWEEP))
-        row["tile_slots"] = sweep(
-            K, knob, values,
-            lambda plain: K.fused_probe(q_cols, off, tbl, plain=plain, **kw))
-        log(f"time fused_probe.{mode} [{card}] by {knob}: {row['tile_slots']}")
+    call = lambda plain: K.fused_probe(q_cols, off, tbl, plain=plain, **kw)  # noqa: E731
+    row["path"] = _path(K, mode, kw["cap"])
+    if mode in ("gate", "gate.cav"):
+        row["tile_slots"] = sweep(K, "GATE_SLOTS", GATE_SWEEP, call)
+        log(f"time fused_probe.{mode} [{card}] by GATE_SLOTS: {row['tile_slots']}")
+    if mode in K.REDUCED:
+        time_reduced(K, mode, row, kw["cap"], call, card, "fused_probe")
     return row
 
 
@@ -2461,13 +2669,15 @@ def time_aligned(K, mode, q_cols, tbls, caps, sw, kw, card):
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         "lanes": n, "capT": capT, "levels": len(tbls),
     }
+    call = lambda plain: K.fused_probe_aligned(q_cols, tbls, caps, sw,  # noqa: E731
+                                               plain=plain, **kw)
+    row["path"] = _path(K, mode, capT)
     if mode == "gate":
-        row["tile_slots"] = sweep(
-            K, "GATE_SLOTS", GATE_SWEEP,
-            lambda plain: K.fused_probe_aligned(q_cols, tbls, caps, sw,
-                                                plain=plain, **kw))
+        row["tile_slots"] = sweep(K, "GATE_SLOTS", GATE_SWEEP, call)
         log(f"time fused_probe_aligned.gate [{card}] by slots a CTA:"
             f" {row['tile_slots']}")
+    if mode in K.REDUCED:
+        time_reduced(K, mode, row, capT, call, card, "fused_probe_aligned")
     if mode == "block":
         row["tile_budgets"] = sweep(
             K, "TILE_BYTES", TILE_SWEEP,
@@ -2514,6 +2724,7 @@ def main() -> int:
     phase_block_edges(K)
     phase_gate_cav_edges(K)
     phase_until2_edges(K)
+    phase_reduced_edges_aligned(K)
 
     # ---- the main path: counts from zero, phases 4-7 ------------------
     K.reset_launches()

@@ -19,9 +19,9 @@
 // Bool outputs are uint8.  Row addressing is int64 (rows * lanes passes
 // 2^31 on large tables).
 //
-// Modes block, gate and until2 run the slot tile of probe_common.cuh: per
-// lane one segment of cap rows at the clamped start (OffInterleaveLanes
-// below does the hash, the offset read and the clamp once per lane), the
+// Modes block, gate, until2 and any run the slot tile of probe_common.cuh:
+// per lane one segment of cap rows at the clamped start
+// (OffInterleaveLanes below: the hash, the offset read and the clamp), the
 // rows read slot by slot by neighbouring threads.
 //   - block (pallas.py:246, the block tail) is bound by its OUTPUT, a
 //     lane's decoded [cap, W] int32 block (cap 8, W 3: 96 bytes out per
@@ -33,14 +33,17 @@
 //     one thread a slot decodes only the key and expiry fields, the
 //     caveat and context columns only on a hit, and stores at the slot's
 //     flat index.
-//   - until2 (:345-347) folds a lane's slots into two flags a lane: a CTA
-//     owns whole lanes, a slot that hits ORs (column 2 > now) and (column
-//     3 > now) into its lane's shared flag word, and one thread a lane
-//     stores the flags.
-// One thread per lane walking its cap rows (fused_probe_kernel below, which
-// mode any still runs) read scattered rows a warp, decoded every column
-// of every row, and stored a gate's flags and planes at a cap-byte and a
-// 4 * cap-byte stride.
+//   - until2 (:345-347) and any (:343-344) fold a lane's slots into flags
+//     a lane ((column 2 > now) and (column 3 > now) of a hit; any hit).
+//     Lanes of cap <= 32 take the warp path: a warp owns 32 / cap whole
+//     lanes, each thread hashes, reads the offset and clamps for its own
+//     slot, and one ballot a flag folds the lanes, with no shared memory
+//     and no barrier; longer lanes take the shared-flag tile (whole lanes
+//     a CTA, a shared flag word a lane).
+// One thread per lane walking its cap rows (the kernels these replace)
+// read scattered rows a warp, decoded every column of every row, and
+// stored a gate's flags and planes at a cap-byte and a 4 * cap-byte
+// stride.
 
 // Mode runs replaces pallas.py::fused_probe mode "runs" (pallas.py:364-400,
 // the point-run probe of engine/spmv.py::_make_runs behind the lookups).
@@ -107,48 +110,9 @@ struct ProbeArgs {
   int lay_cav;           // gate: caveat-id column (out2), -1 = none
   int lay_ctx;           // gate: context-index column (out3), -1 = none
   int tile_slots;        // slot-tile modes: slots a CTA (kernels.block_tile,
-                         // gate_tile, reduce_tile)
+                         // gate_tile, reduce_tile, warp_tile)
+  int warp;              // any/until2: 1 = the warp path (kernels.reduce_path)
 };
-}
-
-// Mode any: one thread a lane, its cap rows one after another.
-template <int MODE>
-__global__ void fused_probe_kernel(const ProbeArgs a) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= a.B) return;
-  const int32_t q0 = a.q0[i];
-  const int32_t q1 = a.nq > 1 ? a.q1[i] : 0;
-
-  const uint32_t h = gochugaru_mix32(q0, q1, a.nq);
-  const long long b = (long long)(h & (uint32_t)(a.size - 1));
-
-  long long start;
-  if (a.off_a != nullptr) {
-    start = (long long)a.off_a[b >> a.ashift] +
-            (long long)((const uint16_t*)a.off)[b];
-  } else {
-    start = (long long)((const int32_t*)a.off)[b];
-  }
-  // slice_blocks' clamp: 0 <= s <= rows - cap
-  const long long hi = a.rows - a.cap;
-  const long long s = start < 0 ? 0 : (start > hi ? hi : start);
-  const bool guard = (q0 >= 0) && (a.nq < 2 || q1 >= 0);
-
-  bool acc0 = false, acc1 = false;
-  int32_t cols[GOCHUGARU_MAXW];
-  for (int j = 0; j < a.cap; ++j) {
-    const long long row = s + j;
-    if (a.packed) {
-      gochugaru_decode_row((const uint16_t*)a.tbl + row * a.w_raw, a.W,
-                           a.fields, a.dicts, cols);
-    } else {
-      const int32_t* r = (const int32_t*)a.tbl + row * a.w_raw;
-      for (int c = 0; c < a.W; ++c) cols[c] = r[c];
-    }
-    const bool hit = guard && cols[0] == q0 && (a.nq < 2 || cols[1] == q1);
-    gochugaru_slot_tail<MODE>(cols, hit, a.now, acc0, acc1);
-  }
-  gochugaru_lane_tail<MODE>(i, a.out0, a.out1, acc0, acc1);
 }
 
 __device__ __forceinline__ long long off_read(const ProbeArgs& a, long long b) {
@@ -164,18 +128,19 @@ __device__ __forceinline__ long long off_read(const ProbeArgs& a, long long b) {
 // offset into tbl.
 struct OffInterleaveLanes {
   ProbeArgs a;
-  __device__ __forceinline__ void segments(long long i, long long* off) const {
-    const int32_t q0 = a.q0[i];
-    const int32_t q1 = a.nq > 1 ? a.q1[i] : 0;
-    const uint32_t h = gochugaru_mix32(q0, q1, a.nq);
+  __device__ __forceinline__ long long segment(int2 q, int) const {
+    const uint32_t h = gochugaru_mix32(q.x, q.y, a.nq);
     const long long start = off_read(a, (long long)(h & (uint32_t)(a.size - 1)));
     const long long hi = a.rows - a.cap;
-    off[0] = (start < 0 ? 0 : (start > hi ? hi : start)) * a.w_raw;
+    return (start < 0 ? 0 : (start > hi ? hi : start)) * a.w_raw;
+  }
+  __device__ __forceinline__ void segments(long long i, long long* off) const {
+    off[0] = segment(make_int2(a.q0[i], a.nq > 1 ? a.q1[i] : 0), 0);
   }
 };
 
-// Modes block, gate (with PLANES int32 planes) and until2: the slot tile
-// over one segment a lane.
+// Modes block, gate (with PLANES int32 planes), until2 and any: the slot
+// tile (or the reduced modes' warp path) over one segment a lane.
 template <int MODE, int PLANES = 0>
 static int launch_tile(const ProbeArgs& a, cudaStream_t st) {
   if (a.cap < 1 || a.rows < a.cap) return (int)cudaErrorInvalidValue;
@@ -188,6 +153,7 @@ static int launch_tile(const ProbeArgs& a, cudaStream_t st) {
   t.stride = a.w_raw;
   t.packed = a.packed;
   t.tile_slots = a.tile_slots;
+  t.warp = a.warp;
   t.fields = a.fields;
   t.dicts = a.dicts;
   t.out = (int32_t*)a.out0;
@@ -268,8 +234,7 @@ extern "C" int gochugaru_fused_probe(int mode, const ProbeArgs* args,
     case MODE_BLOCK:
       return launch_tile<MODE_BLOCK>(a, st);
     case MODE_ANY:
-      fused_probe_kernel<MODE_ANY><<<grid, threads, 0, st>>>(a);
-      break;
+      return launch_tile<MODE_ANY>(a, st);
     case MODE_UNTIL2:
       return launch_tile<MODE_UNTIL2>(a, st);
     case MODE_GATE:

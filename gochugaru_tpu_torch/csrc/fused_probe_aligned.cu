@@ -16,9 +16,9 @@
 // (tens of bytes) at a hashed address, with no dependent offset read —
 // that is the layout's point against off+interleave's offset -> block
 // chain — and does a few dozen integer operations per slot, far below
-// the card's operations-per-byte balance.  Modes any and until2 are one
-// thread per query lane reading its rows straight from global memory (as
-// fused_probe.cu's any; its until2 runs the slot tile's reduced mode);
+// the card's operations-per-byte balance.  Every mode runs the slot tile
+// of probe_common.cuh, the same device code as fused_probe.cu's modes,
+// with AlignedLanes below for the segment starts (one segment a level);
 // resident warps hide the gather latency the TPU kernel hid with
 // double-buffered row DMAs.  Levels arrive as data (pointer, rows, row
 // stride, cap, host-computed salt; at most MAXL), and the decode spec is
@@ -56,6 +56,16 @@
 // :551-555) each slot also stores the row's caveat id and stored-context
 // index (0 and -1 on a miss) as int32 planes out2 / out3, beside its
 // flags.
+//
+// Modes any and until2 (pallas.py:444, the any and until tails,
+// :539-543) fold a lane's slots into one or two flags a lane.  One thread
+// a lane (the kernel they replace) decoded every column of every slot of
+// every level, one after another.  Lanes of capT <= 32 take the warp path
+// of the reduced modes: a warp owns 32 / capT whole lanes, each thread
+// hashes its own slot's level (AlignedLanes::segment: the salted hash of
+// that level only) and reads only the key fields and, for until2, columns
+// 2 and 3, and one ballot a flag folds the lanes; longer lanes take the
+// shared-flag tile (whole lanes a CTA, a shared flag word a lane).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -91,64 +101,46 @@ struct AlignedArgs {
   int lay_exp;            // gate: expiry column, -1 = no expiry gate
   int lay_cav;            // gate: caveat-id column (out2), -1 = none
   int lay_ctx;            // gate: context-index column (out3), -1 = none
-  int tile_slots;         // block/gate: slots a CTA (kernels.block_tile,
-                          // kernels.gate_tile)
+  int tile_slots;         // slots a CTA (kernels.block_tile, gate_tile,
+                          // reduce_tile, warp_tile)
   AlignedLevel lv[GOCHUGARU_MAXL];
+  int warp;               // any/until2: 1 = the warp path (kernels.reduce_path)
 };
 }
 
-// Modes any and until2: one thread a lane, its slots one after another.
-template <int MODE>
-__global__ void fused_probe_aligned_kernel(const AlignedArgs a) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= a.B) return;
-  const int32_t q0 = a.q0[i];
-  const int32_t q1 = a.nq > 1 ? a.q1[i] : 0;
-  const bool guard = (q0 >= 0) && (a.nq < 2 || q1 >= 0);
-
-  bool acc0 = false, acc1 = false;
-  int32_t cols[GOCHUGARU_MAXW];
-  for (int l = 0; l < a.L; ++l) {
-    const AlignedLevel lv = a.lv[l];
-    const uint32_t h =
-        gochugaru_mix32(q0 ^ lv.salt, q1, a.nq) & (uint32_t)(lv.size - 1);
-    const long long row = (long long)h * lv.stride;
-    for (int j = 0; j < lv.cap; ++j) {
-      const long long at = row + (long long)j * a.sw;
-      if (a.packed) {
-        gochugaru_decode_row((const uint16_t*)lv.tbl + at, a.W, a.fields,
-                             a.dicts, cols);
-      } else {
-        const int32_t* r = (const int32_t*)lv.tbl + at;
-        for (int c = 0; c < a.W; ++c) cols[c] = r[c];
-      }
-      const bool hit = guard && cols[0] == q0 && (a.nq < 2 || cols[1] == q1);
-      gochugaru_slot_tail<MODE>(cols, hit, a.now, acc0, acc1);
-    }
-  }
-  gochugaru_lane_tail<MODE>(i, a.out0, a.out1, acc0, acc1);
-}
-
-// The slot tile's segments (modes block and gate): level l's bucket row
-// h_l (salted hash), as an element offset into that level's table.
+// The slot tile's segments: level l's bucket row h_l (salted hash), as an
+// element offset into that level's table.
 struct AlignedLanes {
   AlignedArgs a;
-  __device__ __forceinline__ void segments(long long i, long long* off) const {
-    const int32_t q0 = a.q0[i];
-    const int32_t q1 = a.nq > 1 ? a.q1[i] : 0;
+  // level s's row alone: its fields picked by constant indices (no
+  // indexed parameter reads, no local array), stopping at level s
+  __device__ __forceinline__ long long segment(int2 q, int s) const {
+    int salt = 0;
+    long long size = 1, stride = 0;
 #pragma unroll
     for (int l = 0; l < GOCHUGARU_MAXL; ++l) {
-      if (l < a.L) {
-        const uint32_t h = gochugaru_mix32(q0 ^ a.lv[l].salt, q1, a.nq) &
-                           (uint32_t)(a.lv[l].size - 1);
-        off[l] = (long long)h * a.lv[l].stride;
+      if (l == s) {
+        salt = a.lv[l].salt;
+        size = a.lv[l].size;
+        stride = a.lv[l].stride;
+        break;
       }
     }
+    const uint32_t h =
+        gochugaru_mix32(q.x ^ salt, q.y, a.nq) & (uint32_t)(size - 1);
+    return (long long)h * stride;
+  }
+  __device__ __forceinline__ void segments(long long i, long long* off) const {
+    const int2 q = make_int2(a.q0[i], a.nq > 1 ? a.q1[i] : 0);
+#pragma unroll
+    for (int l = 0; l < GOCHUGARU_MAXL; ++l)
+      if (l < a.L) off[l] = segment(q, l);
   }
 };
 
-// Modes block and gate (the gate with PLANES int32 planes): the slot tile
-// over one segment a level.
+// Every mode (the gate with PLANES int32 planes; any and until2 on the
+// shared-flag tile or the warp path): the slot tile over one segment a
+// level.
 template <int MODE, int PLANES = 0>
 static int launch_tile(const AlignedArgs& a, cudaStream_t st) {
   GochugaruTile t = {};
@@ -166,6 +158,7 @@ static int launch_tile(const AlignedArgs& a, cudaStream_t st) {
   t.stride = a.sw;
   t.packed = a.packed;
   t.tile_slots = a.tile_slots;
+  t.warp = a.warp;
   t.fields = a.fields;
   t.dicts = a.dicts;
   t.out = (int32_t*)a.out0;
@@ -177,6 +170,8 @@ static int launch_tile(const AlignedArgs& a, cudaStream_t st) {
   t.now = a.now;
   t.lay_exp = a.lay_exp;
   t.planes = GochugaruGatePlanes{a.out2, a.out3, a.lay_cav, a.lay_ctx};
+  t.red0 = (uint8_t*)a.out0;
+  t.red1 = (uint8_t*)a.out1;
   t.B = a.B;
   return gochugaru_launch_slot_tile<MODE, AlignedLanes, PLANES>(
       t, AlignedLanes{a}, st);
@@ -188,8 +183,6 @@ extern "C" int gochugaru_fused_probe_aligned(int mode, const AlignedArgs* args,
   if (a.B <= 0) return 0;
   if (a.W > GOCHUGARU_MAXW || a.W < a.nq || a.L < 1 || a.L > GOCHUGARU_MAXL)
     return (int)cudaErrorInvalidValue;
-  const int threads = 256;
-  const unsigned grid = (unsigned)((a.B + threads - 1) / threads);
   cudaStream_t st = (cudaStream_t)stream;
   switch (mode) {
     case MODE_BLOCK:
@@ -200,13 +193,10 @@ extern "C" int gochugaru_fused_probe_aligned(int mode, const AlignedArgs* args,
       if (a.out2 != nullptr) return launch_tile<MODE_GATE, 1>(a, st);
       return launch_tile<MODE_GATE>(a, st);
     case MODE_ANY:
-      fused_probe_aligned_kernel<MODE_ANY><<<grid, threads, 0, st>>>(a);
-      break;
+      return launch_tile<MODE_ANY>(a, st);
     case MODE_UNTIL2:
-      fused_probe_aligned_kernel<MODE_UNTIL2><<<grid, threads, 0, st>>>(a);
-      break;
+      return launch_tile<MODE_UNTIL2>(a, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }

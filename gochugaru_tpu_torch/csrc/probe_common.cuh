@@ -1,8 +1,7 @@
 // Device helpers shared by the fused probe kernels (fused_probe.cu and
-// fused_probe_aligned.cu): the key hash, the packed-row decode, the
-// per-lane tails of the reduced modes still run one thread a lane (any of
-// both kernels, until2 of the aligned one), and the slot tile: mode block
-// and mode gate of both kernels, and fused_probe's mode until2.
+// fused_probe_aligned.cu): the key hash, the packed-row decode, and the
+// slot tile with its warp-reduced path -- every check mode of both
+// kernels (block, gate, and the reduced modes any and until2).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -101,37 +100,9 @@ struct GochugaruGatePlanes {
   int lay_ctx;   // logical column of the context index
 };
 
-// One decoded candidate slot of a per-lane reduced mode, folded into the
-// lane's accumulators: any ORs the hit, until2 the hit with column 2 /
-// column 3 past ``now``.
-template <int MODE>
-__device__ __forceinline__ void gochugaru_slot_tail(const int32_t* cols,
-                                                    bool hit, int now,
-                                                    bool& acc0, bool& acc1) {
-  if (MODE == MODE_ANY) {
-    acc0 |= hit;
-  } else if (MODE == MODE_UNTIL2) {
-    acc0 |= hit && cols[2] > now;
-    acc1 |= hit && cols[3] > now;
-  }
-}
-
-// The lane's folded outputs (bool as uint8) once every slot is seen.
-template <int MODE>
-__device__ __forceinline__ void gochugaru_lane_tail(long long i, void* out0,
-                                                    void* out1, bool acc0,
-                                                    bool acc1) {
-  if (MODE == MODE_ANY) {
-    ((uint8_t*)out0)[i] = acc0;
-  } else if (MODE == MODE_UNTIL2) {
-    ((uint8_t*)out0)[i] = acc0;
-    ((uint8_t*)out1)[i] = acc1;
-  }
-}
-
 // ---------------------------------------------------------------------------
-// The slot tile: mode block and mode gate of both kernels, and
-// fused_probe's mode until2 (a reduced mode)
+// The slot tile: every check mode of both kernels (block, gate, and the
+// reduced modes any and until2, whose short lanes take the warp path)
 // ---------------------------------------------------------------------------
 //
 // A lane's candidate block is a short list of SEGMENTS, each a run of
@@ -139,8 +110,9 @@ __device__ __forceinline__ void gochugaru_lane_tail(long long i, void* out0,
 // clamped bucket start), fused_probe_aligned one per level (cap_l slots of
 // bucket h_l's row).  Segment s of every lane shares its table, slot count
 // and slot stride; only its start differs per lane, and the kernel's
-// ``Lanes`` functor computes those starts (Lanes::segments(lane, off)
-// writes nseg element offsets).
+// ``Lanes`` functor computes those starts (Lanes::segment(q, s) the start
+// of segment s of the lane whose keys are q; Lanes::segments(lane, off)
+// all nseg of them).
 //
 // A CTA owns one TILE: ``tile_slots`` consecutive slots of the flattened
 // [B * capT] slot space, so its output is one contiguous span.
@@ -194,28 +166,47 @@ __device__ __forceinline__ void gochugaru_lane_tail(long long i, void* out0,
 // touched lanes' segment starts and keys, so a lane longer than a tile is
 // walked in chunks.
 //
-// The reduced modes (until2, pallas.py:345-347; written so that any could
-// run here too) fold a lane's slots into one or two flags a LANE.  A CTA
-// owns whole lanes (kernels.reduce_tile: tile_slots a multiple of capT,
-// max(1, REDUCE_SLOTS / capT) lanes, so a lane longer than REDUCE_SLOTS
-// has a CTA of its own whose threads loop over its slots): no lane is
-// split between CTAs, so there is no combine across CTAs and no global
-// atomic.  Its tiles are smaller than the gate's: a reduced call has few
-// lanes (32,768 at cap 4 on the main path), and a thread's slots are
-// dependent round trips one after another, so 2,048 slots a CTA left half
-// the SMs idle and took longer than the per-lane kernel (PERF.md).
-// Phase B is the gate's slot walk reading the key fields and, for until2,
-// columns 2 and 3 (each decoded alone along its delta chain, reusing the
-// key columns already decoded), and a slot that hits ORs its bits into
-// its lane's shared flag word (a shared atomicOr, only when it has a bit
-// to set).  Phase C stores the flag words as the lanes' uint8 outputs,
-// neighbouring threads on neighbouring bytes.  The per-lane kernel it
-// replaces decoded every column of its cap rows, one row after another.
+// The reduced modes (any and until2, pallas.py:343-347) fold a lane's
+// slots into one or two flags a LANE: any hit, and for until2 any hit
+// with column 2 / column 3 past ``now``.  The per-lane kernels they
+// replace walked a lane's slots one after another in one thread and
+// decoded every column of every row.  Here one thread takes a slot and
+// reads only the key fields and, for until2, columns 2 and 3 (each decoded
+// alone along its delta chain, reusing the key columns already decoded;
+// gochugaru_slot_bits, the one copy of the slot body), on one of two
+// paths, both with whole lanes a CTA, so no lane is combined across CTAs
+// and nothing needs a global atomic:
+//   - the WARP PATH, lanes of capT <= GOCHUGARU_WARP_CAP (32) slots
+//     (gochugaru_warp_reduce_kernel): a warp owns 32 / capT whole lanes,
+//     thread t slot t % capT of lane t / capT (the threads past them
+//     idle).  Each thread computes its own slot's segment start (the hash,
+//     and for fused_probe the offset read and the clamp; the lane's capT
+//     threads read the same key and offset addresses, one request a warp),
+//     so there is no phase A, no shared memory and no barrier; the warp
+//     folds its flags with one __ballot_sync a flag, and each lane's first
+//     thread stores its byte.  The main-path calls (32,768 lanes of 3-4
+//     slots) run ~400-512 CTAs, against the 128 of one thread a lane: warps
+//     enough to hide the dependent chain key -> offset -> row -> store.
+//     The slot tile's floor (phase A, two barriers, phase C) was above the
+//     whole per-lane any (PERF.md).
+//   - the SHARED-FLAG TILE, longer lanes: a CTA owns
+//     max(1, REDUCE_SLOTS / capT) whole lanes (kernels.reduce_tile; a lane
+//     past REDUCE_SLOTS has a CTA of its own whose threads loop over its
+//     slots); phase A as above with each lane's flag word zeroed, phase B
+//     the gate's slot walk, a slot that hits ORs its bits into its lane's
+//     shared flag word (a shared atomicOr, only when it has a bit to set),
+//     and phase C stores the flag words as the lanes' uint8 outputs.  Its
+//     tiles are smaller than the gate's: 2,048 slots a CTA left half the
+//     SMs idle on a reduced call (PERF.md).
+// The host picks the path (kernels.reduce_path, by capT) and passes it
+// as ``warp``; the launch refuses a warp path past GOCHUGARU_WARP_CAP or
+// with another geometry than gochugaru_warp_slots.
 //
 // Table and output addresses are int64; shared indices are 32-bit.
 
 #define GOCHUGARU_TILE_THREADS 256
 #define GOCHUGARU_SMEM_MAX 232448  // per-block shared memory on sm_90
+#define GOCHUGARU_WARP_CAP 32      // longest lane of the warp path
 
 struct GochugaruTile {
   const void* seg_tbl[GOCHUGARU_MAXL];    // segment s's table (int32 or uint16)
@@ -226,6 +217,8 @@ struct GochugaruTile {
   int stride;                             // elements between a segment's slots
   int packed;                             // tables hold uint16 lanes (decode)
   int tile_slots;                         // slots a CTA
+  int warp;                               // reduced: the warp path
+  int warp_div;                           // warp path: ceil(2^16 / capT)
   const int32_t* fields;                  // pack spec [W, 5], or null
   const int32_t* dicts;                   // dictionaries [ndict, 256], or null
   int32_t* out;                           // block: [B, capT, W]
@@ -262,6 +255,19 @@ __host__ __device__ __forceinline__ size_t gochugaru_tile_smem(int S, int capT,
   return lanes * (nseg * 8 + 12);
 }
 
+// Whole lanes a warp of the warp path (capT <= GOCHUGARU_WARP_CAP): thread
+// t takes slot t % capT of lane t / capT, the threads past them idle.
+// Mirrored by kernels.warp_tile.
+__host__ __device__ __forceinline__ int gochugaru_warp_lanes(int capT) {
+  return 32 / capT;
+}
+
+// Slots a CTA of the warp path: its warps' whole lanes.  Mirrored by
+// kernels.warp_tile.
+__host__ __device__ __forceinline__ int gochugaru_warp_slots(int capT) {
+  return GOCHUGARU_TILE_THREADS / 32 * gochugaru_warp_lanes(capT) * capT;
+}
+
 // One int32 row of W columns into the shared tile, as W asynchronous
 // 4-byte copies (global -> shared, no registers); complete after
 // gochugaru_copy_wait.
@@ -295,14 +301,15 @@ struct GochugaruSlotCursor {
   }
 };
 
-// The element offset of slot j of the tile's k-th lane in its segment's
-// table (returned in tbl).
-__device__ __forceinline__ long long gochugaru_slot_at(
-    const GochugaruTile& t, const long long* seg_off, int k, int j,
-    const void*& tbl) {
-  // segment s holds slots [seg_first[s], seg_first[s + 1]): constant
-  // indices (no indexed parameter reads), stopping at the slot's segment
-  int s = 0, first = 0;
+// The segment s that holds slot j of a lane (returned, with its first
+// slot and its table): constant indices (no indexed parameter reads),
+// stopping at the slot's segment.
+__device__ __forceinline__ int gochugaru_seg_of(const GochugaruTile& t, int j,
+                                                int& first,
+                                                const void*& tbl) {
+  // segment s holds slots [seg_first[s], seg_first[s + 1])
+  int s = 0;
+  first = 0;
   tbl = t.seg_tbl[0];
 #pragma unroll
   for (int m = 1; m < GOCHUGARU_MAXL; ++m) {
@@ -311,6 +318,16 @@ __device__ __forceinline__ long long gochugaru_slot_at(
     first = t.seg_first[m];
     tbl = t.seg_tbl[m];
   }
+  return s;
+}
+
+// The element offset of slot j of the tile's k-th lane in its segment's
+// table (returned in tbl).
+__device__ __forceinline__ long long gochugaru_slot_at(
+    const GochugaruTile& t, const long long* seg_off, int k, int j,
+    const void*& tbl) {
+  int first;
+  const int s = gochugaru_seg_of(t, j, first, tbl);
   return seg_off[k * t.nseg + s] + (long long)(j - first) * t.stride;
 }
 
@@ -436,56 +453,129 @@ __device__ __forceinline__ void gochugaru_gate_slots(const GochugaruTile& t,
   }
 }
 
-// Phase B of a reduced mode: one thread a slot; a slot that hits ORs its
-// bits into its lane's shared flag word (any: bit 0; until2: bit 0 when
-// column 2 > now, bit 1 when column 3 > now).
+// The spec rows a reduced mode reads: the key fields and, for until2,
+// columns 2 and 3 (read once a thread).
+struct GochugaruReduceSpec {
+  int32_t f0[5], f1[5], f2[5], f3[5];
+};
+
+template <int MODE>
+__device__ __forceinline__ GochugaruReduceSpec
+gochugaru_reduce_spec(const GochugaruTile& t) {
+  GochugaruReduceSpec sp;
+  gochugaru_spec_row(t, 0, sp.f0);
+  gochugaru_spec_row(t, t.nq > 1 ? 1 : -1, sp.f1);
+  gochugaru_spec_row(t, MODE == MODE_UNTIL2 ? 2 : -1, sp.f2);
+  gochugaru_spec_row(t, MODE == MODE_UNTIL2 ? 3 : -1, sp.f3);
+  return sp;
+}
+
+// One slot of a reduced mode, the row at element ``at`` of ``tbl``
+// against the lane's unsalted keys q (both >= 0): its bits (any: bit 0 on
+// a hit; until2: bit 0 when column 2 > now, bit 1 when column 3 > now), 0
+// on a miss.  The one slot body of both reduced paths.
+template <int MODE>
+__device__ __forceinline__ int gochugaru_slot_bits(const GochugaruTile& t,
+                                                   const GochugaruReduceSpec& sp,
+                                                   const void* tbl,
+                                                   long long at, int2 q) {
+  uint32_t c0, c1 = 0u, v2 = 0u, v3 = 0u;
+  if (t.packed) {
+    const uint16_t* r = (const uint16_t*)tbl + at;
+    const uint32_t w0 = gochugaru_field_window(r, sp.f0);
+    const uint32_t w1 = gochugaru_field_window(r, sp.f1);
+    const uint32_t w2 = gochugaru_field_window(r, sp.f2);
+    const uint32_t w3 = gochugaru_field_window(r, sp.f3);
+    c0 = gochugaru_field_own(w0, sp.f0, t.dicts);
+    if (t.nq > 1)
+      c1 = gochugaru_field_own(w1, sp.f1, t.dicts) + (sp.f1[2] == 0 ? c0 : 0u);
+    if (MODE == MODE_UNTIL2) {
+      v2 = gochugaru_chain(t, r, gochugaru_field_own(w2, sp.f2, t.dicts),
+                           sp.f2[2], c0, c1);
+      const uint32_t own3 = gochugaru_field_own(w3, sp.f3, t.dicts);
+      v3 = sp.f3[2] == 2 ? own3 + v2
+                         : gochugaru_chain(t, r, own3, sp.f3[2], c0, c1);
+    }
+  } else {
+    const int32_t* r = (const int32_t*)tbl + at;
+    c0 = (uint32_t)r[0];
+    if (t.nq > 1) c1 = (uint32_t)r[1];
+    if (MODE == MODE_UNTIL2) {
+      v2 = (uint32_t)r[2];
+      v3 = (uint32_t)r[3];
+    }
+  }
+  if ((int32_t)c0 != q.x || (t.nq > 1 && (int32_t)c1 != q.y)) return 0;
+  return MODE == MODE_ANY
+             ? 1
+             : ((int32_t)v2 > t.now) | (((int32_t)v3 > t.now) << 1);
+}
+
+// Phase B of the shared-flag tile: one thread a slot; a slot that hits ORs
+// its bits into its lane's shared flag word.
 template <int MODE>
 __device__ __forceinline__ void gochugaru_reduce_slots(const GochugaruTile& t,
                                                        const long long* seg_off,
                                                        const int32_t* keys,
                                                        int* flags, int n) {
-  // the spec rows of the key fields and of columns 2 and 3
-  int32_t f0[5], f1[5], f2[5], f3[5];
-  gochugaru_spec_row(t, 0, f0);
-  gochugaru_spec_row(t, t.nq > 1 ? 1 : -1, f1);
-  gochugaru_spec_row(t, MODE == MODE_UNTIL2 ? 2 : -1, f2);
-  gochugaru_spec_row(t, MODE == MODE_UNTIL2 ? 3 : -1, f3);
+  const GochugaruReduceSpec sp = gochugaru_reduce_spec<MODE>(t);
   GochugaruSlotCursor c((int)threadIdx.x, blockDim.x, t.capT);
   for (int p = threadIdx.x; p < n; p += blockDim.x, c.next()) {
     const int2 q = ((const int2*)keys)[c.k];
     if (q.x < 0 || (t.nq > 1 && q.y < 0)) continue;
     const void* tbl;
     const long long at = gochugaru_slot_at(t, seg_off, c.k, c.j, tbl);
-    uint32_t c0, c1 = 0u, v2 = 0u, v3 = 0u;
-    if (t.packed) {
-      const uint16_t* r = (const uint16_t*)tbl + at;
-      const uint32_t w0 = gochugaru_field_window(r, f0);
-      const uint32_t w1 = gochugaru_field_window(r, f1);
-      const uint32_t w2 = gochugaru_field_window(r, f2);
-      const uint32_t w3 = gochugaru_field_window(r, f3);
-      c0 = gochugaru_field_own(w0, f0, t.dicts);
-      if (t.nq > 1)
-        c1 = gochugaru_field_own(w1, f1, t.dicts) + (f1[2] == 0 ? c0 : 0u);
-      if (MODE == MODE_UNTIL2) {
-        v2 = gochugaru_chain(t, r, gochugaru_field_own(w2, f2, t.dicts), f2[2],
-                             c0, c1);
-        const uint32_t own3 = gochugaru_field_own(w3, f3, t.dicts);
-        v3 = f3[2] == 2 ? own3 + v2 : gochugaru_chain(t, r, own3, f3[2], c0, c1);
-      }
-    } else {
-      const int32_t* r = (const int32_t*)tbl + at;
-      c0 = (uint32_t)r[0];
-      if (t.nq > 1) c1 = (uint32_t)r[1];
-      if (MODE == MODE_UNTIL2) {
-        v2 = (uint32_t)r[2];
-        v3 = (uint32_t)r[3];
-      }
-    }
-    if ((int32_t)c0 != q.x || (t.nq > 1 && (int32_t)c1 != q.y)) continue;
-    const int bits = MODE == MODE_ANY
-                         ? 1
-                         : ((int32_t)v2 > t.now) | (((int32_t)v3 > t.now) << 1);
+    const int bits = gochugaru_slot_bits<MODE>(t, sp, tbl, at, q);
     if (bits) atomicOr(flags + c.k, bits);
+  }
+}
+
+// The warp path of a reduced mode (lanes of capT <= GOCHUGARU_WARP_CAP
+// slots): warp w owns lanes [w * L, w * L + L), L = gochugaru_warp_lanes;
+// thread t takes slot j = t % capT of lane k = t / capT, computes its own
+// segment start, and the warp folds each lane's bits with one ballot a
+// flag.  No shared memory and no barrier.
+template <int MODE, class Lanes>
+__global__ void __launch_bounds__(GOCHUGARU_TILE_THREADS)
+gochugaru_warp_reduce_kernel(const GochugaruTile t, const Lanes lanes) {
+  // n / capT for n <= 32 as (n * ceil(2^16 / capT)) >> 16: exact, since
+  // the multiplier's excess adds under 33 / 2^16 < 1 / capT to the
+  // quotient (no division a thread)
+  const int tid = threadIdx.x & 31;
+  const int per = (32 * t.warp_div) >> 16;  // gochugaru_warp_lanes(capT)
+  const int k = (tid * t.warp_div) >> 16;
+  const int j = tid - k * t.capT;
+  const long long lane0 =
+      ((long long)blockIdx.x * (GOCHUGARU_TILE_THREADS / 32) +
+       (threadIdx.x >> 5)) * per;
+  if (lane0 >= t.B) return;  // the whole warp: no ballot follows
+  const long long i = lane0 + k;
+  const bool mine = k < per && i < t.B;  // a slot of one of the warp's lanes
+  int bits = 0;
+  if (mine) {
+    const int2 q = make_int2(t.q0[i], t.nq > 1 ? t.q1[i] : 0);
+    if (q.x >= 0 && (t.nq < 2 || q.y >= 0)) {
+      int first;
+      const void* tbl;
+      const int s = gochugaru_seg_of(t, j, first, tbl);
+      const long long at =
+          lanes.segment(q, s) + (long long)(j - first) * t.stride;
+      // an int32 row reads no spec: load the spec rows only when packed
+      bits = t.packed ? gochugaru_slot_bits<MODE>(
+                            t, gochugaru_reduce_spec<MODE>(t), tbl, at, q)
+                      : gochugaru_slot_bits<MODE>(t, GochugaruReduceSpec{}, tbl,
+                                                  at, q);
+    }
+  }
+  const unsigned b0 = __ballot_sync(0xffffffffu, bits & 1);
+  const unsigned b1 =
+      MODE == MODE_UNTIL2 ? __ballot_sync(0xffffffffu, bits & 2) : 0u;
+  if (mine && j == 0) {
+    // the lane's capT bits (all 32 when capT is 32: no shift by 32)
+    const unsigned m =
+        (t.capT == 32 ? 0xffffffffu : (1u << t.capT) - 1u) << (k * t.capT);
+    t.red0[i] = (b0 & m) != 0u;
+    if (MODE == MODE_UNTIL2) t.red1[i] = (b1 & m) != 0u;
   }
 }
 
@@ -536,9 +626,11 @@ gochugaru_slot_tile_kernel(const GochugaruTile t, const Lanes lanes) {
 }
 
 // Launch the slot tile of MODE (block, gate with PLANES int32 planes, or a
-// reduced mode) over every lane; returns a cudaError_t as int.  Refuses a
-// geometry that does not fit or align, a reduced tile that splits a lane,
-// and outputs or columns the mode cannot write or read.
+// reduced mode on its shared-flag tile or, with t.warp, its warp path)
+// over every lane; returns a cudaError_t as int.  Refuses a geometry that
+// does not fit or align, a reduced tile that splits a lane, a warp path
+// past GOCHUGARU_WARP_CAP or off gochugaru_warp_slots, and outputs or
+// columns the mode cannot write or read.
 template <int MODE, class Lanes, int PLANES = 0>
 int gochugaru_launch_slot_tile(const GochugaruTile& t, const Lanes& lanes,
                                cudaStream_t st) {
@@ -563,10 +655,24 @@ int gochugaru_launch_slot_tile(const GochugaruTile& t, const Lanes& lanes,
   if (PLANES > 1 && (t.planes.ctx == nullptr || t.planes.lay_ctx < 0 ||
                      t.planes.lay_ctx >= t.W))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = gochugaru_tile_smem<MODE>(S, t.capT, t.W, t.nseg);
-  if (smem > GOCHUGARU_SMEM_MAX) return (int)cudaErrorInvalidValue;
   const long long tiles = (t.B * t.capT + S - 1) / S;
   if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if constexpr (MODE == MODE_ANY || MODE == MODE_UNTIL2) {
+    if (t.warp) {
+      // whole warps of whole lanes: the tiles are the warp path's CTAs
+      if (t.capT > GOCHUGARU_WARP_CAP || S != gochugaru_warp_slots(t.capT))
+        return (int)cudaErrorInvalidValue;
+      GochugaruTile w = t;
+      w.warp_div = (65536 + t.capT - 1) / t.capT;
+      gochugaru_warp_reduce_kernel<MODE, Lanes>
+          <<<(unsigned)tiles, GOCHUGARU_TILE_THREADS, 0, st>>>(w, lanes);
+      return (int)cudaGetLastError();
+    }
+  } else if (t.warp) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const size_t smem = gochugaru_tile_smem<MODE>(S, t.capT, t.W, t.nseg);
+  if (smem > GOCHUGARU_SMEM_MAX) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         gochugaru_slot_tile_kernel<MODE, Lanes, PLANES>,

@@ -14,10 +14,14 @@ calls) — ``MODES`` for fused_probe, ``aligned.<mode>`` for each of
 the kernels, and ``LANES`` the query lanes (keys for ``runs``) those
 launches processed.  A gate with the caveat lanes (``cav_lane``, and
 ``ctx_lane`` beside it) counts under its own key, ``gate.cav`` /
-``aligned.gate.cav``.  Modes ``block`` and ``gate`` of both kernels and
-``fused_probe``'s mode ``until2`` run one slot-tile routine
-(``csrc/probe_common.cuh``) whose launch geometry ``block_tile``,
-``gate_tile`` and ``reduce_tile`` pick here.
+``aligned.gate.cav``.  Every check mode of both kernels runs one
+slot-tile routine (``csrc/probe_common.cuh``), one thread a slot:
+``block`` and ``gate`` on the tile whose geometry ``block_tile`` and
+``gate_tile`` pick here; the reduced modes ``any`` and ``until2`` on the
+warp path for lanes of at most ``WARP_REDUCE_CAP`` slots (``warp_tile``:
+whole lanes a warp, folded by ballots, no shared memory) and on the
+shared-flag tile for longer ones (``reduce_tile``), as ``reduce_path``
+picks.  Only ``runs`` has a kernel of its own (one thread a key).
 """
 
 from __future__ import annotations
@@ -37,7 +41,8 @@ __all__ = [
     "ALIGNED_MODES", "GATE_CAV", "LANES", "LAUNCHES", "MODES", "blk_hit",
     "block_tile", "fused_probe", "fused_probe_aligned",
     "fused_probe_aligned_plain", "fused_probe_plain", "gate_tile",
-    "reduce_tile", "reset_launches", "spec_tensors",
+    "reduce_path", "reduce_tile", "reset_launches", "spec_tensors",
+    "warp_tile",
 ]
 
 MODES = ("block", "any", "until2", "gate", "runs")
@@ -61,6 +66,16 @@ GATE_SLOTS = 2048
 #: thread's slots are round trips one after another (chip_smoke.py times
 #: 256-2048, PERF.md)
 REDUCE_SLOTS = 512
+#: the longest lane (capT) the reduced modes fold on the warp path: one
+#: warp holds whole lanes and one ballot of its 32 threads folds them
+#: (csrc GOCHUGARU_WARP_CAP); longer lanes take the shared-flag tile.
+#: Read at call time, so a caller can send short lanes to the tile too
+WARP_REDUCE_CAP = 32
+#: threads a CTA of the slot tile and of the warp path
+#: (csrc GOCHUGARU_TILE_THREADS)
+TILE_THREADS = 256
+#: the modes that fold a lane's slots into flags a lane
+REDUCED = ("any", "until2")
 #: kernel launches per mode since the last reset_launches(): fused_probe
 #: under its mode, fused_probe_aligned under ``aligned.<mode>``, a gate
 #: with the caveat planes under ``GATE_CAV`` (``aligned.`` + GATE_CAV)
@@ -99,7 +114,7 @@ class _Args(ctypes.Structure):
         ("cap", ctypes.c_int), ("W", ctypes.c_int),
         ("now", ctypes.c_int), ("lay_exp", ctypes.c_int),
         ("lay_cav", ctypes.c_int), ("lay_ctx", ctypes.c_int),
-        ("tile_slots", ctypes.c_int),
+        ("tile_slots", ctypes.c_int), ("warp", ctypes.c_int),
     ]
 
 
@@ -126,7 +141,7 @@ class _AlignedArgs(ctypes.Structure):
         ("now", ctypes.c_int), ("lay_exp", ctypes.c_int),
         ("lay_cav", ctypes.c_int), ("lay_ctx", ctypes.c_int),
         ("tile_slots", ctypes.c_int),
-        ("lv", _Level * MAXL),
+        ("lv", _Level * MAXL), ("warp", ctypes.c_int),
     ]
 
 
@@ -176,29 +191,60 @@ def gate_tile(capT: int, nseg: int) -> Tuple[int, int, int]:
 
 
 def reduce_tile(capT: int, nseg: int) -> Tuple[int, int, int]:
-    """Launch geometry of the reduced modes' slot tile (``fused_probe``
-    mode ``until2``) for lanes of ``capT`` slots in ``nseg`` segments:
-    ``(tile_slots, tile_lanes, smem_bytes)``.
+    """Launch geometry of the reduced modes' shared-flag tile (``any`` and
+    ``until2`` of both kernels, lanes longer than ``WARP_REDUCE_CAP``)
+    for lanes of ``capT`` slots in ``nseg`` segments: ``(tile_slots,
+    tile_lanes, smem_bytes)``.
 
     A CTA owns whole lanes, ``max(1, REDUCE_SLOTS // capT)`` of them
     (read at call time), so every tile starts at a lane boundary and no
     lane's flags are folded by two CTAs; a lane longer than
-    ``REDUCE_SLOTS`` gets a CTA of its own.  The shared bytes are, per lane, the segment starts (8
-    bytes a segment), the two keys (8 bytes) and the flag word (4 bytes),
-    as gochugaru_tile_smem counts them."""
+    ``REDUCE_SLOTS`` gets a CTA of its own.  The shared bytes are, per
+    lane, the segment starts (8 bytes a segment), the two keys (8 bytes)
+    and the flag word (4 bytes), as gochugaru_tile_smem counts them."""
     lanes = max(1, int(REDUCE_SLOTS) // capT)
     return lanes * capT, lanes, lanes * (nseg * 8 + 12)
 
 
+def warp_tile(capT: int) -> Tuple[int, int, int]:
+    """Launch geometry of the reduced modes' warp path for lanes of
+    ``capT`` <= 32 slots: ``(tile_slots, lanes_a_warp, idle_threads)``.
+
+    A warp owns ``32 // capT`` whole lanes, thread t slot ``t % capT`` of
+    lane ``t // capT``; the ``32 - lanes * capT`` threads past them idle.
+    A CTA is ``TILE_THREADS // 32`` such warps, so its ``tile_slots`` are
+    its warps' slots and the grid is ``ceil(B * capT / tile_slots)`` CTAs,
+    as gochugaru_warp_lanes / gochugaru_warp_slots count them (the launch
+    refuses any other)."""
+    if not 1 <= capT <= 32:
+        raise ValueError(f"the warp path takes lanes of 1..32 slots, not {capT}")
+    lanes = 32 // capT
+    return TILE_THREADS // 32 * lanes * capT, lanes, 32 - lanes * capT
+
+
+def reduce_path(capT: int) -> str:
+    """Which kernel a reduced mode (``any``, ``until2``) launches for lanes
+    of ``capT`` slots: ``"warp"`` up to ``WARP_REDUCE_CAP`` (read at call
+    time), else ``"tile"`` (the shared-flag tile)."""
+    return "warp" if capT <= int(WARP_REDUCE_CAP) else "tile"
+
+
 def _tile_slots(mode: str, capT: int, W: int, nseg: int) -> int:
-    """Slots a CTA of a slot-tile mode's launch (0 for a per-lane one)."""
+    """Slots a CTA of a slot-tile mode's launch (0 for ``runs``)."""
     if mode == "block":
         return block_tile(capT, W, nseg)[0]
     if mode == "gate":
         return gate_tile(capT, nseg)[0]
-    if mode == "until2":
+    if mode in REDUCED:
+        if reduce_path(capT) == "warp":
+            return warp_tile(capT)[0]
         return reduce_tile(capT, nseg)[0]
     return 0
+
+
+def _warp(mode: str, capT: int) -> int:
+    """The args' ``warp`` field: 1 when a reduced mode takes the warp path."""
+    return int(mode in REDUCED and reduce_path(capT) == "warp")
 
 
 def _tile_lanes(slots: int, capT: int) -> int:
@@ -344,6 +390,7 @@ def fused_probe(
         nq=nq, ashift=int(ashift or 0), packed=int(packed), w_raw=w_raw,
         cap=int(cap), W=W, now=int(now or 0),
         tile_slots=_tile_slots(mode, int(cap), W, 1),
+        warp=_warp(mode, int(cap)),
         **_out_fields(outs, exp_lane, cav_lane, ctx_lane),
     )
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -475,7 +522,9 @@ def fused_probe_aligned(
     B = int(qf[0].shape[0])
     capT = int(sum(int(c) for c in caps))
     outs = _outputs(mode, B, capT, W, dev, cav_lane, ctx_lane)
-    if B == 0 or (mode in ("block", "gate") and capT == 0):
+    if B == 0 or capT == 0:
+        for o in outs:
+            o.zero_()  # no slots: no hit
         return _shaped(mode, outs, shape, capT, W)
     if packed:
         fields, dicts = spec_dev if spec_dev is not None else spec_tensors(spec, dev)
@@ -489,10 +538,9 @@ def fused_probe_aligned(
         fields=fields.data_ptr() if packed else None,
         dicts=dicts.data_ptr() if packed else None,
         nq=nq, L=L, packed=int(packed), sw=int(sw), capT=capT, W=W,
-        now=int(now or 0),
-        tile_slots=(_tile_slots(mode, capT, W, L)
-                    if mode in ("block", "gate") else 0),
-        lv=lv, **_out_fields(outs, exp_lane, cav_lane, ctx_lane),
+        now=int(now or 0), tile_slots=_tile_slots(mode, capT, W, L),
+        warp=_warp(mode, capT), lv=lv,
+        **_out_fields(outs, exp_lane, cav_lane, ctx_lane),
     )
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _aligned_launcher()(_MODE_ID[mode], ctypes.byref(a), stream)

@@ -24,15 +24,29 @@ Inputs are synthetic, made from seed 1:
 - gate: a two-level aligned ladder (131,072 and 32,768 rows, caps 6 and
   4, three columns, packed and int32) and 131,072 two-key lanes, the
   shape of the permission fold's probe pair;
-- probe (``fused_probe`` modes gate and until2 over off+interleave
-  tables built by engine/hash.py, packed): an ``ehx``-like edge table
-  (1,000,000 rows of (k1, k2, expiry), and of (k1, k2, caveat, context,
-  expiry) as config 4's, caveat 2 bits and context 13) probed by 131,072
-  two-key lanes at cap 8, half on stored edges, with and without the
-  caveat planes; a ``clx``-like closure table (200,000 rows of (source,
-  group, until_a, until_b)) probed by 32,768 two-key lanes at cap 4.
-  The gate breakdown variants (stores only, walk only) and the word reads
-  patch the gate body both kernels share.
+- probe (``fused_probe`` mode gate over off+interleave tables built by
+  engine/hash.py, packed): an ``ehx``-like edge table (1,000,000 rows of
+  (k1, k2, expiry), and of (k1, k2, caveat, context, expiry) as config
+  4's, caveat 2 bits and context 13) probed by 131,072 two-key lanes at
+  cap 8, half on stored edges, with and without the caveat planes.  The
+  gate breakdown variants (stores only, walk only) and the word reads
+  patch the gate body both kernels share;
+- reduced (modes any and until2 of both kernels, at the main path's
+  three shapes and fused_probe's until2): ``any`` over an off+interleave
+  int32 table of one key column (200,000 keys, cap 4) and over one
+  aligned int32 level (65,536 rows, capT 4), 32,768 one-key lanes; a
+  ``clx``-like closure table (200,000 rows of (source, group, until_a,
+  until_b), packed) probed by 32,768 two-key lanes under ``until2`` at
+  cap 4, and one aligned packed level of such rows (65,536 rows, capT
+  3); half the lanes on stored keys.  Each is timed on the warp path,
+  on the shared-flag tile (``WARP_REDUCE_CAP`` 0) under each
+  ``REDUCE_SLOTS`` of the sweep, as the ``floor`` breakdown (both kernel
+  bodies return at once: the same grid and block, no work) on both
+  paths, and as each ``--other`` checkout has it (``WARP_REDUCE_CAP`` 0,
+  so an older checkout's until2 gets the tile it had), in two rounds in
+  turns; each also timed with CUDA events over 30 calls back to back
+  (``event_ms``: the kernel and the gap to the next launch, as
+  chip_smoke.py times its kernel table).
 
 The engine does not import this module.
 """
@@ -218,6 +232,12 @@ __device__ __forceinline__ uint32_t gv_window(const uint32_t (&wd)[5],
 """
 
 
+# the reduced modes' floor: both kernel bodies return at once (the same
+# grid and block, no work)
+_WARP_BODY = "gochugaru_warp_reduce_kernel(const GochugaruTile t, const Lanes lanes) {\n"
+_TILE_BODY = "gochugaru_slot_tile_kernel(const GochugaruTile t, const Lanes lanes) {\n"
+
+
 def _replace(text, anchor, new):
     """``text`` with ``anchor`` replaced, or None when it has no anchor."""
     return text.replace(anchor, new) if anchor in text else None
@@ -253,6 +273,15 @@ def gate_variants(common):
                            _FIELD_READS, _WORD_READS), True),
         "stores_only": (_gate_body(common, _STORES_ONLY), False),
         "walk_no_loads": (_gate_body(common, _WALK_ONLY), False),
+    }
+
+
+def reduced_variants(common):
+    """{name: (probe_common.cuh source or None, exact)}."""
+    floor = _replace(common or "", _WARP_BODY, _WARP_BODY + "  return;\n")
+    return {
+        "kept": (common, True),
+        "floor": (_replace(floor or "", _TILE_BODY, _TILE_BODY + "  return;\n"), False),
     }
 
 
@@ -298,6 +327,24 @@ def device_ms(fn, kernels, reps: int = 30) -> float:
         if any(k in e.key for k in kernels):
             return e.device_time_total / e.count / 1e3
     raise RuntimeError(f"no kernel named like {kernels!r} ran")
+
+
+def event_ms(fn, reps: int = 30) -> float:
+    """Mean milliseconds a call of ``fn`` over ``reps`` calls back to back
+    (CUDA events behind a device sleep that keeps the card busy while the
+    host enqueues them, as chip_smoke.py times its kernel table): the
+    kernel and the gap to the next launch."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
 
 
 def runs_inputs(dev, rng):
@@ -363,31 +410,76 @@ def gate_inputs(dev, rng):
     }
 
 
-def probe_inputs(dev, rng):
-    """{name: (q_cols, off, tbl, kw)}: fused_probe gate and until2 calls
-    shaped as the main path's (see the module docstring)."""
+def _off_table(dev, rng, cols, descs, cap, lanes, mode, **kw):
+    """(q_cols, off, tbl, kw) of one fused_probe call over an off+interleave
+    table of ``cols`` built by engine/hash.py (the first min(2, len)
+    columns the keys; packed through ``descs``, or int32 when None),
+    probed by ``lanes`` lanes, half on stored keys.  The probe reads cap
+    rows from each bucket start, whatever the build's own cap."""
     from ..engine import hash as H
     from ..engine import packed as PK
     from ..engine.device import to_device_tensor
     from ..engine.kernels import spec_tensors
-    from ..store.closure import NEVER, NO_EXP
 
-    def table(cols, descs, cap, lanes, mode, **kw):
-        # the probe reads cap rows from each bucket start, whatever the
-        # build's own cap
-        hi = H.build_hash(cols[:2], target_cap=cap)
-        raw = H.interleave_buckets(hi, cols)
-        spec = PK.make_spec(descs)
-        res, anchor = PK.pack_off(hi.off)
-        pick = rng.integers(0, cols[0].shape[0], lanes)
-        qs = tuple(torch.from_numpy(np.where(rng.random(lanes) < 0.5, c[pick],
-                                             rng.integers(0, int(c.max()) + 1, lanes))
-                                    .astype(np.int32)).to(dev) for c in cols[:2])
-        return (qs, to_device_tensor(res, dev),
-                to_device_tensor(PK.pack_rows(raw, spec), dev),
-                dict(cap=cap, spec=spec, spec_dev=spec_tensors(spec, dev),
-                     off_a=to_device_tensor(anchor, dev),
-                     ashift=PK.OFF_ANCHOR_SHIFT, mode=mode, **kw))
+    nq = min(2, len(cols))
+    hi = H.build_hash(cols[:nq], target_cap=cap)
+    raw = H.interleave_buckets(hi, cols)
+    qs = _lanes_of(dev, rng, cols[:nq], lanes)
+    if descs is None:
+        return (qs, to_device_tensor(hi.off, dev), to_device_tensor(raw, dev),
+                dict(cap=cap, mode=mode, **kw))
+    spec = PK.make_spec(descs)
+    res, anchor = PK.pack_off(hi.off)
+    return (qs, to_device_tensor(res, dev),
+            to_device_tensor(PK.pack_rows(raw, spec), dev),
+            dict(cap=cap, spec=spec, spec_dev=spec_tensors(spec, dev),
+                 off_a=to_device_tensor(anchor, dev),
+                 ashift=PK.OFF_ANCHOR_SHIFT, mode=mode, **kw))
+
+
+def _lanes_of(dev, rng, keys, lanes):
+    """``lanes`` query lanes over key columns ``keys``: half a stored key,
+    half a random one in its range."""
+    pick = rng.integers(0, keys[0].shape[0], lanes)
+    hit = rng.random(lanes) < 0.5
+    return tuple(torch.from_numpy(np.where(hit, c[pick],
+                                           rng.integers(0, int(c.max()) + 1, lanes))
+                                  .astype(np.int32)).to(dev) for c in keys)
+
+
+def _aligned_level(dev, rng, cols, descs, cap, rows, lanes, mode, **kw):
+    """(q_cols, [level], caps, sw, kw) of one fused_probe_aligned call over
+    ONE level of ``rows`` rows: each key in its bucket's row (the unsalted
+    level-0 hash), the first ``cap`` of a bucket kept, other slots -1;
+    packed through ``descs`` or int32 when None; ``lanes`` lanes, half on
+    kept keys."""
+    from ..engine import packed as PK
+    from ..engine.device import to_device_tensor
+    from ..engine.kernels import spec_tensors
+    from ..engine.partition import _hash_cols
+
+    nq, W = min(2, len(cols)), len(cols)
+    h = (_hash_cols(cols[:nq]) & np.uint32(rows - 1)).astype(np.int64)
+    order = np.argsort(h, kind="stable")
+    hs = h[order]
+    rank = np.arange(hs.shape[0]) - np.searchsorted(hs, hs, side="left")
+    keep = rank < cap
+    slots = np.full((rows * cap, W), -1, np.int32)
+    slots[hs[keep] * cap + rank[keep]] = np.stack(cols, 1)[order[keep]]
+    qs = _lanes_of(dev, rng, [c[order[keep]] for c in cols[:nq]], lanes)
+    if descs is None:
+        return (qs, [to_device_tensor(slots.reshape(rows, cap * W), dev)], (cap,), W,
+                dict(mode=mode, **kw))
+    spec = PK.make_spec(descs)
+    return (qs, [to_device_tensor(PK.pack_rows(slots, spec).reshape(rows, -1), dev)],
+            (cap,), spec[1], dict(spec=spec, spec_dev=spec_tensors(spec, dev),
+                                  mode=mode, **kw))
+
+
+def probe_inputs(dev, rng):
+    """{name: (q_cols, off, tbl, kw)}: fused_probe gate calls shaped as the
+    main path's (see the module docstring)."""
+    from ..engine import packed as PK
 
     n = 1_000_000
     k1 = rng.integers(0, 400_000, n).astype(np.int32)
@@ -397,6 +489,26 @@ def probe_inputs(dev, rng):
     ctx = np.where(cav > 0, rng.integers(0, 4_096, n), -1).astype(np.int32)
     keys = [PK.col_range(-1, 400_000), PK.col_range(-1, 12_000)]
     gate = dict(now=5_000)
+    return {
+        "gate ehx": _off_table(dev, rng, [k1, k2, exp],
+                               keys + [PK.col_range(-1, 10_000)], 8, 131_072,
+                               "gate", exp_lane=2, **gate),
+        "gate.cav ehx": _off_table(dev, rng, [k1, k2, cav, ctx, exp],
+                                   keys + [PK.col_range(-1, 2), PK.col_range(-1, 4_095),
+                                           PK.col_range(-1, 10_000)], 8, 131_072,
+                                   "gate", exp_lane=4, cav_lane=2, ctx_lane=3, **gate),
+    }
+
+
+def reduced_inputs(dev, rng):
+    """{name: (kernel, args, kw)}: the reduced modes' calls shaped as the
+    main path's (see the module docstring); ``args`` are fused_probe's
+    (q_cols, off, tbl) or fused_probe_aligned's (q_cols, tbls, caps, sw)."""
+    from ..engine import packed as PK
+    from ..store.closure import NEVER, NO_EXP
+
+    lanes = 32_768
+    key = rng.choice(2_000_000, 200_000, replace=False).astype(np.int32)
     # closure rows: (source, group) keys and two until values from the
     # closure semiring's 2-bit dictionary {NEVER, -1, 0, NO_EXP}
     m = 200_000
@@ -405,29 +517,76 @@ def probe_inputs(dev, rng):
     udict = (int(NEVER), -1, 0, int(NO_EXP))
     until = [rng.choice(np.array(udict, np.int32), m, p=(0.2, 0.0, 0.1, 0.7))
              for _ in range(2)]
+    clx = ([src, grp] + until, [PK.col_range(-1, 100_000), PK.col_range(-1, 50_000)]
+           + [PK.col_dict(udict)] * 2)
+
+    def off(*a, **kw):
+        q, o, t, k = _off_table(dev, rng, *a, **kw)
+        return "fused_probe", (q, o, t), k
+
+    def al(*a, **kw):
+        q, t, c, sw, k = _aligned_level(dev, rng, *a, **kw)
+        return "fused_probe_aligned", (q, t, c, sw), k
+
     return {
-        "gate ehx": table([k1, k2, exp], keys + [PK.col_range(-1, 10_000)], 8,
-                          131_072, "gate", exp_lane=2, **gate),
-        "gate.cav ehx": table([k1, k2, cav, ctx, exp],
-                              keys + [PK.col_range(-1, 2), PK.col_range(-1, 4_095),
-                                      PK.col_range(-1, 10_000)], 8, 131_072, "gate",
-                              exp_lane=4, cav_lane=2, ctx_lane=3, **gate),
-        "until2 clx": table([src, grp] + until,
-                            [PK.col_range(-1, 100_000), PK.col_range(-1, 50_000)]
-                            + [PK.col_dict(udict)] * 2, 4, 32_768, "until2",
-                            now=5_000),
+        "any int32": off([key], None, 4, lanes, "any"),
+        "until2 clx": off(*clx, 4, lanes, "until2", now=5_000),
+        "aligned any int32": al([key], None, 4, 65_536, lanes, "any"),
+        "aligned until2 clx": al(*clx, 3, 65_536, lanes, "until2", now=5_000),
     }
 
 
 RUNS_KERNELS = ("fused_runs",)
 GATE_KERNELS = ("slot_tile_kernel<3", "fused_probe_aligned_kernel<3")
-#: fused_probe's gate / until2: the slot tile, or the per-lane kernel of an
-#: older checkout
-PROBE_KERNELS = {"gate": ("slot_tile_kernel<3", "fused_probe_kernel<3"),
-                 "until2": ("slot_tile_kernel<2", "fused_probe_kernel<2")}
+#: fused_probe's gate: the slot tile, or the per-lane kernel of an older
+#: checkout
+PROBE_KERNELS = {"gate": ("slot_tile_kernel<3", "fused_probe_kernel<3")}
+#: the reduced modes: the warp path, the shared-flag tile, or an older
+#: checkout's per-lane kernels
+REDUCED_KERNELS = {m: tuple(k + "<%d" % i for k in (
+    "warp_reduce_kernel", "slot_tile_kernel", "fused_probe_kernel",
+    "fused_probe_aligned_kernel")) for m, i in (("any", 1), ("until2", 2))}
 #: each mode's slots-a-CTA knob and the values it is timed under
 SLOTS = {"gate": ("GATE_SLOTS", (512, 1024, 2048, 4096)),
-         "until2": ("REDUCE_SLOTS", (128, 256, 512, 1024, 2048))}
+         "reduced": ("REDUCE_SLOTS", (256, 512, 1024))}
+
+
+def time_reduced(K, libs, others, table, kernel, a, kw):
+    """One reduced-mode call on every path, in two rounds in turns: the
+    warp path, the shared-flag tile under each REDUCE_SLOTS of SLOTS, the
+    floor of both, and each other checkout's kernel under WARP_REDUCE_CAP
+    0 and REDUCE_SLOTS 512 (what a checkout without the warp path was
+    passed) and again under WARP_REDUCE_CAP 32 (its warp path, if it has
+    one; a checkout without it ignores the flag and gets the warp path's
+    tile_slots); every exact one held to the plain twin."""
+    mode = kw["mode"]
+    group = "reduced" if kernel == "fused_probe" else "reduced_al"
+    fn = getattr(K, kernel)
+    want = fn(*a, plain=True, **kw)
+    want = list(want) if isinstance(want, tuple) else [want]
+    runs = [("warp", "kept", 32, 512)]
+    runs += [("tile", "kept", 0, v) for v in SLOTS["reduced"][1]]
+    runs += [("floor warp", "floor", 32, 512), ("floor tile", "floor", 0, 512)]
+    runs += [(tag, tag, 0, 512) for tag in others]
+    runs += [(tag + " warp", tag, 32, 512) for tag in others]
+    for rnd, order in enumerate((runs, runs[::-1])):
+        for path, variant, cap, slots in order:
+            lib, exact = libs[(group, variant)]
+            K._FNS[kernel] = lib
+            K.WARP_REDUCE_CAP, K.REDUCE_SLOTS = cap, slots
+            call = lambda: fn(*a, **kw)  # noqa: E731
+            got = call()
+            got = list(got) if isinstance(got, tuple) else [got]
+            if exact and not all(torch.equal(x, y) for x, y in zip(got, want)):
+                raise AssertionError(f"{kernel}.{mode} {path} != plain on {table}")
+            ms = device_ms(call, REDUCED_KERNELS[mode])
+            print(json.dumps({"kernel": f"{kernel}.{mode}", "variant": variant,
+                              "path": path, "table": table, "round": rnd,
+                              "lanes": int(a[0][0].numel()),
+                              "capT": int(kw["cap"]) if "cap" in kw else int(sum(a[2])),
+                              "tile_slots": slots, "exact": exact, "ms": ms,
+                              "event_ms": event_ms(call)}),
+                  flush=True)
 
 
 def main() -> int:
@@ -461,11 +620,18 @@ def main() -> int:
                              ("probe", "fused_probe", fp)):
         todo += [(group, k, name, c, src, exact)
                  for k, (c, exact) in gate_variants(common).items()]
+    for group, name, src in (("reduced", "fused_probe", fp),
+                             ("reduced_al", "fused_probe_aligned", fa)):
+        todo += [(group, k, name, c, src, exact)
+                 for k, (c, exact) in reduced_variants(common).items()]
+    others = []
     for spec in args.other:
         tag, root = spec.split("=", 1)
+        others.append(tag)
         oc = os.path.join(root, "gochugaru_tpu_torch", "csrc")
         for group, name in (("runs", "fused_probe"), ("gate", "fused_probe_aligned"),
-                            ("probe", "fused_probe")):
+                            ("probe", "fused_probe"), ("reduced", "fused_probe"),
+                            ("reduced_al", "fused_probe_aligned")):
             todo.append((group, tag, name, read(oc, "probe_common.cuh"),
                          read(oc, name + ".cu"), True))
     built = {}
@@ -486,7 +652,8 @@ def main() -> int:
     K._launcher()
     K._aligned_launcher()
     rng = np.random.default_rng(1)
-    saved, knobs = dict(K._FNS), {k: getattr(K, k) for k, _v in SLOTS.values()}
+    saved = dict(K._FNS)
+    knobs = {k: getattr(K, k) for k in ("GATE_SLOTS", "REDUCE_SLOTS", "WARP_REDUCE_CAP")}
     try:
         for table, (q, off, tbl, kw) in runs_inputs(dev, rng).items():
             want = K.fused_probe(q, off, tbl, plain=True, **kw)
@@ -517,18 +684,14 @@ def main() -> int:
                                       "table": table, "lanes": int(qs[0].numel()),
                                       "caps": list(caps), "tile_slots": slots,
                                       "exact": exact, "ms": ms}), flush=True)
-        # fused_probe gate and until2: each variant in turns (kept, the
-        # others, then again in reverse order), so a drift of the card
-        # shows as a spread rather than as a difference
+        # fused_probe gate: each variant in turns (kept, the others, then
+        # again in reverse order), so a drift of the card shows as a
+        # spread rather than as a difference
         for table, (qs, off, tbl, kw) in probe_inputs(dev, rng).items():
             mode = kw["mode"]
             knob, values = SLOTS[mode]
             want = K.fused_probe(qs, off, tbl, plain=True, **kw)
-            # the gate body's patches leave until2 as it is: time it kept
-            # and as the other checkouts have it
-            patched = set(gate_variants(common)) - {"kept"}
-            keys = [key for key in libs if key[0] == "probe"
-                    and (mode == "gate" or key[1] not in patched)]
+            keys = [key for key in libs if key[0] == "probe"]
             for rnd, order in enumerate((keys, keys[::-1])):
                 for key in order:
                     fn, exact = libs[key]
@@ -545,6 +708,8 @@ def main() -> int:
                                           "round": rnd, "lanes": int(qs[0].numel()),
                                           "cap": kw["cap"], "tile_slots": slots,
                                           "exact": exact, "ms": ms}), flush=True)
+        for table, (kernel, a, kw) in reduced_inputs(dev, rng).items():
+            time_reduced(K, libs, others, table, kernel, a, kw)
     finally:
         K._FNS.update(saved)
         for k, v in knobs.items():

@@ -158,11 +158,20 @@ def test_reduce_tile_reads_its_budget_at_call_time(monkeypatch):
     assert K.reduce_tile(300, 2) == (300, 1, 28)  # a lane past the slots: its own CTA
 
 
-def test_launches_pass_each_mode_its_tile():
+def test_launches_pass_each_mode_its_tile(monkeypatch):
     assert K._tile_slots("block", 8, 3, 1) == K.block_tile(8, 3, 1)[0]
     assert K._tile_slots("gate", 8, 3, 1) == K.gate_tile(8, 1)[0]
+    assert K._warp("block", 4) == K._warp("gate", 4) == 0
+    # the reduced modes: the warp path up to WARP_REDUCE_CAP slots a lane,
+    # the shared-flag tile beyond
+    for mode in ("any", "until2"):
+        assert K._tile_slots(mode, 4, 4, 1) == K.warp_tile(4)[0]
+        assert K._tile_slots(mode, 33, 4, 2) == K.reduce_tile(33, 2)[0]
+        assert K._warp(mode, 4) == 1 and K._warp(mode, 33) == 0
+    monkeypatch.setattr(K, "WARP_REDUCE_CAP", 0)
     assert K._tile_slots("until2", 4, 4, 1) == K.reduce_tile(4, 1)[0]
-    assert K._tile_slots("any", 4, 4, 1) == K._tile_slots("runs", 4, 4, 1) == 0
+    assert K._warp("any", 4) == 0
+    assert K._tile_slots("runs", 4, 4, 1) == 0
 
 
 # ---------------------------------------------------------------------------

@@ -371,6 +371,9 @@ def test_kernel_constants_match_the_c_sources():
     # whole rounds of the CTA's threads
     threads = define(common, "GOCHUGARU_TILE_THREADS")
     assert K.GATE_SLOTS % threads == 0 and K.REDUCE_SLOTS % threads == 0
+    # the warp path: its CTAs and its longest lane (one ballot of a warp)
+    assert threads == K.TILE_THREADS and threads % 32 == 0
+    assert define(common, "GOCHUGARU_WARP_CAP") == K.WARP_REDUCE_CAP == 32
     # the mode ids the wrapper passes are the C enum's
     enum = re.search(r"enum \{([^}]*)\}", common).group(1)
     ids = {m.lower(): int(v) for m, v in re.findall(r"MODE_(\w+) = (\d+)", enum)}
