@@ -1,7 +1,8 @@
 """Drive the PyTorch port's bulk Check and lookups on one NVIDIA card and
 hold every CUDA kernel against its plain PyTorch version.
 
-Run from the repository root:  python3 chip_smoke.py [--scale3 S] [--edges4 N]
+Run from the repository root:
+python3 chip_smoke.py [--scale3 S] [--edges4 N] [--edges5 N]
 
 Phases (any failure exits non-zero and prints no result line):
 
@@ -110,9 +111,50 @@ Phases (any failure exits non-zero and prints no result line):
    planes); then all of it with ``flat_aligned=True`` on the same
    snapshot, planes equal to the off+interleave ones;
 
+9. BASELINE config 5 (Watch-driven incremental re-index,
+   benchmarks/bench5_watch.py's deployment: the repo/team schema, seed
+   17, 100,000 users, 1,000 teams of 50 members, repos = edges / 20 with
+   one team maintainer each) at ``--edges5`` edges (10M, bench5's own
+   default; one card's share of the published 1B on 16 chips is 62.5M,
+   logged as ``reduced``), under both layouts on one snapshot chain: 20
+   warm-up and 10 measured revisions of 1,000 fresh-user ``reader`` adds
+   on repos r0-r999 (rng seed 5), each through ``apply_delta`` and
+   ``prepare(snap, prev=...)``, and a freshness probe that must be
+   definite at the new revision; mean materialize / overlay / probe ms,
+   updates/s, incremental revisions, the fold's state, the ``dl_*`` MiB;
+   then a 100,000-check batch on the chain's last snapshot (kernel
+   launches per mode, kernels vs plain planes, 2,000 sampled rows vs the
+   oracle, checks/s, the aligned planes equal to the off+interleave ones)
+   and the same batch on a full prepare of that revision (its planes
+   equal the chain's);
+10. a mixed Watch chain under each layout: the feature world of
+   tests/test_flat_engine.py scaled up (nested groups, a folder tree,
+   caveated, expiring and wildcard readers, bans) through 28 revisions
+   of direct adds and deletes of base rows, membership adds that advance
+   the closure, userset grants and their tombstones (T-dirty voids),
+   caveated adds, retargeted and fresh doc -> folder arrows, with small
+   overlay floors so the chain crosses shape bands and reaches the
+   compaction bail; at every revision the kernel planes equal the plain
+   planes and a full prepare's, and definite rows agree with the oracle;
+   then config 4's schema at 200,000 edges with 40 stored contexts and
+   caveated adds of fresh contexts, re-encoded into the ``ectx_*``
+   headroom until the bucket is outgrown (a full prepare), each revision
+   checked with request contexts as in phase 8;
+11. (run inside phase 5) config 3's write -> first check through the
+   Client: the snapshot phase 5 prepared is the client's store head, and
+   three writes (a doc viewer and a group member each) are each followed
+   by 256 checks at ``at_least(revision)``; each must take the delta
+   path (else the phase fails naming the radix and size), its answers
+   agree with the oracle, and its latency prints beside the full
+   prepare it replaces.
+
 Phases 4-8 are the main path: launch counts are zeroed before phase 4
 and read after phase 7, and every mode of both kernels, and the gate
-with its caveat planes (``gate.cav``) of both, must have launched.  Then
+with its caveat planes (``gate.cav``) of both, must have launched.
+Phases 9-11 are the delta chain's own paths (10, then 9, after the
+main path): each runs with the counts
+set to 0 just before it and read just after (phase 11's are added back
+to the main path's), and each kernel of its layout must have launched.  Then
 each mode is timed at the largest shape the main path gave it, ``runs``
 also at its largest-cap call (the row's ``deep_bucket``) and each
 aligned mode also at its call with the most levels (the row's
@@ -469,23 +511,42 @@ definition document {
 """
 
 
-def build_docs(scale=1.0, seed=23):
-    """BASELINE config 3, the generator of benchmarks/bench3_docs.py:51-137."""
+def docs_sizes(scale):
+    """(users, groups, folders, docs) of config 3 at ``scale``."""
+    return (max(int(100_000 * scale), 100), max(int(10_000 * scale), 20),
+            max(int(50_000 * scale), 50), max(int(1_000_000 * scale), 1_000))
+
+
+def build_docs(scale=1.0, seed=23, client=None):
+    """BASELINE config 3, the generator of benchmarks/bench3_docs.py:51-137.
+    With ``client`` the relationships go into that client's store (its
+    interner, one pre-interned columnar import a relation) and the
+    snapshot is the store's head."""
     from gochugaru_tpu_torch.schema import compile_schema, parse_schema
     from gochugaru_tpu_torch.store.interner import Interner
     from gochugaru_tpu_torch.store.snapshot import build_snapshot_from_columns
 
-    n_users = max(int(100_000 * scale), 100)
-    n_groups = max(int(10_000 * scale), 20)
-    n_folders = max(int(50_000 * scale), 50)
-    n_docs = max(int(1_000_000 * scale), 1_000)
+    n_users, n_groups, n_folders, n_docs = docs_sizes(scale)
     cs = compile_schema(parse_schema(DOCS_SCHEMA))
-    interner = Interner()
+    if client is not None:
+        from gochugaru_tpu_torch.utils.context import background
+
+        client.write_schema(background(), DOCS_SCHEMA)
+        interner = client.store.interner
+    else:
+        interner = Interner()
     rng = np.random.default_rng(seed)
-    users = np.array([interner.node("user", f"u{i}") for i in range(n_users)], np.int64)
-    groups = np.array([interner.node("group", f"g{i}") for i in range(n_groups)], np.int64)
-    folders = np.array([interner.node("folder", f"f{i}") for i in range(n_folders)], np.int64)
-    docs = np.array([interner.node("document", f"d{i}") for i in range(n_docs)], np.int64)
+
+    def nodes(t, prefix, n):
+        ids = [f"{prefix}{i}" for i in range(n)]
+        if hasattr(interner, "node_batch"):
+            return interner.node_batch(t, ids).astype(np.int64)
+        return np.array([interner.node(t, i) for i in ids], np.int64)
+
+    users = nodes("user", "u", n_users)
+    groups = nodes("group", "g", n_groups)
+    folders = nodes("folder", "f", n_folders)
+    docs = nodes("document", "d", n_docs)
     slot = cs.slot_of_name
     member, parent, viewer, folder_rel = (
         slot["member"], slot["parent"], slot["viewer"], slot["folder"])
@@ -520,11 +581,32 @@ def build_docs(scale=1.0, seed=23):
         rem = k - dd.shape[0]
         if rem:
             bulk(docs[:rem], viewer, rng.choice(users, rem), -1)
-    snap = build_snapshot_from_columns(
-        1, cs, interner,
-        res=np.concatenate(res), rel=np.concatenate(rel),
-        subj=np.concatenate(subj), srel=np.concatenate(srel), epoch_us=EPOCH,
-    )
+    if client is not None:
+        from gochugaru_tpu_torch import consistency
+
+        name = {v: k for k, v in slot.items()}
+        groups_of = {}
+        for r, rl, s, sr in zip(res, rel, subj, srel):
+            key = (int(rl[0]) if rl.size else -1, int(sr[0]) if sr.size else -1)
+            groups_of.setdefault(key, []).append((r, s))
+        for (rl, sr), parts in groups_of.items():
+            if rl < 0:
+                continue
+            client.store.import_interned_columns(
+                resource_ids=np.concatenate([p[0] for p in parts]),
+                resource_relation=name[rl],
+                subject_ids=np.concatenate([p[1] for p in parts]),
+                subject_relation=name[sr] if sr >= 0 else "",
+                touch=True,  # the generator draws repeated pairs
+            )
+        snap = client.store.snapshot_for(consistency.full())
+        cs = snap.compiled
+    else:
+        snap = build_snapshot_from_columns(
+            1, cs, interner,
+            res=np.concatenate(res), rel=np.concatenate(rel),
+            subj=np.concatenate(subj), srel=np.concatenate(srel), epoch_us=EPOCH,
+        )
     # the batch: bench3_docs.py's seed-7 draw, by index
     qrng = np.random.default_rng(7)
     B = 100_000
@@ -1977,6 +2059,10 @@ def phase_config4(K, edges):
         del ek, ep, ds
 
 
+#: full-prepare seconds of each check_world call, by name
+PREPARE_S = {}
+
+
 def check_world(name, cs, snap, q, names, K, ctx=None, **cfg):
     """Prepare once (``cfg`` overrides EngineConfig fields), then
     ``check_batch_phase`` on the batch.  Returns the engines, the
@@ -1991,6 +2077,7 @@ def check_world(name, cs, snap, q, names, K, ctx=None, **cfg):
     if DEV == "cuda":
         torch.cuda.synchronize()
     prepare_s = time.perf_counter() - t0
+    PREPARE_S[name] = prepare_s
     meta = ds.flat_meta
     log(f"{name}: edges={snap.num_edges} nodes={snap.num_nodes}"
         f" prepare_s={prepare_s:.3f}"
@@ -2689,12 +2776,573 @@ def time_aligned(K, mode, q_cols, tbls, caps, sw, kw, card):
     return row
 
 
+# ---------------------------------------------------------------------------
+# the Watch-driven delta chain (phases 9-11)
+# ---------------------------------------------------------------------------
+
+CONFIG5_SCHEMA = """
+definition user {}
+definition team { relation member: user }
+definition repo {
+    relation maintainer: user | team#member
+    relation reader: user
+    permission read = reader + maintainer
+}
+"""
+#: BASELINE config 5's published deployment: 1B edges on 16 chips, so
+#: one card's share is 62.5M edges; bench5_watch.py's own default is 10M
+CONFIG5_EDGES_PER_CHIP = 1_000_000_000 // 16
+
+
+def kernel_of(key: str) -> str:
+    return "fused_probe_aligned" if key.startswith("aligned.") else "fused_probe"
+
+
+def own_launches(K, label, fn, need=("fused_probe",)):
+    """Drive ``fn`` with every launch count set to 0 just before it and
+    read just after; fail unless each kernel in ``need`` launched.  The
+    counts from before are added back, so a path driven inside the main
+    path leaves the main path's totals as they would have been."""
+    saved = dict(K.LAUNCHES), dict(K.LANES)
+    K.reset_launches()
+    try:
+        out = fn()
+        got = {k: v for k, v in K.LAUNCHES.items() if v}
+    finally:
+        for k in K.LAUNCHES:
+            K.LAUNCHES[k] += saved[0][k]
+            K.LANES[k] += saved[1][k]
+    log(f"{label}: kernel launches {json.dumps(got)}")
+    missing = [n for n in need if not any(kernel_of(k) == n for k in got)]
+    if missing and DEV == "cuda":  # a CPU rehearsal launches no kernel
+        raise AssertionError(f"{label}: {missing} never launched")
+    return out, got
+
+
+def need_for(cfg):
+    return ("fused_probe_aligned",) if cfg.get("flat_aligned") else ("fused_probe",)
+
+
+def build_config5(n_edges):
+    """BASELINE config 5, the generator of benchmarks/bench5_watch.py:
+    47-91: seed 17, 100,000 users, 1,000 teams of 50 members, repos =
+    edges / 20 with one team maintainer each, the rest reader edges."""
+    from gochugaru_tpu_torch.schema import compile_schema, parse_schema
+    from gochugaru_tpu_torch.store.interner import Interner
+    from gochugaru_tpu_torch.store.snapshot import build_snapshot_from_columns
+
+    cs = compile_schema(parse_schema(CONFIG5_SCHEMA))
+    interner = Interner()
+    rng = np.random.default_rng(17)
+    n_users, n_teams = 100_000, 1000
+    n_repos = max(n_edges // 20, 1000)
+    users = np.array([interner.node("user", f"u{i}") for i in range(n_users)], np.int64)
+    teams = np.array([interner.node("team", f"t{i}") for i in range(n_teams)], np.int64)
+    repos = np.array([interner.node("repo", f"r{i}") for i in range(n_repos)], np.int64)
+    slot = cs.slot_of_name
+    n_member = n_teams * 50
+    n_maint = n_repos
+    n_reader = n_edges - n_member - n_maint
+    res = np.concatenate([np.repeat(teams, 50), repos, rng.choice(repos, n_reader)])
+    rel = np.concatenate([np.full(n_member, slot["member"], np.int64),
+                          np.full(n_maint, slot["maintainer"], np.int64),
+                          np.full(n_reader, slot["reader"], np.int64)])
+    subj = np.concatenate([rng.choice(users, n_member), rng.choice(teams, n_maint),
+                           rng.choice(users, n_reader)])
+    srel = np.concatenate([np.full(n_member, -1, np.int64),
+                           np.full(n_maint, slot["member"], np.int64),
+                           np.full(n_reader, -1, np.int64)])
+    snap = build_snapshot_from_columns(1, cs, interner, res=res, rel=rel,
+                                       subj=subj, srel=srel, epoch_us=EPOCH)
+    return cs, snap, interner, users, repos
+
+
+def dl_mib(ds) -> float:
+    return sum(v.nbytes for k, v in ds.arrays.items() if k.startswith("dl_")) / 2**20
+
+
+def phase_config5(K, edges, warmup=20, rounds=10, delta=1000):
+    """Phase 9: BASELINE config 5 (see the module docstring)."""
+    from gochugaru_tpu_torch import rel
+    from gochugaru_tpu_torch.engine.device import DeviceEngine
+    from gochugaru_tpu_torch.engine.plan import EngineConfig
+    from gochugaru_tpu_torch.store.delta import apply_delta
+
+    t0 = time.perf_counter()
+    cs, snap, interner, users, repos = build_config5(edges)
+    log(f"config5: world built in {time.perf_counter() - t0:.2f}s; edges={snap.num_edges}"
+        f" nodes={snap.num_nodes}; reduced: edges {CONFIG5_EDGES_PER_CHIP} a card"
+        f" (1B on 16 chips) -> {edges}")
+    layouts = {"config5": {}, "config5 aligned": ALIGNED}
+    eng = {}
+    for label, cfg in layouts.items():
+        ek = DeviceEngine(cs, EngineConfig(kernels=DEV == "cuda" or None, **cfg), device=DEV)
+        ep = DeviceEngine(cs, EngineConfig(kernels=False, **cfg), device=DEV)
+        t0 = time.perf_counter()
+        ds = ek.prepare(snap)
+        if DEV == "cuda":
+            torch.cuda.synchronize()
+        log(f"{label}: base prepare_s={time.perf_counter() - t0:.3f}"
+            f" device_MiB={sum(v.nbytes for v in ds.arrays.values()) / 2**20:.1f}"
+            f" fold={bool(ds.flat_meta.fold_pairs)} N={ds.flat_meta.N}"
+            f" aligned={[t for t, _w, _c in ds.flat_meta.aligned]}")
+        eng[label] = [ek, ep, ds, 0, []]
+
+    def chain():
+        nonlocal snap
+        rng = np.random.default_rng(5)
+        for rnd in range(warmup + rounds):
+            adds = [rel.must_from_triple(f"repo:r{rng.integers(0, 1000)}", "reader",
+                                         f"user:fresh_{rnd}_{i}") for i in range(delta)]
+            probe = rel.must_from_triple(f"repo:{adds[0].resource_id}", "read",
+                                         f"user:{adds[0].subject_id}")
+            t0 = time.perf_counter()
+            snap = apply_delta(snap, snap.revision + 1, adds, [], interner=interner)
+            mat = time.perf_counter() - t0
+            for label, st in eng.items():
+                ek = st[0]
+                t1 = time.perf_counter()
+                st[2] = ek.prepare(snap, prev=st[2])
+                if DEV == "cuda":
+                    torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                d, _p, _o = ek.check_batch(st[2], [probe], now_us=EPOCH)
+                t3 = time.perf_counter()
+                if not d[0]:
+                    raise AssertionError(f"{label} rev {snap.revision}: freshness probe not definite")
+                st[3] += st[2].flat_meta.delta is not None
+                if rnd >= warmup:
+                    st[4].append((mat * 1e3, (t2 - t1) * 1e3, (t3 - t2) * 1e3))
+
+    own_launches(K, "config5 chain", chain,
+                 need=("fused_probe", "fused_probe_aligned"))
+    for label, (ek, ep, ds, inc, lat) in eng.items():
+        m = np.asarray(lat)
+        mat, ovl, prb = (float(x) for x in m.mean(axis=0))
+        dm = ds.flat_meta.delta
+        log(f"{label}: {warmup} warm-up + {rounds} measured revisions of {delta}"
+            f" adds; incremental={inc}/{warmup + rounds}; every freshness probe definite;"
+            f" mean materialize_ms={mat:.3f} overlay_ms={ovl:.3f} probe_ms={prb:.3f}"
+            f" updates_per_s={delta / ((mat + ovl + prb) / 1e3):.1f}"
+            f" per-revision (materialize, overlay, probe) ms={[tuple(round(x, 3) for x in r) for r in lat]}")
+        log(f"{label}: fold armed={bool(ds.flat_meta.fold_pairs) and not (dm and dm.pf_off)}"
+            f" pf_off={bool(dm and dm.pf_off)} pf_dirty={bool(dm and dm.pf_dirty)}"
+            f" pf_ovl_e={bool(dm and dm.pf_ovl_e)} dl_MiB={dl_mib(ds):.3f}"
+            f" dl tables={sorted(k for k in ds.arrays if k.startswith('dl_'))}")
+    # the batch on the chain's last snapshot (bench5_watch.py's draw)
+    qrng = np.random.default_rng(5)
+    B = 100_000
+    ri = qrng.integers(0, repos.shape[0], B)
+    ui = qrng.integers(0, users.shape[0], B)
+    q = (repos[ri].astype(np.int32), np.full(B, cs.slot_of_name["read"], np.int32),
+         users[ui].astype(np.int32))
+    names = [("repo", f"r{a}", "read", "user", f"u{b}") for a, b in zip(ri, ui)]
+    planes = None
+    for label, (ek, ep, ds, _inc, _lat) in eng.items():
+        own_launches(K, f"{label} batch on the chain's last snapshot",
+                     lambda: ek.check_columns(ds, *q, now_us=EPOCH),
+                     need=need_for(layouts[label]))
+        dk = check_batch_phase(f"{label} chain tip", cs, snap, ek, ep, ds, q, names)
+        if planes is not None:
+            same_planes(f"{label} chain tip", dk, planes)
+        planes = dk
+    ek, ep = eng["config5"][0], eng["config5"][1]
+    del eng
+    t0 = time.perf_counter()
+    full = ek.prepare(snap)
+    if DEV == "cuda":
+        torch.cuda.synchronize()
+    log(f"config5: full prepare of the chain's last revision {snap.revision}:"
+        f" prepare_s={time.perf_counter() - t0:.3f}")
+    same_planes("config5 full prepare", check_batch_phase(
+        "config5 full prepare", cs, snap, ek, ep, full, q, names), planes)
+
+
+FEATURE_SCHEMA = """
+caveat tier(t int, min int) { t >= min }
+definition user {}
+definition group {
+    relation member: user | user:* | group#member
+    relation admin: user
+}
+definition folder {
+    relation parent: folder
+    relation owner: user | group#member
+    permission view = owner + parent->view
+}
+definition doc {
+    relation folder: folder
+    relation reader: user | user:* | group#member | user with tier
+    relation banned: user
+    permission read = (reader - banned) + folder->view
+    permission audit = reader & banned
+}
+"""
+
+
+def feature_rels(rng, n_users, n_groups, n_folders, n_docs):
+    """The generator of tests/test_flat_engine.py's feature world (its
+    build_feature_world) at a given size: nested groups with a wildcard
+    member, expiring memberships, a folder tree, doc readers that are
+    users, caveated, expiring, wildcard or group#member, and bans."""
+    from gochugaru_tpu_torch import rel
+
+    def expiring(r, secs):
+        return r.with_expiration(
+            dt.datetime.fromtimestamp(EPOCH / 1e6 + secs, tz=dt.timezone.utc))
+
+    rels = []
+    for g in range(n_groups):
+        for u in rng.sample(range(n_users), 3):
+            r = rel.must_from_tuple(f"group:g{g}#member", f"user:u{u}")
+            if rng.random() < 0.2:
+                r = expiring(r, rng.choice([-100, 500]))
+            rels.append(r)
+    rels.append(rel.must_from_tuple("group:g0#member", "user:*"))
+    for g in range(1, n_groups):
+        if rng.random() < 0.6:
+            rels.append(rel.must_from_tuple(f"group:g{g}#member",
+                                            f"group:g{rng.randrange(g)}#member"))
+    for f in range(1, n_folders):
+        rels.append(rel.must_from_tuple(f"folder:f{f}#parent",
+                                        f"folder:f{rng.randrange(f)}"))
+    for f in range(n_folders):
+        if rng.random() < 0.7:
+            rels.append(rel.must_from_tuple(f"folder:f{f}#owner",
+                                            f"group:g{rng.randrange(n_groups)}#member"))
+        else:
+            rels.append(rel.must_from_tuple(f"folder:f{f}#owner",
+                                            f"user:u{rng.randrange(n_users)}"))
+    for d in range(n_docs):
+        rels.append(rel.must_from_tuple(f"doc:d{d}#folder",
+                                        f"folder:f{rng.randrange(n_folders)}"))
+        for u in rng.sample(range(n_users), 2):
+            r = rel.must_from_tuple(f"doc:d{d}#reader", f"user:u{u}")
+            if rng.random() < 0.3:
+                r = r.with_caveat("tier", {"min": rng.randint(1, 9)})
+            elif rng.random() < 0.2:
+                r = expiring(r, rng.choice([-50, 1000]))
+            rels.append(r)
+        if rng.random() < 0.3:
+            rels.append(rel.must_from_tuple(f"doc:d{d}#reader", "user:*"))
+        if rng.random() < 0.4:
+            rels.append(rel.must_from_tuple(f"doc:d{d}#banned",
+                                            f"user:u{rng.randrange(n_users)}"))
+        if rng.random() < 0.2:
+            rels.append(rel.must_from_tuple(f"doc:d{d}#reader",
+                                            f"group:g{rng.randrange(n_groups)}#member"))
+    return rels
+
+
+def feature_checks(rng, n_users, n_groups, n_docs, n):
+    from gochugaru_tpu_torch import rel
+
+    out = []
+    for _ in range(n):
+        if rng.random() < 0.1:
+            q = rel.must_from_tuple(f"doc:d{rng.randrange(n_docs)}#read",
+                                    f"group:g{rng.randrange(n_groups)}#member")
+        else:
+            q = rel.must_from_triple(
+                f"doc:d{rng.randrange(n_docs)}",
+                rng.choice(["read", "audit", "reader", "banned"]),
+                f"user:u{rng.randrange(n_users + 2)}")
+            if rng.random() < 0.5:
+                q = q.with_caveat("", {"t": rng.randint(0, 10)})
+        out.append(q)
+    return out
+
+
+def chain_step_planes(name, ek, ep, ds, snap, checks, programs, full=None):
+    """One revision of a mixed chain: kernel planes == plain planes (and
+    == a full prepare's, when given); definite rows vs the oracle."""
+    from gochugaru_tpu_torch.engine.oracle import SnapshotOracle, T
+
+    dk = ek.check_batch(ds, checks, now_us=EPOCH)
+    dp = ep.check_batch(ds, checks, now_us=EPOCH)
+    for nm, a, b in zip("dpo", dk, dp):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"{name}: plane {nm} differs, kernels vs plain")
+    if full is not None:
+        df = ek.check_batch(full, checks, now_us=EPOCH)
+        for nm, a, b in zip("dpo", dk, df):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"{name}: plane {nm} differs from a full prepare's")
+    d, p, ovf = dk
+    oracle = SnapshotOracle(snap, programs, now_us=EPOCH)
+    for i in np.nonzero(d & ~ovf)[0][:400]:
+        c = checks[i]
+        if oracle.check(c.resource_type, c.resource_id, c.resource_relation,
+                        c.subject_type, c.subject_id, c.subject_relation,
+                        context=c.caveat_context or None, now_us=EPOCH) != T:
+            raise AssertionError(f"{name}: definite row {c} disagrees with the oracle")
+    return dk
+
+
+def phase_delta_chain(K, **cfg):
+    """Phase 10: a mixed Watch chain on the feature world, then caveated
+    adds with fresh stored contexts on config 4's schema (see the module
+    docstring)."""
+    from gochugaru_tpu_torch import rel
+    from gochugaru_tpu_torch.caveats import compile_cel
+    from gochugaru_tpu_torch.engine.device import DeviceEngine
+    from gochugaru_tpu_torch.engine.plan import EngineConfig
+    from gochugaru_tpu_torch.schema import compile_schema, parse_schema
+    from gochugaru_tpu_torch.store.delta import apply_delta
+    from gochugaru_tpu_torch.store.interner import Interner
+    from gochugaru_tpu_torch.store.snapshot import build_snapshot
+
+    tag = "delta chain" + (" aligned" if cfg.get("flat_aligned") else "")
+    n_users, n_groups, n_folders, n_docs = 400, 60, 150, 1500
+    rng = random.Random(29)
+    rels = feature_rels(rng, n_users, n_groups, n_folders, n_docs)
+    cs = compile_schema(parse_schema(FEATURE_SCHEMA))
+    interner = Interner()
+    snap = build_snapshot(1, cs, interner, rels, epoch_us=EPOCH)
+    programs = {n: compile_cel(n, c.params, c.expression)
+                for n, c in cs.schema.caveats.items()}
+    # small floors: the overlay steps through its shape bands and reaches
+    # the compaction bound (max(this, E/8) rows) within the chain
+    knobs = dict(flat_delta_floor=64, flat_delta_min_compact=256, **cfg)
+    ek = DeviceEngine(cs, EngineConfig(kernels=DEV == "cuda" or None, **knobs), device=DEV)
+    ep = DeviceEngine(cs, EngineConfig(kernels=False, **knobs), device=DEV)
+    ds = ek.prepare(snap)
+    meta = ds.flat_meta
+    log(f"{tag}: edges={snap.num_edges} fold={bool(meta.fold_pairs)}"
+        f" tindex={meta.has_tindex} packed={[k for k, _ in meta.packed]}"
+        f" aligned={[t for t, _w, _c in meta.aligned]}")
+    used = sorted({r.subject_id for r in rels
+                   if r.subject_type == "group" and r.subject_relation == "member"})
+    us_rows = [r for r in rels if r.resource_type == "doc" and r.subject_relation == "member"]
+    base_direct = [r for r in rels if r.resource_type == "doc"
+                   and r.resource_relation in ("reader", "banned")
+                   and r.subject_type == "user" and r.subject_id != "*"]
+    base_arrows = [r for r in rels if r.resource_relation == "folder"]
+    py = random.Random(31)
+    log_rows = []
+
+    def chain():
+        nonlocal snap, ds
+        bands, flags = set(), set()
+        for revision in range(2, 30):
+            adds, deletes = [], []
+            for i in range(40):
+                kind = py.randrange(6)
+                if kind == 0:
+                    adds.append(rel.must_from_triple(
+                        f"doc:d{py.randrange(n_docs)}", "reader", f"user:u{py.randrange(n_users)}"))
+                elif kind == 1:  # membership: advances the closure
+                    adds.append(rel.must_from_tuple(
+                        f"group:{py.choice(used)}#member", f"user:u{py.randrange(n_users)}"))
+                elif kind == 2:
+                    adds.append(rel.must_from_tuple(
+                        f"doc:d{py.randrange(n_docs)}#reader", f"group:{py.choice(used)}#member"))
+                elif kind == 3:
+                    adds.append(rel.must_from_triple(
+                        f"doc:d{py.randrange(n_docs)}", "reader", f"user:u{py.randrange(n_users)}"
+                    ).with_caveat("tier", {"min": py.randint(1, 9)}))
+                elif kind == 4:
+                    adds.append(rel.must_from_tuple(
+                        f"doc:fresh{revision}_{i}#folder", f"folder:f{py.randrange(n_folders)}"))
+                else:
+                    adds.append(rel.must_from_triple(
+                        f"doc:d{py.randrange(n_docs)}", "banned", f"user:u{py.randrange(n_users)}"))
+            for _ in range(4):  # retarget base doc -> folder arrows
+                if base_arrows:
+                    old = base_arrows.pop(py.randrange(len(base_arrows)))
+                    deletes.append(old)
+                    adds.append(rel.must_from_tuple(
+                        f"doc:{old.resource_id}#folder", f"folder:f{py.randrange(n_folders)}"))
+            keys = {a.key() for a in adds}
+            for pool in (base_direct, us_rows):  # base-row and userset tombstones
+                for _ in range(4):
+                    if pool:
+                        r = pool.pop(py.randrange(len(pool)))
+                        if r.key() not in keys:
+                            deletes.append(r)
+            snap = apply_delta(snap, revision, adds, deletes, interner=interner)
+            t0 = time.perf_counter()
+            ds = ek.prepare(snap, prev=ds)
+            ms = (time.perf_counter() - t0) * 1e3
+            dm = ds.flat_meta.delta
+            inc = ds.delta_acc is not None
+            if dm is not None:
+                bands.add(tuple(ds.arrays["dl_ehx"].shape) if "dl_ehx" in ds.arrays else None)
+                flags |= {f for f in ("has_tombs", "has_us", "has_ustomb", "has_ar",
+                                      "has_artomb", "t_dirty", "pf_dirty", "pf_ovl_e", "pf_ovl_u",
+                                      "pf_off", "t_off") if getattr(dm, f)}
+            checks = feature_checks(py, n_users, n_groups, n_docs, 2048) + [
+                rel.must_from_triple(f"doc:{a.resource_id}", "read", f"user:{a.subject_id}")
+                for a in adds if a.resource_type == "doc" and a.subject_type == "user"]
+            checks += [  # docs whose folder arrow this revision moved or added
+                rel.must_from_triple(f"doc:{a.resource_id}", "read",
+                                     f"user:u{py.randrange(n_users)}")
+                for a in adds + deletes if a.resource_relation == "folder"
+                for _ in range(8)]
+            chain_step_planes(f"{tag} rev {revision}", ek, ep, ds, snap, checks,
+                              programs, full=ek.prepare(snap))
+            log_rows.append((revision, inc, round(ms, 3), len(adds), len(deletes)))
+            if not inc:
+                log(f"{tag}: rev {revision} bailed to a full prepare"
+                    f" (accumulated rows past max(flat_delta_min_compact, E/8)"
+                    f" = {max(256, snap.num_edges // 8)}, or the node radix)")
+        return bands, flags
+
+    (bands, flags), _ = own_launches(K, tag, chain, need=need_for(cfg))
+    log(f"{tag}: (revision, incremental, prepare ms, adds, deletes)={log_rows}")
+    log(f"{tag}: planes kernels == plain == full prepare at every revision;"
+        f" dl_ehx shape bands={sorted(b for b in bands if b)} delta flags seen={sorted(flags)}")
+    if len(bands - {None}) < 2:
+        raise AssertionError(f"{tag}: the overlay never crossed a shape band")
+    if all(inc for _r, inc, *_ in log_rows):
+        raise AssertionError(f"{tag}: the chain never reached the compaction bail")
+    want = {"has_tombs", "has_us", "has_ustomb", "has_ar", "has_artomb", "t_dirty"}
+    if not want <= flags:
+        raise AssertionError(f"{tag}: delta sites never exercised: {sorted(want - flags)}")
+    phase_delta_contexts(K, **cfg)
+
+
+def phase_delta_contexts(K, **cfg):
+    """Caveated adds with fresh stored contexts on config 4's schema:
+    the ectx_* tables re-encode in their 2x headroom while it holds, then
+    the chain bails to a full prepare as the reference's does."""
+    from gochugaru_tpu_torch import rel
+    from gochugaru_tpu_torch.engine.device import DeviceEngine
+    from gochugaru_tpu_torch.engine.plan import EngineConfig
+    from gochugaru_tpu_torch.store.delta import apply_delta
+
+    tag = "delta contexts" + (" aligned" if cfg.get("flat_aligned") else "")
+    # 40 shared contexts: the ectx tables hold 128 rows, so appends
+    # re-encode in place up to 64 contexts, then the bucket is outgrown
+    n_tenants = 40
+    cs, snap, (q_res, q_perm, q_subj), names, (q_ctx, qctx_rows) = build_config4(
+        200_000, n_tenants=n_tenants)
+    ek = DeviceEngine(cs, EngineConfig(kernels=DEV == "cuda" or None, **cfg), device=DEV)
+    ep = DeviceEngine(cs, EngineConfig(kernels=False, **cfg), device=DEV)
+    ds = ek.prepare(snap)
+    rows0 = int(ds.arrays["ectx_vi"].shape[0])
+    B0 = 16_384
+    fresh_q, fresh_names, fresh_ctx = [], [], []
+    qctx_rows = list(qctx_rows)
+    results = []
+
+    def chain():
+        nonlocal snap, ds
+        for revision in range(2, 8):
+            adds = []
+            for i in range(16):
+                t = f"fresh{revision}_{i}"
+                adds.append(rel.must_from_triple(
+                    f"item:i{(revision * 16 + i) % 1000}", "holder", f"user:u{i}"
+                ).with_caveat("same_tenant", {"edge_tenant": t, "tier": 2}))
+            snap = apply_delta(snap, revision, adds, [], interner=snap.interner)
+            ds = ek.prepare(snap, prev=ds)
+            for a in adds:
+                res = snap.interner.lookup("item", a.resource_id)
+                sub = snap.interner.lookup("user", a.subject_id)
+                for want in (a.caveat_context["edge_tenant"], "t0"):
+                    qctx_rows.append({"tenant": want, "tier": 2})
+                    fresh_q.append((res, sub))
+                    fresh_ctx.append(len(qctx_rows) - 1)
+                    fresh_names.append(("item", a.resource_id, "access", "user", a.subject_id))
+            qr = np.concatenate([q_res[:B0], np.asarray([r for r, _ in fresh_q], np.int32)])
+            qs = np.concatenate([q_subj[:B0], np.asarray([s for _, s in fresh_q], np.int32)])
+            qp = np.full(qr.shape[0], q_perm[0], np.int32)
+            qc = np.concatenate([q_ctx[:B0], np.asarray(fresh_ctx, np.int32)])
+            dk = check_batch_phase(f"{tag} rev {revision}", cs, snap, ek, ep, ds,
+                                   (qr, qp, qs), names[:B0] + fresh_names,
+                                   (qc, qctx_rows))
+            d = dk[0][B0:]
+            if list(d) != [True, False] * (len(d) // 2):
+                raise AssertionError(f"{tag} rev {revision}: fresh-context rows wrong")
+            results.append((revision, ds.delta_acc is not None, len(snap.contexts),
+                            int(ds.arrays["ectx_vi"].shape[0])))
+
+    own_launches(K, tag, chain, need=need_for(cfg))
+    log(f"{tag}: (revision, incremental, stored contexts, ectx rows)={results};"
+        f" base ectx rows={rows0}")
+    if not results[0][1] or all(r[1] for r in results):
+        raise AssertionError(f"{tag}: expected incremental appends, then a bail"
+                             " when the context bucket is outgrown")
+
+
+def phase_write_check(K, client, ek, ds, snap, prepare_s, n_docs, n_users, n_groups):
+    """Phase 11: config 3's write -> first check through the client on
+    the snapshot phase 5 prepared (see the module docstring)."""
+    from gochugaru_tpu_torch import consistency, rel
+    from gochugaru_tpu_torch.engine.oracle import SnapshotOracle, T
+    from gochugaru_tpu_torch.store.store import parse_revision
+    from gochugaru_tpu_torch.utils.context import background
+
+    ctx = background()
+    client._engine, client._engine_schema = ek, snap.compiled
+    client._dsnap_cache[snap.revision] = ds
+    rng = random.Random(37)
+    out = []
+
+    def writes():
+        for w in range(3):
+            txn = rel.Txn()
+            touched = [
+                rel.must_from_triple(f"document:d{rng.randrange(n_docs)}", "viewer",
+                                     f"user:u{rng.randrange(n_users)}"),
+                rel.must_from_tuple(f"group:g{rng.randrange(n_groups)}#member",
+                                    f"user:u{rng.randrange(n_users)}"),
+            ]
+            for r in touched:
+                txn.touch(r)
+            checks = [rel.must_from_triple(f"document:{touched[0].resource_id}", "view",
+                                           f"user:{touched[0].subject_id}")]
+            checks += [rel.must_from_triple(f"document:d{rng.randrange(n_docs)}", "view",
+                                            f"user:{touched[1].subject_id}") for _ in range(63)]
+            checks += [rel.must_from_triple(f"document:d{rng.randrange(n_docs)}", "view",
+                                            f"user:u{rng.randrange(n_users)}") for _ in range(192)]
+            t0 = time.perf_counter()
+            rev = client.write(ctx, txn)
+            t1 = time.perf_counter()
+            got = client.check(ctx, consistency.at_least(rev), *checks)
+            t2 = time.perf_counter()
+            nds = client._dsnap_cache[parse_revision(rev)]
+            if nds.flat_meta.delta is None or nds.delta_acc is None:
+                raise AssertionError(
+                    f"config3 write {w}: the first check took a full prepare"
+                    f" (node radix {nds.flat_meta.N} vs nodes {nds.snapshot.num_nodes},"
+                    f" edges {nds.snapshot.num_edges})")
+            oracle = SnapshotOracle(nds.snapshot, {}, now_us=None)
+            want = [oracle.check_relationship(c) == T for c in checks]
+            if got != want or not got[0]:
+                raise AssertionError(f"config3 write {w}: answers disagree with the oracle")
+            dm = nds.flat_meta.delta
+            out.append((w, round((t1 - t0) * 1e3, 3), round((t2 - t1) * 1e3, 3),
+                        {f for f in ("has_adds", "has_tombs", "t_dirty", "pf_dirty",
+                                     "pf_ovl_e", "pf_ovl_u", "pf_off", "t_off")
+                         if getattr(dm, f)}))
+
+    own_launches(K, "config3 write -> check", writes)
+    # the delta prepares started the transposed lookup index's background
+    # build (the host walker serves lookups on a delta chain); let it end
+    # so it does not share the host with the lookups timed next
+    t0 = time.perf_counter()
+    while ek._prewarm_inflight:
+        time.sleep(0.05)
+    log(f"config3: the background lookup-index build ended"
+        f" {time.perf_counter() - t0:.3f}s after the last write's check")
+    for w, write_ms, check_ms, flags in out:
+        log(f"config3 write -> first check {w}: write_ms={write_ms}"
+            f" first_check_ms={check_ms} (delta path: materialize + overlay prepare"
+            f" + 256 checks; delta flags {sorted(flags)}) vs the full prepare it"
+            f" replaces: prepare_s={prepare_s:.3f}; answers agree with the oracle")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--scale3", type=float, default=1.0,
                     help="size of BASELINE config 3 (1.0 = 1M docs, 10M edges)")
     ap.add_argument("--edges4", type=int, default=10_000_000,
                     help="edges of BASELINE config 4 (published: 100,000,000)")
+    ap.add_argument("--edges5", type=int, default=10_000_000,
+                    help="edges of BASELINE config 5 (one card's share of the"
+                         " published 1B on 16 chips: 62,500,000)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2739,10 +3387,18 @@ def main() -> int:
         log(f"launches after config2: {json.dumps(K.LAUNCHES)}")
         del snap
         t0 = time.perf_counter()
-        cs, snap, q, names = build_docs(args.scale3)
-        log(f"config3 (scale {args.scale3}): world built in {time.perf_counter() - t0:.2f}s")
+        from gochugaru_tpu_torch.client import new_evaluator
+
+        client = new_evaluator() if DEV == "cuda" else new_evaluator(device=DEV)
+        cs, snap, q, names = build_docs(args.scale3, client=client)
+        log(f"config3 (scale {args.scale3}): world built in {time.perf_counter() - t0:.2f}s"
+            f" (imported into a client's store, revision {snap.revision})")
         ek, ep, ds, planes = check_world("config3", cs, snap, q, names, K)
         log(f"launches after config3 checks: {json.dumps(K.LAUNCHES)}")
+        n_users, n_groups, _n_folders, n_docs = docs_sizes(args.scale3)
+        phase_write_check(K, client, ek, ds, snap, PREPARE_S["config3"],
+                          n_docs, n_users, n_groups)
+        del client
         answers = phase_lookups(cs, snap, ek, ep, ds, args.scale3, card)
         log(f"launches after config3 lookups: {json.dumps(K.LAUNCHES)}")
         del ek, ep, ds
@@ -2769,6 +3425,11 @@ def main() -> int:
     missing = [m for m in want_modes if launches[m] < 1]
     if missing:
         raise AssertionError(f"modes never launched on the main path: {missing}")
+
+    # ---- the delta chain's own paths, each with counts from zero --------
+    phase_delta_chain(K)
+    phase_delta_chain(K, **ALIGNED)
+    phase_config5(K, args.edges5)
 
     # ---- per-mode timing at the largest main-path shape ----------------
     table = []

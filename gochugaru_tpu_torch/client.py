@@ -127,8 +127,20 @@ class Client:
     def _dsnap_for(self, engine: DeviceEngine, snap: Snapshot) -> DeviceSnapshot:
         with self._lock:
             ds = self._dsnap_cache.pop(snap.revision, None)
-            if ds is None or ds.snapshot is not snap:
-                ds = engine.prepare(snap)
+            if ds is None or (
+                ds.snapshot is not snap
+                and getattr(ds, "source_snapshot", None) is not snap
+            ):
+                # incremental prepare when the previous revision is still
+                # resident: base tables stay on the device, only the delta
+                # overlay ships (engine/device.py _prepare_delta)
+                di = getattr(snap, "delta_info", None)
+                prev = (
+                    self._dsnap_cache.get(di.prev_revision)
+                    if di is not None
+                    else None
+                )
+                ds = engine.prepare(snap, prev=prev)
             self._lru_put(self._dsnap_cache, snap.revision, ds)
             return ds
 

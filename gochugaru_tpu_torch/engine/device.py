@@ -3,7 +3,11 @@ Check through the flat kernel (engine/flat.py).
 
 ``DeviceEngine`` compiles a schema's plan once, ``prepare`` turns a store
 Snapshot into device tensors (the host build is engine/flat.py
-``build_flat_arrays``; one copy to the device), and ``check_columns`` /
+``build_flat_arrays``; one copy to the device) — or, given the
+DeviceSnapshot of the revision a Watch delta was derived from, advances
+it incrementally: the base tensors stay resident and only the small
+``dl_*`` overlays of engine/flat.py ``build_delta_arrays`` ship, so a
+write costs O(delta) on the device, not a re-index.  ``check_columns`` /
 ``check_batch`` run a batch through the flat program, returning the
 (definite, possible, overflow) planes.  Possible-but-not-definite and
 overflow rows are settled by the caller on the host oracle.  A schema
@@ -19,6 +23,7 @@ without CUDA the default raises rather than falling back.
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time as _time
 from dataclasses import dataclass
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
@@ -31,10 +36,23 @@ from ..rel.relationship import Relationship, WILDCARD_ID
 from ..schema.compiler import CompiledSchema
 from ..store.snapshot import Snapshot
 from ..utils import faults, metrics
-from .flat import FlatMeta, build_flat_arrays, build_qm, make_flat_fn
+from .flat import (
+    DeltaMeta, FlatMeta, build_delta_arrays, build_flat_arrays, build_qm,
+    make_flat_fn,
+)
 from .kernels import spec_tensors
 from .packed import narrow_nodes
 from .plan import DevicePlan, EngineConfig, build_plan
+from .spmv import frontier_static_ok
+
+
+#: snapshots of at least this many edges prewarm the transposed lookup
+#: index in the background when the host walker would serve their
+#: lookups (``EngineConfig.lookup_prewarm``)
+LOOKUP_PREWARM_MIN_EDGES = 65_536
+
+#: host dtype of each device dtype node_type can carry (narrow_nodes)
+_NODE_NP = {torch.int8: np.int8, torch.int16: np.int16, torch.int32: np.int32}
 
 
 def _ceil_pow2(n: int, minimum: int = 8) -> int:
@@ -106,6 +124,21 @@ class DeviceSnapshot:
     #: cursors resume against it; the lookup layer caches its frontier
     #: state and live result streams in this object's ``__dict__``
     source_snapshot: Optional[Any] = None
+    #: accumulated host-side delta state since the last FULL prepare (set
+    #: on delta-prepared snapshots; engine/flat.py _acc_collapse)
+    delta_acc: Optional[Dict[str, np.ndarray]] = None
+    #: host-side fold maintenance state (engine/fold.py FoldState), set
+    #: at FULL prepare on folded worlds and carried along a delta chain
+    #: so each revision's dl_pf* overlay recomputes from (base, acc)
+    fold_state: Optional[Any] = None
+    #: host-side closure advance state (engine/flat.py ClosureHostState):
+    #: set at FULL prepare, advanced each revision by the membership-delta
+    #: path (store/closure.py advance_closure)
+    closure_state: Optional[Any] = None
+    #: the raw O(E) kernel columns kept on the HOST when the tables are
+    #: packed (the flat program never reads them; the reference ships
+    #: them lazily for its legacy kernel), carried along a delta chain
+    host_arrays: Optional[Dict[str, np.ndarray]] = None
 
 
 def _resolve_kernels(config: EngineConfig, device: torch.device) -> bool:
@@ -128,8 +161,13 @@ def _meta_from(meta_like) -> FlatMeta:
         for f in dataclasses.fields(meta_like)
         if f.name in names
     }
-    if kw.get("delta") is not None:
-        raise NotImplementedError("delta levels are not ported yet")
+    dm = kw.get("delta")
+    if dm is not None and not isinstance(dm, DeltaMeta):
+        dnames = {f.name for f in dataclasses.fields(DeltaMeta)}
+        kw["delta"] = DeltaMeta(**{
+            f.name: getattr(dm, f.name)
+            for f in dataclasses.fields(dm) if f.name in dnames
+        })
     return FlatMeta(**kw)
 
 
@@ -200,6 +238,8 @@ class DeviceEngine:
         #: built once: most checks carry no request context
         self._empty_qctx_np: Optional[Dict[str, np.ndarray]] = None
         self._empty_qctx_dev: Optional[Dict[str, torch.Tensor]] = None
+        #: one background transposed-index build at a time per engine
+        self._prewarm_inflight = False
 
     # -- snapshot preparation -------------------------------------------
     def _host_arrays(self, snap: Snapshot) -> Dict[str, np.ndarray]:
@@ -276,11 +316,12 @@ class DeviceEngine:
     ) -> Tuple[Dict[str, np.ndarray], FlatMeta]:
         """The host half of ``prepare``: the device-bound arrays (numpy)
         and the FlatMeta."""
-        arrays, flat_meta, _strings = self._host_build(snap)
-        return arrays, flat_meta
+        built = self._host_build(snap)
+        return built[0], built[1]
 
     def _host_build(self, snap: Snapshot):
-        """(device-bound numpy arrays, FlatMeta, caveat string pool)."""
+        """(device-bound numpy arrays, FlatMeta, caveat string pool, fold
+        state, closure state, host-kept raw columns)."""
         arrays = self._host_arrays(snap)
         ectx, strings = self._ectx_tables(snap)
         arrays.update(ectx)
@@ -290,50 +331,192 @@ class DeviceEngine:
                 "graphs whose dense keys do not pack into int32 need the"
                 " legacy two-phase kernel, a later slice of the port"
             )
-        flat_arrays, flat_meta, _fold_state = built
+        flat_arrays, flat_meta, fold_state, closure_state = built
         arrays.update(flat_arrays)
+        host_arrays = None
         if self.config.packed_on():
-            for k in self.ARRAY_COLUMN_KEYS:
-                if k != "node_type":
-                    arrays.pop(k, None)
+            host_arrays = {
+                k: arrays.pop(k)
+                for k in self.ARRAY_COLUMN_KEYS
+                if k != "node_type" and k in arrays
+            }
             arrays["node_type"] = narrow_nodes(
                 arrays["node_type"], snap.interner.num_types
             )
-        return arrays, flat_meta, strings
+        return (arrays, flat_meta, strings, fold_state, closure_state,
+                host_arrays)
 
     def prepare(
         self, snap: Snapshot, prev: Optional[DeviceSnapshot] = None
     ) -> DeviceSnapshot:
-        """Build the snapshot's tables on the host and copy them to the
-        device (full prepare; ``prev`` is accepted for the reference's
-        signature — incremental delta levels are a later slice)."""
+        """Ship a snapshot to the device.  With ``prev`` (the
+        DeviceSnapshot of the revision this one was delta-derived from)
+        the incremental path goes first: base tensors stay resident, only
+        the small ``dl_*`` overlays ship (engine/flat.py
+        build_delta_arrays), so a Watch-driven revision costs O(delta).
+        Where the reference's delta build returns None (see
+        ``_prepare_delta``) this is a full prepare, as there."""
         faults.fire("device.prepare")
+        if prev is not None:
+            ds = self._prepare_delta(snap, prev)
+            if ds is not None:
+                return ds
         t0 = _time.perf_counter()
-        arrays, flat_meta, strings = self._host_build(snap)
+        (arrays, flat_meta, strings, fold_state, closure_state,
+         host_arrays) = self._host_build(snap)
         with metrics.default.timer("prepare.h2d_s"):
             dev_arrays = {
                 k: to_device_tensor(v, self.device) for k, v in arrays.items()
             }
         ds = self._snapshot(snap, dev_arrays, flat_meta, strings)
+        ds.fold_state = fold_state
+        ds.closure_state = closure_state
+        ds.host_arrays = host_arrays
+        if not frontier_static_ok(flat_meta, snap):
+            # snapshots with the reverse-CSR index answer lookups on the
+            # device frontier; the rest walker-serve and want the
+            # transposed host index built in the background
+            self._maybe_prewarm_walker_index(snap)
         metrics.default.observe("prepare.total_s", _time.perf_counter() - t0)
         return ds
 
-    def _snapshot(self, snap, dev_arrays, flat_meta, strings) -> DeviceSnapshot:
-        tid_map = np.full(max(self.plan.num_schema_types, 1), -1, np.int32)
-        for tname, tid in self.compiled.type_ids.items():
-            tid_map[tid] = snap.interner.type_lookup(tname)
+    def _snapshot(self, snap, dev_arrays, flat_meta, strings,
+                  prev: Optional[DeviceSnapshot] = None) -> DeviceSnapshot:
+        """A DeviceSnapshot over prepared device tensors.  Its decode
+        specs come from ``flat_meta.packed`` (a delta chain's meta drops
+        the tables it despec'd); ``prev``'s uploaded spec tensors are
+        reused for the tables still packed, and its type map kept."""
+        if prev is not None:
+            tid_map = prev.tid_map
+        else:
+            tid_np = np.full(max(self.plan.num_schema_types, 1), -1, np.int32)
+            for tname, tid in self.compiled.type_ids.items():
+                tid_np[tid] = snap.interner.type_lookup(tname)
+            tid_map = torch.from_numpy(tid_np).to(self.device)
+        old = prev.specs if prev is not None else {}
         specs = {
-            k: spec_tensors(spec, self.device) for k, spec in flat_meta.packed
+            k: old[k] if k in old else spec_tensors(spec, self.device)
+            for k, spec in flat_meta.packed
         }
         return DeviceSnapshot(
             revision=snap.revision,
             arrays=dev_arrays,
-            tid_map=torch.from_numpy(tid_map).to(self.device),
+            tid_map=tid_map,
             snapshot=snap,
             flat_meta=flat_meta,
             specs=specs,
             strings=strings,
         )
+
+    def _maybe_prewarm_walker_index(self, snap: Snapshot) -> None:
+        """Build the transposed lookup index off-thread (numpy sorts
+        release the GIL): the first walker-served lookup then joins a
+        mostly finished build instead of paying the O(E log E) sort
+        inside a user-facing query.  One in-flight build per engine — a
+        Watch chain of delta prepares must not stack O(E log E) threads
+        (once the first build lands, the chain-advance machinery carries
+        it forward in O(D))."""
+        if not (
+            self.config.lookup_prewarm
+            and snap.num_edges >= LOOKUP_PREWARM_MIN_EDGES
+            and getattr(snap, "_lookup_index", None) is None
+            and not self._prewarm_inflight
+        ):
+            return
+        from .lookup import lookup_index
+
+        self._prewarm_inflight = True
+
+        def run():
+            try:
+                lookup_index(snap, mark_used=False)
+            finally:
+                self._prewarm_inflight = False
+
+        threading.Thread(
+            target=run, name="gochugaru-lookup-prewarm", daemon=True
+        ).start()
+
+    def _delta_prev_ok(self, prev: DeviceSnapshot) -> bool:
+        """Layout eligibility of ``prev`` for the incremental prepare
+        (a sharded engine would override: its base tables are
+        bucket-sharded)."""
+        return prev.flat_meta is not None and not prev.flat_meta.sharded
+
+    def _place_replicated(self, v: np.ndarray) -> torch.Tensor:
+        """Ship one small host array of a delta prepare (overlays, node
+        types, stored-context tables) to the engine's device."""
+        return to_device_tensor(v, self.device)
+
+    def _prepare_delta(
+        self, snap: Snapshot, prev: DeviceSnapshot
+    ) -> Optional[DeviceSnapshot]:
+        """The incremental prepare, or None → the caller does a full one.
+
+        The DeviceSnapshot it returns SHARES prev's device tensors for
+        every base table (no copy); only the delta overlays, a grown
+        node_type column, re-encoded stored-context tables and the
+        closure-derived point tables the delta build reships move.  None
+        exactly where the reference's ``_prepare_delta`` returns None:
+        build_delta_arrays bails, the stored-context bucket or the node
+        bucket is outgrown, or a fresh type id would wrap the narrowed
+        node_type."""
+        if not (self.config.flat_blockslice and self._delta_prev_ok(prev)):
+            return None
+        built = build_delta_arrays(snap, prev, self.compiled, self.config)
+        if built is None:
+            return None
+        dl_arrays, dmeta, acc, extras = built
+        arrays = dict(prev.arrays)
+        # drop the previous overlay's tables: the new overlay replaces them
+        # (a shrunk accumulated delta must not leave stale tables behind)
+        for k in [k for k in arrays if k.startswith("dl_")]:
+            del arrays[k]
+        strings = prev.strings
+        if len(snap.contexts) != len(prev.snapshot.contexts):
+            ectx, strings = self._ectx_tables(snap)
+            old = prev.arrays.get("ectx_vi")
+            if old is not None and ectx["ectx_vi"].shape[0] != old.shape[0]:
+                return None  # context bucket grew: shapes change, rebuild
+            arrays.update(
+                {k: self._place_replicated(v) for k, v in ectx.items()}
+            )
+        if snap.num_nodes > prev.snapshot.num_nodes:
+            NN = int(prev.arrays["node_type"].shape[0])
+            if snap.num_nodes > NN:
+                return None  # node bucket outgrown: every node shape moves
+            nt = _pad_payload(snap.node_type, NN, -1)
+            prev_dt = _NODE_NP[prev.arrays["node_type"].dtype]
+            if prev_dt != nt.dtype:
+                # the base narrowed node_type; fresh interner type ids
+                # past the narrow dtype's range would WRAP — bail to a
+                # full prepare, which re-derives the width
+                if int(nt.max(initial=0)) > np.iinfo(prev_dt).max:
+                    return None
+                nt = nt.astype(prev_dt)
+            arrays["node_type"] = self._place_replicated(nt)
+        arrays.update(
+            {k: self._place_replicated(v) for k, v in dl_arrays.items()}
+        )
+        for k in extras.get("drop_keys", ()):
+            arrays.pop(k, None)  # despec'd packed-offset anchors
+        # an empty collapsed delta (or one that cancelled out) runs as
+        # the plain base program
+        meta = dataclasses.replace(
+            prev.flat_meta, delta=dmeta if dl_arrays else None,
+            **extras.get("meta_up", {}),
+        )
+        if meta.delta is not None:
+            # a delta level declines the device frontier (engine/spmv.py
+            # frontier_ok), so lookups on this chain walker-serve: start
+            # the transposed-index build in the background now
+            self._maybe_prewarm_walker_index(snap)
+        ds = self._snapshot(snap, arrays, meta, strings, prev=prev)
+        ds.delta_acc = acc
+        ds.fold_state = prev.fold_state
+        ds.closure_state = extras.get("closure_state")
+        ds.host_arrays = prev.host_arrays
+        return ds
 
     def snapshot_from_reference(
         self, snap: Snapshot, np_arrays: Mapping[str, np.ndarray], flat_meta,

@@ -57,6 +57,7 @@ from .hash import (
     build_range_hash,
     interleave_buckets,
     interleave_rows,
+    probe_block,
     slice_blocks,
 )
 from .packed import decode_block as _pk_decode
@@ -846,6 +847,61 @@ def _fold_packed(fr, snap, maps: SlotMaps, N: int, config: EngineConfig):
     return pf_k1, pf_k2, pf_subj, (u_k1, u_gk, u_until, _round_fan(u_fan)), flags
 
 
+class ClosureHostState:
+    """Per-prepared-snapshot host state for the membership-delta path
+    (build_delta_arrays): the store-level closure advance state plus the
+    reverse indexes the engine needs to keep the device tables honest.
+
+    ``used`` is the BASE revision's userset-subject key set and stays the
+    chain's classification authority: every advance classifies delta rows
+    against it, so the maintained closure covers the base's used-superset
+    even when a chain delta removes a userset's last referencing row.
+    That superset is probe-equivalent (closure rows of a dereferenced
+    group can only be reached through a userset row citing the group, and
+    none exist) and keeps later re-references exact — the group's rows
+    were maintained all along.  ``t_pe``/``t_k1`` map raw packed group
+    keys of T-covered userset rows to their dense (slot·N + res) keys:
+    the rows whose baked T-index entries go stale when a group's closure
+    changes."""
+
+    __slots__ = ("st", "used", "t_pe", "t_k1")
+
+    def __init__(self, st, used, t_pe, t_k1):
+        self.st = st
+        self.used = used
+        self.t_pe = t_pe
+        self.t_k1 = t_k1
+
+
+def _closure_host_state(snap, cl, config: EngineConfig, us_gk, t_slots):
+    """Build the advance-ready closure state at full-prepare time."""
+    from ..store.closure import build_closure_state
+
+    used = getattr(snap, "us_used_keys", None)
+    if used is None:
+        return None
+    num_slots = snap.num_slots
+    if t_slots and snap.us_rel.shape[0]:
+        elig = np.isin(snap.us_rel, np.asarray(t_slots, np.int64))
+        pe = (
+            snap.us_subj[elig].astype(np.int64) * (num_slots + 1)
+            + snap.us_srel[elig] + 1
+        )
+        from ..native.sort import sortperm_words, take32, take64
+
+        order = sortperm_words([pe], (pe,))
+        t_pe, t_k1 = take64(pe, order), take32(us_gk[elig], order)
+    else:
+        t_pe = np.zeros(0, np.int64)
+        t_k1 = np.zeros(0, np.int32)
+    return ClosureHostState(
+        build_closure_state(
+            snap, cl, per_source_cap=config.closure_source_cap
+        ),
+        used, t_pe, t_k1,
+    )
+
+
 def _pf_starts(keys: np.ndarray, size: int) -> np.ndarray:
     """Offset array of a key-sorted row set over a dense key domain:
     ``start[k] .. start[k+1]`` is key ``k``'s row range."""
@@ -1184,10 +1240,12 @@ def _pack_flat(
 
 def build_flat_arrays(
     snap, config: EngineConfig, plan: Optional[DevicePlan] = None
-) -> Optional[Tuple[Dict[str, np.ndarray], FlatMeta, Optional[object]]]:
+) -> Optional[Tuple[Dict[str, np.ndarray], FlatMeta, Optional[object],
+                    Optional[ClosureHostState]]]:
     """Hash-index the snapshot + flatten its membership closure.  Returns
     padded host arrays (merged into DeviceSnapshot.arrays), the static
-    FlatMeta and the fold maintenance state — or None when even the DENSE keys don't pack into int32
+    FlatMeta, the fold maintenance state and the closure advance state —
+    or None when even the DENSE keys don't pack into int32
     (pow2(num_nodes) · max(active k1 slots, active srels+1) ≥ 2³¹; such
     graphs use the legacy engine).
 
@@ -1550,7 +1608,772 @@ def build_flat_arrays(
             from dataclasses import replace as _dc_replace
 
             meta = _dc_replace(meta, **pk_up)
-    return out, meta, fstate
+    cstate = (
+        _closure_host_state(snap, cl, config, us_gk, t_kw.get("t_slots", ()))
+        if config.closure_delta and BS
+        else None
+    )
+    return out, meta, fstate, cstate
+
+
+def _perm_table(compiled: CompiledSchema, interner) -> np.ndarray:
+    """bool[interner types, slots]: slot is a *permission* on the type."""
+    num_slots = max(compiled.num_slots, 1)
+    t = np.zeros((max(interner.num_types, 1), num_slots), bool)
+    for tname, d in compiled.schema.definitions.items():
+        itid = interner.type_lookup(tname)
+        if itid < 0:
+            continue
+        for pname in d.permissions:
+            t[itid, compiled.slot_of_name[pname]] = True
+    return t
+
+
+_ACC_COLS = ("rel", "res", "subj", "srel1", "cav", "ctx", "exp")
+
+
+def _acc_collapse(acc: Optional[Dict], di, N: int, S1: int, m1, m2) -> Dict:
+    """Fold one revision's DeltaInfo into the accumulated delta state.
+
+    ``acc`` holds the collapsed adds (payload columns keyed by primary
+    identity) and tombstone identities since the base revision; identities
+    pack into one int64 (both DENSE halves < 2³¹ by the radix check —
+    ``m1``/``m2`` are the base meta's slot maps; the caller bails before
+    accumulating any unmappable row)."""
+
+    def pack(rel, res, subj, srel1):
+        k1 = m1(rel).astype(np.int64) * N + res.astype(np.int64)
+        k2 = subj.astype(np.int64) * S1 + m2(srel1).astype(np.int64)
+        return (k1 << np.int64(31)) | k2
+
+    if acc is None:
+        acc = {
+            "a_key": np.empty(0, np.int64),
+            **{f"a_{c}": np.empty(0, np.int32) for c in _ACC_COLS},
+            "g_key": np.empty(0, np.int64),
+            **{f"g_{c}": np.empty(0, np.int32) for c in _ACC_COLS[:4]},
+        }
+    a_key = pack(di.a_rel, di.a_res, di.a_subj, di.a_srel1)
+    g_key = pack(di.g_rel, di.g_res, di.g_subj, di.g_srel1)
+
+    # Invariant: device view = (base − tombstones) ∪ adds.  EVERY touched
+    # identity — deleted OR upserted — goes into the tombstone set: an
+    # upsert of a row that lives in the base must void the base copy (its
+    # stale payload would otherwise answer alongside the new one), and
+    # tombstoning an identity the base never had is a harmless probe miss.
+    touched = np.concatenate([g_key, a_key])
+    keep = ~np.isin(acc["a_key"], touched)
+    out = {"a_key": acc["a_key"][keep]}
+    for c in _ACC_COLS:
+        out[f"a_{c}"] = acc[f"a_{c}"][keep]
+    gk = np.concatenate([acc["g_key"], g_key, a_key])
+    gcols = {
+        f"g_{c}": np.concatenate(
+            [acc[f"g_{c}"], getattr(di, f"g_{c}"), getattr(di, f"a_{c}")]
+        )
+        for c in _ACC_COLS[:4]
+    }
+    order = np.argsort(gk, kind="stable")
+    gk_sorted = gk[order]
+    first = np.ones(gk_sorted.shape[0], bool)
+    first[1:] = gk_sorted[1:] != gk_sorted[:-1]
+    res = {"g_key": gk_sorted[first]}
+    for c in _ACC_COLS[:4]:
+        res[f"g_{c}"] = gcols[f"g_{c}"][order][first]
+    new_cols = {
+        "rel": di.a_rel, "res": di.a_res, "subj": di.a_subj,
+        "srel1": di.a_srel1, "cav": di.a_cav, "ctx": di.a_ctx,
+        "exp": di.a_exp,
+    }
+    merged_key = np.concatenate([out["a_key"], a_key])
+    order = np.argsort(merged_key, kind="stable")
+    res["a_key"] = merged_key[order]
+    for c in _ACC_COLS:
+        res[f"a_{c}"] = np.concatenate(
+            [out[f"a_{c}"], new_cols[c].astype(np.int32)]
+        )[order]
+    return res
+
+
+def build_delta_arrays(
+    snap, prev_dsnap, compiled: CompiledSchema, config: EngineConfig
+) -> Optional[Tuple[Dict[str, np.ndarray], "DeltaMeta", Dict, Dict]]:
+    """Advance a blockslice-prepared DeviceSnapshot by one revision's
+    delta: returns the small ``dl_*`` overlay arrays, the static DeltaMeta,
+    the new accumulated-delta state, and an extras dict ({"meta_up":
+    FlatMeta field overrides, "closure_state": the advanced closure host
+    state}) — or None when the delta cannot be applied incrementally
+    (caller does a full prepare).
+
+    Membership-subgraph rows no longer force a rebuild: the flattened
+    closure advances in place (store/closure.py advance_closure, O(Δ·depth)
+    host work) and the closure-derived device tables — clx/ovfx, sized
+    O(closure), not O(E) — reship with the same names and bucketing, so
+    the compiled kernel keeps serving.  Baked T-index rows of groups whose
+    member set changed are voided through the dirty mechanism (dl_td);
+    past the dirty budget the chain flips the T-index off (sticky
+    ``t_off``) and the KU path probes the live closure instead.
+
+    Used-set SHRINK (a userset losing its last referencing row) does NOT
+    bail: classification stays pinned to the chain-base superset
+    (ClosureHostState.used), whose extra closure rows are unreachable by
+    any probe and keep later re-references exact.
+
+    Remaining sound-bail conditions (every one falls back to a FULL
+    rebuild, never to wrong answers): affected-source set past the cap,
+    newly-used userset subjects, permission-valued userset rows,
+    closure-overflow or wildcard-source transitions the compiled kernel
+    has no probe sites for, node-radix overflow, wildcard introduction,
+    renumbered contexts, gate columns the base layout lacks, and
+    accumulated-delta size beyond the compaction threshold."""
+    di = getattr(snap, "delta_info", None)
+    meta = prev_dsnap.flat_meta
+    if (
+        di is None
+        or meta is None
+        or not meta.blockslice
+        or di.prev_revision != prev_dsnap.revision
+        or di.contexts_renumbered
+    ):
+        return None
+    prev_snap = prev_dsnap.snapshot
+    used = getattr(prev_snap, "us_used_keys", None)
+    if used is None:
+        return None
+    if snap.num_nodes > meta.N:
+        return None  # node radix outgrown: repack
+    if not np.array_equal(
+        snap.wildcard_node_of_type, prev_snap.wildcard_node_of_type
+    ):
+        return None
+    num_slots = snap.num_slots
+    all_rel = np.concatenate([di.a_rel, di.g_rel])
+    all_res = np.concatenate([di.a_res, di.g_res])
+    all_subj = np.concatenate([di.a_subj, di.g_subj])
+    all_srel1 = np.concatenate([di.a_srel1, di.g_srel1])
+    # membership-subgraph test: a row FEEDS the closure when the userset
+    # it grants is used as a subject anywhere.  Such rows ride the normal
+    # dl_* overlays like any other (they ARE primary/us/ar rows) and
+    # ADDITIONALLY advance the flattened closure below.  Classification
+    # MUST use the closure state's own base used-set (a chain superset —
+    # see ClosureHostState): a mid-chain materialization may recompute a
+    # smaller truth on the snapshot, and classifying against that would
+    # desynchronize the advance from its own edge sets
+    chs = getattr(prev_dsnap, "closure_state", None)
+    if chs is not None:
+        used = chs.used
+    edge_key = all_res.astype(np.int64) * num_slots + all_rel.astype(np.int64)
+    mem_any = bool(np.isin(edge_key, used).any())
+    if mem_any and (
+        not config.closure_delta
+        or meta.sharded
+        or chs is None
+        or not meta.has_closure
+    ):
+        return None
+    us_rows = all_srel1 > 0
+    if us_rows.any():
+        subj_key = (
+            all_subj[us_rows].astype(np.int64) * num_slots
+            + (all_srel1[us_rows].astype(np.int64) - 1)
+        )
+        # a userset subject not already used would need new ms/mp rows
+        if not np.isin(subj_key, used).all():
+            return None
+        pt = _perm_table(compiled, snap.interner)
+        stypes = snap.node_type[all_subj[us_rows]]
+        if pt[stypes, np.clip(all_srel1[us_rows] - 1, 0, pt.shape[1] - 1)].any():
+            return None
+    # gate columns ride the BASE layouts, PER VIEW: a caveated/expiring
+    # delta row landing in a view whose base layout lacks that column
+    # would silently evaluate ungated — bail instead
+    a_is_us = di.a_srel1 > 0
+    ts_set = np.asarray(sorted(compiled.tupleset_slots), np.int64)
+    a_is_ar = np.isin(di.a_rel, ts_set) & (di.a_srel1 == 0)
+    for mask, hascav, hasexp in (
+        (slice(None), meta.e_hascav, meta.e_hasexp),  # primary: all adds
+        (a_is_us, meta.us_hascav, meta.us_hasexp),
+        (a_is_ar, meta.ar_hascav, meta.ar_hasexp),
+    ):
+        if di.a_cav[mask].any() and not hascav:
+            return None
+        if di.a_exp[mask].any() and not hasexp:
+            return None
+    # a wildcard-subject add is invisible unless the base kernel compiled
+    # its wildcard probe sites
+    if not meta.has_wc_edges:
+        wc_nodes = snap.wildcard_node_of_type[snap.wildcard_node_of_type >= 0]
+        if wc_nodes.size and np.isin(di.a_subj, wc_nodes).any():
+            return None
+
+    S1 = meta.S1
+    N = meta.N
+    # dense remap through the BASE meta's maps: a delta touching a slot
+    # the base never packed (fresh relation first used mid-chain) has no
+    # dense id — bail to a full prepare, which rebuilds the maps.  The
+    # check runs BEFORE accumulation so unmappable keys never enter the
+    # chain state
+    k1d = np.asarray(meta.k1_dense, np.int32)
+    k2d = np.asarray(meta.k2_dense, np.int32)
+
+    def m1(rel):
+        return k1d[np.clip(rel, 0, max(k1d.shape[0] - 1, 0))]
+
+    def m2(srel1):
+        return np.where(
+            srel1 == 0, 0,
+            k2d[np.clip(srel1 - 1, 0, max(k2d.shape[0] - 1, 0))] + 1,
+        )
+
+    for rel_col, srel_col in (
+        (di.a_rel, di.a_srel1), (di.g_rel, di.g_srel1)
+    ):
+        if rel_col.shape[0] and (
+            (m1(rel_col) < 0).any()
+            or (m2(srel_col) <= 0)[srel_col > 0].any()
+        ):
+            return None
+    prev_acc = getattr(prev_dsnap, "delta_acc", None)
+    acc = _acc_collapse(prev_acc, di, N, S1, m1, m2)
+    # chain-stable anchor for the shape floor below: the BASE revision's
+    # edge count (a floor derived from the oscillating current count
+    # would retrace on every boundary crossing)
+    acc["base_edges"] = (
+        prev_acc["base_edges"] if prev_acc else int(prev_snap.num_edges)
+    )
+    if prev_acc and prev_acc.get("pf_off"):
+        acc["pf_off"] = True  # sticky downgrade for the chain remainder
+    if prev_acc:
+        if prev_acc.get("t_off"):
+            acc["t_off"] = True  # sticky T disable for the chain remainder
+        elif prev_acc.get("cl_dirty_k1") is not None:
+            acc["cl_dirty_k1"] = prev_acc["cl_dirty_k1"]
+    if meta.rc_slots:
+        # rows of a FLATTENED tupleset shift its ancestor closure: bail
+        # EARLY (before any table builds) to a full rebuild.  Incremental
+        # rc-closure maintenance is a possible future middle ground
+        rc_ts = np.asarray([t for t, _, _ in meta.rc_slots], np.int64)
+        if (
+            (np.isin(acc["a_rel"], rc_ts) & (acc["a_srel1"] == 0)).any()
+            or (np.isin(acc["g_rel"], rc_ts) & (acc["g_srel1"] == 0)).any()
+        ):
+            return None
+    n_adds = acc["a_key"].shape[0]
+    n_tombs = acc["g_key"].shape[0]
+    if n_adds + n_tombs > max(
+        config.flat_delta_min_compact, snap.num_edges // 8
+    ):
+        return None  # compaction: fold the delta into a fresh base
+
+    out: Dict[str, np.ndarray] = {}
+    meta_up: Dict = {}
+    new_chs = chs
+    # packed-base maintenance: reshipped closure-derived tables repack
+    # with the BASE spec (no retrace) when their values still fit; a
+    # value outside the pinned domain (e.g. a fresh expiring membership
+    # edge under a {NEVER, NO_EXP} dictionary) DESPECS that one table —
+    # the kernel reads it raw for the rest of the chain (one retrace,
+    # never a wrong decode)
+    from . import packed as _pkm
+
+    pk_map = dict(meta.packed)
+    pko_map = dict(meta.packed_off)
+    pk_drop: set = set()
+    pko_drop: set = set()
+    drop_keys: List[str] = []
+    hk = (
+        {"max_factor": config.flat_packed_max_factor, "lean": True}
+        if config.packed_on() else {}
+    )
+
+    def _repack_tbl(tbl_key: str, tbl: np.ndarray) -> np.ndarray:
+        spec = pk_map.get(tbl_key)
+        if spec is None or tbl_key in pk_drop:
+            return tbl
+        try:
+            return _pkm.pack_rows(tbl, spec)
+        except _pkm.PackError:
+            pk_drop.add(tbl_key)
+            return tbl
+
+    def _reship_off(off_key: str, off: np.ndarray) -> None:
+        if off_key in pko_map and off_key not in pko_drop:
+            got = _pkm.pack_off(off)
+            if got is not None:
+                out[off_key], out[off_key + "_a"] = got
+                return
+            pko_drop.add(off_key)
+            drop_keys.append(off_key + "_a")
+        out[off_key] = off
+
+    def _extras() -> Dict:
+        # runs once per successful incremental advance; a revision span
+        # > 1 means this ONE device reship covered a whole write group
+        if int(snap.revision) - int(prev_dsnap.revision) > 1:
+            from ..utils import metrics as _metrics
+
+            _metrics.default.inc("flat.group_reships")
+        if pk_drop:
+            meta_up["packed"] = tuple(
+                t for t in meta.packed if t[0] not in pk_drop
+            )
+        if pko_drop:
+            meta_up["packed_off"] = tuple(
+                t for t in meta.packed_off if t[0] not in pko_drop
+            )
+        return {
+            "meta_up": meta_up, "closure_state": new_chs,
+            "drop_keys": drop_keys,
+        }
+
+    # ---- membership-closure advance ------------------------------------
+    if mem_any:
+        from ..store.closure import advance_closure
+
+        S1r = np.int64(num_slots + 1)
+        a_mem = np.isin(
+            di.a_res.astype(np.int64) * num_slots + di.a_rel, used
+        )
+        g_mem = np.isin(
+            di.g_res.astype(np.int64) * num_slots + di.g_rel, used
+        )
+
+        def edges4(mask):
+            if not mask.any():
+                return None
+            return (
+                di.a_subj[mask].astype(np.int64) * S1r + di.a_srel1[mask],
+                di.a_res[mask].astype(np.int64) * S1r + di.a_rel[mask] + 1,
+                di.a_cav[mask], di.a_exp[mask],
+            )
+
+        def edges2(mask):
+            if not mask.any():
+                return None
+            return (
+                di.g_subj[mask].astype(np.int64) * S1r + di.g_srel1[mask],
+                di.g_res[mask].astype(np.int64) * S1r + di.g_rel[mask] + 1,
+            )
+
+        adv = advance_closure(
+            chs.st, snap.revision,
+            pair_add=edges4(a_mem & (di.a_srel1 > 0)),
+            pair_del=edges2(g_mem & (di.g_srel1 > 0)),
+            seed_add=edges4(a_mem & (di.a_srel1 == 0)),
+            seed_del=edges2(g_mem & (di.g_srel1 == 0)),
+            affected_cap=config.closure_delta_affected_cap,
+        )
+        if adv is None:
+            return None  # affected set over cap / unconverged: rebuild
+        new_cl = adv.state.cl
+        wc_nodes = snap.wildcard_node_of_type[snap.wildcard_node_of_type >= 0]
+        # transitions the compiled kernel has no probe sites for: overflow
+        # appearing under a no-ovf kernel, or under an armed fold (fold
+        # eligibility requires an overflow-free closure, so any overflow
+        # here IS a transition)
+        if adv.state.ovf.shape[0] and (not meta.has_ovf or meta.fold_pairs):
+            return None
+        if (
+            not meta.has_wc_closure
+            and wc_nodes.size
+            and np.isin(
+                (adv.affected_users // S1r).astype(np.int32), wc_nodes
+            ).any()
+        ):
+            return None  # wildcard closure source may appear: rebuild
+
+        # dense-repacked closure keys (the advance cannot introduce slots
+        # the base maps lack — `used` is stable — but verify cheaply)
+        m_srel = m2(new_cl.c_srel1)
+        if ((m_srel <= 0) & (new_cl.c_srel1 > 0)).any():
+            return None
+        grel_d = k2d[np.clip(new_cl.c_grel, 0, max(k2d.shape[0] - 1, 0))]
+        if new_cl.c_grel.shape[0] and (grel_d < 0).any():
+            return None
+        cl_k1 = (
+            new_cl.c_src.astype(np.int64) * S1 + m_srel
+        ).astype(np.int32)
+        cl_k2 = (
+            new_cl.c_g.astype(np.int64) * S1 + grel_d + 1
+        ).astype(np.int32)
+        aligned_tbls = {t[0]: (t[1], t[2]) for t in meta.aligned}
+
+        def reship_point(tbl_key, off_key, key_cols, cols,
+                         cap_key, n_key):
+            """Rebuild one closure-derived point table in the base
+            layout.  Aligned tables must reproduce their exact geometry
+            (width/cap ladder are part of the compiled kernel) — a
+            mismatch rebuilds; the legacy layout just re-buckets and
+            records the (pow2-stable) cap/size in meta_up.  Packed
+            tables repack under the base spec (despec'd on misfit)."""
+            if tbl_key in aligned_tbls and tbl_key + "_al" in prev_dsnap.arrays:
+                ai = build_aligned(key_cols, cols, max_bytes=ALIGNED_MAX_BYTES)
+                if ai is None or (ai.w, ai.caps) != aligned_tbls[tbl_key]:
+                    return False
+                spec = pk_map.get(tbl_key)
+                packed_lvls = []
+                if spec is not None and tbl_key not in pk_drop:
+                    try:
+                        for tbl, _c in ai.levels:
+                            size, roww = tbl.shape
+                            cap = roww // ai.w
+                            packed_lvls.append(_pkm.pack_rows(
+                                tbl.reshape(size * cap, ai.w), spec
+                            ).reshape(size, cap * spec[1]))
+                    except _pkm.PackError:
+                        pk_drop.add(tbl_key)
+                        packed_lvls = []
+                if packed_lvls:
+                    for lvl, tbl in enumerate(packed_lvls):
+                        out[_al_key(tbl_key, lvl)] = tbl
+                else:
+                    for lvl, (tbl, _c) in enumerate(ai.levels):
+                        out[_al_key(tbl_key, lvl)] = tbl
+                return True
+            h = build_hash(key_cols, **hk)
+            _reship_off(off_key, h.off)
+            out[tbl_key] = _repack_tbl(tbl_key, interleave_buckets(h, cols))
+            meta_up[cap_key] = _round_cap(h.cap)
+            meta_up[n_key] = _ceil_pow2(max(h.n, 1))
+            return True
+
+        if not reship_point(
+            "clx", "clh_off", [cl_k1, cl_k2],
+            [cl_k1, cl_k2, new_cl.c_d_until, new_cl.c_p_until],
+            "cl_cap", "cl_n",
+        ):
+            return None
+        if meta.has_ovf:
+            ovf_srel_d = m2(new_cl.ovf_srel1)
+            if ((ovf_srel_d <= 0) & (new_cl.ovf_srel1 > 0)).any():
+                return None
+            ovf_k = (
+                new_cl.ovf_src.astype(np.int64) * S1 + ovf_srel_d
+            ).astype(np.int32)
+            if not reship_point(
+                "ovfx", "ovfh_off", [ovf_k], [ovf_k], "ovf_cap", "ovf_n"
+            ):
+                return None
+        if meta.fold_pairs:
+            # the fold's subject-side csr view IS the closure re-keyed by
+            # source: reship it alongside clx so pf intersections see the
+            # advanced membership.  Gated on the fold being ARMED, not on
+            # pf_has_u — a fold with no base userset rows can still grow
+            # dl_pfu overlay rows mid-chain, and those intersect against
+            # these tables
+            from ..store.closure import NO_EXP as _NO_EXP
+
+            s_run = _max_run_sorted(cl_k1)
+            if s_run > config.flat_fold_subj_fan_cap:
+                return None  # a subject's closure outgrew the tile cap
+            s_fan = _round_fan(max(s_run, 1))
+            pad_s = max(64, s_fan)
+            out["csr_gk"] = _pf_col(cl_k2, pad_s, -1)
+            s_alllive = (
+                bool(
+                    (new_cl.c_d_until == _NO_EXP).all()
+                    and (new_cl.c_p_until == _NO_EXP).all()
+                )
+                if cl_k1.shape[0] else True
+            )
+            if not s_alllive:
+                out["csr_d"] = _pf_col(new_cl.c_d_until, pad_s, 0)
+                out["csr_p"] = _pf_col(new_cl.c_p_until, pad_s, 0)
+            meta_up["pf_s_fan"] = s_fan
+            meta_up["pf_s_alllive"] = s_alllive
+            # hash-backed csr along the chain: rebuilding the dense
+            # offset array per revision costs more host time + H2D than
+            # the whole write budget; the probe-side hash penalty only
+            # applies until the next full prepare restores direct
+            csr = build_range_hash(cl_k1, **hk)
+            _reship_off("csr_off", csr.index.off)
+            out["csrgx"] = _repack_tbl("csrgx", interleave_buckets(
+                csr.index, [csr.gk, csr.glo, csr.ghi]
+            ))
+            meta_up["pf_s_cap"] = _round_cap(csr.index.cap)
+            if meta.pf_s_direct:
+                # the direct offset array (and its packed anchor, when
+                # the base packed it) is dead for the rest of the chain:
+                # drop it so device_bytes stays honest
+                drop_keys.extend(["csr_start", "csr_start_a"])
+                if "csr_start" in pko_map:
+                    pko_drop.add("csr_start")
+            meta_up["pf_s_direct"] = False
+
+        # stale baked T rows: every T-covered userset row whose group's
+        # member set changed gets its (slot·N + res) key dirtied; past
+        # the budget the chain turns the T-index off instead
+        if meta.has_tindex and not acc.get("t_off"):
+            from ..store.closure import _expand_join as _xj
+
+            if adv.changed_dsts.shape[0] and new_chs.t_pe.shape[0]:
+                _, ii = _xj(new_chs.t_pe, adv.changed_dsts)
+                fresh_dirty = np.unique(new_chs.t_k1[ii])
+            else:
+                fresh_dirty = np.zeros(0, np.int32)
+            prev_dirty = acc.get("cl_dirty_k1")
+            dirty = (
+                np.union1d(prev_dirty, fresh_dirty)
+                if prev_dirty is not None else fresh_dirty
+            )
+            if dirty.shape[0] > config.flat_tindex_dirty_cap:
+                acc["t_off"] = True
+                acc.pop("cl_dirty_k1", None)
+            elif dirty.shape[0]:
+                acc["cl_dirty_k1"] = dirty.astype(np.int32)
+        new_chs = ClosureHostState(adv.state, chs.used, chs.t_pe, chs.t_k1)
+
+    def pk(a, radix, b):
+        return (a.astype(np.int64) * radix + b).astype(np.int32)
+
+    a_k1 = pk(m1(acc["a_rel"]), N, acc["a_res"])
+    a_k2 = pk(acc["a_subj"], S1, m2(acc["a_srel1"]))
+    g_k1 = pk(m1(acc["g_rel"]), N, acc["g_res"])
+    g_k2 = pk(acc["g_subj"], S1, m2(acc["g_srel1"]))
+
+    # shape floor: every dl_* table pre-sizes to F rows (2F buckets), so
+    # a chain of Watch revisions reuses ONE compiled kernel — without it,
+    # each pow2 row-count boundary retraces (~1s), dominating the
+    # re-index loop.  Scaled down for small graphs where retraces are
+    # cheap and the floor would out-size the base
+    F = min(
+        config.flat_delta_floor,
+        _ceil_pow2(max(64, acc["base_edges"] // 4)),
+    )
+
+    def _q4(n: int) -> int:
+        # pow2 with the exponent rounded up to EVEN — shapes step in 4×
+        # bands, so a chain whose accumulated rows outgrow the F floor
+        # retraces half as often on its way to the compaction bound
+        p = _ceil_pow2(max(n, 1))
+        return p if (p.bit_length() - 1) % 2 == 0 else p << 1
+
+    def dlband(n: int) -> int:
+        """THE shared shape band of a dl_* table of ``n`` rows: the 2F
+        floor, then 4×-quantized steps.  Both the hash size and the
+        interleave pad derive from this one value, so a table's off and
+        row shapes step at the same revision (one retrace, not two) —
+        including when F itself is an odd power of two."""
+        return max(2 * F, _q4(4 * n))
+
+    dlpad = dlband  # interleave pad target — same band by construction
+
+    def floored_hash(cols):
+        # deterministic sizing (max_factor=1): the adaptive cap-chasing
+        # growth in build_hash would re-step the off shape at pow2
+        # boundaries of its own; a fixed ≤0.25 load factor in 4× bands
+        # keeps shapes put, and the declared probe caps below carry a
+        # floor of 16 to absorb the occupancy wobble that load allows
+        n = int(cols[0].shape[0]) if cols else 0
+        return build_hash(cols, min_size=dlband(n), max_factor=1)
+
+    kw = {}
+    if n_adds:
+        eh = floored_hash([a_k1, a_k2])
+        out["dl_eh_off"] = eh.off
+        out["dl_ehx"] = interleave_buckets(
+            eh,
+            [a_k1, a_k2]
+            + ([acc["a_cav"], acc["a_ctx"]] if meta.e_hascav else [])
+            + ([acc["a_exp"]] if meta.e_hasexp else []),
+            pad=dlpad(n_adds),
+        )
+        kw.update(
+            has_adds=True,
+            e_cap=_round_cap(max(16, eh.cap)),
+            e_slots=tuple(int(s) for s in np.unique(acc["a_rel"])),
+            e_hascav=meta.e_hascav,
+            e_hasexp=meta.e_hasexp,
+        )
+    if n_tombs:
+        tb = floored_hash([g_k1, g_k2])
+        out["dl_tb_off"] = tb.off
+        out["dl_tbx"] = interleave_buckets(tb, [g_k1, g_k2], pad=dlpad(n_tombs))
+        kw.update(has_tombs=True, tb_cap=_round_cap(max(16, tb.cap)))
+
+    # delta userset view (adds with a subject relation)
+    am = acc["a_srel1"] > 0
+    if am.any():
+        gk_all = a_k1[am]
+        order = np.argsort(gk_all, kind="stable")
+        u_gk = gk_all[order]
+        usr = build_range_hash(
+            u_gk, min_size=max(2 * F, _q4(4 * int(u_gk.shape[0]))),
+            max_factor=1,
+        )
+        out["dl_usr_off"] = usr.index.off
+        out["dl_usgx"] = interleave_buckets(
+            usr.index, [usr.gk, usr.glo, usr.ghi], pad=dlpad(int(am.sum()))
+        )
+        cols = [
+            acc["a_subj"][am][order],
+            # dense srel, matching the base us view and the closure keys
+            (m2(acc["a_srel1"][am]) - 1)[order],
+        ]
+        if meta.us_hascav:
+            cols += [acc["a_cav"][am][order], acc["a_ctx"][am][order]]
+        if meta.us_hasexp:
+            cols += [acc["a_exp"][am][order]]
+        if meta.us_hasperm:
+            # permission-valued delta rows bail above: flag column is 0
+            cols += [np.zeros(int(am.sum()), np.int32)]
+        # fan floor 8: per-group occupancy creeps up as a chain
+        # accumulates, and each pow2 step would retrace
+        fan = _round_fan(max(8, min(usr.max_run, 32)))
+        out["dl_usx"] = interleave_rows(cols, pad=max(dlpad(int(am.sum())), fan))
+        kw.update(
+            has_us=True,
+            us_cap=_round_cap(max(16, usr.index.cap)),
+            us_fan=fan,
+            us_slots=tuple(int(s) for s in np.unique(acc["a_rel"][am])),
+        )
+    gm = acc["g_srel1"] > 0
+    if gm.any():
+        utb = floored_hash([g_k1[gm], g_k2[gm]])
+        out["dl_utb_off"] = utb.off
+        out["dl_utbx"] = interleave_buckets(
+            utb, [g_k1[gm], g_k2[gm]], pad=dlpad(int(gm.sum()))
+        )
+        kw.update(has_ustomb=True, utb_cap=_round_cap(max(16, utb.cap)))
+    if acc.get("t_off"):
+        kw.update(t_off=True)  # T disabled: no voiding needed, KU answers
+    elif meta.has_tindex:
+        dirty_parts = []
+        if gm.any():
+            dirty_parts.append(np.unique(
+                g_k1[gm][
+                    np.isin(acc["g_rel"][gm], np.asarray(meta.t_slots, np.int64))
+                ]
+            ))
+        cld = acc.get("cl_dirty_k1")
+        if cld is not None and cld.shape[0]:
+            dirty_parts.append(cld)
+        dirty = (
+            np.unique(np.concatenate(dirty_parts))
+            if dirty_parts else np.zeros(0, np.int32)
+        )
+        if dirty.size:
+            td = floored_hash([dirty])
+            out["dl_td_off"] = td.off
+            out["dl_tdx"] = interleave_buckets(
+                td, [dirty], pad=dlpad(int(dirty.size))
+            )
+            kw.update(t_dirty=True, td_cap=_round_cap(max(16, td.cap)))
+
+    # delta arrow view (tupleset relations, direct subjects)
+    ts = np.asarray(sorted(compiled.tupleset_slots), np.int64)
+    aam = np.isin(acc["a_rel"], ts) & (acc["a_srel1"] == 0)
+    if aam.any():
+        gk_all = a_k1[aam]
+        order = np.argsort(gk_all, kind="stable")
+        arr = build_range_hash(
+            gk_all[order],
+            min_size=max(2 * F, _q4(4 * int(gk_all.shape[0]))),
+            max_factor=1,
+        )
+        out["dl_arr_off"] = arr.index.off
+        out["dl_argx"] = interleave_buckets(
+            arr.index, [arr.gk, arr.glo, arr.ghi], pad=dlpad(int(aam.sum()))
+        )
+        cols = [acc["a_subj"][aam][order]]
+        if meta.ar_hascav:
+            cols += [acc["a_cav"][aam][order], acc["a_ctx"][aam][order]]
+        if meta.ar_hasexp:
+            cols += [acc["a_exp"][aam][order]]
+        fan = _round_fan(max(8, min(arr.max_run, 32)))
+        out["dl_arx"] = interleave_rows(cols, pad=max(dlpad(int(aam.sum())), fan))
+        kw.update(
+            has_ar=True,
+            ar_cap=_round_cap(max(16, arr.index.cap)),
+            ar_fan=fan,
+            ar_slots=tuple(int(s) for s in np.unique(acc["a_rel"][aam])),
+        )
+    gam = np.isin(acc["g_rel"], ts) & (acc["g_srel1"] == 0)
+    if gam.any():
+        # identity for arrow-candidate masking is (group key, child node) —
+        # the kernel holds the child id, not the packed subject key
+        atb = floored_hash([g_k1[gam], acc["g_subj"][gam]])
+        out["dl_atb_off"] = atb.off
+        out["dl_atbx"] = interleave_buckets(
+            atb, [g_k1[gam], acc["g_subj"][gam]], pad=dlpad(int(gam.sum()))
+        )
+        kw.update(has_artomb=True, atb_cap=_round_cap(max(16, atb.cap)))
+
+    # permission-fold maintenance: folded slots KEEP answering from the
+    # pf probe pair across the chain — base hits at dirty resources are
+    # voided and replacement rows (recomputed for exactly those
+    # resources against current data) ride small replicated overlays.
+    # When the subset recompute can't stay sound/cheap it DOWNGRADES
+    # (sticky pf_off: folded pairs walk, with the overlays, until
+    # compaction re-folds) rather than forcing an O(E) rebuild
+    if meta.fold_pairs:
+        fstate = getattr(prev_dsnap, "fold_state", None)
+        from .fold import fold_delta_update
+
+        got = None
+        if fstate is not None and not acc.get("pf_off"):
+            got = fold_delta_update(fstate, acc, snap.node_type, config)
+        if got is None:
+            acc["pf_off"] = True
+            kw.update(pf_off=True)
+            return out, DeltaMeta(**kw), acc, _extras()
+        dirty_k1, ovl = got
+        if dirty_k1.shape[0]:
+            pdh = floored_hash([dirty_k1])
+            out["dl_pfd_off"] = pdh.off
+            out["dl_pfdx"] = interleave_buckets(
+                pdh, [dirty_k1], pad=dlpad(int(dirty_k1.shape[0]))
+            )
+            kw.update(pf_dirty=True, pfd_cap=_round_cap(max(16, pdh.cap)))
+        if ovl is not None:
+            packed = _fold_packed(ovl, snap, fstate.maps, N, config)
+            if packed is None:
+                # overlay fan past the cap: downgrade the chain (sticky
+                # pf_off — folded pairs walk until compaction re-folds)
+                acc["pf_off"] = True
+                kw.update(pf_off=True)
+                return out, DeltaMeta(**kw), acc, _extras()
+            pf_k1, pf_k2, pf_subj, (u_k1, u_gk, u_until, u_fan), pff = packed
+            if pf_k1.shape[0]:
+                peh = floored_hash([pf_k1, pf_k2])
+                out["dl_pfe_off"] = peh.off
+                out["dl_pfex"] = interleave_buckets(
+                    peh,
+                    [pf_k1, pf_k2]
+                    + ([ovl.e_cav, ovl.e_ctx] if pff["pf_hascav"] else [])
+                    + ([ovl.e_until] if pff["pf_hasuntil"] else []),
+                    pad=dlpad(int(pf_k1.shape[0])),
+                )
+                kw.update(
+                    pf_ovl_e=True,
+                    pfo_e_cap=_round_cap(max(16, peh.cap)),
+                    pf_ovl_hascav=pff["pf_hascav"],
+                    pf_ovl_hasuntil=pff["pf_hasuntil"],
+                    pf_ovl_haswc=bool(
+                        np.isin(pf_subj, fstate.wc_nodes).any()
+                    ),
+                )
+            if u_k1.shape[0]:
+                n_u = int(u_k1.shape[0])
+                pfu = build_range_hash(
+                    u_k1, min_size=max(2 * F, _q4(4 * n_u)), max_factor=1
+                )
+                out["dl_pfu_off"] = pfu.index.off
+                out["dl_pfugx"] = interleave_buckets(
+                    pfu.index, [pfu.gk, pfu.glo, pfu.ghi], pad=dlpad(n_u)
+                )
+                fan = _round_fan(max(8, u_fan))
+                out["dl_pfux"] = interleave_rows(
+                    [u_gk, u_until], pad=max(dlpad(n_u), fan)
+                )
+                kw.update(
+                    pf_ovl_u=True,
+                    pfo_u_cap=_round_cap(max(16, pfu.index.cap)),
+                    pfo_u_fan=fan,
+                )
+
+    return out, DeltaMeta(**kw), acc, _extras()
+
 
 
 def make_flat_fn(
@@ -1581,13 +2404,18 @@ def make_flat_fn(
     PyTorch twin.  Both compute the reference's gather chain bit for bit,
     so the planes do not depend on the switch.
 
-    Covered: the single-chip blockslice layout without a delta level or
-    witness plane; anything else raises NotImplementedError naming what
-    is missing."""
+    A delta level (``meta.delta``, a DeltaMeta from build_delta_arrays)
+    rides on the base tables: its small ``dl_*`` overlays (adds,
+    tombstones, T-dirty and fold-dirty voids, replacement fold rows) are
+    probed through the plain ``probe_block``, as the reference probes
+    them, and composed with the base sites' answers; base tables stay on
+    ``psite``.
+
+    Covered: the single-chip blockslice layout, with or without a delta
+    level, without the witness plane; anything else raises
+    NotImplementedError naming what is missing."""
     if meta.sharded or meta.part_serve:
         raise NotImplementedError("sharded check kernels are not ported yet")
-    if meta.delta is not None:
-        raise NotImplementedError("delta levels are not ported yet")
     if not meta.blockslice:
         raise NotImplementedError(
             "the scattered (non-blockslice) layout is not ported yet"
@@ -1605,9 +2433,13 @@ def make_flat_fn(
         if ts_slot in rc_geom
     }
     rel_slots = frozenset(plan.rel_leaf_slots)
+    dm = meta.delta
     # permission fold: BASE answers come from the pf_e/pf_u probe pair;
-    # folded programs compile to nothing
-    fold_on = bool(meta.fold_pairs)
+    # folded programs compile to nothing.  A delta level keeps the fold
+    # armed (dirty resources voided, replacement rows from the dl_pf*
+    # overlays) until the chain's sticky downgrade (pf_off), after which
+    # folded pairs run their walked programs
+    fold_on = bool(meta.fold_pairs) and not (dm is not None and dm.pf_off)
     folded_pairs = frozenset(meta.fold_pairs) if fold_on else frozenset()
     pf_slots = frozenset(s for _, s in folded_pairs)
     fold_slot_list = sorted({s for _, s in meta.fold_pairs})
@@ -1651,7 +2483,9 @@ def make_flat_fn(
     # set: base sites whose slots can't occur compile to nothing
     dyn_e = any(s in meta.e_slots for s in slots)
     dyn_us_fan = max((us_fans.get(s, 0) for s in slots), default=0)
-    t_on = meta.has_tindex
+    # sticky chain-level T disable (membership deltas staled more baked T
+    # rows than the dirty budget): the KU path probes the live closure
+    t_on = meta.has_tindex and not (dm is not None and dm.t_off)
     t_cover = t_on and all(
         s in meta.t_slots for s in slots if s in meta.us_slots
     )
@@ -1663,7 +2497,12 @@ def make_flat_fn(
     )
     Nc = meta.N
     S1c = meta.S1
+    # arrow-recursion cut at the data's longest arrow chain; a delta level
+    # with arrow adds may deepen chains, so it reverts to the schema's
+    # recursion budget
     ar_bound = meta.ar_data_depth
+    if dm is not None and dm.has_ar:
+        ar_bound = -1
 
     def fn(arrs, tid_map, now: int, qm, qctx, specs):
         dev = qm.device
@@ -1789,9 +2628,26 @@ def make_flat_fn(
             """Bucket probe → the decoded candidate block [..., cap, W]."""
             return psite(off_key, tbl_key, cap, q_cols, mode="block")
 
-        def range_probe(off_key: str, tbl_key: str, cap: int, q):
-            """(lo, hi) row range of group key ``q``; (0, 0) on a miss."""
-            blk = pblock(off_key, tbl_key, cap, (q,))
+        def oblock(key: str, cap: int, q_cols):
+            """A delta overlay's bucket block (``dl_{key}_off`` offsets,
+            int32 ``dl_{key}x`` rows): the plain probe, as the reference
+            probes its overlays."""
+            return probe_block(arrs[f"dl_{key}_off"], arrs[f"dl_{key}x"],
+                               cap, q_cols)
+
+        def ohit(key: str, cap: int, q_cols):
+            """Any exact-key hit in a delta overlay (tombstones, dirty
+            voids)."""
+            return _K.blk_hit(oblock(key, cap, q_cols), q_cols).any(dim=-1)
+
+        def range_probe(off_key: str, tbl_key: str, cap: int, q,
+                        rep: bool = False):
+            """(lo, hi) row range of group key ``q``; (0, 0) on a miss.
+            ``rep`` marks a delta overlay's group table (plain probe)."""
+            if rep:
+                blk = probe_block(arrs[off_key], arrs[tbl_key], cap, (q,))
+            else:
+                blk = pblock(off_key, tbl_key, cap, (q,))
             hit = _K.blk_hit(blk, (q,))
             lo = torch.where(hit, blk[..., 1], 0).amax(dim=-1)
             hi = torch.where(hit, blk[..., 2], 0).amax(dim=-1)
@@ -1836,15 +2692,11 @@ def make_flat_fn(
                     lo = off_read("csr_start", kc)
                     hi = torch.where(ok, off_read("csr_start", kc + 1), lo)
                 else:
+                    # hash group table (the key space is over the direct
+                    # budget, or a delta chain reshipped the closure):
+                    # the rows stay the split csr_* columns
                     lo, hi = range_probe("csr_off", "csrgx", meta.pf_s_cap, k)
                 valid = (arange(fanS) < (hi - lo).unsqueeze(-1)) & ok.unsqueeze(-1)
-                if not meta.pf_s_direct:
-                    # hash-group layout: rows live in the interleaved csrx
-                    blk = sblock("csrx", lo, fanS)
-                    gk = torch.where(valid, blk[..., 0], -1)
-                    dok = valid & (torch.where(valid, blk[..., 1], 0) > now)
-                    pok = valid & (torch.where(valid, blk[..., 2], 0) > now)
-                    return gk, dok, pok
                 gk = slice_blocks(arrs["csr_gk"], lo, fanS)[..., 0]
                 gk = torch.where(valid, gk, -1)
                 if meta.pf_s_alllive:
@@ -1939,24 +2791,72 @@ def make_flat_fn(
                     (arange(fanU) < (hi - lo).unsqueeze(-1))
                     & exists.unsqueeze(-1)
                 )
-                if not meta.pf_direct:
-                    ublk = sblock("pfux", lo, fanU)
-                    gk = torch.where(valid, ublk[..., 0], -1)
-                    live = valid & (torch.where(valid, ublk[..., 1], 0) > now)
+                gk = slice_blocks(arrs["pfu_gk"], lo, fanU)[..., 0]
+                gk = torch.where(valid, gk, -1)
+                if meta.pf_u_alllive:
+                    live = valid
                 else:
-                    gk = slice_blocks(arrs["pfu_gk"], lo, fanU)[..., 0]
-                    gk = torch.where(valid, gk, -1)
-                    if meta.pf_u_alllive:
-                        live = valid
-                    else:
-                        uv = slice_blocks(arrs["pfu_u"], lo, fanU)[..., 0]
-                        live = valid & (torch.where(valid, uv, 0) > now)
+                    uv = slice_blocks(arrs["pfu_u"], lo, fanU)[..., 0]
+                    live = valid & (torch.where(valid, uv, 0) > now)
                 nd2 = nd + 1
                 ud, up = pf_isect(gk, live)
                 refl = (gk == bq(q_k2, nd2)) & (bq(q_k2, nd2) >= 0)
                 r_hit = (live & refl).any(dim=-1)
                 d = d | ud | r_hit
                 p = p | up | r_hit
+            # incremental maintenance: void base hits at DIRTY resources,
+            # then OR in the recomputed replacement rows
+            if dm is not None and dm.pf_dirty:
+                dirty = ohit("pfd", dm.pfd_cap, (k1,))
+                d, p = d & ~dirty, p & ~dirty
+            if dm is not None and dm.pf_ovl_e:
+                oL = _lay(
+                    ["k1", "k2"]
+                    + (["cav", "ctx"] if dm.pf_ovl_hascav else [])
+                    + (["until"] if dm.pf_ovl_hasuntil else [])
+                )
+
+                def po_site(k2q):
+                    blk = oblock("pfe", dm.pfo_e_cap, (k1, k2q))
+                    hit = _K.blk_hit(
+                        blk, torch.broadcast_tensors(k1, k2q)
+                    ) & exists.unsqueeze(-1)
+                    live = hit
+                    if dm.pf_ovl_hasuntil:
+                        u = torch.where(hit, blk[..., oL["until"]], 0)
+                        live = hit & (u > now)
+                    if not dm.pf_ovl_hascav:
+                        hd = hp = live
+                    else:
+                        cav = torch.where(live, blk[..., oL["cav"]], 0)
+                        ctxc = torch.where(live, blk[..., oL["ctx"]], -1)
+                        hd, hp = tri_planes(live, cav, ctxc)
+                    return hd.any(dim=-1), hp.any(dim=-1)
+
+                od, op_ = po_site(bq(q_k2, nd))
+                d, p = d | od, p | op_
+                if dm.pf_ovl_haswc:
+                    owd, owp = po_site(bq(w_k2, nd))
+                    d, p = d | owd, p | owp
+            if dm is not None and dm.pf_ovl_u:
+                # replacement folded-userset rows for dirty resources: the
+                # overlay's range view, the same intersection
+                fanO = max(dm.pfo_u_fan, 1)
+                lo, hi = range_probe("dl_pfu_off", "dl_pfugx", dm.pfo_u_cap,
+                                     k1, rep=True)
+                valid = (
+                    (arange(fanO) < (hi - lo).unsqueeze(-1))
+                    & exists.unsqueeze(-1)
+                )
+                ublk = slice_blocks(arrs["dl_pfux"], lo, fanO)
+                gk = torch.where(valid, ublk[..., 0], -1)
+                live = valid & (torch.where(valid, ublk[..., 1], 0) > now)
+                nd2 = nd + 1
+                od, op_ = pf_isect(gk, live)
+                refl = (gk == bq(q_k2, nd2)) & (bq(q_k2, nd2) >= 0)
+                r_hit = (live & refl).any(dim=-1)
+                d = d | od | r_hit
+                p = p | op_ | r_hit
             return d, p
 
         # Every eval function returns (definite, possible, ovf, used):
@@ -1978,27 +2878,48 @@ def make_flat_fn(
             k1 = sc * Nc + torch.where(exists, nodes, 0)
 
             run_e = dyn_e if dyn else (slot in meta.e_slots)
-            if run_e:
+            run_ed = dm is not None and dm.has_adds and (
+                bool(dm.e_slots) if dyn else (slot in dm.e_slots)
+            )
+            if run_e or run_ed:
                 def e_site(k2q):
-                    """Direct-edge test: the expiry gate fused in the
-                    probe, which also returns the caveat-id and context
-                    planes of a caveated table for the tri VM."""
-                    pg = psite(
-                        "eh_off", "ehx", meta.e_cap, (k1, k2q), mode="gate",
-                        exp_lane=eL["exp"] if meta.e_hasexp else None,
-                        cav_lane=eL["cav"] if meta.e_hascav else None,
-                        ctx_lane=eL["ctx"] if meta.e_hascav else None,
-                    )
-                    # exists is lane-constant: ANDing it after the kernel's
-                    # hit/live masks commutes (dead lanes' cav/ctx feed
-                    # tri but live kills them), so parity with gate2_blk
-                    # is exact
-                    live = pg[1] & exists.unsqueeze(-1)
-                    if not meta.e_hascav:
-                        bd = bp = live
-                    else:
-                        bd, bp = tri_planes(live, pg[2], pg[3])
-                    return bd.any(dim=-1), bp.any(dim=-1)
+                    """Direct-edge test: (base hit minus tombstones) OR
+                    delta-level hit — exact replacement semantics, since
+                    tombstones carry full primary identities.  The base
+                    probe fuses the expiry gate and returns the caveat-id
+                    and context planes of a caveated table for the tri
+                    VM."""
+                    hd = hp = zeros(nodes.shape)
+                    if run_e:
+                        pg = psite(
+                            "eh_off", "ehx", meta.e_cap, (k1, k2q),
+                            mode="gate",
+                            exp_lane=eL["exp"] if meta.e_hasexp else None,
+                            cav_lane=eL["cav"] if meta.e_hascav else None,
+                            ctx_lane=eL["ctx"] if meta.e_hascav else None,
+                        )
+                        # exists is lane-constant: ANDing it after the
+                        # kernel's hit/live masks commutes (dead lanes'
+                        # cav/ctx feed tri but live kills them), so parity
+                        # with gate2_blk is exact
+                        live = pg[1] & exists.unsqueeze(-1)
+                        if not meta.e_hascav:
+                            bd = bp = live
+                        else:
+                            bd, bp = tri_planes(live, pg[2], pg[3])
+                        hd, hp = bd.any(dim=-1), bp.any(dim=-1)
+                        if dm is not None and dm.has_tombs:
+                            tomb = ohit("tb", dm.tb_cap, (k1, k2q))
+                            hd, hp = hd & ~tomb, hp & ~tomb
+                    if run_ed:
+                        dblk = oblock("eh", dm.e_cap, (k1, k2q))
+                        dhit = _K.blk_hit(
+                            dblk, torch.broadcast_tensors(k1, k2q)
+                        ) & exists.unsqueeze(-1)
+                        dd, dp = gate2_blk("e", dblk, eL, dhit)
+                        hd = hd | dd.any(dim=-1)
+                        hp = hp | dp.any(dim=-1)
+                    return hd, hp
 
                 d, p = e_site(bq(q_k2, nd))
                 if meta.has_wc_edges:
@@ -2020,6 +2941,12 @@ def make_flat_fn(
                 if meta.has_wc_closure:
                     wtd, wtp = t_site(bq(wcl_k, nd))
                     td, tp = td | wtd, tp | wtp
+                if dm is not None and dm.t_dirty:
+                    # groups with tombstoned userset rows or a changed
+                    # closure: the base T rows may cite dead edges — void
+                    # them; the forced KU pass below re-derives the union
+                    dirty = ohit("td", dm.td_cap, (k1,))
+                    td, tp = td & ~dirty, tp & ~dirty
                 d, p = d | td, p | tp
                 if meta.has_ovf:
                     # T is incomplete for overflowed closure sources: flag
@@ -2027,13 +2954,36 @@ def make_flat_fn(
                     lo2, hi2 = range_of("usr", meta.usr_cap, k1)
                     used = used | reduceB(exists & (hi2 > lo2))
 
-            def ku_eval(ublk, valid):
+            def ku_fetch(delta: bool, cap: int, fan: int):
+                """Range-probe a userset view (the base's, or the delta
+                level's overlay) and fetch its candidate block: (block,
+                valid lanes, overflow)."""
+                if delta:
+                    lo, hi = range_probe("dl_usr_off", "dl_usgx", cap, k1,
+                                         rep=True)
+                else:
+                    lo, hi = range_of("usr", cap, k1)
+                over = reduceB(exists & ((hi - lo) > fan))
+                valid = (
+                    (arange(fan) < (hi - lo).unsqueeze(-1))
+                    & exists.unsqueeze(-1)
+                )
+                ublk = (slice_blocks(arrs["dl_usx"], lo, fan) if delta
+                        else sblock("usx", lo, fan))
+                return ublk, valid, over
+
+            def ku_eval(ublk, valid, tombstoned: bool = False):
                 """Userset-grant evaluation over one candidate block:
                 per-candidate closure/reflexivity/permission tests gated
-                by the row's expiry column."""
+                by the row's expiry column.  ``tombstoned`` masks deleted
+                base rows by their exact (group, subject) identity."""
                 s = torch.where(valid, ublk[..., usL["subj"]], -1)
                 r = torch.where(valid, ublk[..., usL["srel"]], -1)
                 gk = s * S1c + (r + 1)  # invalid rows (-1, -1) → negative
+                if tombstoned:
+                    tomb = ohit("utb", dm.utb_cap, (k1.unsqueeze(-1), gk))
+                    valid = valid & ~tomb
+                    gk = torch.where(valid, gk, -1)
                 nd2 = nd + 1
                 in_d, in_p = cl_probe(bq(q_k2, nd2), gk)
                 if meta.has_wc_closure:
@@ -2060,19 +3010,33 @@ def make_flat_fn(
                     reduceB(valid),
                 )
 
-            # KU probe path: ineligible slots, or the dynamic root leaf on
-            # a mixed schema (eligible slots repeat the T answer, sound
-            # under OR)
-            run_ku = (not use_t) or (dyn and not t_cover)
+            # KU probe path: ineligible slots; the dynamic root leaf on a
+            # mixed schema (eligible slots repeat the T answer, sound
+            # under OR); or a delta level with T-dirty groups (the forced
+            # pass replaces the voided T answers)
+            run_ku = (
+                (not use_t)
+                or (dyn and not t_cover)
+                or (dm is not None and dm.t_dirty)
+            )
             KU_site = min(KU, dyn_us_fan if dyn else us_fans.get(slot, 0))
             if run_ku and KU_site > 0:
-                lo, hi = range_of("usr", meta.usr_cap, k1)
-                ovf = ovf | reduceB(exists & ((hi - lo) > KU_site))
-                valid = (
-                    (arange(KU_site) < (hi - lo).unsqueeze(-1))
-                    & exists.unsqueeze(-1)
+                ublk, valid, over = ku_fetch(False, meta.usr_cap, KU_site)
+                ovf = ovf | over
+                kd, kp, ku_used = ku_eval(
+                    ublk, valid,
+                    tombstoned=dm is not None and dm.has_ustomb,
                 )
-                ublk = sblock("usx", lo, KU_site)
+                d, p, used = d | kd, p | kp, used | ku_used
+            # delta-level userset grants (adds with subject relations)
+            run_kud = (
+                dm is not None
+                and dm.has_us
+                and (bool(dm.us_slots) if dyn else (slot in dm.us_slots))
+            )
+            if run_kud:
+                ublk, valid, over = ku_fetch(True, dm.us_cap, dm.us_fan)
+                ovf = ovf | over
                 kd, kp, ku_used = ku_eval(ublk, valid)
                 d, p, used = d | kd, p | kp, used | ku_used
             return d, p, ovf, used
@@ -2199,26 +3163,65 @@ def make_flat_fn(
                 ts_slot = plan.ts_slots[ir[1]]
                 child_types = arrow_child_types(ts_slot, types)
                 data_fan = dict(meta.ar_fanout_by_slot).get(ts_slot, 0)
-                if not child_types or data_fan == 0:
+                d_run = dm is not None and dm.has_ar and ts_slot in dm.ar_slots
+                Ksd = dm.ar_fan if d_run else 0
+                if not child_types or (data_fan == 0 and Ksd == 0):
                     # no reachable types / no edges of this tupleset at all
                     z = zeros(nodes.shape)
                     return z, z, zB, zB
                 Ks = min(K, data_fan)
                 exists = nodes >= 0
                 ak = k1c(ts_slot) * Nc + torch.where(exists, nodes, 0)
-                lo, hi = range_of("arr", meta.arr_cap, ak)
+                zi = torch.zeros(nodes.shape, dtype=torch.int32, device=dev)
+                if Ks:
+                    lo, hi = range_of("arr", meta.arr_cap, ak)
+                else:
+                    lo = hi = zi
+                if Ksd:
+                    lod, hid = range_probe("dl_arr_off", "dl_argx", dm.ar_cap,
+                                           ak, rep=True)
+                else:
+                    lod = hid = zi
                 width = 1
                 for dim in nodes.shape[1:]:
                     width *= int(dim)
-                if width * Ks > cfg.flat_max_width:
+                if width * (Ks + Ksd) > cfg.flat_max_width:
                     # lattice budget spent: probe child existence only;
                     # real deeper grants surface as possible
-                    return zeros(nodes.shape), (hi > lo) & exists, zB, zB
+                    return (zeros(nodes.shape),
+                            ((hi > lo) | (hid > lod)) & exists, zB, zB)
                 ovf = reduceB(exists & ((hi - lo) > Ks))
-                valid = (arange(Ks) < (hi - lo).unsqueeze(-1)) & exists.unsqueeze(-1)
-                ablk = sblock("arx", lo, Ks)
-                children = torch.where(valid, ablk[..., arL["child"]], -1)
-                gd, gp = gate2_blk("ar", ablk, arL, valid)
+                if Ks == 0:
+                    children = torch.full(nodes.shape + (0,), -1,
+                                          dtype=torch.int32, device=dev)
+                    gd = gp = zeros(nodes.shape + (0,))
+                else:
+                    valid = (
+                        (arange(Ks) < (hi - lo).unsqueeze(-1))
+                        & exists.unsqueeze(-1)
+                    )
+                    ablk = sblock("arx", lo, Ks)
+                    children = torch.where(valid, ablk[..., arL["child"]], -1)
+                    gd, gp = gate2_blk("ar", ablk, arL, valid)
+                    if dm is not None and dm.has_artomb:
+                        # mask deleted base rows by (group, child) identity
+                        tomb = ohit("atb", dm.atb_cap,
+                                    (ak.unsqueeze(-1), children))
+                        children = torch.where(tomb, -1, children)
+                        gd, gp = gd & ~tomb, gp & ~tomb
+                if Ksd:
+                    # delta-level arrow rows: extra candidates on the axis
+                    ovf = ovf | reduceB(exists & ((hid - lod) > Ksd))
+                    dvalid = (
+                        (arange(Ksd) < (hid - lod).unsqueeze(-1))
+                        & exists.unsqueeze(-1)
+                    )
+                    dblk = slice_blocks(arrs["dl_arx"], lod, Ksd)
+                    dchildren = torch.where(dvalid, dblk[..., arL["child"]], -1)
+                    dgd, dgp = gate2_blk("ar", dblk, arL, dvalid)
+                    children = torch.cat([children, dchildren], dim=-1)
+                    gd = torch.cat([gd, dgd], dim=-1)
+                    gp = torch.cat([gp, dgp], dim=-1)
                 cd, cp, co, cu = eval_slot(
                     ir[2], children, stack, child_types, ar_hops + 1
                 )

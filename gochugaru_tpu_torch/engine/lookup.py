@@ -23,9 +23,10 @@ The reference streams these from the server (client/client.go:508-552,
    keeps exactly the definite ones — matching oracle.lookup_*'s
    conditional omission (the bool collapse, client/client.go:277).
 
-The delta-advance machinery of the reference's transposed index
-(``advance_lookup_index``, the chain stash) waits for the port's Watch/
-delta slice: here the index is always built fresh per snapshot.
+Along a Watch/delta chain the transposed index is not rebuilt: the
+store's merge advances a live index by the chain's removals and
+additions in O(E + D log E) (``advance_lookup_index``), or stashes the
+O(D) advance inputs for the first real lookup (``redeem_chain_stash``).
 """
 
 from __future__ import annotations
@@ -134,9 +135,13 @@ def lookup_index(snap: Snapshot, mark_used: bool = True) -> LookupIndex:
         idx = getattr(snap, "_lookup_index", None)
         if idx is not None:
             return idx
-        # a chained LSM snapshot merges its columns first (the
-        # reference's merge may also advance a live index or leave a
-        # stash; the port's store does neither yet)
+        # chain-advance fast path: materializing a chained LSM snapshot
+        # whose BASE carries a LIVE index advances it as part of the
+        # merge (store/delta.py _materialize_locked) in O(E + D log E)
+        # identity merges; an UNUSED (prewarm-only) index is not paid
+        # for per revision — the merge stashes the O(D) advance inputs
+        # and the first real lookup advances from the stash here.
+        # Either way the O(E log E) rebuild is skipped
         if getattr(snap, "_lsm_base", None) is not None:
             snap._materialize()
         idx = getattr(snap, "_lookup_index", None)
@@ -252,7 +257,9 @@ def _walk_resource_candidates(
     """The host walker's reverse worklist expansion: every node on a
     positive reverse path from the subject — the PARITY ORACLE of the
     device frontier path (engine/spmv.py), and the serving path for
-    snapshots without the reverse-CSR index (``flat_rev_index=False``).
+    snapshots without the reverse-CSR index (``flat_rev_index=False``)
+    and for LSM delta chains, whose advance_lookup_index keeps it
+    exact.
 
     The worklist is over *subject-occurrence keys* packed
     (node, srel1): scanning a key yields every edge where that userset
@@ -585,7 +592,8 @@ def lookup_resources_page(
     LookupCursor) is revision-pinned: resuming continues the cached
     live stream, or deterministically recomputes and skips.  The device
     frontier path (engine/spmv.py) serves snapshots carrying the
-    reverse-CSR index; others keep the host walker."""
+    reverse-CSR index; others, and LSM delta chains, keep the host
+    walker."""
     from . import spmv
 
     names = (resource_type, permission, subject_type, subject_id,
@@ -745,25 +753,199 @@ def lookup_subjects_device(
 
 
 # ---------------------------------------------------------------------------
-# incremental index maintenance (a later slice of the port)
+# incremental index maintenance (Watch-driven re-index, BASELINE config 5)
 # ---------------------------------------------------------------------------
 
 
+def _view_keys(idx: "LookupIndex", ra_rel_src: Optional[Snapshot]):
+    """Packed (k1, k2) int64 key arrays per transposed view, cached on
+    the index — advancing then never re-packs or re-casts the O(E)
+    columns, only merges them forward (the cache rides to the advanced
+    index, so a Watch chain packs once per full build, not per
+    revision)."""
+    d = idx.__dict__
+    if "_rs_k2" not in d:
+        d["_rs_k2"] = (
+            idx.rs_rel.astype(np.int64) * _B32 + idx.rs_res
+        )
+    if "_er_k1" not in d:
+        d["_er_k1"] = idx.er_res.astype(np.int64)
+    if "_er_k2" not in d:
+        d["_er_k2"] = (
+            (idx.er_rel.astype(np.int64) << np.int64(47))
+            | (idx.er_subj.astype(np.int64) << np.int64(16))
+            | idx.er_srel1.astype(np.int64)
+        )
+    if "_ra_k1" not in d:
+        d["_ra_k1"] = idx.ra_child.astype(np.int64)
+    if "_ra_k2" not in d:
+        ra_rel = _ra_rel_of(ra_rel_src, idx)
+        d["_ra_k2"] = ra_rel.astype(np.int64) * _B32 + idx.ra_res
+    return d
+
+
 def redeem_chain_stash(snap: Snapshot) -> bool:
-    """Consume a deferred chain-advance stash on ``snap``.  The port's
-    store writes none yet (the Watch/delta slice adds them), so there is
-    never one to redeem."""
+    """Consume a deferred chain-advance stash on ``snap`` (written by
+    store/delta.py _materialize_locked when the base's index was unused):
+    one identity advance produces ``snap._lookup_index``.  Returns True
+    when a stash was redeemed."""
     stash = snap.__dict__.pop("_lookup_chain_stash", None)
     if stash is None:
         return False
-    raise NotImplementedError(
-        "advancing the lookup index along a delta chain is a later slice"
+    (bidx, g_rel, g_res, g_subj, g_srel1,
+     a_rel, a_res, a_subj, a_srel1) = stash
+    advance_lookup_index(
+        bidx, snap,
+        num_slots=snap.num_slots,
+        tupleset_slots=snap.compiled.tupleset_slots,
+        g_rel=g_rel, g_res=g_res, g_subj=g_subj, g_srel1=g_srel1,
+        a_rel=a_rel, a_res=a_res, a_subj=a_subj, a_srel1=a_srel1,
     )
+    return True
 
 
-def advance_lookup_index(idx: "LookupIndex", nxt: Snapshot, **kw) -> None:
-    """The reference's O(E + D log E) index advance along a delta chain:
-    a later slice of the port."""
-    raise NotImplementedError(
-        "advancing the lookup index along a delta chain is a later slice"
+def advance_lookup_index(
+    idx: "LookupIndex",
+    nxt: Snapshot,
+    *,
+    num_slots: int,
+    tupleset_slots,
+    ra_rel_src: Optional[Snapshot] = None,
+    g_rel: np.ndarray,
+    g_res: np.ndarray,
+    g_subj: np.ndarray,
+    g_srel1: np.ndarray,
+    a_rel: np.ndarray,
+    a_res: np.ndarray,
+    a_subj: np.ndarray,
+    a_srel1: np.ndarray,
+) -> None:
+    """Produce ``nxt._lookup_index`` from ``prev``'s by removing the
+    ``g_*`` identities and merging the sorted ``a_*`` additions into each
+    transposed view — O(E + D log E) instead of the full O(E log E)
+    rebuild.  Removal is by IDENTITY (not row position), so the delta may
+    span a whole LSM chain: apply_delta calls this per eager revision,
+    and _materialize_locked calls it when a chained snapshot merges, with
+    the base's accumulated tombstones + overlay (store/delta.py).  The
+    packed per-view key arrays are cached on the index and merged
+    forward (_view_keys), so repeated advances pay only array copies.
+
+    ``idx`` is the index being advanced; ``ra_rel_src`` is the snapshot
+    whose ar view recovers the index's ra-rel column on a cache miss —
+    None is fine when ``idx`` already carries ``_ra_rel`` (the stash
+    path pre-caches it)."""
+    from ..store.delta import find_in_view, merge_positions
+
+    keys = _view_keys(idx, ra_rel_src)
+    NS1 = np.int64(num_slots + 1)
+    g_rel = g_rel.astype(np.int64)
+    g_res = g_res.astype(np.int64)
+    g_subj = g_subj.astype(np.int64)
+    g_srel1 = g_srel1.astype(np.int64)
+    a_rel = a_rel.astype(np.int64)
+    a_res = a_res.astype(np.int64)
+    a_subj = a_subj.astype(np.int64)
+    a_srel1 = a_srel1.astype(np.int64)
+
+    def pack_rr(rel, res):
+        return rel * _B32 + res
+
+    def pack_rss(rel, subj, srel1):
+        return (rel << np.int64(47)) | (subj << np.int64(16)) | srel1
+
+    def advance_view(old_k1, old_k2, cols_old, rem_k1, rem_k2,
+                     new_k1, new_k2, cols_new):
+        """Merged (k1, k2, cols...) of one lexsorted view post-delta."""
+        pos = find_in_view(old_k1, old_k2, rem_k1, rem_k2)
+        keep = np.ones(old_k1.shape[0], dtype=bool)
+        keep[pos[pos >= 0]] = False
+        n_ord = np.lexsort((new_k2, new_k1))
+        po, pn = merge_positions(
+            old_k1[keep], old_k2[keep], new_k1[n_ord], new_k2[n_ord]
+        )
+        total = po.shape[0] + pn.shape[0]
+
+        def m(co, cn):
+            out = np.empty(total, co.dtype)
+            out[po] = co[keep]
+            out[pn] = cn[n_ord].astype(co.dtype)
+            return out
+
+        return (
+            m(old_k1, new_k1), m(old_k2, new_k2),
+            [m(co, cn) for co, cn in zip(cols_old, cols_new)],
+        )
+
+    # rs view: keyed (subj, srel1); residual order (rel, res)
+    rs_key, rs_k2, (rs_res, rs_rel) = advance_view(
+        idx.rs_key, keys["_rs_k2"],
+        (idx.rs_res, idx.rs_rel),
+        g_subj * NS1 + g_srel1, pack_rr(g_rel, g_res),
+        a_subj * NS1 + a_srel1, pack_rr(a_rel, a_res),
+        (a_res, a_rel),
     )
+
+    # er view: keyed res; residual order (rel, subj, srel1)
+    er_k1, er_k2, (er_rel, er_subj, er_srel1) = advance_view(
+        keys["_er_k1"], keys["_er_k2"],
+        (idx.er_rel, idx.er_subj, idx.er_srel1),
+        g_res, pack_rss(g_rel, g_subj, g_srel1),
+        a_res, pack_rss(a_rel, a_subj, a_srel1),
+        (a_rel, a_subj, a_srel1),
+    )
+
+    # ra view: arrow rows only (tupleset relation, direct subject), keyed
+    # child node; residual order (rel, res)
+    ts = np.asarray(sorted(tupleset_slots), np.int64)
+    g_ar = np.isin(g_rel, ts) & (g_srel1 == 0)
+    a_ar = np.isin(a_rel, ts) & (a_srel1 == 0)
+    prev_ra_rel = _ra_rel_of(ra_rel_src, idx)
+    ra_k1, ra_k2, (ra_res, ra_rel) = advance_view(
+        keys["_ra_k1"], keys["_ra_k2"],
+        (idx.ra_res, prev_ra_rel),
+        g_subj[g_ar], pack_rr(g_rel[g_ar], g_res[g_ar]),
+        a_subj[a_ar], pack_rr(a_rel[a_ar], a_res[a_ar]),
+        (a_res[a_ar], a_rel[a_ar]),
+    )
+
+    # the delta may have interned the FIRST node of a schema type, growing
+    # the interner's type space — a carried perm_table would be undersized
+    # and index out of bounds; the rebuild is O(types × permissions)
+    if idx.perm_table.shape[0] >= max(nxt.interner.num_types, 1):
+        perm_table, perm_slots = idx.perm_table, idx.perm_slots_of_tid
+    else:
+        perm_table, perm_slots = _perm_tables(nxt)
+    new_idx = LookupIndex(
+        rs_key=rs_key,
+        rs_res=rs_res, rs_rel=rs_rel,
+        ra_child=ra_k1.astype(np.int32), ra_res=ra_res,
+        er_res=er_k1.astype(np.int32), er_rel=er_rel,
+        er_subj=er_subj, er_srel1=er_srel1,
+        e_relres=nxt.e_rel.astype(np.int64) * _B32 + nxt.e_res.astype(np.int64),
+        ar_relres=nxt.ar_rel.astype(np.int64) * _B32 + nxt.ar_res.astype(np.int64),
+        perm_table=perm_table,
+        perm_slots_of_tid=perm_slots,
+    )
+    # carry the packed key caches: chained advances stay copy-only
+    new_idx.__dict__["_rs_k2"] = rs_k2
+    new_idx.__dict__["_er_k1"] = er_k1
+    new_idx.__dict__["_er_k2"] = er_k2
+    new_idx.__dict__["_ra_k1"] = ra_k1
+    new_idx.__dict__["_ra_k2"] = ra_k2
+    new_idx._ra_rel = ra_rel  # keep chained advances O(E + D log E)
+    nxt._lookup_index = new_idx
+
+
+def _ra_rel_of(snap: Optional[Snapshot], idx: LookupIndex) -> np.ndarray:
+    """rel column of the ra view (child-sorted arrow rows), recovered from
+    the snapshot's ar view once and cached on the index.  ``snap`` may be
+    None only when the cache is already populated (the stash path
+    pre-caches before the source snapshot's chain state is dropped)."""
+    cached = getattr(idx, "_ra_rel", None)
+    if cached is not None:
+        return cached
+    assert snap is not None, "ra-rel cache miss with no source snapshot"
+    ra_order = argsort1(snap.ar_child)
+    rel = snap.ar_rel[ra_order].astype(np.int64)
+    idx._ra_rel = rel
+    return rel

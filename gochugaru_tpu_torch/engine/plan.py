@@ -99,6 +99,37 @@ class EngineConfig:
     #: path only (the reference's ``spmm=False``); the fused K-hop
     #: program is a later slice
     flat_rev_index: bool = True
+    # -- the Watch-driven delta chain (engine/flat.py build_delta_arrays) -
+    #: accumulated delta-level rows (adds + tombstones) beyond
+    #: max(this, E/8) trigger compaction: the next prepare rebuilds the
+    #: base instead of growing the overlay
+    flat_delta_min_compact: int = 65_536
+    #: dl_* table shape floor: delta tables pre-size to this many rows so
+    #: consecutive revisions keep one table geometry (one FlatMeta, one
+    #: cached flat program) instead of stepping at every pow2 row-count
+    #: boundary; beyond the floor, shapes step in 4x bands
+    flat_delta_floor: int = 16_384
+    #: incremental fold maintenance (engine/fold.py fold_delta_update):
+    #: max total dirty resources per delta chain.  Past it the chain
+    #: DOWNGRADES folded pairs to their walked programs (sticky pf_off
+    #: until compaction re-folds the base)
+    flat_fold_delta_dirty_cap: int = 16_384
+    #: advance the flattened membership closure in place on membership-
+    #: subgraph deltas (store/closure.py advance_closure) instead of
+    #: bailing to a full prepare — the O(delta * depth) write path
+    closure_delta: bool = True
+    #: max affected closure sources per advance; a delta whose reverse
+    #: reachability fans past this rebuilds instead
+    closure_delta_affected_cap: int = 65_536
+    #: max accumulated T-index-dirty resource keys per delta chain; past
+    #: it the chain flips the T-index OFF (sticky, like pf_off) and the
+    #: KU path, which probes the live closure, answers those slots
+    flat_tindex_dirty_cap: int = 65_536
+    #: prewarm the transposed lookup index in a background thread at
+    #: prepare time (worlds of at least LOOKUP_PREWARM_MIN_EDGES edges,
+    #: engine/device.py) when the host walker would serve lookups: a
+    #: delta chain's snapshots, or ones without the reverse-CSR index
+    lookup_prewarm: bool = True
 
     def packed_on(self) -> bool:
         """The resolved flat_packed flag (None = auto: packed whenever

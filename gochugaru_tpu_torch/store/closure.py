@@ -401,6 +401,35 @@ def _sort_pairs(S1: np.int64, k1, k2, *vals):
     )
 
 
+def build_closure_state(snap: "Snapshot", cl: ClosureIndex,
+                        *, per_source_cap: int = 4096) -> ClosureState:
+    """The advance-ready form of a freshly built closure (full prepare)."""
+    S1 = np.int64(snap.num_slots + 1)
+    e_src = snap.mp_subj.astype(np.int64) * S1 + snap.mp_srel.astype(np.int64) + 1
+    e_dst = snap.mp_res.astype(np.int64) * S1 + snap.mp_rel.astype(np.int64) + 1
+    e_d, e_p = _edge_values(snap.mp_caveat, snap.mp_exp)
+    keep = e_src != e_dst  # build_closure drops self-loop pair edges
+    e_src, e_dst, e_d, e_p = e_src[keep], e_dst[keep], e_d[keep], e_p[keep]
+    e_src, e_dst, e_d, e_p = _sort_pairs(S1, e_src, e_dst, e_d, e_p)
+    er_dst, er_src = _sort_pairs(S1, e_dst, e_src)
+
+    s_src = snap.ms_subj.astype(np.int64) * S1
+    s_dst = snap.ms_res.astype(np.int64) * S1 + snap.ms_rel.astype(np.int64) + 1
+    s_d, s_p = _edge_values(snap.ms_caveat, snap.ms_exp)
+    s_src, s_dst, s_d, s_p = _sort_pairs(S1, s_src, s_dst, s_d, s_p)
+    sr_dst, sr_src = _sort_pairs(S1, s_dst, s_src)
+
+    return ClosureState(
+        S1=S1, per_source_cap=per_source_cap, revision=snap.revision, cl=cl,
+        a_src=cl.c_src.astype(np.int64) * S1 + cl.c_srel1,
+        a_dst=cl.c_g.astype(np.int64) * S1 + cl.c_grel + 1,
+        ovf=cl.ovf_src.astype(np.int64) * S1 + cl.ovf_srel1,
+        e_src=e_src, e_dst=e_dst, e_d=e_d, e_p=e_p,
+        s_src=s_src, s_dst=s_dst, s_d=s_d, s_p=s_p,
+        er_dst=er_dst, er_src=er_src, sr_dst=sr_dst, sr_src=sr_src,
+    )
+
+
 def _apply_edge_delta(S1, k1, k2, vals, del1, del2, add1, add2, addvals):
     """Remove identities (del1, del2) from a (k1, k2)-lexsorted edge set
     and merge the (sorted) additions; returns the new sorted columns.

@@ -413,6 +413,68 @@ class LsmSnapshot(Snapshot):
         # finish_snapshot recomputes the used-userset set from the merged
         # rows — replace the conservative carry-forward with the truth
         self.__dict__["us_used_keys"] = nxt.us_used_keys
+        # carry the lookup index across the chain BEFORE the state that
+        # feeds the advance is dropped: identity-based advance from the
+        # base's index with the accumulated tombstones + overlay — the
+        # O(E + D log E) path that keeps warm lookup_resources warm
+        # across a Watch chain (engine/lookup.py advance_lookup_index).
+        # _lsm_done publishes only AFTER this block, so a concurrent
+        # first lookup either waits on the lock (and finds the carried
+        # index) or arrives later — it can never slip between the merge
+        # and the carry and pay a redundant rebuild
+        if (
+            getattr(base, "_lookup_index", None) is None
+            and base.__dict__.get("_lookup_chain_stash") is not None
+        ):
+            # the base itself carries an unredeemed stash (it was the
+            # tip of an earlier chain, materialized while its index was
+            # still unused): redeem it now so the carry below has a base
+            # index to advance from — otherwise the stash is orphaned
+            # and the chain's index lineage is silently dropped
+            from ..engine.lookup import redeem_chain_stash
+
+            redeem_chain_stash(base)
+        if (
+            getattr(self, "_lookup_index", None) is None
+            and getattr(base, "_lookup_index", None) is not None
+        ):
+            g = ~keep  # the accumulated base-row tombstone mask
+            if (
+                getattr(base, "_lookup_used", False)
+                or getattr(self, "_lookup_used", False)
+            ):
+                # lookups are live on this store: advance eagerly so the
+                # next one stays warm
+                from ..engine.lookup import advance_lookup_index
+
+                advance_lookup_index(
+                    base._lookup_index, self,
+                    num_slots=base.num_slots,
+                    tupleset_slots=base.compiled.tupleset_slots,
+                    ra_rel_src=base,
+                    g_rel=base.e_rel[g], g_res=base.e_res[g],
+                    g_subj=base.e_subj[g], g_srel1=base.e_srel1[g],
+                    a_rel=ov["rel"], a_res=ov["res"],
+                    a_subj=ov["subj"], a_srel1=ov["srel1"],
+                )
+            else:
+                # index exists but nobody reads it (the prepare-time
+                # prewarm): paying the O(E) advance on every Watch
+                # revision costs ~4x the whole re-index step (measured,
+                # bench5 r05: 17.9 -> 78ms overlay+probe).  Stash the
+                # O(D) advance inputs instead — the FIRST real lookup
+                # advances from the stash (engine/lookup.py
+                # redeem_chain_stash) and flips the store onto the
+                # eager path above
+                from ..engine.lookup import _ra_rel_of
+
+                _ra_rel_of(base, base._lookup_index)  # self-contain idx
+                self.__dict__["_lookup_chain_stash"] = (
+                    base._lookup_index,
+                    base.e_rel[g], base.e_res[g],
+                    base.e_subj[g], base.e_srel1[g],
+                    ov["rel"], ov["res"], ov["subj"], ov["srel1"],
+                )
         self.__dict__["_lsm_done"] = True
         # drop the chain state: a materialized snapshot otherwise pins
         # the whole previous base's columns (~2× E-row memory) forever
@@ -444,8 +506,10 @@ def apply_delta(
 
     ``defer`` controls the host LSM: True returns an LsmSnapshot whose
     column merge is deferred to first access (O(D log E) now); False
-    merges eagerly; None (default) defers unless the accumulated overlay
-    would cross the compaction bound (then the merge is due anyway).
+    merges eagerly; None (default) defers unless the previous snapshot
+    carries a live lookup index (advance_lookup_index needs merged-row
+    positions) or the accumulated overlay would cross the compaction
+    bound (then the merge is due anyway).
 
     ``compact_min`` overrides the module-level LSM_COMPACT_MIN floor —
     the store threads EngineConfig.lsm_compact_min through here so the
@@ -554,7 +618,15 @@ def apply_delta(
         nctx_ub == 0 or len(contexts) > 2 * nctx_ub
     )
     if defer is None:
-        defer = not over_bound and not ctx_over
+        # "_lookup_used" (set when a lookup actually consumes the index,
+        # engine/lookup.py) — NOT mere index presence: the prepare-time
+        # prewarm plants an index on every big snapshot, and keying on it
+        # would push all Watch revisions onto the eager O(E) path
+        defer = (
+            not getattr(prev, "_lookup_used", False)
+            and not over_bound
+            and not ctx_over
+        )
 
     num_nodes = max(len(interner), 1)
     node_type = np.concatenate([
@@ -586,4 +658,27 @@ def apply_delta(
         g_rel=g_rel, g_res=g_res, g_subj=g_subj, g_srel1=g_srel1,
         contexts_renumbered=renumbered,
     )
+    if (
+        not defer
+        and getattr(nxt, "_lookup_index", None) is None
+        and getattr(prev, "_lookup_index", None) is not None
+    ):
+        # carry the lookup index forward: advance prev's by this
+        # revision's removal identities + additions (O(E + D log E)
+        # merges) instead of letting the next lookup pay a full
+        # O(E log E) rebuild.  Removal is identity-based, so the chained
+        # path works too: g_* is exactly the set of identities live at
+        # prev that this revision removes or replaces (base rows not
+        # already tombstoned, plus overlay rows).  A chained prev WITHOUT
+        # an index leaves the work to lookup_index()'s chain-advance
+        from ..engine.lookup import advance_lookup_index
+
+        advance_lookup_index(
+            prev._lookup_index, nxt,
+            num_slots=prev.num_slots,
+            tupleset_slots=prev.compiled.tupleset_slots,
+            ra_rel_src=prev,
+            g_rel=g_rel, g_res=g_res, g_subj=g_subj, g_srel1=g_srel1,
+            a_rel=a_rel, a_res=a_res, a_subj=a_subj, a_srel1=a_srel1,
+        )
     return nxt

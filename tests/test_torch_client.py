@@ -241,3 +241,49 @@ def test_batch_wider_than_flat_max_slots_raises(clients):
               for p in ("read", "admin")]
     with pytest.raises(NotImplementedError):
         pc2.check(background(), pcons.full(), *checks)
+
+
+def test_write_then_check_takes_the_delta_path():
+    """Client.write → check at the new revision: the port's engine
+    prepares it with ``prev=`` (the previous revision's snapshot from the
+    client's LRU), so the snapshot carries a delta level, and its
+    verdicts equal the reference client's on the same writes."""
+    from gochugaru_tpu_torch.store.store import parse_revision
+
+    triples = _triples(5)
+    pc = new_evaluator(device="cpu")
+    jc = jclient.new_tpu_evaluator()
+    p_ctx, j_ctx = background(), j_background()
+    _write_all(pc, prel, p_ctx, triples, len(triples) // 2)
+    _write_all(jc, jrel, j_ctx, triples, len(triples) // 2)
+    p_checks, j_checks = _checks(prel, 13), _checks(jrel, 13)
+    assert (pc.check(p_ctx, pcons.full(), *p_checks)
+            == jc.check(j_ctx, jcons.full(), *j_checks))
+    writes = [
+        ([("repo:r1", "reader", "user:u29", None)], []),
+        ([("repo:r2", "maintainer", "team:t3#member", None),
+          ("team:t2", "member", "user:u28", None)],
+         [("repo:r3", "reader", "user:*", None)]),
+        ([("repo:r4", "banned", "user:u28", None)], []),
+    ]
+    for adds, deletes in writes:
+        revs = []
+        for client, mod, ctx in ((pc, prel, p_ctx), (jc, jrel, j_ctx)):
+            txn = mod.Txn()
+            for r in _rels(mod, adds):
+                txn.touch(r)
+            for r in _rels(mod, deletes):
+                txn.delete(r)
+            revs.append(client.write(ctx, txn))
+        p_rev, j_rev = revs
+        assert p_rev == j_rev
+        extra = [("repo:r1", "read", "user:u29"), ("repo:r2", "read", "user:u28"),
+                 ("repo:r3", "read", "user:u0"), ("repo:r4", "read", "user:u28")]
+        got = pc.check(p_ctx, pcons.at_least(p_rev), *p_checks,
+                       *[prel.must_from_triple(*t) for t in extra])
+        ref = jc.check(j_ctx, jcons.at_least(j_rev), *j_checks,
+                       *[jrel.must_from_triple(*t) for t in extra])
+        assert got == ref
+        ds = pc._dsnap_cache[parse_revision(p_rev)]
+        assert ds.flat_meta.delta is not None and ds.delta_acc is not None
+        assert jc._dsnap_cache[parse_revision(j_rev)].flat_meta.delta is not None
