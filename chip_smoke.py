@@ -146,7 +146,33 @@ Phases (any failure exits non-zero and prints no result line):
    by 256 checks at ``at_least(revision)``; each must take the delta
    path (else the phase fails naming the radix and size), its answers
    agree with the oracle, and its latency prints beside the full
-   prepare it replaces.
+   prepare it replaces; then the first legacy batch on the last of
+   those revisions (two permissions, ``flat_max_slots=1``), which builds
+   its raw columns from that revision's snapshot: its ms, a second
+   batch's, and the device MiB the revision's legacy cache holds;
+12. the legacy two-phase program (engine/legacy.py; plain PyTorch, it
+   reaches no kernel), after phase 9: (a) config 2 and (b) config 3 on
+   ``EngineConfig(use_flat=False)`` engines over the host snapshots of
+   phases 4 and 5 (their prepares ship only the raw columns, seconds
+   printed), the same 100,000-check batches: checks/s (median of 4
+   calls), the overflow share, the definite plane equal to the flat
+   path's on every row neither program flags, 2,000 sampled rows
+   against the oracle, and no probe-kernel launch; every config 3 row
+   overflows there (ROADMAP queue 3 item 8), so (b) also runs config 3
+   with the nested-group edges its chains imply added until the
+   membership columns fill their power-of-two length: the same answers,
+   and at least 90% of the rows must be settled on the card at the deep
+   caps and equal the flat path's; (c) config 2's batch
+   on a flat engine with ``flat_max_slots=1`` (the batch asks for 2
+   permissions) spills to the legacy program, planes equal to (a)'s;
+   (d) a ``cuda`` Client on the feature world at phase 10's size: 3,000
+   checks over all ten of FEATURE_SCHEMA's names against the oracle,
+   ``delete_atomic`` of readers and bans and a write, the same batch at
+   ``at_least(revision)`` on the delta-prepared snapshot, an
+   ``updates_since_revision`` stream equal to the store's log,
+   ``read_relationships`` under three filters against
+   ``export_relationships``, and an export -> import round trip into a
+   fresh client whose checks agree.
 
 Phases 4-8 are the main path: launch counts are zeroed before phase 4
 and read after phase 7, and every mode of both kernels, and the gate
@@ -154,7 +180,9 @@ with its caveat planes (``gate.cav``) of both, must have launched.
 Phases 9-11 are the delta chain's own paths (10, then 9, after the
 main path): each runs with the counts
 set to 0 just before it and read just after (phase 11's are added back
-to the main path's), and each kernel of its layout must have launched.  Then
+to the main path's), and each kernel of its layout must have launched.
+Phase 12 runs each of its parts with the counts set to 0 just before it
+and read just after, and (a)-(c) must launch no kernel.  Then
 each mode is timed at the largest shape the main path gave it, ``runs``
 also at its largest-cap call (the row's ``deep_bucket``) and each
 aligned mode also at its call with the most levels (the row's
@@ -517,11 +545,16 @@ def docs_sizes(scale):
             max(int(50_000 * scale), 50), max(int(1_000_000 * scale), 1_000))
 
 
-def build_docs(scale=1.0, seed=23, client=None):
+def build_docs(scale=1.0, seed=23, client=None, fill_nested=False):
     """BASELINE config 3, the generator of benchmarks/bench3_docs.py:51-137.
     With ``client`` the relationships go into that client's store (its
     interner, one pre-interned columnar import a relation) and the
-    snapshot is the store's head."""
+    snapshot is the store's head.  With ``fill_nested`` the world also
+    holds nested-group edges its chains already imply (``g[i] <-
+    g[j]#member``, ``i + 2 <= j`` in one chain of five), as many as fill
+    the membership columns to their power-of-two length: the answers are
+    config 3's, and the legacy closure hop no longer flags every row
+    (the padding fault, ROADMAP queue 3 item 8)."""
     from gochugaru_tpu_torch.schema import compile_schema, parse_schema
     from gochugaru_tpu_torch.store.interner import Interner
     from gochugaru_tpu_torch.store.snapshot import build_snapshot_from_columns
@@ -581,6 +614,18 @@ def build_docs(scale=1.0, seed=23, client=None):
         rem = k - dd.shape[0]
         if rem:
             bulk(docs[:rem], viewer, rng.choice(users, rem), -1)
+    if fill_nested:
+        a, lo, hi = np.arange(n_groups), [], []
+        for j in (2, 3, 4):
+            i = a[(a % 5 + j <= 4) & (a + j < n_groups)]
+            lo.append(i)
+            hi.append(i + j)
+        lo, hi = np.concatenate(lo), np.concatenate(hi)
+        n_deep = int(deep.shape[0])
+        need = max(8, 1 << (n_deep - 1).bit_length()) - n_deep
+        if need > lo.shape[0]:
+            raise AssertionError(f"fill_nested: {need} edges needed, {lo.shape[0]} implied")
+        bulk(groups[lo[:need]], member, groups[hi[:need]], member)
     if client is not None:
         from gochugaru_tpu_torch import consistency
 
@@ -3278,7 +3323,7 @@ def phase_write_check(K, client, ek, ds, snap, prepare_s, n_docs, n_users, n_gro
     client._engine, client._engine_schema = ek, snap.compiled
     client._dsnap_cache[snap.revision] = ds
     rng = random.Random(37)
-    out = []
+    out, revs = [], []
 
     def writes():
         for w in range(3):
@@ -3302,7 +3347,8 @@ def phase_write_check(K, client, ek, ds, snap, prepare_s, n_docs, n_users, n_gro
             t1 = time.perf_counter()
             got = client.check(ctx, consistency.at_least(rev), *checks)
             t2 = time.perf_counter()
-            nds = client._dsnap_cache[parse_revision(rev)]
+            revs.append(parse_revision(rev))
+            nds = client._dsnap_cache[revs[-1]]
             if nds.flat_meta.delta is None or nds.delta_acc is None:
                 raise AssertionError(
                     f"config3 write {w}: the first check took a full prepare"
@@ -3332,6 +3378,304 @@ def phase_write_check(K, client, ek, ds, snap, prepare_s, n_docs, n_users, n_gro
             f" first_check_ms={check_ms} (delta path: materialize + overlay prepare"
             f" + 256 checks; delta flags {sorted(flags)}) vs the full prepare it"
             f" replaces: prepare_s={prepare_s:.3f}; answers agree with the oracle")
+    phase_write_legacy(client._dsnap_cache[revs[-1]], snap.compiled,
+                       n_docs, n_users, n_groups)
+
+
+def phase_write_legacy(nds, cs, n_docs, n_users, n_groups):
+    """Phase 11, last part: the first legacy batch on config 3's last
+    delta-prepared revision ``nds``.  A batch of two permissions on an
+    engine with ``flat_max_slots=1`` spills to the legacy program, whose
+    raw columns that first batch builds on the host from the revision's
+    own snapshot and ships (O(E)); they stay cached on the revision for
+    as long as the client keeps it.  Times the first and a second batch
+    and the device MiB the cache adds; unflagged rows vs the oracle."""
+    from gochugaru_tpu_torch import rel
+    from gochugaru_tpu_torch.engine.device import DeviceEngine
+    from gochugaru_tpu_torch.engine.oracle import SnapshotOracle, T
+    from gochugaru_tpu_torch.engine.plan import EngineConfig
+    from gochugaru_tpu_torch.utils import metrics
+
+    if nds.delta_acc is None or nds.legacy_cache is not None:
+        raise AssertionError("config3 write -> legacy: not a fresh delta-prepared revision")
+    eng = DeviceEngine(cs, EngineConfig.for_schema(cs, flat_max_slots=1), device=DEV)
+    rng = random.Random(43)
+    checks = [rel.must_from_triple(f"document:d{rng.randrange(n_docs)}", "view",
+                                   f"user:u{rng.randrange(n_users)}") for _ in range(128)]
+    checks += [rel.must_from_triple(f"group:g{rng.randrange(n_groups)}", "member",
+                                    f"user:u{rng.randrange(n_users)}") for _ in range(128)]
+    before = metrics.default.counter("checks.legacy")
+    times, planes = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        planes.append(eng.check_batch(nds, checks))
+        times.append(time.perf_counter() - t0)
+    if metrics.default.counter("checks.legacy") != before + 2:
+        raise AssertionError("config3 write -> legacy: the batches did not run on the legacy program")
+    for nm, a, b in zip("dpo", *planes):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"config3 write -> legacy: plane {nm} differs between two calls")
+    added = [v for k, v in nds.legacy_cache.items() if nds.arrays.get(k) is not v]
+    mib = sum(v.nbytes for v in added) / 2**20
+    d, p, ovf = planes[0]
+    flags = ovf | (p & ~d)
+    oracle = SnapshotOracle(nds.snapshot, {}, now_us=None)
+    bad = sum(bool(d[i]) != (oracle.check_relationship(c) == T)
+              for i, c in enumerate(checks) if not flags[i])
+    if bad:
+        raise AssertionError(f"config3 write -> legacy: {bad} unflagged rows disagree with the oracle")
+    log(f"config3 write -> first legacy batch (revision {nds.revision}, {len(checks)} checks,"
+        f" 2 permissions, flat_max_slots=1): first_ms={times[0] * 1e3:.3f}"
+        f" (raw columns built from the revision's snapshot and shipped)"
+        f" second_ms={times[1] * 1e3:.3f} legacy_cache_MiB={mib:.1f};"
+        f" {int(flags.sum())} rows flagged for the host, the rest agree with the oracle")
+
+
+def _flags(planes):
+    d, p, ovf = planes
+    return ovf | (p & ~d)
+
+
+def phase_legacy_world(K, name, cs, snap, q, names, flat_planes, settled_min=0.0):
+    """Phase 12 (a)/(b): an ``EngineConfig(use_flat=False)`` engine on
+    the world's host snapshot (its prepare ships only the raw columns),
+    the same 100,000-check batch as the flat path's: checks/s (median of
+    4 calls), the overflow share, the definite plane against the flat
+    path's on every row neither program flags (at least ``settled_min``
+    of the batch), 2,000 sampled rows against the host oracle, and no
+    probe-kernel launch."""
+    from gochugaru_tpu_torch.caveats import compile_cel
+    from gochugaru_tpu_torch.engine.device import DeviceEngine
+    from gochugaru_tpu_torch.engine.oracle import SnapshotOracle, T
+    from gochugaru_tpu_torch.engine.plan import EngineConfig
+    from gochugaru_tpu_torch.utils import metrics
+
+    tag = f"{name} legacy"
+    eng = DeviceEngine(cs, EngineConfig.for_schema(cs, use_flat=False), device=DEV)
+    t0 = time.perf_counter()
+    ds = eng.prepare(snap)
+    if DEV == "cuda":
+        torch.cuda.synchronize()
+    prepare_s = time.perf_counter() - t0
+    PREPARE_S[tag] = prepare_s
+    extra = sorted(set(ds.arrays) - set(DeviceEngine.ARRAY_COLUMN_KEYS)
+                   - {"ectx_vi", "ectx_vf", "ectx_pr", "ectx_host"})
+    if ds.flat_meta is not None or extra:
+        raise AssertionError(f"{tag}: the prepare shipped flat tables: {extra}")
+    cfg = eng.config
+    log(f"{tag}: prepare_s={prepare_s:.3f} (raw columns only,"
+        f" {sum(v.nbytes for v in ds.arrays.values()) / 2**20:.1f} MiB)"
+        f" caps closure={cfg.closure_size} hops={cfg.closure_hops}"
+        f" subgraph={cfg.subgraph_nodes} eval_iters={cfg.eval_iters}")
+    q_res, q_perm, q_subj = q
+    before = metrics.default.counter("checks.legacy")
+
+    def run():
+        return eng.check_columns(ds, q_res, q_perm, q_subj, now_us=EPOCH)
+
+    planes, got = own_launches(K, tag, run, need=())
+    if got:
+        raise AssertionError(f"{tag}: probe kernels launched: {got}")
+    if metrics.default.counter("checks.legacy") != before + 1:
+        raise AssertionError(f"{tag}: the batch did not run on the legacy program")
+    times = []
+    for _ in range(4):
+        ts = time.perf_counter()
+        again = eng.check_columns(ds, q_res, q_perm, q_subj, now_us=EPOCH)
+        times.append(time.perf_counter() - ts)
+    for nm, a, b in zip("dpo", planes, again):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"{tag}: plane {nm} differs between two calls")
+    d, p, ovf = planes
+    both = ~_flags(planes) & ~_flags(flat_planes)
+    diff = int((d[both] != flat_planes[0][both]).sum())
+    log(f"{tag}: B={len(q_res)} checks_per_s={len(q_res) / float(np.median(times)):.1f}"
+        f" batch_s={[round(t, 5) for t in times]}"
+        f" overflow_share={float(ovf.mean())!r} conditional={int((p & ~d).sum())}"
+        f" definite={int(d.sum())}; rows neither program flags={int(both.sum())},"
+        f" definite plane differs from the flat path's on {diff}")
+    if diff:
+        raise AssertionError(f"{tag}: {diff} unflagged rows differ from the flat path's")
+    if both.mean() < settled_min:
+        raise AssertionError(f"{tag}: {int(both.sum())} rows settled on the card,"
+                             f" fewer than {settled_min:.0%}")
+    programs = {n: compile_cel(n, c.params, c.expression)
+                for n, c in cs.schema.caveats.items()}
+    oracle = SnapshotOracle(snap, programs, now_us=EPOCH)
+    rng = np.random.default_rng(99)
+    sample = rng.choice(len(q_res), min(2000, len(q_res)), replace=False)
+    flags = _flags(planes)
+    bad = sum(
+        bool(d[i]) != (oracle.check(*names[i][:4], names[i][4], "",
+                                    now_us=EPOCH) == T)
+        for i in sample if not flags[i])
+    if bad:
+        raise AssertionError(f"{tag}: {bad} sampled unflagged rows disagree with the oracle")
+    log(f"{tag}: {len(sample)} sampled rows agree with the host oracle"
+        f" ({int(flags[sample].sum())} of them flagged, settled there)")
+    return planes
+
+
+def phase_legacy_spill(K, cs, snap, q, want):
+    """Phase 12 (c): config 2's batch on a default (flat) engine whose
+    ``flat_max_slots`` is below the batch's distinct permissions (the
+    batch asks for read and admin, so 1): the batch spills to the legacy
+    program, and its planes equal ``want``, (a)'s."""
+    from gochugaru_tpu_torch.engine.device import DeviceEngine
+    from gochugaru_tpu_torch.engine.plan import EngineConfig
+    from gochugaru_tpu_torch.utils import metrics
+
+    eng = DeviceEngine(cs, EngineConfig.for_schema(cs, flat_max_slots=1), device=DEV)
+    ds = eng.prepare(snap)
+    if ds.flat_meta is None:
+        raise AssertionError("config2 spill: no flat tables")
+    before = metrics.default.counter("checks.legacy")
+    planes, got = own_launches(
+        K, "config2 spill", lambda: eng.check_columns(ds, *q, now_us=EPOCH), need=())
+    if got or metrics.default.counter("checks.legacy") != before + 1:
+        raise AssertionError(f"config2 spill: did not run on the legacy program ({got})")
+    for nm, a, b in zip("dpo", planes, want):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"config2 spill: plane {nm} differs from the legacy engine's")
+    log(f"config2 spill (flat_max_slots=1, {len(np.unique(q[1]))} permissions):"
+        " legacy program, planes equal the use_flat=False engine's")
+
+
+FEATURE_NAMES = ("member", "admin", "parent", "owner", "view", "folder",
+                 "reader", "banned", "read", "audit")
+
+
+def feature_all_name_checks(rng, n_users, n_groups, n_folders, n_docs, n):
+    """Checks over all ten names of FEATURE_SCHEMA."""
+    from gochugaru_tpu_torch import rel
+
+    on = {"member": "group", "admin": "group", "parent": "folder",
+          "owner": "folder", "view": "folder"}
+    size = {"group": (n_groups, "g"), "folder": (n_folders, "f"), "doc": (n_docs, "d")}
+    out = []
+    for i in range(n):
+        name = FEATURE_NAMES[i % len(FEATURE_NAMES)]
+        t = on.get(name, "doc")
+        res = f"{t}:{size[t][1]}{rng.randrange(size[t][0])}"
+        subj = (f"folder:f{rng.randrange(n_folders)}" if name in ("parent", "folder")
+                else f"user:u{rng.randrange(n_users + 2)}")
+        r = rel.must_from_triple(res, name, subj)
+        if name in ("reader", "read") and rng.random() < 0.5:
+            r = r.with_caveat("", {"t": rng.randint(0, 10)})
+        out.append(r)
+    return out
+
+
+def phase_legacy_client(n_users=400, n_groups=60, n_folders=150, n_docs=1500):
+    """Phase 12 (d): the client surface on the feature world at phase
+    10's size: a check over all ten names (the legacy program) against
+    the oracle, deletes and a write, the same batch on the
+    delta-prepared snapshot, the Watch stream, reads and an export ->
+    import round trip."""
+    from gochugaru_tpu_torch import consistency, rel
+    from gochugaru_tpu_torch.caveats import compile_cel
+    from gochugaru_tpu_torch.client import new_evaluator
+    from gochugaru_tpu_torch.engine.oracle import SnapshotOracle, T
+    from gochugaru_tpu_torch.store.store import parse_revision
+    from gochugaru_tpu_torch.utils import metrics
+    from gochugaru_tpu_torch.utils.context import background
+
+    ctx = background()
+    mk = (lambda: new_evaluator()) if DEV == "cuda" else (lambda: new_evaluator(device=DEV))
+    c = mk()
+    c.write_schema(ctx, FEATURE_SCHEMA)
+    rng = random.Random(41)
+    rels = feature_rels(rng, n_users, n_groups, n_folders, n_docs)
+    c.import_relationships(ctx, rels)
+    checks = feature_all_name_checks(rng, n_users, n_groups, n_folders, n_docs, 3000)
+
+    def oracle_at(cs):
+        snap = c.store.snapshot_for(cs)
+        programs = {n: compile_cel(n, d.params, d.expression)
+                    for n, d in snap.compiled.schema.caveats.items()}
+        return SnapshotOracle(snap, programs)
+
+    def check_all_vs_oracle(label, cs):
+        before = metrics.default.counter("checks.legacy")
+        t0 = time.perf_counter()
+        got = c.check(ctx, cs, *checks)
+        secs = time.perf_counter() - t0
+        oracle = oracle_at(cs)
+        want = [oracle.check_relationship(r) == T for r in checks]
+        if got != want:
+            bad = sum(a != b for a, b in zip(got, want))
+            raise AssertionError(f"client legacy {label}: {bad} answers disagree with the oracle")
+        n_legacy = metrics.default.counter("checks.legacy") - before
+        if n_legacy < 1:
+            raise AssertionError(f"client legacy {label}: no legacy dispatch")
+        log(f"client legacy {label}: {len(checks)} checks over all 10 names in"
+            f" {secs:.3f}s ({n_legacy:.0f} legacy dispatch), every answer equals"
+            f" the oracle's ({sum(want)} allowed)")
+
+    check_all_vs_oracle("full", consistency.full())
+    rev0 = c.store.head_revision
+    readers = [r for r in rels if r.resource_relation == "reader"
+               and r.subject_type == "user" and r.subject_id != "*"][:40:4]
+    for r in readers:
+        c.delete_atomic(ctx, rel.new_filter("doc", r.resource_id, "reader")
+                        .with_subject_filter("user", r.subject_id))
+    c.delete_atomic(ctx, rel.new_filter("doc", "", "banned")
+                    .with_subject_filter("user", "u3"))
+    txn = rel.Txn()
+    for i in range(20):
+        txn.touch(rel.must_from_triple(f"doc:d{i}", "reader", f"user:u{i + 7}"))
+        txn.touch(rel.must_from_triple(f"doc:d{i + 20}", "banned", f"user:u{i}"))
+    rev = c.write(ctx, txn)
+    check_all_vs_oracle(f"at_least({rev})", consistency.at_least(rev))
+    ds = c._dsnap_cache[parse_revision(rev)]
+    if ds.flat_meta is None or ds.flat_meta.delta is None:
+        raise AssertionError("client legacy: the post-write snapshot is not delta-prepared")
+    log(f"client legacy: revision {parse_revision(rev)} was delta-prepared"
+        f" (dl tables {sorted(k for k in ds.arrays if k.startswith('dl_'))[:4]}...)"
+        f" and its legacy columns were built from its own snapshot")
+    # the Watch stream across those writes vs the store's log
+    want = [(int(u.update_type), str(u.relationship))
+            for _r, u in _store_updates(c.store, rev0, parse_revision(rev))]
+    got = []
+    wctx = ctx.with_timeout(30)
+    for u in c.updates_since_revision(wctx, rel.UpdateFilter(), f"gtz1.{rev0}"):
+        got.append((int(u.update_type), str(u.relationship)))
+        if len(got) >= len(want):
+            break
+    wctx.cancel()
+    if got != want or not want:
+        raise AssertionError(f"client watch: {len(got)} updates, the store has {len(want)}")
+    log(f"client watch: updates_since_revision delivered the store's {len(want)} updates in order")
+    # reads under three filters vs the export at head
+    exported = list(c.export_relationships(ctx, rev))
+    for f in (rel.new_filter("doc", "d7", ""),
+              rel.new_filter("doc", "", "banned"),
+              rel.new_filter("group", "", "member").with_subject_filter("group", "", "member")):
+        got = sorted(str(r) for r in c.read_relationships(ctx, consistency.full(), f))
+        want = sorted(str(r) for r in exported if f.matches(r))
+        if got != want or not got:
+            raise AssertionError(f"client read {f}: {len(got)} rows, the export has {len(want)}")
+    log(f"client read_relationships under 3 filters equals the export's {len(exported)} rows, filtered")
+    fresh = mk()
+    fresh.write_schema(ctx, FEATURE_SCHEMA)
+    fresh.import_relationships(ctx, exported)
+    a = fresh.check(ctx, consistency.full(), *checks)
+    b = c.check(ctx, consistency.at_least(rev), *checks)
+    if a != b:
+        raise AssertionError("client export -> import: the restored client's checks differ")
+    log(f"client export -> import round trip: {len(exported)} relationships,"
+        f" {len(checks)} checks agree")
+
+
+def _store_updates(store, since, until):
+    """The store's (revision, update) log entries after ``since`` up to
+    ``until`` (whole entries: ``until`` is a revision already written)."""
+    out = []
+    for rev, ups in store.entries_since(since):
+        out += [(rev, u) for u in ups]
+        if rev >= until:
+            return out
+    return out
 
 
 def main() -> int:
@@ -3344,6 +3688,7 @@ def main() -> int:
                     help="edges of BASELINE config 5 (one card's share of the"
                          " published 1B on 16 chips: 62,500,000)")
     args = ap.parse_args()
+    t_smoke = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -3385,6 +3730,7 @@ def main() -> int:
                     check_world("config2 aligned", cs, snap, q, names, K, **ALIGNED)[3],
                     planes)
         log(f"launches after config2: {json.dumps(K.LAUNCHES)}")
+        rbac = (cs, snap, q, names, planes)  # phase 12's world
         del snap
         t0 = time.perf_counter()
         from gochugaru_tpu_torch.client import new_evaluator
@@ -3394,6 +3740,7 @@ def main() -> int:
         log(f"config3 (scale {args.scale3}): world built in {time.perf_counter() - t0:.2f}s"
             f" (imported into a client's store, revision {snap.revision})")
         ek, ep, ds, planes = check_world("config3", cs, snap, q, names, K)
+        docs = (cs, snap, q, names, planes)  # phase 12's world
         log(f"launches after config3 checks: {json.dumps(K.LAUNCHES)}")
         n_users, n_groups, _n_folders, n_docs = docs_sizes(args.scale3)
         phase_write_check(K, client, ek, ds, snap, PREPARE_S["config3"],
@@ -3431,6 +3778,24 @@ def main() -> int:
     phase_delta_chain(K, **ALIGNED)
     phase_config5(K, args.edges5)
 
+    # ---- phase 12: the legacy two-phase program (no kernel of its own) --
+    t12 = time.perf_counter()
+    legacy2 = phase_legacy_world(K, "config2", *rbac)
+    phase_legacy_world(K, "config3", *docs)
+    # config 3 plus the nested-group edges its chains imply, as many as
+    # fill the membership columns: the same answers, and rows the deep
+    # caps (8/8/8) settle on the card
+    t0 = time.perf_counter()
+    filled = build_docs(args.scale3, fill_nested=True)
+    log(f"config3 filled: world built in {time.perf_counter() - t0:.2f}s,"
+        f" {filled[1].mp_subj.shape[0] - docs[1].mp_subj.shape[0]} implied"
+        f" nested-group edges added (membership rows {filled[1].mp_subj.shape[0]})")
+    phase_legacy_world(K, "config3 filled", *filled, docs[4], settled_min=0.9)
+    del docs, filled
+    phase_legacy_spill(K, *rbac[:3], legacy2)
+    own_launches(K, "client legacy", phase_legacy_client, need=())
+    log(f"phase 12: {time.perf_counter() - t12:.1f}s")
+
     # ---- per-mode timing at the largest main-path shape ----------------
     table = []
     for mode in K.MODES + (K.GATE_CAV,):
@@ -3452,6 +3817,7 @@ def main() -> int:
         row["launches"] = launches[f"aligned.{mode}"]
         row["lanes_total"] = lanes[f"aligned.{mode}"]
         table.append(row)
+    log(f"smoke: {time.perf_counter() - t_smoke:.1f}s from start to the result")
     print(json.dumps({"kernels": table}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,14 +1,19 @@
 """The Client: the gochugaru Check surface backed by the PyTorch engine.
 
-A reduced counterpart of the reference package's ``client.py``: schema
-read/write, transactional writes, bulk import, the Check family
-(``check``/``check_one``/``check_any``/``check_all``) and the lookups
-(``lookup_resources``/``lookup_subjects`` and their cursor-paged
-``*_page`` forms) under the four consistency strategies.  Check
-resolution is a two-tier cascade:
+The counterpart of the reference package's ``client.py``: schema
+read/write, transactional writes, reads and deletes by filter, the Watch
+stream (``updates``/``updates_since_revision``, resumable exactly once),
+bulk import and export (relationships, string columns, interned id
+columns), the Check family (``check``/``check_one``/``check_any``/
+``check_all``/``check_iter``) and the lookups (``lookup_resources``/
+``lookup_subjects`` and their cursor-paged ``*_page`` forms) under the
+four consistency strategies, with the reference's overlap-key guard
+(``with_overlap_required``) on the same methods.  Check resolution is a
+two-tier cascade:
 
-1. **Device**: one flat-kernel dispatch for the batch (engine/device.py);
-   definite answers return immediately.
+1. **Device**: one dispatch for the batch (engine/device.py: the flat
+   program, or the legacy two-phase program for the batches it cannot
+   serve); definite answers return immediately.
 2. **Host oracle** for the rows the device flagged: possible-but-not-
    definite results and static-cap overflows.
 
@@ -23,29 +28,57 @@ raises.
 
 from __future__ import annotations
 
+import dataclasses as _dataclasses
 import threading
 from typing import (
-    Any, Callable, Dict, Iterable, Iterator, List, NamedTuple, Optional, Tuple,
+    Any, Callable, Dict, Iterable, Iterator, List, NamedTuple, Optional,
+    Sequence, Tuple,
 )
 
-from .consistency import Strategy
+from .consistency import OVERLAP_KEY, Strategy
 from .engine.device import DeviceEngine, DeviceSnapshot, resolve_device
 from .engine.oracle import Oracle, SnapshotOracle, T
 from .engine.plan import EngineConfig
+from .rel.filter import Filter, PreconditionedFilter
 from .rel.relationship import Relationship, RelationshipLike, as_relationship
 from .rel.strings import parse_object_set, parse_typed_relation
 from .rel.txn import Txn
+from .rel.update import Update, UpdateFilter
 from .store.snapshot import Snapshot
-from .store.store import Store
+from .store.store import Store, parse_revision
+from .utils import faults
 from .utils import metrics as _metrics
+from .utils import trace as _trace
 from .utils.context import Context
 from .utils.errors import (
-    AlreadyExistsError, BulkCheckItemError, PreconditionFailedError,
+    AlreadyExistsError, BulkCheckItemError, OverlapKeyMissingError,
+    PartialDeletionError, PreconditionFailedError, UnavailableError,
 )
 from .utils.retry import retry_retriable_errors
 
+#: Batch/page sizes of the reference's wire tuning
+#: (client/client.go:166,295,348,448)
+CHECK_CHUNK = 1000
+READ_PAGE = 512
+DELETE_BATCH = 10_000
 #: relationships accumulated per store flush by import_relationships
 IMPORT_BUFFER = 2_097_152
+
+
+@_dataclasses.dataclass(frozen=True)
+class WatchConfig:
+    """Tuning for ``updates`` / ``updates_since_revision`` subscriptions:
+    the interactive-subscriber defaults; a replica tailing a busy stream
+    raises both budgets."""
+
+    #: consecutive no-progress resumes before the stream surfaces the
+    #: UnavailableError to its consumer
+    max_resumes: int = 64
+    #: consecutive no-progress resumes that fire the
+    #: ``watch.resume_storm`` incident (carrying the stream cursor)
+    storm_resumes: int = 8
+    #: store poll cadence while the stream is idle
+    poll_interval: float = 0.05
 
 
 class LookupPage(NamedTuple):
@@ -59,10 +92,21 @@ class LookupPage(NamedTuple):
 
 class _Options:
     def __init__(self) -> None:
+        self.overlap_required = False
         self.engine_config: Optional[EngineConfig] = None
 
 
 Option = Callable[[_Options], None]
+
+
+def with_overlap_required() -> Option:
+    """Raise if a request lacks an overlap key (the reference panics,
+    client/client.go:84-86,182-191)."""
+
+    def opt(o: _Options) -> None:
+        o.overlap_required = True
+
+    return opt
 
 
 def with_engine_config(cfg: EngineConfig) -> Option:
@@ -87,6 +131,7 @@ class Client:
             opt(o)
         self.device = resolve_device(device)
         self._store = Store()
+        self._overlap_required = o.overlap_required
         self._engine_config = o.engine_config
         self._lock = threading.Lock()
         self._engine: Optional[DeviceEngine] = None
@@ -98,6 +143,11 @@ class Client:
     @property
     def store(self) -> Store:
         return self._store
+
+    # -- overlap guard (client/client.go:182-191) ------------------------
+    def _check_overlap(self, ctx: Context) -> None:
+        if self._overlap_required and ctx.value(OVERLAP_KEY) is None:
+            raise OverlapKeyMissingError()
 
     # -- engine / oracle plumbing ----------------------------------------
     def _engine_for(self, snap: Snapshot) -> DeviceEngine:
@@ -197,6 +247,268 @@ class Client:
                 flush()
         flush()
 
+    def import_relationship_columns(
+        self,
+        ctx: Context,
+        *,
+        resource_type: str,
+        resource_ids: Sequence[str],
+        resource_relation: str,
+        subject_type: str,
+        subject_ids: Sequence[str],
+        subject_relation: str = "",
+    ) -> None:
+        """Columnar bulk restore: one relationship shape, ids as parallel
+        string columns (no per-edge objects).  A batch that already
+        exists is re-imported as TOUCH under the retry envelope
+        (client/client.go:448-463)."""
+        self._check_overlap(ctx)
+        kw = dict(
+            resource_type=resource_type, resource_ids=resource_ids,
+            resource_relation=resource_relation,
+            subject_type=subject_type, subject_ids=subject_ids,
+            subject_relation=subject_relation,
+        )
+        try:
+            self._store.import_columns(**kw)
+        except AlreadyExistsError:
+            retry_retriable_errors(
+                ctx, lambda: self._store.import_columns(**kw, touch=True)
+            )
+
+    def import_relationship_id_columns(
+        self,
+        ctx: Context,
+        *,
+        resource_ids,
+        resource_relation: str,
+        subject_ids,
+        subject_relation: str = "",
+    ) -> None:
+        """Pre-interned columnar bulk restore: int node-id columns from
+        THIS store's interner (``export_relationship_id_columns``
+        chunks).  Rows may mix resource/subject types.  A batch that
+        already exists is re-imported as TOUCH under the retry
+        envelope."""
+        self._check_overlap(ctx)
+        kw = dict(
+            resource_ids=resource_ids, resource_relation=resource_relation,
+            subject_ids=subject_ids, subject_relation=subject_relation,
+        )
+        try:
+            self._store.import_interned_columns(**kw)
+        except AlreadyExistsError:
+            retry_retriable_errors(
+                ctx,
+                lambda: self._store.import_interned_columns(**kw, touch=True),
+            )
+
+    def export_relationships(
+        self, ctx: Context, revision: str
+    ) -> Iterator[Relationship]:
+        """Stream every relationship at an exact revision — the backup
+        half of backup/restore (client/client.go:467-499).  Cancellation
+        is honored every READ_PAGE rows."""
+        self._check_overlap(ctx)
+        count = 0
+        for r in self._store.export_at(revision):
+            if count % READ_PAGE == 0:
+                err = ctx.err()
+                if err is not None:
+                    raise err
+            count += 1
+            yield r
+
+    def export_relationship_columns(
+        self, ctx: Context, revision: str
+    ) -> Iterator[Dict[str, list]]:
+        """Columnar export at an exact revision: chunks of parallel
+        string/value lists, the mirror of
+        ``import_relationship_columns``.  Cancellation is honored between
+        chunks."""
+        self._check_overlap(ctx)
+        for chunk in self._store.export_columns_at(revision):
+            err = ctx.err()
+            if err is not None:
+                raise err
+            yield chunk
+
+    def export_relationship_id_columns(
+        self, ctx: Context, revision: str
+    ) -> Iterator[Dict[str, Any]]:
+        """Interned columnar export at an exact revision: chunks of int32
+        node-id columns (one (relation, subject-relation) shape a chunk),
+        the mirror of ``import_relationship_id_columns``.  Cancellation
+        is honored between chunks."""
+        self._check_overlap(ctx)
+        for chunk in self._store.export_interned_columns_at(revision):
+            err = ctx.err()
+            if err is not None:
+                raise err
+            yield chunk
+
+    # -- reads (client/client.go:286-315) --------------------------------
+    def read_relationships(
+        self, ctx: Context, cs: Strategy, f: Filter
+    ) -> Iterator[Relationship]:
+        """Stream the relationships matching the filter; context
+        cancellation is honored at READ_PAGE boundaries."""
+        self._check_overlap(ctx)
+        count = 0
+        for r in self._store.read(cs, f):
+            err = ctx.err()
+            if err is not None and count % READ_PAGE == 0:
+                raise err
+            count += 1
+            yield r
+
+    # -- deletes (client/client.go:317-358) ------------------------------
+    @staticmethod
+    def _as_preconditioned(pf) -> PreconditionedFilter:
+        """A bare Filter means a PreconditionedFilter with no
+        preconditions (the reference's signature takes the latter)."""
+        if isinstance(pf, PreconditionedFilter):
+            return pf
+        if isinstance(pf, Filter):
+            return PreconditionedFilter(pf)
+        raise TypeError(
+            f"expected Filter or PreconditionedFilter, got {type(pf).__name__}"
+        )
+
+    def delete_atomic(self, ctx: Context, pf: PreconditionedFilter) -> str:
+        """Remove all matching relationships in one transaction; returns
+        its revision.  No retry (client/client.go:322)."""
+        self._check_overlap(ctx)
+        pf = self._as_preconditioned(pf)
+        revision, complete = self._store.delete_by_filter(pf, limit=0)
+        if not complete:
+            raise PartialDeletionError(
+                "delete disallowing partial deletion did not complete"
+            )
+        return revision
+
+    def delete(self, ctx: Context, pf: PreconditionedFilter) -> None:
+        """Remove all matching relationships in batches of DELETE_BATCH,
+        each under the retry envelope (client/client.go:340-358)."""
+        self._check_overlap(ctx)
+        pf = self._as_preconditioned(pf)
+        while True:
+            _, complete = retry_retriable_errors(
+                ctx, lambda: self._store.delete_by_filter(pf, limit=DELETE_BATCH)
+            )
+            if complete:
+                return
+
+    # -- Watch (client/client.go:360-413) --------------------------------
+    def updates(
+        self, ctx: Context, f: UpdateFilter,
+        config: Optional[WatchConfig] = None,
+    ) -> Iterator[Update]:
+        """Subscribe from the current head (``updates_since_revision``
+        with no cursor)."""
+        return self.updates_since_revision(ctx, f, "", config=config)
+
+    #: consecutive no-progress stream faults tolerated before the watch
+    #: surfaces the UnavailableError to its consumer
+    WATCH_MAX_RESUMES = 64
+    #: consecutive no-progress resumes that count as a resume storm
+    WATCH_STORM_RESUMES = 8
+
+    def updates_since_revision(
+        self, ctx: Context, f: UpdateFilter, revision: str,
+        *, config: Optional[WatchConfig] = None,
+    ) -> Iterator[Update]:
+        """Ordered, filtered, resumable updates after ``revision`` (from
+        the head when empty); cancel through the context
+        (client/client.go:394-411).
+
+        A transient stream failure (``UnavailableError`` from the store
+        or the ``watch.stream`` fault site) does not reach the consumer:
+        the subscription resumes from the last delivered cursor, exactly
+        once — (last fully delivered revision, raw updates delivered of
+        the partially delivered one), tracked before the filter so a
+        filtered stream resumes at the right raw position; a redelivered
+        prefix is skipped.  Each resume counts ``watch.resumes``;
+        ``storm_resumes`` consecutive ones without progress fire the
+        ``watch.resume_storm`` incident, and more than ``max_resumes``
+        surface the error."""
+        self._check_overlap(ctx)
+        cfg = config if config is not None else WatchConfig(
+            max_resumes=self.WATCH_MAX_RESUMES,
+            storm_resumes=self.WATCH_STORM_RESUMES,
+        )
+        if f.object_types and f.relationship_filters:
+            raise ValueError(
+                "UpdateFilter.object_types and relationship_filters are mutually"
+                " exclusive"
+            )
+        # no cursor → subscribe from the current head (client/client.go:
+        # 379-387); a cursor replays everything after it
+        since = parse_revision(revision) if revision else self._store.head_revision
+        stop = threading.Event()
+
+        def gen() -> Iterator[Update]:
+            # one span per subscription; resumes are its events
+            wsp = _trace.root_span("watch", since=int(since))
+            base = since  # every revision ≤ base fully delivered
+            part_rev: Optional[int] = None  # revision partially delivered
+            part_n = 0  # raw updates of part_rev already delivered
+            no_progress = 0
+            delivered = 0
+            try:
+                while True:
+                    if ctx.done():
+                        return
+                    skip_rev, to_skip, skipped = part_rev, part_n, 0
+                    try:
+                        for rev, u in self._store.updates_since(
+                            base, stop=stop, poll_interval=cfg.poll_interval,
+                            cancelled=ctx.done,
+                        ):
+                            if ctx.done():
+                                return
+                            if rev != part_rev:
+                                if part_rev is not None:
+                                    base = part_rev  # moved past it
+                                part_rev, part_n = rev, 0
+                            if rev == skip_rev and skipped < to_skip:
+                                # redelivered prefix: already consumed
+                                skipped += 1
+                                continue
+                            faults.fire("watch.stream")
+                            part_n += 1
+                            no_progress = 0
+                            if f.admits(u):
+                                delivered += 1
+                                yield u
+                        return  # stream ended: stop set or ctx cancelled
+                    except UnavailableError:
+                        self._metrics.inc("watch.resumes")
+                        wsp.event(
+                            "watch.resume", error="UnavailableError",
+                            no_progress=no_progress + 1,
+                            cursor_rev=int(base), cursor_offset=part_n,
+                        )
+                        no_progress += 1
+                        if no_progress == cfg.storm_resumes:
+                            _trace.trigger_incident(
+                                "watch.resume_storm",
+                                no_progress=no_progress,
+                                cursor_rev=int(base),
+                                cursor_offset=part_n,
+                            )
+                        if no_progress > cfg.max_resumes:
+                            raise
+                        # brief context-aware pause, then re-subscribe
+                        # from the (base, part_n) cursor
+                        ctx.wait(min(0.002 * no_progress, 0.05))
+            finally:
+                stop.set()
+                wsp.set_attr("delivered", delivered)
+                wsp.end()
+
+        return gen()
+
     # -- the Check family ------------------------------------------------
     def check_one(self, ctx: Context, cs: Strategy, r: RelationshipLike) -> bool:
         return self.check(ctx, cs, r)[0]
@@ -207,12 +519,32 @@ class Client:
     def check_all(self, ctx: Context, cs: Strategy, *rs: RelationshipLike) -> bool:
         return all(self.check(ctx, cs, *rs))
 
+    def check_iter(
+        self,
+        ctx: Context,
+        cs: Strategy,
+        rs: Iterable[RelationshipLike],
+        *,
+        chunk_size: int = CHECK_CHUNK,
+    ) -> Iterator[bool]:
+        """Batched streaming checks, ``chunk_size`` a dispatch
+        (client/client.go:164-180)."""
+        batch: List[RelationshipLike] = []
+        for r in rs:
+            batch.append(r)
+            if len(batch) >= chunk_size:
+                yield from self.check(ctx, cs, *batch)
+                batch.clear()
+        if batch:
+            yield from self.check(ctx, cs, *batch)
+
     def check(
         self, ctx: Context, cs: Strategy, *rs: RelationshipLike
     ) -> List[bool]:
         """Batched permission check: one device dispatch at the snapshot
         the strategy selects, host-oracle resolution for flagged rows,
         under the retry envelope."""
+        self._check_overlap(ctx)
         rels = [as_relationship(r) for r in rs]
         if not rels:
             return []
@@ -261,6 +593,7 @@ class Client:
         envelope like checks do."""
         from .engine.lookup import lookup_resources_device
 
+        self._check_overlap(ctx)
         subj_type, subj_id, subj_rel = parse_object_set(subject)
         obj_type, obj_rel = parse_typed_relation(permission)
         snap = self._store.snapshot_for(cs)
@@ -289,6 +622,7 @@ class Client:
         (client/client.go:554-599)."""
         from .engine.lookup import lookup_subjects_device
 
+        self._check_overlap(ctx)
         res_type, res_id, _ = parse_object_set(resource)
         subj_type, _, subj_rel = subject.partition("#")
         snap = self._store.snapshot_for(cs)
@@ -321,6 +655,7 @@ class Client:
         otherwise)."""
         from .engine.lookup import lookup_resources_page as page
 
+        self._check_overlap(ctx)
         subj_type, subj_id, subj_rel = parse_object_set(subject)
         obj_type, obj_rel = parse_typed_relation(permission)
 
@@ -343,6 +678,7 @@ class Client:
         lookup_resources_page for the cursor contract)."""
         from .engine.lookup import lookup_subjects_page as page
 
+        self._check_overlap(ctx)
         res_type, res_id, _ = parse_object_set(resource)
         subj_type, _, subj_rel = subject.partition("#")
 

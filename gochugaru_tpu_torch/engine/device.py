@@ -9,7 +9,11 @@ it incrementally: the base tensors stay resident and only the small
 ``dl_*`` overlays of engine/flat.py ``build_delta_arrays`` ship, so a
 write costs O(delta) on the device, not a re-index.  ``check_columns`` /
 ``check_batch`` run a batch through the flat program, returning the
-(definite, possible, overflow) planes.  Possible-but-not-definite and
+(definite, possible, overflow) planes.  A batch the flat program cannot
+serve — more distinct permissions than ``flat_max_slots``, a snapshot
+without flat tables (a graph whose keys do not pack into int32, or
+``EngineConfig(use_flat=False)``) — runs on the legacy two-phase program
+(engine/legacy.py) on the same device instead.  Possible-but-not-definite and
 overflow rows are settled by the caller on the host oracle.  A schema
 with caveats gets a ``caveat_plan`` (caveats/device.py): stored contexts
 ship as ``ectx_*`` tables, each batch's request contexts as ``qctx``
@@ -31,7 +35,7 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..caveats.device import build_caveat_plan, encode_contexts
+from ..caveats.device import build_caveat_plan, encode_contexts, make_tri_fn
 from ..rel.relationship import Relationship, WILDCARD_ID
 from ..schema.compiler import CompiledSchema
 from ..store.snapshot import Snapshot
@@ -41,6 +45,7 @@ from .flat import (
     make_flat_fn,
 )
 from .kernels import spec_tensors
+from .legacy import LegacyProgram, legacy_tables
 from .packed import narrow_nodes
 from .plan import DevicePlan, EngineConfig, build_plan
 from .spmv import frontier_static_ok
@@ -111,8 +116,9 @@ class DeviceSnapshot:
     arrays: Dict[str, torch.Tensor]
     tid_map: torch.Tensor  # int32[num_schema_types] → interner type id
     snapshot: Snapshot
-    #: static geometry of the flat engine's tables
-    flat_meta: FlatMeta
+    #: static geometry of the flat engine's tables (None: the snapshot
+    #: has none, and every batch runs on the legacy program)
+    flat_meta: Optional[FlatMeta]
     #: per packed table, its decode spec as the kernel reads it
     #: (fields, dictionaries), uploaded once here
     specs: Dict[str, Tuple[torch.Tensor, torch.Tensor]]
@@ -139,6 +145,9 @@ class DeviceSnapshot:
     #: packed (the flat program never reads them; the reference ships
     #: them lazily for its legacy kernel), carried along a delta chain
     host_arrays: Optional[Dict[str, np.ndarray]] = None
+    #: the legacy program's tables (engine/legacy.py legacy_tables),
+    #: built on the first batch this snapshot serves there
+    legacy_cache: Optional[Dict[str, torch.Tensor]] = None
 
 
 def _resolve_kernels(config: EngineConfig, device: torch.device) -> bool:
@@ -176,11 +185,12 @@ def arrays_from_reference(
 ) -> Tuple[Dict[str, torch.Tensor], FlatMeta]:
     """The reference package's prepared arrays (``DeviceSnapshot.arrays``
     fetched to numpy) and FlatMeta as the port's device tensors and
-    FlatMeta — both engines then probe identical tables.  ``device`` is
-    ``cuda`` unless the caller names one (``resolve_device``)."""
+    FlatMeta (None stays None: a snapshot without flat tables) — both
+    engines then probe identical tables.  ``device`` is ``cuda`` unless
+    the caller names one (``resolve_device``)."""
     dev = resolve_device(device)
     arrays = {k: to_device_tensor(np.asarray(v), dev) for k, v in np_arrays.items()}
-    return arrays, _meta_from(flat_meta)
+    return arrays, None if flat_meta is None else _meta_from(flat_meta)
 
 
 def _pad_rows(a: np.ndarray, n: int) -> np.ndarray:
@@ -219,7 +229,7 @@ class DeviceEngine:
     ) -> None:
         self.compiled = compiled
         self.plan: DevicePlan = build_plan(compiled)
-        self.config = config or EngineConfig()
+        self.config = config or EngineConfig.for_schema(compiled)
         #: the schema's caveat lowering (None without caveats):
         #: ``caveat_plan.host_only[cid]`` marks a caveat the device
         #: cannot evaluate, whose rows the host oracle settles
@@ -233,6 +243,14 @@ class DeviceEngine:
             )
         self.device = resolve_device(device)
         self.kernels = _resolve_kernels(self.config, self.device)
+        #: the legacy two-phase program (engine/legacy.py): batches the
+        #: flat program cannot serve
+        cp = self.caveat_plan
+        self.legacy = LegacyProgram(
+            self.plan, self.config,
+            tri=None if cp is None else make_tri_fn(cp),
+            num_params=1 if cp is None else cp.num_params,
+        )
         self._flat_fns: Dict[Any, Any] = {}
         #: the context-free query tables (host form and device form),
         #: built once: most checks carry no request context
@@ -321,16 +339,16 @@ class DeviceEngine:
 
     def _host_build(self, snap: Snapshot):
         """(device-bound numpy arrays, FlatMeta, caveat string pool, fold
-        state, closure state, host-kept raw columns)."""
+        state, closure state, host-kept raw columns).  The FlatMeta is
+        None — and the raw columns ship, for the legacy program — with
+        ``use_flat=False`` or when the graph's keys do not pack."""
         arrays = self._host_arrays(snap)
         ectx, strings = self._ectx_tables(snap)
         arrays.update(ectx)
-        built = build_flat_arrays(snap, self.config, plan=self.plan)
+        built = (build_flat_arrays(snap, self.config, plan=self.plan)
+                 if self.config.use_flat else None)
         if built is None:
-            raise NotImplementedError(
-                "graphs whose dense keys do not pack into int32 need the"
-                " legacy two-phase kernel, a later slice of the port"
-            )
+            return arrays, None, strings, None, None, None
         flat_arrays, flat_meta, fold_state, closure_state = built
         arrays.update(flat_arrays)
         host_arrays = None
@@ -396,7 +414,7 @@ class DeviceEngine:
         old = prev.specs if prev is not None else {}
         specs = {
             k: old[k] if k in old else spec_tensors(spec, self.device)
-            for k, spec in flat_meta.packed
+            for k, spec in (flat_meta.packed if flat_meta is not None else ())
         }
         return DeviceSnapshot(
             revision=snap.revision,
@@ -461,7 +479,8 @@ class DeviceEngine:
         build_delta_arrays bails, the stored-context bucket or the node
         bucket is outgrown, or a fresh type id would wrap the narrowed
         node_type."""
-        if not (self.config.flat_blockslice and self._delta_prev_ok(prev)):
+        if not (self.config.use_flat and self.config.flat_blockslice
+                and self._delta_prev_ok(prev)):
             return None
         built = build_delta_arrays(snap, prev, self.compiled, self.config)
         if built is None:
@@ -525,7 +544,8 @@ class DeviceEngine:
         """A DeviceSnapshot over the reference package's prepared arrays
         (``arrays_from_reference``; its ``ectx_*`` context tables
         included) and its caveat string pool — the parity harness's
-        entry."""
+        entry.  A ``flat_meta`` of None carries a legacy-only snapshot
+        (the raw columns)."""
         arrays, meta = arrays_from_reference(np_arrays, flat_meta, self.device)
         return self._snapshot(snap, arrays, meta,
                               None if strings is None else dict(strings))
@@ -588,6 +608,18 @@ class DeviceEngine:
             "q_srel": q_srel, "q_wc": q_wc, "q_ctx": q_ctx, "q_self": q_self,
         }
         return queries, self._encode_query_contexts(ctx_rows, strings)
+
+    @staticmethod
+    def _unique_subjects(queries: Dict[str, np.ndarray]) -> np.ndarray:
+        """The unique (subject, subject relation, wildcard node, request
+        context) rows the legacy program's closure phase runs on — the
+        context is part of the key because caveat gates make closures
+        context-dependent.  Sets ``queries["q_row"]``."""
+        subj_key = np.stack([queries["q_subj"], queries["q_srel"],
+                             queries["q_wc"], queries["q_ctx"]], axis=1)
+        uniq, q_row = np.unique(subj_key, axis=0, return_inverse=True)
+        queries["q_row"] = q_row.reshape(-1).astype(np.int32)
+        return uniq.astype(np.int32)
 
     def _encode_query_contexts(
         self, ctx_rows: List[Mapping], strings: Optional[Dict[str, int]]
@@ -685,16 +717,16 @@ class DeviceEngine:
         bucket_min: int = 0,
     ):
         """The flat program + its padded argument tuple — the ONE place
-        that knows its signature."""
+        that knows its signature.  None where the reference's returns
+        None: the snapshot has no flat tables, or the batch asks for more
+        distinct permissions than ``flat_max_slots``."""
+        if dsnap.flat_meta is None:
+            return None
         slots = tuple(
             sorted({int(s) for s in np.unique(queries["q_perm"]) if s >= 0})
         )
         if len(slots) > self.config.flat_max_slots:
-            raise NotImplementedError(
-                f"{len(slots)} distinct permissions in one batch (more than"
-                f" flat_max_slots={self.config.flat_max_slots}) need the"
-                " legacy kernel, a later slice of the port"
-            )
+            return None
         fn = self._flat_fn_for(slots, dsnap.flat_meta)
         BP = _ceil_pow2(B, max(bucket_min, self.config.batch_bucket_min))
         qm = torch.from_numpy(build_qm(queries, BP, dsnap.flat_meta)).to(
@@ -703,13 +735,48 @@ class DeviceEngine:
         return fn, (dsnap.arrays, dsnap.tid_map, int(now), qm,
                     self._qctx_device(qctx), dsnap.specs)
 
+    def _legacy_arrays(self, dsnap: DeviceSnapshot) -> Dict[str, torch.Tensor]:
+        """The legacy program's tables for ``dsnap``, built once and
+        cached on it.  A delta-prepared snapshot shares its base
+        revision's tensors, so its raw columns are built here from its
+        own (tip) snapshot — the base's would serve stale edges; its
+        ``ectx_*`` tables are already the tip's.  A full prepare's raw
+        columns are its host-kept ones (packed tables) or already on the
+        device."""
+        if dsnap.legacy_cache is None:
+            merged = dict(dsnap.arrays)
+            if dsnap.delta_acc is not None:
+                raw = self._host_arrays(dsnap.snapshot)
+            else:
+                raw = dsnap.host_arrays or {}
+            merged.update(
+                {k: to_device_tensor(v, self.device) for k, v in raw.items()})
+            dsnap.legacy_cache = legacy_tables(merged)
+        return dsnap.legacy_cache
+
+    def _run_legacy(self, dsnap, queries, qctx, now):
+        """One batch on the legacy program, on the engine's device."""
+        metrics.default.inc("checks.legacy")
+        uniq = self._unique_subjects(queries)
+        dev = self.device
+        u = {k: torch.from_numpy(np.ascontiguousarray(uniq[:, i])).to(dev)
+             for i, k in enumerate(("u_subj", "u_srel", "u_wc", "u_qctx"))}
+        q = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+             for k, v in queries.items()}
+        with torch.no_grad():
+            return self.legacy(self._legacy_arrays(dsnap), dsnap.tid_map, now,
+                               u, q, self._qctx_device(qctx))
+
     def _run(self, dsnap, queries, qctx, now_us, B, bucket_min: int = 0):
         faults.fire("device.dispatch")
         now = dsnap.snapshot.now_rel32(now_us)
-        fn, args = self.flat_fn_and_args(dsnap, queries, qctx, now, B,
-                                         bucket_min)
-        with torch.no_grad():
-            d, p, ovf = fn(*args)
+        got = self.flat_fn_and_args(dsnap, queries, qctx, now, B, bucket_min)
+        if got is None:
+            d, p, ovf = self._run_legacy(dsnap, queries, qctx, now)
+        else:
+            fn, args = got
+            with torch.no_grad():
+                d, p, ovf = fn(*args)
         # one device→host copy for the three planes
         planes = torch.stack([d[:B], p[:B], ovf[:B]]).cpu().numpy()
         return planes[0], planes[1], planes[2]

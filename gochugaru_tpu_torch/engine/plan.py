@@ -7,12 +7,15 @@ global topological update order, and schema-derived iteration bounds.  None
 of this touches tuple data — it is fixed at WriteSchema time.
 
 ``EngineConfig`` holds the static capacity caps; queries beyond a cap are
-flagged and re-checked on the host oracle.
+flagged and re-checked on the host oracle.  ``EngineConfig.for_schema``
+derives the legacy program's hop caps from the schema's depth analysis:
+non-recursive schemas get provably sufficient caps, recursive ones keep
+the configurable defaults with overflow detection.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Dict, List, Optional, Tuple
 
 from ..schema.ast import (
@@ -40,6 +43,17 @@ class EngineConfig:
     The defaults equal the reference package's, so both build identical
     tables from the same snapshot."""
 
+    # -- the legacy two-phase program (engine/legacy.py) ----------------
+    closure_size: int = 256  # max usersets a subject transitively belongs to
+    seed_cap: int = 64  # max direct group memberships gathered per subject
+    prop_cap: int = 8  # max parents per userset per closure hop
+    closure_hops: int = 8  # userset-nesting depth walked on device
+    subgraph_nodes: int = 8  # max arrow-reachable nodes per resource
+    eval_iters: int = 2  # fixpoint iterations over the rewrite system
+    #: checks use the flat program; False serves every batch on the
+    #: legacy two-phase program (so does a batch with more distinct
+    #: permissions than flat_max_slots, or a graph whose keys do not pack)
+    use_flat: bool = True
     arrow_fanout: int = 4  # max tuples walked per (node, tupleset relation)
     us_leaf_cap: int = 8  # max userset grants tested per (node, relation)
     batch_bucket_min: int = 8  # pad batch counts to pow2 ≥ this
@@ -131,6 +145,38 @@ class EngineConfig:
     #: delta chain's snapshots, or ones without the reverse-CSR index
     lookup_prewarm: bool = True
 
+    @staticmethod
+    def for_schema(compiled: CompiledSchema, **overrides) -> "EngineConfig":
+        """The defaults with the legacy program's hop caps derived from
+        the schema, then ``overrides``."""
+        cfg = EngineConfig()
+        userset_depth = _userset_depth(compiled)
+        arrow_depth = _arrow_depth(compiled)
+        if userset_depth == 0:
+            cfg = replace(cfg, closure_hops=0)
+        elif userset_depth > 0:
+            cfg = replace(cfg, closure_hops=min(userset_depth, cfg.closure_hops))
+        # -1 (cyclic): keep the default cap.
+        if arrow_depth == 0:
+            cfg = replace(cfg, subgraph_nodes=1)
+        elif arrow_depth > 0:
+            # acyclic arrows: the subgraph is as deep as the longest
+            # type-level arrow chain (fanout beyond the cap overflows)
+            cfg = replace(cfg, subgraph_nodes=max(2, min(1 + 2 * arrow_depth, 32)))
+        # Fixpoint iterations: one topo-ordered pass resolves any acyclic
+        # rewrite system; cycles through evaluation dependencies propagate
+        # one step per iteration, so the bound covers the cycle length AND
+        # the subgraph chain length.  Userset recursion is the closure
+        # phase's job and forces no iterations here.
+        rec = _eval_recursion_bound(compiled)
+        if rec == 0:
+            cfg = replace(cfg, eval_iters=1)
+        else:
+            cfg = replace(
+                cfg, eval_iters=min(32, max(cfg.subgraph_nodes, rec + 1))
+            )
+        return replace(cfg, **overrides)
+
     def packed_on(self) -> bool:
         """The resolved flat_packed flag (None = auto: packed whenever
         the blockslice layout is active)."""
@@ -172,6 +218,36 @@ def _longest_path(edges: Dict) -> Tuple[int, set]:
     return (-1 if cyclic_nodes else m), cyclic_nodes
 
 
+def _userset_depth(compiled: CompiledSchema) -> int:
+    """Nesting depth of the relation-userset graph: 0 = no relation admits
+    userset subjects; -1 = cyclic (groups-in-groups); else the max depth."""
+    edges: Dict[Tuple[str, str], List[Tuple[str, str]]] = {}
+    for tname, d in compiled.schema.definitions.items():
+        for rname, relation in d.relations.items():
+            for a in relation.allowed:
+                if a.relation:
+                    edges.setdefault((tname, rname), []).append((a.type, a.relation))
+    depth, _ = _longest_path(edges)
+    return depth
+
+
+def _arrow_depth(compiled: CompiledSchema) -> int:
+    """Longest type-level chain of arrow (tupleset) traversals: 0 = no
+    arrows, -1 = cyclic (recursive hierarchies), else the max chain
+    length.  It bounds the resource-subgraph BFS, which walks only arrow
+    edges."""
+    edges: Dict[str, set] = {}
+    for tname, d in compiled.schema.definitions.items():
+        for perm in d.permissions.values():
+            for ref in _expr_refs(perm.expr):
+                if isinstance(ref, Arrow):
+                    for a in d.relations[ref.left].allowed:
+                        if not a.wildcard:
+                            edges.setdefault(tname, set()).add(a.type)
+    depth, _ = _longest_path(edges)
+    return depth
+
+
 def _eval_dep_graph(
     compiled: CompiledSchema,
 ) -> Dict[Tuple[str, str], List[Tuple[str, str]]]:
@@ -192,6 +268,16 @@ def _eval_dep_graph(
                             deps.append((a.type, ref.right))
             edges[(tname, pname)] = deps
     return edges
+
+
+def _eval_recursion_bound(compiled: CompiledSchema) -> int:
+    """Cycle bound for the fixpoint ITERATION (not the closure): 0 if
+    acyclic, else the number of nodes observed on cycles — an upper bound
+    on the extra propagation steps a cycle needs."""
+    depth, cyclic_nodes = _longest_path(_eval_dep_graph(compiled))
+    if depth >= 0:
+        return 0
+    return max(1, len(cyclic_nodes))
 
 
 def _eval_cyclic_pairs(compiled: CompiledSchema) -> frozenset:

@@ -521,3 +521,29 @@ def event_if_active(name: str, **attrs) -> None:
     if sp is not None:
         sp.event(name, **attrs)
 
+
+
+# -- incident hooks ----------------------------------------------------------
+
+#: the installed flight recorder (None: none).  The recorder itself —
+#: the ring of finished traces and the incident bundles — is not part of
+#: the port yet; anomaly sites call the two hooks below regardless
+_RECORDER: Optional[Any] = None
+
+
+def trigger_incident(name: str, **info) -> Optional[str]:
+    """Anomaly sites call this: one load + branch when no recorder is
+    installed, else fire the named trigger.  Returns the incident id
+    when one captures."""
+    r = _RECORDER
+    if r is None:
+        return None
+    return r.trigger(name, **info)
+
+
+def note_anomaly(kind: str) -> None:
+    """Windowed anomaly event (e.g. one shed): one load + branch when no
+    recorder is installed, else feeds the recorder's spike detector."""
+    r = _RECORDER
+    if r is not None:
+        r.note(kind)

@@ -233,14 +233,23 @@ def test_later_slices_raise_not_implemented():
 
 
 def test_batch_wider_than_flat_max_slots_raises(clients):
-    pc, _jc, _revs, _oracle = clients
+    """A batch with more distinct permissions than ``flat_max_slots`` no
+    longer raises: it runs on the legacy two-phase program, as the
+    reference's does, and answers as the reference client does."""
+    from gochugaru_tpu_torch.utils import metrics
+
+    pc, jc, _revs, _oracle = clients
     pc2 = new_evaluator(with_engine_config(EngineConfig(flat_max_slots=1)),
                         device="cpu", )
     pc2._store = pc.store
-    checks = [prel.must_from_triple("repo:r1", p, "user:u1")
-              for p in ("read", "admin")]
-    with pytest.raises(NotImplementedError):
-        pc2.check(background(), pcons.full(), *checks)
+    checks = [("repo:r1", p, f"user:u{u}") for p in ("read", "admin")
+              for u in range(6)]
+    before = metrics.default.counter("checks.legacy")
+    got = pc2.check(background(), pcons.full(),
+                    *[prel.must_from_triple(*t) for t in checks])
+    assert metrics.default.counter("checks.legacy") > before
+    assert got == jc.check(j_background(), jcons.full(),
+                           *[jrel.must_from_triple(*t) for t in checks])
 
 
 def test_write_then_check_takes_the_delta_path():
