@@ -172,7 +172,29 @@ Phases (any failure exits non-zero and prints no result line):
    ``updates_since_revision`` stream equal to the store's log,
    ``read_relationships`` under three filters against
    ``export_relationships``, and an export -> import round trip into a
-   fresh client whose checks agree.
+   fresh client whose checks agree;
+13. the latency path (engine/latency.py: the flat program replayed as a
+   CUDA graph pinned per permission set, batch tier and context shape),
+   after phase 12, on the snapshots phases 4, 5 and 8 prepared, tiers
+   256/1,024/4,096: (a) at B = 1, 200, 256, 900, 1,100, 4,096 the replayed
+   planes equal check_columns' kernel planes and the plain planes (config
+   4's ``holder`` batch with request contexts too), B = 5,000 returns None
+   and check_columns_latency answers it; (b) 500 warm dispatches a tier
+   of jittered sizes on configs 2 and 3 under both layouts: no capture,
+   p50/p99 ms of the total and of each stage beside the eager
+   check_columns of every 5th batch; (c) the overflow world's expiring
+   edges through one pin at three clocks, equal to the eager program's,
+   the answers falling; (d) phase 10's chain, each revision's batch
+   through its latency path (each revision's first, capturing, dispatch
+   timed, then a warm one); (i) three writes on config 3 through the
+   delta prepare, each then 256 checks through the new revision's
+   latency path (cold: the capture), again (warm), and eagerly;
+   (f) 4 threads x 200 dispatches on one path;
+   (g) a ``with_latency_mode()`` cuda client, 1,000 checks vs the oracle;
+   (h) config 4's 100,000-check batch through check_columns_pipelined
+   in sub-batches of 32,768, beside one check_columns call;
+   block, gate (both layouts) and gate.cav must have launched inside a
+   capture.  It prints one ``latency: {...}`` line before the kernel table.
 
 Phases 4-8 are the main path: launch counts are zeroed before phase 4
 and read after phase 7, and every mode of both kernels, and the gate
@@ -182,7 +204,9 @@ main path): each runs with the counts
 set to 0 just before it and read just after (phase 11's are added back
 to the main path's), and each kernel of its layout must have launched.
 Phase 12 runs each of its parts with the counts set to 0 just before it
-and read just after, and (a)-(c) must launch no kernel.  Then
+and read just after, and (a)-(c) must launch no kernel; phase 13 runs
+with the counts set to 0 just before it and read just after (a kernel
+inside a CUDA graph counts at capture, never per replay).  Then
 each mode is timed at the largest shape the main path gave it, ``runs``
 also at its largest-cap call (the row's ``deep_bucket``) and each
 aligned mode also at its call with the most levels (the row's
@@ -2101,11 +2125,15 @@ def phase_config4(K, edges):
             same_planes(label, dk, planes["access"])
             same_planes(label + " holder", dh, planes["holder"])
         planes = {"access": dk, "holder": dh}
+        LATENCY_WORLDS[label] = dict(ek=ek, ep=ep, ds=ds, q=q, hq=hq, ctx=ctx)
         del ek, ep, ds
 
 
 #: full-prepare seconds of each check_world call, by name
 PREPARE_S = {}
+#: the prepared snapshots phase 13 reuses, by world name: engines (kernels
+#: and plain), the DeviceSnapshot, the batch, and config 4's contexts
+LATENCY_WORLDS = {}
 
 
 def check_world(name, cs, snap, q, names, K, ctx=None, **cfg):
@@ -2424,6 +2452,23 @@ def phase_overflow(K, **cfg):
         f" overflow rows={int(ovf.sum())}, definite rows agree with the oracle")
 
 
+def client_triples(rng):
+    """The client phases' RBAC world: 8 teams of 60 users, 4 orgs, 50
+    repos."""
+    triples = []
+    for t in range(8):
+        for u in rng.sample(range(60), 8):
+            triples.append((f"team:t{t}", "member", f"user:u{u}"))
+    for o in range(4):
+        triples.append((f"org:o{o}", "admin", f"user:u{rng.randrange(60)}"))
+        triples.append((f"org:o{o}", "member", f"team:t{rng.randrange(8)}#member"))
+    for r in range(50):
+        triples.append((f"repo:r{r}", "org", f"org:o{rng.randrange(4)}"))
+        triples.append((f"repo:r{r}", "maintainer", f"team:t{rng.randrange(8)}#member"))
+        triples.append((f"repo:r{r}", "reader", f"user:u{rng.randrange(60)}"))
+    return triples
+
+
 def phase_client(**cfg):
     """The client path (``cfg`` overrides EngineConfig fields through
     ``with_engine_config``) vs the oracle."""
@@ -2441,18 +2486,7 @@ def phase_client(**cfg):
         raise AssertionError(f"client is not on {DEV}")
     c.write_schema(ctx, RBAC_SCHEMA)
     rng = random.Random(17)
-    triples = []
-    for t in range(8):
-        for u in rng.sample(range(60), 8):
-            triples.append((f"team:t{t}", "member", f"user:u{u}"))
-    for o in range(4):
-        triples.append((f"org:o{o}", "admin", f"user:u{rng.randrange(60)}"))
-        triples.append((f"org:o{o}", "member", f"team:t{rng.randrange(8)}#member"))
-    for r in range(50):
-        triples.append((f"repo:r{r}", "org", f"org:o{rng.randrange(4)}"))
-        triples.append((f"repo:r{r}", "maintainer", f"team:t{rng.randrange(8)}#member"))
-        triples.append((f"repo:r{r}", "reader", f"user:u{rng.randrange(60)}"))
-    rels = [rel.must_from_triple(*t) for t in triples]
+    rels = [rel.must_from_triple(*t) for t in client_triples(rng)]
     txn = rel.Txn()
     for r in rels:
         txn.create(r)
@@ -3098,9 +3132,15 @@ def feature_checks(rng, n_users, n_groups, n_docs, n):
     return out
 
 
-def chain_step_planes(name, ek, ep, ds, snap, checks, programs, full=None):
+def chain_step_planes(name, ek, ep, ds, snap, checks, programs, full=None,
+                      lat=None):
     """One revision of a mixed chain: kernel planes == plain planes (and
-    == a full prepare's, when given); definite rows vs the oracle."""
+    == a full prepare's, when given); definite rows vs the oracle.  With
+    ``lat`` (phase 13) the same batch also goes through the revision's
+    latency path twice (its first dispatch captures), whose planes must
+    equal the kernel planes; ``lat`` counts revisions and captures, keeps
+    the paths, and the seconds of each revision's first (cold) and second
+    (warm) latency-mode check_batch."""
     from gochugaru_tpu_torch.engine.oracle import SnapshotOracle, T
 
     dk = ek.check_batch(ds, checks, now_us=EPOCH)
@@ -3108,6 +3148,21 @@ def chain_step_planes(name, ek, ep, ds, snap, checks, programs, full=None):
     for nm, a, b in zip("dpo", dk, dp):
         if not np.array_equal(a, b):
             raise AssertionError(f"{name}: plane {nm} differs, kernels vs plain")
+    if lat is not None:
+        lp = ek.latency_path(ds)
+        n, c0 = lp.dispatch_count, lp.compile_count
+        for which in ("cold", "warm"):
+            t0 = time.perf_counter()
+            dl = ek.check_batch(ds, checks, now_us=EPOCH, latency=True)
+            lat[f"{which}_s"].append(time.perf_counter() - t0)
+            for nm, a, b in zip("dpo", dl, dk):
+                if not np.array_equal(a, b):
+                    raise AssertionError(f"{name}: latency plane {nm} differs from eager")
+        if lp.dispatch_count != n + 2:
+            raise AssertionError(f"{name}: the latency path did not serve the batch")
+        lat["revisions"] += 1
+        lat["captures"] += lp.compile_count - c0
+        lat["paths"].append(lp)
     if full is not None:
         df = ek.check_batch(full, checks, now_us=EPOCH)
         for nm, a, b in zip("dpo", dk, df):
@@ -3124,10 +3179,11 @@ def chain_step_planes(name, ek, ep, ds, snap, checks, programs, full=None):
     return dk
 
 
-def phase_delta_chain(K, **cfg):
+def phase_delta_chain(K, lat=None, **cfg):
     """Phase 10: a mixed Watch chain on the feature world, then caveated
     adds with fresh stored contexts on config 4's schema (see the module
-    docstring)."""
+    docstring).  With ``lat`` (phase 13 (d)) the chain alone, each
+    revision's batch also through its latency path."""
     from gochugaru_tpu_torch import rel
     from gochugaru_tpu_torch.caveats import compile_cel
     from gochugaru_tpu_torch.engine.device import DeviceEngine
@@ -3137,7 +3193,8 @@ def phase_delta_chain(K, **cfg):
     from gochugaru_tpu_torch.store.interner import Interner
     from gochugaru_tpu_torch.store.snapshot import build_snapshot
 
-    tag = "delta chain" + (" aligned" if cfg.get("flat_aligned") else "")
+    tag = ("delta chain" + (" aligned" if cfg.get("flat_aligned") else "")
+           + (" latency" if lat is not None else ""))
     n_users, n_groups, n_folders, n_docs = 400, 60, 150, 1500
     rng = random.Random(29)
     rels = feature_rels(rng, n_users, n_groups, n_folders, n_docs)
@@ -3225,7 +3282,7 @@ def phase_delta_chain(K, **cfg):
                 for a in adds + deletes if a.resource_relation == "folder"
                 for _ in range(8)]
             chain_step_planes(f"{tag} rev {revision}", ek, ep, ds, snap, checks,
-                              programs, full=ek.prepare(snap))
+                              programs, full=ek.prepare(snap), lat=lat)
             log_rows.append((revision, inc, round(ms, 3), len(adds), len(deletes)))
             if not inc:
                 log(f"{tag}: rev {revision} bailed to a full prepare"
@@ -3244,7 +3301,8 @@ def phase_delta_chain(K, **cfg):
     want = {"has_tombs", "has_us", "has_ustomb", "has_ar", "has_artomb", "t_dirty"}
     if not want <= flags:
         raise AssertionError(f"{tag}: delta sites never exercised: {sorted(want - flags)}")
-    phase_delta_contexts(K, **cfg)
+    if lat is None:
+        phase_delta_contexts(K, **cfg)
 
 
 def phase_delta_contexts(K, **cfg):
@@ -3678,6 +3736,384 @@ def _store_updates(store, since, until):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the latency path (engine/latency.py) on pinned CUDA graphs
+# ---------------------------------------------------------------------------
+
+#: the batch tiers phase 13 runs (the EngineConfig default)
+LAT_TIERS = (256, 1024, 4096)
+#: (a)'s batch sizes: each tier's edges, and one past the top tier
+LAT_PARITY_B = (1, 200, 256, 900, 1100, 4096)
+#: (b)'s warm dispatches per tier, and every how many of them the eager
+#: check_columns of the same batch is timed beside it
+LAT_WARM = 500
+LAT_EAGER_EVERY = 5
+LAT_STAGES = ("total_s", "host_lower_s", "h2d_s", "kernel_s", "d2h_s")
+
+
+def _ms_p(xs):
+    """[p50, p99] in ms."""
+    return [float(np.percentile(xs, 50) * 1e3), float(np.percentile(xs, 99) * 1e3)]
+
+
+def _ms_p50_max(xs):
+    """[p50, max] in ms."""
+    return [float(np.percentile(xs, 50) * 1e3), float(np.max(xs) * 1e3)]
+
+
+def _lat_same(name, got, *wants):
+    for want in wants:
+        for nm, a, b in zip("dpo", got, want):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"{name}: latency plane {nm} differs")
+
+
+def _lat_modes(paths):
+    """Kernel launches per mode inside the captures of ``paths``' pins."""
+    out = {}
+    for lp in paths:
+        for pin in lp.pins().values():
+            for k, n in pin.modes.items():
+                out[k] = out.get(k, 0) + n
+    return out
+
+
+def lat_parity(name, w, ctx=None, q=None):
+    """(a): replayed planes == check_columns' kernel planes == the plain
+    planes at each of LAT_PARITY_B; a batch past the top tier returns None
+    and check_columns_latency answers it.  Returns the path."""
+    ek, ep, ds = w["ek"], w["ep"], w["ds"]
+    q = q if q is not None else w["q"]
+    lp = ek.latency_path(ds)
+    for B in LAT_PARITY_B + (5000,):
+        sl = slice(0, B)
+        kw = dict(now_us=EPOCH)
+        if ctx is not None:
+            kw.update(q_ctx=ctx[0][sl], qctx_rows=ctx[1])
+        cols = (q[0][sl], q[1][sl], q[2][sl])
+        want = ek.check_columns(ds, *cols, **kw)
+        got = lp.dispatch_columns(*cols, **kw)
+        if B > max(LAT_TIERS):
+            if got is not None:
+                raise AssertionError(f"{name}: B={B} past the top tier was served")
+            got = ek.check_columns_latency(ds, *cols, **kw)
+        _lat_same(f"{name} B={B}", got, want, ep.check_columns(ds, *cols, **kw))
+    log(f"{name}: latency planes == kernel planes == plain planes at"
+        f" B={list(LAT_PARITY_B)}; B=5000 -> None, check_columns_latency equal;"
+        f" captures {lp.compile_count}, modes in captures {_lat_modes([lp])}")
+    return lp
+
+
+def lat_warm(name, w, rng):
+    """(b): LAT_WARM warm dispatches per tier of jittered sizes within it:
+    no capture, dispatch_count + LAT_WARM; p50/p99 ms of each stage, and of
+    the eager check_columns of every LAT_EAGER_EVERY-th batch."""
+    ek, ds, q = w["ek"], w["ds"], w["q"]
+    lp = ek.latency_path(ds)
+    out = {}
+    lo = 0
+    n_q = q[0].shape[0]
+    for tier in LAT_TIERS:
+        batches = []
+        for _ in range(LAT_WARM):
+            B = int(rng.integers(lo + 1, tier + 1))
+            at = int(rng.integers(0, n_q - B))
+            batches.append((q[0][at:at + B], q[1][at:at + B], q[2][at:at + B]))
+        # a pin per (slots, tier): capture each permission set the warm
+        # batches ask for first (a capture is not a warm sample)
+        seen = {}
+        for cols in batches:
+            seen.setdefault(tuple(np.unique(cols[1])), cols)
+        for cols in seen.values():
+            lp.dispatch_columns(*cols, now_us=EPOCH)
+        c0, n0 = lp.compile_count, lp.dispatch_count
+        stages = {k: [] for k in LAT_STAGES}
+        eager = []
+        for i, cols in enumerate(batches):
+            lp.dispatch_columns(*cols, now_us=EPOCH)
+            b = lp.last_budget
+            if b.tier != tier or b.compiled:
+                raise AssertionError(f"{name}: B={B} left tier {tier} or captured")
+            for k in LAT_STAGES:
+                stages[k].append(getattr(b, k))
+            if i % LAT_EAGER_EVERY == 0:
+                t0 = time.perf_counter()
+                ek.check_columns(ds, *cols, now_us=EPOCH)
+                eager.append(time.perf_counter() - t0)
+        if lp.compile_count != c0 or lp.dispatch_count != n0 + LAT_WARM:
+            raise AssertionError(
+                f"{name}: tier {tier}: captures {c0} -> {lp.compile_count},"
+                f" dispatches {n0} -> {lp.dispatch_count} over {LAT_WARM} warm")
+        row = {k.replace("_s", ""): _ms_p(v) for k, v in stages.items()}
+        row["eager"] = _ms_p(eager)
+        row["n"], row["n_eager"], row["pins"] = LAT_WARM, len(eager), len(seen)
+        out[str(tier)] = row
+        log(f"{name}: tier {tier}: {LAT_WARM} warm dispatches, no capture;"
+            f" p50/p99 ms {json.dumps(row)}")
+        lo = tier
+    return out
+
+
+def lat_now_live(K):
+    """(c): the closure-overflow world of phase 6, queried on its expiring
+    edges, through one pin at three clocks: the answers change exactly as
+    the eager program's, with no recapture."""
+    from gochugaru_tpu_torch.engine.device import DeviceEngine
+    from gochugaru_tpu_torch.engine.plan import EngineConfig
+    from gochugaru_tpu_torch.schema import compile_schema, parse_schema
+    from gochugaru_tpu_torch.store.interner import Interner
+    from gochugaru_tpu_torch.store.snapshot import build_snapshot
+
+    rels, _n_docs, _n_users = ovf_rels(5, 20_000)
+    cs = compile_schema(parse_schema(OVF_SCHEMA))
+    snap = build_snapshot(1, cs, Interner(), rels, epoch_us=EPOCH)
+    ek = DeviceEngine(cs, EngineConfig(kernels=DEV == "cuda" or None,
+                                       closure_source_cap=4), device=DEV)
+    ds = ek.prepare(snap)
+    exp = [r for r in rels if r.expiration is not None and r.subject_relation == ""
+           and r.subject_id != "*"][:1000]
+    it = snap.interner
+    q = (np.array([it.lookup(r.resource_type, r.resource_id) for r in exp], np.int32),
+         np.array([cs.slot_of_name[r.resource_relation] for r in exp], np.int32),
+         np.array([it.lookup(r.subject_type, r.subject_id) for r in exp], np.int32))
+    lp = ek.latency_path(ds)
+    nows = (EPOCH, EPOCH + 3 * 10**11, EPOCH + 2 * 10**12)
+    granted, caps = [], []
+    for now_us in nows:
+        got = lp.dispatch_columns(*q, now_us=now_us)
+        _lat_same(f"now-live at {now_us}", got, ek.check_columns(ds, *q, now_us=now_us))
+        granted.append(int(got[0].sum()))
+        caps.append(lp.compile_count)
+    if caps != [1, 1, 1] or not granted[0] > granted[1] > granted[2]:
+        raise AssertionError(f"now-live: captures {caps}, granted {granted}")
+    log(f"now-live: {len(exp)} expiring edges checked at {len(nows)} clocks through"
+        f" one pin: granted {granted} (== eager at each), captures {caps}")
+    return dict(edges=len(exp), granted=granted, captures=lp.compile_count), lp
+
+
+def lat_write(w, n_writes=3, B=256):
+    """(i): config 3's write -> first latency-mode check, as a Watch-fed
+    service sees it: each write (a viewer and a group member) is applied
+    to the previous revision (``apply_ms``) and prepared incrementally
+    (``prepare_ms``), the background lookup-index build that a delta
+    prepare starts is let end (untimed), then B checks go through the new
+    revision's latency path (the first dispatch captures its pin), again
+    (warm), and through the eager check_columns; all three equal."""
+    from gochugaru_tpu_torch import rel
+    from gochugaru_tpu_torch.store.delta import apply_delta
+
+    ek, ds, q = w["ek"], w["ds"], w["q"]
+    snap = ds.snapshot
+    rng = random.Random(43)
+    n_users, n_groups, _n_folders, n_docs = docs_sizes(w["scale"])
+    rows, paths = [], []
+    cols = (q[0][:B], q[1][:B], q[2][:B])
+    for i in range(n_writes):
+        adds = [rel.must_from_triple(f"document:d{rng.randrange(n_docs)}", "viewer",
+                                     f"user:u{rng.randrange(n_users)}"),
+                rel.must_from_tuple(f"group:g{rng.randrange(n_groups)}#member",
+                                    f"user:u{rng.randrange(n_users)}")]
+        t0 = time.perf_counter()
+        snap = apply_delta(snap, snap.revision + 1, adds, [], interner=snap.interner)
+        ta = time.perf_counter()
+        ds = ek.prepare(snap, prev=ds)
+        tp = time.perf_counter()
+        while ek._prewarm_inflight:
+            time.sleep(0.05)
+        t1 = time.perf_counter()
+        if ds.flat_meta.delta is None:
+            raise AssertionError(f"config3 latency write {i}: a full prepare")
+        lp = ek.latency_path(ds)
+        cold = lp.dispatch_columns(*cols, now_us=EPOCH)
+        t2 = time.perf_counter()
+        warm = lp.dispatch_columns(*cols, now_us=EPOCH)
+        t3 = time.perf_counter()
+        eager = ek.check_columns(ds, *cols, now_us=EPOCH)
+        t4 = time.perf_counter()
+        _lat_same(f"config3 latency write {i}", cold, warm, eager)
+        if lp.compile_count != 1:
+            raise AssertionError(f"config3 latency write {i}: {lp.compile_count} captures")
+        rows.append(dict(apply_ms=(ta - t0) * 1e3, prepare_ms=(tp - ta) * 1e3,
+                         cold_ms=(t2 - t1) * 1e3,
+                         warm_ms=(t3 - t2) * 1e3, eager_ms=(t4 - t3) * 1e3))
+        paths.append(lp)
+    log(f"config3 write -> first latency check ({B} checks; cold = the capturing"
+        f" dispatch): {json.dumps(rows)}")
+    return rows, paths
+
+
+def lat_threads(name, w, n_threads=4, n_dispatch=200, n_batches=20):
+    """(f): ``n_threads`` threads x ``n_dispatch`` dispatches on one path,
+    each answer equal to the eager planes of its own batch."""
+    import threading
+
+    ek, ds, q = w["ek"], w["ds"], w["q"]
+    lp = ek.latency_path(ds)
+    rng = np.random.default_rng(41)
+    batches = []
+    for _ in range(n_threads * n_batches):
+        B = int(rng.integers(1, 1025))
+        at = int(rng.integers(0, q[0].shape[0] - B))
+        cols = (q[0][at:at + B], q[1][at:at + B], q[2][at:at + B])
+        batches.append((cols, ek.check_columns(ds, *cols, now_us=EPOCH)))
+    errors = []
+
+    def worker(t):
+        try:
+            for i in range(n_dispatch):
+                cols, want = batches[t * n_batches + i % n_batches]
+                _lat_same(f"{name} thread {t}", lp.dispatch_columns(*cols, now_us=EPOCH), want)
+        except Exception as e:  # surfaced below
+            errors.append(e)
+
+    n0 = lp.dispatch_count
+    th = [threading.Thread(target=worker, args=(t,)) for t in range(n_threads)]
+    t0 = time.perf_counter()
+    for x in th:
+        x.start()
+    for x in th:
+        x.join()
+    if errors:
+        raise errors[0]
+    if lp.dispatch_count != n0 + n_threads * n_dispatch:
+        raise AssertionError(f"{name}: threads: {lp.dispatch_count - n0} dispatches")
+    s = time.perf_counter() - t0
+    log(f"{name}: {n_threads} threads x {n_dispatch} dispatches, each equal to its"
+        f" batch's eager planes, in {s:.3f}s")
+    return dict(threads=n_threads, dispatches=n_threads * n_dispatch, s=s)
+
+
+def lat_client(**cfg):
+    """(g): a ``cuda`` client with ``with_latency_mode()`` on phase 7's
+    client world: 1,000 checks of 1-64 relationships against the oracle;
+    ``latency.dispatches`` must move."""
+    from gochugaru_tpu_torch import consistency, rel
+    from gochugaru_tpu_torch.client import (
+        new_evaluator, with_engine_config, with_latency_mode)
+    from gochugaru_tpu_torch.engine.oracle import Oracle, T
+    from gochugaru_tpu_torch.engine.plan import EngineConfig
+    from gochugaru_tpu_torch.schema import compile_schema, parse_schema
+    from gochugaru_tpu_torch.utils import metrics
+    from gochugaru_tpu_torch.utils.context import background
+
+    ctx = background()
+    c = new_evaluator(with_latency_mode(), with_engine_config(EngineConfig(**cfg)),
+                      device=DEV)
+    c.write_schema(ctx, RBAC_SCHEMA)
+    rng = random.Random(17)
+    rels = [rel.must_from_triple(*t) for t in client_triples(rng)]
+    txn = rel.Txn()
+    for r in rels:
+        txn.create(r)
+    c.write(ctx, txn)
+    oracle = Oracle(compile_schema(parse_schema(RBAC_SCHEMA)), rels)
+    before = metrics.default.counter("latency.dispatches")
+    n_rels, t0 = 0, time.perf_counter()
+    for _ in range(1000):
+        checks = [rel.must_from_triple(f"repo:r{rng.randrange(50)}",
+                                       rng.choice(["read", "admin", "reader"]),
+                                       f"user:u{rng.randrange(60)}")
+                  for _ in range(rng.randint(1, 64))]
+        if c.check(ctx, consistency.full(), *checks) != [
+                oracle.check_relationship(r) == T for r in checks]:
+            raise AssertionError("latency client verdicts disagree with the oracle")
+        n_rels += len(checks)
+    s = time.perf_counter() - t0
+    moved = metrics.default.counter("latency.dispatches") - before
+    if moved <= 0:
+        raise AssertionError("latency client: the latency path never ran")
+    ds = c._dsnap_cache[max(c._dsnap_cache)]
+    log(f"latency client {cfg or ''}: 1000 checks ({n_rels} relationships) agree with"
+        f" the oracle; latency.dispatches +{int(moved)}; {s:.3f}s")
+    return dict(checks=1000, relationships=n_rels, dispatches=int(moved), s=s), ds.latency_path
+
+
+#: (h)'s sub-batch: the reference's accelerator default
+LAT_SUB_BATCH = 32_768
+
+
+def lat_pipelined(w):
+    """(h): config 4's 100,000-check batch through check_columns_pipelined
+    in sub-batches of LAT_SUB_BATCH equals check_columns; ms to the first
+    sub-batch and in total, beside one check_columns call."""
+    ek, ds, q, ctx = w["ek"], w["ds"], w["q"], w["ctx"]
+    kw = dict(q_ctx=ctx[0], qctx_rows=ctx[1], now_us=EPOCH)
+    want = ek.check_columns(ds, *q, **kw)
+    if DEV == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first, parts = None, []
+    for lo, hi, d, p, o in ek.check_columns_pipelined(
+            ds, *q, sub_batch=LAT_SUB_BATCH, **kw):
+        if first is None:
+            first = time.perf_counter() - t0
+        parts.append((lo, hi, d, p, o))
+    total = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    ek.check_columns(ds, *q, **kw)
+    whole = time.perf_counter() - t1
+    got = [np.concatenate([x[k] for x in parts]) for k in (2, 3, 4)]
+    _lat_same("pipelined", got, want)
+    out = dict(batch=int(q[0].shape[0]), sub_batch=LAT_SUB_BATCH,
+               sub_batches=len(parts), first_ms=first * 1e3, total_ms=total * 1e3,
+               check_columns_ms=whole * 1e3)
+    log(f"pipelined config4: planes == check_columns; {json.dumps(out)}")
+    return out
+
+
+def phase_latency(K, card):
+    """Phase 13 (see the module docstring).  Returns the ``latency:`` line's
+    object."""
+    t13 = time.perf_counter()
+    saved = dict(K.LAUNCHES), dict(K.LANES)
+    K.reset_launches()
+    W = LATENCY_WORLDS
+    paths, cells = [], {}
+    rng = np.random.default_rng(13)
+    for name in ("config2", "config2 aligned", "config3", "config3 aligned"):
+        paths.append(lat_parity(name, W[name]))
+        cells[name] = lat_warm(name, W[name], rng)
+    for name in ("config4", "config4 aligned"):
+        w = W[name]
+        paths.append(lat_parity(name + " holder", w, ctx=w["ctx"], q=w["hq"]))
+    now_live, lp = lat_now_live(K)
+    paths.append(lp)
+    lat = {"revisions": 0, "captures": 0, "paths": [], "cold_s": [], "warm_s": []}
+    phase_delta_chain(K, lat=lat)
+    paths += lat["paths"]
+    chain = dict(revisions=lat["revisions"], captures=lat["captures"],
+                 cold_ms=_ms_p50_max(lat["cold_s"]), warm_ms=_ms_p50_max(lat["warm_s"]))
+    log(f"delta chain latency: {lat['revisions']} revisions, each equal to its eager"
+        f" planes; the chain paid {lat['captures']} captures; check_batch ms"
+        f" [p50, max] cold (capturing) {chain['cold_ms']}, warm {chain['warm_ms']}")
+    write, lps = lat_write(W["config3"])
+    paths += lps
+    threads = lat_threads("config2", W["config2"])
+    client = {}
+    for label, cfg in (("off", {}), ("aligned", ALIGNED)):
+        client[label], lp = lat_client(**cfg)
+        paths.append(lp)
+    pipelined = lat_pipelined(W["config4"])
+    modes = _lat_modes(paths)
+    need = ("block", "gate", "aligned.block", "aligned.gate", "gate.cav")
+    missing = [m for m in need if not modes.get(m)]
+    if missing and DEV == "cuda":  # a CPU rehearsal captures nothing
+        raise AssertionError(f"phase 13: never launched inside a capture: {missing}")
+    got = {k: v for k, v in K.LAUNCHES.items() if v}
+    for k in K.LAUNCHES:
+        K.LAUNCHES[k] += saved[0][k]
+        K.LANES[k] += saved[1][k]
+    seconds = time.perf_counter() - t13
+    log(f"phase 13: {seconds:.1f}s; eager and capture launches {json.dumps(got)};"
+        f" launches inside captures {json.dumps(modes)}")
+    LATENCY_WORLDS.clear()
+    return dict(card=card, tiers=list(LAT_TIERS), cells=cells, now_live=now_live,
+                delta_chain=chain, write_then_check=write,
+                threads=threads, client=client, pipelined=pipelined,
+                captures=sum(lp.compile_count for lp in paths),
+                modes_in_captures=modes, launches=got, seconds=seconds)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--scale3", type=float, default=1.0,
@@ -3725,10 +4161,13 @@ def main() -> int:
         t0 = time.perf_counter()
         cs, snap, q, names = build_rbac()
         log(f"config2: world built in {time.perf_counter() - t0:.2f}s")
-        planes = check_world("config2", cs, snap, q, names, K)[3]
-        same_planes("config2 aligned",
-                    check_world("config2 aligned", cs, snap, q, names, K, **ALIGNED)[3],
-                    planes)
+        ek, ep, ds, planes = check_world("config2", cs, snap, q, names, K)
+        LATENCY_WORLDS["config2"] = dict(ek=ek, ep=ep, ds=ds, q=q)
+        ek, ep, ds, al_planes = check_world("config2 aligned", cs, snap, q, names,
+                                            K, **ALIGNED)
+        same_planes("config2 aligned", al_planes, planes)
+        LATENCY_WORLDS["config2 aligned"] = dict(ek=ek, ep=ep, ds=ds, q=q)
+        del ek, ep, ds
         log(f"launches after config2: {json.dumps(K.LAUNCHES)}")
         rbac = (cs, snap, q, names, planes)  # phase 12's world
         del snap
@@ -3748,6 +4187,7 @@ def main() -> int:
         del client
         answers = phase_lookups(cs, snap, ek, ep, ds, args.scale3, card)
         log(f"launches after config3 lookups: {json.dumps(K.LAUNCHES)}")
+        LATENCY_WORLDS["config3"] = dict(ek=ek, ep=ep, ds=ds, q=q, scale=args.scale3)
         del ek, ep, ds
         ek, ep, ds, al_planes = check_world("config3 aligned", cs, snap, q, names,
                                             K, **ALIGNED)
@@ -3755,6 +4195,7 @@ def main() -> int:
         phase_lookups(cs, snap, ek, ep, ds, args.scale3, card,
                       name="config3 aligned", want=answers)
         log(f"launches after config3 aligned: {json.dumps(K.LAUNCHES)}")
+        LATENCY_WORLDS["config3 aligned"] = dict(ek=ek, ep=ep, ds=ds, q=q)
         del snap, ek, ep, ds
         phase_config4(K, args.edges4)
         log(f"launches after config4: {json.dumps(K.LAUNCHES)}")
@@ -3796,6 +4237,9 @@ def main() -> int:
     own_launches(K, "client legacy", phase_legacy_client, need=())
     log(f"phase 12: {time.perf_counter() - t12:.1f}s")
 
+    # ---- phase 13: the latency path on pinned CUDA graphs ---------------
+    latency = phase_latency(K, card)
+
     # ---- per-mode timing at the largest main-path shape ----------------
     table = []
     for mode in K.MODES + (K.GATE_CAV,):
@@ -3818,6 +4262,7 @@ def main() -> int:
         row["lanes_total"] = lanes[f"aligned.{mode}"]
         table.append(row)
     log(f"smoke: {time.perf_counter() - t_smoke:.1f}s from start to the result")
+    print("latency: " + json.dumps(latency))
     print(json.dumps({"kernels": table}))
     print(card)
     print(json.dumps({"ok": True, "device": {

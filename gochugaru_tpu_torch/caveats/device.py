@@ -63,6 +63,7 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..engine.consts import scalar as _scalar
 from ..schema.compiler import CompiledSchema
 from .cel import (
     CelCompileError,
@@ -289,8 +290,9 @@ def _time_norm(hi, lo):
 
 def _const(v, dtype, like):
     """A VM constant: a 0-dim tensor of an explicit dtype on ``like``'s
-    device, so no operation promotes through a Python scalar."""
-    return torch.tensor(v, dtype=dtype, device=like.device)
+    device, so no operation promotes through a Python scalar; built once
+    per device (engine/consts.py)."""
+    return _scalar(v, dtype, like.device)
 
 
 def _tri(cond_t, known, vi):
@@ -871,11 +873,11 @@ def make_tri_fn(plan: CaveatDevicePlan):
             (tables["ectx_host"][e, cavc] & has_e)
             | (tables["qctx_host"][q, cavc] & has_q)
         )
-        unknown = torch.tensor(U, dtype=torch.int32, device=dev)
+        unknown = _scalar(U, torch.int32, dev)
         out = unknown.expand(cav.shape)
         for cid, fn in plan.programs.items():
             out = torch.where(cav == cid, fn(vi, vf, pr), out)
         out = torch.where(ho[cavc] | row_host, unknown, out)
-        return torch.where(cav == 0, torch.tensor(T, dtype=torch.int32, device=dev), out)
+        return torch.where(cav == 0, _scalar(T, torch.int32, dev), out)
 
     return tri

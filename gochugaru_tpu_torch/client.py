@@ -13,9 +13,16 @@ two-tier cascade:
 
 1. **Device**: one dispatch for the batch (engine/device.py: the flat
    program, or the legacy two-phase program for the batches it cannot
-   serve); definite answers return immediately.
+   serve; with ``with_latency_mode`` small batches replay a pinned CUDA
+   graph at a batch tier, engine/latency.py); definite answers return
+   immediately.
 2. **Host oracle** for the rows the device flagged: possible-but-not-
    definite results and static-cap overflows.
+
+Every check dispatch runs under the admission controller
+(utils/admission.py): a deadline-budget shed, a bounded in-flight gate,
+and the circuit breaker that reroutes latency-mode traffic to the batch
+path after consecutive transient failures (``with_admission_control``).
 
 Lookups expand candidates on the device over the reverse-CSR tables
 (engine/spmv.py) and filter them exactly with the same cascade
@@ -30,6 +37,7 @@ from __future__ import annotations
 
 import dataclasses as _dataclasses
 import threading
+import time as _time
 from typing import (
     Any, Callable, Dict, Iterable, Iterator, List, NamedTuple, Optional,
     Sequence, Tuple,
@@ -49,10 +57,12 @@ from .store.store import Store, parse_revision
 from .utils import faults
 from .utils import metrics as _metrics
 from .utils import trace as _trace
+from .utils.admission import AdmissionConfig, AdmissionController
 from .utils.context import Context
 from .utils.errors import (
     AlreadyExistsError, BulkCheckItemError, OverlapKeyMissingError,
     PartialDeletionError, PreconditionFailedError, UnavailableError,
+    classify_dispatch_exception,
 )
 from .utils.retry import retry_retriable_errors
 
@@ -94,6 +104,8 @@ class _Options:
     def __init__(self) -> None:
         self.overlap_required = False
         self.engine_config: Optional[EngineConfig] = None
+        self.latency_mode = False
+        self.admission: Optional[AdmissionConfig] = None
 
 
 Option = Callable[[_Options], None]
@@ -114,6 +126,35 @@ def with_engine_config(cfg: EngineConfig) -> Option:
 
     def opt(o: _Options) -> None:
         o.engine_config = cfg
+
+    return opt
+
+
+def with_latency_mode() -> Option:
+    """Route interactive-sized Check batches through the latency-mode
+    path (engine/latency.py): the flat program pinned as a CUDA graph per
+    batch tier over static buffers, replayed per dispatch, with a
+    per-stage budget published as ``latency.*`` metrics with live
+    p50/p99.  Batches the path cannot serve (beyond the top tier, too
+    many distinct permissions, no flat tables) take the throughput path
+    transparently."""
+
+    def opt(o: _Options) -> None:
+        o.latency_mode = True
+
+    return opt
+
+
+def with_admission_control(config: AdmissionConfig) -> Option:
+    """Tune the dispatch admission controller (utils/admission.py): the
+    bounded in-flight gate, the deadline-budget shed, and the latency-path
+    circuit breaker.  Admission is ON by default with generous limits;
+    this option tightens or disables it (``max_inflight=0`` no gate,
+    ``breaker_threshold=0`` no breaker, ``deadline_shed=False`` no
+    deadline-budget shedding)."""
+
+    def opt(o: _Options) -> None:
+        o.admission = config
 
     return opt
 
@@ -139,6 +180,9 @@ class Client:
         self._dsnap_cache: Dict[int, DeviceSnapshot] = {}
         self._oracle_cache: Dict[int, Oracle] = {}
         self._metrics = _metrics.default
+        self._latency_mode = o.latency_mode
+        #: the gate, the deadline budget and the latency-path breaker
+        self._admission = AdmissionController(o.admission)
 
     @property
     def store(self) -> Store:
@@ -543,20 +587,59 @@ class Client:
     ) -> List[bool]:
         """Batched permission check: one device dispatch at the snapshot
         the strategy selects, host-oracle resolution for flagged rows,
-        under the retry envelope."""
+        under the admission controller and the retry envelope."""
         self._check_overlap(ctx)
         rels = [as_relationship(r) for r in rs]
         if not rels:
             return []
         self._metrics.inc("checks.requested", len(rels))
-        return retry_retriable_errors(
-            ctx, lambda: self._evaluate(self._store.snapshot_for(cs), rels)
-        )
+        return retry_retriable_errors(ctx, lambda: self._admitted(
+            ctx, lambda: self._evaluate(self._store.snapshot_for(cs), rels)))
+
+    def _admitted(self, ctx: Context, work):
+        """The admission envelope of a device-dispatching request: the
+        deadline-budget shed before any device work, the bounded
+        in-flight gate around ``work()``, and the cost observation that
+        feeds the deadline estimate after."""
+        adm = self._admission
+        span = _trace.span_of(ctx)
+        adm.check_deadline(ctx, span=span)
+        t_disp = _time.perf_counter()
+        with adm.gate.admit(span=span):
+            out = work()
+        adm.observe_cost(_time.perf_counter() - t_disp)
+        return out
 
     def _evaluate(self, snap: Snapshot, rels: List[Relationship]) -> List[bool]:
+        """One device dispatch with classified failures feeding the
+        circuit breaker, then host-oracle resolution of flagged rows."""
+        adm = self._admission
         engine = self._engine_for(snap)
         dsnap = self._dsnap_for(engine, snap)
-        d, p, ovf = engine.check_batch(dsnap, rels)
+        # the breaker: after consecutive transient dispatch failures,
+        # latency-mode traffic reroutes onto the batch path until it
+        # half-opens a probe
+        latency = self._latency_mode
+        use_latency = latency and adm.breaker.allow_latency()
+        if latency and not use_latency:
+            self._metrics.inc("breaker.latency_rerouted")
+        # a latency-mode call may fall back to the batch path (a batch
+        # beyond the top tier, no flat tables): only a dispatch the
+        # latency path SERVED is a probe that may close the breaker
+        lp = engine.latency_path(dsnap) if use_latency else None
+        lp_n = lp.dispatch_count if lp is not None else 0
+        try:
+            d, p, ovf = engine.check_batch(dsnap, rels, latency=use_latency)
+        except Exception as e:  # classify device dispatch failures
+            classified = classify_dispatch_exception(e)
+            if isinstance(classified, UnavailableError):
+                adm.breaker.record_failure()
+                if classified is e:
+                    raise
+                raise classified from e
+            raise
+        adm.breaker.record_success(
+            probe=lp is not None and lp.dispatch_count > lp_n)
         needs_host = (p & ~d) | ovf
         if not needs_host.any():
             self._metrics.inc("checks.device_definite", len(rels))
@@ -725,3 +808,10 @@ def new_evaluator(*opts: Option, device=None) -> Client:
     reference package's ``new_tpu_evaluator``.  ``device`` defaults to
     ``cuda``; pass ``"cpu"`` for the plain PyTorch path on the CPU."""
     return Client(*opts, device=device)
+
+
+# Go-parity aliases.
+WithOverlapRequired = with_overlap_required
+WithEngineConfig = with_engine_config
+WithLatencyMode = with_latency_mode
+WithAdmissionControl = with_admission_control

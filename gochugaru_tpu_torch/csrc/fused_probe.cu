@@ -99,6 +99,7 @@ struct ProbeArgs {
   void* out1;
   int32_t* out2;         // gate: [B, cap] caveat ids, or null (no cav lane)
   int32_t* out3;         // gate: [B, cap] context indices, or null
+  const int32_t* now_ptr; // int32 clock on the device (read when non-null), or null
   int nq;
   int ashift;
   int packed;            // tbl holds uint16 lanes decoded through fields
@@ -166,6 +167,7 @@ static int launch_tile(const ProbeArgs& a, cudaStream_t st) {
   t.q1 = a.q1;
   t.nq = a.nq;
   t.now = a.now;
+  t.now_ptr = a.now_ptr;
   t.lay_exp = a.lay_exp;
   t.B = a.B;
   return gochugaru_launch_slot_tile<MODE, OffInterleaveLanes, PLANES>(

@@ -91,6 +91,7 @@ struct AlignedArgs {
   void* out1;
   int32_t* out2;          // gate: [B, capT] caveat ids, or null (no cav lane)
   int32_t* out3;          // gate: [B, capT] context indices, or null
+  const int32_t* now_ptr; // int32 clock on the device (read when non-null), or null
   int nq;
   int L;                  // levels
   int packed;             // levels hold uint16 lanes decoded through fields
@@ -168,6 +169,7 @@ static int launch_tile(const AlignedArgs& a, cudaStream_t st) {
   t.q1 = a.q1;
   t.nq = a.nq;
   t.now = a.now;
+  t.now_ptr = a.now_ptr;
   t.lay_exp = a.lay_exp;
   t.planes = GochugaruGatePlanes{a.out2, a.out3, a.lay_cav, a.lay_ctx};
   t.red0 = (uint8_t*)a.out0;

@@ -231,9 +231,17 @@ struct GochugaruTile {
   const int32_t* q1;                      // gate, reduced: [B] second key or null
   int nq;                                 // gate, reduced: key columns (1 or 2)
   int now;                                // gate: expiry; until2: threshold
+  const int32_t* now_ptr;                 // the clock on the device, or null
   int lay_exp;                            // gate: expiry column, -1 = none
   long long B;
 };
+
+// The clock the gate and until2 compare with: the device scalar at
+// ``now_ptr`` when there is one (a replayed CUDA graph reads the clock
+// its caller filled in before the replay), else the by-value ``now``.
+__device__ __forceinline__ int gochugaru_now(const GochugaruTile& t) {
+  return t.now_ptr != nullptr ? __ldg(t.now_ptr) : t.now;
+}
 
 // The most lanes one tile touches: tiles start at multiples of S, so a
 // tile of whole lanes touches S / capT of them, any other at most
@@ -403,6 +411,7 @@ __device__ __forceinline__ void gochugaru_gate_slots(const GochugaruTile& t,
   gochugaru_spec_row(t, t.nq > 1 ? 1 : -1, f1);
   gochugaru_spec_row(t, t.lay_exp, fe);
   const bool gate = t.lay_exp >= 0;
+  const int now = gate ? gochugaru_now(t) : 0;
   GochugaruSlotCursor c(j0 + (int)threadIdx.x, blockDim.x, t.capT);
   for (int p = threadIdx.x; p < n; p += blockDim.x, c.next()) {
     const int2 q = ((const int2*)keys)[c.k];
@@ -431,7 +440,7 @@ __device__ __forceinline__ void gochugaru_gate_slots(const GochugaruTile& t,
       }
       // compare with the unsalted keys; the expiry gate on a hit
       hit = (int32_t)c0 == q.x && (t.nq < 2 || (int32_t)c1 == q.y);
-      live = hit && (!gate || (int32_t)e == 0 || (int32_t)e > t.now);
+      live = hit && (!gate || (int32_t)e == 0 || (int32_t)e > now);
       if (PLANES > 0 && hit) {
         const GochugaruGatePlanes& gp = t.planes;
         if (t.packed) {
@@ -506,9 +515,9 @@ __device__ __forceinline__ int gochugaru_slot_bits(const GochugaruTile& t,
     }
   }
   if ((int32_t)c0 != q.x || (t.nq > 1 && (int32_t)c1 != q.y)) return 0;
-  return MODE == MODE_ANY
-             ? 1
-             : ((int32_t)v2 > t.now) | (((int32_t)v3 > t.now) << 1);
+  if (MODE == MODE_ANY) return 1;
+  const int now = gochugaru_now(t);
+  return ((int32_t)v2 > now) | (((int32_t)v3 > now) << 1);
 }
 
 // Phase B of the shared-flag tile: one thread a slot; a slot that hits ORs

@@ -40,6 +40,10 @@ from ..rel.relationship import Relationship, WILDCARD_ID
 from ..schema.compiler import CompiledSchema
 from ..store.snapshot import Snapshot
 from ..utils import faults, metrics
+from ..utils import trace as _trace
+from ..utils.context import background
+from ..utils.errors import classify_dispatch_exception
+from ..utils.retry import retry_retriable_errors
 from .flat import (
     DeltaMeta, FlatMeta, build_delta_arrays, build_flat_arrays, build_qm,
     make_flat_fn,
@@ -148,6 +152,9 @@ class DeviceSnapshot:
     #: the legacy program's tables (engine/legacy.py legacy_tables),
     #: built on the first batch this snapshot serves there
     legacy_cache: Optional[Dict[str, torch.Tensor]] = None
+    #: the latency-mode dispatcher of this snapshot (engine/latency.py),
+    #: made on first use by ``DeviceEngine.latency_path``
+    latency_path: Optional[Any] = None
 
 
 def _resolve_kernels(config: EngineConfig, device: torch.device) -> bool:
@@ -258,6 +265,8 @@ class DeviceEngine:
         self._empty_qctx_dev: Optional[Dict[str, torch.Tensor]] = None
         #: one background transposed-index build at a time per engine
         self._prewarm_inflight = False
+        #: guards the creation of a snapshot's LatencyPath
+        self._latency_lock = threading.Lock()
 
     # -- snapshot preparation -------------------------------------------
     def _host_arrays(self, snap: Snapshot) -> Dict[str, np.ndarray]:
@@ -732,7 +741,10 @@ class DeviceEngine:
         qm = torch.from_numpy(build_qm(queries, BP, dsnap.flat_meta)).to(
             self.device
         )
-        return fn, (dsnap.arrays, dsnap.tid_map, int(now), qm,
+        # the clock as a 0-dim device tensor, filled on the device (no
+        # host copy): the kernels read it by pointer
+        now_t = torch.full((), int(now), dtype=torch.int32, device=self.device)
+        return fn, (dsnap.arrays, dsnap.tid_map, now_t, qm,
                     self._qctx_device(qctx), dsnap.specs)
 
     def _legacy_arrays(self, dsnap: DeviceSnapshot) -> Dict[str, torch.Tensor]:
@@ -767,8 +779,8 @@ class DeviceEngine:
             return self.legacy(self._legacy_arrays(dsnap), dsnap.tid_map, now,
                                u, q, self._qctx_device(qctx))
 
-    def _run(self, dsnap, queries, qctx, now_us, B, bucket_min: int = 0):
-        faults.fire("device.dispatch")
+    def _run(self, dsnap, queries, qctx, now_us, B, bucket_min: int = 0,
+             fetch: bool = True):
         now = dsnap.snapshot.now_rel32(now_us)
         got = self.flat_fn_and_args(dsnap, queries, qctx, now, B, bucket_min)
         if got is None:
@@ -777,9 +789,130 @@ class DeviceEngine:
             fn, args = got
             with torch.no_grad():
                 d, p, ovf = fn(*args)
+        if not fetch:
+            return d, p, ovf
         # one device→host copy for the three planes
         planes = torch.stack([d[:B], p[:B], ovf[:B]]).cpu().numpy()
         return planes[0], planes[1], planes[2]
+
+    # -- the latency-mode path (engine/latency.py) ------------------------
+    #: bounded retries for the deadline-less engine-level latency entry
+    #: (callers with a Context pass their own)
+    LATENCY_RETRY_TRIES = 3
+
+    def latency_path(self, dsnap: DeviceSnapshot):
+        """The warm small-batch dispatcher attached to this prepared
+        snapshot (created on first use; see engine/latency.py)."""
+        if dsnap.latency_path is None:
+            from .latency import LatencyPath
+
+            with self._latency_lock:
+                if dsnap.latency_path is None:
+                    dsnap.latency_path = LatencyPath(self, dsnap)
+        return dsnap.latency_path
+
+    def check_columns_latency(
+        self,
+        dsnap: DeviceSnapshot,
+        q_res: np.ndarray,
+        q_perm: np.ndarray,
+        q_subj: np.ndarray,
+        *,
+        q_srel: Optional[np.ndarray] = None,
+        q_wc: Optional[np.ndarray] = None,
+        q_ctx: Optional[np.ndarray] = None,
+        qctx_rows: Optional[Sequence[Mapping[str, Any]]] = None,
+        now_us: Optional[int] = None,
+        ctx: Optional[Any] = None,
+    ):
+        """Latency-mode bulk check from pre-interned columns: a pinned
+        graph at a batch tier, per-stage budget metrics.  Falls back to
+        ``check_columns`` where the latency path returns None (no flat
+        tables, too many distinct permissions, a batch beyond the top
+        tier): the same result contract either way.  Dispatch errors are
+        classified onto the retry taxonomy and transient ones retry,
+        bounded by ``ctx`` when given, else by ``LATENCY_RETRY_TRIES``."""
+        span = _trace.span_of(ctx) if ctx is not None else _trace.NOOP
+
+        def dispatch():
+            try:
+                out = self.latency_path(dsnap).dispatch_columns(
+                    q_res, q_perm, q_subj, q_srel=q_srel, q_wc=q_wc,
+                    q_ctx=q_ctx, qctx_rows=qctx_rows, now_us=now_us,
+                    span=span,
+                )
+                if out is not None:
+                    return out
+                return self.check_columns(
+                    dsnap, q_res, q_perm, q_subj, q_srel=q_srel, q_wc=q_wc,
+                    q_ctx=q_ctx, qctx_rows=qctx_rows, now_us=now_us,
+                )
+            except Exception as e:
+                classified = classify_dispatch_exception(e)
+                if classified is None or classified is e:
+                    raise
+                raise classified
+
+        return retry_retriable_errors(
+            ctx if ctx is not None else background(),
+            dispatch,
+            max_tries=None if ctx is not None else self.LATENCY_RETRY_TRIES,
+        )
+
+    # -- the pipelined check ---------------------------------------------
+    def check_columns_pipelined(
+        self,
+        dsnap: DeviceSnapshot,
+        q_res: np.ndarray,
+        q_perm: np.ndarray,
+        q_subj: np.ndarray,
+        *,
+        q_ctx: Optional[np.ndarray] = None,
+        qctx_rows: Optional[Sequence[Mapping[str, Any]]] = None,
+        now_us: Optional[int] = None,
+        sub_batch: int = 0,
+    ):
+        """Pipelined bulk check over pre-interned columns: the batch is
+        split into ``sub_batch``-sized dispatches (0: one dispatch), each
+        one's planes copied to pinned host memory behind it on the stream,
+        and yields ``(lo, hi, d, p, ovf)`` per sub-batch in order, so a
+        consumer sees the first results after the first sub-batches
+        instead of the whole batch (the serving analogue of the
+        reference's chunked CheckIter, client/client.go:164-180).  The reference enqueues every
+        sub-batch before fetching any; here sub-batch i+1 is enqueued
+        before sub-batch i is waited for, so the host lowers and launches
+        the next one while the device runs the current one (the eager
+        program's launches are host work, and would otherwise all come
+        before the first answer)."""
+        B = q_res.shape[0]
+        PB = sub_batch or B
+
+        def enqueue(lo):
+            hi = min(lo + PB, B)
+            d, p, ovf = self.check_columns(
+                dsnap, q_res[lo:hi], q_perm[lo:hi], q_subj[lo:hi],
+                q_ctx=None if q_ctx is None else q_ctx[lo:hi],
+                qctx_rows=qctx_rows, now_us=now_us,
+                fetch=False, bucket_min=PB,
+            )
+            planes = torch.stack([d[: hi - lo], p[: hi - lo], ovf[: hi - lo]])
+            if not planes.is_cuda:
+                return lo, hi, planes, None
+            host = torch.empty(planes.shape, dtype=planes.dtype, pin_memory=True)
+            host.copy_(planes, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(self.device))
+            return lo, hi, host, done
+
+        starts = list(range(0, B, PB))
+        nxt = enqueue(starts[0]) if starts else None
+        for k in range(len(starts)):
+            lo, hi, planes, done = nxt
+            nxt = enqueue(starts[k + 1]) if k + 1 < len(starts) else None
+            if done is not None:
+                done.synchronize()
+            got = planes.numpy()
+            yield lo, hi, got[0], got[1], got[2]
 
     # -- the batched check ----------------------------------------------
     def check_columns(
@@ -794,20 +927,24 @@ class DeviceEngine:
         q_ctx: Optional[np.ndarray] = None,
         qctx_rows: Optional[Sequence[Mapping[str, Any]]] = None,
         now_us: Optional[int] = None,
+        fetch: bool = True,
         bucket_min: int = 0,
-    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    ):
         """Bulk check straight from pre-interned int32 columns; returns
         (definite, possible, overflow) bool arrays of the batch length.
         ``q_ctx`` indexes each query's request context in ``qctx_rows``
         (-1: none).  ``bucket_min`` raises the batch's pow2 padding floor
-        (the lookup exact filter pads to one coarse bucket)."""
+        (the lookup exact filter pads to one coarse bucket).  With
+        ``fetch=False`` returns the padded planes as device tensors,
+        unsynchronised (length >= B; the pipelined check fetches them)."""
         B = q_res.shape[0]
         if B == 0:
             z = np.zeros(0, bool)
             return z, z, z
+        faults.fire("device.dispatch")
         queries, qctx = self._columns_preamble(
             dsnap, q_res, q_perm, q_subj, q_srel, q_wc, q_ctx, qctx_rows)
-        return self._run(dsnap, queries, qctx, now_us, B, bucket_min)
+        return self._run(dsnap, queries, qctx, now_us, B, bucket_min, fetch)
 
     def check_batch(
         self,
@@ -815,12 +952,26 @@ class DeviceEngine:
         rels: Sequence[Relationship],
         *,
         now_us: Optional[int] = None,
+        latency: bool = False,
+        span=_trace.NOOP,
     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """(definite, possible, overflow) for Relationship queries.
         ``possible & ~definite`` and ``overflow`` rows are for the caller
-        to settle on the host oracle."""
+        to settle on the host oracle.  With ``latency``, small batches go
+        through the latency path (engine/latency.py: a pinned graph at a
+        fixed tier, staged budget metrics); batches it cannot serve fall
+        through to the ordinary dispatch, same contract."""
         if not rels:
             z = np.zeros(0, bool)
             return z, z, z
+        faults.fire("device.dispatch")
+        t_lower = _time.perf_counter()
         queries, qctx = self._lower_queries(dsnap.snapshot, rels, dsnap.strings)
+        if latency:
+            out = self.latency_path(dsnap).dispatch(
+                queries, qctx, len(rels), dsnap.snapshot.now_rel32(now_us),
+                t_start=t_lower, span=span,
+            )
+            if out is not None:
+                return out
         return self._run(dsnap, queries, qctx, now_us, len(rels))

@@ -60,6 +60,7 @@ from .hash import (
     probe_block,
     slice_blocks,
 )
+from .consts import device_const
 from .packed import decode_block as _pk_decode
 from .plan import DevicePlan, EngineConfig, ExprIR, _eval_cyclic_pairs
 
@@ -2392,9 +2393,15 @@ def make_flat_fn(
 
     The returned ``fn(arrs, tid_map, now, qm, qctx, specs)`` runs eagerly on
     the device of its tensors and returns bool (definite, possible,
-    overflow) planes of the padded batch.  ``qctx`` holds the batch's
-    encoded request contexts (``vi``/``vf``/``pr``/``host``), which row 5
-    of ``qm`` indexes; with ``caveat_plan`` a caveated row's gate runs the
+    overflow) planes of the padded batch.  ``now`` is the snapshot-relative
+    clock, an int or a 0-dim int32 tensor on that device (the engine
+    passes a tensor: the kernels read it by pointer, so a CUDA graph of
+    ``fn`` answers at the clock its caller fills in before each replay).
+    ``fn`` makes no host copy and no host sync: its constants are built
+    once per device (engine/consts.py), so it can be captured whole.
+    ``qctx`` holds the batch's encoded request contexts
+    (``vi``/``vf``/``pr``/``host``), which row 5 of ``qm`` indexes; with
+    ``caveat_plan`` a caveated row's gate runs the
     CEL tri-state VM (caveats/device.py ``make_tri_fn``) on its caveat id,
     its stored context (``ectx_*`` arrays) and the query's context:
     TRUE grants both planes, UNKNOWN only the possible one.  Every bucket
@@ -2504,7 +2511,16 @@ def make_flat_fn(
     if dm is not None and dm.has_ar:
         ar_bound = -1
 
-    def fn(arrs, tid_map, now: int, qm, qctx, specs):
+    # fold-slot compact ids for the direct pfu_start lookup (host side,
+    # built once; the device copy is a cached constant)
+    if fold_on and meta.pf_has_u and meta.pf_direct:
+        pf_fidx_np = np.full(max(plan.num_slots, 1), -1, np.int32)
+        for _i, _s in enumerate(fold_slot_list):
+            pf_fidx_np[_s] = _i
+    else:
+        pf_fidx_np = None
+
+    def fn(arrs, tid_map, now, qm, qctx, specs):
         dev = qm.device
         # packed query matrix int32[8, B] (QM_LAYOUT); rows 3 and 7
         # arrive DENSE-mapped (build_qm)
@@ -2715,13 +2731,9 @@ def make_flat_fn(
             return slices
 
         # fold-slot compact ids for the direct pfu_start lookup
-        if fold_on and meta.pf_has_u and meta.pf_direct:
-            _fm = np.full(max(plan.num_slots, 1), -1, np.int32)
-            for _i, _s in enumerate(fold_slot_list):
-                _fm[_s] = _i
-            pf_fidx_t = torch.from_numpy(_fm).to(dev)
-        else:
-            pf_fidx_t = None
+        pf_fidx_t = (None if pf_fidx_np is None else device_const(
+            ("pf_fidx", pf_fidx_np.tobytes()), dev,
+            lambda d: torch.from_numpy(pf_fidx_np).to(d)))
 
         def pf_isect(gk, live):
             """(d, p) of the folded userset rows ``gk``/``live``

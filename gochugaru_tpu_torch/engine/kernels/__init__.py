@@ -28,10 +28,11 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
+from ..consts import device_const
 from .plain import (
     blk_hit, check_planes, field0_spec, fused_probe_aligned_plain,
     fused_probe_plain,
@@ -109,6 +110,7 @@ class _Args(ctypes.Structure):
         ("fields", ctypes.c_void_p), ("dicts", ctypes.c_void_p),
         ("out0", ctypes.c_void_p), ("out1", ctypes.c_void_p),
         ("out2", ctypes.c_void_p), ("out3", ctypes.c_void_p),
+        ("now_ptr", ctypes.c_void_p),
         ("nq", ctypes.c_int), ("ashift", ctypes.c_int),
         ("packed", ctypes.c_int), ("w_raw", ctypes.c_int),
         ("cap", ctypes.c_int), ("W", ctypes.c_int),
@@ -135,6 +137,7 @@ class _AlignedArgs(ctypes.Structure):
         ("fields", ctypes.c_void_p), ("dicts", ctypes.c_void_p),
         ("out0", ctypes.c_void_p), ("out1", ctypes.c_void_p),
         ("out2", ctypes.c_void_p), ("out3", ctypes.c_void_p),
+        ("now_ptr", ctypes.c_void_p),
         ("nq", ctypes.c_int), ("L", ctypes.c_int),
         ("packed", ctypes.c_int), ("sw", ctypes.c_int),
         ("capT", ctypes.c_int), ("W", ctypes.c_int),
@@ -298,6 +301,14 @@ def spec_tensors(spec, device) -> Tuple[torch.Tensor, torch.Tensor]:
     return f.to(device), d.to(device)
 
 
+def _spec_on(spec, dev) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``spec_tensors`` built once per (spec, device) and cached
+    (engine/consts.py): a caller without the snapshot's uploaded spec
+    pays no host copy per launch, so its launches can be captured."""
+    return device_const(("spec", repr(spec)), dev,
+                        lambda d: spec_tensors(spec, d))
+
+
 def fused_probe(
     q_cols: Sequence,
     off,
@@ -309,7 +320,7 @@ def fused_probe(
     off_a=None,
     ashift: Optional[int] = None,
     mode: str = "block",
-    now: Optional[int] = None,
+    now: Optional[Union[int, torch.Tensor]] = None,
     exp_lane: Optional[int] = None,
     cav_lane: Optional[int] = None,
     ctx_lane: Optional[int] = None,
@@ -326,6 +337,8 @@ def fused_probe(
     - ``block``  int32[..., cap, W] decoded candidate block
     - ``any``    bool[...] any exact-key hit
     - ``until2`` (bool[...], bool[...]): hit with column 2 / 3 > ``now``
+      (an int, or a 0-dim int32 tensor on the tables' device, which the
+      kernel reads by pointer when it runs)
     - ``gate``   (hit, live) bool[..., cap]: live = hit whose expiry
       column ``exp_lane`` is 0 or > ``now`` (no gate when None); with
       ``cav_lane`` also int32[..., cap] the caveat-id column on a hit (0
@@ -372,7 +385,7 @@ def fused_probe(
     if off_a is not None and off_a.dtype != torch.int32:
         raise TypeError("offset anchors must be int32")
     if packed:
-        fields, dicts = spec_dev if spec_dev is not None else spec_tensors(spec, dev)
+        fields, dicts = spec_dev if spec_dev is not None else _spec_on(spec, dev)
     else:
         fields = dicts = None
     outs = _outputs(mode, B, cap, W, dev, cav_lane, ctx_lane)
@@ -388,7 +401,7 @@ def fused_probe(
         fields=fields.data_ptr() if packed else None,
         dicts=dicts.data_ptr() if packed else None,
         nq=nq, ashift=int(ashift or 0), packed=int(packed), w_raw=w_raw,
-        cap=int(cap), W=W, now=int(now or 0),
+        cap=int(cap), W=W, **_now_fields(now, dev),
         tile_slots=_tile_slots(mode, int(cap), W, 1),
         warp=_warp(mode, int(cap)),
         **_out_fields(outs, exp_lane, cav_lane, ctx_lane),
@@ -423,6 +436,19 @@ def _check_row(name: str, W: int, nq: int, mode: str, exp_lane,
         if lane is not None and not 0 <= lane < W:
             raise ValueError(f"{what} lane outside the row")
     check_planes(mode, cav_lane, ctx_lane)
+
+
+def _now_fields(now, dev) -> Dict[str, object]:
+    """The args' clock: an int goes by value; a 0-dim int32 tensor on the
+    launch's device goes by pointer, so the kernel reads it when it runs
+    (a CUDA graph replays with whatever its caller filled in)."""
+    if isinstance(now, torch.Tensor):
+        if now.dim() != 0 or now.dtype != torch.int32 or now.device != dev:
+            raise ValueError("now: want a 0-dim int32 tensor on the launch's"
+                             f" device, not {now.dtype}{list(now.shape)} on"
+                             f" {now.device}")
+        return dict(now=0, now_ptr=now.data_ptr())
+    return dict(now=int(now or 0), now_ptr=None)
 
 
 def _out_fields(outs, exp_lane, cav_lane, ctx_lane) -> Dict[str, object]:
@@ -465,7 +491,7 @@ def fused_probe_aligned(
     spec=None,
     spec_dev: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     mode: str = "block",
-    now: Optional[int] = None,
+    now: Optional[Union[int, torch.Tensor]] = None,
     exp_lane: Optional[int] = None,
     cav_lane: Optional[int] = None,
     ctx_lane: Optional[int] = None,
@@ -527,7 +553,7 @@ def fused_probe_aligned(
             o.zero_()  # no slots: no hit
         return _shaped(mode, outs, shape, capT, W)
     if packed:
-        fields, dicts = spec_dev if spec_dev is not None else spec_tensors(spec, dev)
+        fields, dicts = spec_dev if spec_dev is not None else _spec_on(spec, dev)
     lv = (_Level * MAXL)()
     for l, (t, c) in enumerate(zip(tbls, caps)):
         lv[l] = _Level(tbl=t.data_ptr(), size=int(t.shape[0]),
@@ -538,7 +564,7 @@ def fused_probe_aligned(
         fields=fields.data_ptr() if packed else None,
         dicts=dicts.data_ptr() if packed else None,
         nq=nq, L=L, packed=int(packed), sw=int(sw), capT=capT, W=W,
-        now=int(now or 0), tile_slots=_tile_slots(mode, capT, W, L),
+        **_now_fields(now, dev), tile_slots=_tile_slots(mode, capT, W, L),
         warp=_warp(mode, capT), lv=lv,
         **_out_fields(outs, exp_lane, cav_lane, ctx_lane),
     )

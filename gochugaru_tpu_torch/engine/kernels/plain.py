@@ -13,7 +13,7 @@ the engine runs; on the card only the parity harness and
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Union
 
 import torch
 
@@ -43,7 +43,7 @@ def fused_probe_plain(
     off_a=None,
     ashift: Optional[int] = None,
     mode: str = "block",
-    now: Optional[int] = None,
+    now: Optional[Union[int, torch.Tensor]] = None,
     exp_lane: Optional[int] = None,
     cav_lane: Optional[int] = None,
     ctx_lane: Optional[int] = None,
@@ -68,7 +68,7 @@ def fused_probe_aligned_plain(
     *,
     spec=None,
     mode: str = "block",
-    now: Optional[int] = None,
+    now: Optional[Union[int, torch.Tensor]] = None,
     exp_lane: Optional[int] = None,
     cav_lane: Optional[int] = None,
     ctx_lane: Optional[int] = None,

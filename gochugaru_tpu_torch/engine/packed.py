@@ -53,6 +53,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .consts import device_const
+
 #: rows per packing chunk: the pack pass walks the source table in
 #: bounded windows, so converting a 100M-row table never materializes a
 #: second full-width copy (tests/test_packed.py arms alloc_guard on it)
@@ -304,8 +306,11 @@ def decode_block(blk, spec: Spec):
             if bits < 32:
                 v = v & ((1 << bits) - 1)
             if dict_id >= 0:
-                dv = torch.tensor(dicts[dict_id], dtype=torch.int32,
-                                  device=blk.device)
+                vals = tuple(dicts[dict_id])
+                dv = device_const(
+                    ("dict", vals), blk.device,
+                    lambda d, v=vals: torch.tensor(v, dtype=torch.int32,
+                                                   device=d))
                 col = dv[v.clamp(0, dv.shape[0] - 1).long()]
             else:
                 col = v + _i32(base) if base else v

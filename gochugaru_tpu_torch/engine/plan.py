@@ -144,6 +144,12 @@ class EngineConfig:
     #: engine/device.py) when the host walker would serve lookups: a
     #: delta chain's snapshots, or ones without the reverse-CSR index
     lookup_prewarm: bool = True
+    # -- the latency path (engine/latency.py) ---------------------------
+    #: batch tiers of the latency path: a latency-mode batch pads to the
+    #: smallest tier >= B and replays the program pinned for that tier (a
+    #: CUDA graph on ``cuda``); batches past the top tier take the
+    #: throughput path.  Any sorted tuple of positive ints
+    latency_tiers: Tuple[int, ...] = (256, 1024, 4096)
 
     @staticmethod
     def for_schema(compiled: CompiledSchema, **overrides) -> "EngineConfig":

@@ -45,6 +45,10 @@ Injection sites threaded through the tree (grep ``faults.fire``):
     lookup.dispatch          frontier lookup hop dispatch
                              (engine/spmv.py; the client's lookup
                              surface retries these under the envelope)
+    latency.dispatch         pinned small-batch dispatch (engine/latency.py;
+                             the client's circuit breaker counts these
+                             and reroutes latency traffic to the batch
+                             path, utils/admission.py)
 """
 
 from __future__ import annotations

@@ -547,3 +547,32 @@ def note_anomaly(kind: str) -> None:
     r = _RECORDER
     if r is not None:
         r.note(kind)
+
+
+# -- profiler correlation ----------------------------------------------------
+
+class _NullCtx:
+    def __enter__(self) -> None:
+        return None
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+_NULL_CTX = _NullCtx()
+
+
+def annotate_dispatch(span) -> Any:
+    """A context manager for a dispatch's device window: while a
+    ``torch.profiler`` trace is recording, a ``record_function`` range named
+    by the request's trace id (``gochugaru:<trace_id>``, or
+    ``gochugaru:untraced`` for unsampled requests), so the harvested
+    device trace carries request attribution (an NVTX range under
+    ``torch.autograd.profiler.emit_nvtx``).  Otherwise a shared null
+    context: no allocation."""
+    import torch
+
+    if not torch.autograd._profiler_enabled():
+        return _NULL_CTX
+    name = f"gochugaru:{span.trace_id}" if span is not NOOP else "gochugaru:untraced"
+    return torch.profiler.record_function(name)

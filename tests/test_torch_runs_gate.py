@@ -354,6 +354,28 @@ def test_ctypes_mirrors_carry_the_gate_planes():
         assert c.index("lay_ctx") == c.index("lay_cav") + 1 == c.index("lay_exp") + 2
 
 
+def test_ctypes_mirrors_carry_the_clock_pointer():
+    """Both args structs carry the device clock pointer (``now_ptr``, read
+    by the kernels when non-null, so a CUDA graph answers at the clock
+    filled in before each replay) right after the gate's planes, and keep
+    the by-value ``now`` for eager calls, on the C side and in the mirror;
+    the wrappers fill one or the other."""
+    for source, name, cls in (("fused_probe.cu", "ProbeArgs", K._Args),
+                              ("fused_probe_aligned.cu", "AlignedArgs",
+                               K._AlignedArgs)):
+        c = dict(_c_struct(source, name))
+        names = [f for f, _t in _c_struct(source, name)]
+        assert c["now_ptr"] is ctypes.c_void_p and c["now"] is ctypes.c_int
+        assert names.index("now_ptr") == names.index("out3") + 1
+        assert [f for f, _t in cls._fields_] == names
+    assert K._now_fields(7, torch.device("cpu")) == dict(now=7, now_ptr=None)
+    t = torch.tensor(7, dtype=torch.int32)
+    assert K._now_fields(t, torch.device("cpu")) == dict(now=0, now_ptr=t.data_ptr())
+    for bad in (torch.tensor([7], dtype=torch.int32), torch.tensor(7)):
+        with pytest.raises(ValueError):
+            K._now_fields(bad, torch.device("cpu"))
+
+
 def test_kernel_constants_match_the_c_sources():
     with open(os.path.join(CSRC, "probe_common.cuh")) as f:
         common = f.read()
