@@ -23,6 +23,11 @@ Every check dispatch runs under the admission controller
 (utils/admission.py): a deadline-budget shed, a bounded in-flight gate,
 and the circuit breaker that reroutes latency-mode traffic to the batch
 path after consecutive transient failures (``with_admission_control``).
+Above the dispatch sits the evaluate layer of the reference: the
+revision-pinned verdict cache (engine/vcache.py, ``with_verdict_cache``)
+read and written under each call's consistency strategy, in-batch dedup
+for the serving front end (``with_serving``, serve/), and the decision
+counters and log (utils/decisions.py, ``with_decision_log``).
 
 Lookups expand candidates on the device over the reverse-CSR tables
 (engine/spmv.py) and filter them exactly with the same cascade
@@ -43,17 +48,25 @@ from typing import (
     Sequence, Tuple,
 )
 
+import numpy as np
+
+from . import consistency as _consistency
 from .consistency import OVERLAP_KEY, Strategy
+from .engine import vcache as _vcache
 from .engine.device import DeviceEngine, DeviceSnapshot, resolve_device
 from .engine.oracle import Oracle, SnapshotOracle, T
 from .engine.plan import EngineConfig
 from .rel.filter import Filter, PreconditionedFilter
-from .rel.relationship import Relationship, RelationshipLike, as_relationship
+from .rel.relationship import (
+    Relationship, RelationshipLike, as_relationship,
+    must_from_triple as rel_must_from_triple,
+)
 from .rel.strings import parse_object_set, parse_typed_relation
 from .rel.txn import Txn
 from .rel.update import Update, UpdateFilter
 from .store.snapshot import Snapshot
 from .store.store import Store, parse_revision
+from .utils import decisions as _decisions
 from .utils import faults
 from .utils import metrics as _metrics
 from .utils import trace as _trace
@@ -106,6 +119,8 @@ class _Options:
         self.engine_config: Optional[EngineConfig] = None
         self.latency_mode = False
         self.admission: Optional[AdmissionConfig] = None
+        self.verdict_cache = None  # VerdictCache | max_bytes int | None
+        self.decision_log = None  # (spec, kwargs) from with_decision_log
 
 
 Option = Callable[[_Options], None]
@@ -159,6 +174,45 @@ def with_admission_control(config: AdmissionConfig) -> Option:
     return opt
 
 
+def with_verdict_cache(cache=True) -> Option:
+    """Enable the revision-pinned verdict cache (engine/vcache.py) on
+    this client's check paths: definite verdicts key on (snapshot
+    revision, slot, resource, subject, query-context fingerprint) under
+    a byte-bounded LRU, and the consistency strategy of each call is the
+    read policy — ``snapshot``/``at_least`` hit the resolved revision's
+    shard, ``min_latency`` the freshest resident one, ``full`` bypasses
+    entirely.  Caveated verdicts that read live query context are never
+    cached; time-gated verdicts cache with a pinned now_us.
+
+    ``cache`` may be ``True`` (default 64 MB cache), an int byte budget,
+    or a prebuilt ``VerdictCache`` (shared between clients)."""
+
+    def opt(o: _Options) -> None:
+        o.verdict_cache = cache
+
+    return opt
+
+
+def with_decision_log(log=True, **kw) -> Option:
+    """Arm the structured decision log (utils/decisions.py): a sampled
+    always-on ring (+ optional rotating JSONL sink) of authorization
+    DECISIONS — client id, resource, permission, subject, verdict,
+    revision, consistency strategy, cache_hit/dedup_parked provenance,
+    latency, trace id — with an always-keep-denied rule.  The
+    per-strategy verdict counters are on with or without it.
+
+    ``log`` may be ``True`` (defaults) or a prebuilt ``DecisionLog``;
+    keyword arguments (``capacity``, ``sample_rate``, ``sink_path``,
+    ``rotate_bytes``, ``rotate_keep``) pass through to the constructor.
+    The log is process-global — one stream per process however many
+    clients arm it."""
+
+    def opt(o: _Options) -> None:
+        o.decision_log = (log, kw)
+
+    return opt
+
+
 class Client:
     """An in-process authorization client with the gochugaru Check
     surface, evaluating on a torch device."""
@@ -183,6 +237,34 @@ class Client:
         self._latency_mode = o.latency_mode
         #: the gate, the deadline budget and the latency-path breaker
         self._admission = AdmissionController(o.admission)
+        #: revision-pinned verdict cache (engine/vcache.py); None keeps
+        #: every check path on the cache-free code
+        self._vcache = self._make_vcache(o.verdict_cache)
+        #: the process-global decision log (utils/decisions.py), installed
+        #: by with_decision_log(); the verdict counters are always on
+        if o.decision_log is not None:
+            spec, kw = o.decision_log
+            if spec is True:
+                # bare arming REUSES an already-installed log: a second
+                # client must not close the first one's configured sink;
+                # explicit kwargs are an explicit reconfiguration
+                if kw or _decisions.get() is None:
+                    _decisions.install(_decisions.DecisionLog(**kw))
+            elif spec:
+                _decisions.install(spec)
+
+    @staticmethod
+    def _make_vcache(spec):
+        """Normalize the with_verdict_cache / with_serving(cache=...)
+        spec: None/False → off, True → default cache, int → byte
+        budget, VerdictCache → shared instance."""
+        if spec is None or spec is False:
+            return None
+        if spec is True:
+            return _vcache.VerdictCache()
+        if isinstance(spec, int):
+            return _vcache.VerdictCache(max_bytes=spec)
+        return spec
 
     @property
     def store(self) -> Store:
@@ -213,10 +295,17 @@ class Client:
         return v
 
     @classmethod
-    def _lru_put(cls, cache: Dict[int, Any], key: int, v: Any) -> None:
+    def _lru_put(cls, cache: Dict[int, Any], key: int, v: Any) -> List[int]:
+        """Insert and evict the least-recently-used entries; returns the
+        evicted keys, so dependent caches (the verdict cache's revision
+        shards) drop with them."""
         cache[key] = v
+        evicted: List[int] = []
         while len(cache) > cls.SNAPSHOT_CACHE_MAX:
-            cache.pop(next(iter(cache)))
+            k = next(iter(cache))
+            cache.pop(k)
+            evicted.append(k)
+        return evicted
 
     def _dsnap_for(self, engine: DeviceEngine, snap: Snapshot) -> DeviceSnapshot:
         with self._lock:
@@ -235,7 +324,12 @@ class Client:
                     else None
                 )
                 ds = engine.prepare(snap, prev=prev)
-            self._lru_put(self._dsnap_cache, snap.revision, ds)
+            evicted = self._lru_put(self._dsnap_cache, snap.revision, ds)
+            # dsnap-LRU eviction drops the matching verdict shard: a
+            # revision no longer resident would only pin bytes
+            if self._vcache is not None:
+                for r in evicted:
+                    self._vcache.drop_revision(r)
             return ds
 
     def _oracle_for(self, snap: Snapshot) -> Oracle:
@@ -583,18 +677,28 @@ class Client:
             yield from self.check(ctx, cs, *batch)
 
     def check(
-        self, ctx: Context, cs: Strategy, *rs: RelationshipLike
+        self, ctx: Context, cs: Strategy, *rs: RelationshipLike,
+        explain: bool = False,
     ) -> List[bool]:
         """Batched permission check: one device dispatch at the snapshot
         the strategy selects, host-oracle resolution for flagged rows,
-        under the admission controller and the retry envelope."""
+        under the admission controller and the retry envelope; through
+        the verdict cache when the client has one.  ``explain=True``
+        raises ``NotImplementedError``: explain needs the witness plane
+        of the flat program and engine/explain.py, a later slice of the
+        port (ROADMAP queue 1 item 6)."""
         self._check_overlap(ctx)
+        if explain:
+            raise NotImplementedError(
+                "check(explain=True) needs the witness plane and"
+                " engine/explain.py, a later slice of the port"
+                " (ROADMAP queue 1 item 6)")
         rels = [as_relationship(r) for r in rs]
         if not rels:
             return []
         self._metrics.inc("checks.requested", len(rels))
         return retry_retriable_errors(ctx, lambda: self._admitted(
-            ctx, lambda: self._evaluate(self._store.snapshot_for(cs), rels)))
+            ctx, lambda: self._dispatch_admitted(ctx, cs, rels)))
 
     def _admitted(self, ctx: Context, work):
         """The admission envelope of a device-dispatching request: the
@@ -610,26 +714,199 @@ class Client:
         adm.observe_cost(_time.perf_counter() - t_disp)
         return out
 
-    def _evaluate(self, snap: Snapshot, rels: List[Relationship]) -> List[bool]:
-        """One device dispatch with classified failures feeding the
-        circuit breaker, then host-oracle resolution of flagged rows."""
+    def _dispatch_admitted(
+        self, ctx: Context, cs: Strategy, rels: List[Relationship]
+    ) -> List[bool]:
+        """One admitted check dispatch (one retry attempt): snapshot
+        selection, then the evaluate layer; a sampled request span grows
+        a ``dispatch`` child per attempt."""
+        dsp = _trace.span_of(ctx).child("dispatch")
+        with dsp:
+            snap = self._store.snapshot_for(cs)
+            dsp.set_attr("revision", int(snap.revision))
+            return self._evaluate_rels(
+                snap, rels, latency=self._latency_mode, span=dsp, cs=cs)
+
+    def _evaluate_rels(
+        self,
+        snap: Snapshot,
+        rels: List[Relationship],
+        *,
+        latency: bool,
+        span=_trace.NOOP,
+        cs: Optional[Strategy] = None,
+        dedup: bool = False,
+    ) -> List[bool]:
+        """Evaluate a formed batch at one snapshot, through the verdict
+        cache and in-batch dedup when enabled: cache hits answer without
+        touching the device (read policy = the call's consistency
+        strategy, engine/vcache.policy_for), the remaining unique rows
+        dispatch once (``dedup``, the serving batcher's flag) and their
+        verdicts fan back out, definite results populate the revision's
+        shard.  Items carrying live query caveat context NEVER read or
+        write the cache.  With no cache and dedup off this is the direct
+        path (``_evaluate_rels_direct``).
+
+        Decision provenance rides every exit: the per-strategy verdict
+        counters always, and sampled + always-keep-denied decision-log
+        entries when a log is installed."""
+        t_ev = _time.perf_counter()
+        vc = self._vcache
+        pol = _vcache.policy_for(cs) if vc is not None else _vcache.CACHE_OFF
+        if not (pol.read or pol.write) and not dedup:
+            out = self._evaluate_rels_direct(
+                snap, rels, latency=latency, span=span)
+            self._provenance_rels(
+                rels, out, snap, cs, None, _time.perf_counter() - t_ev, span)
+            return out
+
+        B = len(rels)
+        keys = [_vcache.rel_key(r) for r in rels]
+        # live-context items (non-empty query caveat_context) bypass the
+        # cache entirely: their caveat may read the live context
+        cacheable = [k[1] == _vcache.EMPTY_CTX_FP for k in keys]
+        out: List[Optional[bool]] = [None] * B
+        now_us = int(_time.time() * 1_000_000)
+        if pol.read:
+            vals = vc.lookup_rels(
+                snap.revision,
+                [k if cacheable[i] else None for i, k in enumerate(keys)],
+            )
+            for i, v in enumerate(vals):
+                if v is not None:
+                    out[i] = v[0]
+        pend = [i for i in range(B) if out[i] is None]
+        hitflags = [out[i] is not None for i in range(B)]
+        nh = B - len(pend)
+        if nh:
+            span.event("cache.hits", items=nh)
+            span.set_attr("cache_hits", nh)
+        if not pend:
+            res = [bool(v) for v in out]
+            self._provenance_rels(
+                rels, res, snap, cs, hitflags, _time.perf_counter() - t_ev, span)
+            return res
+        if dedup and len(pend) > 1:
+            first: Dict[Any, int] = {}
+            uidx: List[int] = []
+            inverse: List[int] = []
+            for i in pend:
+                u = first.get(keys[i])
+                if u is None:
+                    u = first[keys[i]] = len(uidx)
+                    uidx.append(i)
+                inverse.append(u)
+            dups = len(pend) - len(uidx)
+            if dups:
+                self._metrics.inc("dedup.batch_dups", dups)
+        else:
+            uidx = pend
+            inverse = list(range(len(pend)))
+        try:
+            sub = self._evaluate_rels_direct(
+                snap, [rels[i] for i in uidx], latency=latency, span=span)
+        except BulkCheckItemError as e:
+            raise self._remap_bulk_error(
+                e, out, pend, inverse, lambda vs: list(vs)
+            ) from (e.__cause__ or e)
+        for j, i in enumerate(pend):
+            out[i] = bool(sub[inverse[j]])
+        if pol.write:
+            vc.insert_rels(
+                snap.revision,
+                [(keys[i], sub[j]) for j, i in enumerate(uidx) if cacheable[i]],
+                now_us,
+            )
+        res = [bool(v) for v in out]
+        self._provenance_rels(
+            rels, res, snap, cs, hitflags, _time.perf_counter() - t_ev, span)
+        return res
+
+    @staticmethod
+    def _remap_bulk_error(e, out, pend, inverse, as_seq):
+        """Translate a unique-space BulkCheckItemError (from the deduped
+        direct dispatch) back to caller space: unique verdicts [0,
+        e.index) scatter onto their duplicate rows, and the error is
+        re-anchored at the first caller row that is NOT fully resolved."""
+        part = e.results
+        first_bad = None
+        for j, i in enumerate(pend):
+            if inverse[j] < e.index:
+                out[i] = bool(part[inverse[j]])
+            elif first_bad is None or i < first_bad:
+                first_bad = i
+        if first_bad is None:  # defensive: nothing unresolved
+            first_bad = pend[-1]
+        prefix = as_seq(out[:first_bad])
+        return BulkCheckItemError(first_bad, prefix, e.__cause__ or e)
+
+    def _provenance_rels(self, rels, out, snap, cs, cache_hits, dt, span) -> None:
+        """Decision provenance for one relationship batch: the verdict
+        counters (per batch), plus decision-log entries when a log is
+        installed."""
+        sname = _decisions.strategy_name(cs)
+        allowed = sum(1 for v in out if v)
+        _decisions.count_verdicts(
+            self._metrics, allowed, len(out) - allowed, sname,
+            cache_hits=sum(cache_hits) if cache_hits is not None else 0,
+        )
+        if _decisions.enabled():
+            _decisions.record_rels(
+                rels, out, revision=snap.revision, strategy=sname,
+                cache_hits=cache_hits, latency_s=dt,
+                trace_id=span.trace_id if span.sampled else None,
+            )
+
+    def _provenance_cols(
+        self, snap, q_res, q_perm, q_subj, res, cs, cache_resolved, dt, span
+    ) -> None:
+        """Columnar mirror: counters from numpy reductions; decision-log
+        entries decode interned ids ONLY for the rows the log keeps."""
+        sname = _decisions.strategy_name(cs)
+        allowed = int(res.sum())
+        _decisions.count_verdicts(
+            self._metrics, allowed, int(res.shape[0]) - allowed, sname,
+            cache_hits=int(cache_resolved.sum())
+            if cache_resolved is not None else 0,
+        )
+        if _decisions.enabled():
+            name_of_slot = snap.compiled.name_of_slot
+            interner = snap.interner
+
+            def decode(i: int):
+                rt, rid = interner.key_of(int(q_res[i]))
+                st, sid = interner.key_of(int(q_subj[i]))
+                return (f"{rt}:{rid}", name_of_slot[int(q_perm[i])],
+                        f"{st}:{sid}")
+
+            _decisions.record_cols(
+                int(res.shape[0]), res, decode,
+                revision=snap.revision, strategy=sname,
+                cache_hits=cache_resolved, latency_s=dt,
+                trace_id=span.trace_id if span.sampled else None,
+            )
+
+    def _device_dispatch(self, snap: Snapshot, latency: bool, span, run):
+        """One device dispatch under the circuit breaker: after
+        consecutive transient failures latency-mode traffic reroutes onto
+        the batch path until the breaker half-opens a probe; classified
+        failures feed it.  ``run(engine, dsnap, use_latency)`` returns the
+        (definite, possible, overflow) planes."""
         adm = self._admission
         engine = self._engine_for(snap)
         dsnap = self._dsnap_for(engine, snap)
-        # the breaker: after consecutive transient dispatch failures,
-        # latency-mode traffic reroutes onto the batch path until it
-        # half-opens a probe
-        latency = self._latency_mode
+        span.event("snapshot.prepared")
         use_latency = latency and adm.breaker.allow_latency()
         if latency and not use_latency:
             self._metrics.inc("breaker.latency_rerouted")
+            span.event("breaker.latency_rerouted")
         # a latency-mode call may fall back to the batch path (a batch
         # beyond the top tier, no flat tables): only a dispatch the
         # latency path SERVED is a probe that may close the breaker
         lp = engine.latency_path(dsnap) if use_latency else None
         lp_n = lp.dispatch_count if lp is not None else 0
         try:
-            d, p, ovf = engine.check_batch(dsnap, rels, latency=use_latency)
+            out = run(engine, dsnap, lp)
         except Exception as e:  # classify device dispatch failures
             classified = classify_dispatch_exception(e)
             if isinstance(classified, UnavailableError):
@@ -640,27 +917,271 @@ class Client:
             raise
         adm.breaker.record_success(
             probe=lp is not None and lp.dispatch_count > lp_n)
+        return out
+
+    def _evaluate_rels_direct(
+        self, snap: Snapshot, rels: List[Relationship], *, latency: bool,
+        span=_trace.NOOP,
+    ) -> List[bool]:
+        """Evaluate a formed batch at one snapshot: one device dispatch
+        (``_device_dispatch``), then host-oracle resolution of the
+        flagged rows.  Shared by ``check`` and the serving batcher, so
+        breaker semantics cannot drift between caller-formed and
+        coalesced batches."""
+        with self._metrics.timer("checks.dispatch"):
+            d, p, ovf = self._device_dispatch(
+                snap, latency, span,
+                lambda engine, dsnap, lp: engine.check_batch(
+                    dsnap, rels, latency=lp is not None, span=span))
         needs_host = (p & ~d) | ovf
         if not needs_host.any():
             self._metrics.inc("checks.device_definite", len(rels))
             return [bool(x) for x in d]
+        osp = span.child("oracle.fallback", items=int(needs_host.sum()),
+                         overflow=int(ovf.sum()))
+        try:
+            oracle = self._oracle_for(snap)
+            out: List[bool] = []
+            for i, r in enumerate(rels):
+                if not needs_host[i]:
+                    out.append(bool(d[i]))
+                    continue
+                self._metrics.inc(
+                    "checks.fallback_overflow" if ovf[i]
+                    else "checks.fallback_conditional"
+                )
+                try:
+                    out.append(oracle.check_relationship(r) == T)
+                except Exception as e:
+                    # per-item error: abort with the partial results, as
+                    # the reference's bulk mapping loop does
+                    raise BulkCheckItemError(i, out, e) from e
+            return out
+        finally:
+            osp.end()
+
+    def _evaluate_columns(
+        self,
+        snap: Snapshot,
+        q_res: np.ndarray,
+        q_perm: np.ndarray,
+        q_subj: np.ndarray,
+        *,
+        latency: bool,
+        span=_trace.NOOP,
+        cs: Optional[Strategy] = None,
+        dedup: bool = False,
+    ) -> np.ndarray:
+        """Columnar mirror of ``_evaluate_rels``' cache/dedup layer.
+        The columnar path carries no live query context by construction,
+        so every verdict is cacheable (expiry gates pin now_us on the
+        entry).  Cache hits and duplicate rows never reach the device:
+        only the unique misses dispatch, at whatever (smaller) tier they
+        land on."""
+        t_ev = _time.perf_counter()
+        vc = self._vcache
+        pol = _vcache.policy_for(cs) if vc is not None else _vcache.CACHE_OFF
+        if not (pol.read or pol.write) and not dedup:
+            out = self._evaluate_columns_direct(
+                snap, q_res, q_perm, q_subj, latency=latency, span=span)
+            self._provenance_cols(
+                snap, q_res, q_perm, q_subj, np.asarray(out, bool), cs,
+                None, _time.perf_counter() - t_ev, span)
+            return out
+
+        B = int(q_res.shape[0])
+        keys = _vcache.pack_cols(q_perm, q_res, q_subj)
+        res = np.zeros(B, bool)
+        resolved = np.zeros(B, bool)
+        now_us = int(_time.time() * 1_000_000)
+        if pol.read:
+            arr = vc.lookup_cols(snap.revision, keys)
+            if arr is not None:
+                resolved = arr >= 0
+                res = (arr & 1).astype(bool)
+                res[~resolved] = False
+        pend = np.nonzero(~resolved)[0]
+        nh = B - int(pend.shape[0])
+        if nh:
+            span.event("cache.hits", items=nh)
+            span.set_attr("cache_hits", nh)
+        if pend.shape[0] == 0:
+            self._provenance_cols(
+                snap, q_res, q_perm, q_subj, res, cs, resolved,
+                _time.perf_counter() - t_ev, span)
+            return res
+        if dedup and pend.shape[0] > 1:
+            if isinstance(keys, np.ndarray):
+                _, uix, inverse = np.unique(
+                    keys[pend], return_index=True, return_inverse=True)
+                uidx = pend[uix]
+            else:
+                first: Dict[Any, int] = {}
+                ulist: List[int] = []
+                inverse = np.empty(pend.shape[0], np.int64)
+                for j, i in enumerate(pend):
+                    k = keys[i]
+                    u = first.get(k)
+                    if u is None:
+                        u = first[k] = len(ulist)
+                        ulist.append(int(i))
+                    inverse[j] = u
+                uidx = np.asarray(ulist, np.int64)
+            dups = int(pend.shape[0] - uidx.shape[0])
+            if dups:
+                self._metrics.inc("dedup.batch_dups", dups)
+        else:
+            uidx = pend
+            inverse = np.arange(pend.shape[0])
+        try:
+            sub = self._evaluate_columns_direct(
+                snap, np.ascontiguousarray(q_res[uidx]),
+                np.ascontiguousarray(q_perm[uidx]),
+                np.ascontiguousarray(q_subj[uidx]),
+                latency=latency, span=span,
+            )
+        except BulkCheckItemError as e:
+            # unique space -> caller space: scatter the resolved unique
+            # prefix onto its duplicates, re-anchor at the first
+            # unresolved caller row (everything before it IS resolved)
+            part = np.asarray(e.results, bool)
+            ok = inverse < e.index
+            res[pend[ok]] = part[inverse[ok]]
+            resolved[pend[ok]] = True
+            first_bad = int(np.nonzero(~resolved)[0][0])
+            raise BulkCheckItemError(
+                first_bad, res[:first_bad], e.__cause__ or e
+            ) from (e.__cause__ or e)
+        res[pend] = np.asarray(sub, bool)[inverse]
+        if pol.write:
+            ku = keys[uidx] if isinstance(keys, np.ndarray) else [
+                keys[int(i)] for i in uidx]
+            vc.insert_cols(snap.revision, ku, np.asarray(sub, bool), now_us)
+        self._provenance_cols(
+            snap, q_res, q_perm, q_subj, res, cs, resolved,
+            _time.perf_counter() - t_ev, span)
+        return res
+
+    def _evaluate_columns_direct(
+        self,
+        snap: Snapshot,
+        q_res: np.ndarray,
+        q_perm: np.ndarray,
+        q_subj: np.ndarray,
+        *,
+        latency: bool,
+        span=_trace.NOOP,
+    ) -> np.ndarray:
+        """The columnar mirror of ``_evaluate_rels_direct`` for the
+        serving batcher: pre-interned int32 columns straight onto the
+        pinned tier ladder (breaker-gated), with flagged rows resolved on
+        the host oracle by id reconstruction.  Returns a bool verdict
+        array of len(q_res)."""
+        B = int(q_res.shape[0])
+
+        def run(engine, dsnap, lp):
+            out = None
+            if lp is not None:
+                out = lp.dispatch_columns(q_res, q_perm, q_subj, span=span)
+            if out is None:
+                out = engine.check_columns(dsnap, q_res, q_perm, q_subj)
+            return out
+
+        with self._metrics.timer("checks.device_time_s"):
+            d, p, ovf = self._device_dispatch(snap, latency, span, run)
+        res = np.asarray(d, bool).copy()
+        needs_host = (p & ~d) | ovf
+        if not needs_host.any():
+            self._metrics.inc("checks.device_definite", B)
+            return res
         oracle = self._oracle_for(snap)
-        out: List[bool] = []
-        for i, r in enumerate(rels):
-            if not needs_host[i]:
-                out.append(bool(d[i]))
-                continue
+        idx = np.nonzero(needs_host)[0]
+        span.event("oracle.fallback", items=int(idx.shape[0]))
+        for i in idx:
             self._metrics.inc(
                 "checks.fallback_overflow" if ovf[i]
                 else "checks.fallback_conditional"
             )
             try:
-                out.append(oracle.check_relationship(r) == T)
+                res[i] = self._check_interned(
+                    oracle, snap, q_res[i], q_perm[i], q_subj[i])
             except Exception as e:
-                # per-item error: abort with the partial results, as the
-                # reference's bulk mapping loop does
-                raise BulkCheckItemError(i, out, e) from e
+                # idx is ascending, so every item before i is resolved:
+                # the serving batcher slices this back onto the
+                # co-batched submissions instead of failing them all
+                raise BulkCheckItemError(int(i), res[:int(i)], e) from e
+        return res
+
+    def _check_interned(
+        self, oracle: Oracle, snap: Snapshot, res_id, perm_slot, subj_id
+    ) -> bool:
+        """One host-oracle check from interned ids (the columnar path's
+        fallback): the (resource, permission, subject) triple rebuilt
+        through the snapshot's interner and slot names."""
+        rtype, rid = snap.interner.key_of(int(res_id))
+        stype, sid = snap.interner.key_of(int(subj_id))
+        perm = snap.compiled.name_of_slot[int(perm_slot)]
+        r = rel_must_from_triple(f"{rtype}:{rid}", perm, f"{stype}:{sid}")
+        return oracle.check_relationship(r) == T
+
+    def _peek_cached(
+        self, snap: Snapshot, rels, cs: Optional[Strategy]
+    ) -> List[Optional[tuple]]:
+        """Per-rel verdict-cache entries ``(verdict, pinned now_us)`` or
+        None — a metric-free residency probe (explain provenance in the
+        reference).  Must run BEFORE the evaluate dispatch: an entry that
+        exists only because this request's dispatch inserted it is fresh
+        work, not a cache-served verdict."""
+        vc = self._vcache
+        if vc is None or not _vcache.policy_for(cs).read:
+            return [None] * len(rels)
+        out: List[Optional[tuple]] = []
+        for r in rels:
+            key = _vcache.rel_key(r)
+            out.append(
+                vc.peek_rel(snap.revision, key)
+                if key[1] == _vcache.EMPTY_CTX_FP else None
+            )
         return out
+
+    # -- the serving front end (serve/) ------------------------------------
+    def with_serving(
+        self, cs: Optional[Strategy] = None, config=None, cache=None
+    ) -> "Any":
+        """Open a continuous-batching serving handle over this client
+        (serve/handle.py): concurrent Check / CheckMany submissions
+        coalesce into the next pinned tier slot of the latency path
+        (engine/latency.py) under a deadline-aware hold-back, with
+        per-client fair admission and queue-depth shedding through
+        ``ShedError``.  ``handle.check(ctx, *rels)`` blocks on its
+        coalesced result (the retry envelope re-submits on transient
+        faults); ``submit`` / ``submit_columns`` return futures for
+        open-loop callers.  Batches the latency path declines serve on
+        the throughput path, same answers.
+
+        ``cs`` pins the handle's consistency strategy (default
+        ``min_latency()``): the checks of one formed batch evaluate at
+        one snapshot.  Close the handle (or use it as a context manager)
+        to drain and stop its threads.
+
+        ``cache`` arms the revision-pinned verdict cache on this
+        client's evaluate paths (``True`` = default 64 MB, an int byte
+        budget, a shared ``VerdictCache``, or ``False`` to force this
+        handle cache-off even when the client carries one); the
+        handle's pinned strategy is the read policy (``full()``
+        bypasses).  In-batch and in-flight dedup are governed by
+        ``ServeConfig.dedup`` and are on by default."""
+        from .serve import ServingHandle
+
+        if cache is not None and cache is not False:
+            # True reuses an already-attached cache; an explicit
+            # instance or byte budget replaces it
+            if self._vcache is None or cache is not True:
+                self._vcache = self._make_vcache(cache)
+        return ServingHandle(
+            self, cs if cs is not None else _consistency.min_latency(),
+            config, use_cache=cache is not False,
+        )
 
     # -- lookups (client/client.go:501-599) ------------------------------
     def lookup_resources(

@@ -155,6 +155,10 @@ class DeviceSnapshot:
     #: the latency-mode dispatcher of this snapshot (engine/latency.py),
     #: made on first use by ``DeviceEngine.latency_path``
     latency_path: Optional[Any] = None
+    #: name -> ``data_ptr`` of each tensor of the full prepare this
+    #: snapshot's delta chain started from: the latency pins share those
+    #: between the chain's revisions and keep the rest private
+    base_ptrs: Optional[Dict[str, int]] = None
 
 
 def _resolve_kernels(config: EngineConfig, device: torch.device) -> bool:
@@ -265,8 +269,22 @@ class DeviceEngine:
         self._empty_qctx_dev: Optional[Dict[str, torch.Tensor]] = None
         #: one background transposed-index build at a time per engine
         self._prewarm_inflight = False
-        #: guards the creation of a snapshot's LatencyPath
-        self._latency_lock = threading.Lock()
+        #: the latency path's pins (engine/latency.py), shared by the
+        #: revisions of a shape band: (band, slots, tier, qctx shape) ->
+        #: _Pin; FIFO-bounded, a band's pins dropped with its last
+        #: revision's path
+        self._latency_pins: Dict[Any, Any] = {}
+        #: the bands by their key (FlatMeta, shapes, private names, shared
+        #: storage: ``LatencyPath._share_key``) -> _Band
+        self._latency_bands: Dict[Any, Any] = {}
+        #: guards both dicts' lookups and inserts, and the creation of a
+        #: snapshot's LatencyPath
+        self._latency_pins_lock = threading.Lock()
+        #: covers a pinned dispatch from its copy-in to its readback: the
+        #: pins' buffers and outputs, and the graph pool they share (one
+        #: pool is safe: the lock keeps the replays from overlapping, and
+        #: each dispatch reads its outputs back before another graph runs)
+        self._latency_replay_lock = threading.Lock()
 
     # -- snapshot preparation -------------------------------------------
     def _host_arrays(self, snap: Snapshot) -> Dict[str, np.ndarray]:
@@ -433,6 +451,8 @@ class DeviceEngine:
             flat_meta=flat_meta,
             specs=specs,
             strings=strings,
+            base_ptrs=prev.base_ptrs if prev is not None else {
+                k: v.data_ptr() for k, v in dev_arrays.items()},
         )
 
     def _maybe_prewarm_walker_index(self, snap: Snapshot) -> None:
@@ -800,16 +820,29 @@ class DeviceEngine:
     #: (callers with a Context pass their own)
     LATENCY_RETRY_TRIES = 3
 
+    #: bound on the engine's latency pins (FIFO), the reference's
+    LATENCY_PIN_CACHE_MAX = 32
+
     def latency_path(self, dsnap: DeviceSnapshot):
         """The warm small-batch dispatcher attached to this prepared
         snapshot (created on first use; see engine/latency.py)."""
         if dsnap.latency_path is None:
             from .latency import LatencyPath
 
-            with self._latency_lock:
+            with self._latency_pins_lock:
                 if dsnap.latency_path is None:
                     dsnap.latency_path = LatencyPath(self, dsnap)
         return dsnap.latency_path
+
+    def _drop_latency_band(self, band) -> None:
+        """Drop ``band`` and its pins (their graphs and outputs): no path
+        of its revisions is alive.  Called from the garbage collector, so
+        it takes no lock; each step is one atomic dict operation."""
+        band.dropped = True
+        if self._latency_bands.get(band.share) is band:
+            self._latency_bands.pop(band.share, None)
+        for k in list(band.pin_keys):
+            self._latency_pins.pop(k, None)
 
     def check_columns_latency(
         self,

@@ -14,10 +14,25 @@ This path removes every per-dispatch variable cost it can:
   probes in the hand-written kernels) is captured ONCE per (permission
   slots, batch tier, request-context shape) into a ``torch.cuda.CUDAGraph``
   over static device buffers, then replayed: one launch for the whole
-  program.  A graph reads the storage it was captured on, so pins live
-  and die with their snapshot's path: each revision of a delta chain
-  (new overlay storage) captures its own.  ``compile_count`` counts
-  captures paid; warm dispatches pay none.
+  program.  ``compile_count`` counts captures paid; warm dispatches pay
+  none.
+- **pins shared across a delta chain**: the engine keeps its pins
+  (``DeviceEngine._latency_pins``), keyed as the reference keys its
+  executables (FlatMeta, the shapes of the snapshot's tensors, the pin's
+  own key) plus what a graph bakes in: the storage of the tensors it
+  reads.  A graph reads the pointers it was captured on, so the
+  revisions of a delta chain in one shape band share a ``_Band``: its
+  private buffers for the tensors that differ between them (the ``dl_*``
+  overlays, and any tensor the chain replaced since its full prepare,
+  ``DeviceSnapshot.base_ptrs``), over which, and over the base tensors
+  the revisions share, every pin of the band is captured.  A dispatch
+  from another revision than the one the band last served copies that
+  revision's tensors into the buffers on the device first, once for all
+  the band's pins (``latency.rebinds``), then replays.  A full prepare
+  (new base storage) or a grown overlay band (new shapes) is a new band,
+  and captures.  A band lives while a path of one of its revisions
+  does: when the last is freed, the engine drops the band's pins, so no
+  pin outlives the snapshots it serves or keeps their base alive.
 - **batch tiers**: batches pad to a small fixed ladder of tiers
   (``EngineConfig.latency_tiers``, default 256/1024/4096) instead of the
   batch's own pow2: a workload whose batch size jitters between 900 and
@@ -53,6 +68,7 @@ from __future__ import annotations
 
 import threading
 import time
+import weakref
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
@@ -66,11 +82,6 @@ from ..utils import trace as _trace
 from . import kernels as _K
 from .device import to_device_tensor
 from .flat import QM_ROWS, fill_qm
-
-#: bound on one path's pins (FIFO; each is one CUDA graph at one batch
-#: tier): varying request-context shapes must not accumulate pins
-PIN_MAX = 32
-
 
 def tier_for(tiers, B: int) -> Optional[int]:
     """Smallest tier in the ladder holding ``B``, or None (-> the
@@ -95,6 +106,9 @@ class DispatchBudget:
     #: True when this dispatch captured its pin (cold); warm
     #: steady-state dispatches are always False
     compiled: bool
+    #: bytes this dispatch copied into its band's private buffers (shared
+    #: with other revisions); 0 when they held this revision's
+    rebind_bytes: int = 0
 
     def as_dict(self) -> Dict[str, float]:
         return {
@@ -106,20 +120,88 @@ class DispatchBudget:
             "d2h_s": self.d2h_s,
             "total_s": self.total_s,
             "compiled": self.compiled,
+            "rebind_bytes": self.rebind_bytes,
         }
+
+
+def _tensors_of(dsnap, shared_names):
+    """The tensors a pin reads from ``dsnap`` without owning them: the
+    arrays named ``shared_names``, the type map and the decode specs."""
+    out = [dsnap.arrays[k] for k in shared_names]
+    out.append(dsnap.tid_map)
+    for k in sorted(dsnap.specs):
+        out.extend(dsnap.specs[k])
+    return out
+
+
+class _Band:
+    """What the revisions of one shape band of a delta chain share: the
+    buffers every pin of the band reads in place of the tensors that
+    differ between those revisions, which revision they hold, and the
+    live paths of the band's revisions (``users``).  The engine's replay
+    lock covers a rebind."""
+
+    def __init__(self, share: Tuple, dsnap) -> None:
+        #: the engine-cache key part (``LatencyPath._share_key``)
+        self.share = share
+        #: name -> the band's own buffer for a tensor that differs
+        #: between its revisions
+        self.private: Dict[str, torch.Tensor] = {
+            k: torch.empty_like(dsnap.arrays[k]) for k in share[2]
+        }
+        #: weak references to the revision tensors the buffers hold
+        #: copies of (None: nothing bound yet)
+        self._bound: Optional[list] = None
+        #: ids of the live paths of this band's revisions
+        self.users: set = set()
+        #: the engine-cache keys of the band's pins
+        self.pin_keys: set = set()
+        #: set once the engine dropped the band (its last user died)
+        self.dropped = False
+
+    def bind(self, dsnap) -> int:
+        """Copy ``dsnap``'s tensors into the buffers, on the device's
+        current stream, unless they hold them already; returns the bytes
+        copied."""
+        srcs = [dsnap.arrays[k] for k in self.private]
+        bound = self._bound
+        if bound is not None and all(r() is t for r, t in zip(bound, srcs)):
+            return 0
+        self._bound = None  # a copy that raises leaves nothing bound
+        n = 0
+        for buf, src in zip(self.private.values(), srcs):
+            buf.copy_(src, non_blocking=True)
+            n += src.numel() * src.element_size()
+        self._bound = [weakref.ref(t) for t in srcs]
+        return n
+
+
+def _release_band_user(engine_ref, band: _Band, path_id: int) -> None:
+    """A path of ``band``'s revisions was freed: once it was the last,
+    the engine drops the band's pins (their graphs and outputs) and the
+    band's buffers go with them.  Runs from the garbage collector, so it
+    takes no lock: each step is one atomic dict or set operation."""
+    band.users.discard(path_id)
+    eng = engine_ref()
+    if band.users or eng is None:
+        return
+    eng._drop_latency_band(band)
 
 
 class _Pin:
     """The flat program pinned at one (slots, tier, qctx shape) over one
-    snapshot's storage: static input buffers (query matrix, clock,
-    request-context tables), and on ``cuda`` the CUDA graph captured
-    over them with its static output planes and a pinned host copy.
-    Each replay overwrites the outputs: the path's lock covers a
-    dispatch from filling the inputs to reading the outputs back."""
+    band of a delta chain: static input buffers (query matrix, clock,
+    request-context tables) and on ``cuda`` the CUDA graph captured over
+    them, the band's buffers and the shared base tensors, with its
+    static output planes and a pinned host copy.  Each replay overwrites
+    the outputs: the engine's replay lock covers a dispatch from filling
+    the inputs to reading the outputs back."""
 
-    def __init__(self, engine, fn, tier: int, qctx_np, qctx_shared) -> None:
+    def __init__(self, engine, fn, tier: int, qctx_np, qctx_shared,
+                 band: _Band) -> None:
         dev = engine.device
         self.fn = fn
+        self.band = band
         self.qm = torch.empty((QM_ROWS, tier), dtype=torch.int32, device=dev)
         self.now = torch.zeros((), dtype=torch.int32, device=dev)
         #: the engine's context-free device tables (long-lived), or static
@@ -134,23 +216,30 @@ class _Pin:
         #: kernel launches per mode inside the capture (LAUNCHES keys)
         self.modes: Dict[str, int] = {}
         self.ready = False
+        #: this pin's key in the engine's cache
+        self.full_key: Optional[Tuple] = None
 
     def args(self, dsnap):
-        return (dsnap.arrays, dsnap.tid_map, self.now, self.qm, self.qctx,
+        arrays = dsnap.arrays
+        if self.band.private:
+            arrays = dict(arrays)
+            arrays.update(self.band.private)
+        return (arrays, dsnap.tid_map, self.now, self.qm, self.qctx,
                 dsnap.specs)
 
     def capture(self, dsnap, pool) -> None:
         """Capture the program into a CUDA graph (``cuda``) whose memory
         comes from ``pool``; on ``cpu`` the pin runs the eager program.
-        The inputs hold the first batch: one eager run on a side stream
-        builds the kernels and the device constants (engine/consts.py),
-        then the capture records the program on that stream.  Unlike the
-        ``torch.cuda.graph`` context, this neither synchronises the device
-        nor empties the allocator's cache, which eager batches would pay
-        for afterwards.  Capture errors raise, and leave the allocator as
-        they found it: a capture that fails ends in ``capture_end``'s
-        error before it stops allocating from ``pool``, so that is done
-        here, and the caller drops the pool (``LatencyPath._capture``)."""
+        The inputs hold the first batch and ``dsnap``'s tensors are bound:
+        one eager run on a side stream builds the kernels and the device
+        constants (engine/consts.py), then the capture records the
+        program on that stream.  Unlike the ``torch.cuda.graph`` context,
+        this neither synchronises the device nor empties the allocator's
+        cache, which eager batches would pay for afterwards.  Capture
+        errors raise, and leave the allocator as they found it: a capture
+        that fails ends in ``capture_end``'s error before it stops
+        allocating from ``pool``, so that is done here, and the caller
+        drops the pin (``LatencyPath._capture``)."""
         if self.qm.device.type != "cuda":
             self.ready = True
             return
@@ -187,9 +276,9 @@ class _Pin:
         self.ready = True
 
     def run(self, dsnap) -> torch.Tensor:
-        """The [3, tier] planes of the inputs as filled: the replayed
-        graph's static outputs on ``cuda``, the eager program's on
-        ``cpu``."""
+        """The [3, tier] planes of the inputs as filled and bound: the
+        replayed graph's static outputs on ``cuda``, the eager program's
+        on ``cpu``."""
         if self.graph is not None:
             self.graph.replay()
             return self.out
@@ -202,31 +291,35 @@ class LatencyPath:
     """Warm small-batch dispatcher for one DeviceSnapshot.
 
     Obtained via ``DeviceEngine.latency_path(dsnap)`` (one per prepared
-    snapshot, holding that snapshot's pins)."""
+    snapshot).  It looks its pins up in the engine's cache, where the
+    other revisions of its band may have pinned them already."""
 
     def __init__(self, engine, dsnap, registry: Optional[Any] = None) -> None:
         self.engine = engine
         self.dsnap = dsnap
         self._m = registry or _metrics.default
-        #: covers a dispatch from staging to readback: the staging
-        #: buffers, the pins' static buffers and their outputs
+        #: covers this path's staging buffers, from filling one to its
+        #: copy to the device; the engine's replay lock covers the pins
         self._lock = threading.Lock()
-        #: (slots, tier, qctx_key) -> _Pin
-        self._local: Dict[Tuple, _Pin] = {}
+        #: this snapshot's band (``_band_for``), made on the first dispatch
+        self._band: Optional[_Band] = None
         #: tier -> (host int32[QM_ROWS, tier] staging tensor, its numpy view)
         self._qm_bufs: Dict[int, Tuple[torch.Tensor, np.ndarray]] = {}
         #: captures this path paid for: the no-recapture assertion's
         #: subject
         self.compile_count = 0
+        #: distinct (slots, tier, qctx) keys this path took a pin for
+        #: (captured here or found in the engine's cache)
+        self.pin_count = 0
+        #: the keys ``pin_count`` counted
+        self._pinned_keys: set = set()
         #: dispatches this path actually SERVED (not fallbacks): the
         #: client reads it around a dispatch to learn whether a
         #: latency-mode call really ran here (the breaker's half-open
         #: probe must not close on a silent batch fallback)
         self.dispatch_count = 0
-        #: the memory pool of this path's graphs (``cuda``; made on the
-        #: first capture).  One pool is safe: the path's lock keeps its
-        #: replays from overlapping
-        self._pool = None
+        #: the engine-cache key part of this snapshot (``_share_key``)
+        self._share: Optional[Tuple] = None
         #: (slots, tier, qctx_key) keys this path has SERVED warm: a fresh
         #: capture for one of them means its pin was lost (FIFO
         #: eviction) and is being paid for at serving time
@@ -271,40 +364,109 @@ class LatencyPath:
             (k, tuple(v.shape), str(v.dtype)) for k, v in sorted(qctx.items())
         )
 
-    def _pinned_for(self, slots, tier, qctx_key, qctx):
-        """The pin for this (slots, tier, qctx shape), or a new one
-        (captured by the caller on its first run).  Returns (pin, fresh,
-        key)."""
-        key = (slots, tier, qctx_key)
-        pin = self._local.get(key)
-        if pin is not None:
-            return pin, False, key
+    def _share_key(self) -> Tuple:
+        """The engine-cache key part of this snapshot: FlatMeta (the
+        program closes over it, DeltaMeta included), the shapes of its
+        tensors (the reference's fingerprint), the names the pins keep
+        private (the ``dl_*`` overlays and every tensor the chain
+        replaced since its full prepare), and the storage of the rest:
+        two revisions with equal keys differ only in the private
+        tensors."""
+        if self._share is None:
+            ds = self.dsnap
+            base = ds.base_ptrs or {}
+            private = tuple(sorted(
+                k for k, v in ds.arrays.items()
+                if k.startswith("dl_") or base.get(k) != v.data_ptr()))
+            shared = [k for k in sorted(ds.arrays) if k not in private]
+            self._share = (
+                ds.flat_meta,
+                tuple(sorted((k, tuple(v.shape), str(v.dtype))
+                             for k, v in ds.arrays.items())),
+                private,
+                tuple(shared),
+                tuple(t.data_ptr() for t in _tensors_of(ds, shared)),
+            )
+        return self._share
+
+    def _band_for(self) -> _Band:
+        """This snapshot's band: the engine's, when another revision with
+        the same ``_share_key`` made it, else a new one.  The path is one
+        of the band's users until it is freed (``_release_band_user``).
+        Called under the engine's replay lock."""
+        band = self._band
+        if band is not None and not band.dropped:
+            return band
         eng = self.engine
-        fn = eng._flat_fn_for(slots, self.dsnap.flat_meta)
-        shared = eng._qctx_device(qctx) if qctx_key[0] == "empty" else None
-        pin = _Pin(eng, fn, tier, qctx, shared)
-        self.compile_count += 1
-        self._m.inc("latency.compiles")
-        _perf.record_cost("latency_pin", f"tier={tier};slots={slots}",
-                          self._m, tier=int(tier), slots=len(slots))
-        self._local[key] = pin
-        while len(self._local) > PIN_MAX:
-            self._local.pop(next(iter(self._local)))
-        return pin, True, key
+        share = self._share_key()
+        with eng._latency_pins_lock:
+            band = eng._latency_bands.get(share)
+            if band is None or band.dropped:
+                band = eng._latency_bands[share] = _Band(share, self.dsnap)
+            band.users.add(id(self))
+        self._band = band
+        f = weakref.finalize(self, _release_band_user, weakref.ref(eng),
+                             band, id(self))
+        f.atexit = False
+        return band
+
+    def _pinned_for(self, slots, tier, qctx_key, qctx):
+        """The pin for this (slots, tier, qctx shape) in the engine's
+        cache (pinned by this path or by another revision of its band),
+        else a new one (captured by the dispatch on its first run).
+        Called under the engine's replay lock.  Returns (pin, key)."""
+        key = (slots, tier, qctx_key)
+        band = self._band_for()
+        full_key = (band,) + key
+        eng = self.engine
+        with eng._latency_pins_lock:
+            pin = eng._latency_pins.get(full_key)
+            if pin is None:
+                fn = eng._flat_fn_for(slots, self.dsnap.flat_meta)
+                shared = (eng._qctx_device(qctx) if qctx_key[0] == "empty"
+                          else None)
+                pin = _Pin(eng, fn, tier, qctx, shared, band)
+                pin.full_key = full_key
+                pins = eng._latency_pins
+                while len(pins) >= eng.LATENCY_PIN_CACHE_MAX:
+                    pins.pop(next(iter(pins)), None)
+                pins[full_key] = pin
+                band.pin_keys.add(full_key)
+        if key not in self._pinned_keys:
+            self._pinned_keys.add(key)
+            self.pin_count += 1
+        return pin, key
 
     def _capture(self, pin, key) -> None:
-        """Capture ``pin``; a pin whose capture failed is dropped with the
-        path's pool, so the next dispatch of its key captures anew into a
-        fresh pool (and raises again if the fault persists) instead of
-        replaying a broken graph."""
-        if self._pool is None and self.engine.device.type == "cuda":
-            self._pool = torch.cuda.graph_pool_handle()
+        """Capture ``pin`` into the graph pool the engine's pins share:
+        that of a captured pin still in the engine (held here until the
+        capture ends, so its pool stays alive), else a new one; a pool
+        whose graphs are all gone cannot take another capture.  A pin
+        whose capture failed is dropped from the engine, so the next
+        dispatch of its key captures anew (and raises again if the fault
+        persists) instead of replaying a broken graph."""
+        eng = self.engine
+        self.compile_count += 1
+        self._m.inc("latency.compiles")
+        slots, tier = key[0], key[1]
+        _perf.record_cost("latency_pin", f"tier={tier};slots={slots}",
+                          self._m, tier=int(tier), slots=len(slots))
+        donor, pool = None, None
+        if eng.device.type == "cuda":
+            with eng._latency_pins_lock:
+                donor = next((p for p in eng._latency_pins.values()
+                              if p.graph is not None), None)
+            pool = (donor.graph.pool() if donor is not None
+                    else torch.cuda.graph_pool_handle())
         try:
-            pin.capture(self.dsnap, self._pool)
+            pin.capture(self.dsnap, pool)
         except BaseException:
-            self._local.pop(key, None)
-            self._pool = None  # the next capture starts a pool of its own
+            with eng._latency_pins_lock:
+                if eng._latency_pins.get(pin.full_key) is pin:
+                    del eng._latency_pins[pin.full_key]
             raise
+        finally:
+            del donor
 
     def _qm_buf(self, tier: int) -> Tuple[torch.Tensor, np.ndarray]:
         buf = self._qm_bufs.get(tier)
@@ -315,8 +477,12 @@ class LatencyPath:
         return buf
 
     def pins(self) -> Dict[Tuple, _Pin]:
-        """This path's pins by (slots, tier, qctx_key)."""
-        return dict(self._local)
+        """The engine's pins of this path's band by (slots, tier,
+        qctx_key); the other revisions of the band see the same ones."""
+        band = self._band
+        with self.engine._latency_pins_lock:
+            items = list(self.engine._latency_pins.items())
+        return {k[1:]: p for k, p in items if k[0] is band}
 
     # -- dispatch --------------------------------------------------------
     def dispatch(
@@ -358,56 +524,65 @@ class LatencyPath:
         sync = torch.cuda.current_stream(dev).synchronize if cuda else None
 
         # ---- stage 1: host lowering (pack into the staging buffer) -----
-        # one lock from staging to readback: every caller of the path
-        # shares its staging buffers and its pins' inputs and outputs
+        # the path's lock covers its staging buffers; the engine's replay
+        # lock covers every pin from its copy-in to its readback: a pin,
+        # its band's private buffers and the graph pool are shared by the
+        # revisions of the band
+        eng = self.engine
         with self._lock:
             stage_t, stage_np = self._qm_buf(tier)
             fill_qm(queries, stage_np, meta)
             qctx_key = self._qctx_key(qctx)
-            pin, fresh, pin_key = self._pinned_for(slots, tier, qctx_key, qctx)
-            t1 = time.perf_counter()
+            with eng._latency_replay_lock:
+                pin, pin_key = self._pinned_for(slots, tier, qctx_key, qctx)
+                t1 = time.perf_counter()
 
-            # ---- stage 2: H2D (staging matrix, clock, contexts) ---------
-            pin.qm.copy_(stage_t, non_blocking=True)
-            pin.now.fill_(int(now))
-            if pin.qctx_static:
-                for k, v in qctx.items():
-                    pin.qctx[k].copy_(torch.from_numpy(
-                        np.ascontiguousarray(v)).view(pin.qctx[k].dtype),
-                        non_blocking=True)
-            if cuda:
-                sync()
-            t2 = time.perf_counter()
+                # ---- stage 2: H2D (staging matrix, clock, contexts), and
+                # this revision's private tensors when the band last served
+                # another revision (device to device)
+                pin.qm.copy_(stage_t, non_blocking=True)
+                pin.now.fill_(int(now))
+                if pin.qctx_static:
+                    for k, v in qctx.items():
+                        pin.qctx[k].copy_(torch.from_numpy(
+                            np.ascontiguousarray(v)).view(pin.qctx[k].dtype),
+                            non_blocking=True)
+                rebind = pin.band.bind(self.dsnap)
+                if cuda:
+                    sync()
+                t2 = time.perf_counter()
 
-            # ---- stage 3: the pinned program (replay) -------------------
-            if fresh and pin_key in self._served_keys:
-                # this shape was served warm before: its pin was lost
-                self._m.inc("latency.retraces")
-                _trace.trigger_incident(
-                    "latency.retrace", tier=tier, batch=B, slots=len(slots),
-                )
-            with _trace.annotate_dispatch(span):
-                if not pin.ready:
-                    self._capture(pin, pin_key)
-                out = pin.run(self.dsnap)
-            if cuda:
-                sync()
-            t3 = time.perf_counter()
+                # ---- stage 3: the pinned program (replay) ---------------
+                fresh = not pin.ready
+                if fresh and pin_key in self._served_keys:
+                    # this shape was served warm before: its pin was lost
+                    self._m.inc("latency.retraces")
+                    _trace.trigger_incident(
+                        "latency.retrace", tier=tier, batch=B,
+                        slots=len(slots),
+                    )
+                with _trace.annotate_dispatch(span):
+                    if fresh:
+                        self._capture(pin, pin_key)
+                    out = pin.run(self.dsnap)
+                if cuda:
+                    sync()
+                t3 = time.perf_counter()
 
-            # ---- stage 4: D2H readback -----------------------------------
-            if cuda:
-                pin.host.copy_(out, non_blocking=True)
-                sync()
-                got = pin.host.numpy()[:, :B].copy()
-            else:
-                got = out[:, :B].numpy().copy()
-            t4 = time.perf_counter()
+                # ---- stage 4: D2H readback -------------------------------
+                if cuda:
+                    pin.host.copy_(out, non_blocking=True)
+                    sync()
+                    got = pin.host.numpy()[:, :B].copy()
+                else:
+                    got = out[:, :B].numpy().copy()
+                t4 = time.perf_counter()
 
         budget = DispatchBudget(
             batch=B, tier=tier,
             host_lower_s=t1 - t0, h2d_s=t2 - t1,
             kernel_s=t3 - t2, d2h_s=t4 - t3,
-            total_s=t4 - t0, compiled=fresh,
+            total_s=t4 - t0, compiled=fresh, rebind_bytes=rebind,
         )
         self.last_budget = budget
         self.dispatch_count += 1
@@ -419,9 +594,15 @@ class LatencyPath:
         m.inc("latency.dispatches")
         if fresh:
             # a capture is not a tail sample of the warm path: cold
-            # dispatches (the first after each write, on a Watch-fed
-            # service) are published on their own
+            # dispatches (the first of a new shape band) are published on
+            # their own
             m.observe("latency.cold_dispatch_s", budget.total_s)
+        elif rebind:
+            # nor is a rebind: the first dispatch of a revision on a pin
+            # another revision of the chain captured
+            m.inc("latency.rebinds")
+            m.inc("latency.rebind_bytes", rebind)
+            m.observe("latency.rebind_dispatch_s", budget.total_s)
         else:
             m.observe("latency.host_lower_s", budget.host_lower_s)
             m.observe("latency.h2d_s", budget.h2d_s)

@@ -49,6 +49,13 @@ Injection sites threaded through the tree (grep ``faults.fire``):
                              the client's circuit breaker counts these
                              and reroutes latency traffic to the batch
                              path, utils/admission.py)
+    batcher.form             serving batch formation, before any dequeue
+                             (serve/batcher.py: the former pauses and
+                             retries, the queue intact)
+    batcher.dispatch         serving batch dispatch (serve/batcher.py:
+                             classified onto the batch's futures)
+    cache.lookup             verdict-cache lookup, before any cached
+                             state is read (engine/vcache.py)
 """
 
 from __future__ import annotations

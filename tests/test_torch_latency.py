@@ -24,13 +24,15 @@ from gochugaru_tpu import consistency as jconsistency
 from gochugaru_tpu import rel as jrel
 from gochugaru_tpu.client import (
     new_tpu_evaluator as j_new, with_admission_control as j_with_adm,
-    with_latency_mode as j_with_latency,
+    with_engine_config as j_with_config, with_latency_mode as j_with_latency,
 )
 from gochugaru_tpu.engine import latency as JL
 from gochugaru_tpu.engine.device import DeviceEngine as JEngine
 from gochugaru_tpu.engine.plan import EngineConfig as JConfig
 from gochugaru_tpu.schema import compile_schema as j_compile, parse_schema as j_parse
 from gochugaru_tpu.store.interner import Interner as JInterner
+from gochugaru_tpu.store.delta import apply_delta as j_apply
+from gochugaru_tpu.store.snapshot import build_snapshot as j_build_rels
 from gochugaru_tpu.store.snapshot import build_snapshot_from_columns as j_build
 from gochugaru_tpu.utils import faults as jfaults
 from gochugaru_tpu.utils import metrics as jmetrics
@@ -42,7 +44,7 @@ from gochugaru_tpu_torch import consistency as pconsistency
 from gochugaru_tpu_torch import rel as prel
 from gochugaru_tpu_torch.client import (
     new_evaluator as p_new, with_admission_control as p_with_adm,
-    with_latency_mode as p_with_latency,
+    with_engine_config as p_with_config, with_latency_mode as p_with_latency,
 )
 from gochugaru_tpu_torch.engine import kernels as K
 from gochugaru_tpu_torch.engine import latency as PL
@@ -61,7 +63,10 @@ from gochugaru_tpu_torch.utils import metrics as pmetrics
 from gochugaru_tpu_torch.utils import perf as pperf
 from gochugaru_tpu_torch.utils.admission import AdmissionConfig as PAdmissionConfig
 from gochugaru_tpu_torch.utils.context import background as p_background
-from test_torch_latency_cuda import EPOCH, RBAC_SCHEMA, _queries, _rbac, _same
+from test_torch_latency_cuda import (
+    CHAIN_SCHEMA, EPOCH, RBAC_SCHEMA, _chain_queries, _chain_world, _queries, _rbac,
+    _same,
+)
 
 @pytest.fixture(scope="module")
 def worlds():
@@ -192,9 +197,10 @@ def test_perf_ledger_matches_the_reference(worlds):
 
 
 def test_pins_live_with_their_snapshot(worlds):
-    """Pins belong to one snapshot's path: a re-prepare (new storage) and
-    the next revision of a delta chain (same shapes, new overlays) each
-    capture their own, and answer their own revision."""
+    """Pins live with the storage they read: a re-prepare (new storage)
+    captures its own; the revisions of a delta chain in one shape band
+    share the pin the first of them captured (new overlays, copied into
+    the pin's private buffers), and each answers its own revision."""
     _j, p, users, repos, slot = worlds
     pe, ds, snap = p["engine"], p["dsnap"], p["snap"]
     q = _queries(users, repos, slot, 200, seed=17)
@@ -224,11 +230,13 @@ def test_pins_live_with_their_snapshot(worlds):
     assert a.flat_meta == b.flat_meta
     assert {k: tuple(v.shape) for k, v in a.arrays.items()} == {
         k: tuple(v.shape) for k, v in b.arrays.items()}
+    caps = []
     for nds in revs:
         lp = pe.latency_path(nds)
         assert _same(lp.dispatch_columns(*q, now_us=EPOCH),
                      pe.check_columns(nds, *q, now_us=EPOCH))
-        assert lp.compile_count == 1
+        caps.append(lp.compile_count)
+    assert caps == [1, 0]
 
 
 # ---------------------------------------------------------------------------
@@ -439,3 +447,239 @@ def test_breaker_reroutes_and_recovers_like_the_reference():
     assert got == want
     assert [s[3] for s in got] == [0, 2, 2, 0]  # closed, open, open, closed
     assert got[2][2] == 1 and not got[2][4]  # rerouted, no latency dispatch
+
+
+# ---------------------------------------------------------------------------
+# pins shared across the revisions of a delta chain
+# ---------------------------------------------------------------------------
+
+class _Chains:
+    """One chain in both packages: revision 1 a full prepare, each later
+    one ``prepare(snap, prev=...)`` of the previous."""
+
+    def __init__(self, n_revs=6, **cfg):
+        base, writes, (n_users, n_docs) = _chain_world()
+        self.writes = writes[: n_revs - 1]
+        jcs, pcs = j_compile(j_parse(CHAIN_SCHEMA)), p_compile(p_parse(CHAIN_SCHEMA))
+        ji, pi = JInterner(), PInterner()
+        for interner in (ji, pi):
+            for i in range(n_users):
+                interner.node("user", f"u{i}")
+        jsnap = j_build_rels(1, jcs, ji, [jrel.must_from_triple(*t) for t in base],
+                             epoch_us=EPOCH)
+        psnap = p_build_rels(1, pcs, pi, [prel.must_from_triple(*t) for t in base],
+                             epoch_us=EPOCH)
+        self.je = JEngine(jcs, JConfig(pallas=False, **cfg))
+        self.pe = PEngine(pcs, PConfig(**cfg), device="cpu")
+        self.j = [self.je.prepare(jsnap)]
+        self.p = [self.pe.prepare(psnap)]
+        for rev, (adds, dels) in enumerate(self.writes, start=2):
+            jsnap = j_apply(jsnap, rev, [jrel.must_from_triple(*t) for t in adds],
+                            [jrel.must_from_triple(*t) for t in dels], interner=ji)
+            psnap = p_apply(psnap, rev, [prel.must_from_triple(*t) for t in adds],
+                            [prel.must_from_triple(*t) for t in dels], interner=pi)
+            self.j.append(self.je.prepare(jsnap, prev=self.j[-1]))
+            self.p.append(self.pe.prepare(psnap, prev=self.p[-1]))
+        self.q = _chain_queries(pi, self.writes, n_users, n_docs,
+                                pcs.slot_of_name["view"])
+        assert np.array_equal(
+            self.q[0], _chain_queries(ji, self.writes, n_users, n_docs,
+                                      jcs.slot_of_name["view"])[0])
+
+    def dispatch(self, i, q=None):
+        """Revision ``i``'s planes through both latency paths, and the
+        port's eager ones: (port, reference, eager)."""
+        q = self.q if q is None else q
+        got = self.pe.latency_path(self.p[i]).dispatch_columns(*q, now_us=EPOCH)
+        want = self.je.latency_path(self.j[i]).dispatch_columns(*q, now_us=EPOCH)
+        return got, want, self.pe.check_columns(self.p[i], *q, now_us=EPOCH)
+
+
+def test_delta_chain_shares_one_pin_per_key_and_answers_each_revision():
+    """Five delta revisions of one shape band share the pin the first of
+    them captured: switching revisions A -> B -> A -> C... on one pin,
+    each dispatch gives the reference's planes for ITS revision (the
+    revisions' answers differ), and only the first switch to a revision
+    copies its tensors."""
+    ch = _Chains(n_revs=7)
+    deltas = ch.p[1:]
+    assert all(d.flat_meta.delta is not None for d in deltas)
+    assert len({d.flat_meta for d in deltas}) == 1
+    assert len({tuple((k, tuple(v.shape)) for k, v in sorted(d.arrays.items()))
+                for d in deltas}) == 1
+    planes = {}
+    m0 = pmetrics.default.counter("latency.rebinds")
+    for i in (1, 2, 1, 3, 4, 2, 5, 6, 6, 1):
+        got, want, eager = ch.dispatch(i)
+        assert _same(got, want) and _same(got, eager), i
+        planes.setdefault(i, got[0].copy())
+    assert len({p.tobytes() for p in planes.values()}) == len(planes)
+    paths = [ch.pe.latency_path(d) for d in deltas]
+    assert [lp.compile_count for lp in paths] == [1, 0, 0, 0, 0, 0]
+    assert all(lp.pin_count == 1 for lp in paths)
+    assert len({id(pin) for lp in paths for pin in lp.pins().values()}) == 1
+    pin = next(iter(paths[0].pins().values()))
+    # the overlays, and the node column the fresh users replaced
+    assert {k for k in pin.band.private if not k.startswith("dl_")} == {"node_type"}
+    # every dispatch after the first switched revision except the repeat
+    assert pmetrics.default.counter("latency.rebinds") - m0 == 8
+    # the full-prepared revision is its own key (no overlays)
+    got, want, eager = ch.dispatch(0)
+    assert _same(got, want) and _same(got, eager)
+    assert ch.pe.latency_path(ch.p[0]).compile_count == 1
+
+
+def test_band_buffers_are_shared_by_its_pins_and_copied_once_a_switch():
+    """Two tiers of one band are two pins over ONE set of private
+    buffers: a revision switch copies its tensors once, and the other
+    tier's first dispatch at that revision copies nothing; every answer
+    is the reference's."""
+    ch = _Chains(n_revs=3)
+    small = tuple(c[:200] for c in ch.q)
+    assert ch.q[0].shape[0] > 256
+    lp1, lp2 = (ch.pe.latency_path(d) for d in ch.p[1:3])
+    for i, q in ((1, small), (1, ch.q), (2, small)):
+        got, want, eager = ch.dispatch(i, q)
+        assert _same(got, want) and _same(got, eager), i
+    assert lp2.last_budget.rebind_bytes > 0
+    got, want, eager = ch.dispatch(2)
+    assert _same(got, want) and _same(got, eager)
+    assert lp2.last_budget.rebind_bytes == 0 and not lp2.last_budget.compiled
+    pins = list(lp1.pins().values())
+    assert len(pins) == 2 and pins[0].band is pins[1].band
+    assert lp2.pins().keys() == lp1.pins().keys()
+    assert len(ch.pe._latency_bands) == 1 + (ch.p[0].latency_path is not None)
+
+
+def test_full_reprepare_and_grown_band_capture_anew():
+    """A full prepare of a chain revision (new base storage) captures its
+    own pin, and so does a revision whose overlay crossed into the next
+    shape band; both answer as the reference."""
+    ch = _Chains(n_revs=3)
+    for i in (1, 2):
+        got, want, _e = ch.dispatch(i)
+        assert _same(got, want)
+    assert [ch.pe.latency_path(d).compile_count for d in ch.p[1:]] == [1, 0]
+    full = ch.pe.prepare(ch.p[2].snapshot)
+    lp = ch.pe.latency_path(full)
+    assert _same(lp.dispatch_columns(*ch.q, now_us=EPOCH),
+                 ch.je.latency_path(ch.j[2]).dispatch_columns(*ch.q, now_us=EPOCH))
+    assert lp.compile_count == 1
+    # grow the overlay past its band: many readers in one write
+    jsnap, psnap = ch.j[2].snapshot, ch.p[2].snapshot
+    adds = [("doc:d%d" % (i % 40), "reader", "user:u%d" % (i % 30)) for i in range(60)]
+    jsnap = j_apply(jsnap, 4, [jrel.must_from_triple(*t) for t in adds], [],
+                    interner=jsnap.interner)
+    psnap = p_apply(psnap, 4, [prel.must_from_triple(*t) for t in adds], [],
+                    interner=psnap.interner)
+    ch.j.append(ch.je.prepare(jsnap, prev=ch.j[2]))
+    ch.p.append(ch.pe.prepare(psnap, prev=ch.p[2]))
+    assert ch.p[3].delta_acc is not None
+    grown = {k for k, v in ch.p[3].arrays.items()
+             if k.startswith("dl_") and tuple(v.shape) != tuple(ch.p[2].arrays[k].shape)}
+    assert grown
+    got, want, eager = ch.dispatch(3)
+    assert _same(got, want) and _same(got, eager)
+    assert ch.pe.latency_path(ch.p[3]).compile_count == 1
+
+
+def test_evicted_full_prepare_base_is_held_by_no_pin():
+    """A latency-mode client along a chain that bails to a full prepare:
+    once the client's dsnap LRU no longer holds the first base, its
+    tensors are freed (no pin keeps them alive), and with no help from
+    the caller the engine holds no pin of a band none of whose revisions
+    is cached; every answer equals the reference client's."""
+    import gc
+    import weakref
+
+    kw = dict(flat_delta_floor=4, flat_delta_min_compact=16)
+    base, writes, _sizes = _chain_world()
+    jc = j_new(j_with_latency(), j_with_config(JConfig(pallas=False, **kw)))
+    pc = p_new(p_with_latency(), p_with_config(PConfig(**kw)), device="cpu")
+    ctxs = []
+    for c, rel_mod, bg in ((jc, jrel, j_background), (pc, prel, p_background)):
+        ctx = bg()
+        c.write_schema(ctx, CHAIN_SCHEMA)
+        txn = rel_mod.Txn()
+        for t in base:
+            txn.touch(rel_mod.must_from_triple(*t))
+        c.write(ctx, txn)
+        ctxs.append(ctx)
+    checks = [("doc:d%d" % d, "view", "user:u%d" % u) for d in range(0, 40, 3)
+              for u in range(0, 30, 7)]
+
+    def check_both():
+        want = jc.check(ctxs[0], jconsistency.full(),
+                        *[jrel.must_from_triple(*t) for t in checks])
+        got = pc.check(ctxs[1], pconsistency.full(),
+                       *[prel.must_from_triple(*t) for t in checks])
+        assert got == want
+        return pc._dsnap_cache[max(pc._dsnap_cache)]
+
+    first = check_both()
+    assert first.delta_acc is None
+    ref = weakref.ref(first.arrays["ehx"] if "ehx" in first.arrays
+                      else next(iter(first.arrays.values())))
+    fulls = []
+    for adds, dels in writes:
+        for c, rel_mod, ctx in ((jc, jrel, ctxs[0]), (pc, prel, ctxs[1])):
+            txn = rel_mod.Txn()
+            for t in adds:
+                txn.touch(rel_mod.must_from_triple(*t))
+            for t in dels:
+                txn.delete(rel_mod.must_from_triple(*t))
+            c.write(ctx, txn)
+        ds = check_both()
+        fulls.append(ds.delta_acc is None)
+    # the chain bailed to a full prepare, and the LRU holds only its
+    # revisions since
+    assert any(fulls[:-pc.SNAPSHOT_CACHE_MAX])
+    del first, ds
+    gc.collect()
+    assert ref() is None, "a freed base is still held"
+    # the engine dropped the pins of every band no cached revision is in
+    eng = pc._engine
+    live = {id(d.latency_path._band) for d in pc._dsnap_cache.values()
+            if d.latency_path is not None and d.latency_path._band is not None}
+    assert eng._latency_pins
+    assert {id(k[0]) for k in eng._latency_pins} <= live
+    assert {id(b) for b in eng._latency_bands.values()} <= live
+    # and all of them once the client's cache lets go of its revisions
+    pc._dsnap_cache.clear()
+    gc.collect()
+    assert not eng._latency_pins and not eng._latency_bands
+
+
+def test_shared_pin_under_concurrent_revisions():
+    """More threads than cores, at a short switch interval, dispatch two
+    revisions that share one pin: every answer is its own revision's
+    (the pin's copy-in, replay and read-back are one critical section)."""
+    import os
+    import sys
+    import threading
+
+    ch = _Chains(n_revs=3)
+    want = {i: ch.pe.check_columns(ch.p[i], *ch.q, now_us=EPOCH) for i in (1, 2)}
+    assert not _same(want[1], want[2])
+    n = len(os.sched_getaffinity(0)) + 1
+    errors = []
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        def worker(t):
+            for k in range(3):
+                i = 1 + (t + k) % 2
+                got = ch.pe.latency_path(ch.p[i]).dispatch_columns(*ch.q, now_us=EPOCH)
+                if not _same(got, want[i]):
+                    errors.append((t, k, i))
+
+        ts = [threading.Thread(target=worker, args=(t,)) for t in range(n)]
+        for x in ts:
+            x.start()
+        for x in ts:
+            x.join(timeout=120)
+        assert not any(x.is_alive() for x in ts)
+    finally:
+        sys.setswitchinterval(old)
+    assert not errors
+    assert sum(ch.pe.latency_path(d).compile_count for d in ch.p[1:]) == 1
