@@ -233,6 +233,37 @@ Phases (any failure exits non-zero and prints no result line):
    p50 ms; last, the engine's pins, bands, private MiB and graph pool
    MiB, and again once the client is gone.  It prints one
    ``serving: {...}`` line after the ``latency:`` line.
+15. decision provenance (the armed flat program, ``witness=True``, and
+   engine/explain.py), in two parts: after phase 14, on its client and
+   on config 3's full prepare, and after phase 12, on the worlds phase
+   13 reuses.  (a) The 100,000-check batch of config 3 (its full
+   prepare, the client's head revision, and aligned), of config 2 under
+   both layouts and config 4's ``holder`` batch with request contexts
+   under both: ``witness_codes_columns`` with the kernels equal to the
+   plain twins bit for bit, the armed planes equal to the disarmed
+   program's, a code exactly on the rows the card settles as allowed,
+   the code histogram, the armed program's own launches per mode (equal
+   to the disarmed program's), and armed against disarmed batch ms
+   (median of 4, alternating); (b) 256 sampled config 3 rows, half of
+   them rows the card allows, through ``Client.explain`` at the head: each
+   tree's verdict equals the check's and holds the card's witness
+   (``witness_consistent``), explain p50/p99 ms; (c) ``arm_witness`` on
+   the head's latency path at tier 1,024: ``last_witness`` equals the
+   eager codes (kernels and plain) on 20 batches, one capture for the
+   armed key and no disarmed pin evicted, then 1,000 armed and 1,000
+   disarmed dispatches alternating with no recapture (replay and total
+   p50 of each), then a write that keeps the band: its first armed
+   dispatch rebinds and captures nothing, and disarming replays the old
+   pins with no capture; (d) ``ServingHandle.check(explain=True)`` of 64
+   rows on phase 14's client: verdicts equal a plain handle check's,
+   trees agree and hold their witness; (e) a host-only client
+   (``with_host_only_evaluation``) with config 2's relationships and a
+   ``cuda`` client over its store (``with_store``): 2,000 checks, a
+   LookupResources, a LookupSubjects and a paged walk equal, no launch
+   counted on the host-only client; (f) ``explain.witness_errors`` is
+   0.  It prints one ``witness: {...}`` line after the ``serving:``
+   line; the phase's launches are its own (zeroed before, the main
+   path's restored after).
 
 Phases 4-8 are the main path: launch counts are zeroed before phase 4
 and read after phase 7, and every mode of both kernels, and the gate
@@ -4862,6 +4893,421 @@ def phase_serving(K, cap, client, n_docs, n_users, n_groups, card):
                 seconds=seconds)
 
 
+# ---------------------------------------------------------------------------
+# phase 15: decision provenance (the witness plane of the flat program)
+# ---------------------------------------------------------------------------
+
+#: phase 15's latency tier, its parity batches and its timed dispatches
+WIT_TIER = 1_024
+WIT_BATCHES = 20
+WIT_DISPATCHES = 1_000
+#: config 3 rows explained one by one, and through a serving handle
+WIT_EXPLAIN = 256
+WIT_SERVE = 64
+#: config 2 rows a host-only client answers beside the card
+WIT_HOST_ROWS = 2_000
+
+
+class ApartLaunches:
+    """Launch counts from zero for a phase that is not part of the main
+    path: the Capture wrappers are off inside (its calls are no candidates
+    for the kernel table's shapes), ``take()`` reads and zeroes the counts,
+    and on exit the counts from before are restored exactly."""
+
+    def __init__(self, K, cap=None):
+        self.K, self.cap = K, cap
+
+    def __enter__(self):
+        K = self.K
+        self.saved = dict(K.LAUNCHES), dict(K.LANES)
+        K.reset_launches()
+        if self.cap is not None:
+            K.fused_probe, K.fused_probe_aligned = self.cap.orig, self.cap.orig_aligned
+        return self
+
+    def take(self):
+        got = {k: v for k, v in self.K.LAUNCHES.items() if v}
+        self.K.reset_launches()
+        return got
+
+    def __exit__(self, *exc):
+        K = self.K
+        if self.cap is not None:
+            K.fused_probe, K.fused_probe_aligned = self.cap.wrapped, self.cap.wrapped_aligned
+        for k in K.LAUNCHES:
+            K.LAUNCHES[k] = self.saved[0][k]
+            K.LANES[k] = self.saved[1][k]
+        return False
+
+
+def wit_histogram(codes):
+    """Witness codes of a batch by branch name (0: no witness)."""
+    from gochugaru_tpu_torch.engine.explain import witness_name
+
+    vals, counts = np.unique(codes, return_counts=True)
+    return {f"{witness_name(int(v)) or 'none'}/{int(v)}": int(n)
+            for v, n in zip(vals, counts)}
+
+
+def wit_world(K, apart, name, ek, ep, ds, q, ctx=None):
+    """Phase 15 (a) on one prepared world: the batch's witness codes
+    through the armed program with the kernels and with the plain twins,
+    bit for bit; the armed planes equal the disarmed program's; a code
+    exactly on the rows the card settles as allowed; the code histogram;
+    the armed program's launches per mode, equal to the disarmed
+    program's; armed against disarmed batch ms (median of 4,
+    alternating).  Returns the row and the codes."""
+    q_ctx, qctx_rows = ctx if ctx is not None else (None, None)
+    kw = dict(q_ctx=q_ctx, qctx_rows=qctx_rows, now_us=EPOCH)
+    apart.take()
+    codes, planes = ek.witness_codes_columns(ds, *q, planes=True, **kw)
+    launches = apart.take()
+    pcodes, pplanes = ep.witness_codes_columns(ds, *q, planes=True, **kw)
+    if codes.dtype != np.int32 or not np.array_equal(codes, pcodes):
+        raise AssertionError(f"witness {name}: codes differ, kernels vs plain"
+                             f" ({int((codes != pcodes).sum())} rows)")
+    for nm, a, b in zip("dpo", planes, pplanes):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"witness {name}: armed plane {nm} differs, kernels vs plain")
+    disarmed = ek.check_columns(ds, *q, **kw)
+    disarmed_launches = apart.take()
+    if launches != disarmed_launches:
+        raise AssertionError(f"witness {name}: the armed program launched {launches},"
+                             f" the disarmed one {disarmed_launches}")
+    for nm, a, b in zip("dpo", planes, disarmed):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"witness {name}: armed plane {nm} differs from the"
+                                 " disarmed program's")
+    d, _p, ovf = planes
+    if not np.array_equal(codes != 0, d & ~ovf):
+        raise AssertionError(f"witness {name}: codes not exactly on the rows the card"
+                             " settles as allowed")
+    if DEV == "cuda" and not launches:
+        raise AssertionError(f"witness {name}: the armed program launched no kernel")
+    times = {"armed": [], "disarmed": []}
+    for order in (("disarmed", "armed", "armed", "disarmed"),) * 2:
+        for which in order:
+            ts = time.perf_counter()
+            if which == "armed":
+                ek.witness_codes_columns(ds, *q, **kw)
+            else:
+                ek.check_columns(ds, *q, **kw)
+            times[which].append(time.perf_counter() - ts)
+    apart.take()
+    row = dict(batch=int(q[0].shape[0]), histogram=wit_histogram(codes),
+               own_launches=launches,
+               armed_ms=float(np.median(times["armed"])) * 1e3,
+               disarmed_ms=float(np.median(times["disarmed"])) * 1e3)
+    log(f"witness {name}: codes bit-equal kernels vs plain, armed planes and launches"
+        f" equal the disarmed ones; {json.dumps(row)}")
+    return row, codes
+
+
+def wit_rels(names, idx):
+    from gochugaru_tpu_torch import rel
+
+    return [rel.must_from_triple(f"{names[i][0]}:{names[i][1]}", names[i][2],
+                                 f"{names[i][3]}:{names[i][4]}") for i in idx]
+
+
+def wit_explain(client, ek, rels):
+    """Phase 15 (b): ``Client.explain`` of each row at the head; verdicts
+    equal the check's, each tree holds its witness (witness_consistent)
+    where the card settled the row; per-explain ms."""
+    from gochugaru_tpu_torch import consistency
+    from gochugaru_tpu_torch.engine.explain import witness_consistent, witness_name
+    from gochugaru_tpu_torch.utils.context import background
+
+    ctx = background()
+    cs = consistency.full()
+    verdicts = client.check(ctx, cs, *rels)
+    snap = client.store.snapshot_for(cs)
+    head = client._dsnap_for(ek, snap)
+    codes = ek.witness_codes(head, rels)
+    ms, seeded, unseeded = [], 0, 0
+    for i, r in enumerate(rels):
+        t0 = time.perf_counter()
+        tree = client.explain(ctx, cs, r)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if (tree["result"] == "allowed") != verdicts[i]:
+            raise AssertionError(f"witness (b): row {i} explains {tree['result']},"
+                                 f" the check said {verdicts[i]}")
+        wc = int(codes[i])
+        if wc or not verdicts[i]:
+            if not witness_consistent(tree, wc):
+                raise AssertionError(f"witness (b): row {i}'s tree does not hold its"
+                                     f" witness {witness_name(wc)}")
+            if wc and tree.get("witness") != witness_name(wc):
+                raise AssertionError(f"witness (b): row {i}'s walk was not seeded")
+            seeded += wc != 0
+        else:
+            unseeded += 1  # allowed, settled on the host: no witness
+    row = dict(rows=len(rels), revision=snap.revision, allowed=int(sum(verdicts)),
+               seeded=seeded, host_settled_allowed=unseeded,
+               histogram=wit_histogram(codes),
+               explain_p50_ms=float(np.percentile(ms, 50)),
+               explain_p99_ms=float(np.percentile(ms, 99)))
+    log(f"witness (b) Client.explain: {json.dumps(row)}")
+    return row
+
+
+def wit_latency(client, ek, ep, q, rng, n_docs, n_users):
+    """Phase 15 (c): ``arm_witness`` on the head's latency path at tier
+    WIT_TIER (see the module docstring)."""
+    from gochugaru_tpu_torch import consistency, rel
+    from gochugaru_tpu_torch.store.store import parse_revision
+    from gochugaru_tpu_torch.utils import metrics
+    from gochugaru_tpu_torch.utils.context import background
+
+    m = metrics.default
+    ctx = background()
+    head = client._dsnap_cache[max(client._dsnap_cache)]
+    lp = ek.latency_path(head)
+
+    def batch(B=None):
+        B = int(rng.integers(WIT_TIER // 2 + 1, WIT_TIER + 1)) if B is None else B
+        at = int(rng.integers(0, q[0].shape[0] - B))
+        return tuple(c[at:at + B] for c in q)
+
+    def held(path, dsnap, qb, label):
+        got = path.dispatch_columns(*qb, now_us=EPOCH)
+        d, p, ovf = got
+        want = ek.witness_codes_columns(dsnap, *qb, now_us=EPOCH)
+        plain = ep.witness_codes_columns(dsnap, *qb, now_us=EPOCH)
+        wit = path.last_witness.copy()
+        wit[(p & ~d) | ovf] = 0
+        if not (np.array_equal(wit, want) and np.array_equal(want, plain)):
+            raise AssertionError(f"witness (c) {label}: last_witness differs from the"
+                                 " eager codes")
+        for nm, a, b in zip("dpo", got, ek.check_columns(dsnap, *qb, now_us=EPOCH)):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"witness (c) {label}: plane {nm} differs from"
+                                     " the eager program's")
+
+    disarmed = set(lp.pins())
+    lp.dispatch_columns(*batch(WIT_TIER), now_us=EPOCH)
+    c0 = m.counter("latency.compiles")
+    lp.arm_witness()
+    for i in range(WIT_BATCHES):
+        held(lp, head, batch(), f"batch {i}")
+    armed_keys = [k for k in lp.pins() if k[-1] == "wit"]
+    captures = int(m.counter("latency.compiles") - c0)
+    if captures != 1 or len(armed_keys) != 1:
+        raise AssertionError(f"witness (c): {captures} captures, armed pins {armed_keys}")
+    if not disarmed <= set(lp.pins()):
+        raise AssertionError("witness (c): arming evicted a disarmed pin")
+    # armed against disarmed replays of one batch, alternating
+    qb = batch(WIT_TIER)
+    stage = {"armed": [], "disarmed": []}
+    total = {"armed": [], "disarmed": []}
+    c1 = m.counter("latency.compiles")
+    for i in range(2 * WIT_DISPATCHES):
+        which = "armed" if i % 2 == 0 else "disarmed"
+        lp.arm_witness(which == "armed")
+        lp.dispatch_columns(qb[0], qb[1], np.roll(qb[2], i), now_us=EPOCH)
+        stage[which].append(lp.last_budget.kernel_s * 1e3)
+        total[which].append(lp.last_budget.total_s * 1e3)
+    recaptures = int(m.counter("latency.compiles") - c1)
+    if recaptures:
+        raise AssertionError(f"witness (c): {recaptures} recaptures over"
+                             f" {2 * WIT_DISPATCHES} dispatches")
+    # a write that keeps the band: a rebind, no capture, armed and disarmed
+    wr = random.Random(61)
+    key = lp._share_key()
+    for attempt in range(3):
+        granted = rel.must_from_triple(f"document:d{wr.randrange(n_docs)}", "viewer",
+                                       f"user:u{wr.randrange(n_users)}")
+        txn = rel.Txn()
+        txn.touch(granted)
+        tok = client.write(ctx, txn)
+        got = client.check(ctx, consistency.at_least(tok), rel.must_from_triple(
+            f"document:{granted.resource_id}", "view", f"user:{granted.subject_id}"))
+        if got != [True]:
+            raise AssertionError("witness (c): at_least did not see the write")
+        nds = client._dsnap_cache[parse_revision(tok)]
+        lp2 = ek.latency_path(nds)
+        if nds.flat_meta.delta is not None and lp2._share_key() == key:
+            break
+    else:
+        raise AssertionError("witness (c): no write of three kept the band")
+    c2 = m.counter("latency.compiles")
+    lp2.arm_witness()
+    held(lp2, nds, qb, "after the write")
+    rebind = lp2.last_budget.rebind_bytes
+    lp2.arm_witness(False)
+    lp2.dispatch_columns(*qb, now_us=EPOCH)
+    lp.arm_witness(False)
+    lp.dispatch_columns(*qb, now_us=EPOCH)
+    write_captures = int(m.counter("latency.compiles") - c2)
+    if write_captures or not rebind or lp2.last_witness is not None:
+        raise AssertionError(f"witness (c): after the write {write_captures} captures,"
+                             f" {rebind} bytes rebound")
+    row = dict(tier=WIT_TIER, batches=WIT_BATCHES, captures_armed=captures,
+               dispatches=2 * WIT_DISPATCHES, recaptures=recaptures,
+               replay_p50_ms={k: float(np.percentile(v, 50)) for k, v in stage.items()},
+               total_p50_ms={k: float(np.percentile(v, 50)) for k, v in total.items()},
+               total_p99_ms={k: float(np.percentile(v, 99)) for k, v in total.items()},
+               write=dict(revision=nds.revision, attempts=attempt + 1,
+                          rebind_bytes=int(rebind), captures=write_captures),
+               pins=len(lp.pins()))
+    log(f"witness (c) arm_witness: {json.dumps(row)}")
+    return row
+
+
+def wit_serving(client, ek, rels):
+    """Phase 15 (d): ``ServingHandle.check(explain=True)`` on the client
+    phase 14 served: its verdicts equal a plain handle check's, each tree
+    agrees with its verdict and holds the card's witness."""
+    from gochugaru_tpu_torch import consistency
+    from gochugaru_tpu_torch.engine.explain import witness_consistent
+    from gochugaru_tpu_torch.utils.context import background
+
+    ctx = background()
+    cs = consistency.full()
+    with client.with_serving(cs=cs, cache=False) as h:
+        got = h.check(ctx, *rels, explain=True)
+        plain = h.check(ctx, *rels)
+    if [e.allowed for e in got] != plain:
+        raise AssertionError("witness (d): explained verdicts differ from the handle's")
+    head = client._dsnap_for(ek, client.store.snapshot_for(cs))
+    codes = ek.witness_codes(head, rels)
+    for i, e in enumerate(got):
+        t, wc = e.explanation, int(codes[i])
+        if t.get("verdict_skew") or (t["result"] == "allowed") != e.allowed:
+            raise AssertionError(f"witness (d): row {i}'s tree disagrees with its verdict")
+        if (wc or not e.allowed) and not witness_consistent(t, wc):
+            raise AssertionError(f"witness (d): row {i}'s tree does not hold its witness")
+    row = dict(rows=len(rels), allowed=int(sum(plain)),
+               seeded=sum("witness" in e.explanation for e in got))
+    log(f"witness (d) ServingHandle.check(explain=True): {json.dumps(row)}")
+    return row
+
+
+def wit_host_only(K, apart, snap, names):
+    """Phase 15 (e): a host-only client on config 2 (the relationships of
+    the snapshot phase 4 built, imported) answers checks, lookups and a
+    paged walk as a card client over the same store (``with_store``)
+    does, and moves no launch counter."""
+    from gochugaru_tpu_torch import consistency
+    from gochugaru_tpu_torch.client import (
+        new_evaluator, with_host_only_evaluation, with_store,
+    )
+    from gochugaru_tpu_torch.utils.context import background
+
+    ctx = background()
+    cs = consistency.full()
+    t0 = time.perf_counter()
+    host = new_evaluator(with_host_only_evaluation())
+    host.write_schema(ctx, RBAC_SCHEMA)
+    host.import_relationships(ctx, snap.iter_relationships())
+    card_c = new_evaluator(with_store(host.store), device=DEV)
+    load_s = time.perf_counter() - t0
+    rng = np.random.default_rng(73)
+    rels = wit_rels(names, rng.choice(len(names), WIT_HOST_ROWS, replace=False))
+    user = f"user:u{int(rng.integers(0, 1000))}"
+    repo = f"repo:r{int(rng.integers(0, 10_000))}"
+
+    def answers(c):
+        pages, cur = [], None
+        while True:
+            page = c.lookup_resources_page(ctx, cs, "repo#admin", user, page_size=64,
+                                           cursor=cur)
+            pages.extend(page.ids)
+            cur = page.cursor
+            if cur is None:
+                break
+        return (c.check(ctx, cs, *rels),
+                sorted(c.lookup_resources(ctx, cs, "repo#read", user)),
+                sorted(c.lookup_subjects(ctx, cs, repo, "read", "user")),
+                sorted(pages))
+
+    apart.take()
+    t0 = time.perf_counter()
+    got_host = answers(host)
+    host_s = time.perf_counter() - t0
+    host_launches = apart.take()
+    t0 = time.perf_counter()
+    got_card = answers(card_c)
+    card_s = time.perf_counter() - t0
+    card_launches = apart.take()
+    if host._engine is not None or host.device is not None:
+        raise AssertionError("witness (e): the host-only client built an engine")
+    if host_launches:
+        raise AssertionError(f"witness (e): the host-only client launched {host_launches}")
+    if DEV == "cuda" and not card_launches:
+        raise AssertionError("witness (e): the card client launched no kernel")
+    if got_host != got_card:
+        raise AssertionError("witness (e): the host-only client answers differ from the card's")
+    row = dict(rows=len(rels), allowed=int(sum(got_host[0])),
+               lookup_resources=len(got_host[1]), lookup_subjects=len(got_host[2]),
+               paged=len(got_host[3]), import_s=load_s, host_s=host_s, card_s=card_s,
+               card_launches=card_launches)
+    log(f"witness (e) host-only client on config2: {json.dumps(row)}")
+    return row
+
+
+def phase_witness_client(K, cap, client, ek, ep, ds, q, names, n_docs, n_users):
+    """Phase 15, its client part (see the module docstring): (a) on config
+    3 off+interleave, at its full prepare and at the client's head, and
+    (b)-(d) on the client phase 14 served."""
+    t15 = time.perf_counter()
+    out = {}
+    with ApartLaunches(K, cap) as apart:
+        out["config3"] = wit_world(K, apart, "config3", ek, ep, ds, q)[0]
+        head = client._dsnap_cache[max(client._dsnap_cache)]
+        out["config3 head"], codes = wit_world(
+            K, apart, f"config3 head (revision {head.revision})", ek, ep, head, q)
+        del head
+        # half the sample from the rows the card allows (about 0.2% of the
+        # batch), so the walks the witness seeds are explained too
+        rng = np.random.default_rng(71)
+        allowed = np.flatnonzero(codes)
+        pick = rng.choice(allowed, min(WIT_EXPLAIN // 2, allowed.size), replace=False)
+        rest = np.setdiff1d(np.arange(len(names)), pick)
+        pick = np.concatenate([pick, rng.choice(rest, WIT_EXPLAIN - pick.size,
+                                                replace=False)])
+        rels = wit_rels(names, rng.permutation(pick))
+        out["explain"] = wit_explain(client, ek, rels)
+        out["latency"] = wit_latency(client, ek, ep, q, rng, n_docs, n_users)
+        out["serving"] = wit_serving(client, ek, rels[:WIT_SERVE])
+        out["launches_b_d"] = apart.take()
+    out["seconds"] = time.perf_counter() - t15
+    log(f"phase 15, client part: {out['seconds']:.1f}s; launches in (b)-(d)"
+        f" {json.dumps(out['launches_b_d'])}")
+    return out
+
+
+def phase_witness_worlds(K, rbac, card, part):
+    """Phase 15, the rest (see the module docstring): (a) on config 3
+    aligned, config 2 under both layouts and config 4's ``holder`` batch
+    under both, (e) a host-only client on config 2, (f) no witness error
+    over the phase.  ``part`` is the client part's object; returns the
+    ``witness:`` line's object."""
+    from gochugaru_tpu_torch.utils import metrics
+
+    t15 = time.perf_counter()
+    W = LATENCY_WORLDS
+    worlds = {k: part[k] for k in ("config3", "config3 head")}
+    with ApartLaunches(K) as apart:
+        for name in ("config3 aligned", "config2", "config2 aligned"):
+            w = W[name]
+            worlds[name] = wit_world(K, apart, name, w["ek"], w["ep"], w["ds"], w["q"])[0]
+        for name in ("config4", "config4 aligned"):
+            w = W[name]
+            worlds[name + " holder"] = wit_world(K, apart, name + " holder", w["ek"],
+                                                 w["ep"], w["ds"], w["hq"], ctx=w["ctx"])[0]
+        host = wit_host_only(K, apart, W["config2"]["ds"].snapshot, rbac[3])
+    errors = int(metrics.default.counter("explain.witness_errors"))
+    if errors:
+        raise AssertionError(f"witness (f): explain.witness_errors = {errors}")
+    seconds = part["seconds"] + time.perf_counter() - t15
+    log(f"witness (f): explain.witness_errors = 0; phase 15: {seconds:.1f}s")
+    return dict(card=card, worlds=worlds, explain=part["explain"],
+                latency=part["latency"], serving=part["serving"], host_only=host,
+                launches_b_d=part["launches_b_d"], witness_errors=errors,
+                seconds=seconds)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--scale3", type=float, default=1.0,
@@ -4933,6 +5379,8 @@ def main() -> int:
         phase_write_check(K, client, ek, ds, snap, PREPARE_S["config3"],
                           n_docs, n_users, n_groups)
         serving = phase_serving(K, cap, client, n_docs, n_users, n_groups, card)
+        witness = phase_witness_client(K, cap, client, ek, ep, ds, q, names, n_docs,
+                                       n_users)
         del client
         gc.collect()
         serving["pins_after_client"] = pin_report(ek)
@@ -4990,6 +5438,9 @@ def main() -> int:
     own_launches(K, "client legacy", phase_legacy_client, need=())
     log(f"phase 12: {time.perf_counter() - t12:.1f}s")
 
+    # ---- phase 15 (the rest): the witness plane on phase 13's worlds -----
+    witness = phase_witness_worlds(K, rbac, card, witness)
+
     # ---- phase 13: the latency path on pinned CUDA graphs ---------------
     latency = phase_latency(K, card)
 
@@ -5017,6 +5468,7 @@ def main() -> int:
     log(f"smoke: {time.perf_counter() - t_smoke:.1f}s from start to the result")
     print("latency: " + json.dumps(latency))
     print("serving: " + json.dumps(serving))
+    print("witness: " + json.dumps(witness))
     print(json.dumps({"kernels": table}))
     print(card)
     print(json.dumps({"ok": True, "device": {

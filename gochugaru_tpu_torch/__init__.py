@@ -16,11 +16,15 @@ Package layout (mirrors gochugaru_tpu):
   torch device engine; ``engine/kernels`` holds the CUDA kernel wrappers
   and their plain PyTorch twins, ``csrc/`` the CUDA sources
 - ``native``   — the C++ host ingest helpers (ctypes)
-- ``client``   — the Client facade (``new_evaluator``)
+- ``client``   — the Client facade (``new_evaluator``, and the
+  reference's constructor names)
 - ``utils``    — context, retry/backoff, errors, metrics, tracing spans
 """
 
 __version__ = "0.1.0"
 
 from . import consistency, rel  # noqa: F401  (re-exported subpackages)
-from .client import Client, new_evaluator  # noqa: F401
+from .client import (  # noqa: F401
+    Client, new_evaluator, new_plaintext, new_system_tls, new_tpu_evaluator,
+    new_with_opts,
+)

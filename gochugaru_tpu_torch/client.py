@@ -33,9 +33,15 @@ Lookups expand candidates on the device over the reverse-CSR tables
 (engine/spmv.py) and filter them exactly with the same cascade
 (engine/lookup.py).
 
+Decision provenance: ``explain`` and ``check(..., explain=True)``
+return typed resolution trees (engine/explain.py), walked on the host
+oracle at the verdict's pinned snapshot and seeded by the witness plane
+of the flat program (one armed dispatch a batch).
+
 The engine runs on ``cuda`` unless ``new_evaluator(device="cpu")`` asks
 for the CPU; with no CUDA device and no explicit device the constructor
-raises.
+raises.  ``with_host_only_evaluation`` builds no engine and needs no
+device: every check and lookup runs on the host oracle.
 """
 
 from __future__ import annotations
@@ -52,8 +58,10 @@ import numpy as np
 
 from . import consistency as _consistency
 from .consistency import OVERLAP_KEY, Strategy
+from .engine import explain as _explain
 from .engine import vcache as _vcache
 from .engine.device import DeviceEngine, DeviceSnapshot, resolve_device
+from .engine.kernels import KernelError
 from .engine.oracle import Oracle, SnapshotOracle, T
 from .engine.plan import EngineConfig
 from .rel.filter import Filter, PreconditionedFilter
@@ -113,10 +121,21 @@ class LookupPage(NamedTuple):
     cursor: Optional[str]
 
 
+class ExplainedCheck(NamedTuple):
+    """One ``check(..., explain=True)`` item: the boolean verdict plus
+    its full resolution tree (engine/explain.py — the reference's
+    CheckPermission debug-trace shape)."""
+
+    allowed: bool
+    explanation: Dict[str, Any]
+
+
 class _Options:
     def __init__(self) -> None:
         self.overlap_required = False
         self.engine_config: Optional[EngineConfig] = None
+        self.store: Optional[Store] = None
+        self.use_device = True
         self.latency_mode = False
         self.admission: Optional[AdmissionConfig] = None
         self.verdict_cache = None  # VerdictCache | max_bytes int | None
@@ -141,6 +160,26 @@ def with_engine_config(cfg: EngineConfig) -> Option:
 
     def opt(o: _Options) -> None:
         o.engine_config = cfg
+
+    return opt
+
+
+def with_store(store: Store) -> Option:
+    """Share a Store between clients (e.g. one writer, many checkers)."""
+
+    def opt(o: _Options) -> None:
+        o.store = store
+
+    return opt
+
+
+def with_host_only_evaluation() -> Option:
+    """Disable the device engine; evaluate every check and lookup on the
+    host oracle.  Such a client resolves no device and launches nothing.
+    Useful for debugging and differential testing."""
+
+    def opt(o: _Options) -> None:
+        o.use_device = False
 
     return opt
 
@@ -224,8 +263,12 @@ class Client:
         o = _Options()
         for opt in opts:
             opt(o)
-        self.device = resolve_device(device)
-        self._store = Store()
+        self._use_device = o.use_device
+        #: the engine's device; None on a host-only client
+        self.device = resolve_device(device) if o.use_device else None
+        # identity, not truthiness: a store filled only by column imports
+        # has no live rows and is falsy
+        self._store = o.store if o.store is not None else Store()
         self._overlap_required = o.overlap_required
         self._engine_config = o.engine_config
         self._lock = threading.Lock()
@@ -276,7 +319,11 @@ class Client:
             raise OverlapKeyMissingError()
 
     # -- engine / oracle plumbing ----------------------------------------
-    def _engine_for(self, snap: Snapshot) -> DeviceEngine:
+    def _engine_for(self, snap: Snapshot) -> Optional[DeviceEngine]:
+        """The device engine for ``snap``'s schema, or None on a
+        host-only client."""
+        if not self._use_device:
+            return None
         with self._lock:
             if self._engine is None or self._engine_schema is not snap.compiled:
                 self._engine = DeviceEngine(
@@ -683,20 +730,46 @@ class Client:
         """Batched permission check: one device dispatch at the snapshot
         the strategy selects, host-oracle resolution for flagged rows,
         under the admission controller and the retry envelope; through
-        the verdict cache when the client has one.  ``explain=True``
-        raises ``NotImplementedError``: explain needs the witness plane
-        of the flat program and engine/explain.py, a later slice of the
-        port (ROADMAP queue 1 item 6)."""
+        the verdict cache when the client has one.
+
+        ``explain=True`` returns ``List[ExplainedCheck]`` instead:
+        verdicts AND their typed resolution trees (engine/explain.py),
+        evaluated and explained at ONE pinned snapshot — the witness
+        plane seeds each allowed tree's walk, cache-served verdicts
+        re-derive against the pinned revision."""
         self._check_overlap(ctx)
-        if explain:
-            raise NotImplementedError(
-                "check(explain=True) needs the witness plane and"
-                " engine/explain.py, a later slice of the port"
-                " (ROADMAP queue 1 item 6)")
         rels = [as_relationship(r) for r in rs]
         if not rels:
             return []
         self._metrics.inc("checks.requested", len(rels))
+        if explain:
+            root = _trace.root_span("check.explain", batch=len(rels))
+            ectx = _trace.ctx_with_span(ctx, root)
+
+            def run() -> List[ExplainedCheck]:
+                sp = _trace.span_of(ectx)
+                # ONE snapshot for the verdicts and every tree
+                snap = self._store.snapshot_for(cs)
+                # cache residency probed BEFORE the dispatch: entries this
+                # dispatch inserts are fresh work, not cache-served
+                cache_ents = self._peek_cached(snap, rels, cs)
+                # ... and ONE evaluation instant for the walks' expiry gates
+                now_us = int(_time.time() * 1_000_000)
+                # the admission envelope of a plain check covers the
+                # evaluate dispatch and the one armed witness dispatch;
+                # the host-oracle walks run outside it
+                verdicts, codes = self._admitted(ectx, lambda: (
+                    self._evaluate_rels(
+                        snap, rels, latency=self._latency_mode, span=sp,
+                        cs=cs),
+                    self._witness_batch(snap, rels),
+                ))
+                return self._explain_batch(
+                    snap, rels, verdicts, cs, now_us=now_us,
+                    cache_ents=cache_ents, codes=codes)
+
+            with root:
+                return retry_retriable_errors(ectx, run)
         return retry_retriable_errors(ctx, lambda: self._admitted(
             ctx, lambda: self._dispatch_admitted(ctx, cs, rels)))
 
@@ -886,14 +959,14 @@ class Client:
                 trace_id=span.trace_id if span.sampled else None,
             )
 
-    def _device_dispatch(self, snap: Snapshot, latency: bool, span, run):
+    def _device_dispatch(self, snap: Snapshot, engine: DeviceEngine,
+                         latency: bool, span, run):
         """One device dispatch under the circuit breaker: after
         consecutive transient failures latency-mode traffic reroutes onto
         the batch path until the breaker half-opens a probe; classified
         failures feed it.  ``run(engine, dsnap, use_latency)`` returns the
         (definite, possible, overflow) planes."""
         adm = self._admission
-        engine = self._engine_for(snap)
         dsnap = self._dsnap_for(engine, snap)
         span.event("snapshot.prepared")
         use_latency = latency and adm.breaker.allow_latency()
@@ -927,10 +1000,18 @@ class Client:
         (``_device_dispatch``), then host-oracle resolution of the
         flagged rows.  Shared by ``check`` and the serving batcher, so
         breaker semantics cannot drift between caller-formed and
-        coalesced batches."""
+        coalesced batches.  A host-only client evaluates every row on the
+        oracle."""
+        engine = self._engine_for(snap)
+        if engine is None:
+            self._metrics.inc("checks.oracle", len(rels))
+            with self._metrics.timer("checks.dispatch"), span.child(
+                    "oracle.check", items=len(rels)):
+                oracle = self._oracle_for(snap)
+                return [oracle.check_relationship(r) == T for r in rels]
         with self._metrics.timer("checks.dispatch"):
             d, p, ovf = self._device_dispatch(
-                snap, latency, span,
+                snap, engine, latency, span,
                 lambda engine, dsnap, lp: engine.check_batch(
                     dsnap, rels, latency=lp is not None, span=span))
         needs_host = (p & ~d) | ovf
@@ -1075,9 +1156,17 @@ class Client:
         """The columnar mirror of ``_evaluate_rels_direct`` for the
         serving batcher: pre-interned int32 columns straight onto the
         pinned tier ladder (breaker-gated), with flagged rows resolved on
-        the host oracle by id reconstruction.  Returns a bool verdict
-        array of len(q_res)."""
+        the host oracle by id reconstruction (every row on a host-only
+        client).  Returns a bool verdict array of len(q_res)."""
         B = int(q_res.shape[0])
+        engine = self._engine_for(snap)
+        if engine is None:
+            self._metrics.inc("checks.oracle", B)
+            oracle = self._oracle_for(snap)
+            return np.fromiter(
+                (self._check_interned(oracle, snap, q_res[i], q_perm[i],
+                                      q_subj[i]) for i in range(B)),
+                bool, count=B)
 
         def run(engine, dsnap, lp):
             out = None
@@ -1088,7 +1177,8 @@ class Client:
             return out
 
         with self._metrics.timer("checks.device_time_s"):
-            d, p, ovf = self._device_dispatch(snap, latency, span, run)
+            d, p, ovf = self._device_dispatch(snap, engine, latency, span,
+                                              run)
         res = np.asarray(d, bool).copy()
         needs_host = (p & ~d) | ovf
         if not needs_host.any():
@@ -1144,6 +1234,105 @@ class Client:
             )
         return out
 
+    # -- decision provenance (engine/explain.py) -------------------------
+    def explain(
+        self, ctx: Context, cs: Strategy, r: RelationshipLike
+    ) -> Dict[str, Any]:
+        """Full resolution tree for ONE check at the strategy's pinned
+        revision — the reference's CheckPermission debug-trace surface.
+        The witness plane (engine/flat.py, the armed program) seeds the
+        walk toward the branch the device proved winning; verdicts the
+        verdict cache would have served are re-derived against the
+        pinned revision and flagged ``cached``.  Runs under the same
+        retry envelope as checks (the ``explain.walk`` fault site
+        classifies into it)."""
+        self._check_overlap(ctx)
+        rel_ = as_relationship(r)
+
+        def run() -> Dict[str, Any]:
+            snap = self._store.snapshot_for(cs)
+            return self._explain_at(snap, rel_, cs)
+
+        return retry_retriable_errors(ctx, run)
+
+    _WITNESS_UNSET = object()
+
+    def _witness_batch(self, snap: Snapshot, rels) -> Optional[Any]:
+        """Device witness codes for a whole batch (ONE armed dispatch,
+        not one per item), or None on a host-only client.  A hint: an
+        error degrades to the unseeded walk and counts under
+        ``explain.witness_errors`` — except a failed kernel build or
+        launch (``KernelError``), which raises, so a broken card never
+        hides behind an unseeded walk."""
+        engine = self._engine_for(snap)
+        if engine is None:
+            return None
+        try:
+            dsnap = self._dsnap_for(engine, snap)
+            return engine.witness_codes(dsnap, rels)
+        except KernelError:
+            raise
+        except Exception:
+            self._metrics.inc("explain.witness_errors")
+            return None
+
+    def _explain_batch(
+        self, snap: Snapshot, rels, verdicts, cs: Optional[Strategy],
+        *, now_us: Optional[int] = None, cache_ents=None,
+        codes=_WITNESS_UNSET,
+    ) -> List[ExplainedCheck]:
+        """One explain tree per already-computed verdict at one pinned
+        snapshot — the ONE implementation behind ``check(explain=True)``
+        and ``ServingHandle.check(explain=True)``.  A tree disagreeing
+        with its served verdict (head moved, entry expired) is flagged
+        ``verdict_skew`` instead of posing as the verdict's
+        derivation."""
+        if codes is Client._WITNESS_UNSET:
+            codes = self._witness_batch(snap, rels)
+        out = []
+        for i, (v, r) in enumerate(zip(verdicts, rels)):
+            tree = self._explain_at(
+                snap, r, cs,
+                witness=None if codes is None else int(codes[i]),
+                now_us=now_us,
+                cache_ent=(cache_ents[i] if cache_ents is not None
+                           else Client._WITNESS_UNSET),
+            )
+            if (tree["result"] == "allowed") != bool(v):
+                tree["verdict_skew"] = True
+            out.append(ExplainedCheck(bool(v), tree))
+        return out
+
+    def _explain_at(
+        self, snap: Snapshot, r: Relationship, cs: Optional[Strategy],
+        witness=_WITNESS_UNSET, now_us: Optional[int] = None,
+        cache_ent=_WITNESS_UNSET,
+    ) -> Dict[str, Any]:
+        """One explain tree at one pinned snapshot: witness extraction
+        (unless the caller already extracted a batch's worth), cache
+        provenance, then the instrumented oracle walk.  ``now_us`` pins
+        the walk's expiry gates to the instant the verdict was computed;
+        a cache-served verdict re-derives at its ENTRY's pinned now_us.
+        ``cache_ent`` is the pre-dispatch residency probe result (None =
+        known uncached); left unset, the probe runs here — only correct
+        when no verdict dispatch preceded this call (``explain``)."""
+        if witness is Client._WITNESS_UNSET:
+            codes = self._witness_batch(snap, [r])
+            wit = int(codes[0]) if codes is not None else None
+        else:
+            wit = witness
+        if cache_ent is Client._WITNESS_UNSET:
+            cache_ent = self._peek_cached(snap, [r], cs)[0]
+        cached = cache_ent is not None
+        if cached:
+            now_us = cache_ent[1]
+        self._metrics.inc("explain.requests")
+        oracle = self._oracle_for(snap)
+        return _explain.explain_relationship(
+            oracle, r, witness=wit, revision=snap.revision, cached=cached,
+            now_us=now_us, strategy=_decisions.strategy_name(cs),
+        )
+
     # -- the serving front end (serve/) ------------------------------------
     def with_serving(
         self, cs: Optional[Strategy] = None, config=None, cache=None
@@ -1192,9 +1381,9 @@ class Client:
         (client/client.go:501-552).
 
         Device frontier over the reverse-CSR tables (engine/spmv.py) +
-        batched exact forward checks.  Transient dispatch faults
-        (``lookup.dispatch`` site) retry under the reference's backoff
-        envelope like checks do."""
+        batched exact forward checks; a host-only client scans the host
+        oracle.  Transient dispatch faults (``lookup.dispatch`` site)
+        retry under the reference's backoff envelope like checks do."""
         from .engine.lookup import lookup_resources_device
 
         self._check_overlap(ctx)
@@ -1202,15 +1391,20 @@ class Client:
         obj_type, obj_rel = parse_typed_relation(permission)
         snap = self._store.snapshot_for(cs)
         engine = self._engine_for(snap)
-        self._metrics.inc("lookups.resources_device")
-        ids = retry_retriable_errors(
-            ctx,
-            lambda: lookup_resources_device(
-                engine, self._dsnap_for(engine, snap),
-                obj_type, obj_rel, subj_type, subj_id, subj_rel,
-                oracle_factory=lambda: self._oracle_for(snap),
-            ),
-        )
+        if engine is not None:
+            self._metrics.inc("lookups.resources_device")
+            ids = retry_retriable_errors(
+                ctx,
+                lambda: lookup_resources_device(
+                    engine, self._dsnap_for(engine, snap),
+                    obj_type, obj_rel, subj_type, subj_id, subj_rel,
+                    oracle_factory=lambda: self._oracle_for(snap),
+                ),
+            )
+        else:
+            self._metrics.inc("lookups.resources_oracle")
+            ids = self._oracle_for(snap).lookup_resources(
+                obj_type, obj_rel, subj_type, subj_id, subj_rel)
         for rid in ids:
             err = ctx.err()
             if err is not None:
@@ -1231,15 +1425,20 @@ class Client:
         subj_type, _, subj_rel = subject.partition("#")
         snap = self._store.snapshot_for(cs)
         engine = self._engine_for(snap)
-        self._metrics.inc("lookups.subjects_device")
-        ids = retry_retriable_errors(
-            ctx,
-            lambda: lookup_subjects_device(
-                engine, self._dsnap_for(engine, snap),
-                res_type, res_id, permission, subj_type, subj_rel,
-                oracle_factory=lambda: self._oracle_for(snap),
-            ),
-        )
+        if engine is not None:
+            self._metrics.inc("lookups.subjects_device")
+            ids = retry_retriable_errors(
+                ctx,
+                lambda: lookup_subjects_device(
+                    engine, self._dsnap_for(engine, snap),
+                    res_type, res_id, permission, subj_type, subj_rel,
+                    oracle_factory=lambda: self._oracle_for(snap),
+                ),
+            )
+        else:
+            self._metrics.inc("lookups.subjects_oracle")
+            ids = self._oracle_for(snap).lookup_subjects(
+                res_type, res_id, permission, subj_type, subj_rel)
         for sid in ids:
             err = ctx.err()
             if err is not None:
@@ -1270,8 +1469,15 @@ class Client:
                 oracle_factory=lambda: self._oracle_for(snap),
             )
 
-        return self._lookup_page(ctx, cs, cursor, "lookup_resources_page",
-                                 run_page)
+        return self._lookup_page(
+            ctx, cs, cursor, "lookup_resources_page",
+            ("res", obj_type, obj_rel, subj_type, subj_id, subj_rel),
+            run_page,
+            lambda snap, now_us: self._pinned_oracle(
+                snap, now_us).lookup_resources(
+                    obj_type, obj_rel, subj_type, subj_id, subj_rel),
+            page_size,
+        )
 
     def lookup_subjects_page(
         self, ctx: Context, cs: Strategy, resource: str, permission: str,
@@ -1293,13 +1499,35 @@ class Client:
                 oracle_factory=lambda: self._oracle_for(snap),
             )
 
-        return self._lookup_page(ctx, cs, cursor, "lookup_subjects_page",
-                                 run_page)
+        return self._lookup_page(
+            ctx, cs, cursor, "lookup_subjects_page",
+            ("subj", res_type, res_id, permission, subj_type, subj_rel),
+            run_page,
+            lambda snap, now_us: self._pinned_oracle(
+                snap, now_us).lookup_subjects(
+                    res_type, res_id, permission, subj_type, subj_rel),
+            page_size,
+        )
 
-    def _lookup_page(self, ctx, cs, cursor, metric, run_page) -> LookupPage:
-        """Shared paged-lookup plumbing: cursor decode + revision pinning
-        and the retry envelope around the device dispatch."""
-        from .engine.spmv import LookupCursor
+    def _pinned_oracle(self, snap: Snapshot, now_us: int) -> Oracle:
+        """A SnapshotOracle pinned to one evaluation time (the host-only
+        client's cursor-paged lookups); the shared LRU oracle stays on
+        the wall clock for ordinary check fallbacks."""
+        return SnapshotOracle(
+            snap,
+            {
+                name: self._store.caveat_program(name)
+                for name in snap.compiled.schema.caveats
+            },
+            now_us=now_us,
+        )
+
+    def _lookup_page(self, ctx, cs, cursor, metric, token_parts, run_page,
+                     run_oracle, page_size) -> LookupPage:
+        """Shared paged-lookup plumbing: cursor decode + revision pinning,
+        the retry envelope around the device dispatch, and a sorted scan
+        of the host oracle on a host-only client."""
+        from .engine.spmv import LookupCursor, query_token, resolve_now_us
 
         cur = LookupCursor.decode(cursor) if cursor is not None else None
         snap = self._store.snapshot_for(cs)
@@ -1317,12 +1545,41 @@ class Client:
             snap = ds.source_snapshot or ds.snapshot
         engine = self._engine_for(snap)
         self._metrics.inc(f"lookups.{metric}")
+        if engine is None:
+            # deterministic sorted scan, cursor = offset.  The evaluation
+            # time resolves ONCE and rides the token and the cursor (a
+            # resume must slice the SAME list), and the full answer
+            # caches on the snapshot by token, so paging a large answer
+            # runs the scan once
+            now_us = resolve_now_us(cur, None)
+            token = query_token("oracle", snap.revision, now_us,
+                                *token_parts)
+            if cur is not None and cur.token != token:
+                raise PreconditionFailedError(
+                    "lookup cursor does not match this query")
+            pages = snap.__dict__.setdefault("_oracle_lookup_pages", {})
+            ids_all = pages.get(token)
+            if ids_all is None:
+                ids_all = sorted(run_oracle(snap, now_us))
+                pages[token] = ids_all
+                while len(pages) > 4:
+                    pages.pop(next(iter(pages)))
+            pos = cur.pos if cur is not None else 0
+            ids = ids_all[pos: pos + page_size]
+            nxt = None
+            if pos + len(ids) < len(ids_all):
+                nxt = LookupCursor(snap.revision, token, pos + len(ids),
+                                   now_us)
+            return LookupPage(ids, nxt.encode() if nxt else None)
         dsnap = self._dsnap_for(engine, snap)
         ids, nxt = retry_retriable_errors(
             ctx, lambda: run_page(engine, dsnap, snap, cur)
         )
         return LookupPage(ids, nxt.encode() if nxt is not None else None)
 
+
+# Constructors (client/client.go:35-77).  Each takes ``device``:
+# ``cuda`` by default, ``"cpu"`` for the plain PyTorch path on the CPU.
 
 def new_evaluator(*opts: Option, device=None) -> Client:
     """A client backed by the PyTorch engine — the counterpart of the
@@ -1331,7 +1588,39 @@ def new_evaluator(*opts: Option, device=None) -> Client:
     return Client(*opts, device=device)
 
 
+def new_tpu_evaluator(*opts: Option, device=None) -> Client:
+    """The reference's constructor name, kept so programs written against
+    it run unchanged: the same client as ``new_evaluator``."""
+    return Client(*opts, device=device)
+
+
+def new_with_opts(*opts: Option, device=None) -> Client:
+    """Create a client with defaults overridden by options
+    (client/client.go:63-77)."""
+    return Client(*opts, device=device)
+
+
+def new_plaintext(endpoint: str = "", preshared_key: str = "",
+                  *opts: Option, device=None) -> Client:
+    """API-parity constructor (client/client.go:38-44).  The reference
+    dials an insecure gRPC channel; this client evaluates in-process, so
+    the endpoint and key are accepted for drop-in compatibility and
+    ignored."""
+    return Client(*opts, device=device)
+
+
+def new_system_tls(endpoint: str = "", preshared_key: str = "",
+                   *opts: Option, device=None) -> Client:
+    """API-parity constructor (client/client.go:50-61); see
+    new_plaintext."""
+    return Client(*opts, device=device)
+
+
 # Go-parity aliases.
+NewTPUEvaluator = new_tpu_evaluator
+NewWithOpts = new_with_opts
+NewPlaintext = new_plaintext
+NewSystemTLS = new_system_tls
 WithOverlapRequired = with_overlap_required
 WithEngineConfig = with_engine_config
 WithLatencyMode = with_latency_mode

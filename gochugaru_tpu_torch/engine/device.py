@@ -723,13 +723,15 @@ class DeviceEngine:
         }, qctx
 
     # -- the flat program ------------------------------------------------
-    def _flat_fn_for(self, slots: Tuple[int, ...], meta: FlatMeta):
-        key = (slots, meta)
+    def _flat_fn_for(self, slots: Tuple[int, ...], meta: FlatMeta,
+                     witness: bool = False):
+        key = (slots, meta) if not witness else (slots, meta, "wit")
         fn = self._flat_fns.get(key)
         if fn is None:
             fn = make_flat_fn(
                 self.compiled, self.plan, self.config, meta, slots,
                 kernels=self.kernels, caveat_plan=self.caveat_plan,
+                witness=witness,
             )
             while len(self._flat_fns) >= self.FLAT_FN_CACHE_MAX:
                 self._flat_fns.pop(next(iter(self._flat_fns)))
@@ -744,11 +746,14 @@ class DeviceEngine:
         now: int,
         B: int,
         bucket_min: int = 0,
+        witness: bool = False,
     ):
         """The flat program + its padded argument tuple — the ONE place
         that knows its signature.  None where the reference's returns
         None: the snapshot has no flat tables, or the batch asks for more
-        distinct permissions than ``flat_max_slots``."""
+        distinct permissions than ``flat_max_slots``.  ``witness=True``
+        selects the armed program (same arguments, a fourth output: the
+        witness plane), cached apart from the serving programs."""
         if dsnap.flat_meta is None:
             return None
         slots = tuple(
@@ -756,7 +761,7 @@ class DeviceEngine:
         )
         if len(slots) > self.config.flat_max_slots:
             return None
-        fn = self._flat_fn_for(slots, dsnap.flat_meta)
+        fn = self._flat_fn_for(slots, dsnap.flat_meta, witness=witness)
         BP = _ceil_pow2(B, max(bucket_min, self.config.batch_bucket_min))
         qm = torch.from_numpy(build_qm(queries, BP, dsnap.flat_meta)).to(
             self.device
@@ -766,6 +771,74 @@ class DeviceEngine:
         now_t = torch.full((), int(now), dtype=torch.int32, device=self.device)
         return fn, (dsnap.arrays, dsnap.tid_map, now_t, qm,
                     self._qctx_device(qctx), dsnap.specs)
+
+    # -- decision provenance (engine/explain.py) -------------------------
+    def witness_codes(
+        self,
+        dsnap: DeviceSnapshot,
+        rels: Sequence[Relationship],
+        *,
+        now_us: Optional[int] = None,
+    ) -> Optional[np.ndarray]:
+        """Per-check witness codes of a batch: the winning-branch plane
+        of the armed flat program (``make_flat_fn(witness=True)``; codes
+        in engine/explain.py), int32[len(rels)].  Nonzero only for
+        device-definite allowed verdicts: conditional and overflow rows
+        (settled on the host oracle) report 0.  None where the flat
+        program cannot serve the batch (no flat tables, more distinct
+        permissions than ``flat_max_slots``): the explain walk then runs
+        unseeded.  The armed program is cached apart from the serving
+        ones, so this never disturbs the disarmed path."""
+        if dsnap.flat_meta is None:
+            return None
+        snap = dsnap.snapshot
+        queries, qctx = self._lower_queries(snap, rels, dsnap.strings)
+        return self._witness_run(dsnap, queries, qctx,
+                                 snap.now_rel32(now_us), len(rels))
+
+    def witness_codes_columns(
+        self,
+        dsnap: DeviceSnapshot,
+        q_res: np.ndarray,
+        q_perm: np.ndarray,
+        q_subj: np.ndarray,
+        *,
+        q_srel: Optional[np.ndarray] = None,
+        q_wc: Optional[np.ndarray] = None,
+        q_ctx: Optional[np.ndarray] = None,
+        qctx_rows: Optional[Sequence[Mapping[str, Any]]] = None,
+        now_us: Optional[int] = None,
+        planes: bool = False,
+    ):
+        """``witness_codes`` from pre-interned columns, as
+        ``check_columns`` takes them.  With ``planes`` returns
+        ``(codes, (d, p, ovf))``: the armed program's three check planes
+        beside the codes."""
+        if dsnap.flat_meta is None:
+            return None
+        queries, qctx = self._columns_preamble(
+            dsnap, q_res, q_perm, q_subj, q_srel, q_wc, q_ctx, qctx_rows)
+        return self._witness_run(dsnap, queries, qctx,
+                                 dsnap.snapshot.now_rel32(now_us),
+                                 q_res.shape[0], planes=planes)
+
+    def _witness_run(self, dsnap, queries, qctx, now, B, planes=False):
+        got = self.flat_fn_and_args(dsnap, queries, qctx, now, B,
+                                    witness=True)
+        if got is None:
+            return None
+        fn, args = got
+        with torch.no_grad():
+            d, p, ovf, wit = fn(*args)
+        # one device->host copy for the planes, one for the codes
+        dpo = torch.stack([d[:B], p[:B], ovf[:B]]).cpu().numpy()
+        wit = wit[:B].cpu().numpy()
+        # host-settled rows (conditional, overflow) carry no trusted
+        # witness: the oracle walk explains them unseeded
+        wit[(dpo[1] & ~dpo[0]) | dpo[2]] = 0
+        if planes:
+            return wit, (dpo[0], dpo[1], dpo[2])
+        return wit
 
     def _legacy_arrays(self, dsnap: DeviceSnapshot) -> Dict[str, torch.Tensor]:
         """The legacy program's tables for ``dsnap``, built once and

@@ -61,6 +61,10 @@ from .hash import (
     slice_blocks,
 )
 from .consts import device_const
+from .explain import (
+    WIT_DIRECT, WIT_FOLD, WIT_LEVEL_SHIFT, WIT_REWRITE, WIT_SELF, WIT_TPROBE,
+    WIT_USERSET, WIT_WILDCARD,
+)
 from .packed import decode_block as _pk_decode
 from .plan import DevicePlan, EngineConfig, ExprIR, _eval_cyclic_pairs
 
@@ -2377,6 +2381,36 @@ def build_delta_arrays(
 
 
 
+class _WitColl:
+    """Witness-mask collector (the armed program only).  ``add``
+    OR-accumulates a branch's definite mask, gated by the collector's
+    selection mask (which root slot / node type the enclosing program
+    applies to): an ungated mask from another type's program must never
+    claim a branch for a query it cannot grant.  Masks that are not 1-D
+    (deeper node lattices: arrow children, rc ancestors) are skipped, so
+    grants found there report as the ``rewrite`` branch."""
+
+    __slots__ = ("store", "mask")
+
+    def __init__(self, store, mask=None):
+        self.store = store
+        self.mask = mask
+
+    def add(self, key, m):
+        if m.dim() != 1:
+            return
+        if self.mask is not None:
+            m = m & self.mask
+        prev = self.store.get(key)
+        self.store[key] = m if prev is None else (prev | m)
+
+    def masked(self, mask):
+        return _WitColl(
+            self.store,
+            mask if self.mask is None else (self.mask & mask),
+        )
+
+
 def make_flat_fn(
     compiled: CompiledSchema,
     plan: DevicePlan,
@@ -2385,6 +2419,7 @@ def make_flat_fn(
     slots: Tuple[int, ...],
     kernels: bool = False,
     caveat_plan=None,
+    witness: bool = False,
 ):
     """Build the batched flat check function for a static set of permission
     slots.  Queries select their slot's result with a vectorized compare —
@@ -2418,9 +2453,20 @@ def make_flat_fn(
     them, and composed with the base sites' answers; base tables stay on
     ``psite``.
 
+    ``witness=True`` arms decision provenance: ``fn`` returns a fourth
+    int32 plane, a per-query witness code naming the winning branch
+    (self / direct edge / wildcard / T-probe / fold / userset x closure
+    / rewrite, plus a recursion-level class; codes in engine/explain.py)
+    of device-definite allowed verdicts, 0 elsewhere.  The masks are the
+    ones the probe sites compute anyway (after the delta overlays are
+    composed with them), so the armed program launches the same kernels
+    and adds only the final select cascade, a few elementwise ops over
+    the batch.  Disarmed (the default) the program is the same ops and
+    launches, and returns three planes.
+
     Covered: the single-chip blockslice layout, with or without a delta
-    level, without the witness plane; anything else raises
-    NotImplementedError naming what is missing."""
+    level; anything else raises NotImplementedError naming what is
+    missing."""
     if meta.sharded or meta.part_serve:
         raise NotImplementedError("sharded check kernels are not ported yet")
     if not meta.blockslice:
@@ -2752,11 +2798,12 @@ def make_flat_fn(
                     p = p | any2(m & spok.reshape(shp))
             return d, p
 
-        def pf_probe(slot, nodes):
+        def pf_probe(slot, nodes, coll=None):
             """Folded-permission test at a [B, ...] node lattice: ONE
             direct-identity probe (pf_e) + one bounded-fan userset slice
             (pf_u) intersected with the member closure.  ``slot=None`` =
-            dynamic (q_perm is the slot)."""
+            dynamic (q_perm is the slot).  ``coll`` (witness armed)
+            collects the definite mask as the ``fold`` branch."""
             nd = nodes.dim()
             d = p = zeros(nodes.shape)
             exists = nodes >= 0
@@ -2869,16 +2916,20 @@ def make_flat_fn(
                 r_hit = (live & refl).any(dim=-1)
                 d = d | od | r_hit
                 p = p | op_ | r_hit
+            if coll is not None:
+                coll.add("fold", d)
             return d, p
 
         # Every eval function returns (definite, possible, ovf, used):
         # d/p shaped like the node lattice, ovf/used reduced to [B].
 
-        def leaf(slot, nodes):
+        def leaf(slot, nodes, coll=None):
             """Direct + wildcard + userset leaf tests at a [B, ...] node
             lattice.  ``slot`` None means dynamic — the query's own
             q_perm column is the relation, so ONE probe site at the root
-            covers every slot's direct relation check."""
+            covers every slot's direct relation check.  ``coll`` (witness
+            armed) collects each branch's definite mask, after the delta
+            overlays are composed with it."""
             nd = nodes.dim()
             zn = zeros(nodes.shape)
             d, p, ovf, used = zn, zn, zB, zB
@@ -2934,9 +2985,13 @@ def make_flat_fn(
                     return hd, hp
 
                 d, p = e_site(bq(q_k2, nd))
+                if coll is not None:
+                    coll.add("direct", d)
                 if meta.has_wc_edges:
                     # wildcard edges only grant direct-object subjects
                     wd, wp = e_site(bq(w_k2, nd))
+                    if coll is not None:
+                        coll.add("wildcard", wd)
                     d, p = d | wd, p | wp
 
             # T-index fast path: one probe folds {userset edge × closure}
@@ -2959,6 +3014,8 @@ def make_flat_fn(
                     # them; the forced KU pass below re-derives the union
                     dirty = ohit("td", dm.td_cap, (k1,))
                     td, tp = td & ~dirty, tp & ~dirty
+                if coll is not None:
+                    coll.add("t", td)
                 d, p = d | td, p | tp
                 if meta.has_ovf:
                     # T is incomplete for overflowed closure sources: flag
@@ -3039,6 +3096,8 @@ def make_flat_fn(
                     ublk, valid,
                     tombstoned=dm is not None and dm.has_ustomb,
                 )
+                if coll is not None:
+                    coll.add("us", kd)
                 d, p, used = d | kd, p | kp, used | ku_used
             # delta-level userset grants (adds with subject relations)
             run_kud = (
@@ -3050,14 +3109,21 @@ def make_flat_fn(
                 ublk, valid, over = ku_fetch(True, dm.us_cap, dm.us_fan)
                 ovf = ovf | over
                 kd, kp, ku_used = ku_eval(ublk, valid)
+                if coll is not None:
+                    coll.add("us", kd)
                 d, p, used = d | kd, p | kp, used | ku_used
             return d, p, ovf, used
 
         memo: Dict = {}
         pins: List = []  # keep node arrays alive so id() keys stay unique
 
-        def eval_progs(slot: int, nodes, stack: Tuple, types, ar_hops: int):
-            """The permission programs of ``slot`` at ``nodes`` (no leaf)."""
+        def eval_progs(slot: int, nodes, stack: Tuple, types, ar_hops: int,
+                       coll=None):
+            """The permission programs of ``slot`` at ``nodes`` (no leaf).
+            ``coll`` (witness armed) threads into each program's
+            expression gated by that program's node-type mask, so a leaf
+            mask from another type's program never claims a branch for a
+            query it cannot grant."""
             zn = zeros(nodes.shape)
             d, p, ovf, used = zn, zn, zB, zB
             progs = [
@@ -3102,6 +3168,7 @@ def make_flat_fn(
                 ed, ep, eo, eu = eval_expr(
                     expr, nodes, stack + ((tname, slot),),
                     frozenset((tname,)), ar_hops,
+                    None if coll is None else coll.masked(mask),
                 )
                 d = d | (mask & ed)
                 p = p | (mask & ep)
@@ -3133,7 +3200,8 @@ def make_flat_fn(
                 ro, ru,
             )
 
-        def eval_slot(slot: int, nodes, stack: Tuple, types, ar_hops: int):
+        def eval_slot(slot: int, nodes, stack: Tuple, types, ar_hops: int,
+                      coll=None):
             cyc_sig = tuple(
                 sorted((pr, stack.count(pr)) for pr in set(stack) if pr in cyclic)
             )
@@ -3147,23 +3215,25 @@ def make_flat_fn(
             zn = zeros(nodes.shape)
             d, p, ovf, used = zn, zn, zB, zB
             if slot in rel_slots:
-                d, p, ovf, used = leaf(slot, nodes)
+                d, p, ovf, used = leaf(slot, nodes, coll)
             if slot in pf_slots:
                 # folded permission reached as an arrow target / ref from
                 # an unfolded program: its base answer is the probe pair
-                fd, fp = pf_probe(slot, nodes)
+                fd, fp = pf_probe(slot, nodes, coll)
                 d, p = d | fd, p | fp
-            pd, pp, po, pu = eval_progs(slot, nodes, stack, types, ar_hops)
+            pd, pp, po, pu = eval_progs(slot, nodes, stack, types, ar_hops,
+                                        coll)
             d, p = d | pd, p | pp
             ovf, used = ovf | po, used | pu
             pins.append(nodes)
             memo[key] = (d, p, ovf, used)
             return memo[key]
 
-        def eval_expr(ir: ExprIR, nodes, stack: Tuple, types, ar_hops: int):
+        def eval_expr(ir: ExprIR, nodes, stack: Tuple, types, ar_hops: int,
+                      coll=None):
             tag = ir[0]
             if tag == "ref":
-                return eval_slot(ir[1], nodes, stack, types, ar_hops)
+                return eval_slot(ir[1], nodes, stack, types, ar_hops, coll)
             if tag == "nil":
                 z = zeros(nodes.shape)
                 return z, z, zB, zB
@@ -3247,22 +3317,40 @@ def make_flat_fn(
                 z = zeros(nodes.shape)
                 d, p, ovf, used = z, z, zB, zB
                 for c in ir[1]:
-                    cd, cp, co, cu = eval_expr(c, nodes, stack, types, ar_hops)
+                    cd, cp, co, cu = eval_expr(c, nodes, stack, types,
+                                               ar_hops, coll)
                     d, p = d | cd, p | cp
                     ovf, used = ovf | co, used | cu
                 return d, p, ovf, used
             if tag == "inter":
+                # children collect into a sub-store gated by the whole
+                # intersection's definite output: a branch hit inside a
+                # failed intersection is not on the allowed path
                 o = torch.ones(nodes.shape, dtype=torch.bool, device=dev)
                 d, p, ovf, used = o, o, zB, zB
+                sub = None if coll is None else _WitColl({})
                 for c in ir[1]:
-                    cd, cp, co, cu = eval_expr(c, nodes, stack, types, ar_hops)
+                    cd, cp, co, cu = eval_expr(c, nodes, stack, types,
+                                               ar_hops, sub)
                     d, p = d & cd, p & cp
                     ovf, used = ovf | co, used | cu
+                if sub is not None:
+                    for wk, wm in sub.store.items():
+                        coll.add(wk, wm & d)
                 return d, p, ovf, used
             if tag == "excl":
-                bd, bp, bo, bu = eval_expr(ir[1], nodes, stack, types, ar_hops)
+                # the subtracted operand's grants deny (never collected);
+                # the base operand's count only where the exclusion as a
+                # whole definitely grants
+                sub = None if coll is None else _WitColl({})
+                bd, bp, bo, bu = eval_expr(ir[1], nodes, stack, types,
+                                           ar_hops, sub)
                 sd, sp, so, su = eval_expr(ir[2], nodes, stack, types, ar_hops)
-                return bd & ~sp, bp & ~sd, bo | so, bu | su
+                rd = bd & ~sp
+                if sub is not None:
+                    for wk, wm in sub.store.items():
+                        coll.add(wk, wm & rd)
+                return rd, bp & ~sd, bo | so, bu | su
             raise TypeError(f"bad expression IR {ir!r}")
 
         # subject-closure overflow: the flattened table is incomplete for
@@ -3277,29 +3365,57 @@ def make_flat_fn(
             q_cl_ovf = ovf_probe(q_k2) | ovf_probe(wcl_k)
 
         valid_q = (q_res >= 0) & (q_perm >= 0)
+        # witness collection (armed only): the root-level sites and the
+        # root resource's program expressions drop their definite masks
+        # in here; None skips every collection
+        coll = _WitColl({}) if witness else None
         # one dynamic-slot leaf site answers every query whose permission
         # is (also) a stored relation; per-slot work below is programs only
         if meta.e_slots or meta.us_fanout_by_slot:
-            d_out, p_out, lovf, lused = leaf(None, q_res)
+            d_out, p_out, lovf, lused = leaf(None, q_res, coll)
             ovf_out = lovf | (q_cl_ovf & lused)
         else:
             d_out, p_out, ovf_out = zB, zB, zB
         if fold_on and any(s in pf_slots for s in slots):
             # one dynamic pf site answers every folded permission in the
             # dispatch — for a fully folded slot set this IS the kernel
-            fd, fp = pf_probe(None, q_res)
+            fd, fp = pf_probe(None, q_res, coll)
             d_out, p_out = d_out | fd, p_out | fp
         for slot in slots:
             if not perm_programs.get(slot):
                 continue
             sel = q_perm == slot
-            sd, sp, so, su = eval_progs(int(slot), q_res, (), all_types, 0)
+            sd, sp, so, su = eval_progs(
+                int(slot), q_res, (), all_types, 0,
+                None if coll is None else coll.masked(sel),
+            )
             d_out = d_out | (sel & sd)
             p_out = p_out | (sel & sp)
             ovf_out = ovf_out | (sel & (so | (q_cl_ovf & su)))
+            if coll is not None:
+                coll.add("rewrite", sel & sd)
 
         d_out = (d_out & valid_q) | q_self
         p_out = (p_out & valid_q) | q_self
-        return d_out, p_out, ovf_out & ~q_self
+        if coll is None:
+            return d_out, p_out, ovf_out & ~q_self
+        # the witness plane: lowest-priority branch first, each later
+        # select overwrites, so the leaf-most explanation wins (self >
+        # direct > wildcard > T > fold > userset > rewrite); nonzero only
+        # for definite allowed verdicts
+        wit = torch.zeros(q_res.shape, dtype=torch.int32, device=dev)
+        for wkey, wcode in (
+            ("rewrite", WIT_REWRITE | (1 << WIT_LEVEL_SHIFT)),
+            ("us", WIT_USERSET),
+            ("fold", WIT_FOLD),
+            ("t", WIT_TPROBE),
+            ("wildcard", WIT_WILDCARD),
+            ("direct", WIT_DIRECT),
+        ):
+            wm = coll.store.get(wkey)
+            if wm is not None:
+                wit = wit.masked_fill(wm & valid_q, wcode)
+        wit = wit.masked_fill(q_self, WIT_SELF).masked_fill(~d_out, 0)
+        return d_out, p_out, ovf_out & ~q_self, wit
 
     return fn

@@ -7,9 +7,10 @@
 same four check modes over the bucket-aligned layout.  A call on CPU
 tensors, or with ``plain=True``, runs the plain PyTorch twin
 (``plain.py``); a call on CUDA tensors launches ``csrc/fused_probe.cu``
-/ ``csrc/fused_probe_aligned.cu`` or raises — there is no silent
-fallback.  ``LAUNCHES`` counts kernel launches per mode (never plain
-calls) — ``MODES`` for fused_probe, ``aligned.<mode>`` for each of
+/ ``csrc/fused_probe_aligned.cu`` or raises ``KernelError`` (a build,
+load or launch that failed) — there is no silent fallback.
+``LAUNCHES`` counts kernel launches per mode (never plain calls) —
+``MODES`` for fused_probe, ``aligned.<mode>`` for each of
 ``ALIGNED_MODES`` — so a run can show that its main path went through
 the kernels, and ``LANES`` the query lanes (keys for ``runs``) those
 launches processed.  A gate with the caveat lanes (``cav_lane``, and
@@ -33,14 +34,15 @@ from typing import Dict, Optional, Sequence, Tuple, Union
 import torch
 
 from ..consts import device_const
+from .build import KernelError
 from .plain import (
     blk_hit, check_planes, field0_spec, fused_probe_aligned_plain,
     fused_probe_plain,
 )
 
 __all__ = [
-    "ALIGNED_MODES", "GATE_CAV", "LANES", "LAUNCHES", "MODES", "blk_hit",
-    "block_tile", "fused_probe", "fused_probe_aligned",
+    "ALIGNED_MODES", "GATE_CAV", "KernelError", "LANES", "LAUNCHES", "MODES",
+    "blk_hit", "block_tile", "fused_probe", "fused_probe_aligned",
     "fused_probe_aligned_plain", "fused_probe_plain", "gate_tile",
     "reduce_path", "reduce_tile", "reset_launches", "spec_tensors",
     "warp_tile",
@@ -409,7 +411,7 @@ def fused_probe(
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _launcher()(_MODE_ID[mode], ctypes.byref(a), stream)
     if err != 0:
-        raise RuntimeError(f"fused_probe kernel launch failed (cudaError {err})")
+        raise KernelError(f"fused_probe kernel launch failed (cudaError {err})")
     _count(GATE_CAV if cav_lane is not None else mode, B)
     return _shaped(mode, outs, shape, cap, W)
 
@@ -571,7 +573,7 @@ def fused_probe_aligned(
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _aligned_launcher()(_MODE_ID[mode], ctypes.byref(a), stream)
     if err != 0:
-        raise RuntimeError(
+        raise KernelError(
             f"fused_probe_aligned kernel launch failed (cudaError {err})")
     _count("aligned." + (GATE_CAV if cav_lane is not None else mode), B)
     return _shaped(mode, outs, shape, capT, W)

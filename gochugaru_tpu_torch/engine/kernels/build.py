@@ -28,7 +28,13 @@ _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
-class KernelBuildError(RuntimeError):
+class KernelError(RuntimeError):
+    """A hand-written kernel failed to build, load or launch.  Never a
+    transient fault: callers that degrade other errors to a hint (the
+    explain path's witness extraction) re-raise it."""
+
+
+class KernelBuildError(KernelError):
     """A kernel source failed to compile or load."""
 
 

@@ -51,6 +51,13 @@ This path removes every per-dispatch variable cost it can:
   dispatch that captures its pin is published on its own, as
   ``latency.cold_dispatch_s``.
 
+- **witness pins**: ``arm_witness()`` makes later dispatches run the
+  armed flat program (``make_flat_fn(witness=True)``), pinned under its
+  own key (the disarmed keys are exactly as without it), and copies its
+  fourth output, the per-query witness codes (engine/explain.py), to
+  ``last_witness`` in the same readback as the planes.  Disarmed, a
+  dispatch pays one flag read.
+
 On ``cpu`` there is no graph: a pin runs the same eager program over the
 same static buffers, so the CPU tests exercise everything but the
 replay.  On ``cuda`` a failed capture raises; nothing falls back to the
@@ -198,10 +205,12 @@ class _Pin:
     the inputs to reading the outputs back."""
 
     def __init__(self, engine, fn, tier: int, qctx_np, qctx_shared,
-                 band: _Band) -> None:
+                 band: _Band, witness: bool = False) -> None:
         dev = engine.device
         self.fn = fn
         self.band = band
+        #: the armed program: a fourth output, the witness codes
+        self.witness = witness
         self.qm = torch.empty((QM_ROWS, tier), dtype=torch.int32, device=dev)
         self.now = torch.zeros((), dtype=torch.int32, device=dev)
         #: the engine's context-free device tables (long-lived), or static
@@ -213,6 +222,9 @@ class _Pin:
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.out: Optional[torch.Tensor] = None
         self.host: Optional[torch.Tensor] = None
+        #: the armed pin's static witness output and its pinned host copy
+        self.wout: Optional[torch.Tensor] = None
+        self.whost: Optional[torch.Tensor] = None
         #: kernel launches per mode inside the capture (LAUNCHES keys)
         self.modes: Dict[str, int] = {}
         self.ready = False
@@ -254,8 +266,9 @@ class _Pin:
             graph.capture_begin(pool=pool, capture_error_mode="thread_local")
             err = None
             try:
-                d, p, ovf = self.fn(*args)
-                out = torch.stack([d, p, ovf])
+                got = self.fn(*args)
+                out = torch.stack(got[:3])
+                wout = got[3] if self.witness else None
             except BaseException as e:  # the program's error is the one to see
                 err = e
             try:
@@ -271,20 +284,24 @@ class _Pin:
         torch.cuda.current_stream(dev).wait_stream(side)
         self.modes = {k: v - before[k] for k, v in _K.LAUNCHES.items()
                       if v > before[k]}
-        self.graph, self.out = graph, out
+        self.graph, self.out, self.wout = graph, out, wout
         self.host = torch.empty(out.shape, dtype=torch.bool, pin_memory=True)
+        if wout is not None:
+            self.whost = torch.empty(wout.shape, dtype=torch.int32,
+                                     pin_memory=True)
         self.ready = True
 
-    def run(self, dsnap) -> torch.Tensor:
-        """The [3, tier] planes of the inputs as filled and bound: the
-        replayed graph's static outputs on ``cuda``, the eager program's
-        on ``cpu``."""
+    def run(self, dsnap):
+        """The [3, tier] planes of the inputs as filled and bound, and the
+        [tier] witness codes of an armed pin (else None): the replayed
+        graph's static outputs on ``cuda``, the eager program's on
+        ``cpu``."""
         if self.graph is not None:
             self.graph.replay()
-            return self.out
+            return self.out, self.wout
         with torch.no_grad():
-            d, p, ovf = self.fn(*self.args(dsnap))
-        return torch.stack([d, p, ovf])
+            got = self.fn(*self.args(dsnap))
+        return torch.stack(got[:3]), got[3] if self.witness else None
 
 
 class LatencyPath:
@@ -328,6 +345,12 @@ class LatencyPath:
         #: lazily computed gathered-bytes/check of this snapshot (the perf
         #: ledger's meta model), for sampled dispatch spans
         self._bpc_cache: Optional[float] = None
+        #: witness extraction (``arm_witness``): armed, dispatches run the
+        #: armed program on pins of their own and leave the per-query
+        #: codes of the last batch on ``last_witness``; disarmed (the
+        #: default) no witness buffer exists and no extra output ships
+        self.witness_armed = False
+        self.last_witness: Optional[np.ndarray] = None
 
     def _bytes_per_check(self) -> float:
         v = self._bpc_cache
@@ -346,12 +369,14 @@ class LatencyPath:
         return tier_for(self.engine.config.latency_tiers, B)
 
     def arm_witness(self, on: bool = True) -> None:
-        """Witness extraction on latency dispatches: the witness plane of
-        the flat program is not ported yet (ROADMAP queue 1 item 6)."""
-        if on:
-            raise NotImplementedError(
-                "the witness plane (make_flat_fn(witness=True)) is a later"
-                " slice of the port")
+        """Toggle witness extraction for later dispatches.  Armed and
+        disarmed pins have distinct keys, so flipping never evicts or
+        recaptures the other mode's pins: the first armed dispatch of a
+        (slots, tier, qctx shape) in a band captures once, later ones
+        replay (a write that keeps the band rebinds, as for any pin)."""
+        self.witness_armed = bool(on)
+        if not on:
+            self.last_witness = None
 
     # -- pinning ---------------------------------------------------------
     def _qctx_key(self, qctx) -> Tuple:
@@ -414,18 +439,23 @@ class LatencyPath:
         """The pin for this (slots, tier, qctx shape) in the engine's
         cache (pinned by this path or by another revision of its band),
         else a new one (captured by the dispatch on its first run).
-        Called under the engine's replay lock.  Returns (pin, key)."""
-        key = (slots, tier, qctx_key)
+        Called under the engine's replay lock.  Returns (pin, key): an
+        armed path's keys end in ``"wit"``; the disarmed keys are the
+        same as without witness pins."""
+        wit = self.witness_armed
+        key = (slots, tier, qctx_key) if not wit else (
+            slots, tier, qctx_key, "wit")
         band = self._band_for()
         full_key = (band,) + key
         eng = self.engine
         with eng._latency_pins_lock:
             pin = eng._latency_pins.get(full_key)
             if pin is None:
-                fn = eng._flat_fn_for(slots, self.dsnap.flat_meta)
+                fn = eng._flat_fn_for(slots, self.dsnap.flat_meta,
+                                      witness=wit)
                 shared = (eng._qctx_device(qctx) if qctx_key[0] == "empty"
                           else None)
-                pin = _Pin(eng, fn, tier, qctx, shared, band)
+                pin = _Pin(eng, fn, tier, qctx, shared, band, witness=wit)
                 pin.full_key = full_key
                 pins = eng._latency_pins
                 while len(pins) >= eng.LATENCY_PIN_CACHE_MAX:
@@ -564,18 +594,25 @@ class LatencyPath:
                 with _trace.annotate_dispatch(span):
                     if fresh:
                         self._capture(pin, pin_key)
-                    out = pin.run(self.dsnap)
+                    out, wout = pin.run(self.dsnap)
                 if cuda:
                     sync()
                 t3 = time.perf_counter()
 
-                # ---- stage 4: D2H readback -------------------------------
+                # ---- stage 4: D2H readback (an armed pin's codes too,
+                # before another replay can overwrite its static output)
                 if cuda:
                     pin.host.copy_(out, non_blocking=True)
+                    if wout is not None:
+                        pin.whost.copy_(wout, non_blocking=True)
                     sync()
                     got = pin.host.numpy()[:, :B].copy()
+                    if wout is not None:
+                        self.last_witness = pin.whost.numpy()[:B].copy()
                 else:
                     got = out[:, :B].numpy().copy()
+                    if wout is not None:
+                        self.last_witness = wout[:B].numpy().copy()
                 t4 = time.perf_counter()
 
         budget = DispatchBudget(

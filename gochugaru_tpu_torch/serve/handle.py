@@ -8,12 +8,9 @@ call resolves exactly once, through however many re-formed batches it
 takes.  ``submit``/``submit_columns`` return the raw futures for
 open-loop callers that must not block on their own traffic.
 
-Copied from the reference package (host-only), with two changes: the
+Copied from the reference package (host-only), with one change: the
 dispatcher thread makes the engine's CUDA device its current device
-before its first batch (a new thread starts on device 0), and
-``check(explain=True)`` raises ``NotImplementedError``: explain needs
-the witness plane of the flat program and engine/explain.py, a later
-slice of the port (ROADMAP queue 1 item 6).
+before its first batch (a new thread starts on device 0).
 """
 
 from __future__ import annotations
@@ -74,7 +71,7 @@ class ServingHandle:
         #: first batch (None on the CPU)
         dev = client.device
         self._cuda_index = (
-            None if dev.type != "cuda"
+            None if dev is None or dev.type != "cuda"
             else dev.index if dev.index is not None
             else torch.cuda.current_device()
         )
@@ -125,20 +122,33 @@ class ServingHandle:
         """Batched permission check through the micro-batcher: submits
         into the next formed tier slot and awaits the coalesced result,
         under the same retry envelope ``client.check`` uses (a shed or
-        a transient batch fault re-submits).  ``explain=True`` raises
-        ``NotImplementedError`` (see the module docstring)."""
+        a transient batch fault re-submits).
+
+        ``explain=True`` additionally re-derives each verdict's typed
+        resolution tree at the handle's pinned strategy — ONE snapshot
+        for the whole batch's trees (witness codes extracted in one
+        armed dispatch), returning ``List[ExplainedCheck]``: the
+        coalesced verdict plus the tree.  The verdict came from the
+        batcher's own dispatch snapshot; under ``min_latency`` a write
+        landing between the coalesced dispatch and the explain can move
+        the head, so a tree disagreeing with its served verdict is
+        flagged ``verdict_skew`` (the tree's ``revision`` names the
+        world it describes) instead of posing as the verdict's
+        derivation."""
         self._client._check_overlap(ctx)
-        if explain:
-            raise NotImplementedError(
-                "check(explain=True) needs the witness plane and"
-                " engine/explain.py, a later slice of the port"
-                " (ROADMAP queue 1 item 6)")
         rels = [as_relationship(r) for r in rs]
         if not rels:
             return []
         cid = self._client_id(client_id)
         root = _trace.root_span("serve.check", batch=len(rels))
         ctx = _trace.ctx_with_span(ctx, root)
+        pre_snap = pre_ents = None
+        if explain:
+            # cache residency probed BEFORE submitting: entries the
+            # coalesced dispatch itself inserts are fresh work, not
+            # cache-served provenance
+            pre_snap = self._client._store.snapshot_for(self._cs)
+            pre_ents = self._client._peek_cached(pre_snap, rels, self._cs)
 
         def attempt():
             fut = self.batcher.submit_rels(cid, rels, ctx)
@@ -166,7 +176,32 @@ class ServingHandle:
             return out
 
         with root:
-            return retry_retriable_errors(ctx, attempt)
+            verdicts = retry_retriable_errors(ctx, attempt)
+            if not explain:
+                return verdicts
+            client = self._client
+
+            def derive():
+                snap = client._store.snapshot_for(self._cs)
+                # a write that moved the head since the pre-submit probe
+                # makes its entries another revision's: every item is
+                # then uncached rather than mislabelled
+                ents = (
+                    pre_ents
+                    if pre_snap is not None
+                    and snap.revision == pre_snap.revision
+                    else [None] * len(rels)
+                )
+                # the witness extraction is a device dispatch: it runs
+                # under the client's admission envelope, as explain does
+                codes = client._admitted(
+                    ctx, lambda: client._witness_batch(snap, rels))
+                return client._explain_batch(
+                    snap, rels, verdicts, self._cs, cache_ents=ents,
+                    codes=codes,
+                )
+
+            return retry_retriable_errors(ctx, derive)
 
     def check_one(self, ctx, r: RelationshipLike, *, client_id=None) -> bool:
         return self.check(ctx, r, client_id=client_id)[0]

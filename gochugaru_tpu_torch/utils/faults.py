@@ -56,6 +56,10 @@ Injection sites threaded through the tree (grep ``faults.fire``):
                              classified onto the batch's futures)
     cache.lookup             verdict-cache lookup, before any cached
                              state is read (engine/vcache.py)
+    explain.walk             explain-tree derivation (engine/explain.py;
+                             fires BEFORE any tree state exists, so the
+                             client envelope's retry can never observe
+                             a torn tree)
 """
 
 from __future__ import annotations

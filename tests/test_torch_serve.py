@@ -178,13 +178,22 @@ def test_serve_columns_parity_and_one_shot_surface(world):
 
 
 def test_explain_raises_not_implemented(world):
-    pc, _jc, _o = world
-    r = prel.must_from_triple("repo:r0", "read", "user:u0")
-    with pytest.raises(NotImplementedError):
-        pc.check(p_background(), pcons.full(), r, explain=True)
-    with pc.with_serving() as h:
-        with pytest.raises(NotImplementedError):
-            h.check(p_background(), r, explain=True)
+    """``check(explain=True)`` and the handle's no longer raise: both give
+    the reference's verdicts and trees (but for the timing field)."""
+    pc, jc, _o = world
+
+    def trees(got):
+        return [(e.allowed, {k: v for k, v in e.explanation.items()
+                             if k != "duration_ms"}) for e in got]
+
+    checks = [("repo:r0", "read", "user:u0"), ("repo:r3", "read", "user:u7")]
+    pr = [prel.must_from_triple(*t) for t in checks]
+    jr = [jrel.must_from_triple(*t) for t in checks]
+    assert trees(pc.check(p_background(), pcons.full(), *pr, explain=True)) == trees(
+        jc.check(j_background(), jcons.full(), *jr, explain=True))
+    with pc.with_serving() as ph, jc.with_serving() as jh:
+        assert trees(ph.check(p_background(), *pr, explain=True)) == trees(
+            jh.check(j_background(), *jr, explain=True))
 
 
 def test_serving_handle_shares_the_admission_cost_model(world):
