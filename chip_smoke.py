@@ -264,6 +264,53 @@ Phases (any failure exits non-zero and prints no result line):
    0.  It prints one ``witness: {...}`` line after the ``serving:``
    line; the phase's launches are its own (zeroed before, the main
    path's restored after).
+16. the operations layer (utils/trace.py's flight recorder, utils/slo.py,
+   utils/telemetry.py, utils/perf.py's report and roofline meter,
+   ``with_profiling``, store/group.py), after phase 15's client part, on
+   the store of the client phases 11, 14 and 15 hold at config 3 full
+   size: a client built with ``with_store``, ``with_telemetry(port=0,
+   incident_dir=...)``, ``with_profiling``, ``with_group_commit(
+   GroupCommitConfig(max_group=256, hold_max_s=0.002))``, a breaker
+   threshold of 2 and a 1% decision log, handed the prepared head (no
+   second prepare); its profile directory is set for (c) only, and its
+   latency mode toggled per step.  (a) 20 batches of 4,096 checks, half
+   eager and half on the latency path, answers equal the plain client's;
+   then every endpoint over HTTP: ``/metrics`` in both formats (the
+   ``checks.dispatch`` count grew by the batches sent), ``/perf?bench=1``
+   (``measure_bandwidth`` on the card, printed beside 3.35 TB/s; the
+   phase fails past 105% of it), ``/perf?compile=1`` (every cost entry
+   realized as unavailable), the bytes model and the kernels' per-check
+   bytes, ``/slo``, ``/healthz`` (ok), ``/traces`` and ``/decisions``;
+   (b) faults on ``latency.dispatch`` until the breaker trips: one bundle
+   in the incident dir naming ``breaker.trip``, holding the failing
+   dispatches' traces, the admission and perf context and the decision
+   tail, served identically at ``/debug/incidents/<id>``; after
+   ``faults.reset()`` and the cooldown a latency probe closes the breaker;
+   (c) four profiled batches of the 100,000 checks: one torch.profiler
+   trace each, from which the device busy share of the dispatch window
+   (the union of kernel, memcpy and memset intervals over the
+   ``gochugaru:`` range), the 10 device operations with the most time and
+   the probe kernels' launches (equal to the wrappers' counts, ``block``
+   among them); ``checks.device_time_s`` counted 4; (d) 64 threads x 4
+   transactions (a viewer or a member touch, seeded) through the
+   committer: 256 unique tokens, dense within each group (one log entry a
+   group), fewer groups than a quarter of the writes; then 256 checks at
+   ``at_least`` the last token on the delta-prepared revision (else the
+   phase fails naming the radix and size) equal to the oracle;
+   transactions/s, group sizes and write -> first check ms beside phase
+   11's direct writes; (e) phase 12 (d)'s feature world through a
+   ``cuda`` client with group commit and ``lsm_compact_min=256``: rounds
+   of 64 grouped writes, each followed by a check, until
+   ``ChainCompactor.poll_once()`` merges the chain
+   (``store.bg_compactions`` >= 1), then a write and its 3,000 checks
+   against the oracle, and whether that revision's prepare was a delta;
+   (f) the 100,000-check batch (``check``, once a side: its host lowering
+   takes seconds) and 1,000 tier-1,024 latency dispatches (a serving
+   handle's ``check_columns`` with no hold-back, 500 a client in 2
+   rounds) through this client (tracer, recorder and SLO engine
+   installed) and phase 15's plain client (tracer and recorder removed),
+   alternating, their answers equal: medians (no claim).  It prints one ``telemetry: {...}`` line
+   after the ``witness:`` line; its launches are its own.
 
 Phases 4-8 are the main path: launch counts are zeroed before phase 4
 and read after phase 7, and every mode of both kernels, and the gate
@@ -3512,6 +3559,7 @@ def phase_write_check(K, client, ek, ds, snap, prepare_s, n_docs, n_users, n_gro
             f" replaces: prepare_s={prepare_s:.3f}; answers agree with the oracle")
     phase_write_legacy(client._dsnap_cache[revs[-1]], snap.compiled,
                        n_docs, n_users, n_groups)
+    return out
 
 
 def phase_write_legacy(nds, cs, n_docs, n_users, n_groups):
@@ -5308,6 +5356,580 @@ def phase_witness_worlds(K, rbac, card, part):
                 seconds=seconds)
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the operations layer (flight recorder, SLO engine, telemetry
+# endpoint, /perf with the measured roofline, with_profiling, group commit
+# with the chain compactor)
+# ---------------------------------------------------------------------------
+
+#: the probe kernels' entry points in a profiler trace (csrc/)
+PROBE_KERNELS = ("gochugaru_slot_tile_kernel", "gochugaru_warp_reduce_kernel",
+                 "fused_runs_kernel")
+OPS_BATCH = 4_096
+OPS_BATCHES = 20
+OPS_PROFILED = 4
+OPS_WRITERS, OPS_TXNS = 64, 4
+OPS_LAT_TIER, OPS_LAT_DISPATCHES, OPS_ROUNDS = 1_024, 1_000, 2
+
+
+def ops_get(url, accept=None):
+    import urllib.request
+
+    req = urllib.request.Request(url)
+    if accept:
+        req.add_header("Accept", accept)
+    with urllib.request.urlopen(req, timeout=60) as r:
+        return r.status, r.headers.get("Content-Type"), r.read().decode()
+
+
+def ops_prom_count(text, name):
+    """The value of one sample line of exposition text (0 when absent)."""
+    for line in text.splitlines():
+        if line.startswith(name + " "):
+            return float(line.split()[1])
+    return 0.0
+
+
+def ops_union(intervals, lo, hi):
+    """Length of the union of (start, end) intervals clipped to [lo, hi]."""
+    total, end = 0.0, lo
+    for s, e in sorted(intervals):
+        s, e = max(s, end), min(e, hi)
+        if e > s:
+            total += e - s
+            end = e
+    return total
+
+
+def ops_trace(path):
+    """One profiled dispatch's torch.profiler trace: the dispatch window
+    (the ``gochugaru:`` range annotate_dispatch emits), the device busy
+    share of that window and of the whole profile (the union of kernel,
+    memcpy and memset intervals), the 10 device operations with the most
+    total time, and the probe kernels' launches."""
+    with open(path) as f:
+        ev = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    dev = [e for e in ev if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    if not dev and DEV == "cuda":  # a CPU rehearsal has no device timeline
+        raise AssertionError(f"telemetry (c): {path} holds no device activity")
+    iv = [(float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0))) for e in dev]
+    ann = [e for e in ev if e.get("cat") == "user_annotation"
+           and e.get("name", "").startswith("gochugaru:")]
+    if len(ann) != 1:
+        raise AssertionError(f"telemetry (c): {len(ann)} gochugaru: ranges in {path}")
+    w0 = float(ann[0]["ts"])
+    w1 = w0 + float(ann[0]["dur"])
+    p0 = min(float(e["ts"]) for e in ev)
+    p1 = max(float(e["ts"]) + float(e.get("dur", 0)) for e in ev)
+    ops = {}
+    for e in dev:
+        n, t = ops.setdefault(e["name"][:96], [0, 0.0])
+        ops[e["name"][:96]] = [n + 1, t + float(e.get("dur", 0))]
+    top = sorted(ops.items(), key=lambda kv: -kv[1][1])[:10]
+    return dict(
+        window_ms=(w1 - w0) / 1e3, profile_ms=(p1 - p0) / 1e3,
+        busy_share=ops_union(iv, w0, w1) / max(w1 - w0, 1e-9),
+        busy_share_profile=ops_union(iv, p0, p1) / max(p1 - p0, 1e-9),
+        device_ms=sum(b - a for a, b in iv) / 1e3,
+        top=[dict(name=n, count=c, ms=t / 1e3) for n, (c, t) in top],
+        probe_launches=sum(1 for e in dev if e.get("cat") == "kernel"
+                           and any(k in e["name"] for k in PROBE_KERNELS)))
+
+
+def ops_endpoints(tel, rels, base):
+    """Phase 16 (a): OPS_BATCHES batches of OPS_BATCH checks, half eager
+    and half on the latency path, then every endpoint scraped over HTTP."""
+    from gochugaru_tpu_torch import consistency
+    from gochugaru_tpu_torch.utils import metrics
+    from gochugaru_tpu_torch.utils import perf as _perf
+    from gochugaru_tpu_torch.utils.context import background
+
+    ctx, url = background(), tel.telemetry.url
+    prom = "gochugaru_checks_dispatch_seconds_count"
+    n0 = ops_prom_count(ops_get(url + "/metrics")[2], prom)
+    ms = {"eager": [], "latency": []}
+    for b in range(OPS_BATCHES):
+        side = "eager" if b < OPS_BATCHES // 2 else "latency"
+        tel._latency_mode = side == "latency"
+        batch = rels[b * OPS_BATCH:(b + 1) * OPS_BATCH]
+        t0 = time.perf_counter()
+        got = tel.check(ctx, consistency.full(), *batch)
+        ms[side].append((time.perf_counter() - t0) * 1e3)
+        if got != base[b * OPS_BATCH:(b + 1) * OPS_BATCH]:
+            raise AssertionError(f"telemetry (a): batch {b} ({side}) disagrees with"
+                                 " the plain client")
+    tel._latency_mode = False
+    out = dict(batch_ms={k: float(np.median(v)) for k, v in ms.items()})
+    _, ctype, text = ops_get(url + "/metrics")
+    n1 = ops_prom_count(text, prom)
+    _, om_type, om = ops_get(url + "/metrics", "application/openmetrics-text")
+    n_om = ops_prom_count(om, prom)
+    if not (n1 - n0 == OPS_BATCHES and n_om == n1 and om.endswith("# EOF\n")
+            and om_type.startswith("application/openmetrics-text")):
+        raise AssertionError(f"telemetry (a): checks.dispatch counted {n1 - n0}"
+                             f" (openmetrics {n_om - n0}) for {OPS_BATCHES} batches")
+    out["metrics"] = dict(checks_dispatch=n1 - n0, text_bytes=len(text),
+                          openmetrics_bytes=len(om))
+    bench = json.loads(ops_get(url + "/perf?bench=1")[2])
+    bw = bench["roofline"]
+    cached = json.loads(ops_get(url + "/perf")[2])["roofline"]
+    if bw is None or bw["cached"] or not cached or cached["gbps"] != bw["gbps"]:
+        raise AssertionError(f"telemetry (a): /perf?bench=1 {bw}, then /perf {cached}")
+    if not bw or bw.get("platform") != ("gpu" if DEV == "cuda" else DEV):
+        raise AssertionError(f"telemetry (a): /perf?bench=1 measured {bw}")
+    if bw["gbps"] > 1.05 * H100_BYTES_PER_S / 1e9:
+        raise AssertionError(f"telemetry (a): {bw['gbps']} GB/s is past 105% of"
+                             f" the H100's {H100_BYTES_PER_S / 1e9:.0f} GB/s")
+    log(f"telemetry (a) measure_bandwidth on the card: {bw['gbps']} GB/s beside"
+        f" the data sheet's {H100_BYTES_PER_S / 1e9:.0f} GB/s"
+        f" ({bw['gbps'] / (H100_BYTES_PER_S / 1e9):.3f} of it), triad of"
+        f" {bw['bytes_moved']} B, best of {bw['reps']}: {bw['best_s'] * 1e3:.4f} ms")
+    comp = json.loads(ops_get(url + "/perf?compile=1")[2])
+    bad = [e for e in comp["cost"] if e.get("pending") or not e.get("unavailable")]
+    if not comp["cost"] or bad:
+        raise AssertionError(f"telemetry (a): /perf?compile=1 entries {bad[:3]}")
+    head = tel._dsnap_cache[max(tel._dsnap_cache)]
+    km = _perf.kernel_bytes_model(head)
+    out["perf"] = dict(
+        roofline_gbps=bw["gbps"], roofline_best_ms=bw["best_s"] * 1e3,
+        roofline_fingerprint=bw["fingerprint"], cost_entries=len(comp["cost"]),
+        cost_kinds=sorted({e["kind"] for e in comp["cost"]}),
+        bytes_model_total=comp["bytes_model"]["total"],
+        head_bytes_per_check=_perf.gathered_bytes_model(head).total,
+        kernel_bytes_per_check=sum(v["kernels"] for v in km.values()),
+        kernel_bytes_saved_per_check=sum(v["saved"] for v in km.values()),
+        gauge_kernels_bytes_per_check=metrics.default.gauge(
+            "perf.kernels.bytes_per_check"),
+        sections=sorted(comp))
+    slo = json.loads(ops_get(url + "/slo")[2])
+    health = json.loads(ops_get(url + "/healthz")[2])
+    if not slo["enabled"] or health["status"] != "ok":
+        raise AssertionError(f"telemetry (a): /slo {slo.get('enabled')},"
+                             f" /healthz {health}")
+    traces = ops_get(url + "/traces")[2].splitlines()
+    dec = [json.loads(ln) for ln in ops_get(url + "/decisions?n=64")[2].splitlines()]
+    if not dec[0]["enabled"] or len(dec) < 2:
+        raise AssertionError(f"telemetry (a): /decisions served {dec[:1]}")
+    out.update(slo=dict(healthy=slo["healthy"], slos=len(slo["slos"])),
+               healthz=health["status"], traces=len(traces),
+               decisions=len(dec) - 1)
+    log(f"telemetry (a): {json.dumps(out)}")
+    return out
+
+
+def ops_incident(tel, rels, inc_dir):
+    """Phase 16 (b): faults on the latency dispatch site until the breaker
+    trips; the bundle, on disk and at /debug/incidents/<id>; then the
+    breaker closes again."""
+    from gochugaru_tpu_torch import consistency
+    from gochugaru_tpu_torch.utils import faults, metrics
+    from gochugaru_tpu_torch.utils.context import background
+
+    ctx, br = background(), tel._admission.breaker
+    tel._latency_mode = True
+    batch = rels[:256]
+    want = tel.check(ctx, consistency.full(), *batch)
+    trips = metrics.default.counter("breaker.trips")
+    faults.arm("latency.dispatch", times=br.threshold)
+    try:
+        t0 = time.perf_counter()
+        got = tel.check(ctx, consistency.full(), *batch)
+        trip_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        faults.reset()
+    if got != want or metrics.default.counter("breaker.trips") != trips + 1:
+        raise AssertionError("telemetry (b): the breaker did not trip once, or the"
+                             " answers changed")
+    state_open = br.state
+    tel.recorder.flush()
+    files = [f for f in os.listdir(inc_dir) if "breaker.trip" in f]
+    if len(files) != 1:
+        raise AssertionError(f"telemetry (b): bundles in the incident dir: {files}")
+    with open(os.path.join(inc_dir, files[0])) as f:
+        text = f.read()
+    lines = [json.loads(ln) for ln in text.splitlines()]
+    head = lines[0]
+    trs = [t for t in lines if t["kind"] == "trace"]
+    failing = [t["trace_id"] for t in trs if any(
+        "error" in (sp.get("attrs") or {}) for sp in t["spans"])]
+    keys = sorted(head["context"])
+    if (head["trigger"] != "breaker.trip" or not failing
+            or not set(failing) <= set(head["trace_ids"])
+            or not any(k.startswith("admission") for k in keys)
+            or not any(k.startswith("perf") for k in keys)
+            or not head.get("decisions")):
+        raise AssertionError(f"telemetry (b): bundle head {json.dumps(head)[:400]}")
+    served = ops_get(f"{tel.telemetry.url}/debug/incidents/{head['id']}")[2]
+    if served != text:
+        raise AssertionError("telemetry (b): /debug/incidents/<id> differs from the file")
+    time.sleep(tel._admission.config.breaker_cooldown_s + 0.05)
+    if tel.check(ctx, consistency.full(), *batch) != want or br.state != 0:
+        raise AssertionError(f"telemetry (b): the breaker is {br.state} after the probe")
+    tel._latency_mode = False
+    out = dict(trigger=head["trigger"], info=head["info"], bundle_bytes=len(text),
+               traces=len(trs), failing_traces=len(failing), context=keys,
+               decisions=len(head["decisions"]), breaker_open=state_open,
+               breaker_after=br.state, check_through_trip_ms=trip_ms,
+               lines=[ln["kind"] for ln in lines][:1] + sorted(
+                   {ln["kind"] for ln in lines[1:]}))
+    log(f"telemetry (b): {json.dumps(out)}")
+    return out
+
+
+def ops_profiled(K, tel, rels, base, prof_dir):
+    """Phase 16 (c): OPS_PROFILED profiled batches of the 100,000 checks:
+    one trace each, read back."""
+    from gochugaru_tpu_torch import consistency
+    from gochugaru_tpu_torch.utils import metrics
+    from gochugaru_tpu_torch.utils.context import background
+
+    ctx = background()
+    n0 = metrics.default.snapshot().get("checks.device_time_s.count", 0)
+    rows = []
+    tel._profile_dir = prof_dir
+    try:
+        for b in range(OPS_PROFILED):
+            before = set(os.listdir(prof_dir))
+            K.reset_launches()
+            t0 = time.perf_counter()
+            got = tel.check(ctx, consistency.full(), *rels)
+            wall = (time.perf_counter() - t0) * 1e3
+            launches = {k: v for k, v in K.LAUNCHES.items() if v}
+            new = sorted(set(os.listdir(prof_dir)) - before)
+            if got != base or len(new) != 1:
+                raise AssertionError(f"telemetry (c): batch {b}: {len(new)} traces,"
+                                     f" answers equal: {got == base}")
+            row = ops_trace(os.path.join(prof_dir, new[0]))
+            if DEV == "cuda" and (row["probe_launches"] != sum(launches.values())
+                                  or not launches.get("block")):
+                raise AssertionError(f"telemetry (c): the trace holds"
+                                     f" {row['probe_launches']} probe kernels, the"
+                                     f" wrappers counted {launches}")
+            row.update(wall_ms=wall, launches=launches,
+                       trace_bytes=os.path.getsize(os.path.join(prof_dir, new[0])))
+            rows.append(row)
+            log(f"telemetry (c) profiled batch {b}: {json.dumps(row)}")
+    finally:
+        tel._profile_dir = None
+    n = metrics.default.snapshot()["checks.device_time_s.count"] - n0
+    if n != OPS_PROFILED:
+        raise AssertionError(f"telemetry (c): checks.device_time_s counted {n}")
+    return dict(batches=rows, device_time_count=n,
+                busy_share=[r["busy_share"] for r in rows],
+                busy_share_profile=[r["busy_share_profile"] for r in rows])
+
+
+def ops_group_commit(tel, n_docs, n_users, n_groups, direct):
+    """Phase 16 (d): OPS_WRITERS threads x OPS_TXNS transactions through
+    the committer, then 256 checks at ``at_least(last token)``."""
+    import threading
+
+    from gochugaru_tpu_torch import consistency, rel
+    from gochugaru_tpu_torch.engine.oracle import SnapshotOracle, T
+    from gochugaru_tpu_torch.store.store import RevisionToken, parse_revision
+    from gochugaru_tpu_torch.utils import metrics
+    from gochugaru_tpu_torch.utils.context import background
+
+    ctx, store = background(), tel.store
+    head0, log0 = store.head_revision, len(store._log)
+    groups0 = metrics.default.counter("write.groups")
+    toks, errs, lock = [], [], threading.Lock()
+    touched = []
+
+    def writer(w):
+        rng = random.Random(1000 + w)
+        try:
+            for _ in range(OPS_TXNS):
+                txn = rel.Txn()
+                if rng.random() < 0.5:
+                    r = rel.must_from_triple(f"document:d{rng.randrange(n_docs)}",
+                                             "viewer", f"user:u{rng.randrange(n_users)}")
+                else:
+                    r = rel.must_from_tuple(f"group:g{rng.randrange(n_groups)}#member",
+                                            f"user:u{rng.randrange(n_users)}")
+                txn.touch(r)
+                tok = tel.write(ctx, txn)
+                with lock:
+                    toks.append(parse_revision(tok))
+                    touched.append(r)
+        except Exception as e:  # reported below
+            errs.append(e)
+
+    threads = [threading.Thread(target=writer, args=(w,)) for w in range(OPS_WRITERS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(60)
+    t1 = time.perf_counter()
+    n = OPS_WRITERS * OPS_TXNS
+    if errs or len(toks) != n or any(t.is_alive() for t in threads):
+        raise AssertionError(f"telemetry (d): {len(toks)} of {n} writes, errors {errs[:2]}")
+    ends = [e.revision for e in store._log[log0:]]
+    sizes = [b - a for a, b in zip([head0] + ends[:-1], ends)]
+    groups = metrics.default.counter("write.groups") - groups0
+    if sorted(toks) != list(range(head0 + 1, head0 + n + 1)) or sum(sizes) != n \
+            or len(sizes) != groups or groups >= n // 4:
+        raise AssertionError(f"telemetry (d): tokens not dense and unique, or"
+                             f" {groups} groups (sizes {sizes[:16]})")
+    last = max(toks)
+    rng = random.Random(77)
+    checks = [rel.must_from_triple(f"document:{r.resource_id}", "view", f"user:{r.subject_id}")
+              for r in touched if r.resource_type == "document"][:64]
+    checks += [rel.must_from_triple(f"document:d{rng.randrange(n_docs)}", "view",
+                                    f"user:{r.subject_id}")
+               for r in touched if r.resource_type == "group"][:64]
+    checks += [rel.must_from_triple(f"document:d{rng.randrange(n_docs)}", "view",
+                                    f"user:u{rng.randrange(n_users)}")
+               for _ in range(256 - len(checks))]
+    got = tel.check(ctx, consistency.at_least(RevisionToken(last)), *checks)
+    t2 = time.perf_counter()
+    nds = tel._dsnap_cache[store.head_revision]
+    if nds.flat_meta.delta is None or nds.delta_acc is None:
+        raise AssertionError(
+            f"telemetry (d): the first check took a full prepare (node radix"
+            f" {nds.flat_meta.N} vs nodes {nds.snapshot.num_nodes}, edges"
+            f" {nds.snapshot.num_edges})")
+    oracle = SnapshotOracle(nds.snapshot, {}, now_us=None)
+    if got != [oracle.check_relationship(c) == T for c in checks] or not got[0]:
+        raise AssertionError("telemetry (d): answers disagree with the oracle")
+    out = dict(txns=n, groups=groups, group_sizes=sizes,
+               txns_per_s=n / (t1 - t0), write_ms=(t1 - t0) * 1e3,
+               first_check_ms=(t2 - t1) * 1e3, revision=nds.revision,
+               delta=True, direct=[dict(write_ms=w, first_check_ms=c)
+                                   for _i, w, c, _f in direct])
+    log(f"telemetry (d) group commit: {n} transactions from {OPS_WRITERS} threads in"
+        f" {out['write_ms']:.3f} ms ({out['txns_per_s']:.1f} transactions/s),"
+        f" {groups} groups (sizes {sizes}), tokens dense and unique; write -> first"
+        f" check {out['first_check_ms']:.3f} ms (delta prepare of revision"
+        f" {nds.revision} + 256 checks, oracle-equal) beside phase 11's direct"
+        f" one-revision-a-write {json.dumps(out['direct'])}")
+    return out
+
+
+def ops_compactor(n_users=400, n_groups=60, n_folders=150, n_docs=1500):
+    """Phase 16 (e): phase 12 (d)'s feature world through a cuda client
+    with group commit and a small ``lsm_compact_min``: writes until the
+    compactor merges the chain, then the next revision's 3,000 checks
+    against the oracle."""
+    import threading
+
+    from gochugaru_tpu_torch import consistency, rel
+    from gochugaru_tpu_torch.caveats import compile_cel
+    from gochugaru_tpu_torch.client import (
+        new_evaluator, with_engine_config, with_group_commit,
+    )
+    from gochugaru_tpu_torch.engine.oracle import SnapshotOracle, T
+    from gochugaru_tpu_torch.engine.plan import EngineConfig
+    from gochugaru_tpu_torch.schema import compile_schema, parse_schema
+    from gochugaru_tpu_torch.store.group import GroupCommitConfig
+    from gochugaru_tpu_torch.store.store import parse_revision
+    from gochugaru_tpu_torch.utils import metrics
+    from gochugaru_tpu_torch.utils.context import background
+
+    ctx = background()
+    cfg = EngineConfig.for_schema(compile_schema(parse_schema(FEATURE_SCHEMA)),
+                                  lsm_compact_min=256)
+    c = new_evaluator(with_engine_config(cfg), with_group_commit(
+        GroupCommitConfig(max_group=64, hold_max_s=0.002, compact_poll_s=0.0)),
+        device=DEV)
+    try:
+        c.write_schema(ctx, FEATURE_SCHEMA)
+        rng = random.Random(41)
+        c.import_relationships(ctx, feature_rels(rng, n_users, n_groups, n_folders, n_docs))
+        probe = feature_checks(rng, n_users, n_groups, n_docs, 64)
+        c.check(ctx, consistency.full(), *probe)
+        merges0 = metrics.default.counter("store.bg_compactions")
+        rounds, compacted = 0, False
+        while not compacted and rounds < 40:
+            rounds += 1
+
+            def writer(w, r=rounds):
+                lr = random.Random(r * 1000 + w)
+                for _ in range(8):
+                    txn = rel.Txn()
+                    txn.touch(rel.must_from_tuple(f"doc:d{lr.randrange(n_docs)}#reader",
+                                                  f"user:u{lr.randrange(n_users)}"))
+                    c.write(ctx, txn)
+
+            ths = [threading.Thread(target=writer, args=(w,)) for w in range(8)]
+            for t in ths:
+                t.start()
+            for t in ths:
+                t.join(60)
+            c.check(ctx, consistency.full(), *probe)  # the device follows the chain
+            compacted = c._compactor.poll_once()
+        merges = metrics.default.counter("store.bg_compactions") - merges0
+        if not compacted or merges < 1:
+            raise AssertionError(f"telemetry (e): no compaction in {rounds} rounds")
+        txn = rel.Txn()
+        txn.touch(rel.must_from_triple("doc:d7", "reader", "user:u11"))
+        tok = c.write(ctx, txn)
+        checks = feature_checks(rng, n_users, n_groups, n_docs, 3000)
+        t0 = time.perf_counter()
+        got = c.check(ctx, consistency.at_least(tok), *checks)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        snap = c.store.snapshot_for(consistency.at_least(tok))
+        programs = {n: compile_cel(n, d.params, d.expression)
+                    for n, d in snap.compiled.schema.caveats.items()}
+        oracle = SnapshotOracle(snap, programs)
+        want = [oracle.check_relationship(r) == T for r in checks]
+        if got != want:
+            raise AssertionError(f"telemetry (e): {sum(a != b for a, b in zip(got, want))}"
+                                 " answers disagree with the oracle")
+        ds = c._dsnap_cache[parse_revision(tok)]
+        delta = ds.flat_meta is not None and ds.flat_meta.delta is not None
+        out = dict(rounds=rounds, bg_compactions=merges, revision=snap.revision,
+                   edges=snap.num_edges, prepare="delta" if delta else "full",
+                   first_check_ms=first_ms, checks=len(checks), allowed=sum(want))
+        log(f"telemetry (e) chain compactor: {json.dumps(out)}")
+        return out
+    finally:
+        c._committer.close()
+        c._compactor.close()
+
+
+def ops_recorder_cost(tel, client, rels, q):
+    """Phase 16 (f): the 100,000-check batch (``check``, once a side)
+    and OPS_LAT_DISPATCHES tier-1,024 latency dispatches (a serving
+    handle's ``check_columns`` with no hold-back, half a side) through
+    the telemetry client (tracer, flight recorder and SLO engine
+    installed) and phase 15's plain client (tracer and recorder
+    removed), alternating in OPS_ROUNDS rounds; medians, no claim."""
+    from gochugaru_tpu_torch import consistency
+    from gochugaru_tpu_torch.serve import ServeConfig
+    from gochugaru_tpu_torch.utils import trace as _trace
+    from gochugaru_tpu_torch.utils.context import background
+
+    ctx, cs = background(), consistency.full()
+    tr, rec = _trace.get(), _trace.recorder()
+    lat = [tuple(np.ascontiguousarray(a[i * OPS_LAT_TIER:(i + 1) * OPS_LAT_TIER])
+                 for a in q) for i in range(8)]
+    sides = {"telemetry": tel, "plain": client}
+    ms = {s: {"batch": [], "latency": []} for s in sides}
+    per_round = OPS_LAT_DISPATCHES // (2 * OPS_ROUNDS)
+    scfg = ServeConfig(hold_max_s=0.0)
+
+    def arm(side):
+        _trace.install(tr if side == "telemetry" else None)
+        _trace.install_recorder(rec if side == "telemetry" else None)
+
+    answers = {}
+    try:
+        for side, c in sides.items():  # warm: each client's head, its pins
+            arm(side)
+            with c.with_serving(cs, scfg) as h:
+                answers[side] = [np.asarray(h.check_columns(ctx, *lat[0])).tolist()]
+        for r in range(OPS_ROUNDS):
+            for side in (("plain", "telemetry") if r % 2 == 0 else ("telemetry", "plain")):
+                c = sides[side]
+                arm(side)
+                if r == 0:  # the 100k batch once a side: ~6 s of host lowering
+                    t0 = time.perf_counter()
+                    answers[side].append(c.check(ctx, cs, *rels))
+                    ms[side]["batch"].append((time.perf_counter() - t0) * 1e3)
+                with c.with_serving(cs, scfg) as h:
+                    for i in range(per_round):
+                        t0 = time.perf_counter()
+                        h.check_columns(ctx, *lat[i % len(lat)])
+                        ms[side]["latency"].append((time.perf_counter() - t0) * 1e3)
+    finally:
+        arm("telemetry")
+    if answers["telemetry"] != answers["plain"]:
+        raise AssertionError("telemetry (f): the two clients' answers differ")
+    out = {s: {k: float(np.median(v)) for k, v in d.items()} for s, d in ms.items()}
+    out["dispatches"] = {s: len(d["latency"]) for s, d in ms.items()}
+    out["batches"] = {s: len(d["batch"]) for s, d in ms.items()}
+    out["kept_flight_traces"] = len(rec.traces())
+    log(f"telemetry (f) the recorder's cost (medians, ms; no claim): {json.dumps(out)}")
+    return out
+
+
+def phase_operations(K, cap, client, q, names, direct, n_docs, n_users, n_groups):
+    """Phase 16 (see the module docstring): the operations layer on the
+    store and the prepared head of the client phases 11, 14 and 15 hold."""
+    import tempfile
+
+    from gochugaru_tpu_torch import consistency
+    from gochugaru_tpu_torch.client import (
+        new_evaluator, with_admission_control, with_decision_log,
+        with_group_commit, with_profiling, with_store, with_telemetry,
+    )
+    from gochugaru_tpu_torch.store.group import GroupCommitConfig
+    from gochugaru_tpu_torch.utils import decisions, slo
+    from gochugaru_tpu_torch.utils import perf as _perf
+    from gochugaru_tpu_torch.utils import trace as _trace
+    from gochugaru_tpu_torch.utils.admission import AdmissionConfig
+    from gochugaru_tpu_torch.utils.context import background
+
+    t16 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="gochugaru_ops_")
+    inc_dir, prof_dir = os.path.join(tmp, "incidents"), os.path.join(tmp, "profiles")
+    os.makedirs(prof_dir)
+    ctx = background()
+    rels = wit_rels(names, range(len(names)))
+    snap = client.store.snapshot_for(consistency.full())
+    head = client._dsnap_for(client._engine, snap)
+    # the plain client's answers to the batch, from its interned columns
+    # (the device planes, the host oracle for the rows they flag)
+    base = np.asarray(client._evaluate_columns_direct(
+        snap, *q, latency=False)).tolist()
+    t_setup = time.perf_counter() - t16
+    tel = new_evaluator(
+        with_store(client.store),
+        with_telemetry(port=0, incident_dir=inc_dir),
+        with_profiling(prof_dir),
+        with_group_commit(GroupCommitConfig(max_group=256, hold_max_s=0.002)),
+        with_admission_control(AdmissionConfig(breaker_threshold=2)),
+        with_decision_log(sample_rate=0.01),
+        device=DEV)
+    tel._engine, tel._engine_schema = client._engine, snap.compiled
+    # the bandwidth meter's cache in this run's directory: /perf?bench=1
+    # measures afresh, and a plain /perf then serves that measurement
+    _perf.ROOFLINE_CACHE_PATH = os.path.join(tmp, "roofline.json")
+    tel._dsnap_cache[snap.revision] = head
+    # with_profiling traces (c)'s dispatches only: the other steps measure
+    # the unprofiled path
+    tel._profile_dir = None
+    out = dict(setup_s=t_setup, revision=snap.revision)
+    try:
+        steps = out["step_s"] = {}
+
+        def step(name, fn):
+            t0 = time.perf_counter()
+            out[name] = fn()
+            steps[name] = time.perf_counter() - t0
+
+        with ApartLaunches(K, cap) as apart:
+            step("endpoints", lambda: ops_endpoints(tel, rels, base))
+            step("incident", lambda: ops_incident(tel, rels, inc_dir))
+            decisions.install(None)  # sampled decisions only for (a)-(b)
+            out["launches_a_b"] = apart.take()
+            step("profiled", lambda: ops_profiled(K, tel, rels, base, prof_dir))
+            apart.take()
+            step("group_commit", lambda: ops_group_commit(
+                tel, n_docs, n_users, n_groups, direct))
+            out["launches_d"] = apart.take()
+            step("compactor", ops_compactor)
+            apart.take()
+            step("recorder_cost", lambda: ops_recorder_cost(tel, client, rels, q))
+            if DEV == "cuda" and not out["launches_d"].get("block"):
+                raise AssertionError(f"telemetry (d): no block launch {out['launches_d']}")
+    finally:
+        tel._committer.close()
+        tel._compactor.close()
+        tel.telemetry.close()
+        slo.install_engine(None)
+        decisions.install(None)
+        _trace.disable()
+        tel._dsnap_cache.clear()
+    out["seconds"] = time.perf_counter() - t16
+    log(f"phase 16: {out['seconds']:.1f}s ({t_setup:.1f}s of it building the"
+        f" 100,000 relationships and the plain client's answers; steps"
+        f" {json.dumps(out['step_s'])})")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--scale3", type=float, default=1.0,
@@ -5376,11 +5998,13 @@ def main() -> int:
         docs = (cs, snap, q, names, planes)  # phase 12's world
         log(f"launches after config3 checks: {json.dumps(K.LAUNCHES)}")
         n_users, n_groups, _n_folders, n_docs = docs_sizes(args.scale3)
-        phase_write_check(K, client, ek, ds, snap, PREPARE_S["config3"],
-                          n_docs, n_users, n_groups)
+        direct = phase_write_check(K, client, ek, ds, snap, PREPARE_S["config3"],
+                                   n_docs, n_users, n_groups)
         serving = phase_serving(K, cap, client, n_docs, n_users, n_groups, card)
         witness = phase_witness_client(K, cap, client, ek, ep, ds, q, names, n_docs,
                                        n_users)
+        telemetry = phase_operations(K, cap, client, q, names, direct, n_docs,
+                                     n_users, n_groups)
         del client
         gc.collect()
         serving["pins_after_client"] = pin_report(ek)
@@ -5469,6 +6093,7 @@ def main() -> int:
     print("latency: " + json.dumps(latency))
     print("serving: " + json.dumps(serving))
     print("witness: " + json.dumps(witness))
+    print("telemetry: " + json.dumps(telemetry))
     print(json.dumps({"kernels": table}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -19,6 +19,7 @@ Package layout (mirrors gochugaru_tpu):
 - ``client``   — the Client facade (``new_evaluator``, and the
   reference's constructor names)
 - ``utils``    — context, retry/backoff, errors, metrics, tracing spans
+  and the flight recorder, SLOs, the telemetry server, the perf ledger
 """
 
 __version__ = "0.1.0"

@@ -38,6 +38,13 @@ return typed resolution trees (engine/explain.py), walked on the host
 oracle at the verdict's pinned snapshot and seeded by the witness plane
 of the flat program (one armed dispatch a batch).
 
+Operations: ``with_telemetry`` serves the metrics, traces, SLO burn,
+``/perf`` report and flight-recorder incident bundles over HTTP
+(utils/telemetry.py, utils/slo.py, utils/trace.py, utils/perf.py);
+``with_profiling`` records a ``torch.profiler`` trace around every
+check dispatch; ``with_group_commit`` coalesces concurrent writes into
+one log entry a group (store/group.py).
+
 The engine runs on ``cuda`` unless ``new_evaluator(device="cpu")`` asks
 for the CPU; with no CUDA device and no explicit device the constructor
 raises.  ``with_host_only_evaluation`` builds no engine and needs no
@@ -46,6 +53,7 @@ device: every check and lookup runs on the host oracle.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses as _dataclasses
 import threading
 import time as _time
@@ -140,6 +148,14 @@ class _Options:
         self.admission: Optional[AdmissionConfig] = None
         self.verdict_cache = None  # VerdictCache | max_bytes int | None
         self.decision_log = None  # (spec, kwargs) from with_decision_log
+        self.profile_dir: Optional[str] = None
+        self.telemetry_port: Optional[int] = None
+        self.telemetry_host = "127.0.0.1"
+        self.trace_sample_rate: Optional[float] = None
+        self.trace_slow_ms: Optional[float] = 100.0
+        self.incident_dir: Optional[str] = None
+        self.slos = None  # None → utils/slo.default_slos(); () disables
+        self.group_commit = None  # GroupCommitConfig | True | None
 
 
 Option = Callable[[_Options], None]
@@ -252,12 +268,110 @@ def with_decision_log(log=True, **kw) -> Option:
     return opt
 
 
+def with_group_commit(config=True) -> Option:
+    """Route this client's writes through the group-commit pipeline
+    (store/group.py): concurrent ``write`` calls coalesce into ONE
+    collapsed delta committed as one log entry — one closure advance,
+    one device reship per group — while each transaction still gets its
+    own zookie (base+1..base+k inside the group).  Also starts the
+    background delta-chain compactor, which materializes long LSM chains
+    off the request path so probe depth stays bounded under sustained
+    write load.
+
+    ``config`` may be ``True`` (defaults) or a ``GroupCommitConfig``
+    (store/group.py) to tune group size, hold-back, and the compactor's
+    poll cadence.  Without this option, ``write`` stays on the direct
+    one-revision-per-transaction store path.  The committer's threads
+    are daemons; ``client._committer.close()`` drains and stops them."""
+
+    def opt(o: _Options) -> None:
+        o.group_commit = config
+
+    return opt
+
+
+def with_telemetry(
+    port: int = 0,
+    *,
+    host: str = "127.0.0.1",
+    trace_sample_rate: Optional[float] = None,
+    trace_slow_ms: Optional[float] = 100.0,
+    incident_dir: Optional[str] = None,
+    slos=None,
+) -> Option:
+    """Serve live telemetry from this client's process: a stdlib HTTP
+    daemon thread (utils/telemetry.py) with ``/metrics`` (Prometheus or
+    OpenMetrics text — counters, gauges, every timer ring as p50/p90/
+    p99/p999 quantiles, histograms with trace-id exemplars), ``/traces``
+    (JSONL dump of sampled request traces), ``/slo`` (multi-window
+    burn-rate report, utils/slo.py), ``/perf`` (the performance-
+    attribution ledger, utils/perf.py: cost entries, the gathered-bytes
+    model, pad waste, measured roofline, wall-time ledger),
+    ``/debug/incidents`` (flight-recorder bundles), ``/decisions`` (the
+    decision log's ring) and ``/healthz`` (readiness: breaker state,
+    in-flight admission, serve queue depth, SLO status).  ``port=0``
+    picks an ephemeral port; read it back from ``client.telemetry.port``.
+
+    This option also arms the anomaly-diagnosis loop with zero further
+    configuration: a process-global **flight recorder** (utils/trace.py)
+    retains the last N finished request traces at full fidelity
+    regardless of the sample rate, and an **SLO engine** evaluates burn
+    rates on a background cadence — an SLO burn, a breaker trip, a shed
+    spike, a pinned-path recapture, or a watch resume storm freezes the
+    ring and dumps an incident bundle.  ``incident_dir`` lands the
+    bundles on disk as JSONL (otherwise the last few stay in memory,
+    served at ``/debug/incidents``); ``slos`` overrides the stock
+    objectives (``utils/slo.default_slos``; pass ``()`` to disable the
+    engine).
+
+    ``trace_sample_rate`` additionally installs the process-global
+    request tracer (utils/trace.py) at that head-sampling rate with a
+    ``trace_slow_ms`` keep-slow tail rule (None disables the tail
+    rule).  Left at None, whatever tracer the process already has stays
+    in force — or, when none exists, a 0%-head-sample tracer is
+    installed so the flight recorder has traces to retain (``/traces``
+    then only exports slow-tail trees; raise the rate for full export)."""
+
+    def opt(o: _Options) -> None:
+        o.telemetry_port = port
+        o.telemetry_host = host
+        o.trace_sample_rate = trace_sample_rate
+        o.trace_slow_ms = trace_slow_ms
+        o.incident_dir = incident_dir
+        o.slos = slos
+
+    return opt
+
+
+def with_profiling(trace_dir: str) -> Option:
+    """Capture a ``torch.profiler`` trace (CPU and, on a ``cuda`` client,
+    CUDA activity) around every check dispatch into ``trace_dir``, one
+    Chrome-trace JSON file a dispatch, and publish a
+    ``checks.device_time_s`` timer — the deep analogue of the
+    interceptors the reference admits through WithDialOpts
+    (client/client.go:95-97).  Profiled dispatches serialize (one active
+    profiler per process).  On a ``cuda`` client a profile that records
+    no CUDA activity raises instead of leaving a CPU-only trace.  The
+    serving path (``with_serving``) stays unprofiled."""
+
+    def opt(o: _Options) -> None:
+        o.profile_dir = trace_dir
+
+    return opt
+
+
 class Client:
     """An in-process authorization client with the gochugaru Check
     surface, evaluating on a torch device."""
 
     #: prepared-snapshot / oracle cache capacity per client
     SNAPSHOT_CACHE_MAX = 4
+
+    #: max with_telemetry clients whose admission/cost-model state rides
+    #: incident bundles on one recorder (providers are never
+    #: unregistered — clients have no close — so registration is capped;
+    #: later clients serve telemetry but skip bundle context)
+    TELEMETRY_CONTEXT_MAX = 8
 
     def __init__(self, *opts: Option, device=None) -> None:
         o = _Options()
@@ -271,6 +385,35 @@ class Client:
         self._store = o.store if o.store is not None else Store()
         self._overlap_required = o.overlap_required
         self._engine_config = o.engine_config
+        if o.engine_config is not None:
+            # the host-side LSM materialization floor rides the engine
+            # config down to the store
+            self._store.lsm_compact_min = o.engine_config.lsm_compact_min
+        #: group-commit write pipeline + background chain compactor
+        #: (store/group.py), armed by with_group_commit(); None keeps
+        #: write() on the direct store path
+        self._committer = None
+        self._compactor = None
+        if o.group_commit is not None and o.group_commit is not False:
+            from .store.group import (
+                ChainCompactor, GroupCommitConfig, GroupCommitter,
+            )
+
+            gcfg = (
+                o.group_commit
+                if isinstance(o.group_commit, GroupCommitConfig)
+                else GroupCommitConfig()
+            )
+            self._committer = GroupCommitter(
+                self._store, gcfg, registry=_metrics.default
+            )
+            self._compactor = ChainCompactor(
+                self._store, gcfg, registry=_metrics.default
+            )
+        self._profile_dir = o.profile_dir
+        # one active torch.profiler per process: profiled dispatches
+        # serialize so concurrent check() calls don't collide
+        self._profile_lock = threading.Lock()
         self._lock = threading.Lock()
         self._engine: Optional[DeviceEngine] = None
         self._engine_schema = None
@@ -295,6 +438,122 @@ class Client:
                     _decisions.install(_decisions.DecisionLog(**kw))
             elif spec:
                 _decisions.install(spec)
+        #: telemetry endpoint (utils/telemetry.py), via with_telemetry()
+        self.telemetry = None
+        #: flight recorder + SLO engine (armed by with_telemetry)
+        self.recorder = None
+        self.slo = None
+        if o.telemetry_port is not None:
+            self._arm_telemetry(o)
+
+    def _arm_telemetry(self, o: _Options) -> None:
+        """with_telemetry's wiring: the tracer the recorder needs, the
+        process-shared flight recorder with this client's context
+        providers, the one SLO engine per process, and the server."""
+        slow_s = None if o.trace_slow_ms is None else o.trace_slow_ms / 1000.0
+        if o.trace_sample_rate is not None:
+            _trace.configure(
+                sample_rate=o.trace_sample_rate, slow_threshold_s=slow_s
+            )
+        elif not _trace.enabled():
+            # the flight recorder needs a tracer to build span trees; a
+            # 0% head sample keeps /traces lean (slow-tail trees only)
+            # while the recorder retains everything
+            _trace.configure(sample_rate=0.0, slow_threshold_s=slow_s)
+        rec = _trace.recorder()
+        if rec is None:
+            rec = _trace.install_recorder(
+                _trace.FlightRecorder(incident_dir=o.incident_dir)
+            )
+        elif o.incident_dir is not None:
+            # an explicit caller dir WINS over whatever the shared
+            # recorder inherited (env default, an earlier client)
+            rec.incident_dir = o.incident_dir
+        self.recorder = rec
+        # incident bundles carry the admission state that explains
+        # shed/breaker behavior at the moment of the anomaly.  The
+        # recorder is process-shared, so each telemetry client registers
+        # its providers as an atomic GROUP (suffixed keys, so client B
+        # never clobbers client A's), capped per recorder
+        from .utils import perf as _perf
+
+        rec.add_context_group(
+            {
+                "cost_model": self._admission.cost.state,
+                "admission": lambda adm=self._admission: {
+                    "inflight": adm.gate.inflight,
+                    "max_inflight": adm.gate.max_inflight,
+                    "breaker_state": adm.breaker.state,
+                },
+                # the perf ledger's cost state — cheap by contract: no
+                # microbench
+                "perf": _perf.context_state,
+                # read at capture time, so a cache attached later by
+                # with_serving(cache=...) still shows up in bundles
+                "vcache": lambda c=self: (
+                    None if c._vcache is None else c._vcache.stats()
+                ),
+            },
+            cap=self.TELEMETRY_CONTEXT_MAX,
+        )
+        from .utils import slo as _slo
+
+        if o.slos is not None and len(o.slos) == 0:
+            # explicit disable: an already-installed engine must STOP
+            _slo.install_engine(None)
+        else:
+            # ONE engine per process (it writes shared slo.* gauges and
+            # arms shared timer thresholds): reuse the installed one
+            # unless this caller declares its own objectives
+            eng = _slo.get_engine()
+            if eng is None or o.slos is not None:
+                eng = _slo.install_engine(
+                    _slo.SLOEngine(slos=o.slos, registry=self._metrics)
+                )
+            self.slo = eng
+        from .utils.telemetry import TelemetryServer
+
+        self.telemetry = TelemetryServer(
+            port=o.telemetry_port, host=o.telemetry_host,
+            registry=self._metrics, slo=self.slo, recorder=rec,
+        )
+
+    @contextlib.contextmanager
+    def _profiled(self):
+        """with_profiling's window around one dispatch: a
+        ``torch.profiler`` session (CPU, plus CUDA on a ``cuda`` client)
+        whose trace lands in the profile dir, serialized on
+        ``_profile_lock``.  A ``cuda`` profile that recorded no CUDA
+        activity raises."""
+        if self._profile_dir is None:
+            yield
+            return
+        import torch
+        from torch.autograd import DeviceType
+        from torch.profiler import (
+            ProfilerActivity, profile, tensorboard_trace_handler,
+        )
+
+        cuda = self.device is not None and self.device.type == "cuda"
+        acts = [ProfilerActivity.CPU]
+        if cuda:
+            acts.append(ProfilerActivity.CUDA)
+        with self._profile_lock:
+            prof = profile(
+                activities=acts,
+                on_trace_ready=tensorboard_trace_handler(self._profile_dir),
+                acc_events=True,  # events() is read after the trace is written
+            )
+            with prof:
+                yield
+                if cuda:
+                    torch.cuda.synchronize(self.device)
+            if cuda and not any(e.device_type == DeviceType.CUDA
+                                for e in prof.events()):
+                raise RuntimeError(
+                    "with_profiling: the profile of a dispatch on "
+                    f"{self.device} recorded no CUDA activity"
+                )
 
     @staticmethod
     def _make_vcache(spec):
@@ -404,7 +663,12 @@ class Client:
 
     # -- writes ----------------------------------------------------------
     def write(self, ctx: Context, txn: Txn) -> str:
-        """Atomically perform a transaction; returns its revision."""
+        """Atomically perform a transaction; returns its revision.  Under
+        with_group_commit() the transaction coalesces into the next
+        commit group (same zookie contract, one log entry per group);
+        otherwise it commits alone."""
+        if self._committer is not None:
+            return self._committer.write(txn, ctx)
         return self._store.write(txn)
 
     def import_relationships(
@@ -761,7 +1025,7 @@ class Client:
                 verdicts, codes = self._admitted(ectx, lambda: (
                     self._evaluate_rels(
                         snap, rels, latency=self._latency_mode, span=sp,
-                        cs=cs),
+                        cs=cs, profile=True),
                     self._witness_batch(snap, rels),
                 ))
                 return self._explain_batch(
@@ -770,8 +1034,29 @@ class Client:
 
             with root:
                 return retry_retriable_errors(ectx, run)
-        return retry_retriable_errors(ctx, lambda: self._admitted(
-            ctx, lambda: self._dispatch_admitted(ctx, cs, rels)))
+        # request-scoped tracing (utils/trace.py): head-sampled root span
+        # riding the context chain (with a flight recorder installed the
+        # head-dropped requests build a flight-only tree).  The
+        # unsampled/disabled path is the NOOP singleton — same context
+        # object back, no span allocation anywhere below
+        root = _trace.root_span("check", batch=len(rels))
+        ctx = _trace.ctx_with_span(ctx, root)
+
+        def dispatch() -> List[bool]:
+            return self._admitted(
+                ctx, lambda: self._dispatch_admitted(ctx, cs, rels))
+
+        if root is _trace.NOOP:
+            # keep-slow tail rule: even unsampled requests leave a
+            # root-only trace behind when they blow the slow threshold
+            t0 = _trace.tail_clock()
+            try:
+                return retry_retriable_errors(ctx, dispatch)
+            finally:
+                _trace.maybe_keep_slow("check", t0, batch=len(rels))
+        # Span.__exit__ records the exception type as the `error` attr
+        with root:
+            return retry_retriable_errors(ctx, dispatch)
 
     def _admitted(self, ctx: Context, work):
         """The admission envelope of a device-dispatching request: the
@@ -798,7 +1083,8 @@ class Client:
             snap = self._store.snapshot_for(cs)
             dsp.set_attr("revision", int(snap.revision))
             return self._evaluate_rels(
-                snap, rels, latency=self._latency_mode, span=dsp, cs=cs)
+                snap, rels, latency=self._latency_mode, span=dsp, cs=cs,
+                profile=True)
 
     def _evaluate_rels(
         self,
@@ -809,6 +1095,7 @@ class Client:
         span=_trace.NOOP,
         cs: Optional[Strategy] = None,
         dedup: bool = False,
+        profile: bool = False,
     ) -> List[bool]:
         """Evaluate a formed batch at one snapshot, through the verdict
         cache and in-batch dedup when enabled: cache hits answer without
@@ -828,7 +1115,7 @@ class Client:
         pol = _vcache.policy_for(cs) if vc is not None else _vcache.CACHE_OFF
         if not (pol.read or pol.write) and not dedup:
             out = self._evaluate_rels_direct(
-                snap, rels, latency=latency, span=span)
+                snap, rels, latency=latency, span=span, profile=profile)
             self._provenance_rels(
                 rels, out, snap, cs, None, _time.perf_counter() - t_ev, span)
             return out
@@ -877,7 +1164,8 @@ class Client:
             inverse = list(range(len(pend)))
         try:
             sub = self._evaluate_rels_direct(
-                snap, [rels[i] for i in uidx], latency=latency, span=span)
+                snap, [rels[i] for i in uidx], latency=latency, span=span,
+                profile=profile)
         except BulkCheckItemError as e:
             raise self._remap_bulk_error(
                 e, out, pend, inverse, lambda vs: list(vs)
@@ -994,7 +1282,7 @@ class Client:
 
     def _evaluate_rels_direct(
         self, snap: Snapshot, rels: List[Relationship], *, latency: bool,
-        span=_trace.NOOP,
+        span=_trace.NOOP, profile: bool = False,
     ) -> List[bool]:
         """Evaluate a formed batch at one snapshot: one device dispatch
         (``_device_dispatch``), then host-oracle resolution of the
@@ -1009,11 +1297,16 @@ class Client:
                     "oracle.check", items=len(rels)):
                 oracle = self._oracle_for(snap)
                 return [oracle.check_relationship(r) == T for r in rels]
+        def run(engine, dsnap, lp):
+            # with_profiling's window: the dispatch only, not the prepare;
+            # the serving handle's batches (profile=False) stay unprofiled
+            prof = self._profiled() if profile else contextlib.nullcontext()
+            with prof, self._metrics.timer("checks.device_time_s"):
+                return engine.check_batch(
+                    dsnap, rels, latency=lp is not None, span=span)
+
         with self._metrics.timer("checks.dispatch"):
-            d, p, ovf = self._device_dispatch(
-                snap, engine, latency, span,
-                lambda engine, dsnap, lp: engine.check_batch(
-                    dsnap, rels, latency=lp is not None, span=span))
+            d, p, ovf = self._device_dispatch(snap, engine, latency, span, run)
         needs_host = (p & ~d) | ovf
         if not needs_host.any():
             self._metrics.inc("checks.device_definite", len(rels))
@@ -1176,6 +1469,11 @@ class Client:
                 out = engine.check_columns(dsnap, q_res, q_perm, q_subj)
             return out
 
+        # deliberately no with_profiling window on the serving path (this
+        # one, and _evaluate_rels_direct with profile=False): one
+        # profiler a process, so per-batch traces would serialize the
+        # serving dispatcher behind _profile_lock; serving dispatches
+        # are attributed through trace.annotate_dispatch instead
         with self._metrics.timer("checks.device_time_s"):
             d, p, ovf = self._device_dispatch(snap, engine, latency, span,
                                               run)
@@ -1625,3 +1923,4 @@ WithOverlapRequired = with_overlap_required
 WithEngineConfig = with_engine_config
 WithLatencyMode = with_latency_mode
 WithAdmissionControl = with_admission_control
+WithGroupCommit = with_group_commit

@@ -40,6 +40,7 @@ from ..rel.relationship import Relationship, WILDCARD_ID
 from ..schema.compiler import CompiledSchema
 from ..store.snapshot import Snapshot
 from ..utils import faults, metrics
+from ..utils import perf as _perf
 from ..utils import trace as _trace
 from ..utils.context import background
 from ..utils.errors import classify_dispatch_exception
@@ -254,6 +255,8 @@ class DeviceEngine:
             )
         self.device = resolve_device(device)
         self.kernels = _resolve_kernels(self.config, self.device)
+        #: (slots, padded batch, meta) keys the cost ledger already holds
+        self._perf_cost_reg: set = set()
         #: the legacy two-phase program (engine/legacy.py): batches the
         #: flat program cannot serve
         cp = self.caveat_plan
@@ -423,6 +426,12 @@ class DeviceEngine:
             # transposed host index built in the background
             self._maybe_prewarm_walker_index(snap)
         metrics.default.observe("prepare.total_s", _time.perf_counter() - t0)
+        # perf ledger: the gathered-bytes model of this snapshot (and,
+        # with the CUDA kernels on, what they change in it) rides
+        # /metrics, /perf and incident bundles from the moment of prepare
+        _perf.publish_model(ds)
+        if self.kernels:
+            _perf.publish_kernel_model(ds)
         return ds
 
     def _snapshot(self, snap, dev_arrays, flat_meta, strings,
@@ -763,6 +772,22 @@ class DeviceEngine:
             return None
         fn = self._flat_fn_for(slots, dsnap.flat_meta, witness=witness)
         BP = _ceil_pow2(B, max(bucket_min, self.config.batch_bucket_min))
+        if not witness:
+            # device cost ledger: the batch-path program registers a LAZY
+            # entry (its identity, no tensors held), realized only when a
+            # consumer asks (/perf?compile=1); the engine-local set keeps
+            # the steady-state dispatch to one set lookup
+            rk = (slots, BP, dsnap.flat_meta)
+            if rk not in self._perf_cost_reg:
+                self._perf_cost_reg.add(rk)
+                mh = f"{hash(dsnap.flat_meta) & 0xFFFFFFFF:08x}"
+                ident = {"slots": list(slots), "B": BP, "meta": mh,
+                         "device": str(self.device),
+                         "tables": _perf.shapes_of(dsnap.arrays)}
+                _perf.register_cost_thunk(
+                    "batch", f"slots={slots};B={BP};meta={mh}",
+                    lambda ident=ident: ident,
+                )
         qm = torch.from_numpy(build_qm(queries, BP, dsnap.flat_meta)).to(
             self.device
         )
@@ -1080,4 +1105,5 @@ class DeviceEngine:
             )
             if out is not None:
                 return out
-        return self._run(dsnap, queries, qctx, now_us, len(rels))
+        with _trace.annotate_dispatch(span):
+            return self._run(dsnap, queries, qctx, now_us, len(rels))

@@ -118,6 +118,14 @@ class EngineConfig:
     #: max(this, E/8) trigger compaction: the next prepare rebuilds the
     #: base instead of growing the overlay
     flat_delta_min_compact: int = 65_536
+    #: host-side mirror of the same bound: overlay rows beyond
+    #: max(this, E/8) make store/delta.py materialize the LSM chain into
+    #: a fresh base instead of deferring the merge.  Lower keeps probe
+    #: depth small at the price of more frequent O(E) merges; the
+    #: background chain compactor (store/group.py) works against half
+    #: this trip so the merge lands off the write path.  The client
+    #: threads it to ``Store.lsm_compact_min``
+    lsm_compact_min: int = 65_536
     #: dl_* table shape floor: delta tables pre-size to this many rows so
     #: consecutive revisions keep one table geometry (one FlatMeta, one
     #: cached flat program) instead of stepping at every pow2 row-count

@@ -220,6 +220,8 @@ class FrontierKernels:
         # CH0 rows, so the common case is one probe, one emit and one
         # fetch per hop; the chunk order is the reference's
         self.CH0 = min(4096, self.CH)
+        #: (kind, padded frontier) shapes the cost ledger already holds
+        self._cost_reg: set = set()
 
     # -- point-run probe: hash bucket + in-bucket bisect ------------------
     def _runs_fn(self, kind: str, off, off_a, tbl, spec_dev, keys):
@@ -308,6 +310,22 @@ class FrontierKernels:
             live = live & ((cav == 0) | (ctx >= 0))
         return rows, live
 
+    def _register_cost(self, kind: str, F: int) -> None:
+        """Lazy cost-ledger registration of one frontier probe shape
+        (realized only on explicit demand); the per-kernels set makes
+        the steady-state hop path one local set lookup."""
+        if (kind, F) in self._cost_reg:
+            return
+        self._cost_reg.add((kind, F))
+        from ..utils import perf as _perf
+
+        mh = f"{hash(self.meta) & 0xFFFFFFFF:08x}"
+        _perf.register_cost_thunk(
+            "spmv", f"{kind};F={F};meta={mh}",
+            lambda kind=kind, F=F, mh=mh, k=self.kernels: {
+                "probe": kind, "F": F, "meta": mh, "kernels": k},
+        )
+
     # -- host-callable wrappers ------------------------------------------
     def pad_keys(self, keys: np.ndarray) -> np.ndarray:
         F = _ceil_pow2(max(keys.shape[0], 1), self.F_min)
@@ -325,8 +343,9 @@ class FrontierKernels:
         _mt.inc("lookup.dispatches")
         off, off_a, tbl, spec_dev = args
         dev = (tbl[0] if isinstance(tbl, tuple) else tbl).device
-        lo, ln = self._runs_fn(kind, off, off_a, tbl, spec_dev,
-                               self._keys_on(keys, dev))
+        kp = self._keys_on(keys, dev)
+        self._register_cost(kind, int(kp.shape[0]))
+        lo, ln = self._runs_fn(kind, off, off_a, tbl, spec_dev, kp)
         total = int(ln.to(torch.int64).sum())
         return lo, ln, total
 
@@ -355,8 +374,9 @@ class FrontierKernels:
         faults.fire("lookup.dispatch")
         _mt.inc("lookup.dispatches")
         off, off_a, ptbl, spec_dev = args
-        lo, ln = self._runs_fn(kind, off, off_a, ptbl, spec_dev,
-                               self._keys_on(keys, off.device))
+        kp = self._keys_on(keys, off.device)
+        self._register_cost(f"hop:{kind}", int(kp.shape[0]))
+        lo, ln = self._runs_fn(kind, off, off_a, ptbl, spec_dev, kp)
         rows, live = self._emit_fn(kind, tbl[0], tbl[1], lo, ln, 0, int(now),
                                    self.CH0)
         total = int(ln.to(torch.int64).sum())

@@ -48,9 +48,9 @@ raises before any cached state is consulted, the classified error
 reaches the caller's retry envelope, and the chaos soak asserts oracle
 parity straight through it.
 
-Copied from the reference package (host-only).  The reference also
-registers ``stats`` as a section of its ``/perf`` report, which the port
-does not have yet.
+Copied from the reference package (host-only).  A cache on the default
+registry registers ``stats`` as the ``vcache`` section of the ``/perf``
+report (utils/perf.py).
 """
 
 from __future__ import annotations
@@ -277,6 +277,13 @@ class VerdictCache:
         self._revs: "OrderedDict[int, Dict[str, Any]]" = OrderedDict()
         self._bytes = 0
         self._entries = 0
+        if self._m is _metrics.default:
+            # /perf carries the cache's state next to the cost ledger
+            # (last-created cache per process wins — the common shape
+            # is one); custom-registry caches (tests) stay off it
+            from ..utils import perf as _perf
+
+            _perf.register_report_section("vcache", self.stats)
 
     # -- internals -------------------------------------------------------
     def _shard(self, revision: int, create: bool):

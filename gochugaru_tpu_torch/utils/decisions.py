@@ -32,12 +32,14 @@ revision, consistency strategy, cache_hit / dedup_parked provenance,
 latency, and the dispatch trace id (joining the decision to its span
 tree and, through histogram exemplars, to /metrics).
 
-Surfaces: ``get().tail()`` reads the ring; vcache-served verdicts log
-``cache_hit: true`` with the pinned revision.
+Surfaces: ``/decisions`` (utils/telemetry.py) serves the ring as JSONL
+with a counter summary head; incident bundles (utils/trace.py) carry the
+last-N decisions so "what was being decided when the breaker tripped"
+ships inside the bundle; vcache-served verdicts log ``cache_hit: true``
+with the pinned revision — ``client.explain`` re-derives their trees
+against that revision (engine/explain.py).
 
-Copied from the reference package (host-only).  Its readers there, the
-``/decisions`` endpoint of the telemetry server and the incident
-bundles of the flight recorder, are not part of the port yet.
+Copied from the reference package (host-only).
 """
 
 from __future__ import annotations

@@ -1,31 +1,58 @@
-"""Performance attribution: the ledger functions of the latency path.
+"""Performance attribution: where the bytes and microseconds go.
 
-The part of the reference package's ``utils/perf.py`` that the latency
-path (engine/latency.py) and the client call; its roofline meter, its
-backend fingerprint and its report CLI are not part of the port yet.
-Three legs:
+The observability stack answers "why was THIS check slow" (utils/trace.py)
+and "what was happening when the breaker tripped" (the flight recorder);
+this module answers the third question — "where do the bytes and the
+wall time go" — with three legs:
 
-1. **Device cost ledger.**  Each latency-mode pin registers an entry
-   (``record_cost``).  The reference records XLA's ``cost_analysis`` of
-   the compiled executable there; a captured CUDA graph has no such
-   analysis, so the port's entry carries the pin's identity only (kind,
-   key, tier, slots) and the meta model below is the bytes figure.
-2. **Gathered-bytes model** (``gathered_bytes_model``): per-level,
-   per-table device bytes gathered per check, from the FlatMeta geometry
-   and the device tensors' widths and element sizes.  Pad-waste
-   accounting (``record_pad``: live vs padded lanes per pinned-tier
-   dispatch) completes it: wasted lanes are gathered bytes too.
+1. **Device cost ledger.**  Every program the engine runs registers an
+   entry: each latency-mode pin at capture time (``record_cost``), the
+   batch-path flat program and the lookup frontier's probe steps as a
+   LAZY thunk (``register_cost_thunk``) realized only when a consumer
+   asks (``/perf?compile=1``, ``cost_entries(realize=True)``).  An eager
+   torch program or a captured CUDA graph has no cost analysis, so
+   every entry takes the reference's decline path: it carries the
+   program's identity (kind, key, slots, batch, table-meta hash) with
+   ``unavailable: true`` and bumps ``perf.cost_analysis_unavailable``,
+   and the meta model below is the bytes figure.
+
+   Alongside it the ledger keeps the EXACT meta-driven gathered-bytes
+   model (``gathered_bytes_model``): per-level, per-table device bytes
+   gathered per check from the FlatMeta geometry and the device
+   tensors' widths and element sizes.  ``kernel_bytes_model`` states
+   what the CUDA probe kernels change in it.  Pad-waste accounting
+   (``record_pad``: live vs padded lanes per pinned-tier dispatch)
+   completes it: wasted lanes are gathered bytes too.
+
+2. **Roofline meter.**  ``measure_bandwidth`` runs a one-shot triad
+   (out = x + 0.5·y over float32 arrays far larger than the L2 cache:
+   2 streams read, 1 written) on the engine's device and caches the
+   measured GB/s per backend fingerprint (torch + CUDA version + device
+   name + device count).  achieved GB/s = bytes/check × measured
+   checks/s; ``roofline_frac`` = achieved / measured ceiling
+   (``roofline_columns``).  ``python -m gochugaru_tpu_torch.utils.perf``
+   prints the measurement.
+
 3. **Closed wall-time ledger** (``WallLedger``): per measurement window,
    every instant of wall time in exactly one named bucket, from the SAME
    perf_counter stamps the latency path's stage timers publish.
+
+Everything publishes three ways: ``perf.*`` gauges/counters on the
+metrics registry, attrs on the dispatch spans, and a flight-recorder
+context provider (``context_state``) so incident bundles carry the cost
+state at the moment of the anomaly.  ``render_report`` backs the
+``/perf`` telemetry endpoint.
 """
 
 from __future__ import annotations
 
+import json
+import os
+import tempfile
 import threading
 import time
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from . import metrics as _metrics
 
@@ -34,8 +61,11 @@ from . import metrics as _metrics
 # ---------------------------------------------------------------------------
 
 _LOCK = threading.Lock()
-#: cost entries: (kind, key) -> {kind, key, captured_unix_s, ...}
+#: realized cost entries: (kind, key) -> {kind, key, captured_unix_s, ...}
 _COST: "Dict[Tuple[str, str], Dict[str, Any]]" = {}
+#: lazy capture thunks: (kind, key) -> () -> identity fields (realized on
+#: demand)
+_COST_THUNKS: "Dict[Tuple[str, str], Callable[[], Dict[str, Any]]]" = {}
 #: bound on ledger entries: a qctx-shape-churning process must not grow
 #: the ledger without end (FIFO, same discipline as the pin caches)
 COST_LEDGER_MAX = 256
@@ -45,26 +75,95 @@ def record_cost(
     kind: str, key: str, registry: Optional[_metrics.Metrics] = None,
     **extra,
 ) -> Dict[str, Any]:
-    """Register one pinned program in the ledger.  A CUDA graph has no
-    cost analysis, so the entry holds its identity and ``extra`` (the
-    reference's XLA flops / bytes fields are absent)."""
+    """Register one program in the ledger.  An eager torch program or a
+    CUDA graph has no cost analysis, so the entry takes the reference's
+    decline path: ``unavailable: true`` beside the program's identity
+    (``extra``), and the ``perf.cost_analysis_unavailable`` gauge counts
+    it (the meta model stays the bytes figure)."""
     m = registry or _metrics.default
     entry: Dict[str, Any] = {
         "kind": kind, "key": key, "captured_unix_s": round(time.time(), 3),
-        **extra,
+        **extra, "unavailable": True,
     }
     m.inc("perf.cost.captures")
+    m.inc("perf.cost_analysis_unavailable_total")
     with _LOCK:
+        m.set_gauge(
+            "perf.cost_analysis_unavailable",
+            m.gauge("perf.cost_analysis_unavailable", 0.0) + 1.0,
+        )
         while len(_COST) >= COST_LEDGER_MAX:
             _COST.pop(next(iter(_COST)))
         _COST[(kind, key)] = entry
     return entry
 
 
-def cost_entries() -> List[Dict[str, Any]]:
-    """The ledger's entries, oldest first."""
+def cost_registered(kind: str, key: str) -> bool:
+    """Whether (kind, key) already has an entry or a pending thunk —
+    hot paths guard their (per-call) thunk construction on this."""
     with _LOCK:
-        return [dict(v) for v in _COST.values()]
+        return (kind, key) in _COST or (kind, key) in _COST_THUNKS
+
+
+def register_cost_thunk(
+    kind: str, key: str, thunk: Callable[[], Dict[str, Any]]
+) -> None:
+    """Register a lazy capture: ``thunk()`` returns the program's
+    identity fields.  Realized only by ``cost_entries(realize=True)`` —
+    never on a serving path."""
+    with _LOCK:
+        if (kind, key) in _COST or (kind, key) in _COST_THUNKS:
+            return
+        while len(_COST_THUNKS) >= COST_LEDGER_MAX:
+            _COST_THUNKS.pop(next(iter(_COST_THUNKS)))
+        _COST_THUNKS[(kind, key)] = thunk
+
+
+def cost_entries(
+    realize: bool = False, registry: Optional[_metrics.Metrics] = None
+) -> List[Dict[str, Any]]:
+    """The ledger's entries.  ``realize=True`` runs pending thunks first
+    (the /perf endpoint only on ``?compile=1``); each realizes through
+    ``record_cost``'s decline path, and a thunk that raises records its
+    error instead."""
+    if realize:
+        with _LOCK:
+            pending = list(_COST_THUNKS.items())
+            _COST_THUNKS.clear()
+        for (kind, key), thunk in pending:
+            try:
+                fields = thunk()
+            except Exception as e:
+                record_cost(kind, key, registry,
+                            error=f"{type(e).__name__}: {e}"[:200])
+                continue
+            record_cost(kind, key, registry, **fields)
+    with _LOCK:
+        return [dict(v) for v in _COST.values()] + [
+            {"kind": k, "key": key, "pending": True}
+            for (k, key) in _COST_THUNKS
+        ]
+
+
+def shapes_of(args) -> Any:
+    """Nested args -> the same nesting with each tensor replaced by
+    ``[shape, dtype]``: what a lazy cost thunk closes over instead of
+    the tensors (holding them would pin multi-GB snapshots to the
+    ledger).  Non-tensor leaves pass through."""
+    if isinstance(args, dict):
+        return {k: shapes_of(v) for k, v in args.items()}
+    if isinstance(args, (list, tuple)):
+        return [shapes_of(v) for v in args]
+    if hasattr(args, "shape") and hasattr(args, "dtype"):
+        return [list(args.shape), str(args.dtype)]
+    return args
+
+
+def reset_cost_ledger() -> None:
+    """Test hygiene: drop every entry and pending thunk."""
+    with _LOCK:
+        _COST.clear()
+        _COST_THUNKS.clear()
 
 
 # ---------------------------------------------------------------------------
@@ -293,6 +392,125 @@ def est_bytes_per_check(dsnap) -> float:
     return gathered_bytes_model(dsnap).total
 
 
+#: the last published model and the device of its snapshot (per-process;
+#: the /perf endpoint, the flight-recorder context and the bandwidth
+#: meter's default device read them)
+_LAST_MODEL: "List[Tuple[float, BytesModel]]" = []
+_LAST_DEVICE: "List[Any]" = []
+
+
+def publish_model(
+    dsnap, registry: Optional[_metrics.Metrics] = None
+) -> Optional[BytesModel]:
+    """Compute + publish the snapshot's gathered-bytes model as
+    ``perf.bytes_per_check`` (+ per-level gauges).  Called at prepare;
+    never fails the prepare (a geometry the model can't read publishes
+    nothing)."""
+    try:
+        model = gathered_bytes_model(dsnap)
+    except Exception:
+        return None
+    m = registry or _metrics.default
+    m.clear_gauges("perf.bytes_per_check")
+    m.set_gauge("perf.bytes_per_check", model.total)
+    for i, v in enumerate(model.per_level):
+        m.set_gauge(f"perf.bytes_per_check.level{i}", v)
+    dev = next((v.device for v in dsnap.arrays.values()), None)
+    with _LOCK:
+        _LAST_MODEL.clear()
+        _LAST_MODEL.append((time.time(), model))
+        if dev is not None:
+            _LAST_DEVICE.clear()
+            _LAST_DEVICE.append(dev)
+    return model
+
+
+def last_model() -> Optional[BytesModel]:
+    with _LOCK:
+        return _LAST_MODEL[0][1] if _LAST_MODEL else None
+
+
+# ---------------------------------------------------------------------------
+# the CUDA probe kernels' bytes model (engine/kernels, csrc/)
+# ---------------------------------------------------------------------------
+
+#: block tables the fused probe kernels serve (the ``psite`` sites of
+#: engine/flat.py).  Tables outside this set (emission rows, csr slices,
+#: delta overlays, probed by the plain ``probe_block``) keep identical
+#: charges and show saved == 0
+_KERNEL_BLOCK_TBLS = frozenset(
+    {"ehx", "ehx_al", "tx", "clx", "pusx", "ovfx", "pfx", "usgx", "argx"}
+)
+
+
+def kernel_bytes_model(dsnap) -> Dict[str, Dict[str, float]]:
+    """Per-table bytes per check of the plain twins against the CUDA
+    kernels: ``{table: {"plain": b, "kernels": b', "saved": b - b'}}``.
+
+    The model, stated so the tests can assert its structure (the device
+    time of each kernel is chip_smoke.py's measurement, not this one):
+
+    - the plain chain charges the gathered source bytes
+      (:func:`gathered_bytes_model`) PLUS one write + read of the decoded
+      int32 block per probed block table — the gathered block the plain
+      twin materializes between the gather and its compare/gate
+      consumers (packed tables inflate it by the int32-width/packed-lane
+      ratio);
+    - the kernels charge the raw block bytes ONCE: they decode in
+      registers and shared memory;
+    - bucket offsets and anchors keep their charge on both sides: the
+      port keeps no table resident on chip, so the kernels read them
+      from device memory as the plain twin does;
+    - tables the kernels do not serve keep identical charges.
+    """
+    base = gathered_bytes_model(dsnap)
+    meta = dsnap.flat_meta
+    arrs = dsnap.arrays
+    pk = dict(meta.packed) if meta is not None else {}
+    rc_gx = {f"rc{ts}gx" for ts, _c, _f in getattr(meta, "rc_slots", ())}
+    out: Dict[str, Dict[str, float]] = {}
+    for t, b in base.per_table.items():
+        a = arrs.get(t)
+        if t not in (_KERNEL_BLOCK_TBLS | rc_gx) or a is None:
+            out[t] = {"plain": b, "kernels": b, "saved": 0.0}
+            continue
+        spec = pk.get(t[:-3] if t.endswith("_al") else t)
+        if spec is not None:
+            factor = (4.0 * int(spec[0])) / float(spec[1] * _itemsize(a))
+        else:
+            factor = 1.0
+        inter = 2.0 * b * factor  # decoded block: one write + read
+        out[t] = {"plain": b + inter, "kernels": b, "saved": inter}
+    return out
+
+
+def publish_kernel_model(
+    dsnap, registry: Optional[_metrics.Metrics] = None
+) -> Optional[Dict[str, Dict[str, float]]]:
+    """Publish the kernels' bytes delta next to the base model:
+    ``perf.kernels.bytes_per_check`` / ``.bytes_saved_per_check`` totals
+    + per-table ``perf.kernels.saved.<table>`` gauges.  Called at
+    prepare when ``EngineConfig.kernels`` resolves on; never fails the
+    prepare."""
+    try:
+        model = kernel_bytes_model(dsnap)
+    except Exception:
+        return None
+    m = registry or _metrics.default
+    m.clear_gauges("perf.kernels.")
+    m.set_gauge(
+        "perf.kernels.bytes_per_check",
+        sum(v["kernels"] for v in model.values()),
+    )
+    m.set_gauge(
+        "perf.kernels.bytes_saved_per_check",
+        sum(v["saved"] for v in model.values()),
+    )
+    for t, v in model.items():
+        if v["saved"]:
+            m.set_gauge(f"perf.kernels.saved.{t}", v["saved"])
+    return model
+
 
 # ---------------------------------------------------------------------------
 # pad-waste accounting (live vs padded lanes per pinned-tier dispatch)
@@ -348,6 +566,190 @@ def pad_stats(registry: Optional[_metrics.Metrics] = None) -> Dict[str, Any]:
         "per_tier": per_tier,
     }
 
+
+
+# ---------------------------------------------------------------------------
+# roofline meter: measured memory-bandwidth denominator
+# ---------------------------------------------------------------------------
+
+#: on-disk bandwidth cache, keyed by backend fingerprint: a re-run of the
+#: microbench tells nothing new about the same card.  The port's own
+#: file, so the reference package's cache is never overwritten
+ROOFLINE_CACHE_PATH = os.environ.get(
+    "GOCHUGARU_TORCH_ROOFLINE_CACHE_PATH",
+    os.path.join(tempfile.gettempdir(), "gochugaru_torch_roofline.json"),
+)
+
+#: the last fingerprint computed in THIS process — lets a plain /perf
+#: scrape key its cache read without touching the device (computing a
+#: fingerprint initializes CUDA, which a scrape must never pay)
+_LAST_FP: "List[str]" = []
+
+
+def _meter_device(device=None):
+    """The device the meter runs on: the one given, else the device of
+    the last prepared snapshot (``publish_model``), else ``cuda``."""
+    import torch
+
+    if device is None:
+        with _LOCK:
+            device = _LAST_DEVICE[0] if _LAST_DEVICE else "cuda"
+    return torch.device(device)
+
+
+def backend_fingerprint(device=None) -> str:
+    """torch version + CUDA version + device name + device count: the
+    cache key under which one bandwidth measurement stands for a
+    machine.  Initializes CUDA on a ``cuda`` device — callers on scrape
+    paths use the remembered in-process value instead (``_LAST_FP``)."""
+    import torch
+
+    dev = _meter_device(device)
+    if dev.type == "cuda":
+        kind = torch.cuda.get_device_name(dev)
+        n = torch.cuda.device_count()
+    else:
+        kind, n = dev.type, 1
+    fp = (f"torch={torch.__version__};cuda={torch.version.cuda}"
+          f";device={dev.type};kind={kind};n={n}")
+    with _LOCK:
+        _LAST_FP.clear()
+        _LAST_FP.append(fp)
+    return fp
+
+
+def _bandwidth_cache_read(fp: str) -> Optional[Dict[str, Any]]:
+    if os.environ.get("GOCHUGARU_ROOFLINE_CACHE", "1") == "0":
+        return None
+    try:
+        with open(ROOFLINE_CACHE_PATH) as f:
+            blob = json.load(f)
+        if blob.get("fingerprint") != fp:
+            return None
+        # the blob persists with cached=False (it was fresh when
+        # written); anything served FROM the cache must say so
+        return {**blob, "cached": True}
+    except (OSError, ValueError):
+        return None
+
+
+def _bandwidth_cache_write(blob: Dict[str, Any]) -> None:
+    if os.environ.get("GOCHUGARU_ROOFLINE_CACHE", "1") == "0":
+        return
+    try:
+        tmp = ROOFLINE_CACHE_PATH + f".tmp{os.getpid()}"
+        with open(tmp, "w") as f:
+            json.dump(blob, f)
+        os.replace(tmp, ROOFLINE_CACHE_PATH)
+    except OSError:
+        pass  # best-effort; next run re-measures
+
+
+def measure_bandwidth(
+    refresh: bool = False,
+    size_mb: float = 64.0,
+    reps: int = 7,
+    registry: Optional[_metrics.Metrics] = None,
+    device=None,
+) -> Dict[str, Any]:
+    """The roofline denominator: measured device memory bandwidth via a
+    triad (out = x + 0.5·y, one ``torch.add(..., alpha=0.5, out=)``
+    kernel over float32 arrays of ``size_mb`` each, larger than the
+    card's L2 — 2 streams read, 1 written, 12 B/element), best of
+    ``reps``, cached per backend fingerprint.  On a ``cuda`` device each
+    rep is timed by CUDA events and ends in ``torch.cuda.synchronize``;
+    on the CPU by the host clock.
+
+    Returns {gbps, bytes_moved, best_s, reps, fingerprint, platform,
+    device, cached}; publishes ``perf.roofline_gbps``."""
+    import torch
+
+    m = registry or _metrics.default
+    dev = _meter_device(device)
+    fp = backend_fingerprint(dev)
+    if not refresh:
+        cached = _bandwidth_cache_read(fp)
+        if cached is not None and cached.get("gbps"):
+            m.set_gauge("perf.roofline_gbps", cached["gbps"])
+            return cached
+    n = max(int(size_mb * 1e6 / 4), 1 << 16)
+    x = torch.arange(n, dtype=torch.float32, device=dev)
+    y = x * 0.25
+    out = torch.empty_like(x)
+    torch.add(x, y, alpha=0.5, out=out)  # warm-up
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(dev)
+    best = float("inf")
+    for _ in range(max(reps, 1)):
+        if cuda:
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            torch.add(x, y, alpha=0.5, out=out)
+            e1.record()
+            torch.cuda.synchronize(dev)
+            dt = e0.elapsed_time(e1) / 1e3
+        else:
+            t0 = time.perf_counter()
+            torch.add(x, y, alpha=0.5, out=out)
+            dt = time.perf_counter() - t0
+        best = min(best, dt)
+    bytes_moved = 3 * n * 4  # 2 read + 1 written
+    gbps = bytes_moved / best / 1e9
+    blob = {
+        "gbps": round(gbps, 2),
+        "bytes_moved": bytes_moved,
+        "best_s": round(best, 9),
+        "reps": int(reps),
+        "fingerprint": fp,
+        "platform": "gpu" if cuda else dev.type,
+        "device": torch.cuda.get_device_name(dev) if cuda else dev.type,
+        "measured_unix_s": round(time.time(), 3),
+        "cached": False,
+    }
+    _bandwidth_cache_write(blob)
+    m.set_gauge("perf.roofline_gbps", blob["gbps"])
+    return blob
+
+
+def roofline_columns(
+    rate: float,
+    dsnap=None,
+    bytes_per_check: Optional[float] = None,
+    registry: Optional[_metrics.Metrics] = None,
+) -> Dict[str, float]:
+    """The bench columns: achieved GB/s = bytes/check × checks/s against
+    the MEASURED bandwidth ceiling.  Works from a DeviceSnapshot (model
+    computed here) or a precomputed bytes_per_check.
+
+    ``bytes_accessed_per_check`` is the ACTIVE path's modeled traffic:
+    when the prepare that produced ``dsnap`` resolved the CUDA kernels
+    on, :func:`publish_kernel_model` left the kernels' per-check bytes
+    in the ``perf.kernels.bytes_per_check`` gauge and the row carries
+    that (plus the delta in ``kernels_bytes_saved_per_check``);
+    otherwise it equals the gather model's ``bytes_per_check`` and the
+    delta column is absent."""
+    if bytes_per_check is None:
+        bytes_per_check = est_bytes_per_check(dsnap) if dsnap is not None else 0.0
+    bw = measure_bandwidth(registry=registry)
+    m = registry or _metrics.default
+    fused = m.gauge("perf.kernels.bytes_per_check")
+    saved = m.gauge("perf.kernels.bytes_saved_per_check")
+    eff = fused if fused > 0 else float(bytes_per_check)
+    achieved = eff * max(rate, 0.0) / 1e9
+    ceiling = float(bw.get("gbps") or 0.0)
+    m.set_gauge("perf.achieved_gbps", achieved)
+    out = {
+        "bytes_per_check": round(float(bytes_per_check), 1),
+        "bytes_accessed_per_check": round(eff, 1),
+        "achieved_gbps": round(achieved, 3),
+        "roofline_gbps": round(ceiling, 2),
+        "roofline_frac": round(achieved / ceiling, 4) if ceiling else 0.0,
+    }
+    if fused > 0:
+        out["kernels_bytes_saved_per_check"] = round(saved, 1)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -509,3 +911,123 @@ def _publish_wall(result: Dict[str, Any], m: _metrics.Metrics) -> None:
 def last_wall() -> Optional[Dict[str, Any]]:
     return _LAST_WALL
 
+
+# ---------------------------------------------------------------------------
+# export surface: /perf report + flight-recorder context
+# ---------------------------------------------------------------------------
+
+def render_report(
+    registry: Optional[_metrics.Metrics] = None,
+    realize: bool = False,
+    bench: bool = False,
+) -> Dict[str, Any]:
+    """The ``/perf`` payload: the whole ledger as one JSON document.
+    ``realize`` runs pending cost thunks (explicit opt-in); ``bench``
+    runs the bandwidth microbench when no cached verdict exists
+    (otherwise the cached one is served)."""
+    m = registry or _metrics.default
+    model = last_model()
+    with _LOCK:
+        fp = _LAST_FP[0] if _LAST_FP else None
+    bw = None
+    try:
+        # a plain scrape must never initialize CUDA: without ?bench=1
+        # the fingerprint only keys a cache read, so it uses the value
+        # some in-process measurement already computed — a process that
+        # never measured serves roofline: null until the operator
+        # explicitly asks with ?bench=1
+        if bench:
+            bw = measure_bandwidth(registry=m)
+            fp = bw.get("fingerprint", fp)
+        elif fp is not None:
+            bw = _bandwidth_cache_read(fp)
+    except Exception:
+        pass
+    return {
+        "cost": cost_entries(realize=realize, registry=m),
+        "cost_analysis_unavailable": m.gauge(
+            "perf.cost_analysis_unavailable", 0.0
+        ),
+        "bytes_model": None if model is None else {
+            "total": round(model.total, 1),
+            "per_level": [round(v, 1) for v in model.per_level],
+            "per_table": {
+                k: round(v, 1) for k, v in sorted(model.per_table.items())
+            },
+        },
+        "pad": pad_stats(m),
+        "roofline": bw,
+        "fingerprint": fp,
+        "wall": last_wall(),
+        **{
+            k: _safe_section(fn) for k, fn in sorted(_EXTRA_REPORT.items())
+        },
+    }
+
+
+#: extra /perf report sections registered by other subsystems (the
+#: verdict cache registers its stats here — engine/vcache.py — and the
+#: group committer its ``write_path``).  Cheap-by-contract, same rule as
+#: context providers
+_EXTRA_REPORT: Dict[str, Any] = {}
+
+
+def register_report_section(name: str, fn) -> None:
+    """Attach a callable whose result rides /perf under ``name``
+    (last registration per name wins)."""
+    _EXTRA_REPORT[name] = fn
+
+
+def _safe_section(fn):
+    try:
+        return fn()
+    except Exception as e:  # a broken section must not break the scrape
+        return {"error": repr(e)}
+
+
+def context_state() -> Dict[str, Any]:
+    """Flight-recorder context provider: the cost state an incident
+    bundle carries.  Cheap by contract — realized entries only, cached
+    bandwidth only, no microbench."""
+    m = _metrics.default
+    model = last_model()
+    entries = cost_entries(realize=False)
+    return {
+        "bytes_per_check": None if model is None else round(model.total, 1),
+        "bytes_per_level": None if model is None else [
+            round(v, 1) for v in model.per_level
+        ],
+        "pad": pad_stats(m),
+        "cost_entries": len(entries),
+        "cost_pending": sum(1 for e in entries if e.get("pending")),
+        "cost_analysis_unavailable": m.gauge(
+            "perf.cost_analysis_unavailable", 0.0
+        ),
+        "roofline_gbps": m.gauge("perf.roofline_gbps", 0.0) or None,
+        "wall": last_wall(),
+    }
+
+
+def _main(argv=None) -> int:
+    """``python -m gochugaru_tpu_torch.utils.perf``: run (or read) the
+    bandwidth microbench and print the roofline JSON."""
+    import argparse
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--refresh", action="store_true",
+                    help="re-measure even with a cached verdict")
+    ap.add_argument("--size-mb", type=float, default=64.0)
+    ap.add_argument("--reps", type=int, default=7)
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to measure (default: cuda)")
+    args = ap.parse_args(argv)
+    bw = measure_bandwidth(
+        refresh=args.refresh, size_mb=args.size_mb, reps=args.reps,
+        device=args.device,
+    )
+    print(json.dumps({**bw, "cache_path": ROOFLINE_CACHE_PATH}, indent=2))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(_main())
