@@ -78,14 +78,23 @@ Phases (any failure exits non-zero and prints no result line):
    random users (seed 11) and for up to 6 bulk group#member subjects,
    LookupSubjects document:dX#view -> user for 16 random docs (seed 13).
    Candidate blocks of a kernels=False engine equal the kernel path's
-   block for block; full answers equal the host walker's (same exact
-   filter) for every user, every doc and the heaviest bulk subject;
+   block for block (the fused K-hop program's, one CUDA-graph replay a
+   lookup, where it serves; the looped path's where it overflows); full
+   answers equal the host walker's (same exact filter) for every user,
+   every doc and the heaviest bulk subject; then (phase_spmm) each of
+   those lookups through the fused program and through the looped path
+   on the same snapshot, timed, answers equal, the graph replay equal
+   to the eager run of the same K rounds, replay and capture ms, the
+   fallback share and its causes, the kernel launches a replay makes
+   (the ``spmm:`` line), failing unless a multi-hop lookup of each
+   direction was served by the fused program;
 5b. config 3 again with ``flat_aligned=True`` on the same snapshot, at
    full size: prepare s, device MiB, the aligned tables and their caps
    and the point tables that stayed off+interleave; planes kernels vs
    plain and vs phase 5's planes; sampled rows vs the oracle; checks/s;
    the same lookups, candidate blocks kernels vs plain, answers equal to
-   phase 5's (which equal the walker's);
+   phase 5's (which equal the walker's), and phase_spmm on this layout
+   (the subjects' arrow hop through fused_probe_aligned's block);
 6. a closure-overflow world (closure_source_cap=4), every row vs the
    oracle, once off+interleave and once aligned (the aligned ``any`` and
    ``until2`` sites' traffic);
@@ -2484,6 +2493,8 @@ def phase_lookups(cs, snap, ek, ep, ds, scale, card, name="config3", want=None):
         f" heaviest full answer s {full_s} ({len(heavy_ans)} resources)")
 
     answers = (mixed_ans, subj_ans, heavy_ans)
+    SPMM[name] = phase_spmm(name, ek, ds, rtid, sample, doc_ids, sid, fac,
+                            mixed_ans, subj_ans, card)
     if want is not None:
         if answers != want:
             raise AssertionError(f"{name}: lookup answers differ from the"
@@ -2518,6 +2529,181 @@ def phase_lookups(cs, snap, ek, ep, ds, scale, card, name="config3", want=None):
         f" LookupSubjects answers equal the host walker's"
         f" ({time.perf_counter() - t0:.1f} s incl. the transposed-index build)")
     return answers
+
+
+#: the spmm: line's entries, one per layout phase_lookups ran
+SPMM = {}
+#: lookups a direction whose fused graph replay is held to the eager run
+SPMM_EAGER = 8
+
+
+def _p50_p99_ms(xs):
+    return (float(np.percentile(xs, 50)) * 1e3,
+            float(np.percentile(xs, 99)) * 1e3)
+
+
+def phase_spmm(name, ek, ds, rtid, sample, doc_ids, sid, fac, mixed_ans,
+               subj_ans, card):
+    """The fused K-hop lookup program (engine/spmm.py) on phase 5's
+    snapshot, against the looped per-hop path on the same snapshot (a
+    second FrontierState whose fused server is None): each of
+    phase_lookups' 48 LookupResources and 16 LookupSubjects through both
+    paths, timed (host clock, warm: each graph was captured by
+    phase_lookups' first lookups), answers fused == looped == the ones
+    phase_lookups held to the walker; counters per lookup show which the
+    fused program served (one spmm dispatch, no looped dispatch) and
+    which took more than one hop on the looped path.  Then the graph
+    replay == the eager run of the same K rounds on ``SPMM_EAGER``
+    lookups a direction (launches uncounted), the cause of each
+    fallback (the round budget, when the same program with 4K rounds
+    serves; else a capacity), replay device ms (CUDA events around the
+    replay alone) and the capture ms of each direction.  Fails unless at
+    least one multi-hop lookup of each direction was served by the fused
+    program."""
+    from gochugaru_tpu_torch.engine import kernels as K
+    from gochugaru_tpu_torch.engine import lookup as lm
+    from gochugaru_tpu_torch.engine import spmv
+    from gochugaru_tpu_torch.utils.metrics import default as mt
+
+    fused = spmv.state_for(ek, ds)
+    fl = fused._spmm
+    if fl is None:
+        raise AssertionError(f"{name}: the fused lookup program must serve")
+    looped = spmv.FrontierState(ek, ds)
+    looped._spmm = None
+    keys = ("spmm.dispatches", "spmm.fallbacks", "lookup.dispatches",
+            "lookup.hops", "lookups.fused")
+    c_phase = {k: mt.counter(k) for k in keys}
+
+    def one(st, kind, arg):
+        ds.__dict__["_frontier_state"] = st
+        ds.__dict__.pop("_lookup_streams", None)
+        c0 = {k: mt.counter(k) for k in keys}
+        t0 = time.perf_counter()
+        if kind == "res":
+            got = lm.lookup_resources_device(
+                ek, ds, "document", "view", "user", sid(arg), "",
+                now_us=EPOCH, oracle_factory=fac)
+        else:
+            got = lm.lookup_subjects_device(
+                ek, ds, "document", arg, "view", "user", "", now_us=EPOCH,
+                oracle_factory=fac)
+        dt = time.perf_counter() - t0
+        return got, dt, {k: mt.counter(k) - c0[k] for k in keys}
+
+    out = {"layout": name, "card": card, "F": fl.kern.F, "E": fl.kern.E,
+           "Ea": fl.kern.Ea, "C": fl.kern.C, "K": fl.kern.K}
+    try:
+        for kind, args, want in (("res", sample, mixed_ans),
+                                 ("subj", doc_ids, subj_ans)):
+            ts = {"fused": [], "looped": []}
+            served = served_multi = 0
+            for a in args:
+                got_f, dt_f, cf = one(fused, kind, a)
+                got_l, dt_l, cl = one(looped, kind, a)
+                if not got_f == got_l == want[a]:
+                    raise AssertionError(f"{name} {kind} {a}: fused, looped and"
+                                         " walker-held answers differ")
+                ts["fused"].append(dt_f)
+                ts["looped"].append(dt_l)
+                ok = (cf["spmm.dispatches"] == 1 and cf["spmm.fallbacks"] == 0
+                      and cf["lookup.dispatches"] == 0)
+                served += ok
+                served_multi += ok and cl["lookup.hops"] >= 2
+            fp50, fp99 = _p50_p99_ms(ts["fused"])
+            lp50, lp99 = _p50_p99_ms(ts["looped"])
+            out[kind] = {
+                "lookups": len(args), "fused_p50_ms": fp50, "fused_p99_ms": fp99,
+                "looped_p50_ms": lp50, "looped_p99_ms": lp99,
+                "served": served, "served_multihop": served_multi,
+                "fallback_share": (len(args) - served) / len(args),
+            }
+            if not served_multi:
+                raise AssertionError(f"{name}: no multi-hop {kind} lookup was"
+                                     " served by the fused program")
+    finally:
+        ds.__dict__["_frontier_state"] = fused
+    out["counters"] = {k: mt.counter(k) - c_phase[k] for k in keys}
+
+    # graph replay == the eager run of the same K rounds, bit for bit
+    n_eq = {"res": 0, "subj": 0}
+    with uncounted(K):
+        for u in sample[:SPMM_EAGER]:
+            g = fl.resources(rtid, u, -1, -1, EPOCH)
+            e = fl.resources(rtid, u, -1, -1, EPOCH, run="rounds")
+            if not _same_fused(g, e):
+                raise AssertionError(f"{name}: fused resources replay != eager for {u}")
+            n_eq["res"] += 1
+        for d in doc_ids[:SPMM_EAGER]:
+            res_node, _p, srel_s, stid, wc = lm._resolve_subjects(
+                ds, "document", d, "view", "user", "")
+            g = fl.subjects(res_node, stid, srel_s, wc, EPOCH)
+            e = fl.subjects(res_node, stid, srel_s, wc, EPOCH, run="rounds")
+            if not _same_fused(g, e):
+                raise AssertionError(f"{name}: fused subjects replay != eager for {d}")
+            n_eq["subj"] += 1
+    out["replay_eq_eager"] = n_eq
+
+    # why the fallbacks overflowed: the same program, eager, with four
+    # times the round budget — served then means K was too short, else a
+    # capacity (frontier, emission, candidates) overflowed
+    import copy
+
+    deep = copy.copy(fl.kern)
+    deep.K = 4 * fl.kern.K
+    causes = {}
+    with uncounted(K), torch.no_grad():
+        for kind, args in (("res", sample), ("subj", doc_ids)):
+            c = {"rounds": 0, "capacity": 0}
+            for a in args:
+                if kind == "res":
+                    inp = fl.resources_inputs(rtid, a, -1, -1, EPOCH)
+                    flag = 1
+                else:
+                    res_node, _p, srel_s, stid, wc = lm._resolve_subjects(
+                        ds, "document", a, "view", "user", "")
+                    inp = fl.subjects_inputs(res_node, stid, srel_s, wc, EPOCH)
+                    flag = 3
+                dev_inp = torch.from_numpy(inp).to(ds.arrays["rvx"].device)
+                if not int(fl.kern.run(kind, fused.kern, fl.tables, fused,
+                                       dev_inp, False)[flag]):
+                    continue
+                ovf = int(deep.run(kind, fused.kern, fl.tables, fused, dev_inp,
+                                   False)[flag])
+                c["capacity" if ovf else "rounds"] += 1
+            causes[kind] = c
+    out["overflow_causes"] = causes
+
+    # replay device ms (the graph alone) and capture ms, per direction
+    replay = {}
+    for kind, make in () if DEV != "cuda" else (("res", lambda u: fl.resources_inputs(rtid, u, -1, -1, EPOCH)),
+                       ("subj", lambda d: fl.subjects_inputs(
+                           *[lm._resolve_subjects(ds, "document", d, "view", "user", "")[i]
+                             for i in (0, 3, 2, 4)], EPOCH))):
+        g = fl.graphs[kind]
+        ms = []
+        for a in (sample if kind == "res" else doc_ids):
+            g.inp.copy_(torch.from_numpy(make(a)))
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            g.graph.replay()
+            e1.record()
+            e1.synchronize()
+            ms.append(e0.elapsed_time(e1))
+        replay[kind] = {"p50_ms": float(np.median(ms)), "max_ms": float(max(ms)),
+                        "launches": dict(g.modes)}
+    out["replay"] = replay
+    out["capture_ms"] = {k: v * 1e3 for k, v in fl.capture_s.items()}
+    out["captures"] = dict(fl.captures)
+    log(f"{name} spmm [{card}]: {json.dumps(out)}")
+    return out
+
+
+def _same_fused(a, b):
+    if a is None or b is None:
+        return a is None and b is None
+    return _same_blocks(a, b)
 
 
 def phase_overflow(K, **cfg):
@@ -6094,6 +6280,7 @@ def main() -> int:
     print("serving: " + json.dumps(serving))
     print("witness: " + json.dumps(witness))
     print("telemetry: " + json.dumps(telemetry))
+    print("spmm: " + json.dumps(SPMM))
     print(json.dumps({"kernels": table}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -958,10 +958,10 @@ def t_join_core(
     returns None past ``cap_rows`` (a popular group with a huge closure
     in-degree must disable the index, not OOM).
 
-    With ``EngineConfig.spmm`` on, the serving path runs
-    engine/spmm.py's ``tjoin_spmm`` — the same join expressed on the
-    generic (min, max) until-semiring product — and this bespoke kernel
-    is the byte-for-byte parity oracle (tests/test_spmm.py)."""
+    A prepare calls this join whatever ``EngineConfig.spmm`` says;
+    engine/spmm.py's ``tjoin_spmm`` is the same join expressed on the
+    generic (min, max) until-semiring product, held to this one byte for
+    byte (tests/test_torch_spmm.py)."""
     t_order = np.argsort(cl_k2, kind="stable")
     tgt_sorted = cl_k2[t_order]
     join_rows = int(

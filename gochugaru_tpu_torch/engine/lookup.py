@@ -617,6 +617,9 @@ def lookup_resources_page(
 
             _m.default.inc("lookups.frontier")
             st = spmv.state_for(engine, dsnap)
+            if st._spmm is not None:
+                # served by the fused K-hop program (engine/spmm.py)
+                _m.default.inc("lookups.fused")
             cands = st.resource_candidates(
                 rtid, subj_node, srel_slot, wc_node, now_us
             )
@@ -674,6 +677,8 @@ def lookup_subjects_page(
 
             _m.default.inc("lookups.frontier")
             st = spmv.state_for(engine, dsnap)
+            if st._spmm is not None:
+                _m.default.inc("lookups.fused")
             cands = st.subject_candidates(
                 res_node, stid, srel_slot, wc_node, now_us
             )

@@ -108,11 +108,36 @@ class EngineConfig:
     kernels: Optional[bool] = None
     #: build the reverse-CSR lookup index alongside the forward tables
     #: (engine/rev.py: rvx/rax/fwx + offsets): LookupResources/
-    #: LookupSubjects then run as device frontier hops (engine/spmv.py)
-    #: instead of the host walker.  The port serves the looped per-hop
-    #: path only (the reference's ``spmm=False``); the fused K-hop
-    #: program is a later slice
+    #: LookupSubjects then run on the device (engine/spmv.py: the fused
+    #: K-hop program of engine/spmm.py when ``spmm`` is on, else the
+    #: looped per-hop frontier) instead of the host walker
     flat_rev_index: bool = True
+    #: per-dispatch row budget of the looped frontier's emission: each
+    #: hop emits matches in chunks of at most this many rows
+    lookup_chunk: int = 65_536
+    #: frontier-key padding floor of the looped path, pow2 tiers above it
+    lookup_frontier_min: int = 1_024
+    # -- the fused K-hop lookup program (engine/spmm.py) ----------------
+    #: serve multi-hop lookups through the fused K-hop program (the whole
+    #: reverse/forward frontier fixpoint in one dispatch, one CUDA-graph
+    #: replay on ``cuda``, the frontier carried on the device between
+    #: hops) and route the fold T-join through the same semiring product.
+    #: False is the parity lever: the looped per-hop spmv path and the
+    #: bespoke t_join_core, byte for byte
+    spmm: bool = True
+    #: hop rounds per fused dispatch; a frontier still live after this
+    #: many rounds overflows to the looped path
+    spmm_rounds: int = 10
+    #: on-device frontier capacity per round (keys and nodes, pow2);
+    #: wider frontiers overflow to the looped path
+    spmm_frontier: int = 1_024
+    #: per-round emission budget of each fused probe (pow2): the emit
+    #: lanes run at full width every round, so this is the program's
+    #: dominant cost; overflow falls back to the looped path
+    spmm_emit: int = 2_048
+    #: candidate-buffer capacity of one fused dispatch; larger answers
+    #: overflow to the looped (streaming) path
+    spmm_candidates: int = 8_192
     # -- the Watch-driven delta chain (engine/flat.py build_delta_arrays) -
     #: accumulated delta-level rows (adds + tombstones) beyond
     #: max(this, E/8) trigger compaction: the next prepare rebuilds the

@@ -29,15 +29,17 @@ cursor contract exact: a ``LookupCursor`` pins (revision, query
 fingerprint, results emitted) and a resume either continues the cached
 live stream or deterministically recomputes and skips.
 
-This is the reference's looped per-hop path (``EngineConfig(spmm=
-False)`` in gochugaru_tpu/engine/spmv.py), with the device steps in
-PyTorch: the hop probes go through ``kernels.fused_probe`` (mode
-``runs``; the arrow group probe through mode ``block``, or
-``kernels.fused_probe_aligned`` mode ``block`` when ``argx`` is
-bucket-aligned), the CUDA kernels on a CUDA device and their plain twins
-on the CPU or with ``EngineConfig(kernels=False)``.  The reverse tables
-(rvx/rax/fwx) are never aligned.  The fused K-hop SpMM program and the
-sharded layouts are later slices.
+The device steps are PyTorch: the hop probes go through
+``kernels.fused_probe`` (mode ``runs``; the arrow group probe through
+mode ``block``, or ``kernels.fused_probe_aligned`` mode ``block`` when
+``argx`` is bucket-aligned), the CUDA kernels on a CUDA device and their
+plain twins on the CPU or with ``EngineConfig(kernels=False)``.  The
+reverse tables (rvx/rax/fwx) are never aligned.  With ``EngineConfig.
+spmm`` on (the default) a lookup first runs the fused K-hop program of
+engine/spmm.py, which composes these same probe and emission steps at
+fixed widths into one dispatch; only its overflow comes back to the
+looped per-hop path here (``spmm.fallbacks``), which is also what
+``spmm=False`` serves.  Sharded layouts are a later slice.
 
 Eligibility: full prepares with the reverse index (FlatMeta.has_rev)
 and no LSM delta level; everything else keeps the host walker.
@@ -55,6 +57,7 @@ import torch
 
 from ..utils import faults, metrics
 from . import kernels as _K
+from . import spmm as _spmm
 from .flat import aligned_levels
 from .hash import _ceil_pow2
 from .packed import decode_block
@@ -65,15 +68,6 @@ _mt = metrics.default
 #: by cursor token; LRU — an evicted stream resumes by deterministic
 #: recompute-and-skip)
 _STREAM_CACHE_MAX = 16
-
-#: per-dispatch row budget of the frontier emission: each hop emits
-#: matches in chunks of at most this many rows (the reference's
-#: ``EngineConfig.lookup_chunk`` default)
-LOOKUP_CHUNK = 65_536
-#: frontier-key padding floor, pow2 tiers above it (the reference's
-#: ``EngineConfig.lookup_frontier_min`` default)
-LOOKUP_FRONTIER_MIN = 1_024
-
 
 # ---------------------------------------------------------------------------
 # cursors
@@ -187,17 +181,18 @@ class FrontierKernels:
     """The probe/emit steps of one FlatMeta geometry (cached on the
     engine keyed by meta).  ``kernels`` is the engine's switch: True
     launches the CUDA kernel for every probe, False runs its plain
-    twin."""
+    twin.  The chunk and the frontier floor are the config's
+    ``lookup_chunk`` / ``lookup_frontier_min``."""
 
-    def __init__(self, meta, kernels: bool = False) -> None:
+    def __init__(self, meta, config, kernels: bool = False) -> None:
         if meta.sharded:
             raise NotImplementedError(
                 "lookups over sharded tables are a later slice"
             )
         self.meta = meta
         self.kernels = bool(kernels)
-        self.CH = LOOKUP_CHUNK
-        self.F_min = LOOKUP_FRONTIER_MIN
+        self.CH = int(config.lookup_chunk)
+        self.F_min = int(config.lookup_frontier_min)
         self._pk = dict(meta.packed)
         self._pko = dict(meta.packed_off)
         #: (w, caps) of the aligned argx ladder, None when off+interleave
@@ -394,7 +389,7 @@ def kernels_for(engine, meta) -> FrontierKernels:
     cache = engine.__dict__.setdefault("_spmv_kernels", {})
     k = cache.get(meta)
     if k is None:
-        k = FrontierKernels(meta, engine.kernels)
+        k = FrontierKernels(meta, engine.config, engine.kernels)
         while len(cache) >= 8:
             cache.pop(next(iter(cache)))
         cache[meta] = k
@@ -543,6 +538,11 @@ class FrontierState:
         self.arx = (arrs["arx"], dsnap.specs.get("arx"))
         #: wildcard-widening cache: sorted unique direct subjects
         self._all_subj: Optional[np.ndarray] = None
+        #: the fused K-hop server (engine/spmm.py): the whole frontier
+        #: fixpoint in one dispatch when eligible; None keeps the looped
+        #: per-hop path below (EngineConfig.spmm off, or key domains
+        #: past int32)
+        self._spmm = _spmm.fused_for(engine, self)
 
     # -- expansion primitives --------------------------------------------
     def _now(self, now_us) -> int:
@@ -588,6 +588,13 @@ class FrontierState:
             self._all_subj = np.unique(self.snap.e_subj).astype(np.int64)
         return self._all_subj
 
+    @staticmethod
+    def _counted(blocks: List[np.ndarray]) -> Iterator[np.ndarray]:
+        for b in blocks:
+            if b.size:
+                _mt.inc("lookup.candidates", b.size)
+                yield b
+
     # -- LookupResources candidate stream --------------------------------
     def resource_candidates(
         self, rtid: int, subj_node: int, srel_slot: int, wc_node: int,
@@ -597,7 +604,19 @@ class FrontierState:
         walker's reverse worklist, each hop one masked SpMV over the
         reverse tables.  Soundness: every DEFINITE grant has a live,
         resolvable positive edge path; the in-kernel gate filter drops
-        only edges that can never be part of one."""
+        only edges that can never be part of one.
+
+        With the fused program (engine/spmm.py) the whole fixpoint runs
+        in one dispatch; its overflow (frontier, emission or candidate
+        capacity, round budget) falls back to the looped body below."""
+        if self._spmm is not None:
+            blocks = self._spmm.resources(
+                rtid, subj_node, srel_slot, wc_node, now_us
+            )
+            if blocks is not None:
+                yield from self._counted(blocks)
+                return
+            _mt.inc("spmm.fallbacks")
         N, S1, logN = self.N, self.S1, self.logN
         now = self._now(now_us)
         seen_keys = _Seen(N * S1)
@@ -691,7 +710,16 @@ class FrontierState:
         now_us: Optional[int],
     ) -> Iterator[np.ndarray]:
         """Forward frontier expansion from the resource over the fw/argx
-        views — the walker's node/pair worklist as device hops."""
+        views — the walker's node/pair worklist as device hops (or one
+        fused dispatch, its overflow falling back here)."""
+        if self._spmm is not None:
+            blocks = self._spmm.subjects(
+                res_node, stid, srel_slot, wc_node, now_us
+            )
+            if blocks is not None:
+                yield from self._counted(blocks)
+                return
+            _mt.inc("spmm.fallbacks")
         N, S1, logN = self.N, self.S1, self.logN
         snap = self.snap
         num_slots = max(snap.num_slots, 1)

@@ -45,6 +45,9 @@ Injection sites threaded through the tree (grep ``faults.fire``):
     lookup.dispatch          frontier lookup hop dispatch
                              (engine/spmv.py; the client's lookup
                              surface retries these under the envelope)
+    spmm.dispatch            fused K-hop lookup dispatch (engine/spmm.py;
+                             fires after ``lookup.dispatch``, so the
+                             client's lookup envelope retries it too)
     latency.dispatch         pinned small-batch dispatch (engine/latency.py;
                              the client's circuit breaker counts these
                              and reroutes latency traffic to the batch

@@ -19,7 +19,8 @@ its plain probe path).  At every revision the port must:
 All outputs are int or bool, so the tolerance is exact equality.  The
 worlds are ``tests/test_delta_level.py``'s (its sharded ones left out)
 and two of ``tests/test_fold_delta.py``'s, plus chains that despec a
-packed table, append stored caveat contexts and serve lookups.
+packed table and append stored caveat contexts; the chain that serves
+lookups is tests/test_torch_delta_lookups.py's.
 """
 
 import dataclasses
@@ -33,11 +34,6 @@ import jax.numpy as jnp
 
 from gochugaru_tpu import rel as jrel
 from gochugaru_tpu.engine.device import DeviceEngine as JEngine
-from gochugaru_tpu.engine.lookup import (
-    lookup_resources_device as j_lookup_resources_device,
-    lookup_subjects_device as j_lookup_subjects_device,
-)
-from gochugaru_tpu.engine.oracle import SnapshotOracle as JSnapshotOracle
 from gochugaru_tpu.engine.plan import EngineConfig as JConfig
 from gochugaru_tpu.schema import compile_schema as j_compile, parse_schema as j_parse
 from gochugaru_tpu.store.delta import apply_delta as j_apply
@@ -48,10 +44,6 @@ from gochugaru_tpu_torch import rel as prel
 from gochugaru_tpu_torch.caveats import compile_cel
 from gochugaru_tpu_torch.engine import device as pdevice
 from gochugaru_tpu_torch.engine.device import DeviceEngine as PEngine
-from gochugaru_tpu_torch.engine.lookup import (
-    lookup_resources_device as p_lookup_resources_device,
-    lookup_subjects_device as p_lookup_subjects_device,
-)
 from gochugaru_tpu_torch.engine.oracle import SnapshotOracle, T
 from gochugaru_tpu_torch.engine.plan import EngineConfig as PConfig
 from gochugaru_tpu_torch.schema import compile_schema as p_compile, parse_schema as p_parse
@@ -627,54 +619,3 @@ def test_caveated_chain_appends_stored_contexts():
     assert incr[0], "the first append fits the 2x headroom"
     assert not all(incr), "the context bucket is outgrown along the chain"
     assert int(ch.pd.arrays["ectx_vi"].shape[0]) > rows0
-
-
-def test_lookups_on_a_chain_match_reference():
-    """LookupResources/LookupSubjects along a chain: a delta level
-    declines the device frontier, so the host walker serves, over a
-    transposed index that store/delta.py carries forward by
-    advance_lookup_index (eagerly, once lookups are live).  Answers and
-    the advanced index equal the reference's on the same writes."""
-    rng, rels, ch = _feature_chain(seed=4)
-    py = random.Random(8)
-    used = _used_groups(rels)
-    j_or = lambda: JSnapshotOracle(ch.j_snap, {}, now_us=NOW)  # noqa: E731
-    p_or = lambda: SnapshotOracle(ch.p_snap, {}, now_us=NOW)  # noqa: E731
-    advanced = 0
-    for revision in range(2, 6):
-        adds = [
-            jrel.must_from_triple(f"doc:d{py.randrange(10)}", "reader",
-                                  f"user:u{py.randrange(10)}"),
-            jrel.must_from_tuple(f"doc:d{py.randrange(10)}#reader",
-                                 f"group:{py.choice(used)}#member"),
-        ]
-        deletes = [jrel.must_from_triple(f"doc:d{py.randrange(10)}", "reader",
-                                         f"user:u{py.randrange(10)}")]
-        assert ch.step(adds, deletes)
-        assert ch.pd.flat_meta.delta is not None
-        advanced += getattr(ch.p_snap, "_lookup_index", None) is not None
-        for u in ("u0", "u3", "u7"):
-            want = j_lookup_resources_device(
-                ch.je, ch.jd, "doc", "read", "user", u, now_us=NOW,
-                oracle_factory=j_or)
-            got = p_lookup_resources_device(
-                ch.pe, ch.pd, "doc", "read", "user", u, now_us=NOW,
-                oracle_factory=p_or)
-            assert got == want, (revision, u)
-        for d in ("d0", "d4"):
-            want = j_lookup_subjects_device(
-                ch.je, ch.jd, "doc", d, "read", "user", now_us=NOW,
-                oracle_factory=j_or)
-            got = p_lookup_subjects_device(
-                ch.pe, ch.pd, "doc", d, "read", "user", now_us=NOW,
-                oracle_factory=p_or)
-            assert got == want, (revision, d)
-        j_idx, p_idx = ch.j_snap._lookup_index, ch.p_snap._lookup_index
-        for f in dataclasses.fields(p_idx):
-            a, b = getattr(p_idx, f.name), getattr(j_idx, f.name)
-            if isinstance(a, dict):  # perm_slots_of_tid
-                assert a.keys() == b.keys(), f.name
-                assert all(np.array_equal(a[t], b[t]) for t in a), f.name
-            else:
-                assert np.array_equal(a, b), f.name
-    assert advanced >= 2, "later revisions carry the live index forward"

@@ -20,6 +20,7 @@ import random
 
 import numpy as np
 import pytest
+import torch
 
 import jax.numpy as jnp
 
@@ -40,6 +41,14 @@ from gochugaru_tpu_torch.store.interner import Interner as PInterner
 from gochugaru_tpu_torch.store import snapshot as psnap
 
 NOW = 1_700_000_000_000_000
+
+# The port's CPU tests run thousands of torch operations on tensors of a
+# few hundred elements, where the intra-op thread pool only spins: one of
+# the slowest tests here took 137 s with torch's default pool and 38 s
+# with one thread (and a ninth of the CPU time).  The test runner's
+# workers each import every test module while collecting, so this one
+# call holds for every test a worker runs.
+torch.set_num_threads(1)
 
 
 def _port_rel(r):

@@ -122,7 +122,9 @@ class LWorld:
         self.je = TE.JEngine(w.j_cs, JConfig(
             pallas=False, spmm=False, **w.cfg))
         self.jd = self.je.prepare(w.j_snap)
-        self.pe = w.p_engine()
+        # both sides on the looped per-hop path: the fused program's
+        # parity with the reference's spmm=True is tests/test_torch_spmm.py
+        self.pe = w.p_engine(spmm=False)
         self.pd = self.pe.prepare(w.p_snap)
         self.res_q = res_q
         self.subj_q = subj_q

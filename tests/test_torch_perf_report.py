@@ -128,21 +128,27 @@ def test_batch_program_registers_a_lazy_entry(worlds):
 
 
 def test_lookup_frontier_registers_lazy_entries():
-    pperf.reset_cost_ledger()
-    c = new_evaluator(device="cpu")
-    ctx = p_background()
-    c.write_schema(ctx, """
+    """A lookup registers its program's lazy cost entry: the fused K-hop
+    program (kind ``spmm``) by default, the looped frontier's probes
+    (kind ``spmv``) with ``spmm=False``."""
+    from gochugaru_tpu_torch.client import with_engine_config
+
+    for spmm, kind in ((True, "spmm"), (False, "spmv")):
+        pperf.reset_cost_ledger()
+        c = new_evaluator(with_engine_config(PConfig(spmm=spmm)), device="cpu")
+        ctx = p_background()
+        c.write_schema(ctx, """
 definition user {}
 definition doc { relation reader: user  permission read = reader }
 """)
-    txn = prel.Txn()
-    for i in range(12):
-        txn.touch(prel.must_from_triple(f"doc:d{i}", "reader", f"user:u{i % 3}"))
-    c.write(ctx, txn)
-    assert sorted(c.lookup_resources(ctx, pcons.full(), "doc#read", "user:u1")) == [
-        "d1", "d10", "d4", "d7"]
-    ents = [e for e in pperf.cost_entries(realize=True) if e["kind"] == "spmv"]
-    assert ents and all(e["unavailable"] and e["F"] > 0 for e in ents)
+        txn = prel.Txn()
+        for i in range(12):
+            txn.touch(prel.must_from_triple(f"doc:d{i}", "reader", f"user:u{i % 3}"))
+        c.write(ctx, txn)
+        assert sorted(c.lookup_resources(ctx, pcons.full(), "doc#read", "user:u1")) == [
+            "d1", "d10", "d4", "d7"]
+        ents = [e for e in pperf.cost_entries(realize=True) if e["kind"] == kind]
+        assert ents and all(e["unavailable"] and e["F"] > 0 for e in ents), kind
     pperf.reset_cost_ledger()
 
 
