@@ -320,6 +320,46 @@ Phases (any failure exits non-zero and prints no result line):
    installed) and phase 15's plain client (tracer and recorder removed),
    alternating, their answers equal: medians (no claim).  It prints one ``telemetry: {...}`` line
    after the ``witness:`` line; its launches are its own.
+17. (after phase 13) the tuner (tune/) on BASELINE config 2, rebuilt by
+   the same generator into the store of a ``cuda`` client with latency
+   mode and the verdict cache: (1) the tuner's mixed load
+   (benchmarks/bench11_tune.py's profile: interactive submissions of 9
+   checks on a Poisson clock, users zipf 1.2; bulk CheckMany of 300; a
+   duplicate-heavy round) through a serving handle under the defaults,
+   200 of each profile's answers vs the host oracle; (2)
+   ``collect_snapshot`` with the engine, serve and cache configs, the
+   cost model, the prepared snapshot and the packed/unpacked byte models
+   of a dual prepare, its placement budget between the tables' bytes and
+   the card's memory; (3) ``propose`` (printed as a ``tune diff:`` JSON
+   line), ``apply_diff``, the tuned client on the same store and the same
+   schedules, the measured pad waste of both arms beside the predicted
+   one; (4) the ladder (192, 576, 1344) on both layouts whatever the
+   tuner proposed: 300 jittered dispatches a tier, one capture per
+   (permissions, tier), no recapture, replayed planes == check_columns'
+   kernel planes == the plain planes (each key's first dispatch and
+   every 5th), >= 2,000 sampled rows vs the oracle, ``block`` and
+   ``gate`` (``aligned.`` on the aligned layout) inside the captures;
+   (5) diffs setting ``kernels`` False then True: equal planes, launches
+   only under True; (6) an ``OnlineController`` on a live handle behind
+   ``TelemetryServer(controller=...)``: 6 ticks under load, every move
+   within its bounds, ``/tune`` enabled, ``revert()`` restores the
+   preset.  Prints one ``tune: {...}`` line.
+18. (after phase 17) the fleet (fleet/) on config 2 written into a
+   ``FleetRouter``'s store: (1) one, then two in-process ``Replica``s
+   with ``cuda`` clients (verdict cache, latency mode) bootstrapped over
+   the wire (seconds), 4 router callers for 2 s with each (checks/s,
+   per-call p50/p99 ms on the host clock, no claim; every answer vs the
+   oracle); (2) 2,000 checks under ``full``, ``at_least`` a zookie and
+   ``min_latency`` after a quiesce, equal to the oracle at the head; (3)
+   40 single-edge toggles written through the router while the 4 callers
+   check, each read back through its zookie (stale answers: 0), full and
+   delta prepares and captures per replica; (4) ``replica.kill`` armed
+   mid-traffic: every in-window call answered once and right, the dead
+   replica evicted, a fresh one bootstrapped and rejoined; (5) a
+   group-committed write applied as one entry by each replica.  Fails on
+   any capture failure, breaker trip or latency reroute.  Prints one
+   ``fleet: {...}`` line.  Phases 17 and 18 each run with the counts set
+   to 0 just before and read just after (added back afterwards).
 
 Phases 4-8 are the main path: launch counts are zeroed before phase 4
 and read after phase 7, and every mode of both kernels, and the gate
@@ -355,6 +395,7 @@ the last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import datetime as dt
 import gc
 import json
@@ -362,6 +403,7 @@ import os
 import random
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -617,14 +659,22 @@ definition repo {
 """
 
 
-def build_rbac(n_repos=10_000, n_users=1_000, n_teams=100, n_orgs=10, seed=11):
-    """BASELINE config 2, the generator of bench.py:57-126."""
+def build_rbac(n_repos=10_000, n_users=1_000, n_teams=100, n_orgs=10, seed=11,
+               store=None):
+    """BASELINE config 2, the generator of bench.py:57-126.  With ``store``
+    the relationships go into that store (its interner, one pre-interned
+    columnar import a (relation, subject relation) pair) and the snapshot
+    is the store's head."""
     from gochugaru_tpu_torch.schema import compile_schema, parse_schema
     from gochugaru_tpu_torch.store.interner import Interner
     from gochugaru_tpu_torch.store.snapshot import build_snapshot_from_columns
 
     cs = compile_schema(parse_schema(RBAC_SCHEMA))
-    interner = Interner()
+    if store is not None:
+        store.write_schema(RBAC_SCHEMA)
+        interner = store.interner
+    else:
+        interner = Interner()
     rng = np.random.default_rng(seed)
     users = np.array([interner.node("user", f"u{i}") for i in range(n_users)], np.int64)
     teams = np.array([interner.node("team", f"t{i}") for i in range(n_teams)], np.int64)
@@ -657,12 +707,29 @@ def build_rbac(n_repos=10_000, n_users=1_000, n_teams=100, n_orgs=10, seed=11):
     for _ in range(2):
         res.extend(repos); rel_s.extend([reader] * n_repos)
         subj.extend(rng.choice(users, n_repos)); srel.extend([-1] * n_repos)
-    snap = build_snapshot_from_columns(
-        1, cs, interner,
-        res=np.asarray(res, np.int64), rel=np.asarray(rel_s, np.int64),
-        subj=np.asarray(subj, np.int64), srel=np.asarray(srel, np.int64),
-        epoch_us=EPOCH,
-    )
+    if store is not None:
+        from gochugaru_tpu_torch import consistency
+
+        name = {v: k for k, v in slot.items()}
+        cols = np.stack([np.asarray(c, np.int64) for c in (res, rel_s, subj, srel)])
+        for rl, sr in sorted({(int(a), int(b)) for a, b in zip(cols[1], cols[3])}):
+            pick = (cols[1] == rl) & (cols[3] == sr)
+            store.import_interned_columns(
+                resource_ids=cols[0][pick], resource_relation=name[rl],
+                subject_ids=cols[2][pick],
+                subject_relation=name[sr] if sr >= 0 else "",
+                touch=True,  # the generator draws repeated pairs
+            )
+        snap = store.snapshot_for(consistency.full())
+        cs = snap.compiled
+        slot = cs.slot_of_name
+    else:
+        snap = build_snapshot_from_columns(
+            1, cs, interner,
+            res=np.asarray(res, np.int64), rel=np.asarray(rel_s, np.int64),
+            subj=np.asarray(subj, np.int64), srel=np.asarray(srel, np.int64),
+            epoch_us=EPOCH,
+        )
     # the batch: bench.py's seed-5 draw
     qrng = np.random.default_rng(5)
     B = 100_000
@@ -6116,6 +6183,760 @@ def phase_operations(K, cap, client, q, names, direct, n_docs, n_users, n_groups
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the tuner on the card (tune/) over BASELINE config 2
+# ---------------------------------------------------------------------------
+
+#: the tuner's mixed load, the profile of benchmarks/bench11_tune.py:1-34
+#: and :139-220: interactive CheckMany submissions of TUNE_SUBMIT checks on
+#: a Poisson clock (TUNE_RATE a second for TUNE_INTER_S seconds), bulk
+#: CheckMany of TUNE_BULK_SUBMIT checks at TUNE_BULK_RATE, and a
+#: duplicate-heavy round (TUNE_DUP submissions drawn from TUNE_DUP_KEYS
+#: windows of the pool); users zipf TUNE_ZIPF, read 90% / admin 10%.  The
+#: schedules are drawn once and replayed by both arms
+TUNE_RATE = 400.0
+TUNE_SUBMIT = 9
+TUNE_INTER_S = 2.0
+TUNE_BULK = 60
+TUNE_BULK_SUBMIT = 300
+TUNE_BULK_RATE = 70.0
+TUNE_DUP = 300
+TUNE_DUP_SUBMIT = 16
+TUNE_DUP_KEYS = 24
+TUNE_ZIPF = 1.2
+TUNE_POOL = 1 << 16
+#: the forced ladder (tests/test_tune.py:51), its jittered dispatches a
+#: tier and layout, and the rows of each layout held against the oracle
+TUNED_TIERS = (192, 576, 1344)
+TUNE_DISPATCHES = 300
+TUNE_ORACLE_ROWS = 2_000
+#: the controller's ticks, each after TUNE_TICK_S of interactive load
+TUNE_TICKS = 6
+TUNE_TICK_S = 0.4
+
+
+def tune_pool(store, n_repos, n_users, rng):
+    """bench11's pool over the store's config 2 world: (res, perm, subj)
+    columns and each row's (repo index, permission, user index)."""
+    from gochugaru_tpu_torch import consistency
+
+    snap = store.snapshot_for(consistency.full())
+    inter, slot = snap.interner, snap.compiled.slot_of_name
+    repos = np.array([inter.node("repo", f"r{i}") for i in range(n_repos)], np.int32)
+    users = np.array([inter.node("user", f"u{i}") for i in range(n_users)], np.int32)
+    ri = rng.integers(0, n_repos, TUNE_POOL)
+    ui = (rng.zipf(TUNE_ZIPF, TUNE_POOL) - 1) % n_users
+    admin = rng.random(TUNE_POOL) >= 0.9
+    perm = np.where(admin, slot["admin"], slot["read"]).astype(np.int32)
+    return dict(res=repos[ri], perm=perm, subj=users[ui], ri=ri, ui=ui, admin=admin,
+                snap=snap)
+
+
+def tune_schedules(rng):
+    """The three profiles' fixed schedules: (arrivals s, pool offsets, n)."""
+    n_inter = int(TUNE_RATE * TUNE_INTER_S)
+    inter = (np.cumsum(rng.exponential(1.0 / TUNE_RATE, n_inter)),
+             rng.integers(0, TUNE_POOL - TUNE_SUBMIT, n_inter), TUNE_SUBMIT)
+    bulk = (np.cumsum(rng.exponential(1.0 / TUNE_BULK_RATE, TUNE_BULK)),
+            rng.integers(0, TUNE_POOL - TUNE_BULK_SUBMIT, TUNE_BULK),
+            TUNE_BULK_SUBMIT)
+    keys = rng.integers(0, TUNE_POOL - TUNE_DUP_SUBMIT, TUNE_DUP_KEYS)
+    dup = (np.cumsum(rng.exponential(1.0 / TUNE_RATE, TUNE_DUP)),
+           rng.choice(keys, TUNE_DUP), TUNE_DUP_SUBMIT)
+    return {"interactive": inter, "bulk": bulk, "duplicates": dup}
+
+
+def tune_paced(h, pool, sched):
+    """Open-loop arrivals from a fixed schedule; per-submission latency
+    from the futures (the first 10% are the profile's warm transient)."""
+    from gochugaru_tpu_torch.utils.context import background
+    from gochugaru_tpu_torch.utils.errors import ShedError
+
+    ctx = background()
+    arrivals, starts, n = sched
+    futs = []
+    gc.collect()
+    gc.disable()
+    t0 = time.perf_counter()
+    try:
+        for k, (a, s) in enumerate(zip(arrivals, starts)):
+            slack = t0 + a - time.perf_counter()
+            if slack > 0.0015:
+                time.sleep(slack - 0.001)
+            s = int(s)
+            while True:
+                try:
+                    futs.append(h.submit_columns(
+                        ctx, pool["res"][s:s + n], pool["perm"][s:s + n],
+                        pool["subj"][s:s + n], client_id=k % 8))
+                    break
+                except ShedError:
+                    time.sleep(0.001)
+        outs = [f.result(timeout=120.0) for f in futs]
+    finally:
+        gc.enable()
+    el = time.perf_counter() - t0
+    lat = np.array([(f.t_done - f.t_submit) * 1e3 for f in futs[max(3, len(futs) // 10):]])
+    return dict(submissions=len(futs), checks_per_s=len(futs) * n / el,
+                p50_ms=float(np.percentile(lat, 50)),
+                p99_ms=float(np.percentile(lat, 99))), (starts, n, outs)
+
+
+def tune_occupancy_pad(m):
+    """Pad waste of the formed batches: 1 - live lanes / tier lanes over
+    the serve.occupancy.t* histograms (the tuner's own measure)."""
+    live = lanes = 0.0
+    for name, (_b, _c, count, total, _e) in m.hist_snapshot().items():
+        if name.startswith("serve.occupancy.t"):
+            live += total
+            lanes += float(name[len("serve.occupancy.t"):]) * count
+    return (1.0 - live / lanes) if lanes else None
+
+
+def tune_oracle(pool, outs_of, rows):
+    """``rows`` sampled answers of the arm vs the host oracle."""
+    from gochugaru_tpu_torch.engine.oracle import SnapshotOracle, T
+
+    oracle = SnapshotOracle(pool["snap"], {}, now_us=EPOCH)
+    bad = 0
+    for starts, n, outs in outs_of:
+        for s, out in list(zip(starts, outs))[:rows // max(1, len(outs_of))]:
+            s = int(s)
+            for j in range(n):
+                i = s + j
+                want = oracle.check("repo", f"r{pool['ri'][i]}",
+                                    "admin" if pool["admin"][i] else "read",
+                                    "user", f"u{pool['ui'][i]}", "", now_us=EPOCH) == T
+                bad += bool(out[j]) != want
+    return bad
+
+
+def tune_arm(label, client, serve_cfg, pool, scheds, warm_tiers):
+    """One arm: a serving handle, each tier's pins warmed sequentially,
+    then the three profiles on the fixed schedules.  Returns the
+    profiles' numbers, the occupancy pad waste of the window and the
+    oracle mismatches of a sample of its answers."""
+    from gochugaru_tpu_torch.utils import metrics
+
+    h = client.with_serving(config=serve_cfg)
+    try:
+        from gochugaru_tpu_torch.utils.context import background
+
+        ctx = background()
+        for _ in range(2):
+            for t in warm_tiers:
+                n = min(int(t), TUNE_POOL - 1)
+                h.submit_columns(ctx, pool["res"][:n], pool["perm"][:n],
+                                 pool["subj"][:n]).result(timeout=120.0)
+        metrics.default.reset()
+        out, answers = {}, []
+        for name, sched in scheds.items():
+            out[name], ans = tune_paced(h, pool, sched)
+            answers.append(ans)
+        out["pad_waste"] = tune_occupancy_pad(metrics.default)
+        out["oracle_mismatches"] = tune_oracle(pool, answers, 200)
+    finally:
+        h.close()
+    log(f"tune {label}: {json.dumps(out)}")
+    if out["oracle_mismatches"]:
+        raise AssertionError(f"tune {label}: {out['oracle_mismatches']} answers"
+                             " disagree with the host oracle")
+    return out
+
+
+def tune_ladder(K, cs, snap, q, names, layout):
+    """The forced ladder TUNED_TIERS on one layout: TUNE_DISPATCHES
+    jittered dispatches a tier; one capture per (permissions, tier), no
+    recapture, replayed planes == check_columns' kernel planes == the
+    plain planes, sampled rows == the host oracle, block and gate inside
+    the captures."""
+    from gochugaru_tpu_torch.engine.device import DeviceEngine
+    from gochugaru_tpu_torch.engine.oracle import SnapshotOracle, T
+    from gochugaru_tpu_torch.engine.plan import EngineConfig
+    from gochugaru_tpu_torch.utils import metrics
+
+    cfg = dict(latency_tiers=TUNED_TIERS, **layout)
+    ek = DeviceEngine(cs, EngineConfig(kernels=DEV == "cuda" or None, **cfg), device=DEV)
+    ep = DeviceEngine(cs, EngineConfig(kernels=False, **cfg), device=DEV)
+    ds = ek.prepare(snap)
+    lp = ek.latency_path(ds)
+    rng = np.random.default_rng(17)
+    oracle = SnapshotOracle(snap, {}, now_us=EPOCH)
+    retr0 = metrics.default.counter("latency.retraces")
+    n_q = q[0].shape[0]
+    lo, keys, checked, bad, per_tier = 0, set(), 0, 0, {}
+    per_dispatch = -(-TUNE_ORACLE_ROWS // (TUNE_DISPATCHES * len(TUNED_TIERS)))
+    for tier in TUNED_TIERS:
+        c0 = lp.compile_count
+        times = []
+        for i in range(TUNE_DISPATCHES):
+            B = int(rng.integers(lo + 1, tier + 1))
+            at = int(rng.integers(0, n_q - B))
+            cols = (q[0][at:at + B], q[1][at:at + B], q[2][at:at + B])
+            key = (tuple(np.unique(cols[1])), tier)
+            t0 = time.perf_counter()
+            got = lp.dispatch_columns(*cols, now_us=EPOCH)
+            times.append(time.perf_counter() - t0)
+            if lp.last_budget.tier != tier:
+                raise AssertionError(f"B={B} served at tier {lp.last_budget.tier}, not {tier}")
+            first = key not in keys
+            keys.add(key)
+            if first or i % 5 == 0:
+                _lat_same(f"tuned ladder {layout} tier {tier} B={B}", got,
+                          ek.check_columns(ds, *cols, now_us=EPOCH),
+                          ep.check_columns(ds, *cols, now_us=EPOCH))
+                checked += 1
+            d, p, o = got
+            for j in rng.choice(B, min(B, per_dispatch + 1), replace=False):
+                rt, rid, perm, st, sid = names[at + j]
+                want = oracle.check(rt, rid, perm, st, sid, "", now_us=EPOCH) == T
+                gotj = want if (o[j] or (p[j] and not d[j])) else bool(d[j])
+                bad += gotj != want
+                per_tier[tier] = per_tier.get(tier, 0) + 1
+        log(f"tuned ladder {layout}: tier {tier}: {TUNE_DISPATCHES} dispatches,"
+            f" captures {lp.compile_count - c0}, p50/p99 ms {_ms_p(times)}")
+        lo = tier
+    pins = lp.pins()
+    modes = _lat_modes([lp])
+    recaptures = metrics.default.counter("latency.retraces") - retr0
+    rows = sum(per_tier.values())
+    out = dict(captures=lp.compile_count, keys=len(keys), pins=len(pins),
+               captures_per_tier={str(t): sum(1 for k in keys if k[1] == t)
+                                  for t in TUNED_TIERS},
+               recaptures=recaptures, planes_checked=checked, oracle_rows=rows,
+               oracle_mismatches=bad, modes_in_captures=modes)
+    log(f"tuned ladder {layout}: {json.dumps(out)}")
+    if lp.compile_count != len(keys) or len(pins) != len(keys) or recaptures:
+        raise AssertionError(f"tuned ladder {layout}: {lp.compile_count} captures for"
+                             f" {len(keys)} (permissions, tier) keys, {recaptures} recaptures")
+    if bad or rows < TUNE_ORACLE_ROWS:
+        raise AssertionError(f"tuned ladder {layout}: {bad} of {rows} sampled rows"
+                             " disagree with the oracle (or too few rows)")
+    pre = "aligned." if layout.get("flat_aligned") else ""
+    missing = [m for m in (pre + "block", pre + "gate") if not modes.get(m)]
+    if missing and DEV == "cuda":
+        raise AssertionError(f"tuned ladder {layout}: never launched inside a capture: {missing}")
+    return out
+
+
+def tune_kernels_knob(K, cs, snap, q):
+    """Diffs that set ``kernels`` False, then True, on the card: equal
+    planes, launches only under True."""
+    from gochugaru_tpu_torch.engine.device import DeviceEngine
+    from gochugaru_tpu_torch.engine.plan import EngineConfig
+    from gochugaru_tpu_torch.serve import ServeConfig
+    from gochugaru_tpu_torch.tune import TuneDiff, TuneTarget, apply_diff
+    from gochugaru_tpu_torch.tune.tuner import KnobDiff
+
+    target = TuneTarget(engine=EngineConfig(), serve=ServeConfig())
+    out, planes = {}, {}
+    for cur, want in ((True, False), (False, True)):
+        diff = TuneDiff((KnobDiff("kernels", "engine", cur, want, "forced", {}),))
+        eng = apply_diff(target, diff).engine
+        if eng.kernels is not want:
+            raise AssertionError(f"apply_diff left kernels={eng.kernels}, not {want}")
+        if DEV != "cuda":  # a CPU rehearsal: kernels=True needs the card
+            eng = dataclasses.replace(eng, kernels=None)
+        before = dict(K.LAUNCHES)
+        e = DeviceEngine(cs, eng, device=DEV)
+        planes[want] = e.check_columns(e.prepare(snap), *q, now_us=EPOCH)
+        n = sum(K.LAUNCHES[k] - before[k] for k in K.LAUNCHES)
+        out[str(want)] = n
+        if (n > 0) != (want and DEV == "cuda"):
+            raise AssertionError(f"kernels={want}: {n} kernel launches")
+    _lat_same("kernels knob False vs True", planes[False], planes[True])
+    log(f"tune: the kernels knob on the card: launches {out}, planes equal")
+    return out
+
+
+def tune_controller(client, pool, scheds):
+    """The OnlineController on a live handle behind /tune: TUNE_TICKS
+    ticks under interactive load, every move within its bounds, /tune
+    enabled, revert() back to the preset."""
+    import urllib.request
+
+    from gochugaru_tpu_torch.serve import ServeConfig
+    from gochugaru_tpu_torch.tune import OnlineController
+    from gochugaru_tpu_torch.utils import metrics
+    from gochugaru_tpu_torch.utils.telemetry import TelemetryServer
+
+    preset = ServeConfig()
+    h = client.with_serving(config=preset)
+    vc = client._vcache
+    ctl = OnlineController(h.batcher, vcache=vc, cooldown_steps=1)
+    srv = TelemetryServer(port=0, controller=ctl)
+    arrivals, starts, n = scheds["interactive"]
+    per_tick = max(1, int(TUNE_RATE * TUNE_TICK_S))
+    moves, trail = [], []
+    try:
+        for t in range(TUNE_TICKS):
+            sl = slice((t * per_tick) % len(starts), (t * per_tick) % len(starts) + per_tick)
+            arr = arrivals[sl] - arrivals[sl][0]
+            tune_paced(h, pool, (arr, starts[sl], n))
+            moves.append(ctl.step())
+            st = ctl.status()
+            trail.append(dict(hold_max_s=st["hold_max_s"], dedup=st["dedup"],
+                              vcache_bytes=st["vcache_bytes"]))
+            if not (ctl.hold_bounds[0] <= st["hold_max_s"] <= ctl.hold_bounds[1]):
+                raise AssertionError(f"controller: hold {st['hold_max_s']} out of bounds")
+            if vc is not None and not (ctl.cache_bounds[0] <= vc.max_bytes
+                                       <= ctl.cache_bounds[1]):
+                raise AssertionError(f"controller: cache {vc.max_bytes} out of bounds")
+        with urllib.request.urlopen(srv.url + "/tune", timeout=30) as r:
+            tune_ep = json.loads(r.read())
+        if tune_ep.get("enabled") is not True:
+            raise AssertionError(f"/tune: {tune_ep}")
+        ctl.revert()
+        if h.batcher.config != preset or (vc is not None and vc.max_bytes != ctl._preset[1]):
+            raise AssertionError("controller: revert() did not restore the preset")
+    finally:
+        srv.close()
+        ctl.close()
+        h.close()
+    out = dict(ticks=TUNE_TICKS, moves=moves, trail=trail,
+               counters=tune_ep["counters"], frozen=tune_ep["status"]["frozen"],
+               reverted=True)
+    log(f"tune: controller {json.dumps(out)}")
+    return out
+
+
+def phase_tune(K, card, n_repos=10_000, n_users=1_000, n_teams=100, n_orgs=10):
+    """Phase 17 (see the module docstring).  Returns the ``tune:`` line's
+    object."""
+    from gochugaru_tpu_torch import consistency
+    from gochugaru_tpu_torch.client import (
+        new_evaluator, with_engine_config, with_latency_mode, with_store,
+        with_verdict_cache,
+    )
+    from gochugaru_tpu_torch.engine.device import DeviceEngine
+    from gochugaru_tpu_torch.engine.plan import EngineConfig
+    from gochugaru_tpu_torch.serve import ServeConfig
+    from gochugaru_tpu_torch.tune import TuneTarget, apply_diff, collect_snapshot, propose
+    from gochugaru_tpu_torch.utils import metrics, perf
+
+    t17 = time.perf_counter()
+    saved = dict(K.LAUNCHES), dict(K.LANES)
+    K.reset_launches()
+    eng0 = EngineConfig()
+    c0 = new_evaluator(with_latency_mode(), with_verdict_cache(),
+                       with_engine_config(eng0), device=DEV)
+    cs, snap, q, names = build_rbac(n_repos, n_users, n_teams, n_orgs, store=c0.store)
+    rng = np.random.default_rng(29)
+    pool = tune_pool(c0.store, n_repos, n_users, rng)
+    scheds = tune_schedules(rng)
+    # (1) the load under the defaults
+    default = tune_arm("default", c0, ServeConfig(), pool, scheds, eng0.latency_tiers)
+    # (2) the snapshot, with the offline packed/unpacked byte models
+    cand = {}
+    for label, packed in (("packed", True), ("unpacked", False)):
+        e = DeviceEngine(cs, EngineConfig(flat_packed=packed), device=DEV)
+        cand[label] = perf.gathered_bytes_model(e.prepare(snap)).total
+    ds = c0._dsnap_cache[max(c0._dsnap_cache)]
+    tsnap = collect_snapshot(
+        metrics.default, engine_config=eng0, serve_config=ServeConfig(),
+        vcache=c0._vcache, cost=c0._admission.cost, dsnap=ds,
+        packed_candidates=cand)
+    budget = tsnap.get("bytes", {}).get("device_budget")
+    tables = sum(v.nbytes for v in ds.arrays.values())
+    if DEV == "cuda" and not (
+            budget and tables <= budget <= torch.cuda.get_device_properties(0).total_memory):
+        raise AssertionError(f"tune: placement budget {budget} (tables {tables})")
+    # (3) propose, apply, re-run the same schedules on the tuned client
+    target = TuneTarget(engine=eng0, serve=ServeConfig(),
+                        cache_bytes=c0._vcache.max_bytes)
+    diff = propose(tsnap, target)
+    print("tune diff: " + diff.to_json())
+    for line in diff.render().splitlines():
+        log("  " + line)
+    tuned = apply_diff(target, diff)
+    c1 = new_evaluator(with_latency_mode(), with_verdict_cache(tuned.cache_bytes or True),
+                       with_engine_config(tuned.engine), with_store(c0.store), device=DEV)
+    tuned_run = tune_arm("tuned", c1, tuned.serve, pool, scheds, tuned.engine.latency_tiers)
+    kd = diff.get("latency_tiers")
+    predicted = None
+    if kd is not None and default["pad_waste"] is not None:
+        predicted = default["pad_waste"] + kd.predicted.get("pad_waste_frac", 0.0)
+    # (4) the forced non-pow2 ladder on both layouts
+    ladder = {"off": tune_ladder(K, cs, snap, q, names, {}),
+              "aligned": tune_ladder(K, cs, snap, q, names, ALIGNED)}
+    # (5) the kernels knob
+    knob = tune_kernels_knob(K, cs, snap, q)
+    # (6) the controller behind /tune
+    controller = tune_controller(c0, pool, scheds)
+    got = {k: v for k, v in K.LAUNCHES.items() if v}
+    for k in K.LAUNCHES:
+        K.LAUNCHES[k] += saved[0][k]
+        K.LANES[k] += saved[1][k]
+    del c0, c1
+    gc.collect()
+    seconds = time.perf_counter() - t17
+    out = dict(card=card, world=dict(edges=snap.num_edges, revision=snap.revision),
+               diff={k.knob: dict(current=k.current, proposed=k.proposed,
+                                  predicted=dict(k.predicted)) for k in diff.knobs},
+               tuned_tiers=list(tuned.engine.latency_tiers),
+               placement_budget=dict(bytes=budget, tables=tables),
+               pad_waste=dict(default=default["pad_waste"], tuned=tuned_run["pad_waste"],
+                              predicted_tuned=predicted),
+               default=default, tuned=tuned_run, ladder=ladder, kernels_knob=knob,
+               controller=controller, launches=got, seconds=seconds)
+    log(f"phase 17: {seconds:.1f}s; launches {json.dumps(got)}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the fleet on the card (fleet/) over BASELINE config 2
+# ---------------------------------------------------------------------------
+
+#: router-side load: FLEET_THREADS callers, each call FLEET_CALL checks
+FLEET_THREADS = 4
+FLEET_CALL = 16
+FLEET_LOAD_S = 2.0
+#: consistency: checks a strategy, in calls of FLEET_CALL
+FLEET_CHECKS = 2_000
+#: single-edge toggles written under load, on the first FLEET_TOGGLE_REPOS
+#: repos (the callers check the others, whose answers stay put)
+FLEET_TOGGLES = 40
+FLEET_TOGGLE_REPOS = 50
+#: transactions of the group-committed write
+FLEET_GROUP = 8
+
+
+class FleetCounts:
+    """Per-engine counts of full and delta prepares and of latency
+    captures (and failed captures), by wrapping the engine's prepare and
+    the latency path's capture for the phase."""
+
+    def __init__(self):
+        from gochugaru_tpu_torch.engine.device import DeviceEngine
+        from gochugaru_tpu_torch.engine.latency import LatencyPath
+
+        self.classes = (DeviceEngine, LatencyPath)
+        self.orig = (DeviceEngine.prepare, LatencyPath._capture)
+        self.n = {}
+        self.lock = threading.Lock()
+
+    def _inc(self, eng, key):
+        with self.lock:
+            row = self.n.setdefault(id(eng), dict(full=0, delta=0, captures=0,
+                                                  capture_failures=0))
+            row[key] += 1
+
+    def __enter__(self):
+        prep, cap = self.orig
+        counts = self
+
+        def prepare(eng, snap, prev=None):
+            ds = prep(eng, snap, prev)
+            counts._inc(eng, "full" if ds.delta_acc is None else "delta")
+            return ds
+
+        def capture(lp, pin, key):
+            counts._inc(lp.engine, "captures")
+            try:
+                return cap(lp, pin, key)
+            except BaseException:
+                counts._inc(lp.engine, "capture_failures")
+                raise
+
+        self.classes[0].prepare = prepare
+        self.classes[1]._capture = capture
+        return self
+
+    def __exit__(self, *exc):
+        self.classes[0].prepare, self.classes[1]._capture = self.orig
+        return False
+
+    def of(self, replica):
+        eng = replica._client._engine
+        return dict(self.n.get(id(eng), dict(full=0, delta=0, captures=0,
+                                             capture_failures=0)))
+
+
+def fleet_queries(rng, n, n_repos, n_users, lo=FLEET_TOGGLE_REPOS):
+    """``n`` (repo, permission, user) checks on repos past the toggled
+    ones."""
+    ri = rng.integers(lo, n_repos, n)
+    ui = rng.integers(0, n_users, n)
+    perm = np.where(rng.random(n) < 0.9, "read", "admin")
+    return [(f"repo:r{a}", p, f"user:u{b}") for a, p, b in zip(ri, perm, ui)]
+
+
+def fleet_load(router, oracle_of, queries, seconds, strategy, stop=None):
+    """FLEET_THREADS callers on the router for ``seconds`` (or until
+    ``stop``): each call FLEET_CALL checks, every answer held against the
+    oracle's.  Returns checks/s, per-call p50/p99 ms, calls, mismatches
+    and errors."""
+    from gochugaru_tpu_torch import rel
+    from gochugaru_tpu_torch.utils.context import background
+
+    lat, bad, errs, calls = [], [0], [], [0]
+    lock = threading.Lock()
+    t_end = time.perf_counter() + seconds
+
+    def caller(seed):
+        rng = np.random.default_rng(seed)
+        while (stop is None and time.perf_counter() < t_end) or (
+                stop is not None and not stop.is_set()):
+            idx = rng.integers(0, len(queries), FLEET_CALL)
+            rels = [rel.must_from_triple(*queries[i]) for i in idx]
+            t0 = time.perf_counter()
+            try:
+                got = router.check(background().with_timeout(60.0), strategy(), *rels)
+            except BaseException as e:  # counted: the phase fails on any
+                with lock:
+                    errs.append(repr(e))
+                continue
+            dt = time.perf_counter() - t0
+            want = [oracle_of[queries[i]] for i in idx]
+            with lock:
+                lat.append(dt)
+                calls[0] += 1
+                bad[0] += sum(a != b for a, b in zip(got, want))
+
+    t0 = time.perf_counter()
+    ts = [threading.Thread(target=caller, args=(s,)) for s in range(FLEET_THREADS)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+    el = time.perf_counter() - t0
+    return dict(calls=calls[0], checks_per_s=calls[0] * FLEET_CALL / el,
+                p50_ms=float(np.percentile(lat, 50) * 1e3) if lat else None,
+                p99_ms=float(np.percentile(lat, 99) * 1e3) if lat else None,
+                mismatches=bad[0], errors=errs[:3], n_errors=len(errs))
+
+
+def fleet_load_held(res, what):
+    """Raises unless a ``fleet_load`` window made calls and every one of them
+    was answered, and answered as the oracle does."""
+    if not res.get("calls") or res.get("mismatches") or res.get("n_errors"):
+        raise AssertionError(f"fleet: {what}: {res}")
+
+
+def phase_fleet(K, card, n_repos=10_000, n_users=1_000, n_teams=100, n_orgs=10,
+                load_s=FLEET_LOAD_S):
+    """Phase 18 (see the module docstring).  Returns the ``fleet:`` line's
+    object."""
+    from dataclasses import replace as dc_replace
+
+    from gochugaru_tpu_torch import consistency, rel
+    from gochugaru_tpu_torch.client import (
+        new_evaluator, with_host_only_evaluation, with_latency_mode, with_store,
+        with_verdict_cache,
+    )
+    from gochugaru_tpu_torch.fleet import FleetConfig, FleetRouter, Replica
+    from gochugaru_tpu_torch.store.store import RevisionToken
+    from gochugaru_tpu_torch.utils import faults, metrics
+    from gochugaru_tpu_torch.utils.context import background
+
+    t18 = time.perf_counter()
+    saved = dict(K.LAUNCHES), dict(K.LANES)
+    K.reset_launches()
+    m = metrics.default
+    cfg = dc_replace(FleetConfig(), probe_interval_s=0.05, probe_timeout_s=2.0,
+                     heartbeat_s=0.05, freshness_wait_s=30.0, freshness_poll_s=0.01)
+    router = FleetRouter(config=cfg)
+    reps, out = [], {}
+    counts = FleetCounts()
+    m0 = {k: m.counter(k) for k in ("fleet.kill_detections", "fleet.applied_entries",
+                                    "fleet.group_applies", "breaker.trips",
+                                    "breaker.latency_rerouted", "latency.retraces")}
+
+    def spawn(rid):
+        t0 = time.perf_counter()
+        r = Replica(("127.0.0.1", router.port), replica_id=rid, config=cfg,
+                    client_options=(with_verdict_cache(), with_latency_mode()),
+                    device=DEV)
+        router.add_replica(r.host, r.port, wait_ready_s=120.0)
+        return r, time.perf_counter() - t0
+
+    try:
+        with counts:
+            t0 = time.perf_counter()
+            cs, snap, q, names = build_rbac(n_repos, n_users, n_teams, n_orgs,
+                                            store=router.store)
+            out["world"] = dict(edges=snap.num_edges, revision=snap.revision,
+                                build_s=time.perf_counter() - t0)
+            oracle = new_evaluator(with_store(router.store), with_host_only_evaluation())
+            rng = np.random.default_rng(41)
+            queries = fleet_queries(rng, 4096, n_repos, n_users)
+            ctx = background()
+            want = oracle.check(ctx, consistency.full(),
+                                *[rel.must_from_triple(*t) for t in queries])
+            oracle_of = dict(zip(queries, want))
+            # (1) one replica, then two; bootstrap seconds, load with each
+            boot, load = [], {}
+            warm = [rel.must_from_triple(*t) for t in queries[:512]]
+            for i in range(2):
+                r, s = spawn(f"card{i}")
+                reps.append(r)
+                boot.append(s)
+                for n in (1, 16, 64, 512):  # its first prepare and captures
+                    router.check(background().with_timeout(120.0),
+                                 consistency.min_latency(), *warm[:n])
+                load[f"{i + 1}_replicas"] = fleet_load(
+                    router, oracle_of, queries, load_s, consistency.min_latency)
+                log(f"fleet: {i + 1} replica(s): bootstrap {s:.2f}s; load"
+                    f" {json.dumps(load[f'{i + 1}_replicas'])}")
+                fleet_load_held(load[f"{i + 1}_replicas"],
+                                f"load with {i + 1} replica(s)")
+            out["bootstrap_s"], out["load"] = boot, load
+            # (2) consistency: full, at_least(zookie), min_latency after a quiesce
+            txn = rel.Txn()
+            txn.touch(rel.must_from_triple("repo:r0", "reader", "user:u0"))
+            zk = router.write(ctx, txn)
+            head = router.head_revision
+            deadline = time.monotonic() + 60
+            while any(r.head < head for r in reps) and time.monotonic() < deadline:
+                time.sleep(0.01)
+            checks = fleet_queries(np.random.default_rng(43), FLEET_CHECKS, n_repos,
+                                   n_users, lo=0)
+            rels = [rel.must_from_triple(*t) for t in checks]
+            want = oracle.check(ctx, consistency.at_least(RevisionToken(head)), *rels)
+            strat = {}
+            for label, cs_, kw in (("full", consistency.full(), {}),
+                                   ("at_least", consistency.min_latency(), {"zookie": zk}),
+                                   ("min_latency", consistency.min_latency(), {})):
+                got = []
+                for a in range(0, len(rels), FLEET_CALL * 4):
+                    got += router.check(background().with_timeout(60.0), cs_,
+                                        *rels[a:a + FLEET_CALL * 4], **kw)
+                strat[label] = int(sum(x != y for x, y in zip(got, want)))
+            out["consistency"] = dict(checks=len(rels), mismatches=strat)
+            log(f"fleet: consistency {json.dumps(out['consistency'])}")
+            if any(strat.values()):
+                raise AssertionError(f"fleet: answers differ from the oracle: {strat}")
+            # (3) single-edge toggles under load, each read back by its zookie
+            stop = threading.Event()
+            res = {}
+            th = threading.Thread(target=lambda: res.update(fleet_load(
+                router, oracle_of, queries, 0, consistency.min_latency, stop=stop)))
+            th.start()
+            stale, ryw_ms = 0, []
+            trng = np.random.default_rng(47)
+            try:
+                for k in range(FLEET_TOGGLES):
+                    t = (f"repo:r{trng.integers(1, FLEET_TOGGLE_REPOS)}", "reader",
+                         f"user:u{trng.integers(n_users)}")
+                    r_ = rel.must_from_triple(*t)
+                    txn = rel.Txn()
+                    live = oracle.check(ctx, consistency.full(),
+                                        rel.must_from_triple(t[0], "reader", t[2]))[0]
+                    if live:
+                        txn.delete(r_)
+                    else:
+                        txn.touch(r_)
+                    zk = router.write(ctx, txn)
+                    qr = rel.must_from_triple(t[0], "read", t[2])
+                    exp = oracle.check(ctx, consistency.full(), qr)
+                    t0 = time.perf_counter()
+                    got = router.check(background().with_timeout(60.0),
+                                       consistency.min_latency(), qr, zookie=zk)
+                    ryw_ms.append((time.perf_counter() - t0) * 1e3)
+                    stale += got != exp
+            finally:
+                stop.set()
+                th.join()
+            out["writes"] = dict(toggles=FLEET_TOGGLES, stale=stale,
+                                 ryw_p50_p99_ms=[float(np.percentile(ryw_ms, 50)),
+                                                 float(np.percentile(ryw_ms, 99))],
+                                 load=res,
+                                 prepares={r.id: counts.of(r) for r in reps})
+            log(f"fleet: writes under load {json.dumps(out['writes'])}")
+            if stale:
+                raise AssertionError(f"fleet: {stale} stale read-your-writes")
+            fleet_load_held(res, "load under writes")
+            # (4) failover: replica.kill armed mid-traffic
+            stop = threading.Event()
+            res = {}
+            th = threading.Thread(target=lambda: res.update(fleet_load(
+                router, oracle_of, queries, 0, consistency.min_latency, stop=stop)))
+            th.start()
+            try:
+                time.sleep(0.3)
+                faults.arm("replica.kill", times=1)
+                deadline = time.monotonic() + 30
+                while (len(router.status()["ring"]) > 1 or not any(r._dead for r in reps)) \
+                        and time.monotonic() < deadline:
+                    time.sleep(0.01)
+                evicted = len(router.status()["ring"]) == 1
+                time.sleep(0.3)
+            finally:
+                stop.set()
+                th.join()
+                faults.disarm("replica.kill")
+            dead = [r for r in reps if r._dead]
+            kills = m.counter("fleet.kill_detections") - m0["fleet.kill_detections"]
+            if not evicted or len(dead) != 1 or not kills:
+                raise AssertionError(f"fleet: kill not detected: ring"
+                                     f" {router.status()['ring']}, dead {len(dead)}")
+            fleet_load_held(res, "failover window")
+            for r in dead:
+                reps.remove(r)
+                out.setdefault("dead", []).append(dict(id=r.id, **counts.of(r)))
+                r.close()
+            r, s = spawn("card-rejoin")
+            reps.append(r)
+            if len(router.status()["ring"]) != 2:
+                raise AssertionError(f"fleet: rejoin left ring {router.status()['ring']}")
+            got = router.check(background().with_timeout(60.0), consistency.full(),
+                               *rels[:256])
+            want = oracle.check(ctx, consistency.full(), *rels[:256])
+            out["failover"] = dict(window=res, kill_detections=kills, rejoin_s=s,
+                                   rejoined_mismatches=int(sum(
+                                       x != y for x, y in zip(got, want))))
+            log(f"fleet: failover {json.dumps(out['failover'])}")
+            if out["failover"]["rejoined_mismatches"]:
+                raise AssertionError("fleet: the rejoined fleet disagrees with the oracle")
+            # (5) group commit: one entry on each replica
+            a0 = m.counter("fleet.applied_entries")
+            g0 = m.counter("fleet.group_applies")
+            txns = []
+            for k in range(FLEET_GROUP):
+                txn = rel.Txn()
+                txn.touch(rel.must_from_triple(f"repo:r{k + 1}", "reader", "user:u1"))
+                txns.append(txn)
+            zks = router.write_group(ctx, txns)
+            head = router.head_revision
+            deadline = time.monotonic() + 30
+            while any(r.head < head for r in reps) and time.monotonic() < deadline:
+                time.sleep(0.01)
+            got = router.check(ctx, consistency.min_latency(),
+                               rel.must_from_triple(f"repo:r{FLEET_GROUP}", "read",
+                                                    "user:u1"), zookie=zks[-1])
+            out["group_commit"] = dict(
+                txns=FLEET_GROUP, applied_entries=m.counter("fleet.applied_entries") - a0,
+                group_applies=m.counter("fleet.group_applies") - g0, ryw=got)
+            log(f"fleet: group commit {json.dumps(out['group_commit'])}")
+            if (out["group_commit"]["applied_entries"] != len(reps)
+                    or out["group_commit"]["group_applies"] != len(reps) or got != [True]):
+                raise AssertionError(f"fleet: group commit {out['group_commit']}")
+            out["replicas"] = {r.id: counts.of(r) for r in reps}
+    finally:
+        router.close()
+        for r in reps:
+            r.close()
+    out["breaker"] = {k: m.counter(k) - m0[k] for k in
+                      ("breaker.trips", "breaker.latency_rerouted", "latency.retraces")}
+    fails = sum(v["capture_failures"] for v in out.get("replicas", {}).values()) + sum(
+        v["capture_failures"] for v in out.get("dead", []))
+    got = {k: v for k, v in K.LAUNCHES.items() if v}
+    for k in K.LAUNCHES:
+        K.LAUNCHES[k] += saved[0][k]
+        K.LANES[k] += saved[1][k]
+    out["launches"] = got
+    out["card"] = card
+    out["seconds"] = time.perf_counter() - t18
+    log(f"phase 18: {out['seconds']:.1f}s; launches {json.dumps(got)};"
+        f" breaker {json.dumps(out['breaker'])}")
+    if fails or any(out["breaker"].values()):
+        raise AssertionError(f"fleet: {fails} capture failures, breaker {out['breaker']}")
+    missing = [k for k in ("block", "gate") if not got.get(k)]
+    if missing and DEV == "cuda":
+        raise AssertionError(f"fleet: {missing} never launched in the replicas' checks")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--scale3", type=float, default=1.0,
@@ -6254,6 +7075,10 @@ def main() -> int:
     # ---- phase 13: the latency path on pinned CUDA graphs ---------------
     latency = phase_latency(K, card)
 
+    # ---- phases 17-18: the tuner and the fleet on config 2 ---------------
+    tune = phase_tune(K, card)
+    fleet = phase_fleet(K, card)
+
     # ---- per-mode timing at the largest main-path shape ----------------
     table = []
     for mode in K.MODES + (K.GATE_CAV,):
@@ -6281,6 +7106,8 @@ def main() -> int:
     print("witness: " + json.dumps(witness))
     print("telemetry: " + json.dumps(telemetry))
     print("spmm: " + json.dumps(SPMM))
+    print("tune: " + json.dumps(tune))
+    print("fleet: " + json.dumps(fleet))
     print(json.dumps({"kernels": table}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -394,6 +394,25 @@ class DeviceEngine:
         return (arrays, flat_meta, strings, fold_state, closure_state,
                 host_arrays)
 
+    @staticmethod
+    def record_device_bytes(arrays: Mapping[str, torch.Tensor]) -> int:
+        """Publish the resident table footprint: one
+        ``snapshot.device_bytes`` gauge plus a per-table breakdown
+        (``snapshot.device_bytes.<table>``), so /metrics, trace spans and
+        incident bundles report device residency live."""
+        total = 0
+        # drop the previous snapshot's per-table entries first: a delta
+        # prepare can remove tables (despec'd offset anchors), and a
+        # stale gauge would break breakdown-sums-to-total
+        metrics.default.clear_gauges("snapshot.device_bytes.")
+        for k, v in arrays.items():
+            nb = int(v.nbytes)
+            total += nb
+            metrics.default.set_gauge(f"snapshot.device_bytes.{k}", nb)
+        metrics.default.set_gauge("snapshot.device_bytes", total)
+        _trace.event_if_active("snapshot.device_bytes", total=total)
+        return total
+
     def prepare(
         self, snap: Snapshot, prev: Optional[DeviceSnapshot] = None
     ) -> DeviceSnapshot:
@@ -416,6 +435,7 @@ class DeviceEngine:
             dev_arrays = {
                 k: to_device_tensor(v, self.device) for k, v in arrays.items()
             }
+        self.record_device_bytes(dev_arrays)
         ds = self._snapshot(snap, dev_arrays, flat_meta, strings)
         ds.fold_state = fold_state
         ds.closure_state = closure_state
@@ -563,6 +583,7 @@ class DeviceEngine:
             prev.flat_meta, delta=dmeta if dl_arrays else None,
             **extras.get("meta_up", {}),
         )
+        self.record_device_bytes(arrays)
         if meta.delta is not None:
             # a delta level declines the device frontier (engine/spmv.py
             # frontier_ok), so lookups on this chain walker-serve: start

@@ -50,7 +50,6 @@ import torch
 
 from . import kernels as _K
 from .hash import (
-    ALIGNED_MAX_BYTES,
     _ceil_pow2,
     build_aligned,
     build_hash,
@@ -358,6 +357,28 @@ class FlatMeta:
     pf_haswc: bool = False
     pf_has_e: bool = False
     pf_has_u: bool = False
+
+
+def placement_split(dsnap) -> Dict[str, int]:
+    """{"total", "sharded", "replicated"} resident device-table bytes:
+    of this snapshot's tensors, how many a routed partitioned serve would
+    SPLIT across devices -- the primary/fold-point tables (ehx*, pfx*)
+    and their width-stratum levels -- versus replicate whole on every
+    device.  The tuner's placement rule (tune/) reads it to decide
+    whether routing frees enough device memory to be worth it: a
+    snapshot dominated by membership-sized replicated tables gains
+    nothing from partitioning."""
+    total = 0
+    sharded = 0
+    for k, a in dsnap.arrays.items():
+        nb = int(a.nbytes)
+        total += nb
+        if k.startswith("ehx") or k.startswith("pfx"):
+            sharded += nb
+    return {
+        "total": total, "sharded": sharded,
+        "replicated": total - sharded,
+    }
 
 
 def _gate_cols(hascav: bool, hasexp: bool) -> list:
@@ -1363,7 +1384,10 @@ def build_flat_arrays(
         ``row_quantum`` trims the rows table's pow2 padding to a multiple
         (the T join's up-to-2x waste; see interleave_buckets)."""
         if AL:
-            ai = build_aligned(key_cols, cols, max_bytes=ALIGNED_MAX_BYTES)
+            ai = build_aligned(
+                key_cols, cols, max_bytes=config.flat_aligned_max_bytes,
+                cover=config.flat_aligned_cover,
+            )
             if ai is not None:
                 for lvl, (tbl, _cap) in enumerate(ai.levels):
                     out[_al_key(tbl_key, lvl)] = tbl
@@ -2012,7 +2036,10 @@ def build_delta_arrays(
             records the (pow2-stable) cap/size in meta_up.  Packed
             tables repack under the base spec (despec'd on misfit)."""
             if tbl_key in aligned_tbls and tbl_key + "_al" in prev_dsnap.arrays:
-                ai = build_aligned(key_cols, cols, max_bytes=ALIGNED_MAX_BYTES)
+                ai = build_aligned(
+                    key_cols, cols, max_bytes=config.flat_aligned_max_bytes,
+                    cover=config.flat_aligned_cover,
+                )
                 if ai is None or (ai.w, ai.caps) != aligned_tbls[tbl_key]:
                     return False
                 spec = pk_map.get(tbl_key)

@@ -42,7 +42,7 @@ from .plain import (
 
 __all__ = [
     "ALIGNED_MODES", "GATE_CAV", "KernelError", "LANES", "LAUNCHES", "MODES",
-    "blk_hit", "block_tile", "fused_probe", "fused_probe_aligned",
+    "available", "blk_hit", "block_tile", "fused_probe", "fused_probe_aligned",
     "fused_probe_aligned_plain", "fused_probe_plain", "gate_tile",
     "reduce_path", "reduce_tile", "reset_launches", "spec_tensors",
     "warp_tile",
@@ -281,6 +281,21 @@ def _launcher():
 
 def _aligned_launcher():
     return _bind("fused_probe_aligned", _AlignedArgs)
+
+
+def available() -> bool:
+    """Whether the kernels can launch in this process: a CUDA device and
+    both kernel libraries built from ``csrc/`` (built here when they are
+    not yet).  A probe for the tuner's ``kernels`` rule; the engine never
+    reads it to pick a path."""
+    if not torch.cuda.is_available():
+        return False
+    try:
+        _launcher()
+        _aligned_launcher()
+    except KernelError:
+        return False
+    return True
 
 
 def spec_tensors(spec, device) -> Tuple[torch.Tensor, torch.Tensor]:

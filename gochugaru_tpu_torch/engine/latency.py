@@ -87,6 +87,7 @@ from ..utils import metrics as _metrics
 from ..utils import perf as _perf
 from ..utils import trace as _trace
 from . import kernels as _K
+from .capture import recording
 from .device import to_device_tensor
 from .flat import QM_ROWS, fill_qm
 
@@ -263,22 +264,24 @@ class _Pin:
         with torch.cuda.stream(side), torch.no_grad():
             self.fn(*args)
             before = dict(_K.LAUNCHES)
-            graph.capture_begin(pool=pool, capture_error_mode="thread_local")
-            err = None
-            try:
-                got = self.fn(*args)
-                out = torch.stack(got[:3])
-                wout = got[3] if self.witness else None
-            except BaseException as e:  # the program's error is the one to see
-                err = e
-            try:
-                graph.capture_end()
-            except RuntimeError:
-                index = (torch.cuda.current_device() if dev.index is None
-                         else dev.index)
-                torch._C._cuda_endAllocateToPool(index, pool)
-                if err is None:
-                    raise
+            with recording():
+                graph.capture_begin(pool=pool,
+                                    capture_error_mode="thread_local")
+                err = None
+                try:
+                    got = self.fn(*args)
+                    out = torch.stack(got[:3])
+                    wout = got[3] if self.witness else None
+                except BaseException as e:  # the program's error to see
+                    err = e
+                try:
+                    graph.capture_end()
+                except RuntimeError:
+                    index = (torch.cuda.current_device() if dev.index is None
+                             else dev.index)
+                    torch._C._cuda_endAllocateToPool(index, pool)
+                    if err is None:
+                        raise
             if err is not None:
                 raise err
         torch.cuda.current_stream(dev).wait_stream(side)

@@ -28,6 +28,7 @@ from ..schema.ast import (
     Union,
 )
 from ..schema.compiler import CompiledSchema, _expr_refs
+from .hash import ALIGNED_COVER, ALIGNED_MAX_BYTES
 
 # Expression IR: nested tuples, all leaves static ints.
 #   ("ref", slot) ("arrow", ts_idx, right_slot) ("union", (c...))
@@ -97,10 +98,17 @@ class EngineConfig:
     #: level with no dependent offset read.  Off by default in the port.
     #: (The reference turns it on by default on a TPU backend; its "~48M
     #: vs 0.75M probes/s" figure is a TPU's, measured by
-    #: tpu_attempts/micro_blocks.py, not this card's.)  The byte budget
-    #: and the ladder are engine/hash.py's ALIGNED_MAX_BYTES and
-    #: ALIGNED_COVER, the reference's defaults
+    #: tpu_attempts/micro_blocks.py, not this card's.)
     flat_aligned: bool = False
+    #: per-table byte budget of the aligned layout: a table whose aligned
+    #: form exceeds it keeps the off+interleave layout
+    flat_aligned_max_bytes: int = ALIGNED_MAX_BYTES
+    #: width-stratification ladder of the aligned layout (engine/hash.py
+    #: build_aligned ``cover``): level i's row width is the smallest cap
+    #: covering this share of its entries, overflow cascades to the next
+    #: (salted) level, and a fit-all level closes the ladder.  The
+    #: 1-entry default is the classic primary+spill pair
+    flat_aligned_cover: Tuple[float, ...] = ALIGNED_COVER
     #: the fused probe kernel switch: None = the CUDA kernel on a ``cuda``
     #: device and the plain PyTorch version on ``cpu``; True = the kernel,
     #: raising if it cannot build or launch; False = the plain version on

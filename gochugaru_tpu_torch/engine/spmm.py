@@ -75,6 +75,7 @@ import torch
 
 from ..utils import faults, metrics
 from . import kernels as _K
+from .capture import recording
 from .hash import _ceil_pow2
 
 _mt = metrics.default
@@ -663,21 +664,22 @@ class FusedLookup:
             with torch.cuda.stream(side), torch.no_grad():
                 program()
                 before = dict(_K.LAUNCHES)
-                graph.capture_begin(pool=pool,
-                                    capture_error_mode="thread_local")
-                err = None
-                try:
-                    out = program()
-                except BaseException as e:  # the error to see
-                    err = e
-                try:
-                    graph.capture_end()
-                except RuntimeError:
-                    index = (torch.cuda.current_device() if dev.index is None
-                             else dev.index)
-                    torch._C._cuda_endAllocateToPool(index, pool)
-                    if err is None:
-                        raise
+                with recording():
+                    graph.capture_begin(pool=pool,
+                                        capture_error_mode="thread_local")
+                    err = None
+                    try:
+                        out = program()
+                    except BaseException as e:  # the error to see
+                        err = e
+                    try:
+                        graph.capture_end()
+                    except RuntimeError:
+                        index = (torch.cuda.current_device()
+                                 if dev.index is None else dev.index)
+                        torch._C._cuda_endAllocateToPool(index, pool)
+                        if err is None:
+                            raise
                 if err is not None:
                     raise err
             cur.wait_stream(side)

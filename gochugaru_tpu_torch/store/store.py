@@ -808,6 +808,43 @@ class Store:
             self._new_data.notify_all()
             return RevisionToken(self._head_rev)
 
+    def import_relationship_batches(
+        self, batches: Iterable[Sequence[Relationship]]
+    ) -> str:
+        """``import_relationships(..., touch=True)`` of the batches'
+        concatenation, as ONE revision, holding a bounded number of
+        Relationship objects — a replica's bootstrap from its router's
+        export frames (fleet/replica.py).  Objects are kept until
+        COLUMNAR_IMPORT_MIN of them have arrived; from then on each batch
+        is lowered to int columns as it arrives and dropped, and the
+        columns commit once.  A stream shorter than that lands through
+        the object path, as one such import would.  An empty stream
+        mints nothing."""
+        pending: List[Relationship] = []
+        parts: List[Dict[str, np.ndarray]] = []
+        for batch in batches:
+            pending.extend(batch)
+            del batch  # before the stream makes the next one
+            if len(pending) >= COLUMNAR_IMPORT_MIN or (parts and pending):
+                with self._lock:
+                    parts.append(relationships_to_columns(
+                        pending, self._require_schema(), self.interner,
+                        self._base_contexts, self._base_ctx_index,
+                    ))
+                pending = []
+        if not parts:
+            if not pending:
+                with self._lock:
+                    return RevisionToken(self._head_rev)
+            return self.import_relationships(pending, touch=True)
+        with self._lock:
+            cols = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+            del parts
+            # an upsert raises no AlreadyExistsError, so rows need no text
+            return self._commit_columns_locked(
+                cols, self._now_us(), True, describe=str
+            )
+
     def import_columns(
         self,
         *,

@@ -63,6 +63,22 @@ Injection sites threaded through the tree (grep ``faults.fire``):
                              fires BEFORE any tree state exists, so the
                              client envelope's retry can never observe
                              a torn tree)
+    router.dispatch          fleet sub-batch dispatch (fleet/router.py;
+                             fires before the wire request, so a reroute
+                             to a surviving replica re-runs the whole
+                             group — idempotent reads, nothing lost)
+    router.health            fleet health probe (fleet/router.py; enough
+                             consecutive fires on one replica drives the
+                             eviction/failover path without killing
+                             anything)
+    replica.apply            replication-tail entry apply
+                             (fleet/replica.py; fires BEFORE
+                             apply_replicated, so the resumed tail
+                             redelivers the entry from the local-head
+                             cursor — exactly-once)
+    replica.kill             replica crash (fleet/replica.py; fires on
+                             ANY served op and makes the replica die
+                             hard — reset sockets, failed probes)
 """
 
 from __future__ import annotations

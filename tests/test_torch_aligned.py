@@ -110,6 +110,8 @@ def test_aligned_budget_and_ladder_are_the_reference_defaults():
     j = TE.JConfig()
     assert PH.ALIGNED_MAX_BYTES == j.flat_aligned_max_bytes
     assert PH.ALIGNED_COVER == tuple(j.flat_aligned_cover)
+    assert PConfig().flat_aligned_max_bytes == j.flat_aligned_max_bytes
+    assert PConfig().flat_aligned_cover == tuple(j.flat_aligned_cover)
     assert PConfig().flat_aligned is False
 
 
@@ -242,21 +244,13 @@ ALIGNED_WORLDS["docs_cover_3"] = (TE._docs_world, (0.99, 0.999))
 
 
 def _aligned(make, cover=None):
-    """An aligned world.  ``cover`` is the ladder: an EngineConfig field
-    of the reference's, the module constant ``hash.ALIGNED_COVER`` of the
-    port's (``_port_cover`` sets it)."""
+    """An aligned world.  ``cover`` is the ladder: the EngineConfig field
+    ``flat_aligned_cover`` of both packages."""
     w = make()
     w.cfg = dict(w.cfg, flat_aligned=True)
-    w.cover = cover
     if cover is not None:
-        w.j_engine = lambda: TE.JEngine(w.j_cs, TE.JConfig(
-            pallas=False, spmm=False, flat_aligned_cover=cover, **w.cfg))
+        w.cfg["flat_aligned_cover"] = tuple(cover)
     return w
-
-
-def _port_cover(monkeypatch, w):
-    if w.cover is not None:
-        monkeypatch.setattr(PH, "ALIGNED_COVER", tuple(w.cover))
 
 
 @pytest.fixture(scope="module", params=sorted(ALIGNED_WORLDS))
@@ -274,7 +268,6 @@ def test_aligned_prepare_matches_reference(aworld, monkeypatch):
     its probe geometry (e_cap, cl_cap, t_cap, pf_e_cap) takes the
     reference's defaults."""
     w, je, jd, np_arrays = aworld
-    _port_cover(monkeypatch, w)
     pe = w.p_engine()
     arrays, meta = pe.prepare_host(w.p_snap)
     assert set(arrays) == set(np_arrays)
@@ -299,7 +292,6 @@ def test_aligned_prepare_matches_reference(aworld, monkeypatch):
 
 def test_aligned_planes_match_reference(aworld, monkeypatch):
     w, je, jd, _np_arrays = aworld
-    _port_cover(monkeypatch, w)
     ref = TE._ref_planes(w, je, jd)
     pe = w.p_engine()
     pd = pe.prepare(w.p_snap)
@@ -324,7 +316,6 @@ def test_three_level_ladder_reaches_the_planes(monkeypatch):
     """cover=(0.5, 0.9): the docs world's point tables take >= 3 levels,
     and the planes still equal the reference's."""
     w = _aligned(TE._docs_world, (0.5, 0.9))
-    _port_cover(monkeypatch, w)
     je = w.j_engine()
     jd = je.prepare(w.j_snap)
     pe = w.p_engine()
