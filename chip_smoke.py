@@ -123,8 +123,9 @@ Phases (any failure exits non-zero and prints no result line):
 9. BASELINE config 5 (Watch-driven incremental re-index,
    benchmarks/bench5_watch.py's deployment: the repo/team schema, seed
    17, 100,000 users, 1,000 teams of 50 members, repos = edges / 20 with
-   one team maintainer each) at ``--edges5`` edges (10M, bench5's own
-   default; one card's share of the published 1B on 16 chips is 62.5M,
+   one team maintainer each) at ``--edges5`` edges (5M by default, to
+   leave phase 19 room in the smoke's time; bench5's own default is 10M;
+   one card's share of the published 1B on 16 chips is 62.5M,
    logged as ``reduced``), under both layouts on one snapshot chain: 20
    warm-up and 10 measured revisions of 1,000 fresh-user ``reader`` adds
    on repos r0-r999 (rng seed 5), each through ``apply_delta`` and
@@ -360,6 +361,25 @@ Phases (any failure exits non-zero and prints no result line):
    any capture failure, breaker trip or latency reroute.  Prints one
    ``fleet: {...}`` line.  Phases 17 and 18 each run with the counts set
    to 0 just before and read just after (added back afterwards).
+
+19. the scattered layout (``EngineConfig(flat_blockslice=False)``: bucket
+   offsets, a row permutation and full-width int32 columns, probed by
+   plain gathers; no fold, no reverse index, no packing, no delta level):
+   (a) after phase 4b and (b) after phase 5b, config 2 and config 3 at
+   full size on the snapshots those phases prepared: prepare s, device
+   MiB, kernels vs plain planes (equal bit for bit), 2,000 sampled rows
+   vs the oracle, checks/s beside the blockslice layout's, the overflow
+   share, every row both layouts settle equal to the blockslice planes
+   (and how many only one settles), each with the launch counts set to 0
+   just before and read just after: none may launch, as the program has
+   no probe-kernel site; (c) after phase 18, a ``with_latency_mode()``
+   client with the layout, config 2 imported into its store: ``check``
+   of 2,000 rows and ``check_all`` against the oracle, lookups on the
+   walker against the oracle, ``explain`` trees holding the card's
+   witness codes, pins at tiers 256 and 1,024 with 500 warm dispatches
+   each and no recapture (p50/p99), then a write and a check that reads
+   it through a full prepare.  Prints one ``scattered: {...}`` line
+   after the ``fleet:`` line.
 
 Phases 4-8 are the main path: launch counts are zeroed before phase 4
 and read after phase 7, and every mode of both kernels, and the gate
@@ -2327,6 +2347,10 @@ def phase_config4(K, edges):
 
 #: full-prepare seconds of each check_world call, by name
 PREPARE_S = {}
+#: device MiB of each world's prepared snapshot, and the checks/s of its
+#: batch ({"kernels": ..., "plain": ...}), by world name
+DEVICE_MIB = {}
+RATES = {}
 #: the prepared snapshots phase 13 reuses, by world name: engines (kernels
 #: and plain), the DeviceSnapshot, the batch, and config 4's contexts
 LATENCY_WORLDS = {}
@@ -2347,10 +2371,11 @@ def check_world(name, cs, snap, q, names, K, ctx=None, **cfg):
         torch.cuda.synchronize()
     prepare_s = time.perf_counter() - t0
     PREPARE_S[name] = prepare_s
+    DEVICE_MIB[name] = sum(v.nbytes for v in ds.arrays.values()) / 2**20
     meta = ds.flat_meta
     log(f"{name}: edges={snap.num_edges} nodes={snap.num_nodes}"
         f" prepare_s={prepare_s:.3f}"
-        f" device_MiB={sum(v.nbytes for v in ds.arrays.values()) / 2**20:.1f}"
+        f" device_MiB={DEVICE_MIB[name]:.1f}"
         f" fold={bool(meta.fold_pairs)} tindex={meta.has_tindex}"
         f" rc={meta.rc_slots} ovf={meta.has_ovf}")
     if cfg.get("flat_aligned"):
@@ -2426,6 +2451,7 @@ def check_batch_phase(name, cs, snap, ek, ep, ds, q, names, ctx=None):
             eng.check_columns(ds, q_res, q_perm, q_subj, **kw)
             times[which].append(time.perf_counter() - ts)
     med = {k: float(np.median(v)) for k, v in times.items()}
+    RATES[name] = {k: len(q_res) / v for k, v in med.items()}
     log(f"{name}: checks_per_s"
         f" kernels={len(q_res) / med['kernels']:.1f}"
         f" plain={len(q_res) / med['plain']:.1f}"
@@ -4180,7 +4206,7 @@ def lat_parity(name, w, ctx=None, q=None):
     return lp
 
 
-def lat_warm(name, w, rng):
+def lat_warm(name, w, rng, tiers=LAT_TIERS):
     """(b): LAT_WARM warm dispatches per tier of jittered sizes within it:
     no capture, dispatch_count + LAT_WARM; p50/p99 ms of each stage, and of
     the eager check_columns of every LAT_EAGER_EVERY-th batch."""
@@ -4189,7 +4215,7 @@ def lat_warm(name, w, rng):
     out = {}
     lo = 0
     n_q = q[0].shape[0]
-    for tier in LAT_TIERS:
+    for tier in tiers:
         batches = []
         for _ in range(LAT_WARM):
             B = int(rng.integers(lo + 1, tier + 1))
@@ -6937,13 +6963,245 @@ def phase_fleet(K, card, n_repos=10_000, n_users=1_000, n_teams=100, n_orgs=10,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the scattered layout (EngineConfig.flat_blockslice=False)
+# ---------------------------------------------------------------------------
+
+#: the scattered layout's EngineConfig fields
+SCATTERED = {"flat_blockslice": False}
+#: phase 19's rows by world name, and its client part (the ``scattered:``
+#: line)
+SCATTERED_OUT = {}
+#: the client part's tiers, sampled rows, check_all groups and lookups
+SCAT_TIERS = (256, 1_024)
+SCAT_ROWS = 2_000
+SCAT_EXPLAIN = 256
+SCAT_LOOKUPS = 3
+
+
+def _settled(planes):
+    """Rows a layout settles on the card: not overflowed, and definite or
+    not possible."""
+    d, p, o = planes
+    return ~o & (d | ~p)
+
+
+def phase_scattered_world(K, name, cs, snap, q, names, bs_planes):
+    """Phase 19 on one world: ``check_world`` with ``flat_blockslice=False``
+    on the snapshot the blockslice layout prepared (kernels vs plain
+    planes, sampled rows vs the oracle, checks/s), with the launch counts
+    set to 0 just before and read just after: the scattered program has
+    no probe-kernel site, so it must launch none.  Every row both layouts
+    settle must have the blockslice planes' verdict."""
+    label = f"{name} scattered"
+    (ek, ep, ds, planes), got = own_launches(
+        K, label,
+        lambda: check_world(label, cs, snap, q, names, K, **SCATTERED),
+        need=())
+    if got:
+        raise AssertionError(f"{label}: launched probe kernels {got}; the"
+                             " scattered program has no probe-kernel site")
+    meta = ds.flat_meta
+    if (meta.blockslice or meta.fold_pairs or meta.has_rev or meta.packed
+            or meta.rc_slots or meta.aligned):
+        raise AssertionError(f"{label}: the snapshot is not the scattered layout")
+    s_set, b_set = _settled(planes), _settled(bs_planes)
+    both = s_set & b_set
+    differ = int((planes[0][both] != bs_planes[0][both]).sum())
+    if differ:
+        raise AssertionError(f"{label}: {differ} rows both layouts settle have"
+                             " different verdicts")
+    B = int(q[0].shape[0])
+    row = dict(
+        edges=int(snap.num_edges), batch=B,
+        prepare_s=PREPARE_S[label], blockslice_prepare_s=PREPARE_S[name],
+        device_mib=DEVICE_MIB[label], blockslice_device_mib=DEVICE_MIB[name],
+        checks_per_s=RATES[label], blockslice_checks_per_s=RATES[name],
+        overflow_share=float(planes[2].mean()),
+        blockslice_overflow_share=float(bs_planes[2].mean()),
+        host_settled_share=float((~s_set).mean()),
+        settled_both=int(both.sum()),
+        settled_only_scattered=int((s_set & ~b_set).sum()),
+        settled_only_blockslice=int((b_set & ~s_set).sum()),
+        launches=got,
+    )
+    log(f"{label}: no probe-kernel launch (the scattered program has no psite"
+        f" call); settled rows agree with the blockslice planes; {json.dumps(row)}")
+    SCATTERED_OUT[name] = row
+    del ek, ep, ds
+    gc.collect()
+
+
+def scat_explain(client, ek, ds, rels):
+    """Phase 19's explains: each row's ``Client.explain`` at the head
+    against the card's witness code of that row alone (the code explain
+    seeds its walk with: a batch's codes may name another branch where
+    its permission set differs, ROADMAP queue 3) and of the whole batch:
+    the tree's verdict is the check's, it names the single-row code as
+    its witness and holds both codes' branches (``witness_consistent``)."""
+    from gochugaru_tpu_torch import consistency
+    from gochugaru_tpu_torch.engine.explain import witness_consistent, witness_name
+    from gochugaru_tpu_torch.utils.context import background
+
+    ctx, full = background(), consistency.full()
+    verdicts = client.check(ctx, full, *rels)
+    batch = ek.witness_codes(ds, rels)
+    ms, seeded, other = [], 0, 0
+    for i, r in enumerate(rels):
+        wc = int(ek.witness_codes(ds, [r])[0])
+        t0 = time.perf_counter()
+        tree = client.explain(ctx, full, r)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if (tree["result"] == "allowed") != verdicts[i]:
+            raise AssertionError(f"scattered explain: row {i} explains"
+                                 f" {tree['result']}, the check said {verdicts[i]}")
+        if tree.get("witness") != witness_name(wc) if wc else "witness" in tree:
+            raise AssertionError(f"scattered explain: row {i}'s tree names"
+                                 f" {tree.get('witness')}, the card {witness_name(wc)}")
+        for code in {wc, int(batch[i])}:
+            if (code or not verdicts[i]) and not witness_consistent(tree, code):
+                raise AssertionError(f"scattered explain: row {i}'s tree does not"
+                                     f" hold the witness {witness_name(code)}")
+        seeded += wc != 0
+        other += wc != int(batch[i])
+    row = dict(rows=len(rels), allowed=int(sum(verdicts)), seeded=seeded,
+               batch_code_differs=other, histogram=wit_histogram(batch),
+               explain_p50_ms=float(np.percentile(ms, 50)),
+               explain_p99_ms=float(np.percentile(ms, 99)))
+    log(f"scattered explain: {json.dumps(row)}")
+    return row
+
+
+def phase_scattered_client(K):
+    """Phase 19, client part: a ``with_latency_mode()`` client with the
+    scattered layout on BASELINE config 2 imported into its store:
+    ``check`` of SCAT_ROWS sampled rows and ``check_all`` against the
+    oracle, lookups on the walker (the layout has no reverse index)
+    against the oracle, ``explain`` trees holding the card's witness
+    codes, SCAT_TIERS pins with LAT_WARM warm dispatches each and no
+    recapture, then a write and a check that reads it (a full prepare:
+    the scattered layout has no delta level)."""
+    from gochugaru_tpu_torch import consistency, rel
+    from gochugaru_tpu_torch.client import (
+        new_evaluator, with_engine_config, with_latency_mode)
+    from gochugaru_tpu_torch.engine.oracle import SnapshotOracle, T
+    from gochugaru_tpu_torch.engine.plan import EngineConfig
+    from gochugaru_tpu_torch.store.store import parse_revision
+    from gochugaru_tpu_torch.utils import metrics
+    from gochugaru_tpu_torch.utils.context import background
+
+    t_phase = time.perf_counter()
+    c = new_evaluator(with_latency_mode(),
+                      with_engine_config(EngineConfig(**SCATTERED)),
+                      device=DEV)
+    t0 = time.perf_counter()
+    cs, snap, q, names = build_rbac(store=c.store)
+    import_s = time.perf_counter() - t0
+    oracle = SnapshotOracle(snap, {}, now_us=EPOCH)
+    ctx, full = background(), consistency.full()
+    rng = np.random.default_rng(19)
+    idx = rng.choice(len(names), SCAT_ROWS, replace=False)
+    rels = wit_rels(names, idx)
+    want = [oracle.check(*names[i], "", now_us=EPOCH) == T for i in idx]
+    m = metrics.default
+    before = m.counter("latency.dispatches")
+    t0 = time.perf_counter()
+    got = c.check(ctx, full, *rels[:200])  # the first check prepares
+    first_s = time.perf_counter() - t0
+    for lo in range(200, SCAT_ROWS, 200):
+        got += c.check(ctx, full, *rels[lo:lo + 200])
+    if got != want:
+        raise AssertionError("scattered client: check disagrees with the oracle on"
+                             f" {sum(a != b for a, b in zip(got, want))} rows")
+    moved = int(m.counter("latency.dispatches") - before)
+    if moved <= 0:
+        raise AssertionError("scattered client: the latency path never ran")
+    for g in range(0, 160, 8):
+        if c.check_all(ctx, full, *rels[g:g + 8]) != all(want[g:g + 8]):
+            raise AssertionError("scattered client: check_all disagrees with the oracle")
+    head = c.store.snapshot_for(full)
+    ek = c._engine_for(head)
+    ds = c._dsnap_for(ek, head)
+    if ds.flat_meta is None or ds.flat_meta.blockslice or ds.flat_meta.has_rev:
+        raise AssertionError("scattered client: the head is not the scattered layout")
+    # lookups: the walker serves (no reverse index); the frontier and the
+    # fused program must never be entered
+    lk = ("lookups.walker", "lookups.frontier", "lookups.fused")
+    lk0 = {k: m.counter(k) for k in lk}
+    t0 = time.perf_counter()
+    n_res = n_sub = 0
+    for u in range(SCAT_LOOKUPS):
+        got = list(c.lookup_resources(ctx, full, "repo#read", f"user:u{u}"))
+        if got != sorted(oracle.lookup_resources("repo", "read", "user", f"u{u}", "")):
+            raise AssertionError(f"scattered client: lookup_resources for u{u}"
+                                 " disagrees with the oracle")
+        n_res += len(got)
+    for r in range(SCAT_LOOKUPS):
+        got = list(c.lookup_subjects(ctx, full, f"repo:r{r}", "read", "user"))
+        if got != sorted(oracle.lookup_subjects("repo", f"r{r}", "read", "user", "")):
+            raise AssertionError(f"scattered client: lookup_subjects for r{r}"
+                                 " disagrees with the oracle")
+        n_sub += len(got)
+    lookup_s = time.perf_counter() - t0
+    lk1 = {k: int(m.counter(k) - lk0[k]) for k in lk}
+    if lk1["lookups.walker"] < 2 * SCAT_LOOKUPS or lk1["lookups.frontier"] or lk1["lookups.fused"]:
+        raise AssertionError(f"scattered client: lookups not on the walker: {lk1}")
+    # explain: each tree's verdict is the check's and holds the card's code
+    with ApartLaunches(K) as apart:
+        wrow = scat_explain(c, ek, ds, rels[:SCAT_EXPLAIN])
+        lat = lat_warm("scattered config2", dict(ek=ek, ds=ds, q=q),
+                       np.random.default_rng(5), tiers=SCAT_TIERS)
+        launches = apart.take()
+    if launches:
+        raise AssertionError(f"scattered client: probe kernels launched {launches}")
+    pins = pin_report(ek) if DEV == "cuda" else {}
+    lp = ek.latency_path(ds)
+    # a write, then a check that reads it: the next prepare is a full one
+    i = next(i for i in range(len(names))
+             if names[i][2] == "read"
+             and oracle.check(*names[i], "", now_us=EPOCH) != T)
+    r_new = rel.must_from_triple(f"repo:{names[i][1]}", "reader",
+                                 f"user:{names[i][4]}")
+    txn = rel.Txn()
+    txn.create(r_new)
+    t0 = time.perf_counter()
+    tok = c.write(ctx, txn)
+    write_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    after = c.check(ctx, consistency.at_least(tok), *wit_rels(names, [i]))
+    first_check_ms = (time.perf_counter() - t0) * 1e3
+    ds2 = c._dsnap_cache[parse_revision(tok)]
+    if after != [True] or ds2.flat_meta.delta is not None or ds2.flat_meta.blockslice:
+        raise AssertionError(f"scattered client: write -> check {after},"
+                             f" delta={ds2.flat_meta.delta is not None}")
+    row = dict(
+        edges=int(snap.num_edges), import_s=import_s, first_check_s=first_s,
+        checks=SCAT_ROWS, latency_dispatches=moved, check_all_groups=20,
+        lookups=dict(resources=SCAT_LOOKUPS, results=n_res,
+                     subjects=SCAT_LOOKUPS, subject_results=n_sub,
+                     s=lookup_s, counters=lk1),
+        explain=wrow, latency=lat, pins=pins, captures=lp.compile_count,
+        write=dict(write_ms=write_ms, first_check_ms=first_check_ms,
+                   full_prepare=True),
+        s=time.perf_counter() - t_phase,
+    )
+    log(f"scattered client on {DEV}: checks, check_all, lookups (walker) agree with"
+        f" the oracle; explain trees hold their witness; tiers {list(SCAT_TIERS)} with"
+        f" {LAT_WARM} warm dispatches each and no recapture; write -> check took a"
+        f" full prepare; {json.dumps(row)}")
+    SCATTERED_OUT["client"] = row
+    del c, ek, ds, ds2, lp
+    gc.collect()
+    return row
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--scale3", type=float, default=1.0,
                     help="size of BASELINE config 3 (1.0 = 1M docs, 10M edges)")
     ap.add_argument("--edges4", type=int, default=10_000_000,
                     help="edges of BASELINE config 4 (published: 100,000,000)")
-    ap.add_argument("--edges5", type=int, default=10_000_000,
+    ap.add_argument("--edges5", type=int, default=5_000_000,
                     help="edges of BASELINE config 5 (one card's share of the"
                          " published 1B on 16 chips: 62,500,000)")
     args = ap.parse_args()
@@ -6991,6 +7249,9 @@ def main() -> int:
         same_planes("config2 aligned", al_planes, planes)
         LATENCY_WORLDS["config2 aligned"] = dict(ek=ek, ep=ep, ds=ds, q=q)
         del ek, ep, ds
+        t19 = time.perf_counter()
+        phase_scattered_world(K, "config2", cs, snap, q, names, planes)
+        t19 = time.perf_counter() - t19
         log(f"launches after config2: {json.dumps(K.LAUNCHES)}")
         rbac = (cs, snap, q, names, planes)  # phase 12's world
         del snap
@@ -7028,7 +7289,11 @@ def main() -> int:
                       name="config3 aligned", want=answers)
         log(f"launches after config3 aligned: {json.dumps(K.LAUNCHES)}")
         LATENCY_WORLDS["config3 aligned"] = dict(ek=ek, ep=ep, ds=ds, q=q)
-        del snap, ek, ep, ds
+        del ek, ep, ds
+        t0 = time.perf_counter()
+        phase_scattered_world(K, "config3", cs, snap, q, names, planes)
+        t19 += time.perf_counter() - t0
+        del snap
         phase_config4(K, args.edges4)
         log(f"launches after config4: {json.dumps(K.LAUNCHES)}")
         phase_overflow(K)
@@ -7079,6 +7344,14 @@ def main() -> int:
     tune = phase_tune(K, card)
     fleet = phase_fleet(K, card)
 
+    # ---- phase 19 (client part): the scattered layout through a client --
+    t0 = time.perf_counter()
+    phase_scattered_client(K)
+    t19 += time.perf_counter() - t0
+    SCATTERED_OUT["phase_s"] = t19
+    SCATTERED_OUT["card"] = card
+    log(f"phase 19: {t19:.1f}s")
+
     # ---- per-mode timing at the largest main-path shape ----------------
     table = []
     for mode in K.MODES + (K.GATE_CAV,):
@@ -7108,6 +7381,7 @@ def main() -> int:
     print("spmm: " + json.dumps(SPMM))
     print("tune: " + json.dumps(tune))
     print("fleet: " + json.dumps(fleet))
+    print("scattered: " + json.dumps(SCATTERED_OUT))
     print(json.dumps({"kernels": table}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -248,11 +248,6 @@ class DeviceEngine:
         self.caveat_plan = (
             build_caveat_plan(compiled) if self.plan.two_plane else None
         )
-        if not self.config.flat_blockslice:
-            raise NotImplementedError(
-                "flat_blockslice=False (the scattered probe_rows path) is a"
-                " later slice of the port"
-            )
         self.device = resolve_device(device)
         self.kernels = _resolve_kernels(self.config, self.device)
         #: (slots, padded batch, meta) keys the cost ledger already holds

@@ -57,7 +57,10 @@ from .hash import (
     interleave_buckets,
     interleave_rows,
     probe_block,
+    probe_range,
+    probe_rows,
     slice_blocks,
+    take_in_bounds,
 )
 from .consts import device_const
 from .explain import (
@@ -416,6 +419,13 @@ def _round_cap(c: int) -> int:
         if c <= p:
             return p
     return c
+
+
+def _pad(a: np.ndarray, size: int, fill) -> np.ndarray:
+    """int32 ``a`` padded with ``fill`` to ``size`` entries."""
+    out = np.full(size, fill, np.int32)
+    out[: a.shape[0]] = a
+    return out
 
 
 def _round_fan(c: int) -> int:
@@ -1399,6 +1409,20 @@ def build_flat_arrays(
         out[tbl_key] = interleave_buckets(h, cols, quantum=row_quantum)
         return h
 
+    def put_hash(prefix: str, h) -> None:
+        # off keeps its exact size+1 length: the device probe derives the
+        # bucket mask from off.shape[0] - 1, which must equal the build
+        # size (a pow2 already)
+        out[prefix + "_off"] = h.off
+        out[prefix + "_rows"] = _pad(h.rows, _ceil_pow2(h.rows.shape[0]), 0)
+
+    def put_range(prefix: str, r) -> None:
+        G = _ceil_pow2(max(r.gk.shape[0], 1))
+        out[prefix + "_gk"] = _pad(r.gk, G, -1)
+        out[prefix + "_glo"] = _pad(r.glo, G, 0)
+        out[prefix + "_ghi"] = _pad(r.ghi, G, 0)
+        put_hash(prefix, r.index)
+
     e_gates = (
         ([snap.e_caveat, snap.e_ctx] if e_hascav else [])
         + ([snap.e_exp] if e_hasexp else [])
@@ -1449,10 +1473,33 @@ def build_flat_arrays(
         put_block("pusx", "push_off", push, [pus_k], [pus_k])
         put_block("ovfx", "ovfh_off", ovfh, [ovf_k], [ovf_k])
     else:
-        raise NotImplementedError(
-            "flat_blockslice=False (the scattered probe_rows layout) is not"
-            " ported yet"
+        # scattered layout: per table, the bucket offsets + the row
+        # permutation over full-width int32 key and payload columns
+        eh = build_hash([e_k1, e_k2])
+        clh = build_hash([cl_k1, cl_k2])
+        put_hash("eh", eh)
+        put_range("usr", usr)
+        put_range("arr", arr)
+        put_hash("clh", clh)
+        put_hash("push", push)
+        put_hash("ovfh", ovfh)
+
+        # dense srel column for the scattered KU path (the raw us_srel
+        # base column does not match the dense closure keys)
+        out["us_srel_d"] = _pad(
+            maps.k2[snap.us_srel],
+            _ceil_pow2(max(int(snap.us_rel.shape[0]), 1)), -1,
         )
+        E = _ceil_pow2(max(e_k1.shape[0], 1))
+        out["e_k1"] = _pad(e_k1, E, -1)
+        out["e_k2"] = _pad(e_k2, E, -1)
+        P = _ceil_pow2(max(cl.num_pairs, 1))
+        out["cl_k1"] = _pad(cl_k1, P, -1)
+        out["cl_k2"] = _pad(cl_k2, P, -1)
+        out["cl_d_until"] = _pad(cl.c_d_until, P, NEVER)
+        out["cl_p_until"] = _pad(cl.c_p_until, P, NEVER)
+        out["pus_k"] = _pad(pus_k, _ceil_pow2(max(pus_k.shape[0], 1)), -1)
+        out["ovf_k"] = _pad(ovf_k, _ceil_pow2(max(ovf_k.shape[0], 1)), -1)
     _mt.observe("prepare.hash_s", time.perf_counter() - _t_hash)
 
     # ---- T-index: userset edges ⋈ closure-by-target (shared join) -------
@@ -1474,6 +1521,14 @@ def build_flat_arrays(
                 [T_k1, T_k2], [T_k1, T_k2, T_d, T_p],
                 row_quantum=4096,
             )
+        else:
+            th = build_hash([T_k1, T_k2])
+            put_hash("th", th)
+            TP = _ceil_pow2(max(T_k1.shape[0], 1))
+            out["t_k1"] = _pad(T_k1, TP, -1)
+            out["t_k2"] = _pad(T_k2, TP, -1)
+            out["t_d"] = _pad(T_d, TP, NEVER)
+            out["t_p"] = _pad(T_p, TP, NEVER)
         t_kw = dict(
             has_tindex=True,
             t_cap=_round_cap(th.cap) if th is not None else 4,
@@ -2491,15 +2546,19 @@ def make_flat_fn(
     the batch.  Disarmed (the default) the program is the same ops and
     launches, and returns three planes.
 
-    Covered: the single-chip blockslice layout, with or without a delta
-    level; anything else raises NotImplementedError naming what is
-    missing."""
+    The scattered layout (``meta.blockslice`` False: bucket offsets, a
+    row permutation and full-width int32 columns) probes every site with
+    the plain ``probe_rows``/``probe_range`` gathers, as the reference
+    does: it has no ``psite`` call, so it launches no probe kernel
+    whatever ``kernels`` says.  It has no fold, no ancestor closure and
+    no delta level.
+
+    Covered: the single-chip layouts, blockslice (with or without a
+    delta level) and scattered; the sharded ones raise
+    NotImplementedError."""
     if meta.sharded or meta.part_serve:
         raise NotImplementedError("sharded check kernels are not ported yet")
-    if not meta.blockslice:
-        raise NotImplementedError(
-            "the scattered (non-blockslice) layout is not ported yet"
-        )
+    BS = meta.blockslice
     tri = make_tri_fn(caveat_plan) if caveat_plan is not None else None
     perm_programs: Dict[int, List[Tuple[str, int, ExprIR]]] = {}
     for (tname, tid, slot, expr) in plan.topo_programs:
@@ -2635,8 +2694,7 @@ def make_flat_fn(
         def any2(x):
             return x.any(dim=-1).any(dim=-1)
 
-        def tk(a, idx):
-            return a[idx.long()]
+        tk = take_in_bounds  # indices below are clipped non-negative
 
         def _dec(tbl_key: str, blk):
             spec = PK.get(tbl_key)
@@ -2663,6 +2721,26 @@ def make_flat_fn(
             qb = bq(q_ctx, cav.dim()).expand(cav.shape)
             t = tri(cav, ctxc, qb, tables)
             return live & (t == 2), live & (t >= 1)
+
+        def gate2(prefix: str, rowidx, hit):
+            """(definite, possible) admissibility of the hit rows of a
+            raw per-edge view (the scattered layout), the CEL VM run once
+            a site and skipped for views with no caveated or expiring
+            rows."""
+            hascav, hasexp = _view_flags[prefix]
+            if not hascav and not hasexp:
+                return hit, hit
+            rc = rowidx.clamp(0, arrs[prefix + "_caveat"].shape[0] - 1)
+            live = hit
+            if hasexp:
+                exp = tk(arrs[prefix + "_exp"], rc)
+                live = hit & ((exp == 0) | (exp > now))
+            if not hascav:
+                return live, live
+            cav = tk(arrs[prefix + "_caveat"], rc)
+            if tri is None:
+                return live & (cav == 0), live
+            return tri_planes(live, cav, tk(arrs[prefix + "_ctx"], rc))
 
         def gate2_blk(prefix: str, blk, lay: Dict[str, int], hit):
             """gate2 over an interleaved block's payload columns: the gate
@@ -2743,9 +2821,17 @@ def make_flat_fn(
             return lo, hi
 
         def range_of(prefix: str, cap: int, q):
-            return range_probe(
-                prefix + "_off", {"usr": "usgx", "arr": "argx"}[prefix], cap, q,
-            )
+            if BS:
+                return range_probe(
+                    prefix + "_off", {"usr": "usgx", "arr": "argx"}[prefix],
+                    cap, q,
+                )
+            ri = {
+                k: arrs[prefix + "_" + k]
+                for k in ("gk", "glo", "ghi", "off", "rows")
+            }
+            n = meta.usr_gn if prefix == "usr" else meta.arr_gn
+            return probe_range(ri, cap, n, q)
 
         def cl_probe(srck, gk):
             """Closure containment per plane via until-value comparison.
@@ -2753,8 +2839,20 @@ def make_flat_fn(
             if not meta.has_closure:
                 z = zeros(torch.broadcast_shapes(srck.shape, gk.shape))
                 return z, z
-            return psite("clh_off", "clx", meta.cl_cap, (srck, gk),
-                         mode="until2")
+            if BS:
+                return psite("clh_off", "clx", meta.cl_cap, (srck, gk),
+                             mode="until2")
+            row = probe_rows(
+                arrs["clh_off"], arrs["clh_rows"],
+                (arrs["cl_k1"], arrs["cl_k2"]), (srck, gk),
+                meta.cl_cap, meta.cl_n,
+            )
+            rc = row.clamp(0, arrs["cl_k1"].shape[0] - 1)
+            hit = row >= 0
+            return (
+                hit & (tk(arrs["cl_d_until"], rc) > now),
+                hit & (tk(arrs["cl_p_until"], rc) > now),
+            )
 
         zB = zeros(q_res.shape)
         # packed per-query subject keys: -1 = "matches nothing"
@@ -2971,7 +3069,7 @@ def make_flat_fn(
             run_ed = dm is not None and dm.has_adds and (
                 bool(dm.e_slots) if dyn else (slot in dm.e_slots)
             )
-            if run_e or run_ed:
+            if run_e and BS or run_ed:
                 def e_site(k2q):
                     """Direct-edge test: (base hit minus tombstones) OR
                     delta-level hit — exact replacement semantics, since
@@ -3020,16 +3118,47 @@ def make_flat_fn(
                     if coll is not None:
                         coll.add("wildcard", wd)
                     d, p = d | wd, p | wp
+            elif run_e:
+                # scattered layout (no delta level exists there)
+                ecols = (arrs["e_k1"], arrs["e_k2"])
+                row = probe_rows(
+                    arrs["eh_off"], arrs["eh_rows"], ecols,
+                    (k1, bq(q_k2, nd)), meta.e_cap, meta.e_n,
+                )
+                d, p = gate2("e", row, (row >= 0) & exists)
+                if coll is not None:
+                    coll.add("direct", d)
+                if meta.has_wc_edges:
+                    wrow = probe_rows(
+                        arrs["eh_off"], arrs["eh_rows"], ecols,
+                        (k1, bq(w_k2, nd)), meta.e_cap, meta.e_n,
+                    )
+                    wd, wp = gate2("e", wrow, (wrow >= 0) & exists)
+                    if coll is not None:
+                        coll.add("wildcard", wd)
+                    d, p = d | wd, p | wp
 
             # T-index fast path: one probe folds {userset edge × closure}
             use_t = dyn_t if dyn else (t_on and slot in meta.t_slots)
             if use_t:
                 def t_site(k2q):
-                    td_, tp_ = psite("th_off", "tx", meta.t_cap, (k1, k2q),
-                                     mode="until2")
-                    # exists is lane-constant, so ANDing it after the
-                    # in-probe OR-reduce is exact
-                    return td_ & exists, tp_ & exists
+                    if BS:
+                        td_, tp_ = psite("th_off", "tx", meta.t_cap,
+                                         (k1, k2q), mode="until2")
+                        # exists is lane-constant, so ANDing it after the
+                        # in-probe OR-reduce is exact
+                        return td_ & exists, tp_ & exists
+                    trow = probe_rows(
+                        arrs["th_off"], arrs["th_rows"],
+                        (arrs["t_k1"], arrs["t_k2"]), (k1, k2q),
+                        meta.t_cap, meta.t_n,
+                    )
+                    trc = trow.clamp(0, arrs["t_k1"].shape[0] - 1)
+                    thit = (trow >= 0) & exists
+                    return (
+                        thit & (tk(arrs["t_d"], trc) > now),
+                        thit & (tk(arrs["t_p"], trc) > now),
+                    )
 
                 td, tp = t_site(bq(q_k2, nd))
                 if meta.has_wc_closure:
@@ -3116,7 +3245,7 @@ def make_flat_fn(
                 or (dm is not None and dm.t_dirty)
             )
             KU_site = min(KU, dyn_us_fan if dyn else us_fans.get(slot, 0))
-            if run_ku and KU_site > 0:
+            if run_ku and KU_site > 0 and BS:
                 ublk, valid, over = ku_fetch(False, meta.usr_cap, KU_site)
                 ovf = ovf | over
                 kd, kp, ku_used = ku_eval(
@@ -3126,6 +3255,44 @@ def make_flat_fn(
                 if coll is not None:
                     coll.add("us", kd)
                 d, p, used = d | kd, p | kp, used | ku_used
+            elif run_ku and KU_site > 0:
+                # scattered layout: the candidates are raw userset rows
+                lo, hi = range_of("usr", meta.usr_cap, k1)
+                ovf = ovf | reduceB(exists & ((hi - lo) > KU_site))
+                valid = (
+                    (arange(KU_site) < (hi - lo).unsqueeze(-1))
+                    & exists.unsqueeze(-1)
+                )
+                used = used | reduceB(valid)
+                idx = lo.unsqueeze(-1) + arange(KU_site)
+                idxc = idx.clamp(0, max(meta.us_rows - 1, 0))
+                s = tk(arrs["us_subj"], idxc)
+                r = tk(arrs["us_srel_d"], idxc)
+                gk = s * S1c + (r + 1)  # invalid rows (-1, -1) → negative
+                nd2 = nd + 1
+                in_d, in_p = cl_probe(bq(q_k2, nd2), gk)
+                if meta.has_wc_closure:
+                    win_d, win_p = cl_probe(bq(wcl_k, nd2), gk)
+                    in_d, in_p = in_d | win_d, in_p | win_p
+                refl = (gk == bq(q_k2, nd2)) & (bq(q_k2, nd2) >= 0)
+                if plan.has_permission_usersets:
+                    permf = tk(arrs["us_perm"], idxc) != 0
+                    in_pus = probe_rows(
+                        arrs["push_off"], arrs["push_rows"],
+                        (arrs["pus_k"],), (gk,),
+                        meta.pus_cap, meta.pus_n,
+                    ) >= 0
+                    in_d = (in_d | refl) & ~permf
+                    in_p = in_p | refl | in_pus | permf
+                else:
+                    in_d = in_d | refl
+                    in_p = in_p | refl
+                ugd, ugp = gate2("us", idxc, valid)
+                kd = (ugd & in_d).any(dim=-1)
+                if coll is not None:
+                    coll.add("us", kd)
+                d = d | kd
+                p = p | (ugp & in_p).any(dim=-1)
             # delta-level userset grants (adds with subject relations)
             run_kud = (
                 dm is not None
@@ -3309,9 +3476,18 @@ def make_flat_fn(
                         (arange(Ks) < (hi - lo).unsqueeze(-1))
                         & exists.unsqueeze(-1)
                     )
-                    ablk = sblock("arx", lo, Ks)
-                    children = torch.where(valid, ablk[..., arL["child"]], -1)
-                    gd, gp = gate2_blk("ar", ablk, arL, valid)
+                    if BS:
+                        ablk = sblock("arx", lo, Ks)
+                        children = torch.where(valid, ablk[..., arL["child"]],
+                                               -1)
+                        gd, gp = gate2_blk("ar", ablk, arL, valid)
+                    else:
+                        # scattered layout: the candidates are raw arrow rows
+                        idx = lo.unsqueeze(-1) + arange(Ks)
+                        idxc = idx.clamp(0, max(meta.ar_rows - 1, 0))
+                        children = torch.where(
+                            valid, tk(arrs["ar_child"], idxc), -1)
+                        gd, gp = gate2("ar", idxc, valid)
                     if dm is not None and dm.has_artomb:
                         # mask deleted base rows by (group, child) identity
                         tomb = ohit("atb", dm.atb_cap,
@@ -3387,7 +3563,13 @@ def make_flat_fn(
             q_cl_ovf = zB
         else:
             def ovf_probe(k):
-                return psite("ovfh_off", "ovfx", meta.ovf_cap, (k,), mode="any")
+                if BS:
+                    return psite("ovfh_off", "ovfx", meta.ovf_cap, (k,),
+                                 mode="any")
+                return probe_rows(
+                    arrs["ovfh_off"], arrs["ovfh_rows"],
+                    (arrs["ovf_k"],), (k,), meta.ovf_cap, meta.ovf_n,
+                ) >= 0
 
             q_cl_ovf = ovf_probe(q_k2) | ovf_probe(wcl_k)
 

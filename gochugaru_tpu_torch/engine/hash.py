@@ -412,6 +412,55 @@ def bucket_of(q_cols: Sequence, size: int):
     return mix32_t(q_cols) & (size - 1)
 
 
+def take_in_bounds(a, i):
+    """``a[i]`` for indices in range by construction (hash & mask,
+    clipped slots, row ids): the callers clip or mask, as the
+    reference's promise_in_bounds gathers require."""
+    return a[i.long()]
+
+
+def probe_rows(off, rows, key_cols: Sequence, q_cols: Sequence, cap: int,
+               n: int):
+    """Row index of the entry whose key columns equal ``q_cols``, else -1
+    (the scattered layout: bucket offsets, a row permutation and the
+    full-width key columns).  All ``q_cols`` share an arbitrary broadcast
+    shape; the probe is elementwise over it.  ``cap``/``n`` are static
+    (the host HashIndex's probe cap and padded row count).  The ``cap``
+    slots are tried in bucket order and the FIRST matching row wins, so
+    duplicate keys resolve to the row the host build put first."""
+    take = take_in_bounds
+    size = int(off.shape[0]) - 1
+    h = bucket_of(q_cols, size)
+    start = take(off, h)
+    end = take(off, h + 1)
+    found = torch.full(tuple(h.shape), -1, dtype=torch.int32,
+                       device=start.device)
+    last = max(n - 1, 0)
+    for j in range(cap):
+        slot = start + j
+        valid = slot < end
+        idx = take(rows, slot.clamp(0, last))
+        hit = valid
+        for kc, qc in zip(key_cols, q_cols):
+            hit = hit & (take(kc, idx) == qc)
+        found = torch.where((found < 0) & hit, idx, found)
+    return found
+
+
+def probe_range(ri_arrays, cap: int, n: int, q):
+    """Range [lo, hi) for key ``q`` in a RangeIndex; (0, 0) on a miss.
+    ``ri_arrays`` holds one RangeIndex's device tensors under the keys
+    'gk', 'glo', 'ghi', 'off', 'rows'."""
+    gi = probe_rows(
+        ri_arrays["off"], ri_arrays["rows"], (ri_arrays["gk"],), (q,), cap, n
+    )
+    gic = gi.clamp(0, max(n - 1, 0))
+    hit = gi >= 0
+    lo = torch.where(hit, take_in_bounds(ri_arrays["glo"], gic), 0)
+    hi = torch.where(hit, take_in_bounds(ri_arrays["ghi"], gic), 0)
+    return lo, hi
+
+
 def probe_aligned(tbls: Sequence, caps: Sequence[int], w: int, q_cols):
     """Candidate block [..., sum(caps), w] of raw row slots for the bucket
     of ``q_cols`` — ONE row read per width-stratum level, level l >= 1

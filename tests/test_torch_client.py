@@ -227,9 +227,22 @@ def test_later_slices_raise_not_implemented():
     d, p, ovf = eng.check_batch(ds, checks, now_us=NOW_S * 10**6)
     assert d.tolist() == [True, False, False]
     assert p.tolist() == [True, False, True] and not ovf.any()
+    # the scattered layout is served since its slice: it builds and
+    # answers as the blockslice engine does (tests/test_torch_scattered.py
+    # holds its planes to the reference's)
     cs = compile_schema(parse_schema(SCHEMA))
-    with pytest.raises(NotImplementedError):
-        DeviceEngine(cs, EngineConfig(flat_blockslice=False), device="cpu")
+    snap = build_snapshot(1, cs, Interner(), _rels(prel, _triples(3)),
+                          epoch_us=NOW_S * 10**6)
+    checks = _checks(prel, 9)
+    planes = {}
+    for bs in (True, False):
+        eng = DeviceEngine(cs, EngineConfig(flat_blockslice=bs), device="cpu")
+        ds = eng.prepare(snap)
+        assert ds.flat_meta.blockslice == bs
+        planes[bs] = eng.check_batch(ds, checks, now_us=NOW_S * 10**6)
+    for a, b in zip(planes[True], planes[False]):
+        assert a.tolist() == b.tolist()
+    assert planes[False][0].any() and not planes[False][0].all()
 
 
 def test_batch_wider_than_flat_max_slots_raises(clients):
