@@ -2,7 +2,7 @@
 hold every CUDA kernel against its plain PyTorch version.
 
 Run from the repository root:
-python3 chip_smoke.py [--scale3 S] [--edges4 N] [--edges5 N]
+python3 chip_smoke.py [--scale3 S] [--edges4 N] [--edges5 N] [--scale19 S]
 
 Phases (any failure exits non-zero and prints no result line):
 
@@ -365,9 +365,11 @@ Phases (any failure exits non-zero and prints no result line):
 19. the scattered layout (``EngineConfig(flat_blockslice=False)``: bucket
    offsets, a row permutation and full-width int32 columns, probed by
    plain gathers; no fold, no reverse index, no packing, no delta level):
-   (a) after phase 4b and (b) after phase 5b, config 2 and config 3 at
-   full size on the snapshots those phases prepared: prepare s, device
-   MiB, kernels vs plain planes (equal bit for bit), 2,000 sampled rows
+   (a) after phase 4b, config 2 on the snapshot that phase prepared, and
+   (b) after phase 5b, config 3 at ``--scale19`` (0.1 by default: 100,000
+   docs, 1M edges, to leave phase 20 room in the smoke's time; its own
+   snapshot, first checked off+interleave as phase 5 does): prepare s,
+   device MiB, kernels vs plain planes (equal bit for bit), 2,000 sampled rows
    vs the oracle, checks/s beside the blockslice layout's, the overflow
    share, every row both layouts settle equal to the blockslice planes
    (and how many only one settles), each with the launch counts set to 0
@@ -380,6 +382,27 @@ Phases (any failure exits non-zero and prints no result line):
    each and no recapture (p50/p99), then a write and a check that reads
    it through a full prepare.  Prints one ``scattered: {...}`` line
    after the ``fleet:`` line.
+
+20. the model-sharded mesh (``parallel/``: ``ShardedEngine`` over
+   ``make_mesh(data, model, devices=[cuda:0] * n)``, every shard on the
+   one card, ``kernels=True``): (a) after phase 5's lookups, config 3 at
+   full size on 1 × 4 from phase 5's snapshot, and (b) after phase 19, config 2 on
+   2 × 2 and on 1 × 3 (a model size of 3: the sharded legacy program),
+   each with the launch counts set to 0 just before its batch and read
+   just after (the sharded probes are plain gathers: none may launch):
+   the 100,000-check batch through ``check_columns``, its planes equal
+   to the blockslice planes bit for bit (the legacy program: every row
+   both settle equal), host rows settled by the oracle and 2,000 sampled
+   verdicts against it; prepare s split into the partition-first build
+   and the placement, MiB a shard (sharded, replicated) and on the card,
+   checks/s beside the blockslice engine's, the collectives of a batch
+   and their host ms; (c) a ``with_mesh`` client on 2 × 2 with config 2
+   in its store: 2,000 checks against the oracle, a write and a check
+   that reads it through the sharded delta prepare (the base tables
+   kept, its planes equal to a full prepare of the tip), lookups over
+   the sharded hops equal to an unsharded engine's looped answers, no
+   probe kernel launched.  Prints one ``mesh: {...}`` line after the
+   ``scattered:`` line.
 
 Phases 4-8 are the main path: launch counts are zeroed before phase 4
 and read after phase 7, and every mode of both kernels, and the gate
@@ -7195,6 +7218,274 @@ def phase_scattered_client(K):
     return row
 
 
+
+# ---------------------------------------------------------------------------
+# phase 20: the model-sharded mesh (parallel/)
+# ---------------------------------------------------------------------------
+
+#: phase 20's rows by world name, and its client part (the ``mesh:`` line)
+MESH_OUT = {}
+#: the mesh client's sampled rows, lookups and timed batches
+MESH_ROWS = 2_000
+MESH_LOOKUPS = 3
+MESH_TIMED = 3
+
+
+def mesh_of(data, model):
+    """A (data × model) mesh with every position on the one device."""
+    from gochugaru_tpu_torch.parallel import make_mesh
+
+    dev = torch.device("cuda", 0) if DEV == "cuda" else torch.device(DEV)
+    return make_mesh(data, model, devices=[dev] * (data * model))
+
+
+def mesh_engine(cs, shape, **cfg):
+    from gochugaru_tpu_torch.engine.plan import EngineConfig
+    from gochugaru_tpu_torch.parallel import ShardedEngine
+
+    return ShardedEngine(cs, mesh_of(*shape),
+                         EngineConfig(kernels=DEV == "cuda" or None, **cfg))
+
+
+def mesh_settle(label, cs, snap, q, names, planes):
+    """Rows the mesh leaves to the host (overflow, conditional) settled by
+    the oracle, and MESH_ROWS sampled rows held to it: the verdicts."""
+    from gochugaru_tpu_torch.caveats import compile_cel
+    from gochugaru_tpu_torch.engine.oracle import SnapshotOracle, T
+
+    d, p, ovf = planes
+    programs = {n: compile_cel(n, c.params, c.expression)
+                for n, c in cs.schema.caveats.items()}
+    oracle = SnapshotOracle(snap, programs, now_us=EPOCH)
+    verdict = d.copy()
+    host = np.flatnonzero((p & ~d) | ovf)
+    for i in host:
+        verdict[i] = oracle.check(*names[i], "", now_us=EPOCH) == T
+    rng = np.random.default_rng(20)
+    sample = rng.choice(len(names), min(MESH_ROWS, len(names)), replace=False)
+    bad = sum(bool(verdict[i]) != (oracle.check(*names[i], "", now_us=EPOCH) == T)
+              for i in sample)
+    if bad:
+        raise AssertionError(f"{label}: {bad} of {len(sample)} sampled verdicts"
+                             " disagree with the oracle")
+    return verdict, int(host.shape[0])
+
+
+def phase_mesh_world(K, name, shape, cs, snap, q, names, bs_planes):
+    """Phase 20 on one world: a ShardedEngine over ``mesh_of(*shape)``
+    (every shard on the one card; ``kernels=True``) on the snapshot the
+    blockslice run prepared, the world's batch through ``check_columns``
+    with the launch counts set to 0 just before and read just after: the
+    sharded probes are plain gathers, so no probe kernel may launch.  A
+    pow2 model size runs the bucket-sharded flat program and must give
+    the blockslice planes bit for bit; a model size of 3 runs the sharded
+    legacy program, whose rows both programs settle must agree.  Host
+    rows are settled by the oracle and MESH_ROWS sampled verdicts held to
+    it.  The row: prepare s (the partition-first build and the
+    placement), MiB a shard (sharded and replicated) and on the card,
+    checks/s beside the blockslice engine's, the collectives of a batch
+    and their host ms."""
+    from gochugaru_tpu_torch.engine.flat import placement_split
+    from gochugaru_tpu_torch.parallel.sharded import resident_bytes
+
+    label = f"{name} mesh {shape[0]}x{shape[1]}"
+    q_res, q_perm, q_subj = q
+    eng = mesh_engine(cs, shape)
+    alloc0 = torch.cuda.memory_allocated() if DEV == "cuda" else 0
+    t0 = time.perf_counter()
+    ds = eng.prepare(snap)
+    if DEV == "cuda":
+        torch.cuda.synchronize()
+    prepare_s = time.perf_counter() - t0
+    card_mib = ((torch.cuda.memory_allocated() - alloc0) / 2**20
+                if DEV == "cuda" else None)
+    flat = ds.flat_meta is not None
+    if flat != (shape[1] & (shape[1] - 1) == 0):
+        raise AssertionError(f"{label}: flat={flat} on a model size of {shape[1]}")
+    if flat and not ds.flat_meta.sharded:
+        raise AssertionError(f"{label}: the snapshot is not bucket-sharded")
+    split = placement_split(ds)
+    resident = resident_bytes(ds.arrays)
+
+    def run():
+        return eng.check_columns(ds, q_res, q_perm, q_subj, now_us=EPOCH)
+
+    planes, got = own_launches(K, label, run, need=())
+    if got:
+        raise AssertionError(f"{label}: probe kernels launched on the mesh: {got}")
+    coll = dict(eng.last_collectives)
+    if shape[1] > 1 and coll["calls"] < 1:
+        raise AssertionError(f"{label}: a batch made no collective")
+    if flat:
+        for nm, a, b in zip("dpo", planes, bs_planes):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"{label}: plane {nm} differs from the"
+                                     " blockslice planes")
+        differ = 0
+    else:
+        both = ~_flags(planes) & ~_flags(bs_planes)
+        differ = int((planes[0][both] != bs_planes[0][both]).sum())
+        if differ:
+            raise AssertionError(f"{label}: {differ} rows both programs settle differ")
+    verdict, host_rows = mesh_settle(label, cs, snap, q, names, planes)
+    times = []
+    for _ in range(MESH_TIMED):
+        ts = time.perf_counter()
+        eng.check_columns(ds, q_res, q_perm, q_subj, now_us=EPOCH)
+        times.append(time.perf_counter() - ts)
+    B = int(q_res.shape[0])
+    rate = B / float(np.median(times))
+    row = dict(
+        shape=list(shape), program="flat" if flat else "legacy",
+        edges=int(snap.num_edges), batch=B, prepare_s=prepare_s,
+        build_s=ds.prepare_split["build_s"], place_s=ds.prepare_split["place_s"],
+        shard_mib=dict(sharded=split["sharded"] / shape[1] / 2**20,
+                       replicated=split["replicated"] / 2**20,
+                       total=(split["sharded"] / shape[1]
+                              + split["replicated"]) / 2**20),
+        resident_mib=resident / 2**20, card_mib=card_mib,
+        checks_per_s=rate, batch_s=times,
+        blockslice_checks_per_s=RATES.get(name, {}).get("kernels"),
+        blockslice_prepare_s=PREPARE_S.get(name),
+        blockslice_device_mib=DEVICE_MIB.get(name),
+        collectives=coll["calls"], collective_host_ms=coll["host_s"] * 1e3,
+        overflow_share=float(planes[2].mean()), host_settled=host_rows,
+        definite=int(planes[0].sum()), allowed=int(verdict.sum()),
+        settled_differ=differ, launches=got,
+    )
+    log(f"{label}: 0 probe-kernel launches;"
+        + (" planes equal the blockslice planes bit for bit;" if flat
+           else " rows both programs settle agree;")
+        + f" {MESH_ROWS} sampled verdicts agree with the oracle; {json.dumps(row)}")
+    MESH_OUT[label] = row
+    del eng, ds
+    gc.collect()
+    return planes
+
+
+def phase_mesh_client(K):
+    """Phase 20, the rest, on BASELINE config 2: a client with
+    ``with_mesh(mesh_of(2, 2))`` holding config 2 in its store — sampled
+    checks against the oracle, then a write and a check that reads it: the
+    tip's delta prepare (the sharded base tables stay, the ``dl_*``
+    overlays replicated) must give the planes of a full sharded prepare of
+    the tip on the world's batch; then LookupResources / LookupSubjects
+    through the sharded hops against an unsharded engine's looped answers
+    (``spmm=False``).  No probe kernel may launch."""
+    from gochugaru_tpu_torch import consistency, rel
+    from gochugaru_tpu_torch.client import new_evaluator, with_engine_config, with_mesh
+    from gochugaru_tpu_torch.engine import spmv
+    from gochugaru_tpu_torch.engine.device import DeviceEngine
+    from gochugaru_tpu_torch.engine.lookup import (
+        lookup_resources_device, lookup_subjects_device)
+    from gochugaru_tpu_torch.engine.oracle import SnapshotOracle, T
+    from gochugaru_tpu_torch.engine.plan import EngineConfig
+    from gochugaru_tpu_torch.store.store import parse_revision
+    from gochugaru_tpu_torch.utils import metrics
+    from gochugaru_tpu_torch.utils.context import background
+
+    t_phase = time.perf_counter()
+    c = new_evaluator(with_mesh(mesh_of(2, 2)), with_engine_config(
+        EngineConfig(kernels=DEV == "cuda" or None)))
+    cs, snap, q, names = build_rbac(store=c.store)
+    oracle = SnapshotOracle(snap, {}, now_us=EPOCH)
+    ctx, full = background(), consistency.full()
+    rng = np.random.default_rng(21)
+    idx = rng.choice(len(names), MESH_ROWS, replace=False)
+    rels = wit_rels(names, idx)
+    want = [oracle.check(*names[i], "", now_us=EPOCH) == T for i in idx]
+    with ApartLaunches(K) as apart:
+        t0 = time.perf_counter()
+        got = c.check(ctx, full, *rels)
+        first_s = time.perf_counter() - t0
+        if got != want:
+            raise AssertionError("mesh client: check disagrees with the oracle on"
+                                 f" {sum(a != b for a, b in zip(got, want))} rows")
+        ek = c._engine_for(snap)
+        ds0 = c._dsnap_for(ek, snap)
+        # a write and a check that reads it: the incremental prepare
+        i = next(i for i in range(len(names))
+                 if names[i][2] == "read"
+                 and oracle.check(*names[i], "", now_us=EPOCH) != T)
+        txn = rel.Txn()
+        txn.create(rel.must_from_triple(f"repo:{names[i][1]}", "reader",
+                                        f"user:{names[i][4]}"))
+        t0 = time.perf_counter()
+        tok = c.write(ctx, txn)
+        after = c.check(ctx, consistency.at_least(tok), *wit_rels(names, [i]))
+        write_check_ms = (time.perf_counter() - t0) * 1e3
+        rev = parse_revision(tok)
+        inc = c._dsnap_cache[rev]
+        if after != [True] or inc.flat_meta.delta is None or not inc.flat_meta.sharded:
+            raise AssertionError(f"mesh client: write -> check {after},"
+                                 f" delta={inc.flat_meta.delta is not None}")
+        for k, v in ds0.arrays.items():
+            if v.sharded and inc.arrays.get(k) is not v:
+                raise AssertionError(f"mesh client: the delta prepare moved {k}")
+        tip = inc.snapshot
+        t0 = time.perf_counter()
+        fds = ek.prepare(tip)
+        full_prepare_s = time.perf_counter() - t0
+        a = ek.check_columns(inc, *q, now_us=EPOCH)
+        b = ek.check_columns(fds, *q, now_us=EPOCH)
+        for nm, x, y in zip("dpo", a, b):
+            if not np.array_equal(x, y):
+                raise AssertionError(f"mesh client: plane {nm} of the delta prepare"
+                                     " differs from a full prepare of the tip")
+        # lookups: the sharded hops against an unsharded engine's looped
+        # answers on the tip
+        lk = ("lookups.frontier", "lookups.fused", "lookup.hops")
+        lk0 = {k: metrics.default.counter(k) for k in lk}
+        if not spmv.frontier_ok(ek, fds):
+            raise AssertionError("mesh client: the frontier declined the mesh")
+        ul = DeviceEngine(cs, EngineConfig(spmm=False, kernels=False), device=DEV)
+        uds = ul.prepare(tip)
+        toracle = SnapshotOracle(tip, {}, now_us=EPOCH)
+        fac = lambda: toracle  # noqa: E731
+        t0 = time.perf_counter()
+        n_res = n_sub = 0
+        for u in range(MESH_LOOKUPS):
+            g = lookup_resources_device(ek, fds, "repo", "read", "user", f"u{u}",
+                                        now_us=EPOCH, oracle_factory=fac)
+            w = lookup_resources_device(ul, uds, "repo", "read", "user", f"u{u}",
+                                        now_us=EPOCH, oracle_factory=fac)
+            if g != w or not g:
+                raise AssertionError(f"mesh client: lookup_resources u{u} differs"
+                                     " from the unsharded looped answer")
+            n_res += len(g)
+        for r in range(MESH_LOOKUPS):
+            g = lookup_subjects_device(ek, fds, "repo", f"r{r}", "read", "user",
+                                       now_us=EPOCH, oracle_factory=fac)
+            w = lookup_subjects_device(ul, uds, "repo", f"r{r}", "read", "user",
+                                       now_us=EPOCH, oracle_factory=fac)
+            if g != w or not g:
+                raise AssertionError(f"mesh client: lookup_subjects r{r} differs"
+                                     " from the unsharded looped answer")
+            n_sub += len(g)
+        lookup_s = time.perf_counter() - t0
+        launches = apart.take()
+    lk1 = {k: int(metrics.default.counter(k) - lk0[k]) for k in lk}
+    if launches:
+        raise AssertionError(f"mesh client: probe kernels launched {launches}")
+    if lk1["lookups.fused"] or lk1["lookup.hops"] < 1:
+        raise AssertionError(f"mesh client: lookups not on the sharded hops: {lk1}")
+    row = dict(
+        edges=int(snap.num_edges), checks=MESH_ROWS, first_check_s=first_s,
+        write_check_ms=write_check_ms, delta_mib=dl_mib(inc),
+        full_prepare_s=full_prepare_s,
+        lookups=dict(resources=MESH_LOOKUPS, results=n_res, subjects=MESH_LOOKUPS,
+                     subject_results=n_sub, s=lookup_s, counters=lk1),
+        s=time.perf_counter() - t_phase,
+    )
+    log(f"mesh client 2x2 on {DEV}: checks agree with the oracle; write -> check"
+        " took the sharded delta path, whose planes equal a full prepare of the"
+        f" tip; sharded lookups equal the unsharded looped answers; {json.dumps(row)}")
+    MESH_OUT["client"] = row
+    del c, ek, ds0, inc, fds, ul, uds
+    gc.collect()
+    return row
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--scale3", type=float, default=1.0,
@@ -7204,6 +7495,9 @@ def main() -> int:
     ap.add_argument("--edges5", type=int, default=5_000_000,
                     help="edges of BASELINE config 5 (one card's share of the"
                          " published 1B on 16 chips: 62,500,000)")
+    ap.add_argument("--scale19", type=float, default=0.1,
+                    help="size of phase 19's config 3 world (the scattered"
+                         " layout; 1.0 = 1M docs, 10M edges)")
     args = ap.parse_args()
     t_smoke = time.perf_counter()
     if not torch.cuda.is_available():
@@ -7282,6 +7576,11 @@ def main() -> int:
         log(f"launches after config3 lookups: {json.dumps(K.LAUNCHES)}")
         LATENCY_WORLDS["config3"] = dict(ek=ek, ep=ep, ds=ds, q=q, scale=args.scale3)
         del ek, ep, ds
+        # ---- phase 20: config 3 split four ways on the one card ------------
+        t20 = time.perf_counter()
+        phase_mesh_world(K, "config3", (1, 4), cs, snap, q, names, planes)
+        t20 = time.perf_counter() - t20
+        # ---- phase 5b: config 3 aligned on phase 5's snapshot ------------
         ek, ep, ds, al_planes = check_world("config3 aligned", cs, snap, q, names,
                                             K, **ALIGNED)
         same_planes("config3 aligned", al_planes, planes)
@@ -7289,11 +7588,16 @@ def main() -> int:
                       name="config3 aligned", want=answers)
         log(f"launches after config3 aligned: {json.dumps(K.LAUNCHES)}")
         LATENCY_WORLDS["config3 aligned"] = dict(ek=ek, ep=ep, ds=ds, q=q)
-        del ek, ep, ds
+        del ek, ep, ds, snap
+        gc.collect()
+        # ---- phase 19: config 3 scattered, on a world of its own ----------
         t0 = time.perf_counter()
-        phase_scattered_world(K, "config3", cs, snap, q, names, planes)
+        w19, name19 = build_docs(args.scale19), f"config3 at {args.scale19}"
+        planes19 = check_world(name19, *w19, K)[3]
+        phase_scattered_world(K, name19, *w19, planes19)
         t19 += time.perf_counter() - t0
-        del snap
+        del w19, planes19
+        gc.collect()
         phase_config4(K, args.edges4)
         log(f"launches after config4: {json.dumps(K.LAUNCHES)}")
         phase_overflow(K)
@@ -7352,6 +7656,16 @@ def main() -> int:
     SCATTERED_OUT["card"] = card
     log(f"phase 19: {t19:.1f}s")
 
+    # ---- phase 20 (the rest): config 2's meshes, a write, lookups -------
+    t0 = time.perf_counter()
+    phase_mesh_world(K, "config2", (2, 2), *rbac)
+    phase_mesh_world(K, "config2", (1, 3), *rbac)
+    phase_mesh_client(K)
+    t20 += time.perf_counter() - t0
+    MESH_OUT["phase_s"] = t20
+    MESH_OUT["card"] = card
+    log(f"phase 20: {t20:.1f}s")
+
     # ---- per-mode timing at the largest main-path shape ----------------
     table = []
     for mode in K.MODES + (K.GATE_CAV,):
@@ -7382,6 +7696,7 @@ def main() -> int:
     print("tune: " + json.dumps(tune))
     print("fleet: " + json.dumps(fleet))
     print("scattered: " + json.dumps(SCATTERED_OUT))
+    print("mesh: " + json.dumps(MESH_OUT))
     print(json.dumps({"kernels": table}))
     print(card)
     print(json.dumps({"ok": True, "device": {

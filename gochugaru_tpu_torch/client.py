@@ -156,6 +156,7 @@ class _Options:
         self.incident_dir: Optional[str] = None
         self.slos = None  # None → utils/slo.default_slos(); () disables
         self.group_commit = None  # GroupCommitConfig | True | None
+        self.mesh = None  # parallel.Mesh → the sharded engine
 
 
 Option = Callable[[_Options], None]
@@ -196,6 +197,26 @@ def with_host_only_evaluation() -> Option:
 
     def opt(o: _Options) -> None:
         o.use_device = False
+
+    return opt
+
+
+def with_mesh(mesh, *, partitioned: bool = False) -> Option:
+    """Evaluate checks over a (data × model) device mesh
+    (``parallel.make_mesh``): the client builds a ShardedEngine
+    (parallel/sharded.py) — query batches split along the data axis, the
+    bucket-sharded tables along the model axis — instead of the
+    single-device DeviceEngine; the client's device is the mesh's first.
+    Writes advance the sharded snapshot through the delta chain, lookups
+    hop over the stacked reverse index.  ``partitioned=True`` (the
+    owner-routed partitioned serve) is not ported yet and raises."""
+    if partitioned:
+        raise NotImplementedError(
+            "with_mesh(partitioned=True): the partitioned serve is not"
+            " ported yet")
+
+    def opt(o: _Options) -> None:
+        o.mesh = mesh
 
     return opt
 
@@ -378,8 +399,14 @@ class Client:
         for opt in opts:
             opt(o)
         self._use_device = o.use_device
-        #: the engine's device; None on a host-only client
-        self.device = resolve_device(device) if o.use_device else None
+        #: the engine's device (a mesh's first); None on a host-only client
+        self._mesh = o.mesh
+        if not o.use_device:
+            self.device = None
+        elif o.mesh is not None:
+            self.device = o.mesh.devices[0][0]
+        else:
+            self.device = resolve_device(device)
         # identity, not truthiness: a store filled only by column imports
         # has no live rows and is falsy
         self._store = o.store if o.store is not None else Store()
@@ -585,9 +612,16 @@ class Client:
             return None
         with self._lock:
             if self._engine is None or self._engine_schema is not snap.compiled:
-                self._engine = DeviceEngine(
-                    snap.compiled, self._engine_config, device=self.device
-                )
+                if self._mesh is not None:
+                    from .parallel.sharded import ShardedEngine
+
+                    self._engine = ShardedEngine(
+                        snap.compiled, self._mesh, self._engine_config
+                    )
+                else:
+                    self._engine = DeviceEngine(
+                        snap.compiled, self._engine_config, device=self.device
+                    )
                 self._engine_schema = snap.compiled
                 self._dsnap_cache.clear()
             return self._engine

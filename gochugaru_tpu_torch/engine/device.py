@@ -748,6 +748,11 @@ class DeviceEngine:
         }, qctx
 
     # -- the flat program ------------------------------------------------
+    def _flat_fn_kwargs(self) -> Dict[str, Any]:
+        """The engine's own make_flat_fn arguments (a mesh engine swaps
+        the kernels for its model axis)."""
+        return {"kernels": self.kernels}
+
     def _flat_fn_for(self, slots: Tuple[int, ...], meta: FlatMeta,
                      witness: bool = False):
         key = (slots, meta) if not witness else (slots, meta, "wit")
@@ -755,8 +760,8 @@ class DeviceEngine:
         if fn is None:
             fn = make_flat_fn(
                 self.compiled, self.plan, self.config, meta, slots,
-                kernels=self.kernels, caveat_plan=self.caveat_plan,
-                witness=witness,
+                caveat_plan=self.caveat_plan, witness=witness,
+                **self._flat_fn_kwargs(),
             )
             while len(self._flat_fns) >= self.FLAT_FN_CACHE_MAX:
                 self._flat_fns.pop(next(iter(self._flat_fns)))
@@ -827,10 +832,12 @@ class DeviceEngine:
         device-definite allowed verdicts: conditional and overflow rows
         (settled on the host oracle) report 0.  None where the flat
         program cannot serve the batch (no flat tables, more distinct
-        permissions than ``flat_max_slots``): the explain walk then runs
-        unseeded.  The armed program is cached apart from the serving
-        ones, so this never disturbs the disarmed path."""
-        if dsnap.flat_meta is None:
+        permissions than ``flat_max_slots``, a mesh's sharded tables):
+        the explain walk then runs unseeded.  The armed program is cached
+        apart from the serving ones, so this never disturbs the disarmed
+        path."""
+        meta = dsnap.flat_meta
+        if meta is None or meta.sharded:
             return None
         snap = dsnap.snapshot
         queries, qctx = self._lower_queries(snap, rels, dsnap.strings)
@@ -855,7 +862,8 @@ class DeviceEngine:
         ``check_columns`` takes them.  With ``planes`` returns
         ``(codes, (d, p, ovf))``: the armed program's three check planes
         beside the codes."""
-        if dsnap.flat_meta is None:
+        meta = dsnap.flat_meta
+        if meta is None or meta.sharded:
             return None
         queries, qctx = self._columns_preamble(
             dsnap, q_res, q_perm, q_subj, q_srel, q_wc, q_ctx, qctx_rows)

@@ -50,10 +50,12 @@ import torch
 
 from . import kernels as _K
 from .hash import (
+    HashIndex,
     _ceil_pow2,
     build_aligned,
     build_hash,
     build_range_hash,
+    bucket_of,
     interleave_buckets,
     interleave_rows,
     probe_block,
@@ -370,13 +372,18 @@ def placement_split(dsnap) -> Dict[str, int]:
     device.  The tuner's placement rule (tune/) reads it to decide
     whether routing frees enough device memory to be worth it: a
     snapshot dominated by membership-sized replicated tables gains
-    nothing from partitioning."""
+    nothing from partitioning.  A snapshot on a mesh (parallel/sharded.py
+    MeshTensor tables) reports its own split: the tables placed across
+    the model axis versus those held whole on every position."""
     total = 0
     sharded = 0
     for k, a in dsnap.arrays.items():
         nb = int(a.nbytes)
         total += nb
-        if k.startswith("ehx") or k.startswith("pfx"):
+        split = getattr(a, "sharded", None)
+        if split is None:
+            split = k.startswith("ehx") or k.startswith("pfx")
+        if split:
             sharded += nb
     return {
         "total": total, "sharded": sharded,
@@ -1700,6 +1707,639 @@ def build_flat_arrays(
     return out, meta, fstate, cstate
 
 
+# ---------------------------------------------------------------------------
+# bucket-sharded layout (a mesh: parallel/sharded.py over the model axis)
+# ---------------------------------------------------------------------------
+#
+# Hash tables shard by BUCKET RANGE: shard s of M owns buckets
+# [s·bpd, (s+1)·bpd) (bpd = size/M, both pow2), the bucket-ordered
+# interleaved rows for those buckets (a contiguous slice), and the
+# normalized local offsets.  A probe hashes globally, masks "is this my
+# bucket", probes locally, and the site's boolean outputs OR-reduce over
+# the model axis (an int psum, parallel/collectives.py); value blocks
+# (userset/arrow candidate rows) broadcast from their single owner via a
+# psum of the masked block.  This keeps a shard's table memory at 1/M
+# while the program stays the same straight-line probe pipeline.
+
+
+def _stack_point(h: HashIndex, cols: Sequence[np.ndarray], M: int, pad: int = 64):
+    """Bucket-sharded point table: (off int32[M·(bpd+1)],
+    tbl int32[M·R_pad, w]) — the mesh splits both on the leading axis.
+    Fully batched: one interleaved gather for the payload rows, one
+    advanced-index scatter placing every shard's slice, one broadcast
+    subtraction for the normalized local offsets (no per-shard loops)."""
+    from ..native.sort import fill_interleaved
+
+    size, bpd = h.size, h.size // M
+    assert bpd * M == h.size and bpd >= 1
+    w = max(len(cols), 1)
+    n = int(h.rows.shape[0]) if h.n else 0
+    off = h.off.astype(np.int64)
+    starts = off[np.arange(M) * bpd]
+    ends = off[(np.arange(M) + 1) * bpd]
+    R_pad = _ceil_pow2(int((ends - starts).max() if M else 1) + max(pad, h.cap))
+    tbl = np.full((M, R_pad, w), -1, np.int32)
+    if n:
+        # rows [0, n) partition contiguously into shards [starts, ends):
+        # shard id + local position per global row, then one scatter
+        lens = ends - starts
+        sh = np.repeat(np.arange(M), lens)
+        loc = np.arange(n, dtype=np.int64) - np.repeat(starts, lens)
+        rows_mat = np.empty((n, w), np.int32)
+        if not fill_interleaved(rows_mat, cols, h.rows[:n]):
+            for j, c in enumerate(cols):
+                rows_mat[:, j] = np.ascontiguousarray(c, np.int32)[h.rows[:n]]
+        tbl[sh, loc] = rows_mat
+    bidx = np.arange(M)[:, None] * bpd + np.arange(bpd + 1)[None, :]
+    offs = (off[bidx] - starts[:, None]).astype(np.int32)
+    return offs.reshape(-1), tbl.reshape(M * R_pad, w)
+
+
+def _stack_range(ri, row_cols: Sequence[np.ndarray], M: int, fan_pad: int):
+    """Bucket-sharded range view: the group table shards like a point
+    table, and the underlying rows are PERMUTED into group-bucket order so
+    each device's rows are its own groups' rows, contiguous and locally
+    indexed.  ``ri`` is a RangeIndex built with min_size ≥ M (its group
+    hash is reused, not rebuilt).  Returns (goff, gtbl, rows_tbl,
+    group_cap) stacked for the mesh to split."""
+    gk, glo, ghi, gh = ri.gk, ri.glo, ri.ghi, ri.index
+    G = int(gk.shape[0])
+    size, bpd = gh.size, gh.size // M
+    assert bpd * M == size, "RangeIndex must be built with min_size >= M"
+    lens = ghi.astype(np.int64) - glo.astype(np.int64)
+    w = max(len(row_cols), 1)
+    goff = gh.off.astype(np.int64)
+    g_starts = goff[np.arange(M) * bpd]
+    g_ends = goff[(np.arange(M) + 1) * bpd]
+    # one global bucket-ordered row permutation (vectorized), sliced per
+    # shard: order_groups lists groups bucket-ordered; their row ranges
+    # concatenate in that order
+    order_groups = gh.rows[:G]
+    lens_o = lens[order_groups] if G else np.zeros(0, np.int64)
+    ends_all = np.cumsum(lens_o)
+    starts_all = ends_all - lens_o
+    total = int(ends_all[-1]) if G else 0
+    row_src = (
+        np.repeat(glo[order_groups].astype(np.int64), lens_o)
+        + (np.arange(total, dtype=np.int64) - np.repeat(starts_all, lens_o))
+        if G
+        else np.zeros(0, np.int64)
+    )
+    # batched stacking: groups [0, G) and their rows [0, total) partition
+    # contiguously into shards — compute shard-row bases with a running
+    # max (empty shards carry the previous base), then place every
+    # shard's group and row slices with advanced-index scatters
+    shard_row_base = np.zeros(M + 1, np.int64)
+    if G:
+        cand = np.where(
+            g_ends > g_starts, ends_all[np.clip(g_ends - 1, 0, None)], 0
+        )
+        shard_row_base[1:] = np.maximum.accumulate(cand)
+    row_counts = np.diff(shard_row_base)
+    R_pad = _ceil_pow2(int(row_counts.max() if M else 1) + max(fan_pad, 64))
+    G_pad = _ceil_pow2(int((g_ends - g_starts).max() if M else 1) + max(64, gh.cap))
+    rows_tbl = np.full((M, R_pad, w), -1, np.int32)
+    gtbl = np.full((M, G_pad, 3), -1, np.int32)
+    cols32 = [np.ascontiguousarray(c, np.int32) for c in row_cols]
+    if total:
+        from ..native.sort import fill_interleaved
+
+        sh_r = np.repeat(np.arange(M), row_counts)
+        loc_r = np.arange(total, dtype=np.int64) - np.repeat(
+            shard_row_base[:-1], row_counts
+        )
+        rows_mat = np.empty((total, w), np.int32)
+        if not fill_interleaved(rows_mat, cols32, row_src.astype(np.int32)):
+            for ci, c in enumerate(cols32):
+                rows_mat[:, ci] = c[row_src]
+        rows_tbl[sh_r, loc_r] = rows_mat
+    if G:
+        g_lens = g_ends - g_starts
+        sh_g = np.repeat(np.arange(M), g_lens)
+        loc_g = np.arange(G, dtype=np.int64) - np.repeat(g_starts, g_lens)
+        r0_of = np.repeat(shard_row_base[:-1], g_lens)
+        gtbl[sh_g, loc_g, 0] = gk[order_groups]
+        gtbl[sh_g, loc_g, 1] = (starts_all - r0_of).astype(np.int32)
+        gtbl[sh_g, loc_g, 2] = (ends_all - r0_of).astype(np.int32)
+    bidx = np.arange(M)[:, None] * bpd + np.arange(bpd + 1)[None, :]
+    goffs = (
+        gh.off.astype(np.int64)[bidx] - g_starts[:, None]
+    ).astype(np.int32)
+    return (
+        goffs.reshape(-1),
+        gtbl.reshape(M * G_pad, 3),
+        rows_tbl.reshape(M * R_pad, w),
+        gh.cap,
+    )
+
+
+def _groups_of(k: np.ndarray):
+    """(gk, glo, ghi) distinct-key groups of a sorted key column — the
+    group arrays build_range_hash materializes, shared by the partitioned
+    range stacking and the per-slot fanout meta."""
+    from ..native.sort import sorted_runs
+
+    n = int(k.shape[0])
+    if n == 0:
+        z64 = np.zeros(0, np.int64)
+        return np.zeros(0, np.int32), z64, z64
+    starts = sorted_runs(k)
+    ends = np.concatenate([starts[1:], np.asarray([n])])
+    return np.ascontiguousarray(k[starts], np.int32), starts, ends
+
+
+def _primary_hash_chunked(
+    rel: np.ndarray, res: np.ndarray, subj: np.ndarray, srel1: np.ndarray,
+    maps: SlotMaps, N: int, S1: int, chunk: int,
+):
+    """uint32 bucket hash of every primary row's dense (k1, k2) key,
+    computed in bounded row chunks: the partitioned build's ownership
+    pass never materializes a full-size packed key column.  Column-based,
+    so any feed of the same rows (sorted snapshot columns or raw ones)
+    hashes them with ONE definition — the bitwise-parity-critical
+    pass."""
+    from .partition import _hash_cols
+
+    n = int(rel.shape[0])
+    h = np.empty(n, np.uint32)
+    for at in range(0, n, max(chunk, 1)):
+        sl = slice(at, min(at + chunk, n))
+        k1 = _pack(maps.k1[rel[sl]], N, res[sl])
+        k2 = _pack(subj[sl], S1, _m_srel1(maps, srel1[sl]))
+        h[sl] = _hash_cols([k1, k2])
+    return h
+
+
+def _e_cols_at(snap, maps: SlotMaps, N: int, S1: int, gates):
+    """Partition-local primary-table columns: the dense key packs are
+    recomputed per shard over just that shard's rows (matching the
+    chunked hash pass — no O(E) pack scratch)."""
+    from ..native.sort import take32
+
+    def at(rows: np.ndarray):
+        idx = np.ascontiguousarray(rows, np.int64)
+        rel = take32(snap.e_rel, idx)
+        res = take32(snap.e_res, idx)
+        subj = take32(snap.e_subj, idx)
+        srel1 = take32(snap.e_srel1, idx)
+        cols = [
+            _pack(maps.k1[rel], N, res),
+            _pack(subj, S1, _m_srel1(maps, srel1)),
+        ]
+        cols.extend(take32(g, idx) for g in gates)
+        return cols
+
+    return at
+
+
+def _rev_key_hash_chunked(
+    snap, maps: SlotMaps, N: int, S1: int, chunk: int, which: str
+):
+    """uint32 bucket hash of every primary row's single-column reverse-
+    index key (``which`` = "k2" for the reverse view, "k1" for the
+    forward view), computed in bounded row chunks — the reverse index's
+    ownership pass materializes no full-size packed key column, same
+    contract as _primary_hash_chunked."""
+    from .partition import _hash_cols
+
+    n = int(snap.e_rel.shape[0])
+    h = np.empty(n, np.uint32)
+    for at in range(0, n, max(chunk, 1)):
+        sl = slice(at, min(at + chunk, n))
+        if which == "k2":
+            k = _pack(snap.e_subj[sl], S1, _m_srel1(maps, snap.e_srel1[sl]))
+        else:
+            k = _pack(maps.k1[snap.e_rel[sl]], N, snap.e_res[sl])
+        h[sl] = _hash_cols([k])
+    return h
+
+
+def _rev_cols_at(snap, maps: SlotMaps, N: int, S1: int, gates, which: str):
+    """Partition-local reverse-index row columns ([key, other-key] +
+    gates), packed per shard — the rv/fw counterpart of _e_cols_at."""
+    from ..native.sort import take32
+
+    def at(rows: np.ndarray):
+        idx = np.ascontiguousarray(rows, np.int64)
+        k1 = _pack(
+            maps.k1[take32(snap.e_rel, idx)], N, take32(snap.e_res, idx)
+        )
+        k2 = _pack(
+            take32(snap.e_subj, idx), S1,
+            _m_srel1(maps, take32(snap.e_srel1, idx)),
+        )
+        cols = [k2, k1] if which == "k2" else [k1, k2]
+        cols.extend(take32(g, idx) for g in gates)
+        return cols
+
+    return at
+
+
+def build_flat_arrays_sharded(
+    snap, config: EngineConfig, model_size: int,
+    plan: Optional[DevicePlan] = None,
+) -> Optional[Tuple[Dict[str, np.ndarray], FlatMeta, Optional[object],
+                    Optional[ClosureHostState]]]:
+    """The bucket-sharded counterpart of build_flat_arrays: every hash /
+    range / closure / T table stacked per model shard (the leading axis
+    splits M ways over the mesh; probes mask bucket ownership and
+    OR-reduce).  Array names and FlatMeta fields match the single-chip
+    layout — the program distinguishes the layouts by FlatMeta.sharded
+    and must be built with the matching ``axis``.  Returns None when keys
+    don't pack (the sharded legacy program serves then)."""
+    from ..store.closure import build_closure
+    from ..utils import faults, metrics
+
+    faults.fire("prepare.build")
+    M = model_size
+    with metrics.default.timer("prepare.closure_s"):
+        cl = build_closure(snap, per_source_cap=config.closure_source_cap)
+
+    # the permission fold shards like every other table (stacked pf_e /
+    # pf_t; the kernel's pf probes already mask bucket ownership and
+    # OR-reduce) — folded slots join the k1 radix
+    fr = fstate = None
+    if plan is not None:
+        from .fold import fold_permissions
+
+        got_fold = fold_permissions(snap, config, plan, cl)
+        if got_fold is not None:
+            fr, fstate = got_fold
+    maps = _active_maps(
+        snap, cl, {slot for _, slot in fr.pairs} if fr is not None else ()
+    )
+    N = _node_radix(snap, maps)
+    if N is None:
+        return None
+    S1 = maps.S1
+
+    us_gk = _pack(maps.k1[snap.us_rel], N, snap.us_res)
+    ar_gk = _pack(maps.k1[snap.ar_rel], N, snap.ar_res)
+    cl_k1 = _pack(cl.c_src, S1, _m_srel1(maps, cl.c_srel1))
+    cl_k2 = _pack(cl.c_g, S1, maps.k2[cl.c_grel] + 1)
+    pus_k = _pack(snap.pus_n, S1, maps.k2[snap.pus_r] + 1)
+    ovf_k = _pack(cl.ovf_src, S1, _m_srel1(maps, cl.ovf_srel1))
+
+    flags = _view_flags_of(snap)
+
+    ms = max(8, M)
+    # partition-first mode (engine/partition.py; config.flat_partition_
+    # build, the default): the O(E) tables — primary hash, userset/arrow
+    # range views, T-index, fold pf_e — are hashed to bucket shards
+    # FIRST and each shard's slice of the stacked arrays is built
+    # independently, so the sort/hash/interleave scratch peaks at
+    # O(E/M), never O(E).  Output is BITWISE-identical to the
+    # build-full-then-stack path below.  Globally-small derived tables
+    # (closure, pus/ovf, fold csr) keep the full build: they are sized by
+    # the group structure
+    PART = bool(config.flat_partition_build)
+    if PART:
+        faults.fire("prepare.partition")
+        from .partition import (
+            _hash_cols, gather_cols, point_geom, range_geom,
+            stack_point, stack_range,
+        )
+    _t_part = time.perf_counter()
+
+    PKD = config.packed_on()
+    hk = (
+        {"max_factor": config.flat_packed_max_factor, "lean": True}
+        if PKD else {}
+    )
+    dom = _pack_domains(snap, config)
+    dom["until"]["clx"] = _until_dom(cl.c_d_until, cl.c_p_until)
+
+    clh = build_hash([cl_k1, cl_k2], min_size=ms, **hk)
+    push = build_hash([pus_k], min_size=ms, **hk)
+    ovfh = build_hash([ovf_k], min_size=ms, **hk)
+
+    out: Dict[str, np.ndarray] = {}
+    e_gates = (
+        ([snap.e_caveat, snap.e_ctx] if flags["e_hascav"] else [])
+        + ([snap.e_exp] if flags["e_hasexp"] else [])
+    )
+    if PART:
+        h_e = _primary_hash_chunked(
+            snap.e_rel, snap.e_res, snap.e_subj, snap.e_srel1,
+            maps, N, S1, config.flat_partition_chunk,
+        )
+        ge, e_ord = point_geom(
+            h_e, M, min_size=ms, return_order=True, **hk
+        )
+        out["eh_off"], out["ehx"] = stack_point(
+            h_e, _e_cols_at(snap, maps, N, S1, e_gates), ge,
+            2 + len(e_gates), order=e_ord,
+        )
+        del h_e, e_ord
+        eh_cap, eh_n = ge.cap, ge.n
+    else:
+        e_k1 = _pack(maps.k1[snap.e_rel], N, snap.e_res)
+        e_k2 = _pack(snap.e_subj, S1, _m_srel1(maps, snap.e_srel1))
+        eh = build_hash([e_k1, e_k2], min_size=ms, **hk)
+        out["eh_off"], out["ehx"] = _stack_point(eh, [e_k1, e_k2] + e_gates, M)
+        eh_cap, eh_n = eh.cap, eh.n
+    out["clh_off"], out["clx"] = _stack_point(
+        clh, [cl_k1, cl_k2, cl.c_d_until, cl.c_p_until], M
+    )
+    out["push_off"], out["pusx"] = _stack_point(push, [pus_k], M)
+    out["ovfh_off"], out["ovfx"] = _stack_point(ovfh, [ovf_k], M)
+
+    # srel rides DENSE, matching the dense closure/T keys
+    us_cols = (
+        [snap.us_subj, maps.k2[snap.us_srel]]
+        + ([snap.us_caveat, snap.us_ctx] if flags["us_hascav"] else [])
+        + ([snap.us_exp] if flags["us_hasexp"] else [])
+        + ([snap.us_perm] if flags["us_hasperm"] else [])
+    )
+    ar_cols = (
+        [snap.ar_child]
+        + ([snap.ar_caveat, snap.ar_ctx] if flags["ar_hascav"] else [])
+        + ([snap.ar_exp] if flags["ar_hasexp"] else [])
+    )
+    if PART:
+        us_gkg, us_glo, us_ghi = _groups_of(us_gk)
+        ar_gkg, ar_glo, ar_ghi = _groups_of(ar_gk)
+        h_usg = _hash_cols([us_gkg])
+        gus = range_geom(
+            us_gkg, us_ghi - us_glo, h_usg, M, min_size=ms,
+            fan_pad=max(64, config.us_leaf_cap), **hk,
+        )
+        out["usr_off"], out["usgx"], out["usx"] = stack_range(
+            us_gkg, us_glo, us_ghi - us_glo, h_usg,
+            gather_cols(us_cols), gus, len(us_cols),
+        )
+        usr_cap = gus.cap
+        dom["fan"]["usgx"] = gus.max_run
+        h_arg = _hash_cols([ar_gkg])
+        gar = range_geom(
+            ar_gkg, ar_ghi - ar_glo, h_arg, M, min_size=ms,
+            fan_pad=max(64, config.arrow_fanout), **hk,
+        )
+        out["arr_off"], out["argx"], out["arx"] = stack_range(
+            ar_gkg, ar_glo, ar_ghi - ar_glo, h_arg,
+            gather_cols(ar_cols), gar, len(ar_cols),
+        )
+        arr_cap = gar.cap
+        dom["fan"]["argx"] = gar.max_run
+    else:
+        usr = build_range_hash(us_gk, min_size=ms, **hk)
+        arr = build_range_hash(ar_gk, min_size=ms, **hk)
+        out["usr_off"], out["usgx"], out["usx"], usr_cap = _stack_range(
+            usr, us_cols, M, max(64, config.us_leaf_cap),
+        )
+        out["arr_off"], out["argx"], out["arx"], arr_cap = _stack_range(
+            arr, ar_cols, M, max(64, config.arrow_fanout),
+        )
+        dom["fan"]["usgx"] = usr.max_run
+        dom["fan"]["argx"] = arr.max_run
+        # the RangeIndexes already hold the group arrays: reuse them for
+        # the per-slot fanout meta instead of a second sorted-runs pass
+        us_gkg, us_glo, us_ghi = usr.gk, usr.glo, usr.ghi
+        ar_gkg, ar_glo, ar_ghi = arr.gk, arr.glo, arr.ghi
+
+    t_kw = dict(has_tindex=False, t_cap=4, t_n=8, t_slots=())
+    tj = _tindex_join(snap, config, cl, us_gk, cl_k1, cl_k2, pus_k, maps)
+    if tj is not None:
+        T_k1, T_k2, T_d, T_p, t_slots = tj
+        dom["until"]["tx"] = _until_dom(T_d, T_p)
+        if PART:
+            h_T = _hash_cols([T_k1, T_k2])
+            gT, t_ord = point_geom(
+                h_T, M, min_size=ms, return_order=True, **hk
+            )
+            out["th_off"], out["tx"] = stack_point(
+                h_T, gather_cols([T_k1, T_k2, T_d, T_p]), gT, 4,
+                order=t_ord,
+            )
+            th_cap, th_n = gT.cap, gT.n
+        else:
+            th = build_hash([T_k1, T_k2], min_size=ms, **hk)
+            out["th_off"], out["tx"] = _stack_point(
+                th, [T_k1, T_k2, T_d, T_p], M
+            )
+            th_cap, th_n = th.cap, th.n
+        t_kw = dict(
+            has_tindex=True,
+            t_cap=_round_cap(th_cap),
+            t_n=_ceil_pow2(max(th_n, 1)),
+            t_slots=t_slots,
+        )
+
+    # ---- reverse-CSR lookup index (engine/rev.py), stacked M ways ------
+    # partition-first on the PART path (owner shard from the key hash,
+    # O(E/M) sort/gather scratch per shard); the other path builds
+    # full-then-stack (build_rev_full), the bitwise parity oracle
+    rev_kw: Dict = {}
+    if config.flat_rev_index:
+        from .partition import _hash_cols as _rvh
+        from .rev import (
+            build_rev_full, build_rev_partitioned, rev_geom, rev_meta_kw,
+        )
+
+        _t_rev = time.perf_counter()
+        ra_cols_full = [snap.ar_child, ar_gk] + ar_cols[1:]
+        if PART:
+            ck = config.flat_partition_chunk
+            h_rv = _rev_key_hash_chunked(snap, maps, N, S1, ck, "k2")
+            ge_rv = rev_geom(h_rv, M)
+            w_rv = 2 + len(e_gates)
+            out["rv_off"], out["rvx"] = build_rev_partitioned(
+                h_rv, _rev_cols_at(snap, maps, N, S1, e_gates, "k2"),
+                ge_rv, w_rv,
+            )
+            del h_rv
+            h_ra = _rvh([snap.ar_child])
+            ge_ra = rev_geom(h_ra, M)
+            out["ra_off"], out["rax"] = build_rev_partitioned(
+                h_ra, gather_cols(ra_cols_full), ge_ra, len(ra_cols_full)
+            )
+            del h_ra
+            h_fw = _rev_key_hash_chunked(snap, maps, N, S1, ck, "k1")
+            ge_fw = rev_geom(h_fw, M)
+            out["fw_off"], out["fwx"] = build_rev_partitioned(
+                h_fw, _rev_cols_at(snap, maps, N, S1, e_gates, "k1"),
+                ge_fw, w_rv,
+            )
+            del h_fw
+        else:
+            h_rv = _rvh([e_k2])
+            ge_rv = rev_geom(h_rv, M)
+            out["rv_off"], out["rvx"] = build_rev_full(
+                h_rv, [e_k2, e_k1] + e_gates, ge_rv, 2 + len(e_gates)
+            )
+            h_ra = _rvh([snap.ar_child])
+            ge_ra = rev_geom(h_ra, M)
+            out["ra_off"], out["rax"] = build_rev_full(
+                h_ra, ra_cols_full, ge_ra, len(ra_cols_full)
+            )
+            h_fw = _rvh([e_k1])
+            ge_fw = rev_geom(h_fw, M)
+            out["fw_off"], out["fwx"] = build_rev_full(
+                h_fw, [e_k1, e_k2] + e_gates, ge_fw, 2 + len(e_gates)
+            )
+        rev_kw = rev_meta_kw(ge_rv, ge_ra, ge_fw)
+        metrics.default.observe(
+            "prepare.rev_s", time.perf_counter() - _t_rev
+        )
+
+    wc_nodes = snap.wildcard_node_of_type[snap.wildcard_node_of_type >= 0]
+    fold_kw: Dict = {}
+    got = _fold_packed(fr, snap, maps, N, config) if fr is not None else None
+    if got is not None:
+        csr = build_range_hash(cl_k1, min_size=ms, **hk)
+        if int(csr.max_run) > config.flat_fold_subj_fan_cap:
+            got = None
+    if got is not None:
+        pf_k1, pf_k2, pf_subj, (u_k1, u_gk, u_until, u_fan), pff = got
+        pf_cols = (
+            [pf_k1, pf_k2]
+            + ([fr.e_cav, fr.e_ctx] if pff["pf_hascav"] else [])
+            + ([fr.e_until] if pff["pf_hasuntil"] else [])
+        )
+        dom["until"]["pfx"] = _until_dom(fr.e_until)
+        dom["until"]["pfux"] = _until_dom(u_until)
+        if PART:
+            h_pf = _hash_cols([pf_k1, pf_k2])
+            gpf, pf_ord = point_geom(
+                h_pf, M, min_size=ms, return_order=True, **hk
+            )
+            out["pfh_off"], out["pfx"] = stack_point(
+                h_pf, gather_cols(pf_cols), gpf, len(pf_cols),
+                order=pf_ord,
+            )
+            pfh_cap = gpf.cap
+        else:
+            pfh = build_hash([pf_k1, pf_k2], min_size=ms, **hk)
+            out["pfh_off"], out["pfx"] = _stack_point(pfh, pf_cols, M)
+            pfh_cap = pfh.cap
+        if PART:
+            # fold userset view (u_k1 arrives k1-sorted): partitioned
+            # group stacking, same discipline as the usr/arr views
+            pfu_gk, pfu_glo, pfu_ghi = _groups_of(u_k1)
+            h_pfu = _hash_cols([pfu_gk])
+            gpfu = range_geom(
+                pfu_gk, pfu_ghi - pfu_glo, h_pfu, M, min_size=ms,
+                fan_pad=max(64, u_fan), **hk,
+            )
+            out["pfu_off"], out["pfugx"], out["pfux"] = stack_range(
+                pfu_gk, pfu_glo, pfu_ghi - pfu_glo, h_pfu,
+                gather_cols([u_gk, u_until]), gpfu, 2,
+            )
+            pfu_cap = gpfu.cap
+        else:
+            pfu = build_range_hash(u_k1, min_size=ms, **hk)
+            out["pfu_off"], out["pfugx"], out["pfux"], pfu_cap = _stack_range(
+                pfu, [u_gk, u_until], M, max(64, u_fan)
+            )
+        s_fan = _round_fan(max(int(csr.max_run), 1))
+        dom["fan"]["pfugx"] = u_fan
+        dom["fan"]["csrgx"] = s_fan
+        out["csr_off"], out["csrgx"], out["csrx"], csr_cap = _stack_range(
+            csr, [cl_k2, cl.c_d_until, cl.c_p_until], M, max(64, s_fan)
+        )
+        fold_kw = dict(
+            fold_pairs=fr.pairs,
+            pf_e_cap=_round_cap(pfh_cap),
+            pf_u_cap=_round_cap(pfu_cap),
+            pf_u_fan=u_fan,
+            pf_s_cap=_round_cap(csr_cap),
+            pf_s_fan=s_fan,
+            pf_haswc=bool(np.isin(pf_subj, wc_nodes).any()),
+            pf_has_e=pf_k1.shape[0] > 0,
+            pf_has_u=u_k1.shape[0] > 0,
+            **pff,
+        )
+        # arm the maintenance state with the packing context it
+        # needs at delta time (fold_delta_update)
+        fstate.maps, fstate.N = maps, N
+    else:
+        fstate = None
+
+    ar_dd = _arrow_data_depth(snap)
+    rc_list = []
+    for ts_slot, (src, anc, d_u, p_u, fan) in _rc_build(
+        snap, config, plan, ar_dd
+    ).items():
+        dom["until"][f"rc{ts_slot}x"] = _until_dom(d_u, p_u)
+        dom["fan"][f"rc{ts_slot}gx"] = fan
+        if PART:
+            # ancestor-closure view (src arrives sorted): partitioned
+            # group stacking — O(rc/M) fill scratch per shard
+            rc_gk, rc_glo, rc_ghi = _groups_of(src)
+            h_rc = _hash_cols([rc_gk])
+            grc = range_geom(
+                rc_gk, rc_ghi - rc_glo, h_rc, M, min_size=ms,
+                fan_pad=max(64, fan), **hk,
+            )
+            (
+                out[f"rc{ts_slot}_off"],
+                out[f"rc{ts_slot}gx"],
+                out[f"rc{ts_slot}x"],
+            ) = stack_range(
+                rc_gk, rc_glo, rc_ghi - rc_glo, h_rc,
+                gather_cols([anc, d_u, p_u]), grc, 3,
+            )
+            gcap = grc.cap
+        else:
+            ri = build_range_hash(src, min_size=ms, **hk)
+            (
+                out[f"rc{ts_slot}_off"],
+                out[f"rc{ts_slot}gx"],
+                out[f"rc{ts_slot}x"],
+                gcap,
+            ) = _stack_range(ri, [anc, d_u, p_u], M, max(64, fan))
+        rc_list.append((int(ts_slot), _round_cap(gcap), fan))
+
+    if PART:
+        metrics.default.observe(
+            "prepare.partition_s", time.perf_counter() - _t_part
+        )
+    meta = FlatMeta(
+        N=N, S1=S1,
+        k1_dense=tuple(int(x) for x in maps.k1),
+        k2_dense=tuple(int(x) for x in maps.k2),
+        **fold_kw,
+        **rev_kw,
+        rc_slots=tuple(sorted(rc_list)),
+        e_cap=_round_cap(eh_cap), e_n=_ceil_pow2(max(eh_n, 1)),
+        usr_cap=_round_cap(usr_cap),
+        usr_gn=8,  # legacy-probe geometry: unused (local shapes rule)
+        us_rows=8,
+        arr_cap=_round_cap(arr_cap),
+        arr_gn=8,
+        ar_rows=8,
+        cl_cap=_round_cap(clh.cap), cl_n=_ceil_pow2(max(clh.n, 1)),
+        has_closure=clh.n > 0,
+        pus_cap=_round_cap(push.cap), pus_n=_ceil_pow2(max(push.n, 1)),
+        ovf_cap=_round_cap(ovfh.cap), ovf_n=_ceil_pow2(max(ovfh.n, 1)),
+        has_ovf=ovfh.n > 0,
+        ar_fanout_by_slot=_run_maxes(ar_gkg, ar_glo, ar_ghi, N, maps.k1_raw),
+        us_fanout_by_slot=_run_maxes(us_gkg, us_glo, us_ghi, N, maps.k1_raw),
+        **t_kw,
+        **flags,
+        blockslice=True,
+        sharded=True,
+        ar_data_depth=ar_dd,
+        e_slots=tuple(int(s) for s in _uniq_small([snap.e_rel], snap.num_slots)),
+        us_slots=tuple(int(s) for s in _uniq_small([snap.us_rel], snap.num_slots)),
+        has_wc_edges=bool(np.isin(snap.e_subj, wc_nodes).any()),
+        has_wc_closure=bool(
+            np.isin(cl.c_src[cl.c_srel1 == 0], wc_nodes).any()
+            or np.isin(cl.ovf_src[cl.ovf_srel1 == 0], wc_nodes).any()
+        ),
+    )
+    if PKD:
+        with metrics.default.timer("prepare.pack_lanes_s"):
+            pk_up = _pack_flat(out, meta, config, dom, pack_off=False)
+        if pk_up:
+            from dataclasses import replace as _dc_replace
+
+            meta = _dc_replace(meta, **pk_up)
+    # closure-delta maintenance is single-chip for now: the sharded
+    # incremental prepare bails to a full rebuild on membership rows
+    return out, meta, fstate, None
+
+
 def _perm_table(compiled: CompiledSchema, interner) -> np.ndarray:
     """bool[interner types, slots]: slot is a *permission* on the type."""
     num_slots = max(compiled.num_slots, 1)
@@ -2502,6 +3142,8 @@ def make_flat_fn(
     kernels: bool = False,
     caveat_plan=None,
     witness: bool = False,
+    axis: Optional[str] = None,
+    model_size: int = 1,
 ):
     """Build the batched flat check function for a static set of permission
     slots.  Queries select their slot's result with a vectorized compare —
@@ -2553,11 +3195,30 @@ def make_flat_fn(
     whatever ``kernels`` says.  It has no fold, no ancestor closure and
     no delta level.
 
-    Covered: the single-chip layouts, blockslice (with or without a
-    delta level) and scattered; the sharded ones raise
-    NotImplementedError."""
-    if meta.sharded or meta.part_serve:
-        raise NotImplementedError("sharded check kernels are not ported yet")
+    With ``axis`` (the model axis of a mesh, parallel/sharded.py; tables
+    built by ``build_flat_arrays_sharded`` across ``model_size`` shards)
+    ``fn`` runs once per shard, over that shard's slice of every stacked
+    table, and takes a fifth keyword ``comm``: the shard's
+    ``parallel.collectives.Collectives`` handle.  Every base-table probe
+    hashes globally, masks bucket ownership and probes locally; boolean
+    site outputs OR-reduce over the axis (``comm.por``), and userset /
+    arrow / closure candidate blocks broadcast from their single owning
+    shard (``comm.psum`` of the masked block) — the reference's
+    shard-mapped program, collective for collective.  Those probes are
+    plain gathers: no probe kernel launches on a mesh, whatever
+    ``kernels`` says, as the reference runs no Pallas kernel there.  The
+    delta overlays stay replicated and probe plainly, after the base
+    sites' reductions.  The partitioned serve (``meta.part_serve``) is
+    not ported and raises NotImplementedError."""
+    if meta.part_serve:
+        raise NotImplementedError(
+            "the partitioned serve (with_mesh(partitioned=True)) is not"
+            " ported yet")
+    SH = axis is not None
+    if SH != meta.sharded:
+        raise ValueError(
+            "kernel/layout mismatch: bucket-sharded tables need the model"
+            " axis and vice versa (FlatMeta.sharded vs make_flat_fn axis)")
     BS = meta.blockslice
     tri = make_tri_fn(caveat_plan) if caveat_plan is not None else None
     perm_programs: Dict[int, List[Tuple[str, int, ExprIR]]] = {}
@@ -2652,7 +3313,7 @@ def make_flat_fn(
     else:
         pf_fidx_np = None
 
-    def fn(arrs, tid_map, now, qm, qctx, specs):
+    def fn(arrs, tid_map, now, qm, qctx, specs, comm=None):
         dev = qm.device
         # packed query matrix int32[8, B] (QM_LAYOUT); rows 3 and 7
         # arrive DENSE-mapped (build_qm)
@@ -2761,6 +3422,53 @@ def make_flat_fn(
             ctxc = torch.where(hit, blk[..., lay["ctx"]], -1)
             return tri_planes(live, cav, ctxc)
 
+        me = comm.axis_index() if SH else None
+
+        def por(x):
+            """Boolean OR-reduce over the model axis (identity off a
+            mesh)."""
+            return comm.por(x) if SH else x
+
+        def vbcast(own, x):
+            """Single-owner int32 broadcast over the model axis: exactly
+            one shard contributes (its bucket owns the key), so the psum
+            of the masked values IS the value (identity off a mesh)."""
+            return comm.psum(torch.where(own, x, 0)) if SH else x
+
+        def sh_site(off_key: str, tbl_key: str, cap: int, q_cols, mode: str,
+                    exp_lane, cav_lane, ctx_lane):
+            """One probe of a bucket-sharded table on this shard: the
+            global bucket's owner is its high bits, the local bucket its
+            low bits (``bpd`` from the LOCAL offsets).  The ownership mask
+            rides in the hit: a lane this shard does not own reads
+            ``block`` as -1 rows, which no query key (>= 0) matches, and
+            misses in every other mode.  The reduced modes (``any``,
+            ``until2``) OR-reduce over the axis here; ``block`` and
+            ``gate`` lanes are reduced by their site, which ORs after its
+            own fold (the reference's ``por_m``)."""
+            off = arrs[off_key]
+            bpd = int(off.shape[0]) - 1
+            h = bucket_of(q_cols, bpd * model_size)
+            mine = torch.div(h, bpd, rounding_mode="floor") == me
+            blk = sblock(tbl_key, tk(off, h & (bpd - 1)), cap)
+            if mode == "block":
+                return torch.where(mine[..., None, None], blk, -1)
+            hit = _K.blk_hit(blk, torch.broadcast_tensors(*q_cols)) & (
+                mine.unsqueeze(-1))
+            if mode == "any":
+                return por(hit.any(dim=-1))
+            if mode == "until2":
+                return (por((hit & (blk[..., 2] > now)).any(dim=-1)),
+                        por((hit & (blk[..., 3] > now)).any(dim=-1)))
+            live = hit
+            if exp_lane is not None:
+                exp = torch.where(hit, blk[..., exp_lane], 0)
+                live = hit & ((exp == 0) | (exp > now))
+            if cav_lane is None:
+                return hit, live
+            return (hit, live, torch.where(hit, blk[..., cav_lane], 0),
+                    torch.where(hit, blk[..., ctx_lane], -1))
+
         def psite(off_key: str, tbl_key: str, cap: int, q_cols,
                   mode: str = "block", exp_lane: Optional[int] = None,
                   cav_lane: Optional[int] = None,
@@ -2770,7 +3478,11 @@ def make_flat_fn(
             switch): bucket-ALIGNED tables (listed in ``meta.aligned``)
             probe their width-stratum levels through
             ``fused_probe_aligned``, the rest their offsets + interleaved
-            rows through ``fused_probe``."""
+            rows through ``fused_probe``.  A bucket-sharded table probes
+            on its shard with plain gathers (``sh_site``)."""
+            if SH:
+                return sh_site(off_key, tbl_key, cap, q_cols, mode,
+                               exp_lane, cav_lane, ctx_lane)
             al = ALD.get(tbl_key)
             if al is not None:
                 w_, caps = al
@@ -2874,6 +3586,19 @@ def make_flat_fn(
 
             def csr_slice(k):
                 ok = k >= 0
+                if SH:
+                    # the stacked rows table: the owner's rows broadcast
+                    lo, hi = range_probe("csr_off", "csrgx", meta.pf_s_cap, k)
+                    valid = (
+                        (arange(fanS) < (hi - lo).unsqueeze(-1))
+                        & ok.unsqueeze(-1)
+                    )
+                    blk = vbcast(valid.unsqueeze(-1), sblock("csrx", lo, fanS))
+                    valid = por(valid)
+                    gk = torch.where(valid, blk[..., 0], -1)
+                    dok = valid & (torch.where(valid, blk[..., 1], 0) > now)
+                    pok = valid & (torch.where(valid, blk[..., 2], 0) > now)
+                    return gk, dok, pok
                 if meta.pf_s_direct:
                     kc = torch.where(ok, k, 0)
                     lo = off_read("csr_start", kc)
@@ -2950,14 +3675,32 @@ def make_flat_fn(
                         cav = torch.where(live, blk[..., pfL["cav"]], 0)
                         ctxc = torch.where(live, blk[..., pfL["ctx"]], -1)
                         hd, hp = tri_planes(live, cav, ctxc)
-                    return hd.any(dim=-1), hp.any(dim=-1)
+                    return por(hd.any(dim=-1)), por(hp.any(dim=-1))
 
                 ed, ep = pe_site(bq(q_k2, nd))
                 d, p = d | ed, p | ep
                 if meta.pf_haswc:
                     wd, wp = pe_site(bq(w_k2, nd))
                     d, p = d | wd, p | wp
-            if meta.pf_has_u:
+            if meta.pf_has_u and SH:
+                # the stacked rows table: the owner's rows broadcast
+                fanU = max(meta.pf_u_fan, 1)
+                lo, hi = range_probe("pfu_off", "pfugx", meta.pf_u_cap, k1)
+                valid = (
+                    (arange(fanU) < (hi - lo).unsqueeze(-1))
+                    & exists.unsqueeze(-1)
+                )
+                ublk = vbcast(valid.unsqueeze(-1), sblock("pfux", lo, fanU))
+                valid = por(valid)
+                gk = torch.where(valid, ublk[..., 0], -1)
+                live = valid & (torch.where(valid, ublk[..., 1], 0) > now)
+                nd2 = nd + 1
+                ud, up = pf_isect(gk, live)
+                refl = (gk == bq(q_k2, nd2)) & (bq(q_k2, nd2) >= 0)
+                r_hit = (live & refl).any(dim=-1)
+                d = d | ud | r_hit
+                p = p | up | r_hit
+            elif meta.pf_has_u:
                 fanU = max(meta.pf_u_fan, 1)
                 if meta.pf_direct:
                     fc = (
@@ -3095,7 +3838,7 @@ def make_flat_fn(
                             bd = bp = live
                         else:
                             bd, bp = tri_planes(live, pg[2], pg[3])
-                        hd, hp = bd.any(dim=-1), bp.any(dim=-1)
+                        hd, hp = por(bd.any(dim=-1)), por(bp.any(dim=-1))
                         if dm is not None and dm.has_tombs:
                             tomb = ohit("tb", dm.tb_cap, (k1, k2q))
                             hd, hp = hd & ~tomb, hp & ~tomb
@@ -3177,7 +3920,7 @@ def make_flat_fn(
                     # T is incomplete for overflowed closure sources: flag
                     # queries whose (slot, node) has userset rows at all
                     lo2, hi2 = range_of("usr", meta.usr_cap, k1)
-                    used = used | reduceB(exists & (hi2 > lo2))
+                    used = used | por(reduceB(exists & (hi2 > lo2)))
 
             def ku_fetch(delta: bool, cap: int, fan: int):
                 """Range-probe a userset view (the base's, or the delta
@@ -3193,8 +3936,15 @@ def make_flat_fn(
                     (arange(fan) < (hi - lo).unsqueeze(-1))
                     & exists.unsqueeze(-1)
                 )
-                ublk = (slice_blocks(arrs["dl_usx"], lo, fan) if delta
-                        else sblock("usx", lo, fan))
+                if delta:
+                    return slice_blocks(arrs["dl_usx"], lo, fan), valid, over
+                ublk = sblock("usx", lo, fan)
+                if SH:
+                    # the owning shard's rows broadcast; every shard then
+                    # tests them against ITS closure / pus buckets
+                    over = por(over)
+                    ublk = vbcast(valid.unsqueeze(-1), ublk)
+                    valid = por(valid)
                 return ublk, valid, over
 
             def ku_eval(ublk, valid, tombstoned: bool = False):
@@ -3380,6 +4130,9 @@ def make_flat_fn(
             lo, hi = range_probe(f"rc{ts_slot}_off", f"rc{ts_slot}gx", cap, nq)
             valid = (arange(fan) < (hi - lo).unsqueeze(-1)) & exists.unsqueeze(-1)
             blk = sblock(f"rc{ts_slot}x", lo, fan)
+            if SH:
+                blk = vbcast(valid.unsqueeze(-1), blk)
+                valid = por(valid)
             anc = torch.where(valid, blk[..., 0], -1)
             path_d = valid & (blk[..., 1] > now)
             path_p = valid & (blk[..., 2] > now)
@@ -3465,8 +4218,8 @@ def make_flat_fn(
                     # lattice budget spent: probe child existence only;
                     # real deeper grants surface as possible
                     return (zeros(nodes.shape),
-                            ((hi > lo) | (hid > lod)) & exists, zB, zB)
-                ovf = reduceB(exists & ((hi - lo) > Ks))
+                            por((hi > lo) | (hid > lod)) & exists, zB, zB)
+                ovf = por(reduceB(exists & ((hi - lo) > Ks)))
                 if Ks == 0:
                     children = torch.full(nodes.shape + (0,), -1,
                                           dtype=torch.int32, device=dev)
@@ -3478,6 +4231,11 @@ def make_flat_fn(
                     )
                     if BS:
                         ablk = sblock("arx", lo, Ks)
+                        if SH:
+                            # the owning shard's rows broadcast; every
+                            # shard then recurses on the SAME children
+                            ablk = vbcast(valid.unsqueeze(-1), ablk)
+                            valid = por(valid)
                         children = torch.where(valid, ablk[..., arL["child"]],
                                                -1)
                         gd, gp = gate2_blk("ar", ablk, arL, valid)

@@ -47,6 +47,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from ..native.sort import lexsort2
 from ..schema.compiler import CompiledSchema
 from ..store.closure import NO_EXP, _expand_join
 from .plan import DevicePlan, EngineConfig, ExprIR
@@ -978,7 +979,10 @@ def t_join_core(
     T_k2 = np.concatenate([pe, cl_k1[jj]])
     T_d = np.concatenate([w, np.minimum(w[reps], c_d[jj])])
     T_p = np.concatenate([w, np.minimum(w[reps], c_p[jj])])
-    o2 = np.lexsort((T_k2, T_k1))
+    # the native radix sort over the int32-packed keys (np.lexsort's
+    # order): config 3's join holds ~10^8 rows, where np.lexsort was the
+    # largest single step of a prepare
+    o2 = lexsort2(T_k1, T_k2)
     T_k1, T_k2, T_d, T_p = T_k1[o2], T_k2[o2], T_d[o2], T_p[o2]
     first = np.ones(T_k1.shape[0], bool)
     first[1:] = (T_k1[1:] != T_k1[:-1]) | (T_k2[1:] != T_k2[:-1])

@@ -22,7 +22,16 @@ engine — runs here, on the raw sorted int32 columns of
   ``eval_iters`` times over it in topological order.
 
 Every cap has an overflow flag; flagged rows are settled by the caller on
-the host oracle.  The program reproduces the reference package's
+the host oracle.
+
+On a mesh (parallel/sharded.py) the program runs once per model shard,
+over that shard's contiguous slice of every sorted column (the node
+types, the stored contexts and the ``pus_*`` pair set stay whole), with
+the shard's ``Collectives`` handle: the closure seeds and propagation
+candidates and the arrow BFS children all-gather from every shard
+(``M * arrow_fanout`` children a node and tupleset), the leaf hits and
+the overflow flags OR-reduce — the reference's ``axis`` program
+(``_agather`` / ``_pany``).  The program reproduces the reference package's
 ``_closure_one`` / ``_query_one`` / ``_make_check_fn`` (its XLA program,
 vmapped per subject and per query) bit for bit, overflow plane included:
 the same searches land on the same rows, the same slots are assigned in
@@ -123,6 +132,25 @@ def dedup_truncate(keys: torch.Tensor, C: int) -> Tuple[torch.Tensor, torch.Tens
     return out.contiguous(), keep.sum(1) > C
 
 
+def _gather_rows(comm, x: torch.Tensor) -> torch.Tensor:
+    """``x`` [R, L] with every shard's ``x`` appended along the row:
+    [R, M·L] in shard order (identity off a mesh)."""
+    if comm is None:
+        return x
+    g = comm.all_gather(x)  # [M, R, L]
+    return g.permute(1, 0, 2).reshape(x.shape[0], -1)
+
+
+def _gather_last(comm, x: torch.Tensor) -> torch.Tensor:
+    """``x`` [..., K] with every shard's ``x`` concatenated along the
+    last axis: [..., M·K] in shard order (identity off a mesh)."""
+    if comm is None:
+        return x
+    g = comm.all_gather(x)  # [M, ..., K]
+    g = g.movedim(0, -2)  # [..., M, K]
+    return g.reshape(x.shape[:-1] + (-1,))
+
+
 def legacy_tables(arrays: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """The program's argument dict: the raw columns (and any ``ectx_*``
     stored-context tables) plus their packed search keys, built on the
@@ -173,9 +201,12 @@ class LegacyProgram:
         return live & (t >= 1) if plane == "p" else live & (t == 2)
 
     # -- phase A ----------------------------------------------------------
-    def _closure(self, T, plane, now, u_subj, u_srel, u_wc, u_qctx, tables):
+    def _closure(self, T, plane, now, u_subj, u_srel, u_wc, u_qctx, tables,
+                 comm=None):
         """Closure keys [U, closure_size] (sorted packed pairs, sentinel
-        padded) and the overflow flag per subject row."""
+        padded) and the shard-local overflow flag per subject row.  On a
+        mesh every shard's local candidates are gathered before each
+        dedup, so the closure itself is the same on every shard."""
         cfg = self.cfg
         C, SC, P = cfg.closure_size, cfg.seed_cap, cfg.prop_cap
         dev = u_subj.device
@@ -198,8 +229,8 @@ class LegacyProgram:
             keep = valid & self._gate(
                 T["ms_caveat"][idxc], T["ms_ctx"][idxc], T["ms_exp"][idxc],
                 now, plane, qc, tables)
-            keys.append(torch.where(
-                keep, pack2(T["ms_res"][idxc], T["ms_rel"][idxc]), SENTINEL))
+            keys.append(_gather_rows(comm, torch.where(
+                keep, pack2(T["ms_res"][idxc], T["ms_rel"][idxc]), SENTINEL)))
         ck, o = dedup_truncate(torch.cat(keys, 1), C)
         ovf |= o
 
@@ -223,8 +254,8 @@ class LegacyProgram:
                 now, plane, qcp, tables)
             cand = torch.where(
                 keep, pack2(T["mp_res"][idxc], T["mp_rel"][idxc]), SENTINEL)
-            ck, o = dedup_truncate(
-                torch.cat([ck, cand.reshape(ck.shape[0], -1)], 1), C)
+            cand = _gather_rows(comm, cand.reshape(ck.shape[0], -1))
+            ck, o = dedup_truncate(torch.cat([ck, cand], 1), C)
             return ck, ovf | o
 
         for _ in range(cfg.closure_hops):
@@ -278,11 +309,16 @@ class LegacyProgram:
         buf.scatter_(1, tgt, c.to(buf.dtype))
         return slot, buf[:, :N], count + wr.sum(1), overflow
 
-    def _queries(self, T, tid_of, now, Ck_d, Ck_p, q, tables):
+    def _queries(self, T, tid_of, now, Ck_d, Ck_p, q, tables, comm=None):
         """Phase B for one chunk of queries: (definite, possible,
-        overflow)."""
+        shard-local overflow).  On a mesh each BFS hop gathers every
+        shard's candidate children (``M * K`` a node and tupleset, in
+        shard order) before the slots are assigned, so the subgraph is
+        the same on every shard, and the leaf hits OR-reduce."""
         plan, cfg = self.plan, self.cfg
         N, K, KU = cfg.subgraph_nodes, cfg.arrow_fanout, cfg.us_leaf_cap
+        M = 1 if comm is None else comm.axis_size()
+        KE = K * M
         TS, SLOTS = len(plan.ts_slots), plan.num_slots
         q_res, q_subj, q_srel = q["q_res"], q["q_subj"], q["q_srel"]
         qc = q["q_ctx"]
@@ -297,8 +333,8 @@ class LegacyProgram:
         nodes[:, 0] = q_res
         count = (q_res >= 0).long()
         TSax = max(TS, 1)
-        child_slot = torch.full((Bq, N, TSax, K), -1, dtype=torch.long, device=dev)
-        child_gd = torch.zeros((Bq, N, TSax, K), dtype=torch.bool, device=dev)
+        child_slot = torch.full((Bq, N, TSax, KE), -1, dtype=torch.long, device=dev)
+        child_gd = torch.zeros((Bq, N, TSax, KE), dtype=torch.bool, device=dev)
         child_gp = child_gd
         if TS > 0:
             ar_key = T["ar_key"]
@@ -324,13 +360,17 @@ class LegacyProgram:
                     cgd.append(valid & self._gate(cav, ctx, exp, now, "d", qc3, tables))
                     cgp.append(valid & self._gate(cav, ctx, exp, now, "p", qc3, tables))
                     cc.append(torch.where(valid, T["ar_child"][idxc], -1))
-                cc = torch.stack(cc, 1)  # [Bq, TS, N, K]
+                # [Bq, TS, N, K]; on a mesh [Bq, TS, N, M·K], every
+                # shard's children in shard order
+                cc = _gather_last(comm, torch.stack(cc, 1))
+                cgd = _gather_last(comm, torch.stack(cgd, 1))
+                cgp = _gather_last(comm, torch.stack(cgp, 1))
                 slots, nodes, count, o = self._assign(
                     nodes, count, cc.reshape(Bq, -1), N)
                 overflow |= o
-                child_slot = slots.reshape(Bq, TS, N, K).permute(0, 2, 1, 3)
-                child_gd = torch.stack(cgd, 1).permute(0, 2, 1, 3)
-                child_gp = torch.stack(cgp, 1).permute(0, 2, 1, 3)
+                child_slot = slots.reshape(Bq, TS, N, KE).permute(0, 2, 1, 3)
+                child_gd = cgd.permute(0, 2, 1, 3)
+                child_gp = cgp.permute(0, 2, 1, 3)
 
         # ---- B2: relation leaf tests -----------------------------------
         rs_list = list(plan.rel_leaf_slots) or [0]
@@ -384,6 +424,9 @@ class LegacyProgram:
             cav, ctx, exp, now, "d", qc4, tables)).any(-1)
         leaf_p = leaf_p | (valid & in_p & self._gate(
             cav, ctx, exp, now, "p", qc4, tables)).any(-1)
+        if comm is not None:
+            # a direct / wildcard / userset grant may live on any shard
+            leaf_d, leaf_p = comm.por(leaf_d), comm.por(leaf_p)
         overflow |= (leaf_ovf & exists).flatten(1).any(1)
 
         V_d = torch.zeros((Bq, N, SLOTS), dtype=torch.bool, device=dev)
@@ -455,22 +498,29 @@ class LegacyProgram:
         return d, p, overflow
 
     # -- chunking -------------------------------------------------------
-    def subject_row_bytes(self) -> int:
-        """Estimated temporaries of one subject row's closure hop."""
+    def subject_row_bytes(self, M: int = 1) -> int:
+        """Estimated temporaries of one subject row's closure hop
+        (``M`` shards' candidates gathered)."""
         cfg = self.cfg
-        L = cfg.closure_size * (cfg.prop_cap + 1) + 2 * cfg.seed_cap
+        L = cfg.closure_size * (M * cfg.prop_cap + 1) + 2 * M * cfg.seed_cap
         return L * 64 + cfg.closure_size * cfg.prop_cap * self._num_params * 32
 
-    def query_row_bytes(self) -> int:
-        """Estimated temporaries of one query's phase B."""
+    def query_row_bytes(self, M: int = 1) -> int:
+        """Estimated temporaries of one query's phase B (``M`` shards'
+        BFS children gathered)."""
         plan, cfg = self.plan, self.cfg
         N, R = cfg.subgraph_nodes, max(len(plan.rel_leaf_slots), 1)
         lanes = N * R * cfg.us_leaf_cap
-        bfs = len(plan.ts_slots) * N * cfg.arrow_fanout * (N + 96)
+        bfs = len(plan.ts_slots) * N * M * cfg.arrow_fanout * (N + 96)
         return (4 * cfg.closure_size * 8 + lanes * (128 + 32 * self._num_params)
                 + bfs + N * plan.num_slots * 4)
 
-    def __call__(self, T, tid_map, now, uniq, queries, qctx=None):
+    def __call__(self, T, tid_map, now, uniq, queries, qctx=None, comm=None):
+        """The batch's planes.  ``comm`` (a mesh shard's
+        ``parallel.collectives.Collectives``) runs the sharded program
+        over this shard's column slices; every shard of a model row
+        returns the same planes."""
+        M = 1 if comm is None else comm.axis_size()
         tables = None
         if self.tri is not None:
             tables = {
@@ -481,13 +531,13 @@ class LegacyProgram:
             }
         tid_of = [int(x) for x in tid_map.tolist()]
         U = uniq["u_subj"].shape[0]
-        step = max(1, self.chunk_bytes // self.subject_row_bytes())
+        step = max(1, self.chunk_bytes // self.subject_row_bytes(M))
         cps, cds, uovf = [], [], []
         for a in range(0, U, step):
             args = [uniq[k][a:a + step] for k in ("u_subj", "u_srel", "u_wc", "u_qctx")]
-            cp, op = self._closure(T, "p", now, *args, tables)
+            cp, op = self._closure(T, "p", now, *args, tables, comm)
             if self.plan.two_plane:
-                cd, od = self._closure(T, "d", now, *args, tables)
+                cd, od = self._closure(T, "d", now, *args, tables, comm)
             else:
                 cd, od = cp, op
             cps.append(cp)
@@ -498,12 +548,17 @@ class LegacyProgram:
         u_ovf = torch.cat(uovf)
 
         B = queries["q_res"].shape[0]
-        step = max(1, self.chunk_bytes // self.query_row_bytes())
+        step = max(1, self.chunk_bytes // self.query_row_bytes(M))
         ds, ps, os_ = [], [], []
         for a in range(0, B, step):
             q = {k: v[a:a + step] for k, v in queries.items()}
-            d, p, o = self._queries(T, tid_of, now, Ck_d, Ck_p, q, tables)
+            d, p, o = self._queries(T, tid_of, now, Ck_d, Ck_p, q, tables,
+                                    comm)
             ds.append(d)
             ps.append(p)
             os_.append(o | u_ovf[q["q_row"]])
-        return torch.cat(ds), torch.cat(ps), torch.cat(os_)
+        ovf = torch.cat(os_)
+        if comm is not None:
+            # overflow anywhere on the row overflows the query
+            ovf = comm.por(ovf)
+        return torch.cat(ds), torch.cat(ps), ovf

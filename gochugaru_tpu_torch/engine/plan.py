@@ -93,6 +93,15 @@ class EngineConfig:
     flat_packed: Optional[bool] = None
     #: bucket-count growth bound for the packed layout's hash builds
     flat_packed_max_factor: int = 2
+    #: partition-first sharded builds (engine/partition.py): keys hash to
+    #: their bucket shard first, then each model shard's slice of the
+    #: stacked tables builds on its own — the same bits as the
+    #: build-full-then-stack path (False), with O(E/M) scratch a shard
+    flat_partition_build: bool = True
+    #: row chunk of the partitioned build's primary-key hash pass: the
+    #: dense (k1, k2) packs are made a chunk at a time, never as one
+    #: O(E) column
+    flat_partition_chunk: int = 1 << 22
     #: bucket-ALIGNED probe tables (engine/hash.py build_aligned): each
     #: bucket is ONE table row, a probe one row read per width-stratum
     #: level with no dependent offset read.  Off by default in the port.

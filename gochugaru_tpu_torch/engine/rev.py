@@ -26,18 +26,24 @@ Bucket sizing always uses the frozen lean geometry (``REV_HK``): fans
 are unbounded by design (a popular userset IS the workload), so the
 bisect cost grows with log(fan) instead of the offsets array growing.
 
-The single-GPU port builds with ``build_rev_full`` (``M = 1``); the
-partition-first shard builds wait for the multi-GPU slice.
+``build_rev_full`` sorts all rows once and slices the shards (the
+single-device build, ``M = 1``, and the full-then-stack sharded build);
+``build_rev_partitioned`` sends rows to their owner shard first and
+builds each shard on its own (``build_rev_shards``) — the same bits,
+O(E/M) scratch a shard (the sharded default, engine/flat.py
+``build_flat_arrays_sharded``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
 from .hash import _ceil_pow2
-from .partition import PointGeom, point_geom
+from .partition import (
+    ColsAt, PointGeom, ShardSlices, point_geom, shard_order,
+)
 
 #: geometry kwargs of every reverse-index bucket table: pow2(n) buckets,
 #: growth frozen (max_factor=1) — the bisect absorbs deep buckets
@@ -89,6 +95,77 @@ def _shard_off(lb: np.ndarray, bpd: int) -> np.ndarray:
     off = np.zeros(bpd + 1, np.int64)
     np.cumsum(np.bincount(lb, minlength=bpd), out=off[1:])
     return off.astype(np.int32)
+
+
+def build_rev_shards(
+    geom: PointGeom,
+    w: int,
+    shard_h: Callable[[int], np.ndarray],
+    shard_cols: Callable[[int, np.ndarray], List[np.ndarray]],
+    owned: Optional[Sequence[int]] = None,
+):
+    """Shard-at-a-time reverse-index build: (off int32[M·(bpd+1)],
+    tbl int32[M·R_pad, w]).  ``shard_h(s)`` returns shard s's row hashes
+    (any order — the identity sort canonicalizes); ``shard_cols(s, perm)``
+    the row columns gathered at shard-local positions ``perm``.  The
+    permutation applied is (local bucket, full row identity) —
+    feed-order-independent, hence the same bits from any partitioning
+    of the same row set."""
+    M, bpd, R_pad = geom.M, geom.bpd, geom.R_pad
+    full = owned is None
+    shards = range(M) if full else sorted(owned)
+    if full:
+        off = np.empty(M * (bpd + 1), np.int32)
+        tbl = np.full((M * R_pad, w), -1, np.int32)
+    else:
+        off_b: Dict[int, np.ndarray] = {}
+        tbl_b: Dict[int, np.ndarray] = {}
+    for s in shards:
+        h_s = shard_h(s)
+        lb = (h_s & np.uint32(bpd - 1)).astype(np.int64)
+        # the identity sort runs per shard with the local bucket as the
+        # major word — one fused sortperm_words pass over the shard's rows
+        cols0 = shard_cols(s, np.arange(h_s.shape[0], dtype=np.int64))
+        perm = _sort_words(lb, cols0)
+        cols = [np.ascontiguousarray(c[perm], np.int32) for c in cols0]
+        if full:
+            off[s * (bpd + 1) : (s + 1) * (bpd + 1)] = _shard_off(lb, bpd)
+            blk = tbl[s * R_pad : (s + 1) * R_pad]
+        else:
+            off_b[s] = _shard_off(lb, bpd)
+            blk = np.full((R_pad, w), -1, np.int32)
+            tbl_b[s] = blk
+        if cols and cols[0].shape[0]:
+            _fill_shard(blk, cols)
+    if full:
+        return off, tbl
+    return (
+        ShardSlices((M * (bpd + 1),), np.dtype(np.int32), bpd + 1, off_b),
+        ShardSlices((M * R_pad, w), np.dtype(np.int32), R_pad, tbl_b),
+    )
+
+
+def build_rev_partitioned(
+    h: np.ndarray,
+    cols_at: ColsAt,
+    geom: PointGeom,
+    w: int,
+    owned: Optional[Sequence[int]] = None,
+):
+    """Partition-FIRST reverse-index build: rows go to their owner shard
+    (high bits of the bucket) with one stable counting sort, then each
+    shard's slice builds independently — O(E/M) sort/gather scratch per
+    shard."""
+    order, starts = shard_order(h, geom.size, geom.M)
+
+    def shard_h(s: int) -> np.ndarray:
+        return h[order[starts[s] : starts[s + 1]]]
+
+    def shard_cols(s: int, perm: np.ndarray) -> List[np.ndarray]:
+        rows = order[starts[s] : starts[s + 1]][perm]
+        return cols_at(rows)
+
+    return build_rev_shards(geom, w, shard_h, shard_cols, owned)
 
 
 def build_rev_full(

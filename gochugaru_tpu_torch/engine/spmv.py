@@ -182,15 +182,13 @@ class FrontierKernels:
     engine keyed by meta).  ``kernels`` is the engine's switch: True
     launches the CUDA kernel for every probe, False runs its plain
     twin.  The chunk and the frontier floor are the config's
-    ``lookup_chunk`` / ``lookup_frontier_min``."""
+    ``lookup_chunk`` / ``lookup_frontier_min``.  Bucket-sharded tables
+    (a mesh, parallel/sharded.py) probe with the plain twins, whatever
+    the switch says, as the reference probes them without its kernel."""
 
     def __init__(self, meta, config, kernels: bool = False) -> None:
-        if meta.sharded:
-            raise NotImplementedError(
-                "lookups over sharded tables are a later slice"
-            )
         self.meta = meta
-        self.kernels = bool(kernels)
+        self.kernels = bool(kernels) and not meta.sharded
         self.CH = int(config.lookup_chunk)
         self.F_min = int(config.lookup_frontier_min)
         self._pk = dict(meta.packed)
@@ -416,8 +414,8 @@ def frontier_static_ok(meta, snap) -> bool:
 def frontier_ok(engine, dsnap) -> bool:
     """Device frontier eligibility: the static half plus the
     per-revision conditions — no LSM delta level riding, and sharded
-    snapshots only when the engine has an owner-routed hop path (the
-    port's has none yet, so they keep the walker)."""
+    snapshots only when the engine has an owner-routed hop path
+    (parallel/sharded.py ``lookup_hops_for``)."""
     meta = dsnap.flat_meta
     if not frontier_static_ok(meta, dsnap.snapshot):
         return False
@@ -536,6 +534,13 @@ class FrontierState:
         else:
             self.arg_args = args_of("arr_off", "argx")
         self.arx = (arrs["arx"], dsnap.specs.get("arx"))
+        #: owner-routed hop backend for bucket-sharded stacked tables
+        #: (parallel/sharded.py): each hop's frontier keys route to
+        #: their owner shards, which probe and emit with no collective
+        self._hops = (
+            engine.lookup_hops_for(dsnap, self.kern)
+            if meta.sharded else None
+        )
         #: wildcard-widening cache: sorted unique direct subjects
         self._all_subj: Optional[np.ndarray] = None
         #: the fused K-hop server (engine/spmm.py): the whole frontier
@@ -549,14 +554,20 @@ class FrontierState:
         return int(self.snap.now_rel32(now_us))
 
     def expand_rv(self, keys: np.ndarray, now):
+        if self._hops is not None:
+            return self._hops.expand("rv", keys, now)
         return self.kern.expand("rv", self.rv_args, self.rv_args[2:],
                                 keys, now)
 
     def expand_ra(self, keys: np.ndarray, now):
+        if self._hops is not None:
+            return self._hops.expand("ra", keys, now)
         return self.kern.expand("ra", self.ra_args, self.ra_args[2:],
                                 keys, now)
 
     def expand_fw(self, keys: np.ndarray, now):
+        if self._hops is not None:
+            return self._hops.expand("fw", keys, now)
         return self.kern.expand("fw", self.fw_args, self.fw_args[2:],
                                 keys, now)
 
@@ -564,6 +575,8 @@ class FrontierState:
         """Forward tupleset traversal over the EXISTING argx/arx view."""
         if keys.shape[0] == 0:
             return iter(())
+        if self._hops is not None:
+            return self._hops.expand("arg", keys, now)
         lo, ln, total = self.kern.runs("arg", self.arg_args, keys)
         _mt.inc("lookup.hops")
 

@@ -210,6 +210,28 @@ def test_tjoin_spmm_bitwise_parity(seed):
                 np.testing.assert_array_equal(x, y)
 
 
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+def test_tjoin_large_join_matches_reference(dtype):
+    """A join past the native sort's threshold (65,536 rows) takes the
+    native radix sort, with int32 keys and with int64 ones of int32
+    range, and gives the reference's tables byte for byte."""
+    rng = np.random.RandomState(5)
+    n_us, n_cl = 5_000, 3_000
+    k1 = rng.randint(-1_000, 2_000, n_us).astype(dtype)
+    pe = rng.randint(0, 40, n_us).astype(dtype)
+    w = rng.randint(1, 1000, n_us).astype(np.int32)
+    cl_k1 = rng.randint(-500, 3_000, n_cl).astype(dtype)
+    cl_k2 = rng.randint(0, 40, n_cl).astype(dtype)
+    c_d = rng.randint(0, 1000, n_cl).astype(np.int32)
+    c_p = rng.randint(0, 1000, n_cl).astype(np.int32)
+    args = (k1, pe, w, cl_k1, cl_k2, c_d, c_p, 1 << 30)
+    got, want = t_join_core(*args), j_t_join_core(*args)
+    assert got[0].shape[0] > (1 << 16)
+    for x, y in zip(got, want):
+        assert x.dtype == y.dtype
+        np.testing.assert_array_equal(x, y)
+
+
 def test_masked_semiring_identity_term():
     # one A row, empty B: the product is exactly A's identity rows
     args = (
