@@ -404,6 +404,44 @@ Phases (any failure exits non-zero and prints no result line):
    probe kernel launched.  Prints one ``mesh: {...}`` line after the
    ``scattered:`` line.
 
+21. the partitioned serve and the multi-process mesh (``ShardedEngine.
+   prepare_snapshot_partitioned``: engine/partition.py ``partition_feed``
+   with serve="routed", the primary / fold point / T tables split along
+   the model axis and the rest whole on every position; every shard on
+   ``cuda:0``, ``kernels=True``), each part with the launch counts set to
+   0 just before it and read just after (the partitioned probes are
+   plain gathers: none may launch): (a) right after phase 20 (a), config
+   3 at full size on 1 × 4 from phase 5's snapshot: the 100,000-check
+   batch, its planes equal to phase 5's bit for bit, the path that
+   served it (routed, or the psum fallback where a slot is not
+   routable), 2,000 sampled verdicts against the oracle, prepare s (the
+   feed, then the placement), MiB a position (the split tables against
+   the whole ones) and on the card, checks/s beside phase 5's and phase
+   20's, ``dispatch.route_s``; (b) after phase 20 (c), config 2's batch
+   of folded ``read``/``admin`` rows on 1 × 4 (routed), on 1 × 4 with
+   ``flat_fold=False`` (the permissions walked: not routable, so it falls
+   back to the psum path) and on 2 × 2 (the psum path: two data rows
+   never route), planes equal to phase 4's each time; (c) a
+   ``with_mesh(partitioned=True)`` client on 1 × 4 with config 2: 2,000
+   checks against the oracle, a write and a check that reads it through
+   the delta prepare (the fold stays armed, planes equal to a full
+   partitioned prepare of the tip), lookups on the host walker against
+   the oracle, 256 checks through ``with_serving()``; (d) two processes
+   on the card (parallel/multihost.py ``dryrun_multihost``, gloo, both on
+   ``cuda:0``): the 2 × 2 dryrun, then a 1 × 4 mesh whose model row spans
+   both processes, built from ``partition_feed(owned=
+   owned_model_shards(mesh))``, a psum batch with ``fetch=False`` held
+   row by row to the oracle in each process, with its cross-process
+   collectives and their host ms (and the legacy program's batch, whose
+   all-gathers cross the processes); then the same spanning 1 × 4 mesh
+   under load: two processes of this script (``--part-worker``) each
+   build config 2 at full size, prepare only their owned shards through
+   ``partition_feed(owned=owned_model_shards(mesh))`` and run the
+   100,000-check batch with ``fetch=False``, planes equal to phase 4's
+   bit for bit, with the collectives of a batch: calls, host ms, bytes,
+   and the cross-process all-reduces' bytes and ms.  Prints one
+   ``part: {...}`` line after the ``mesh:`` line.
+
 Phases 4-8 are the main path: launch counts are zeroed before phase 4
 and read after phase 7, and every mode of both kernels, and the gate
 with its caveat planes (``gate.cav``) of both, must have launched.
@@ -7486,6 +7524,423 @@ def phase_mesh_client(K):
     return row
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the partitioned serve and the multi-process mesh
+# ---------------------------------------------------------------------------
+
+#: phase 21's rows (the ``part:`` line)
+PART_OUT = {}
+#: the partitioned client's served checks
+PART_SERVED = 256
+
+
+def _route_stats():
+    from gochugaru_tpu_torch.utils import metrics
+
+    m = metrics.default.snapshot()
+    return m.get("dispatch.route_s.count", 0), m.get("dispatch.route_s.total_s", 0.0)
+
+
+def _part_mib(ds, M):
+    """MiB a position of a partitioned snapshot: the split tables' share,
+    the whole tables, and their sum."""
+    split = sum(v.nbytes for v in ds.arrays.values() if v.sharded) / M / 2**20
+    whole = sum(v.nbytes for v in ds.arrays.values() if not v.sharded) / 2**20
+    return dict(split=split, whole=whole, total=split + whole)
+
+
+def _same_or_fail(label, got, want):
+    for nm, a, b in zip("dpo", got, want):
+        if not np.array_equal(np.asarray(a), np.asarray(b)):
+            raise AssertionError(f"{label}: plane {nm} differs")
+
+
+def phase_part_world(K, name, shape, cs, snap, q, names, bs_planes,
+                     fallback=False, need_mesh=False, **cfg):
+    """Phase 21 (a)/(b) on one world: a ShardedEngine over ``mesh_of(*
+    shape)`` (``cfg`` overrides EngineConfig fields) prepared through the
+    routed feed from the snapshot the blockslice run prepared, with the
+    launch counts set to 0 just before the part and read just after
+    (none may launch).  The world's batch must give the blockslice planes
+    bit for bit, served routed exactly where its slots are routable on a
+    one-row mesh; ``fallback`` requires the psum path.  The row: the path
+    that served the batch, prepare s (the feed, then the placement), MiB
+    a position and on the card, checks/s beside phase 5's (or 4's) and
+    phase 20's (``need_mesh``: phase 20 ran this world on this shape, and
+    its row must be there), the mean ``dispatch.route_s`` of the timed
+    batches, the collectives."""
+    from gochugaru_tpu_torch.parallel.sharded import resident_bytes
+
+    label = f"{name} part {shape[0]}x{shape[1]}" + "".join(
+        f" {k}={v}" for k, v in cfg.items())
+    q_res, q_perm, q_subj = q
+    eng = mesh_engine(cs, shape, **cfg)
+    out = {}
+
+    def run():
+        alloc0 = torch.cuda.memory_allocated() if DEV == "cuda" else 0
+        t0 = time.perf_counter()
+        ds = eng.prepare_snapshot_partitioned(snap)
+        if DEV == "cuda":
+            torch.cuda.synchronize()
+        out["prepare_s"] = time.perf_counter() - t0
+        out["card_mib"] = ((torch.cuda.memory_allocated() - alloc0) / 2**20
+                           if DEV == "cuda" else None)
+        if not (ds.flat_meta.part_serve and ds.flat_meta.sharded):
+            raise AssertionError(f"{label}: the snapshot is not part-serve")
+        n0, _ = _route_stats()
+        planes = eng.check_columns(ds, q_res, q_perm, q_subj, now_us=EPOCH)
+        out["served"] = "routed" if _route_stats()[0] > n0 else "psum"
+        out["collectives"] = dict(eng.last_collectives)
+        return ds, planes
+
+    (ds, planes), got = own_launches(K, label, run, need=())
+    if got:
+        raise AssertionError(f"{label}: probe kernels launched: {got}")
+    _same_or_fail(f"{label} vs the blockslice planes", planes, bs_planes)
+    routable = eng._routable(ds.flat_meta, sorted({int(s) for s in q_perm}))
+    if (out["served"] == "routed") != (routable and shape[0] == 1):
+        raise AssertionError(f"{label}: served {out['served']}, routable={routable}")
+    if fallback and out["served"] != "psum":
+        raise AssertionError(f"{label}: the batch did not fall back")
+    if out["served"] == "routed" and out["collectives"]["calls"]:
+        raise AssertionError(f"{label}: a routed batch made collectives")
+    verdict, host_rows = mesh_settle(label, cs, snap, q, names, planes)
+    n0, s0 = _route_stats()
+    times = []
+    for _ in range(MESH_TIMED):
+        ts = time.perf_counter()
+        eng.check_columns(ds, q_res, q_perm, q_subj, now_us=EPOCH)
+        times.append(time.perf_counter() - ts)
+    n1, s1 = _route_stats()
+    B = int(q_res.shape[0])
+    mesh_key = f"{name} mesh {shape[0]}x{shape[1]}"
+    mesh_row = MESH_OUT.get(mesh_key)
+    if need_mesh and mesh_row is None:
+        raise AssertionError(f"{label}: phase 20 has no row {mesh_key!r} to"
+                             " compare with")
+    mesh_row = mesh_row or {}
+    row = dict(
+        shape=list(shape), config=cfg, edges=int(snap.num_edges), batch=B,
+        served=out["served"], routable=routable,
+        fold=bool(ds.flat_meta.fold_pairs), tindex=ds.flat_meta.has_tindex,
+        prepare_s=out["prepare_s"], feed_s=ds.prepare_split["build_s"],
+        place_s=ds.prepare_split["place_s"],
+        position_mib=_part_mib(ds, shape[1]),
+        split_tables=sorted(k for k, v in ds.arrays.items() if v.sharded),
+        resident_mib=resident_bytes(ds.arrays) / 2**20, card_mib=out["card_mib"],
+        owned_rows=int(ds.snapshot.e_rel.shape[0]),
+        checks_per_s=B / float(np.median(times)), batch_s=times,
+        route_s=(s1 - s0) / (n1 - n0) if n1 > n0 else None,
+        blockslice_checks_per_s=RATES.get(name, {}).get("kernels"),
+        mesh_checks_per_s=mesh_row.get("checks_per_s"),
+        mesh_prepare_s=mesh_row.get("prepare_s"),
+        blockslice_prepare_s=PREPARE_S.get(name),
+        collectives=out["collectives"]["calls"],
+        collective_host_ms=out["collectives"]["host_s"] * 1e3,
+        overflow_share=float(planes[2].mean()), host_settled=host_rows,
+        definite=int(planes[0].sum()), allowed=int(verdict.sum()),
+        launches=got,
+    )
+    log(f"{label}: 0 probe-kernel launches; served {out['served']}; planes equal"
+        f" the blockslice planes bit for bit; {MESH_ROWS} sampled verdicts agree"
+        f" with the oracle; {json.dumps(row)}")
+    PART_OUT[label] = row
+    del eng, ds
+    gc.collect()
+
+
+def phase_part_client(K):
+    """Phase 21 (c), on BASELINE config 2: a ``with_mesh(mesh_of(1, 4),
+    partitioned=True)`` client holding config 2 in its store — 2,000
+    sampled checks against the oracle; a write and a check that reads it
+    through the delta prepare (the fold stays armed, the split tables
+    kept, its planes equal to a full partitioned prepare of the tip);
+    lookups on the host walker (the feed declines the reverse index)
+    against the oracle's; PART_SERVED checks through ``with_serving()``,
+    whose formed batches take the routed path.  No probe kernel may
+    launch."""
+    from gochugaru_tpu_torch import consistency, rel
+    from gochugaru_tpu_torch.client import new_evaluator, with_engine_config, with_mesh
+    from gochugaru_tpu_torch.engine.oracle import SnapshotOracle, T
+    from gochugaru_tpu_torch.engine.plan import EngineConfig
+    from gochugaru_tpu_torch.store.store import parse_revision
+    from gochugaru_tpu_torch.utils import metrics
+    from gochugaru_tpu_torch.utils.context import background
+
+    t_phase = time.perf_counter()
+    c = new_evaluator(with_mesh(mesh_of(1, 4), partitioned=True),
+                      with_engine_config(EngineConfig(kernels=DEV == "cuda" or None)))
+    cs, snap, q, names = build_rbac(store=c.store)
+    oracle = SnapshotOracle(snap, {}, now_us=EPOCH)
+    ctx, full = background(), consistency.full()
+    rng = np.random.default_rng(22)
+    idx = rng.choice(len(names), MESH_ROWS, replace=False)
+    want = [oracle.check(*names[i], "", now_us=EPOCH) == T for i in idx]
+    with ApartLaunches(K) as apart:
+        n0, _ = _route_stats()
+        t0 = time.perf_counter()
+        got = c.check(ctx, full, *wit_rels(names, idx))
+        first_s = time.perf_counter() - t0
+        if got != want:
+            raise AssertionError("part client: check disagrees with the oracle on"
+                                 f" {sum(a != b for a, b in zip(got, want))} rows")
+        if _route_stats()[0] <= n0:
+            raise AssertionError("part client: the checks were not routed")
+        ek = c._engine_for(snap)
+        ds0 = c._dsnap_for(ek, snap)
+        if not ds0.flat_meta.part_serve or ds0.fold_state is None:
+            raise AssertionError("part client: not a folded part-serve snapshot")
+        i = next(i for i in range(len(names))
+                 if names[i][2] == "read"
+                 and oracle.check(*names[i], "", now_us=EPOCH) != T)
+        txn = rel.Txn()
+        txn.create(rel.must_from_triple(f"repo:{names[i][1]}", "reader",
+                                        f"user:{names[i][4]}"))
+        t0 = time.perf_counter()
+        tok = c.write(ctx, txn)
+        after = c.check(ctx, consistency.at_least(tok), *wit_rels(names, [i]))
+        write_check_ms = (time.perf_counter() - t0) * 1e3
+        inc = c._dsnap_cache[parse_revision(tok)]
+        dm = inc.flat_meta.delta
+        if after != [True] or dm is None or dm.pf_off or inc.fold_state is None:
+            raise AssertionError(f"part client: write -> check {after},"
+                                 f" delta={dm is not None}, fold kept="
+                                 f"{dm is not None and not dm.pf_off}")
+        for k, v in ds0.arrays.items():
+            if v.sharded and inc.arrays.get(k) is not v:
+                raise AssertionError(f"part client: the delta prepare moved {k}")
+        tip = inc.source_snapshot
+        t0 = time.perf_counter()
+        fds = ek.prepare_snapshot_partitioned(tip)
+        full_prepare_s = time.perf_counter() - t0
+        _same_or_fail("part client: delta vs full prepare of the tip",
+                      ek.check_columns(inc, *q, now_us=EPOCH),
+                      ek.check_columns(fds, *q, now_us=EPOCH))
+        # lookups: the host walker (the feed declines the reverse index)
+        w0 = metrics.default.counter("lookups.walker")
+        toracle = SnapshotOracle(tip, {}, now_us=EPOCH)
+        t0 = time.perf_counter()
+        n_res = n_sub = 0
+        for u in range(2):
+            g = sorted(c.lookup_resources(ctx, full, "repo#read", f"user:u{u}"))
+            w = sorted(toracle.lookup_resources("repo", "read", "user", f"u{u}"))
+            if g != w or not g:
+                raise AssertionError(f"part client: lookup_resources u{u} differs"
+                                     " from the oracle's")
+            n_res += len(g)
+        for r in range(2):
+            g = sorted(c.lookup_subjects(ctx, full, f"repo:r{r}", "read", "user"))
+            w = sorted(toracle.lookup_subjects("repo", f"r{r}", "read", "user"))
+            if g != w or not g:
+                raise AssertionError(f"part client: lookup_subjects r{r} differs"
+                                     " from the oracle's")
+            n_sub += len(g)
+        lookup_s = time.perf_counter() - t0
+        walker = int(metrics.default.counter("lookups.walker") - w0)
+        if walker < 4:
+            raise AssertionError(f"part client: {walker} lookups on the walker")
+        sidx = rng.choice(len(names), PART_SERVED, replace=False)
+        swant = [toracle.check(*names[i], "", now_us=EPOCH) == T for i in sidx]
+        n0, _ = _route_stats()
+        t0 = time.perf_counter()
+        with c.with_serving() as h:
+            served = h.check(ctx, *wit_rels(names, sidx))
+        serve_s = time.perf_counter() - t0
+        if list(served) != swant:
+            raise AssertionError("part client: served checks disagree with the oracle")
+        if _route_stats()[0] <= n0:
+            raise AssertionError("part client: the served batches were not routed")
+        launches = apart.take()
+    if launches:
+        raise AssertionError(f"part client: probe kernels launched {launches}")
+    row = dict(
+        edges=int(snap.num_edges), checks=MESH_ROWS, first_check_s=first_s,
+        write_check_ms=write_check_ms, delta_mib=dl_mib(inc),
+        full_prepare_s=full_prepare_s,
+        lookups=dict(resources=2, results=n_res, subjects=2,
+                     subject_results=n_sub, s=lookup_s, walker=walker),
+        served=dict(checks=PART_SERVED, s=serve_s),
+        s=time.perf_counter() - t_phase,
+    )
+    log(f"part client 1x4 on {DEV}: checks agree with the oracle and routed; write"
+        " -> check took the delta path with the fold armed, planes equal a full"
+        " prepare of the tip; walker lookups and served checks agree with the"
+        f" oracle; {json.dumps(row)}")
+    PART_OUT["client"] = row
+    del c, ek, ds0, inc, fds
+    gc.collect()
+
+
+#: phase 21 (d)'s loaded row: the timed batches a worker runs after its
+#: first, and the deadline of the two workers together
+PART_PROC_TIMED = 3
+PART_PROC_TIMEOUT_S = 300
+
+
+def part_proc_worker() -> int:
+    """Phase 21 (d)'s loaded row, one of its two processes (``python3
+    chip_smoke.py --part-worker``, spawned by :func:`phase_part_processes`
+    with the GOCHUGARU_* process variables): join the gloo group, build
+    BASELINE config 2 from its seed, hold two positions of a 1 × 4 mesh
+    whose model row spans both processes (both on the card), prepare
+    only the owned shards (``partition_feed(owned=owned_model_shards(
+    mesh))``), and run the 100,000-check batch with ``fetch=False``, once
+    and then PART_PROC_TIMED times.  The planes of every row it holds
+    must equal phase 4's (the npz the parent names in
+    CHIP_SMOKE_PART_WANT) bit for bit, each time.  Prints one
+    ``PART-WORKER {...}`` line: the owned rows against the edges, the
+    feed and placement s, each timed batch's s and collectives (calls,
+    host ms, bytes a shard put in, the row's all-reduces across the
+    processes with their host bytes and ms), and the launches (none
+    may)."""
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from gochugaru_tpu_torch.engine import kernels as K
+    from gochugaru_tpu_torch.engine.partition import partition_feed, snapshot_raw_columns
+    from gochugaru_tpu_torch.engine.plan import EngineConfig
+    from gochugaru_tpu_torch.parallel import ShardedEngine
+    from gochugaru_tpu_torch.parallel.multihost import (
+        global_mesh, initialize, owned_model_shards)
+
+    global DEV
+    DEV = os.environ.get("GOCHUGARU_DRYRUN_DEVICE") or "cuda"
+    dev = torch.device("cuda", 0) if DEV == "cuda" else torch.device(DEV)
+    initialize()
+    rank = dist.get_rank()
+    mesh = global_mesh(1, 4, devices=[dev, dev])
+    cs, snap, q, _names = build_rbac()
+    eng = ShardedEngine(cs, mesh, EngineConfig(kernels=DEV == "cuda" or None))
+    owned = owned_model_shards(mesh)
+    t0 = time.perf_counter()
+    part = partition_feed(
+        snap.revision, cs, snap.interner, snapshot_raw_columns(snap),
+        eng.config, eng.model_size, owned=owned, contexts=snap.contexts,
+        epoch_us=EPOCH)
+    feed_s = time.perf_counter() - t0
+    if part is None:
+        raise AssertionError("part worker: the feed partition declined config 2")
+    t0 = time.perf_counter()
+    ds = eng.prepare_partitioned(part)
+    if DEV == "cuda":
+        torch.cuda.synchronize()
+    place_s = time.perf_counter() - t0
+    want = np.load(os.environ["CHIP_SMOKE_PART_WANT"])
+    B = int(q[0].shape[0])
+    K.reset_launches()
+    batches = []
+    for i in range(1 + PART_PROC_TIMED):
+        t0 = time.perf_counter()
+        planes = eng.check_columns(ds, *q, now_us=EPOCH, fetch=False)
+        planes = [x.cpu().numpy() for x in planes]
+        s = time.perf_counter() - t0
+        (lo, hi), = eng.last_local_rows
+        if lo != 0 or hi < B:
+            raise AssertionError(f"part worker {rank}: holds rows {lo}-{hi} of {B}")
+        for nm, a in zip("dpo", planes):
+            if not np.array_equal(a[:B], want[nm]):
+                raise AssertionError(f"part worker {rank}: plane {nm} differs from"
+                                     " phase 4's")
+        c = eng.last_collectives
+        if i:
+            batches.append(dict(
+                s=s, collectives=c["calls"], host_ms=c["host_s"] * 1e3,
+                bytes=c["bytes"], cross_calls=c["cross_calls"],
+                cross_bytes=c["cross_bytes"], cross_ms=c["cross_s"] * 1e3))
+    report = dict(
+        proc=rank, mesh=[1, 4], device=DEV, owned=list(owned),
+        edges=int(snap.num_edges), local_rows=int(part.snapshot.e_rel.shape[0]),
+        batch=B, feed_s=feed_s, place_s=place_s,
+        cross_process_rows=int(mesh.group(0) is not None), batches=batches,
+        launches={k: v for k, v in K.LAUNCHES.items() if v})
+    print("PART-WORKER " + json.dumps(report), flush=True)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def part_proc_loaded(want_planes):
+    """Phase 21 (d)'s loaded row: two :func:`part_proc_worker` processes
+    on a fresh coordinator port, killed at PART_PROC_TIMEOUT_S; their
+    reports."""
+    import tempfile
+
+    from gochugaru_tpu_torch.parallel.multihost import _communicate_all, _free_port
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "want.npz")
+        np.savez(path, **{nm: np.asarray(a) for nm, a in zip("dpo", want_planes)})
+        coordinator = _free_port()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--part-worker"],
+            env=dict(os.environ, GOCHUGARU_COORDINATOR=coordinator,
+                     GOCHUGARU_NUM_PROCESSES="2", GOCHUGARU_PROCESS_ID=str(p),
+                     GOCHUGARU_DRYRUN_DEVICE=DEV, CHIP_SMOKE_PART_WANT=path,
+                     GLOO_SOCKET_IFNAME=os.environ.get("GLOO_SOCKET_IFNAME", "lo")),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for p in range(2)]
+        outs, rcs = _communicate_all(procs, PART_PROC_TIMEOUT_S)
+    reps = [json.loads(line.split(" ", 1)[1]) for out in outs
+            for line in out.splitlines() if line.startswith("PART-WORKER ")]
+    if rcs != [0, 0] or len(reps) != 2:
+        for p, (out, rc) in enumerate(zip(outs, rcs)):
+            tail = "\n".join(out.splitlines()[-12:])
+            log(f"--- part worker {p} (rc {rc}) tail ---\n{tail}")
+        raise AssertionError("processes 1x4 config2: a worker failed")
+    return reps
+
+
+def phase_part_processes(K, rbac):
+    """Phase 21 (d): two processes on the card joined by gloo (both on
+    ``cuda:0``, parallel/multihost.py ``dryrun_multihost``): the 2 × 2
+    dryrun (each model row within one process), then a 1 × 4 mesh whose
+    model row spans both (disjoint owned shards from ``partition_feed``,
+    a psum batch with ``fetch=False`` verified row by row in each
+    process), each worker reporting its collectives and their host ms
+    (an unloaded floor: 157 edges, a batch of 32), and the kernel
+    launches it made (none may); then the spanning 1 × 4 mesh under load,
+    config 2 (``rbac``) at full size with its 100,000-check batch
+    (:func:`part_proc_worker`), planes equal to phase 4's in each
+    process, with the collectives' host ms and bytes."""
+    from gochugaru_tpu_torch.parallel.multihost import dryrun_multihost
+
+    out = {}
+    for label, model in (("2x2", 0), ("1x4", 4)):
+        t0 = time.perf_counter()
+        reps = dryrun_multihost(2, 4, timeout_s=300, model=model, device=DEV)
+        for r in reps:
+            if r["launches"]:
+                raise AssertionError(f"processes {label}: proc {r['proc']} launched"
+                                     f" {r['launches']}")
+        if model and not all(r["cross_process_rows"] == 1
+                              and r["local_rows"] < r["edges"] for r in reps):
+            raise AssertionError(f"processes {label}: the model row does not span"
+                                 f" the processes with disjoint ownership: {reps}")
+        out[label] = dict(workers=reps, s=time.perf_counter() - t0)
+        log(f"processes {label} on {DEV}: every row verified in its process;"
+            f" {json.dumps(out[label])}")
+    label = "1x4 config2"
+    t0 = time.perf_counter()
+    reps = part_proc_loaded(rbac[4])
+    for r in reps:
+        if r["launches"]:
+            raise AssertionError(f"processes {label}: proc {r['proc']} launched"
+                                 f" {r['launches']}")
+        if not (r["cross_process_rows"] == 1 and r["local_rows"] < r["edges"]
+                and all(b["cross_calls"] for b in r["batches"])):
+            raise AssertionError(f"processes {label}: the model row does not span"
+                                 f" the processes with disjoint ownership: {r}")
+    if sorted(r["proc"] for r in reps) != [0, 1] or sum(
+            r["local_rows"] for r in reps) != reps[0]["edges"]:
+        raise AssertionError(f"processes {label}: the owned rows do not partition"
+                             f" the edges: {reps}")
+    out[label] = dict(workers=reps, s=time.perf_counter() - t0)
+    log(f"processes {label} on {DEV}: each process's planes equal phase 4's bit"
+        f" for bit; {json.dumps(out[label])}")
+    PART_OUT["processes"] = out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--scale3", type=float, default=1.0,
@@ -7498,7 +7953,12 @@ def main() -> int:
     ap.add_argument("--scale19", type=float, default=0.1,
                     help="size of phase 19's config 3 world (the scattered"
                          " layout; 1.0 = 1M docs, 10M edges)")
+    ap.add_argument("--part-worker", action="store_true",
+                    help="run as one of phase 21 (d)'s two processes (the"
+                         " smoke spawns them itself)")
     args = ap.parse_args()
+    if args.part_worker:
+        return part_proc_worker()
     t_smoke = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -7580,6 +8040,11 @@ def main() -> int:
         t20 = time.perf_counter()
         phase_mesh_world(K, "config3", (1, 4), cs, snap, q, names, planes)
         t20 = time.perf_counter() - t20
+        # ---- phase 21 (a): config 3 partitioned and routed on 1 x 4 ------
+        t21 = time.perf_counter()
+        phase_part_world(K, "config3", (1, 4), cs, snap, q, names, planes,
+                         need_mesh=True)
+        t21 = time.perf_counter() - t21
         # ---- phase 5b: config 3 aligned on phase 5's snapshot ------------
         ek, ep, ds, al_planes = check_world("config3 aligned", cs, snap, q, names,
                                             K, **ALIGNED)
@@ -7666,6 +8131,20 @@ def main() -> int:
     MESH_OUT["card"] = card
     log(f"phase 20: {t20:.1f}s")
 
+    # ---- phase 21 (the rest): config 2 partitioned, a client, processes --
+    t0 = time.perf_counter()
+    phase_part_world(K, "config2", (1, 4), *rbac)
+    # the same batch with the fold off: read/admin are walked permissions,
+    # not routable, so it has to fall back to the psum path
+    phase_part_world(K, "config2", (1, 4), *rbac, fallback=True, flat_fold=False)
+    phase_part_world(K, "config2", (2, 2), *rbac, need_mesh=True)
+    phase_part_client(K)
+    phase_part_processes(K, rbac)
+    t21 += time.perf_counter() - t0
+    PART_OUT["phase_s"] = t21
+    PART_OUT["card"] = card
+    log(f"phase 21: {t21:.1f}s")
+
     # ---- per-mode timing at the largest main-path shape ----------------
     table = []
     for mode in K.MODES + (K.GATE_CAV,):
@@ -7697,6 +8176,7 @@ def main() -> int:
     print("fleet: " + json.dumps(fleet))
     print("scattered: " + json.dumps(SCATTERED_OUT))
     print("mesh: " + json.dumps(MESH_OUT))
+    print("part: " + json.dumps(PART_OUT))
     print(json.dumps({"kernels": table}))
     print(card)
     print(json.dumps({"ok": True, "device": {

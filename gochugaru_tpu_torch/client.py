@@ -157,6 +157,7 @@ class _Options:
         self.slos = None  # None → utils/slo.default_slos(); () disables
         self.group_commit = None  # GroupCommitConfig | True | None
         self.mesh = None  # parallel.Mesh → the sharded engine
+        self.mesh_partitioned = False  # the partitioned (owner-routed) serve
 
 
 Option = Callable[[_Options], None]
@@ -208,15 +209,21 @@ def with_mesh(mesh, *, partitioned: bool = False) -> Option:
     bucket-sharded tables along the model axis — instead of the
     single-device DeviceEngine; the client's device is the mesh's first.
     Writes advance the sharded snapshot through the delta chain, lookups
-    hop over the stacked reverse index.  ``partitioned=True`` (the
-    owner-routed partitioned serve) is not ported yet and raises."""
-    if partitioned:
-        raise NotImplementedError(
-            "with_mesh(partitioned=True): the partitioned serve is not"
-            " ported yet")
+    hop over the stacked reverse index.
+
+    ``partitioned=True`` prepares snapshots through the bucket-
+    partitioned feed (engine/partition.py ``partition_feed`` with
+    serve="routed"): the primary / fold point / T tables split along the
+    model axis, the membership and group tables whole on every position,
+    and a Check batch whose slots are routable goes to the owner shard of
+    each query with no collective.  Writes still take the delta chain;
+    a world the feed cannot partition (keys past the int32 pack) falls
+    back to the ordinary sharded prepare.  The feed declines the reverse
+    lookup index, so lookups run on the host walker."""
 
     def opt(o: _Options) -> None:
         o.mesh = mesh
+        o.mesh_partitioned = partitioned
 
     return opt
 
@@ -401,6 +408,7 @@ class Client:
         self._use_device = o.use_device
         #: the engine's device (a mesh's first); None on a host-only client
         self._mesh = o.mesh
+        self._mesh_partitioned = o.mesh is not None and o.mesh_partitioned
         if not o.use_device:
             self.device = None
         elif o.mesh is not None:
@@ -663,7 +671,10 @@ class Client:
                     if di is not None
                     else None
                 )
-                ds = engine.prepare(snap, prev=prev)
+                if self._mesh_partitioned:
+                    ds = engine.prepare_snapshot_partitioned(snap, prev=prev)
+                else:
+                    ds = engine.prepare(snap, prev=prev)
             evicted = self._lru_put(self._dsnap_cache, snap.revision, ds)
             # dsnap-LRU eviction drops the matching verdict shard: a
             # revision no longer resident would only pin bytes

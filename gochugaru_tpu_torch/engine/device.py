@@ -754,13 +754,14 @@ class DeviceEngine:
         return {"kernels": self.kernels}
 
     def _flat_fn_for(self, slots: Tuple[int, ...], meta: FlatMeta,
-                     witness: bool = False):
-        key = (slots, meta) if not witness else (slots, meta, "wit")
+                     witness: bool = False, routed: bool = False):
+        key = ((slots, meta) + (("wit",) if witness else ())
+               + (("routed",) if routed else ()))
         fn = self._flat_fns.get(key)
         if fn is None:
             fn = make_flat_fn(
                 self.compiled, self.plan, self.config, meta, slots,
-                caveat_plan=self.caveat_plan, witness=witness,
+                caveat_plan=self.caveat_plan, witness=witness, routed=routed,
                 **self._flat_fn_kwargs(),
             )
             while len(self._flat_fns) >= self.FLAT_FN_CACHE_MAX:

@@ -295,9 +295,10 @@ class FlatMeta:
     #: be built with the matching ``axis``; make_flat_fn enforces this)
     sharded: bool = False
     #: partitioned-SERVE placement (engine/partition.py partition_feed
-    #: with serve="routed"): only the primary/fold point tables (ehx,
-    #: pfx) are split along the model axis — everything else (userset /
-    #: arrow / T / closure / pus / ovf / pfu / csr / rc stacked tables)
+    #: with serve="routed"): only the primary/fold point tables and the T
+    #: join (ehx, pfx, tx: ``PART_SHARDED_TBLS``) are split along the
+    #: model axis — everything else (userset / arrow / closure / pus /
+    #: ovf / pfu / csr / rc stacked tables)
     #: is membership- or group-structure-sized and placed WHOLE on every
     #: device, mirroring the host partition (membership subgraph
     #: replicated, edges partitioned).  The kernel then resolves those
@@ -1243,7 +1244,16 @@ def _pack_flat(
                 if k == name:
                     if len(a.shape) != 2 or a.shape[1] != w:
                         break
-                    packed_arrays[k] = pk.pack_rows(a, spec)
+                    if hasattr(a, "map_blocks"):  # owned ShardSlices
+                        # each process packs only its owned blocks: a
+                        # PackError must raise (below), since a local
+                        # despec would make FlatMeta differ between the
+                        # processes of one mesh
+                        packed_arrays[k] = a.map_blocks(
+                            lambda b: pk.pack_rows(b, spec), lanes,
+                            np.uint16)
+                    else:
+                        packed_arrays[k] = pk.pack_rows(a, spec)
                 else:
                     size, roww = a.shape
                     cap = roww // w
@@ -1254,6 +1264,8 @@ def _pack_flat(
                 out.update(packed_arrays)
                 specs.append((name, spec))
         except pk.PackError:
+            if any(hasattr(out[k], "map_blocks") for k in tgt):
+                raise
             continue
     off_specs: List[Tuple[str, int]] = []
     if pack_off:
@@ -3133,6 +3145,20 @@ class _WitColl:
         )
 
 
+#: stacked tables that stay model-split under the partitioned-serve
+#: placement (FlatMeta.part_serve): the O(E)-scale primary and folded
+#: identity point tables and the T join.  Every other stacked table is
+#: membership- or group-structure-sized and whole on every position.
+#: tx's bucket geometry differs from the routing geometry, so a routed
+#: program never probes it (parallel/sharded.py ``_routable`` sends
+#: T-probing slots to the psum path, whose ownership-masked probe is
+#: exact for any geometry)
+PART_SHARDED_TBLS = frozenset({"ehx", "pfx", "tx"})
+PART_SHARDED_KEYS = frozenset(
+    {"ehx", "eh_off", "pfx", "pfh_off", "tx", "th_off"}
+)
+
+
 def make_flat_fn(
     compiled: CompiledSchema,
     plan: DevicePlan,
@@ -3144,6 +3170,7 @@ def make_flat_fn(
     witness: bool = False,
     axis: Optional[str] = None,
     model_size: int = 1,
+    routed: bool = False,
 ):
     """Build the batched flat check function for a static set of permission
     slots.  Queries select their slot's result with a vectorized compare —
@@ -3208,17 +3235,33 @@ def make_flat_fn(
     plain gathers: no probe kernel launches on a mesh, whatever
     ``kernels`` says, as the reference runs no Pallas kernel there.  The
     delta overlays stay replicated and probe plainly, after the base
-    sites' reductions.  The partitioned serve (``meta.part_serve``) is
-    not ported and raises NotImplementedError."""
-    if meta.part_serve:
-        raise NotImplementedError(
-            "the partitioned serve (with_mesh(partitioned=True)) is not"
-            " ported yet")
+    sites' reductions.
+
+    With ``meta.part_serve`` (the partitioned serve's placement) only the
+    primary, fold-point and T tables (``PART_SHARDED_TBLS``) are split;
+    every other stacked table is whole on every position, and its probe
+    finds the owner shard's block arithmetically (the stacked offsets
+    and rows of shard s sit at [s·(bpd+1)] and [s·R_pad]), so those
+    sites need no collective: only the split tables' probes OR-reduce.
+    With ``routed=True`` on top, each shard holds exactly the queries
+    whose root (k1, k2) bucket it owns: the split tables' probes drop
+    their ownership mask (a row with the probed key can only live in its
+    owner's buckets, so a probe off its owner misses by construction)
+    and ``fn`` makes no collective at all.  A routed program is only
+    built for a routable slot set (parallel/sharded.py ``_routable``):
+    a routed sub-batch is shard-local, and a reduction over it would
+    merge unrelated queries."""
     SH = axis is not None
+    PART = bool(meta.part_serve)
     if SH != meta.sharded:
         raise ValueError(
             "kernel/layout mismatch: bucket-sharded tables need the model"
             " axis and vice versa (FlatMeta.sharded vs make_flat_fn axis)")
+    if (PART or routed) and not SH:
+        raise ValueError(
+            "partitioned-serve/routed programs need the model axis")
+    if routed and not PART:
+        raise ValueError("routed dispatch requires part_serve placement")
     BS = meta.blockslice
     tri = make_tri_fn(caveat_plan) if caveat_plan is not None else None
     perm_programs: Dict[int, List[Tuple[str, int, ExprIR]]] = {}
@@ -3423,17 +3466,30 @@ def make_flat_fn(
             return tri_planes(live, cav, ctxc)
 
         me = comm.axis_index() if SH else None
+        # part-serve: every stacked table but the split ones is whole on
+        # this position and its probes are locally complete, so the
+        # owner-broadcast / OR sites become the identity
+        SH_VB = SH and not PART
 
         def por(x):
             """Boolean OR-reduce over the model axis (identity off a
-            mesh)."""
-            return comm.por(x) if SH else x
+            mesh, and under part-serve, where every probe but the split
+            tables' is locally complete)."""
+            return comm.por(x) if SH_VB else x
+
+        def por_m(x):
+            """The OR-reduce of a split table's site (primary, fold
+            point, T join): its probe carried an ownership mask, except on
+            a routed batch, whose probes are local to their owner."""
+            return comm.por(x) if SH and not routed else x
 
         def vbcast(own, x):
             """Single-owner int32 broadcast over the model axis: exactly
             one shard contributes (its bucket owns the key), so the psum
-            of the masked values IS the value (identity off a mesh)."""
-            return comm.psum(torch.where(own, x, 0)) if SH else x
+            of the masked values IS the value (identity off a mesh, and
+            under part-serve, where the block read is already the
+            owner's)."""
+            return comm.psum(torch.where(own, x, 0)) if SH_VB else x
 
         def sh_site(off_key: str, tbl_key: str, cap: int, q_cols, mode: str,
                     exp_lane, cav_lane, ctx_lane):
@@ -3445,21 +3501,42 @@ def make_flat_fn(
             misses in every other mode.  The reduced modes (``any``,
             ``until2``) OR-reduce over the axis here; ``block`` and
             ``gate`` lanes are reduced by their site, which ORs after its
-            own fold (the reference's ``por_m``)."""
+            own fold (the reference's ``por_m``).
+
+            Under part-serve a table outside ``PART_SHARDED_TBLS`` is
+            whole on this position: the probe reads its owner shard's
+            block directly (offsets at s·(bpd+1), rows at s·R_pad) with no
+            mask and no reduction; overshooting a shard's padding reads a
+            neighbour's rows, whose keys have another owner and never
+            match.  On a routed batch a split table's probe needs no mask
+            either: the query sits on its owner."""
             off = arrs[off_key]
-            bpd = int(off.shape[0]) - 1
-            h = bucket_of(q_cols, bpd * model_size)
-            mine = torch.div(h, bpd, rounding_mode="floor") == me
-            blk = sblock(tbl_key, tk(off, h & (bpd - 1)), cap)
+            if PART and tbl_key not in PART_SHARDED_TBLS:
+                bpd = int(off.shape[0]) // model_size - 1
+                R_pad = int(arrs[tbl_key].shape[0]) // model_size
+                h = bucket_of(q_cols, bpd * model_size)
+                s = torch.div(h, bpd, rounding_mode="floor")
+                start = tk(off, s * (bpd + 1) + (h & (bpd - 1))) + s * R_pad
+                mine = None
+            else:
+                bpd = int(off.shape[0]) - 1
+                h = bucket_of(q_cols, bpd * model_size)
+                start = tk(off, h & (bpd - 1))
+                mine = (None if routed else
+                        torch.div(h, bpd, rounding_mode="floor") == me)
+            blk = sblock(tbl_key, start, cap)
             if mode == "block":
-                return torch.where(mine[..., None, None], blk, -1)
-            hit = _K.blk_hit(blk, torch.broadcast_tensors(*q_cols)) & (
-                mine.unsqueeze(-1))
+                return (blk if mine is None
+                        else torch.where(mine[..., None, None], blk, -1))
+            hit = _K.blk_hit(blk, torch.broadcast_tensors(*q_cols))
+            red = (lambda x: x) if mine is None else comm.por
+            if mine is not None:
+                hit = hit & mine.unsqueeze(-1)
             if mode == "any":
-                return por(hit.any(dim=-1))
+                return red(hit.any(dim=-1))
             if mode == "until2":
-                return (por((hit & (blk[..., 2] > now)).any(dim=-1)),
-                        por((hit & (blk[..., 3] > now)).any(dim=-1)))
+                return (red((hit & (blk[..., 2] > now)).any(dim=-1)),
+                        red((hit & (blk[..., 3] > now)).any(dim=-1)))
             live = hit
             if exp_lane is not None:
                 exp = torch.where(hit, blk[..., exp_lane], 0)
@@ -3520,9 +3597,12 @@ def make_flat_fn(
             return _K.blk_hit(oblock(key, cap, q_cols), q_cols).any(dim=-1)
 
         def range_probe(off_key: str, tbl_key: str, cap: int, q,
-                        rep: bool = False):
+                        rep: bool = False, rows_key: Optional[str] = None):
             """(lo, hi) row range of group key ``q``; (0, 0) on a miss.
-            ``rep`` marks a delta overlay's group table (plain probe)."""
+            ``rep`` marks a delta overlay's group table (plain probe).
+            Under part-serve the group entry's range is local to its
+            owner's block of the whole stacked rows table ``rows_key``,
+            so the owner's base row is added (a miss keeps lo == hi)."""
             if rep:
                 blk = probe_block(arrs[off_key], arrs[tbl_key], cap, (q,))
             else:
@@ -3530,13 +3610,20 @@ def make_flat_fn(
             hit = _K.blk_hit(blk, (q,))
             lo = torch.where(hit, blk[..., 1], 0).amax(dim=-1)
             hi = torch.where(hit, blk[..., 2], 0).amax(dim=-1)
+            if PART and not rep and rows_key is not None:
+                bpd = int(arrs[off_key].shape[0]) // model_size - 1
+                R_rows = int(arrs[rows_key].shape[0]) // model_size
+                hq = bucket_of((q,), bpd * model_size)
+                base = torch.div(hq, bpd, rounding_mode="floor") * R_rows
+                lo = lo + base
+                hi = hi + base
             return lo, hi
 
         def range_of(prefix: str, cap: int, q):
             if BS:
                 return range_probe(
                     prefix + "_off", {"usr": "usgx", "arr": "argx"}[prefix],
-                    cap, q,
+                    cap, q, rows_key={"usr": "usx", "arr": "arx"}[prefix],
                 )
             ri = {
                 k: arrs[prefix + "_" + k]
@@ -3586,9 +3673,13 @@ def make_flat_fn(
 
             def csr_slice(k):
                 ok = k >= 0
-                if SH:
+                # part-serve with the direct view: the dense offsets and
+                # split columns are whole on every position, so the
+                # single-device path serves each shard
+                if SH and not (PART and meta.pf_s_direct):
                     # the stacked rows table: the owner's rows broadcast
-                    lo, hi = range_probe("csr_off", "csrgx", meta.pf_s_cap, k)
+                    lo, hi = range_probe("csr_off", "csrgx", meta.pf_s_cap, k,
+                                         rows_key="csrx")
                     valid = (
                         (arange(fanS) < (hi - lo).unsqueeze(-1))
                         & ok.unsqueeze(-1)
@@ -3675,17 +3766,18 @@ def make_flat_fn(
                         cav = torch.where(live, blk[..., pfL["cav"]], 0)
                         ctxc = torch.where(live, blk[..., pfL["ctx"]], -1)
                         hd, hp = tri_planes(live, cav, ctxc)
-                    return por(hd.any(dim=-1)), por(hp.any(dim=-1))
+                    return por_m(hd.any(dim=-1)), por_m(hp.any(dim=-1))
 
                 ed, ep = pe_site(bq(q_k2, nd))
                 d, p = d | ed, p | ep
                 if meta.pf_haswc:
                     wd, wp = pe_site(bq(w_k2, nd))
                     d, p = d | wd, p | wp
-            if meta.pf_has_u and SH:
+            if meta.pf_has_u and SH and not (PART and meta.pf_direct):
                 # the stacked rows table: the owner's rows broadcast
                 fanU = max(meta.pf_u_fan, 1)
-                lo, hi = range_probe("pfu_off", "pfugx", meta.pf_u_cap, k1)
+                lo, hi = range_probe("pfu_off", "pfugx", meta.pf_u_cap, k1,
+                                     rows_key="pfux")
                 valid = (
                     (arange(fanU) < (hi - lo).unsqueeze(-1))
                     & exists.unsqueeze(-1)
@@ -3838,7 +3930,7 @@ def make_flat_fn(
                             bd = bp = live
                         else:
                             bd, bp = tri_planes(live, pg[2], pg[3])
-                        hd, hp = por(bd.any(dim=-1)), por(bp.any(dim=-1))
+                        hd, hp = por_m(bd.any(dim=-1)), por_m(bp.any(dim=-1))
                         if dm is not None and dm.has_tombs:
                             tomb = ohit("tb", dm.tb_cap, (k1, k2q))
                             hd, hp = hd & ~tomb, hp & ~tomb
@@ -4127,7 +4219,8 @@ def make_flat_fn(
             cap, fan = rc_geom[ts_slot]
             exists = nodes >= 0
             nq = torch.where(exists, nodes, -1)
-            lo, hi = range_probe(f"rc{ts_slot}_off", f"rc{ts_slot}gx", cap, nq)
+            lo, hi = range_probe(f"rc{ts_slot}_off", f"rc{ts_slot}gx", cap, nq,
+                                 rows_key=f"rc{ts_slot}x")
             valid = (arange(fan) < (hi - lo).unsqueeze(-1)) & exists.unsqueeze(-1)
             blk = sblock(f"rc{ts_slot}x", lo, fan)
             if SH:

@@ -8,7 +8,9 @@ A ``Mesh`` is a (data × model) grid of torch devices:
   with OR-reduce / broadcast / all-gather collectives at the program's
   merge points (parallel/collectives.py).
 
-One process drives every position, each on a thread of its own.
+One process drives every position, each on a thread of its own; a mesh
+may also span processes (``parallel.multihost``: ``torch.distributed``,
+each process driving its own positions).
 """
 
 from .mesh import DATA_AXIS, MODEL_AXIS, Mesh, default_mesh, make_mesh

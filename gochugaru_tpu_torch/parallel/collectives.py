@@ -25,13 +25,24 @@ out (``BARRIER_TIMEOUT_S``) breaks: the other shards stop at their next
 collective, every thread is joined, and ``run_mesh`` raises the first
 shard's own error — nothing hangs and nothing carries on with fewer
 shards.
+
+On a mesh that spans processes (parallel/mesh.py ``Mesh.procs``) each
+process runs threads for its own positions only.  Where a model row
+spans processes, its local shards meet at the barrier as above, and the
+last to arrive combines their inputs and then makes ONE
+``torch.distributed`` call over the row's group: ``all_reduce`` of the
+local sum for ``psum``, and for ``all_gather`` an ``all_reduce`` of an
+[M, ...] stack that holds this process's shards and zeros elsewhere
+(each shard lives in exactly one process, so the sum is the gather).
+The group's backend is gloo, which reduces host tensors: the combine
+stages through host memory and copies the result back.
 """
 
 from __future__ import annotations
 
 import threading
 import time
-from typing import Any, Callable, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
 
@@ -40,32 +51,67 @@ BARRIER_TIMEOUT_S = 600.0
 
 
 class ShardGroup:
-    """The rendezvous of one model row's ``size`` shards."""
+    """The rendezvous of one model row's ``size`` shards: the ``members``
+    this process drives (every shard by default) meet at a barrier, and
+    ``pg`` (a ``torch.distributed`` group, or None) joins the row's
+    other processes."""
 
-    def __init__(self, size: int, timeout: Optional[float] = None) -> None:
+    def __init__(self, size: int, timeout: Optional[float] = None,
+                 members: Optional[Sequence[int]] = None, pg=None) -> None:
         self.size = size
-        self._slots: List[Any] = [None] * size
+        self.members = tuple(range(size)) if members is None else tuple(members)
+        self.pg = pg
+        #: the all-reduces across processes: calls, host bytes, seconds
+        #: (the staging through host memory included)
+        self.cross_calls = 0
+        self.cross_bytes = 0
+        self.cross_s = 0.0
+        self._slots: Dict[int, Any] = {}
         self._out: Optional[torch.Tensor] = None
         self._barrier = threading.Barrier(
-            size, action=self._combine,
+            len(self.members), action=self._combine,
             timeout=BARRIER_TIMEOUT_S if timeout is None else timeout)
 
     def _combine(self) -> None:
-        ops = {(op, tuple(x.shape), x.dtype) for op, x in self._slots}
+        slots = [self._slots[j] for j in self.members]
+        ops = {(op, tuple(x.shape), x.dtype) for op, x in slots}
         if len(ops) != 1:
             raise RuntimeError(
                 f"the shards of a row disagree on a collective: {sorted(map(str, ops))}")
-        op = self._slots[0][0]
-        xs = [x for _op, x in self._slots]
+        op = slots[0][0]
+        xs = [x for _op, x in slots]
         dev = xs[0].device
         if op == "psum":
             out = xs[0]
             for x in xs[1:]:
                 out = out + x.to(dev)
-        else:
+            if self.pg is not None:
+                out = self._all_reduce(out)
+        elif self.pg is None:
             out = torch.stack([x.to(dev) for x in xs])
+        else:
+            full = torch.zeros((self.size,) + tuple(xs[0].shape),
+                               dtype=xs[0].dtype, device=dev)
+            for j, x in zip(self.members, xs):
+                full[j] = x.to(dev)
+            out = self._all_reduce(full)
         self._out = out
-        self._slots = [None] * self.size
+        self._slots = {}
+
+    def _all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """SUM over the row's processes, staged through host memory (a
+        boolean tensor sums as int32: gloo has no boolean reduce)."""
+        import torch.distributed as dist
+
+        t0 = time.perf_counter()
+        flag = x.dtype == torch.bool
+        host = x.to("cpu", torch.int32) if flag else x.cpu()
+        dist.all_reduce(host, group=self.pg)
+        out = (host != 0 if flag else host).to(x.device)
+        self.cross_calls += 1
+        self.cross_bytes += host.numel() * host.element_size()
+        self.cross_s += time.perf_counter() - t0
+        return out
 
     def run(self, index: int, op: str, x: torch.Tensor) -> torch.Tensor:
         self._slots[index] = (op, x)
@@ -78,9 +124,9 @@ class ShardGroup:
 
 class Collectives:
     """One shard's handle on its model row (``group`` None: off a mesh,
-    every operation the identity).  ``calls`` / ``seconds`` count this
-    shard's collectives and the host time it spent in them, waits for
-    the rest of the row included."""
+    every operation the identity).  ``calls`` / ``seconds`` / ``bytes``
+    count this shard's collectives, the host time it spent in them (waits
+    for the rest of the row included) and the bytes it put in."""
 
     def __init__(self, group: Optional[ShardGroup], index: int,
                  device: Optional[torch.device]) -> None:
@@ -89,6 +135,7 @@ class Collectives:
         self.device = device
         self.calls = 0
         self.seconds = 0.0
+        self.bytes = 0
 
     def axis_index(self) -> int:
         return self.index
@@ -102,6 +149,7 @@ class Collectives:
         out = out.to(self.device)
         self.calls += 1
         self.seconds += time.perf_counter() - t0
+        self.bytes += x.numel() * x.element_size()
         return out
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
@@ -131,18 +179,24 @@ OFF = Collectives(None, 0, None)
 
 def run_mesh(mesh, body: Callable[[int, int, Collectives], Any],
              timeout: Optional[float] = None):
-    """``body(r, j, comm)`` at every position of ``mesh``, each on its
-    own thread (under ``torch.no_grad``, which is per thread): the
-    results as ``[r][j]`` and the handles as ``[r][j]``.  A one-position
-    mesh runs inline with the off-mesh handle.  Raises the first shard's
-    own error once every thread has stopped."""
+    """``body(r, j, comm)`` at every position of ``mesh`` this process
+    drives, each on its own thread (under ``torch.no_grad``, which is per
+    thread): the results as ``[r][j]`` and the handles as ``[r][j]``
+    (None at another process's positions).  A one-position mesh runs
+    inline with the off-mesh handle.  Raises the first shard's own error
+    once every thread has stopped."""
     D, M = len(mesh.devices), len(mesh.devices[0])
     if D * M == 1:
         with torch.no_grad():
             return [[body(0, 0, OFF)]], [[OFF]]
-    groups = [ShardGroup(M, timeout) if M > 1 else None for _ in range(D)]
-    comms = [[Collectives(groups[r], j, mesh.devices[r][j]) if M > 1
-              else Collectives(None, 0, mesh.devices[r][j])
+    local = [[mesh.is_local(r, j) for j in range(M)] for r in range(D)]
+    groups = [ShardGroup(M, timeout,
+                         members=[j for j in range(M) if local[r][j]],
+                         pg=mesh.group(r))
+              if M > 1 and any(local[r]) else None for r in range(D)]
+    comms = [[(Collectives(groups[r], j, mesh.devices[r][j]) if M > 1
+               else Collectives(None, 0, mesh.devices[r][j]))
+              if local[r][j] else None
               for j in range(M)] for r in range(D)]
     results: List[List[Any]] = [[None] * M for _ in range(D)]
     errors: List[BaseException] = []
@@ -162,7 +216,7 @@ def run_mesh(mesh, body: Callable[[int, int, Collectives], Any],
     threads = [
         threading.Thread(target=work, args=(r, j), daemon=True,
                          name=f"gochugaru-shard-{r}.{j}")
-        for r in range(D) for j in range(M)
+        for r in range(D) for j in range(M) if local[r][j]
     ]
     for t in threads:
         t.start()

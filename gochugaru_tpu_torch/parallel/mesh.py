@@ -6,12 +6,18 @@
 single-controller ``jax.sharding.Mesh`` does.  A device may stand at
 more than one position: ``[torch.device("cpu")] * 8`` is an 8-position
 CPU mesh, ``[cuda:0] * 4`` four shards on one card.
+
+A mesh may also span processes (parallel/multihost.py ``global_mesh``):
+``procs[r][j]`` names the process of each position, and this process
+drives only its own (``is_local``); a model row whose positions lie in
+more than one process reduces across them over ``groups[r]``, a
+``torch.distributed`` group of exactly those processes.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Dict, Optional, Sequence, Tuple
+from dataclasses import dataclass, field
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -22,13 +28,37 @@ MODEL_AXIS = "model"
 @dataclass(frozen=True)
 class Mesh:
     """``devices[r][j]`` is the device of data row ``r``, model shard
-    ``j``."""
+    ``j``.  ``procs`` (None: one process drives every position) is the
+    process rank of each position and ``rank`` this process's;
+    ``groups[r]`` is data row r's ``torch.distributed`` group where the
+    row spans processes (None where it does not)."""
 
     devices: Tuple[Tuple[torch.device, ...], ...]
+    procs: Optional[Tuple[Tuple[int, ...], ...]] = None
+    rank: int = 0
+    groups: Tuple[Any, ...] = field(default=(), compare=False, repr=False)
 
     @property
     def shape(self) -> Dict[str, int]:
         return {DATA_AXIS: len(self.devices), MODEL_AXIS: len(self.devices[0])}
+
+    def is_local(self, r: int, j: int) -> bool:
+        """Whether this process drives position (r, j)."""
+        return self.procs is None or self.procs[r][j] == self.rank
+
+    @property
+    def all_local(self) -> bool:
+        return self.procs is None or all(
+            p == self.rank for row in self.procs for p in row)
+
+    def local_positions(self):
+        """This process's positions, row-major."""
+        return [(r, j) for r in range(len(self.devices))
+                for j in range(len(self.devices[0])) if self.is_local(r, j)]
+
+    def group(self, r: int):
+        """Data row r's cross-process group (None: the row is local)."""
+        return self.groups[r] if self.groups else None
 
 
 def make_mesh(

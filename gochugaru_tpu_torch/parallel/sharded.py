@@ -22,6 +22,18 @@ ships only the small replicated ``dl_*`` overlays.  Lookups hop over the
 stacked reverse index with owner-routed probes and no collective
 (``_ShardedLookupHops``).  The sharded probes are plain gathers, as the
 reference's are: no probe kernel launches on a mesh.
+
+The partitioned serve (``prepare_partitioned`` over engine/partition.py
+``partition_feed``; ``FlatMeta.part_serve``) splits only the primary,
+fold-point and T tables and holds every other table whole on each
+position.  A batch whose slots are routable goes to the owner shard of
+each query's root bucket on the host and runs there with no collective
+(``_dispatch_flat_routed``); any other batch takes the psum path over
+the same tables.
+
+On a mesh that spans processes (parallel/multihost.py) each process
+places and drives only its own positions; ``fetch=False`` returns the
+planes of the data rows it holds (``last_local_rows``).
 """
 
 from __future__ import annotations
@@ -63,18 +75,18 @@ class MeshTensor:
     def __init__(self, parts: Dict[Tuple[int, int], torch.Tensor],
                  sharded: bool, shape: Tuple[int, ...],
                  dtype: torch.dtype) -> None:
-        self.parts = parts
+        self.parts = parts  # this process's positions only
         self.sharded = sharded
         self.shape = torch.Size(shape)
         self.dtype = dtype
         self.nbytes = int(np.prod(shape, dtype=np.int64)) * (
-            parts[(0, 0)].element_size())
+            self.element_size())
 
     def at(self, r: int, j: int) -> torch.Tensor:
         return self.parts[(r, j)]
 
     def element_size(self) -> int:
-        return self.parts[(0, 0)].element_size()
+        return next(iter(self.parts.values())).element_size()
 
     def resident(self) -> Dict[Tuple[torch.device, int], int]:
         out = {}
@@ -84,35 +96,47 @@ class MeshTensor:
         return out
 
 
-def place(mesh: Mesh, host: np.ndarray, sharded: bool) -> MeshTensor:
-    """Ship one host array onto ``mesh``: split M ways along its leading
-    axis (``sharded``) or whole on every position.  Each device gets its
-    bytes once: a device holding every shard takes the whole array in
-    one copy and its positions view slices of it."""
+def place(mesh: Mesh, host, sharded: bool) -> MeshTensor:
+    """Ship one host array onto this process's positions of ``mesh``:
+    split M ways along its leading axis (``sharded``) or whole on every
+    position.  Each device gets its bytes once: a device holding every
+    shard takes the whole array in one copy and its positions view
+    slices of it.  ``host`` may be an engine/partition.py ShardSlices
+    (a sharded table held only for its owned shards): each position
+    takes its own shard's block, which must be owned."""
+    from ..engine.partition import ShardSlices
+
     D, M = len(mesh.devices), len(mesh.devices[0])
+    slices = isinstance(host, ShardSlices)
     if sharded and host.shape[0] % M:
         raise ValueError(
             f"a table of {host.shape[0]} rows does not split {M} ways")
+    if slices and (not sharded or host.per * M != host.shape[0]):
+        raise ValueError("ShardSlices must be placed split M ways")
     per = host.shape[0] // M if sharded else 0
     holds: Dict[torch.device, set] = {}
-    for r in range(D):
-        for j in range(M):
-            holds.setdefault(mesh.devices[r][j], set()).add(j)
+    for r, j in mesh.local_positions():
+        holds.setdefault(mesh.devices[r][j], set()).add(j)
     parts: Dict[Tuple[int, int], torch.Tensor] = {}
     for dev, shards in holds.items():
-        if not sharded or len(shards) == M:
+        if slices:
+            missing = sorted(shards - set(host.blocks))
+            if missing:
+                raise ValueError(
+                    f"shards {missing} are placed here but not owned")
+            got = {j: to_device_tensor(host.blocks[j], dev) for j in shards}
+        elif not sharded or len(shards) == M:
             whole = to_device_tensor(host, dev)
             got = {j: (whole[j * per:(j + 1) * per] if sharded else whole)
                    for j in shards}
         else:
             got = {j: to_device_tensor(host[j * per:(j + 1) * per], dev)
                    for j in shards}
-        for r in range(D):
-            for j in range(M):
-                if mesh.devices[r][j] == dev:
-                    parts[(r, j)] = got[j]
-    t = parts[(0, 0)]
-    return MeshTensor(parts, sharded, host.shape, t.dtype)
+        for r, j in mesh.local_positions():
+            if mesh.devices[r][j] == dev:
+                parts[(r, j)] = got[j]
+    t = next(iter(parts.values()))
+    return MeshTensor(parts, sharded, tuple(host.shape), t.dtype)
 
 
 def resident_bytes(arrays) -> int:
@@ -138,13 +162,22 @@ class ShardedEngine(DeviceEngine):
         mesh: Mesh,
         config: Optional[EngineConfig] = None,
     ) -> None:
-        super().__init__(compiled, config, device=mesh.devices[0][0])
+        r0, j0 = mesh.local_positions()[0]
+        super().__init__(compiled, config, device=mesh.devices[r0][j0])
         self.mesh = mesh
         self.data_size = mesh.shape["data"]
         self.model_size = mesh.shape[MODEL_AXIS]
-        #: {"calls", "host_s"} of the last dispatch: the collectives one
-        #: shard made and the host seconds it spent in them
-        self.last_collectives = {"calls": 0, "host_s": 0.0}
+        #: the last dispatch's collectives, as one shard saw them: calls,
+        #: host seconds, the bytes it put in, and its row's all-reduces
+        #: across processes (calls, host bytes, seconds)
+        self.last_collectives = {"calls": 0, "host_s": 0.0, "bytes": 0,
+                                 "cross_calls": 0, "cross_bytes": 0,
+                                 "cross_s": 0.0}
+        #: the [lo, hi) padded query rows of the planes the last
+        #: ``fetch=False`` dispatch returned, in order: every data row on
+        #: one process, the rows this process holds on a mesh that spans
+        #: processes
+        self.last_local_rows = []
 
     # -- placement --------------------------------------------------------
     @staticmethod
@@ -153,6 +186,20 @@ class ShardedEngine(DeviceEngine):
         types, stored-context tables and the delta-sized ``dl_*``
         overlays are replicated."""
         return not (key == "node_type" or key.startswith(("ectx_", "dl_")))
+
+    @staticmethod
+    def _part_sharded_key(key: str) -> bool:
+        """Partitioned-serve placement (FlatMeta.part_serve): the
+        O(E)-scale point tables (primary, fold point, T join) split along
+        the model axis; every other table is whole on every position (its
+        probes find the owner's block arithmetically)."""
+        from ..engine.flat import PART_SHARDED_KEYS
+
+        return key in PART_SHARDED_KEYS
+
+    def _sharded_of(self, meta):
+        return (self._part_sharded_key if meta is not None and meta.part_serve
+                else self._flat_sharded_key)
 
     def _place_all(self, host: Dict[str, np.ndarray], sharded_of):
         return {k: place(self.mesh, v, sharded_of(k)) for k, v in host.items()}
@@ -203,7 +250,7 @@ class ShardedEngine(DeviceEngine):
         from ..engine.device import _meta_from
 
         meta = None if flat_meta is None else _meta_from(flat_meta)
-        sharded_of = (self._flat_sharded_key if meta is not None
+        sharded_of = (self._sharded_of(meta) if meta is not None
                       else self._legacy_sharded_key)
         arrays = self._place_all(
             {k: np.asarray(v) for k, v in np_arrays.items()}, sharded_of)
@@ -250,6 +297,66 @@ class ShardedEngine(DeviceEngine):
                                     "place_s": time.perf_counter() - t1}
                 return ds
         return self._prepare_legacy(snap)
+
+    def prepare_partitioned(self, part) -> DeviceSnapshot:
+        """A DeviceSnapshot from a bucket-partitioned feed (engine/
+        partition.py ``partition_feed``): its O(E) stacked tables exist
+        on the host only for the shards this process owns (ShardSlices),
+        and each position takes its own shard's block; the small tables
+        (node types, stored contexts, and the closure-derived stacks every
+        process builds whole) place as ``prepare`` places them.  A
+        ``serve="routed"`` feed (FlatMeta.part_serve) splits only the
+        primary / fold point / T tables and holds the rest whole on every
+        position, so a routable batch dispatches with no collective
+        (``_dispatch_flat_routed``)."""
+        snap = part.snapshot
+        t0 = time.perf_counter()
+        host = dict(part.arrays)
+        host["node_type"] = _pad_payload(
+            snap.node_type, _ceil_pow2(2 * snap.num_nodes), -1)
+        ectx, strings = self._ectx_tables(snap)
+        host.update(ectx)
+        with metrics.default.timer("prepare.h2d_s"):
+            arrays = self._place_all(host, self._sharded_of(part.meta))
+        self.record_device_bytes(arrays)
+        ds = self._snapshot(snap, arrays, part.meta, strings)
+        ds.fold_state = part.fold_state
+        #: host seconds of the placement (``prepare_snapshot_partitioned``
+        #: adds the feed's as ``build_s``)
+        ds.prepare_split = {"place_s": time.perf_counter() - t0}
+        return ds
+
+    def prepare_snapshot_partitioned(
+        self, snap: Snapshot, prev: Optional[DeviceSnapshot] = None
+    ) -> DeviceSnapshot:
+        """The partitioned (owner-routed) serve from a resident Snapshot,
+        the client's ``with_mesh(partitioned=True)`` path: the snapshot's
+        raw columns through ``partition_feed(serve="routed")``, placed by
+        ``prepare_partitioned``.  With ``prev`` the incremental path goes
+        first (it rides the partitioned base tables like any sharded
+        snapshot); a world the feed declines (keys past the int32 pack)
+        takes the ordinary sharded prepare."""
+        if prev is not None:
+            out = self._prepare_delta(snap, prev)
+            if out is not None:
+                out.source_snapshot = snap
+                return out
+        from ..engine.partition import partition_feed, snapshot_raw_columns
+
+        t0 = time.perf_counter()
+        part = partition_feed(
+            snap.revision, snap.compiled, snap.interner,
+            snapshot_raw_columns(snap), self.config, self.model_size,
+            contexts=snap.contexts, epoch_us=snap.epoch_us,
+            plan=self.plan, serve="routed",
+        )
+        if part is None:
+            return self.prepare(snap)
+        feed_s = time.perf_counter() - t0
+        out = self.prepare_partitioned(part)
+        out.prepare_split["build_s"] = feed_s
+        out.source_snapshot = snap
+        return out
 
     @classmethod
     def _legacy_sharded_key(cls, key: str) -> bool:
@@ -306,19 +413,40 @@ class ShardedEngine(DeviceEngine):
         return got
 
     def _note_collectives(self, comms) -> None:
-        c = comms[0][0]
-        self.last_collectives = {"calls": c.calls, "host_s": c.seconds}
+        r, j = self.mesh.local_positions()[0]
+        c = comms[r][j]
+        g = c.group
+        self.last_collectives = {
+            "calls": c.calls, "host_s": c.seconds, "bytes": c.bytes,
+            "cross_calls": g.cross_calls if g else 0,
+            "cross_bytes": g.cross_bytes if g else 0,
+            "cross_s": g.cross_s if g else 0.0}
 
-    def _rows_out(self, results, B: int, fetch: bool):
-        """The planes of model shard 0 of every data row (every shard of
-        a row holds the same planes), in row order."""
-        rows = [results[r][0] for r in range(self.data_size)]
+    def _rows_out(self, results, B: int, fetch: bool, per: int):
+        """The planes of every data row this process holds, in row order,
+        each from the row's first local shard (every shard of a row holds
+        the same planes).  ``fetch=False`` returns them as tensors on the
+        first local device and notes their rows in ``last_local_rows``;
+        ``fetch`` needs every row, so it raises on a mesh where another
+        process holds some (no result crosses processes)."""
+        M = self.model_size
+        held = []
+        for r in range(self.data_size):
+            js = [j for j in range(M) if self.mesh.is_local(r, j)]
+            if js:
+                held.append((r, results[r][js[0]]))
         if not fetch:
-            dev = self.mesh.devices[0][0]
-            return tuple(torch.cat([row[i].to(dev) for row in rows])
+            r0, j0 = self.mesh.local_positions()[0]
+            dev = self.mesh.devices[r0][j0]
+            self.last_local_rows = [(r * per, (r + 1) * per) for r, _ in held]
+            return tuple(torch.cat([row[i].to(dev) for _, row in held])
                          for i in range(3))
+        if len(held) < self.data_size:
+            raise RuntimeError(
+                "this process holds only some data rows of the mesh: "
+                "dispatch with fetch=False")
         planes = np.concatenate(
-            [torch.stack(list(row)).cpu().numpy() for row in rows], axis=1)
+            [torch.stack(list(row)).cpu().numpy() for _, row in held], axis=1)
         return planes[0][:B], planes[1][:B], planes[2][:B]
 
     # -- the flat program ---------------------------------------------------
@@ -327,16 +455,42 @@ class ShardedEngine(DeviceEngine):
         model axis (no probe kernel: the reference's ``PLS = (not SH)``)."""
         return {"axis": MODEL_AXIS, "model_size": self.model_size}
 
+    def _routable(self, meta, slots) -> bool:
+        """A batch owner-routes iff every root probe its queries can make
+        is local on the owner shard: every slot is a fully folded
+        permission (the pf probe pair) or a bare relation leaf (the
+        dynamic e / userset sites keyed by the query's own (k1, k2)).
+        Wildcard edges probe a SECOND e / pf bucket with another owner,
+        so worlds with them keep the psum path; so do T-probing slots
+        (``meta.t_slots``): the T join is split under part-serve with a
+        geometry of its own, and only the psum path's ownership-masked
+        probe is exact there."""
+        if meta.has_wc_edges or meta.pf_haswc:
+            return False
+        if meta.has_tindex and any(s in meta.t_slots for s in slots):
+            return False
+        dm = meta.delta
+        fold_on = bool(meta.fold_pairs) and not (dm is not None and dm.pf_off)
+        folded = frozenset(meta.fold_pairs) if fold_on else frozenset()
+        unfolded = {
+            s for (tname, _tid, s, _e) in self.plan.topo_programs
+            if (tname, s) not in folded
+        }
+        return all(s not in unfolded for s in slots)
+
     def _dispatch_flat(
         self, dsnap: DeviceSnapshot, queries: Dict[str, np.ndarray],
         qctx: Dict[str, np.ndarray], now_us: Optional[int],
-        fetch: bool = True, bucket_min: int = 0,
+        fetch: bool = True, bucket_min: int = 0, span=_trace.NOOP,
     ):
         """Queries split along the data axis; the program's probe sites
         OR-reduce over the model axis.  A batch with more distinct
         permissions than ``flat_max_slots`` runs in slot chunks (each
         query's slot lives in exactly one chunk; masked-out queries read
-        -1, all false), as the reference's does."""
+        -1, all false), as the reference's does.  On a partitioned-serve
+        snapshot a routable batch with one data row, fetched, on a mesh
+        this process drives whole, is owner-routed instead
+        (``_dispatch_flat_routed``)."""
         faults.fire("sharded.collective")
         from ..engine.flat import _dense_np
 
@@ -346,6 +500,11 @@ class ShardedEngine(DeviceEngine):
         B = queries["q_res"].shape[0]
         all_slots = sorted(
             {int(s) for s in np.unique(queries["q_perm"]) if s >= 0})
+        if (meta.part_serve and D == 1 and fetch and self.mesh.all_local
+                and self._routable(meta, all_slots)):
+            return self._dispatch_flat_routed(
+                dsnap, queries, qctx, now_us, all_slots,
+                bucket_min=bucket_min, span=span)
         per = _ceil_pow2(-(-B // D),
                          max(bucket_min, self.config.batch_bucket_min))
         BP = per * D
@@ -390,7 +549,99 @@ class ShardedEngine(DeviceEngine):
 
         results, comms = run_mesh(self.mesh, body)
         self._note_collectives(comms)
-        return self._rows_out(results, B, fetch)
+        return self._rows_out(results, B, fetch, per)
+
+    def _dispatch_flat_routed(
+        self, dsnap: DeviceSnapshot, queries: Dict[str, np.ndarray],
+        qctx: Dict[str, np.ndarray], now_us: Optional[int], all_slots,
+        bucket_min: int = 0, span=_trace.NOOP,
+    ):
+        """Owner-routed dispatch over a partitioned-serve snapshot: each
+        query's root (k1, k2) is hashed on the HOST (``mix32``) and the
+        query grouped to the shard owning its bucket, so each position
+        probes only its own slices of the split tables and its program
+        makes no collective (the membership and group tables are whole on
+        it; engine/flat.py ``make_flat_fn(routed=True)``).  Folded-slot
+        queries route by the pf geometry, the rest by the primary one:
+        the same hash, another modulus.  Each shard's block pads to one
+        pow2 tier; the T join is never probed here (``_routable``)."""
+        from ..engine.flat import QM_ROWS, _dense_np
+        from ..engine.hash import mix32
+        from ..engine.partition import shard_owner
+
+        meta = dsnap.flat_meta
+        M = self.model_size
+        B = queries["q_res"].shape[0]
+        t0 = time.perf_counter()
+        qmh = build_qm(queries, B, meta)  # [8, B], dense-mapped
+        k1 = (qmh[7].astype(np.int64) * meta.N + qmh[0]).astype(np.int32)
+        k2 = (qmh[2].astype(np.int64) * meta.S1 + qmh[3]).astype(np.int32)
+        h = mix32([k1, k2], np)
+        e_size = (int(dsnap.arrays["eh_off"].shape[0]) // M - 1) * M
+        owner = shard_owner(h, e_size, M).astype(np.int64)
+        pf_slots = sorted({s for _, s in meta.fold_pairs})
+        if pf_slots and "pfh_off" in dsnap.arrays:
+            pf_size = (int(dsnap.arrays["pfh_off"].shape[0]) // M - 1) * M
+            pf_owner = shard_owner(h, pf_size, M).astype(np.int64)
+            is_pf = np.isin(qmh[1], np.asarray(pf_slots, np.int32))
+            owner = np.where(is_pf, pf_owner, owner)
+        # invalid / self queries probe nothing that needs locality
+        owner = np.where((qmh[0] < 0) | (qmh[1] < 0), 0, owner)
+        counts = np.bincount(owner, minlength=M)
+        per = _ceil_pow2(int(counts.max()),
+                         max(bucket_min, self.config.batch_bucket_min))
+        order = np.argsort(owner, kind="stable")
+        starts = np.cumsum(counts) - counts
+        pos = np.arange(B, dtype=np.int64) - np.repeat(starts, counts)
+        dst = np.empty(B, np.int64)
+        dst[order] = owner[order] * per + pos
+        qm_r = np.full((QM_ROWS, M * per), -1, np.int32)
+        qm_r[3] = qm_r[6] = 0
+        qm_r[:, dst] = qmh
+        metrics.default.observe("dispatch.route_s", time.perf_counter() - t0)
+        span.event("route", shard_batches=[int(c) for c in counts],
+                   pad_per_shard=int(per), exchange_bytes=int(qm_r.nbytes))
+        # no faults.fire here: _dispatch_flat fired "sharded.collective"
+        # for this dispatch before routing
+        now = int(dsnap.snapshot.now_rel32(now_us))
+        cap = max(self.config.flat_max_slots, 1)
+        k1d = _dense_np(meta.k1_dense)
+        chunks = []
+        for at in range(0, max(len(all_slots), 1), cap):
+            chunk = tuple(all_slots[at:at + cap])
+            qmc = qm_r
+            if len(all_slots) > cap:
+                # splice both slot rows on the routed layout
+                keep = np.isin(qm_r[1], np.asarray(chunk, np.int32))
+                qmc = qm_r.copy()
+                qmc[1] = np.where(keep, qm_r[1], -1)
+                qmc[7] = np.where(
+                    keep & (qm_r[1] >= 0),
+                    k1d[np.clip(qm_r[1], 0, k1d.shape[0] - 1)], -1)
+            chunks.append((self._flat_fn_for(chunk, meta, routed=True), qmc))
+
+        def body(r: int, j: int, comm):
+            dev = self.mesh.devices[r][j]
+            arrs = self._views(dsnap, r, j)
+            now_t = torch.full((), now, dtype=torch.int32, device=dev)
+            qc = {k: to_device_tensor(v, dev) for k, v in qctx.items()}
+            d = p = ovf = None
+            for fn, qmc in chunks:
+                qmr = torch.from_numpy(np.ascontiguousarray(
+                    qmc[:, j * per:(j + 1) * per])).to(dev)
+                cd, cp, co = fn(arrs, dsnap.tid_map.at(r, j), now_t, qmr, qc,
+                                {}, comm=comm)
+                d = cd if d is None else d | cd
+                p = cp if p is None else p | cp
+                ovf = co if ovf is None else ovf | co
+            return d, p, ovf
+
+        results, comms = run_mesh(self.mesh, body)
+        self._note_collectives(comms)
+        planes = [np.concatenate([results[0][j][i].cpu().numpy()
+                                  for j in range(M)]) for i in range(3)]
+        span.event("unroute")
+        return planes[0][dst], planes[1][dst], planes[2][dst]
 
     # -- the legacy program -------------------------------------------------
     def _dispatch_legacy(
@@ -431,7 +682,7 @@ class ShardedEngine(DeviceEngine):
 
         results, comms = run_mesh(self.mesh, body)
         self._note_collectives(comms)
-        return self._rows_out(results, B, fetch)
+        return self._rows_out(results, B, fetch, per)
 
     # -- the batched check --------------------------------------------------
     def _dispatch_columns(
@@ -447,7 +698,7 @@ class ShardedEngine(DeviceEngine):
             with _trace.annotate_dispatch(span):
                 if dsnap.flat_meta is not None:
                     out = self._dispatch_flat(dsnap, queries, qctx, now_us,
-                                              fetch, bucket_min)
+                                              fetch, bucket_min, span=ssp)
                 else:
                     out = self._dispatch_legacy(dsnap, queries, qctx, now_us,
                                                 fetch)

@@ -557,9 +557,13 @@ def test_with_mesh_explain_matches_reference_mesh_client():
     assert out["port"][0] == [True, True, True, True, True, False]
 
 
-def test_with_mesh_partitioned_raises():
-    with pytest.raises(NotImplementedError):
-        with_mesh(_mesh(1, 2), partitioned=True)
+def test_with_mesh_partitioned_option_set():
+    """``with_mesh(partitioned=True)`` makes a client of the partitioned
+    serve (tests/test_torch_routed.py drives it); without a mesh the
+    option is off."""
+    c = new_evaluator(with_mesh(_mesh(1, 2), partitioned=True))
+    assert c._mesh_partitioned and c._mesh.shape["model"] == 2
+    assert not new_evaluator(device="cpu")._mesh_partitioned
 
 
 # ---------------------------------------------------------------------------
@@ -691,7 +695,8 @@ def test_engine_dispatch_raises_the_shard_error(monkeypatch):
 
 def test_kernel_layout_mismatch_raises():
     """A sharded FlatMeta needs the model axis, and the axis a sharded
-    FlatMeta; the partitioned serve is not ported."""
+    FlatMeta; a part-serve program needs the axis, and a routed one a
+    part-serve FlatMeta."""
     import dataclasses
 
     w = WORLDS["sharded"]()
@@ -704,10 +709,16 @@ def test_kernel_layout_mismatch_raises():
     with pytest.raises(ValueError):
         make_flat_fn(w.p_cs, plan, EngineConfig(), flat, (0,),
                      axis=MODEL_AXIS, model_size=2)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="model axis"):
         make_flat_fn(w.p_cs, plan, EngineConfig(),
-                     dataclasses.replace(meta, part_serve=True), (0,),
-                     axis=MODEL_AXIS, model_size=2)
+                     dataclasses.replace(meta, sharded=False, part_serve=True),
+                     (0,))
+    with pytest.raises(ValueError, match="part_serve"):
+        make_flat_fn(w.p_cs, plan, EngineConfig(), meta, (0,),
+                     axis=MODEL_AXIS, model_size=2, routed=True)
+    make_flat_fn(w.p_cs, plan, EngineConfig(),
+                 dataclasses.replace(meta, part_serve=True), (0,),
+                 axis=MODEL_AXIS, model_size=2, routed=True)
 
 
 def test_placement_bytes_count_a_repeated_device_once():
