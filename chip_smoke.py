@@ -3,6 +3,7 @@ hold every CUDA kernel against its plain PyTorch version.
 
 Run from the repository root:
 python3 chip_smoke.py [--scale3 S] [--edges4 N] [--edges5 N] [--scale19 S]
+                     [--scale20 S] [--scale22 S] [--phase22-only PARTS]
 
 Phases (any failure exits non-zero and prints no result line):
 
@@ -123,8 +124,8 @@ Phases (any failure exits non-zero and prints no result line):
 9. BASELINE config 5 (Watch-driven incremental re-index,
    benchmarks/bench5_watch.py's deployment: the repo/team schema, seed
    17, 100,000 users, 1,000 teams of 50 members, repos = edges / 20 with
-   one team maintainer each) at ``--edges5`` edges (5M by default, to
-   leave phase 19 room in the smoke's time; bench5's own default is 10M;
+   one team maintainer each) at ``--edges5`` edges (2.5M by default, to
+   leave phases 19-22 room in the smoke's time; bench5's own default is 10M;
    one card's share of the published 1B on 16 chips is 62.5M,
    logged as ``reduced``), under both layouts on one snapshot chain: 20
    warm-up and 10 measured revisions of 1,000 fresh-user ``reader`` adds
@@ -296,12 +297,12 @@ Phases (any failure exits non-zero and prints no result line):
    dispatches' traces, the admission and perf context and the decision
    tail, served identically at ``/debug/incidents/<id>``; after
    ``faults.reset()`` and the cooldown a latency probe closes the breaker;
-   (c) four profiled batches of the 100,000 checks: one torch.profiler
+   (c) two profiled batches of the 100,000 checks: one torch.profiler
    trace each, from which the device busy share of the dispatch window
    (the union of kernel, memcpy and memset intervals over the
    ``gochugaru:`` range), the 10 device operations with the most time and
    the probe kernels' launches (equal to the wrappers' counts, ``block``
-   among them); ``checks.device_time_s`` counted 4; (d) 64 threads x 4
+   among them); ``checks.device_time_s`` counted 2; (d) 64 threads x 4
    transactions (a viewer or a member touch, seeded) through the
    committer: 256 unique tokens, dense within each group (one log entry a
    group), fewer groups than a quarter of the writes; then 256 checks at
@@ -385,8 +386,11 @@ Phases (any failure exits non-zero and prints no result line):
 
 20. the model-sharded mesh (``parallel/``: ``ShardedEngine`` over
    ``make_mesh(data, model, devices=[cuda:0] * n)``, every shard on the
-   one card, ``kernels=True``): (a) after phase 5's lookups, config 3 at
-   full size on 1 × 4 from phase 5's snapshot, and (b) after phase 19, config 2 on
+   one card, ``kernels=True``): (a) config 3 on 1 × 4 at ``--scale20``
+   (0.1 by default, after phase 19 on its world: 100,000 docs, 1M edges,
+   to leave phase 22 room in the smoke's time; 1.0 runs it, and phase 21
+   (a), after phase 5's lookups on phase 5's snapshot), and (b) after
+   phase 19, config 2 on
    2 × 2 and on 1 × 3 (a model size of 3: the sharded legacy program),
    each with the launch counts set to 0 just before its batch and read
    just after (the sharded probes are plain gathers: none may launch):
@@ -411,13 +415,13 @@ Phases (any failure exits non-zero and prints no result line):
    ``cuda:0``, ``kernels=True``), each part with the launch counts set to
    0 just before it and read just after (the partitioned probes are
    plain gathers: none may launch): (a) right after phase 20 (a), config
-   3 at full size on 1 × 4 from phase 5's snapshot: the 100,000-check
-   batch, its planes equal to phase 5's bit for bit, the path that
+   3 on 1 × 4 on phase 20 (a)'s world (``--scale20``): the 100,000-check
+   batch, its planes equal to the world's blockslice planes bit for bit, the path that
    served it (routed, or the psum fallback where a slot is not
    routable), 2,000 sampled verdicts against the oracle, prepare s (the
    feed, then the placement), MiB a position (the split tables against
-   the whole ones) and on the card, checks/s beside phase 5's and phase
-   20's, ``dispatch.route_s``; (b) after phase 20 (c), config 2's batch
+   the whole ones) and on the card, checks/s beside the blockslice
+   engine's and phase 20's, ``dispatch.route_s``; (b) after phase 20 (c), config 2's batch
    of folded ``read``/``admin`` rows on 1 × 4 (routed), on 1 × 4 with
    ``flat_fold=False`` (the permissions walked: not routable, so it falls
    back to the psum path) and on 2 × 2 (the psum path: two data rows
@@ -441,6 +445,43 @@ Phases (any failure exits non-zero and prints no result line):
    bit for bit, with the collectives of a batch: calls, host ms, bytes,
    and the cross-process all-reduces' bytes and ms.  Prints one
    ``part: {...}`` line after the ``mesh:`` line.
+
+22. the operator entry points (``gochugaru_tpu_torch/scripts/``) as
+   processes on the card, after phase 21, each child started by
+   ``scripts/procs.py`` (output to a file, every wait timed, killed on
+   the way out): (a) BASELINE config 2 in a ``FleetRouter``'s store in
+   this process, served by ``fleetd replica --device cuda --latency-mode
+   --join`` processes: one, then three (the other two started together):
+   spawn -> bootstrapped and -> joined seconds a process, the bootstrap's
+   export stream / import / materialize seconds, phase 18's callers and
+   query mix for 2 s with one and with three (checks/s, per-call p50/p99,
+   every answer once and equal to the host oracle), beside phase 18's
+   in-process numbers; 40 toggles under load read back by zookie (0
+   stale); a seeded SIGKILL of one process mid-load (every answer in the
+   window right, the ring evicts it, ``fleet.kill_detections`` bumps,
+   the window's p99); the card's free memory before the spawn, with
+   three up and after the kill (it must come back); a restarted process
+   that bootstraps, rejoins and answers; SIGINT to the survivors, each
+   printing ``REPLICA-EXIT`` with device ``cuda`` and probe launches
+   (``block`` and ``gate`` among them); (b) ``fleetd router
+   --demo-world`` and one ``fleetd replica --join`` process, every (doc,
+   user) pair through the router's wire ``check`` op against a host
+   oracle; (c) config 3 at ``--scale22`` (0.1 by default) in a router's
+   store, bootstrapped over the wire by one replica process: export
+   stream, import, materialize and first prepare seconds, the process's
+   peak RSS (VmRSS sampled every 50 ms), a 4,096-check sample against
+   the host oracle; (d)
+   ``telemetryd --device cuda --checks 32``: /healthz, the checks counter
+   and dispatch p99 in /metrics, /traces, /slo, /debug/incidents, and
+   /perf?bench=1 naming the card; (e) ``tune --json --online 6`` at config
+   2's repos and users: a diff with evidence on every knob, its JSON round
+   trip, the fixed point, >= 1 controller move and the revert; (f)
+   ``profile_prepare --edges 1000000``: stage timers and top frames;
+   (b), (d), (e) and (f) run side by side, after (a) and (c).
+   This process launches no kernel in the phase (its counts set to 0
+   before and restored after).  ``--phase22-only PARTS`` builds the
+   kernels and runs only those parts.  Prints one ``procs: {...}`` line
+   after the ``part:`` line.
 
 Phases 4-8 are the main path: launch counts are zeroed before phase 4
 and read after phase 7, and every mode of both kernels, and the gate
@@ -482,6 +523,7 @@ import gc
 import json
 import os
 import random
+import signal
 import subprocess
 import sys
 import threading
@@ -508,8 +550,12 @@ ALIGNED = {"flat_aligned": True}
 DEV = "cuda"
 
 
+#: the smoke's start, for the seconds each log line carries
+T_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    print(f"[{time.perf_counter() - T_START:7.1f}s] {msg}", flush=True)
 
 
 def card_line() -> str:
@@ -5707,7 +5753,7 @@ PROBE_KERNELS = ("gochugaru_slot_tile_kernel", "gochugaru_warp_reduce_kernel",
                  "fused_runs_kernel")
 OPS_BATCH = 4_096
 OPS_BATCHES = 20
-OPS_PROFILED = 4
+OPS_PROFILED = 2
 OPS_WRITERS, OPS_TXNS = 64, 4
 OPS_LAT_TIER, OPS_LAT_DISPATCHES, OPS_ROUNDS = 1_024, 1_000, 2
 
@@ -6686,6 +6732,9 @@ FLEET_TOGGLES = 40
 FLEET_TOGGLE_REPOS = 50
 #: transactions of the group-committed write
 FLEET_GROUP = 8
+#: the router's FleetConfig: fast probes, so a death is seen in ~0.1 s
+FLEET_CFG = dict(probe_interval_s=0.05, probe_timeout_s=2.0, heartbeat_s=0.05,
+                 freshness_wait_s=30.0, freshness_poll_s=0.01)
 
 
 class FleetCounts:
@@ -6778,7 +6827,9 @@ def fleet_load(router, oracle_of, queries, seconds, strategy, stop=None):
             with lock:
                 lat.append(dt)
                 calls[0] += 1
-                bad[0] += sum(a != b for a, b in zip(got, want))
+                # one answer a check, each the oracle's
+                bad[0] += (sum(a != b for a, b in zip(got, want))
+                           + abs(len(got) - len(want)))
 
     t0 = time.perf_counter()
     ts = [threading.Thread(target=caller, args=(s,)) for s in range(FLEET_THREADS)]
@@ -6798,6 +6849,57 @@ def fleet_load_held(res, what):
     was answered, and answered as the oracle does."""
     if not res.get("calls") or res.get("mismatches") or res.get("n_errors"):
         raise AssertionError(f"fleet: {what}: {res}")
+
+
+def fleet_toggles(router, oracle, oracle_of, queries, n_users):
+    """FLEET_TOGGLES single-edge toggles on the first FLEET_TOGGLE_REPOS
+    repos, written through the router while FLEET_THREADS callers check
+    the other repos; each toggle read back through its zookie against the
+    host ``oracle``.  Raises on a stale answer or a wrong or failed call
+    under load; returns the toggles, stale answers (0), read-your-writes
+    p50/p99 ms and the load's numbers."""
+    from gochugaru_tpu_torch import consistency, rel
+    from gochugaru_tpu_torch.utils.context import background
+
+    ctx = background()
+    stop = threading.Event()
+    res = {}
+    th = threading.Thread(target=lambda: res.update(fleet_load(
+        router, oracle_of, queries, 0, consistency.min_latency, stop=stop)))
+    th.start()
+    stale, ryw_ms = 0, []
+    trng = np.random.default_rng(47)
+    try:
+        for _ in range(FLEET_TOGGLES):
+            t = (f"repo:r{trng.integers(1, FLEET_TOGGLE_REPOS)}", "reader",
+                 f"user:u{trng.integers(n_users)}")
+            r_ = rel.must_from_triple(*t)
+            txn = rel.Txn()
+            live = oracle.check(ctx, consistency.full(),
+                                rel.must_from_triple(t[0], "reader", t[2]))[0]
+            if live:
+                txn.delete(r_)
+            else:
+                txn.touch(r_)
+            zk = router.write(ctx, txn)
+            qr = rel.must_from_triple(t[0], "read", t[2])
+            exp = oracle.check(ctx, consistency.full(), qr)
+            t0 = time.perf_counter()
+            got = router.check(background().with_timeout(60.0),
+                               consistency.min_latency(), qr, zookie=zk)
+            ryw_ms.append((time.perf_counter() - t0) * 1e3)
+            stale += got != exp
+    finally:
+        stop.set()
+        th.join()
+    out = dict(toggles=FLEET_TOGGLES, stale=stale,
+               ryw_p50_p99_ms=[float(np.percentile(ryw_ms, 50)),
+                               float(np.percentile(ryw_ms, 99))],
+               load=res)
+    if stale:
+        raise AssertionError(f"fleet: {stale} stale read-your-writes: {out}")
+    fleet_load_held(res, "load under writes")
+    return out
 
 
 def phase_fleet(K, card, n_repos=10_000, n_users=1_000, n_teams=100, n_orgs=10,
@@ -6820,8 +6922,7 @@ def phase_fleet(K, card, n_repos=10_000, n_users=1_000, n_teams=100, n_orgs=10,
     saved = dict(K.LAUNCHES), dict(K.LANES)
     K.reset_launches()
     m = metrics.default
-    cfg = dc_replace(FleetConfig(), probe_interval_s=0.05, probe_timeout_s=2.0,
-                     heartbeat_s=0.05, freshness_wait_s=30.0, freshness_poll_s=0.01)
+    cfg = dc_replace(FleetConfig(), **FLEET_CFG)
     router = FleetRouter(config=cfg)
     reps, out = [], {}
     counts = FleetCounts()
@@ -6894,45 +6995,9 @@ def phase_fleet(K, card, n_repos=10_000, n_users=1_000, n_teams=100, n_orgs=10,
             if any(strat.values()):
                 raise AssertionError(f"fleet: answers differ from the oracle: {strat}")
             # (3) single-edge toggles under load, each read back by its zookie
-            stop = threading.Event()
-            res = {}
-            th = threading.Thread(target=lambda: res.update(fleet_load(
-                router, oracle_of, queries, 0, consistency.min_latency, stop=stop)))
-            th.start()
-            stale, ryw_ms = 0, []
-            trng = np.random.default_rng(47)
-            try:
-                for k in range(FLEET_TOGGLES):
-                    t = (f"repo:r{trng.integers(1, FLEET_TOGGLE_REPOS)}", "reader",
-                         f"user:u{trng.integers(n_users)}")
-                    r_ = rel.must_from_triple(*t)
-                    txn = rel.Txn()
-                    live = oracle.check(ctx, consistency.full(),
-                                        rel.must_from_triple(t[0], "reader", t[2]))[0]
-                    if live:
-                        txn.delete(r_)
-                    else:
-                        txn.touch(r_)
-                    zk = router.write(ctx, txn)
-                    qr = rel.must_from_triple(t[0], "read", t[2])
-                    exp = oracle.check(ctx, consistency.full(), qr)
-                    t0 = time.perf_counter()
-                    got = router.check(background().with_timeout(60.0),
-                                       consistency.min_latency(), qr, zookie=zk)
-                    ryw_ms.append((time.perf_counter() - t0) * 1e3)
-                    stale += got != exp
-            finally:
-                stop.set()
-                th.join()
-            out["writes"] = dict(toggles=FLEET_TOGGLES, stale=stale,
-                                 ryw_p50_p99_ms=[float(np.percentile(ryw_ms, 50)),
-                                                 float(np.percentile(ryw_ms, 99))],
-                                 load=res,
-                                 prepares={r.id: counts.of(r) for r in reps})
+            out["writes"] = fleet_toggles(router, oracle, oracle_of, queries, n_users)
+            out["writes"]["prepares"] = {r.id: counts.of(r) for r in reps}
             log(f"fleet: writes under load {json.dumps(out['writes'])}")
-            if stale:
-                raise AssertionError(f"fleet: {stale} stale read-your-writes")
-            fleet_load_held(res, "load under writes")
             # (4) failover: replica.kill armed mid-traffic
             stop = threading.Event()
             res = {}
@@ -7941,18 +8006,623 @@ def phase_part_processes(K, rbac):
     PART_OUT["processes"] = out
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the operator entry points as processes on the card
+# ---------------------------------------------------------------------------
+
+PROCS_OUT = {}
+FLEETD = "gochugaru_tpu_torch.scripts.fleetd"
+#: replica processes behind the router, as scripts/fleet_smoke.sh and
+#: benchmarks/bench10_fleet.py run them
+PROCS_REPLICAS = 3
+#: seconds a child may take to print a line it owes (bootstrap, join)
+PROCS_BOOT_S = 600.0
+#: seconds a child may take to stop after SIGINT
+PROCS_STOP_S = 60.0
+#: checks of (c)'s config 3 sample, held to the oracle
+PROCS_SAMPLE = 4_096
+#: seed of the replica (a) kills
+PROCS_KILL_SEED = 53
+
+
+#: every child phase 22 started (none may outlive it)
+PROCS_CHILDREN = []
+
+
+def proc_spawn(tmp, name, module, *args):
+    """``python -m module args`` as a child (scripts/procs.py), its output
+    in ``tmp``; unbuffered, and no roofline cache written (telemetryd's
+    /perf?bench=1 measures afresh)."""
+    from gochugaru_tpu_torch.scripts.procs import Child, module_argv
+
+    child = Child(module_argv(module, *args), os.path.join(tmp, f"{name}.log"),
+                  env=dict(os.environ, PYTHONUNBUFFERED="1",
+                           GOCHUGARU_ROOFLINE_CACHE="0"),
+                  name=name)
+    PROCS_CHILDREN.append(child)
+    return child
+
+
+def card_free_mib():
+    """Free memory on the card (every process's allocations counted), MiB;
+    None off the card."""
+    if DEV != "cuda":
+        return None
+    return torch.cuda.mem_get_info()[0] / 2**20
+
+
+def proc_replica(tmp, port, rid, latency=True, join=True):
+    """One ``fleetd replica`` process on DEV against the router at
+    ``port``; with ``join`` it asks the router to admit it."""
+    return proc_spawn(tmp, rid, FLEETD, "replica", "--upstream",
+                      f"127.0.0.1:{port}", "--id", rid, "--device", DEV,
+                      *(["--join"] if join else []),
+                      *(["--latency-mode"] if latency else []))
+
+
+def proc_joined(child, t0, router=None):
+    """Waits for a replica process's REPLICA-READY line, then for its
+    JOINED line, or (``router``: started without ``--join``) admits it:
+    its bootstrap stats, seconds to ready (bootstrapped) and to joined
+    (in the ring) from ``t0``."""
+    ready = json.loads(child.wait_line("REPLICA-READY", PROCS_BOOT_S).split(" ", 1)[1])
+    ready_s = time.perf_counter() - t0
+    if router is None:
+        child.wait_line("JOINED", PROCS_BOOT_S)
+    else:
+        router.add_replica(ready["host"], ready["port"], wait_ready_s=PROCS_BOOT_S)
+    return dict(id=child.name, pid=child.pid, ready_s=ready_s,
+                joined_s=time.perf_counter() - t0, bootstrap=ready["bootstrap"])
+
+
+class RssPeak:
+    """A process's peak resident set, MiB: its VmRSS read every ``every``
+    seconds on a thread until ``stop``.  Sampled because the card
+    machine's /proc has no VmHWM, and a child's getrusage peak starts from
+    its parent's resident set at the fork."""
+
+    def __init__(self, pid, every=0.05):
+        self.path, self.peak_mib = f"/proc/{pid}/status", 0.0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, args=(every,), daemon=True)
+        self._thread.start()
+
+    def _run(self, every):
+        while not self._stop.is_set():
+            try:
+                with open(self.path) as f:
+                    kib = next((int(ln.split()[1]) for ln in f
+                                if ln.startswith("VmRSS:")), 0)
+            except OSError:
+                return
+            self.peak_mib = max(self.peak_mib, kib / 1024)
+            self._stop.wait(every)
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join(5)
+        return self.peak_mib
+
+
+def proc_exit(child, signalled=False):
+    """SIGINT a replica process (``signalled``: already sent), and its
+    REPLICA-EXIT report (it must exit 0)."""
+    rc = child.wait(PROCS_STOP_S) if signalled else child.stop(PROCS_STOP_S)
+    if rc != 0:
+        raise AssertionError(f"procs: {child.name} exited {rc}:\n{child.tail()}")
+    return json.loads(child.wait_line("REPLICA-EXIT", 5).split(" ", 1)[1])
+
+
+def proc_warm(router, queries):
+    """Router checks of 1, 16, 64 and 512 rows: the replicas' first
+    prepares and latency captures, before a timed window."""
+    from gochugaru_tpu_torch import consistency, rel
+    from gochugaru_tpu_torch.utils.context import background
+
+    warm = [rel.must_from_triple(*t) for t in queries[:512]]
+    for n in (1, 16, 64, 512):
+        router.check(background().with_timeout(300.0), consistency.min_latency(),
+                     *warm[:n])
+
+
+def procs_fleet(tmp, inproc, n_repos=10_000, n_users=1_000, n_teams=100, n_orgs=10,
+                load_s=FLEET_LOAD_S):
+    """Phase 22 (a): BASELINE config 2 in a router's store in this process,
+    served by PROCS_REPLICAS ``fleetd replica`` processes on the card."""
+    from dataclasses import replace as dc_replace
+
+    from gochugaru_tpu_torch import consistency, rel
+    from gochugaru_tpu_torch.client import (
+        new_evaluator, with_host_only_evaluation, with_store)
+    from gochugaru_tpu_torch.fleet import FleetConfig, FleetRouter
+    from gochugaru_tpu_torch.scripts.procs import close_all
+    from gochugaru_tpu_torch.utils import metrics
+    from gochugaru_tpu_torch.utils.context import background
+
+    m = metrics.default
+    out = {}
+    router = FleetRouter(config=dc_replace(FleetConfig(), **FLEET_CFG))
+    kids = []
+    try:
+        t0 = time.perf_counter()
+        cs, snap, q, names = build_rbac(n_repos, n_users, n_teams, n_orgs,
+                                        store=router.store)
+        out["world"] = dict(edges=snap.num_edges, revision=snap.revision,
+                            build_s=time.perf_counter() - t0)
+        oracle = new_evaluator(with_store(router.store), with_host_only_evaluation())
+        queries = fleet_queries(np.random.default_rng(41), 4096, n_repos, n_users)
+        want = oracle.check(background(), consistency.full(),
+                            *[rel.must_from_triple(*t) for t in queries])
+        oracle_of = dict(zip(queries, want))
+        free = dict(before=card_free_mib())
+        # PROCS_REPLICAS processes started together; one joins the ring,
+        # the others wait out its load window bootstrapped, then join
+        boot, load = [], {}
+        t0 = time.perf_counter()
+        kids += [proc_replica(tmp, router.port, f"proc{i}", join=i == 0)
+                 for i in range(PROCS_REPLICAS)]
+        boot.append(proc_joined(kids[0], t0))
+        ready = [json.loads(k.wait_line("REPLICA-READY", PROCS_BOOT_S).split(" ", 1)[1])
+                 for k in kids[1:]]
+        proc_warm(router, queries)
+        load["1_process"] = fleet_load(router, oracle_of, queries, load_s,
+                                       consistency.min_latency)
+        log(f"procs (a): 1 process: bootstrap {json.dumps(boot[0])}; load"
+            f" {json.dumps(load['1_process'])}")
+        fleet_load_held(load["1_process"], "load with 1 process")
+        for k in kids[1:]:
+            boot.append(proc_joined(k, t0, router=router))
+        if len(router.status()["ring"]) != PROCS_REPLICAS:
+            raise AssertionError(f"procs (a): ring {router.status()['ring']}")
+        proc_warm(router, queries)
+        key = f"{PROCS_REPLICAS}_processes"
+        load[key] = fleet_load(router, oracle_of, queries, load_s,
+                               consistency.min_latency)
+        free[f"with_{PROCS_REPLICAS}"] = card_free_mib()
+        log(f"procs (a): {PROCS_REPLICAS} processes: bootstrap"
+            f" {json.dumps(boot[1:])} (ready {json.dumps(ready)}); load"
+            f" {json.dumps(load[key])}")
+        fleet_load_held(load[key], f"load with {PROCS_REPLICAS} processes")
+        out["bootstrap"], out["load"] = boot, load
+        out["in_process"] = {k: inproc["load"][k] for k in inproc.get("load", {})}
+        # writes under load, each read back through its zookie
+        out["writes"] = fleet_toggles(router, oracle, oracle_of, queries, n_users)
+        log(f"procs (a): writes under load {json.dumps(out['writes'])}")
+        # a seeded SIGKILL of one process mid-load
+        victim = kids[int(np.random.default_rng(PROCS_KILL_SEED).integers(len(kids)))]
+        k0 = m.counter("fleet.kill_detections")
+        stop = threading.Event()
+        res = {}
+        th = threading.Thread(target=lambda: res.update(fleet_load(
+            router, oracle_of, queries, 0, consistency.min_latency, stop=stop)))
+        th.start()
+        try:
+            time.sleep(0.5)
+            t_kill = time.perf_counter()
+            victim.send(signal.SIGKILL)
+            deadline = time.monotonic() + 30
+            while (len(router.status()["ring"]) >= PROCS_REPLICAS
+                   or m.counter("fleet.kill_detections") == k0) \
+                    and time.monotonic() < deadline:
+                time.sleep(0.01)
+            evict_s = time.perf_counter() - t_kill
+            time.sleep(0.5)
+        finally:
+            stop.set()
+            th.join()
+        rc = victim.wait(30)
+        kills = m.counter("fleet.kill_detections") - k0
+        ring = router.status()["ring"]
+        if rc != -signal.SIGKILL or len(ring) != PROCS_REPLICAS - 1 or not kills:
+            raise AssertionError(f"procs (a): kill of {victim.name} (rc {rc}) not"
+                                 f" detected: ring {ring}, detections {kills}")
+        fleet_load_held(res, "the SIGKILL window")
+        # the card gives the dead process's memory back
+        deadline = time.monotonic() + 20
+        freed = None
+        while DEV == "cuda" and time.monotonic() < deadline:
+            freed = card_free_mib() - free[f"with_{PROCS_REPLICAS}"]
+            if freed > 256:
+                break
+            time.sleep(0.2)
+        free["after_kill"] = card_free_mib()
+        out["failover"] = dict(victim=victim.name, rc=rc, window=res,
+                               kill_detections=kills, evicted_s=evict_s)
+        log(f"procs (a): SIGKILL {json.dumps(out['failover'])}; card free MiB"
+            f" {json.dumps(free)}")
+        if DEV == "cuda" and not freed > 256:
+            raise AssertionError(f"procs (a): the card did not free the killed"
+                                 f" process's memory: {free}")
+        # a restarted process bootstraps, catches up, rejoins and answers
+        t0 = time.perf_counter()
+        again = proc_replica(tmp, router.port, "proc-restart")
+        kids.append(again)
+        out["restart"] = proc_joined(again, t0)
+        ring = router.status()["ring"]
+        rels = [rel.must_from_triple(*t) for t in queries[:512]]
+        got = router.check(background().with_timeout(300.0), consistency.full(), *rels)
+        out["restart"]["mismatches"] = int(sum(
+            a != b for a, b in zip(got, want[:512])) + abs(len(got) - 512))
+        log(f"procs (a): restart {json.dumps(out['restart'])}; ring {ring}")
+        if len(ring) != PROCS_REPLICAS or out["restart"]["mismatches"]:
+            raise AssertionError(f"procs (a): the restarted process: ring {ring},"
+                                 f" {out['restart']}")
+        # SIGINT the survivors together: each reports its device and launches
+        survivors = [k for k in kids if k is not victim]
+        for k in survivors:
+            k.send(signal.SIGINT)
+        out["exits"] = [proc_exit(k, signalled=True) for k in survivors]
+        out["card_free_mib"] = free
+    except BaseException:
+        for k in kids:
+            log(f"--- {k.name} (alive {k.alive()}) tail ---\n{k.tail()}")
+        raise
+    finally:
+        router.close()
+        close_all(kids)
+    launches = {}
+    for rep in out["exits"]:
+        if rep["device"] != DEV or (DEV == "cuda" and not rep["launches"]):
+            raise AssertionError(f"procs (a): {rep['id']} exited with {rep}")
+        for k_, v in rep["launches"].items():
+            launches[k_] = launches.get(k_, 0) + v
+    out["launches"] = launches
+    missing = [k_ for k_ in ("block", "gate") if not launches.get(k_)]
+    if missing and DEV == "cuda":
+        raise AssertionError(f"procs (a): {missing} never launched in the"
+                             f" replica processes: {out['exits']}")
+    return out
+
+
+DEMO_SCHEMA = """
+definition user {}
+definition doc {
+    relation owner: user
+    relation reader: user
+    permission read = reader + owner
+}
+"""
+
+
+def procs_router_role(tmp):
+    """Phase 22 (b): ``fleetd router --demo-world`` and one ``fleetd
+    replica --join`` on DEV, every (doc, user) pair of the demo world
+    through the router's wire ``check`` op against a host oracle holding
+    the same world."""
+    from gochugaru_tpu_torch import consistency, rel
+    from gochugaru_tpu_torch.client import new_evaluator, with_host_only_evaluation
+    from gochugaru_tpu_torch.fleet import wire
+    from gochugaru_tpu_torch.scripts.procs import close_all
+    from gochugaru_tpu_torch.utils.context import background
+
+    t0 = time.perf_counter()
+    kids = []
+    try:
+        router = proc_spawn(tmp, "router", FLEETD, "router", "--demo-world")
+        kids.append(router)
+        kv = dict(w.split("=", 1) for w in
+                  router.wait_line("ROUTER-READY", PROCS_BOOT_S).split()[1:])
+        rep = proc_replica(tmp, int(kv["port"]), "demo0", latency=False)
+        kids.append(rep)
+        boot = proc_joined(rep, t0)
+        oracle = new_evaluator(with_host_only_evaluation())
+        ctx = background()
+        oracle.write_schema(ctx, DEMO_SCHEMA)
+        txn = rel.Txn()
+        for i in range(32):
+            txn.touch(rel.must_from_triple(f"doc:d{i}", "owner", f"user:u{i % 8}"))
+        oracle.write(ctx, txn)
+        rels = [rel.must_from_triple(f"doc:d{d}", "read", f"user:u{u}")
+                for d in range(32) for u in range(8)]
+        want = oracle.check(ctx, consistency.full(), *rels)
+        conn = wire.Conn((kv["host"], int(kv["port"])), connect_timeout=10.0,
+                         io_timeout=300.0)
+        try:
+            t1 = time.perf_counter()
+            got = conn.request({
+                "op": "check", "cs": wire.strategy_to_wire(consistency.full()),
+                "rels": [wire.rel_to_wire(r) for r in rels]})["verdicts"]
+            check_s = time.perf_counter() - t1
+        finally:
+            conn.close()
+        bad = int(sum(a != b for a, b in zip(got, want)) + abs(len(got) - len(want)))
+        exit_rep = proc_exit(rep)
+        rc = router.stop(PROCS_STOP_S)
+    except BaseException:
+        for k in kids:
+            log(f"--- {k.name} (alive {k.alive()}) tail ---\n{k.tail()}")
+        raise
+    finally:
+        close_all(kids)
+    out = dict(pairs=len(rels), allowed=int(sum(want)), mismatches=bad,
+               check_s=check_s, bootstrap=boot, exit=exit_rep, router_rc=rc,
+               seconds=time.perf_counter() - t0)
+    log(f"procs (b): router role {json.dumps(out)}")
+    if bad or rc != 0 or exit_rep["device"] != DEV:
+        raise AssertionError(f"procs (b): {out}")
+    return out
+
+
+def procs_bootstrap(tmp, scale):
+    """Phase 22 (c): BASELINE config 3 at ``scale`` in a router's store in
+    this process, bootstrapped over the wire by one ``fleetd replica``
+    process on DEV: seconds split into the export stream, the import, the
+    first snapshot and the first prepare, the process's peak RSS, and a
+    PROCS_SAMPLE-check sample against the host oracle."""
+    from dataclasses import replace as dc_replace
+
+    from gochugaru_tpu_torch import consistency, rel
+    from gochugaru_tpu_torch.client import (
+        new_evaluator, with_host_only_evaluation, with_store)
+    from gochugaru_tpu_torch.engine.oracle import SnapshotOracle, T
+    from gochugaru_tpu_torch.fleet import FleetConfig, FleetRouter
+    from gochugaru_tpu_torch.scripts.procs import close_all
+    from gochugaru_tpu_torch.utils.context import background
+
+    out = dict(scale=scale)
+    router = FleetRouter(config=dc_replace(FleetConfig(), **FLEET_CFG))
+    kids = []
+    try:
+        t0 = time.perf_counter()
+        host = new_evaluator(with_store(router.store), with_host_only_evaluation())
+        cs, snap, _q, _names = build_docs(scale, client=host)
+        out["world"] = dict(edges=snap.num_edges, revision=snap.revision,
+                            build_s=time.perf_counter() - t0)
+        log(f"procs (c): config 3 at {scale}: {json.dumps(out['world'])}")
+        t0 = time.perf_counter()
+        rep = proc_replica(tmp, router.port, "boot3", latency=False)
+        kids.append(rep)
+        rss = RssPeak(rep.pid)
+        out["bootstrap"] = proc_joined(rep, t0)
+        n_users, _g, _f, n_docs = docs_sizes(scale)
+        rng = np.random.default_rng(29)
+        pairs = list(zip(rng.integers(0, n_docs, PROCS_SAMPLE),
+                         rng.integers(0, n_users, PROCS_SAMPLE)))
+        rels = [rel.must_from_triple(f"document:d{a}", "view", f"user:u{b}")
+                for a, b in pairs]
+        t1 = time.perf_counter()
+        got = router.check(background().with_timeout(PROCS_BOOT_S),
+                           consistency.full(), *rels)
+        out["first_check_s"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        router.check(background().with_timeout(PROCS_BOOT_S), consistency.full(),
+                     *rels)
+        out["second_check_s"] = time.perf_counter() - t1
+        out["peak_rss_mib"] = rss.stop()
+        out["exit"] = proc_exit(rep)
+        oracle = SnapshotOracle(snap, {}, now_us=EPOCH)
+        want = [oracle.check("document", f"d{a}", "view", "user", f"u{b}", "",
+                             now_us=EPOCH) == T for a, b in pairs]
+        out["allowed"] = int(sum(want))
+        out["mismatches"] = int(sum(a != b for a, b in zip(got, want))
+                                + abs(len(got) - len(want)))
+    except BaseException:
+        for k in kids:
+            log(f"--- {k.name} (alive {k.alive()}) tail ---\n{k.tail()}")
+        raise
+    finally:
+        router.close()
+        close_all(kids)
+    b = out["bootstrap"]["bootstrap"]
+    out["split_s"] = dict(stream=b["stream_s"], import_=b["import_s"],
+                          materialize=b["materialize_s"],
+                          first_prepare=out["exit"]["prepare_s"])
+    log(f"procs (c): config 3 bootstrap {json.dumps(out)}")
+    if out["mismatches"] or b["relationships"] != out["world"]["edges"]:
+        raise AssertionError(f"procs (c): {out}")
+    return out
+
+
+def _http(url):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=120) as r:
+        return r.read().decode()
+
+
+def procs_telemetryd(tmp, card):
+    """Phase 22 (d): ``telemetryd --device DEV --checks 32``: what
+    scripts/telemetry_smoke.sh polls, and /perf?bench=1 naming the card."""
+    import re
+
+    from gochugaru_tpu_torch.scripts.procs import close_all
+
+    t0 = time.perf_counter()
+    d = proc_spawn(tmp, "telemetryd", "gochugaru_tpu_torch.scripts.telemetryd",
+                   "--device", DEV, "--checks", 32)
+    try:
+        url = d.wait_line("READY url=", PROCS_BOOT_S).split("=", 1)[1]
+        deadline = time.monotonic() + 120
+        while True:
+            metrics_ = _http(url + "/metrics")
+            if (re.search(r"^gochugaru_checks_requested_total [1-9]", metrics_, re.M)
+                    and re.search(r'^gochugaru_checks_dispatch_seconds\{quantile="0.99"\}',
+                                  metrics_, re.M)):
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError("procs (d): no checks counter or dispatch p99")
+            time.sleep(0.5)
+        health = json.loads(_http(url + "/healthz"))
+        trace = json.loads(_http(url + "/traces").splitlines()[0])
+        slo = json.loads(_http(url + "/slo"))
+        incidents = json.loads(_http(url + "/debug/incidents"))
+        bench = json.loads(_http(url + "/perf?bench=1"))["roofline"]
+        rc = d.stop(PROCS_STOP_S)
+        text = d.text()
+    except BaseException:
+        log(f"--- telemetryd (alive {d.alive()}) tail ---\n{d.tail()}")
+        raise
+    finally:
+        close_all([d])
+    kind = torch.cuda.get_device_name(0) if DEV == "cuda" else DEV
+    out = dict(healthz=health["status"], trace_id=trace.get("trace_id"),
+               slo_enabled=slo["enabled"], incidents=len(incidents["incidents"]),
+               p99_s=float(re.search(
+                   r'^gochugaru_checks_dispatch_seconds\{quantile="0.99"\} (\S+)',
+                   metrics_, re.M).group(1)),
+               fingerprint=bench["fingerprint"], gbps=bench["gbps"], rc=rc,
+               card=card, seconds=time.perf_counter() - t0)
+    log(f"procs (d): telemetryd {json.dumps(out)}")
+    if (health["status"] != "ok" or not out["trace_id"] or slo["enabled"] is not True
+            or f"kind={kind}" not in bench["fingerprint"] or rc != 0
+            or f"demo world ready on {DEV}" not in text):
+        raise AssertionError(f"procs (d): {out}")
+    return out
+
+
+def procs_tune(tmp, n_repos=10_000, n_users=1_000, ticks=6):
+    """Phase 22 (e): ``tune --json --seconds 1.5 --online 6`` on DEV at
+    config 2's repos and users; scripts/tune_smoke.sh's assertions on its
+    output."""
+    import re
+
+    from gochugaru_tpu_torch.scripts.procs import close_all
+    from gochugaru_tpu_torch.tune import TuneDiff
+
+    t0 = time.perf_counter()
+    c = proc_spawn(tmp, "tune", "gochugaru_tpu_torch.scripts.tune", "--json",
+                   "--device", DEV, "--repos", n_repos, "--users", n_users,
+                   "--seconds", 1.5, "--online", ticks)
+    try:
+        rc = c.wait(PROCS_BOOT_S)
+        text = c.text()
+    finally:
+        close_all([c])
+    if rc != 0:
+        raise AssertionError(f"procs (e): tune exited {rc}:\n{c.tail(40)}")
+    lines = text.splitlines()
+    js = "\n".join(lines[lines.index("{"):max(
+        i for i, ln in enumerate(lines) if ln == "}") + 1])
+    diff = json.loads(js)
+    preset = float(re.search(r"hold ([0-9.]+)ms", text).group(1)) / 1e3
+    fixed = json.loads(re.search(r"^# fixed point: (.*)$", text, re.M).group(1))
+    moves = sum(int(x) for x in re.findall(r"^#   tick \d+: moves=(\d+)", text, re.M))
+    reverted = float(re.search(r"^# reverted to preset: hold=([0-9.e-]+)s", text,
+                               re.M).group(1))
+    out = dict(knobs={k["knob"]: [k["current"], k["proposed"]] for k in diff["knobs"]},
+               evidence=all(k["evidence"] for k in diff["knobs"]),
+               round_trip=TuneDiff.from_json(js).to_json(indent=2) == js,
+               fixed_point=fixed,
+               moves=moves, reverted_hold_s=reverted, preset_hold_s=preset,
+               seconds=time.perf_counter() - t0)
+    log(f"procs (e): tune {json.dumps(out)}")
+    if (not diff["knobs"] or not out["evidence"] or not out["round_trip"]
+            or fixed["re_proposed"] or moves < 1 or reverted != preset):
+        raise AssertionError(f"procs (e): {out}")
+    return out
+
+
+def procs_profile(tmp, edges=1_000_000):
+    """Phase 22 (f): ``profile_prepare --device DEV --edges 1000000``: the
+    prepare stage timers and the first check's top frames."""
+    import re
+
+    from gochugaru_tpu_torch.scripts.procs import close_all
+
+    t0 = time.perf_counter()
+    c = proc_spawn(tmp, "profile", "gochugaru_tpu_torch.scripts.profile_prepare",
+                   "--device", DEV, "--edges", edges, "--top", 12)
+    try:
+        rc = c.wait(PROCS_BOOT_S)
+        text = c.text()
+    finally:
+        close_all([c])
+    if rc != 0:
+        raise AssertionError(f"procs (f): profile_prepare exited {rc}:\n{c.tail(40)}")
+    stages = {k: float(v) for k, v in re.findall(
+        r"^#\s+(prepare\.\S+)\s+([0-9.]+)s$", text, re.M)}
+    first = float(re.search(r"^# first check after import: ([0-9.]+)s", text,
+                            re.M).group(1))
+    frames = [ln.strip() for ln in text.splitlines()
+              if re.match(r"^\s+\d+(/\d+)?\s+[0-9.]+\s+[0-9.]+\s+[0-9.]+", ln)]
+    out = dict(edges=edges, first_check_s=first, stages_s=stages,
+               top_frames=frames, seconds=time.perf_counter() - t0)
+    log(f"procs (f): profile_prepare {json.dumps(out)}")
+    if "prepare.total_s" not in stages or not frames:
+        raise AssertionError(f"procs (f): {out}")
+    return out
+
+
+PROCS_PARTS = "abcdef"
+
+
+def phase_processes(K, card, inproc, scale, parts=PROCS_PARTS):
+    """Phase 22 (see the module docstring): ``parts`` of (a)-(f).  The
+    kernels launch in the child processes; this process launches none
+    (its counts are set to 0 before and restored after)."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    t22 = time.perf_counter()
+    saved = dict(K.LAUNCHES), dict(K.LANES)
+    K.reset_launches()
+    gc.collect()
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    def timed(part, run):
+        t0 = time.perf_counter()
+        PROCS_OUT[part] = run()
+        PROCS_OUT[part]["part_s"] = time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory(prefix="gochugaru_procs_") as tmp:
+        # (a) and (c) measure alone; (b), (d), (e) and (f) run side by side
+        # (the smoke's time; (f)'s stage timers then share the host)
+        for part, run in (("a", lambda: procs_fleet(tmp, inproc)),
+                          ("c", lambda: procs_bootstrap(tmp, scale))):
+            if part in parts:
+                timed(part, run)
+        together = [(part, run) for part, run in (
+            ("b", lambda: procs_router_role(tmp)),
+            ("d", lambda: procs_telemetryd(tmp, card)),
+            ("e", lambda: procs_tune(tmp)),
+            ("f", lambda: procs_profile(tmp))) if part in parts]
+        if together:
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(len(together)) as pool:
+                for fut in [pool.submit(timed, *pr) for pr in together]:
+                    fut.result()
+            PROCS_OUT["side_by_side_s"] = time.perf_counter() - t0
+    own = {k: v for k, v in K.LAUNCHES.items() if v}
+    for k in K.LAUNCHES:
+        K.LAUNCHES[k] += saved[0][k]
+        K.LANES[k] += saved[1][k]
+    alive = [c.name for c in PROCS_CHILDREN if c.alive()]
+    PROCS_OUT["children"] = dict(started=len(PROCS_CHILDREN), alive=alive)
+    if alive:
+        raise AssertionError(f"procs: children outlived the phase: {alive}")
+    if own:
+        raise AssertionError(f"procs: this process launched {own}; the replicas"
+                             " should have")
+    PROCS_OUT["card"] = card
+    PROCS_OUT["phase_s"] = time.perf_counter() - t22
+    log(f"phase 22: {PROCS_OUT['phase_s']:.1f}s")
+    return PROCS_OUT
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--scale3", type=float, default=1.0,
                     help="size of BASELINE config 3 (1.0 = 1M docs, 10M edges)")
     ap.add_argument("--edges4", type=int, default=10_000_000,
                     help="edges of BASELINE config 4 (published: 100,000,000)")
-    ap.add_argument("--edges5", type=int, default=5_000_000,
+    ap.add_argument("--edges5", type=int, default=2_500_000,
                     help="edges of BASELINE config 5 (one card's share of the"
                          " published 1B on 16 chips: 62,500,000)")
     ap.add_argument("--scale19", type=float, default=0.1,
                     help="size of phase 19's config 3 world (the scattered"
                          " layout; 1.0 = 1M docs, 10M edges)")
+    ap.add_argument("--scale20", type=float, default=0.1,
+                    help="size of phases 20 (a) and 21 (a)'s config 3 world"
+                         " (1.0 = phase 5's snapshot, 1M docs, 10M edges; cut"
+                         " to leave phase 22 room in the smoke's time)")
+    ap.add_argument("--scale22", type=float, default=0.1,
+                    help="size of phase 22 (c)'s config 3 world, bootstrapped"
+                         " over the wire (1.0 = 1M docs, 10M edges)")
+    ap.add_argument("--phase22-only", metavar="PARTS", default=None,
+                    help="build the kernels and run only these parts of phase"
+                         " 22 (letters of abcdef; (a) without phase 18's"
+                         " in-process numbers), printing the procs: line and"
+                         " no result line")
     ap.add_argument("--part-worker", action="store_true",
                     help="run as one of phase 21 (d)'s two processes (the"
                          " smoke spawns them itself)")
@@ -7980,6 +8650,10 @@ def main() -> int:
         for line in rep.splitlines():
             if any(w in line for w in ("entry function", "registers", "spill")):
                 log(f"  ptxas {name}: {line.strip()}")
+    if args.phase22_only is not None:
+        print("procs: " + json.dumps(phase_processes(
+            K, card, {}, args.scale22, parts=args.phase22_only)))
+        return 0
 
     phase_kernel_vs_plain(K)
     phase_runs_vs_plain(K)
@@ -8036,15 +8710,20 @@ def main() -> int:
         log(f"launches after config3 lookups: {json.dumps(K.LAUNCHES)}")
         LATENCY_WORLDS["config3"] = dict(ek=ek, ep=ep, ds=ds, q=q, scale=args.scale3)
         del ek, ep, ds
-        # ---- phase 20: config 3 split four ways on the one card ------------
-        t20 = time.perf_counter()
-        phase_mesh_world(K, "config3", (1, 4), cs, snap, q, names, planes)
-        t20 = time.perf_counter() - t20
-        # ---- phase 21 (a): config 3 partitioned and routed on 1 x 4 ------
-        t21 = time.perf_counter()
-        phase_part_world(K, "config3", (1, 4), cs, snap, q, names, planes,
-                         need_mesh=True)
-        t21 = time.perf_counter() - t21
+        # ---- phases 20 (a) and 21 (a): config 3 split four ways on the ---
+        # one card, then partitioned and routed on 1 x 4 (at full size on
+        # phase 5's snapshot with --scale20 1.0; cut, after phase 19 on a
+        # world of that size)
+        t20 = t21 = 0.0
+        full20 = args.scale20 >= 1.0
+        if full20:
+            t20 = time.perf_counter()
+            phase_mesh_world(K, "config3", (1, 4), cs, snap, q, names, planes)
+            t20 = time.perf_counter() - t20
+            t21 = time.perf_counter()
+            phase_part_world(K, "config3", (1, 4), cs, snap, q, names, planes,
+                             need_mesh=True)
+            t21 = time.perf_counter() - t21
         # ---- phase 5b: config 3 aligned on phase 5's snapshot ------------
         ek, ep, ds, al_planes = check_world("config3 aligned", cs, snap, q, names,
                                             K, **ALIGNED)
@@ -8061,6 +8740,18 @@ def main() -> int:
         planes19 = check_world(name19, *w19, K)[3]
         phase_scattered_world(K, name19, *w19, planes19)
         t19 += time.perf_counter() - t0
+        if not full20:
+            # phases 20 (a) and 21 (a) cut to --scale20 (phase 19's world
+            # where the sizes match)
+            t0 = time.perf_counter()
+            if args.scale20 != args.scale19:
+                w19, name19 = build_docs(args.scale20), f"config3 at {args.scale20}"
+                planes19 = check_world(name19, *w19, K)[3]
+            phase_mesh_world(K, name19, (1, 4), *w19, planes19)
+            t20 += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            phase_part_world(K, name19, (1, 4), *w19, planes19, need_mesh=True)
+            t21 += time.perf_counter() - t0
         del w19, planes19
         gc.collect()
         phase_config4(K, args.edges4)
@@ -8145,6 +8836,9 @@ def main() -> int:
     PART_OUT["card"] = card
     log(f"phase 21: {t21:.1f}s")
 
+    # ---- phase 22: the operator entry points as processes on the card ---
+    procs = phase_processes(K, card, fleet, args.scale22)
+
     # ---- per-mode timing at the largest main-path shape ----------------
     table = []
     for mode in K.MODES + (K.GATE_CAV,):
@@ -8177,6 +8871,7 @@ def main() -> int:
     print("scattered: " + json.dumps(SCATTERED_OUT))
     print("mesh: " + json.dumps(MESH_OUT))
     print("part: " + json.dumps(PART_OUT))
+    print("procs: " + json.dumps(procs))
     print(json.dumps({"kernels": table}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -367,9 +367,10 @@ class DeviceEngine:
         state, closure state, host-kept raw columns).  The FlatMeta is
         None — and the raw columns ship, for the legacy program — with
         ``use_flat=False`` or when the graph's keys do not pack."""
-        arrays = self._host_arrays(snap)
-        ectx, strings = self._ectx_tables(snap)
-        arrays.update(ectx)
+        with metrics.default.timer("prepare.host_tables_s"):
+            arrays = self._host_arrays(snap)
+            ectx, strings = self._ectx_tables(snap)
+            arrays.update(ectx)
         built = (build_flat_arrays(snap, self.config, plan=self.plan)
                  if self.config.use_flat else None)
         if built is None:

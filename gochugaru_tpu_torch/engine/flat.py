@@ -3636,7 +3636,7 @@ def make_flat_fn(
             """Closure containment per plane via until-value comparison.
             Keys are packed (src·S1+srel1, g·S1+grel+1); -1 never matches."""
             if not meta.has_closure:
-                z = zeros(torch.broadcast_shapes(srck.shape, gk.shape))
+                z = zeros(_K.broadcast_shape(srck.shape, gk.shape))
                 return z, z
             if BS:
                 return psite("clh_off", "clx", meta.cl_cap, (srck, gk),

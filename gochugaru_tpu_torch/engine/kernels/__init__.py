@@ -36,13 +36,14 @@ import torch
 from ..consts import device_const
 from .build import KernelError
 from .plain import (
-    blk_hit, check_planes, field0_spec, fused_probe_aligned_plain,
-    fused_probe_plain,
+    blk_hit, broadcast_shape, check_planes, field0_spec,
+    fused_probe_aligned_plain, fused_probe_plain,
 )
 
 __all__ = [
     "ALIGNED_MODES", "GATE_CAV", "KernelError", "LANES", "LAUNCHES", "MODES",
-    "available", "blk_hit", "block_tile", "fused_probe", "fused_probe_aligned",
+    "available", "blk_hit", "block_tile", "broadcast_shape", "fused_probe",
+    "fused_probe_aligned",
     "fused_probe_aligned_plain", "fused_probe_plain", "gate_tile",
     "reduce_path", "reduce_tile", "reset_launches", "spec_tensors",
     "warp_tile",
@@ -436,7 +437,7 @@ def _flat_queries(q_cols):
     contiguous int32 lanes)."""
     if len(q_cols) not in (1, 2):
         raise ValueError("the probe kernels take one or two key columns")
-    shape = torch.broadcast_shapes(*[tuple(c.shape) for c in q_cols])
+    shape = broadcast_shape(*(c.shape for c in q_cols))
     return shape, [c.expand(shape).reshape(-1).to(torch.int32).contiguous()
                    for c in q_cols]
 

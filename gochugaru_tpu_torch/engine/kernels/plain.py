@@ -13,8 +13,9 @@ the engine runs; on the card only the parity harness and
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Union
+from typing import Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from ..hash import bucket_of, probe_aligned, probe_block
@@ -83,9 +84,16 @@ def fused_probe_aligned_plain(
                  exp_lane, cav_lane, ctx_lane)
 
 
+def broadcast_shape(*shapes) -> Tuple[int, ...]:
+    """The shape ``shapes`` broadcast to, as ``torch.broadcast_shapes``
+    gives it, but numpy's: torch's imports sympy on its first call, which
+    costs seconds of a process's first check."""
+    return np.broadcast_shapes(*(tuple(s) for s in shapes))
+
+
 def _lattice(q_cols: Sequence):
     """The query columns broadcast to one lattice shape."""
-    shape = torch.broadcast_shapes(*[tuple(c.shape) for c in q_cols])
+    shape = broadcast_shape(*(c.shape for c in q_cols))
     return [c.expand(shape) for c in q_cols]
 
 

@@ -51,6 +51,7 @@ from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import torch
 
+from .kernels import broadcast_shape
 from .plan import DevicePlan, EngineConfig
 
 I32_MAX = 2**31 - 1
@@ -83,7 +84,7 @@ def lex_search(cols, qs, side: str) -> torch.Tensor:
     with its step count."""
     n = cols[0].shape[0]
     steps = max(1, (n - 1).bit_length() + 1)
-    shape = torch.broadcast_shapes(*(q.shape for q in qs))
+    shape = broadcast_shape(*(q.shape for q in qs))
     dev = cols[0].device
     lo = torch.zeros(shape, dtype=torch.long, device=dev)
     hi = torch.full(shape, n, dtype=torch.long, device=dev)

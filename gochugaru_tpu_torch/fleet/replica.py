@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import os
 import threading
+import time
 from typing import Any, Dict, Optional, Tuple
 
 from .. import consistency
@@ -89,6 +90,10 @@ class Replica:
         self._tail_err: Optional[BaseException] = None
 
         self._store = Store()
+        #: the bootstrap's seconds: receiving and decoding the export
+        #: (``stream_s``), importing it (``import_s``), materializing the
+        #: first snapshot (``materialize_s``), and its relationships
+        self.bootstrap_stats: Dict[str, float] = {}
         base = self._bootstrap()
         self._upstream_head = base
         self._client: Client = new_tpu_evaluator(
@@ -99,7 +104,9 @@ class Replica:
         )
         # materialize the bootstrap world so MIN_LATENCY reads serve
         # immediately and the residency report starts at the base revision
+        t0 = time.perf_counter()
         self._store.snapshot_for(consistency.full())
+        self.bootstrap_stats["materialize_s"] = time.perf_counter() - t0
 
         self.id = replica_id or f"replica-{os.getpid()}"
         self._server = _wire.WireServer(
@@ -122,6 +129,18 @@ class Replica:
             meta = boot.request({"op": "bootstrap"})
             base = int(meta["revision"])
             self._store.write_schema(meta["schema"])
+            stream_s, n = 0.0, 0
+
+            def frames():
+                nonlocal stream_s, n
+                t = time.perf_counter()
+                for frame in boot.stream({"op": "export", "revision": base}):
+                    rels = [_wire.rel_from_wire(d) for d in frame.get("rels", ())]
+                    stream_s += time.perf_counter() - t
+                    n += len(rels)
+                    yield rels
+                    t = time.perf_counter()
+
             # ONE import: the local schema write and this import mint
             # revisions 1 and 2, which alignment fast-forwards to the
             # base.  An import a frame would mint one revision a frame,
@@ -129,13 +148,12 @@ class Replica:
             # and alignment refuses to rewind.  Past COLUMNAR_IMPORT_MIN
             # relationships each frame is lowered to int columns as it
             # arrives, so the objects alive stay bounded at any world size
-            self._store.import_relationship_batches(
-                (
-                    [_wire.rel_from_wire(d) for d in frame.get("rels", ())]
-                    for frame in boot.stream(
-                        {"op": "export", "revision": base}
-                    )
-                )
+            t0 = time.perf_counter()
+            self._store.import_relationship_batches(frames())
+            self.bootstrap_stats.update(
+                stream_s=stream_s,
+                import_s=time.perf_counter() - t0 - stream_s,
+                relationships=n,
             )
             # local schema/import revisions were provisional numbering;
             # from here on this store counts in upstream revisions
@@ -354,7 +372,9 @@ class Replica:
         self._tail_thread.join(2.0)
 
 
-def main(argv=None) -> int:
+def main(argv=None, *, on_exit=None) -> int:
+    """The replica process.  ``on_exit(replica)``, where given, runs after
+    a clean stop (SIGINT) has closed the replica."""
     import argparse
     import json
 
@@ -414,7 +434,8 @@ def main(argv=None) -> int:
     )
     print(
         "REPLICA-READY "
-        + json.dumps({"id": r.id, "host": r.host, "port": r.port}),
+        + json.dumps({"id": r.id, "host": r.host, "port": r.port,
+                      "bootstrap": r.bootstrap_stats}),
         flush=True,
     )
     if args.join:
@@ -432,6 +453,8 @@ def main(argv=None) -> int:
             pass
     except KeyboardInterrupt:
         r.close()
+        if on_exit is not None:
+            on_exit(r)
     return 0
 
 

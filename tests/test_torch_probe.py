@@ -195,6 +195,14 @@ def test_runs_mode_finds_each_keys_rows(packed):
     assert ln[0] == 1500
 
 
+@pytest.mark.parametrize("shapes", [
+    ((5,),), ((1,), (7,)), ((4, 1), (1, 3)), ((2, 1, 3), (5, 1)), ((0,), (1,)),
+    ((3, 0), (1, 0)), ((), (6,)),
+])
+def test_broadcast_shape_equals_torch(shapes):
+    assert K.broadcast_shape(*shapes) == tuple(torch.broadcast_shapes(*shapes))
+
+
 def test_spec_tensors_pad_dictionaries_with_their_last_value():
     spec = JPK.make_spec([JPK.col_range(-1, 9), JPK.col_dict((3, 8, 2**31 - 1))])
     f, d = K.spec_tensors(spec, "cpu")
