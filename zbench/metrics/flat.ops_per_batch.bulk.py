@@ -1,0 +1,11 @@
+"""Device operations (kernels, copies, sets) in the traced window, per
+batch that finished in it."""
+
+
+def read(run):
+    ts = run.trace_summary
+    if ts is None or run.kind != "bulk":
+        return None
+    t0, t1 = run.trace_window
+    n = sum(1 for e in run.batch_ends if t0 <= e <= t1)
+    return ts["n_ops"] / n if n else None
